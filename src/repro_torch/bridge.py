@@ -1,0 +1,60 @@
+"""numpy <-> torch bridge for parameter and cache trees.
+
+Tests carry the reference package's parameters into the port so both
+compute the same function: the caller turns the reference's arrays into
+numpy (``jax.tree.map(np.asarray, params)``) and this module turns numpy
+into torch.  It takes and returns numpy only, so it needs no JAX.
+
+bfloat16 goes through its bits: numpy holds it as ``ml_dtypes.bfloat16``,
+which torch cannot read, so the array is viewed as ``uint16`` (as int16 for
+torch), copied, and viewed back as ``torch.bfloat16``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _is_bf16(arr: np.ndarray) -> bool:
+    return arr.dtype.name == "bfloat16"
+
+
+def array_to_torch(arr, device=None) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if _is_bf16(arr):
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(device) if device is not None else t
+
+
+def array_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes     # numpy's bfloat16 type, shipped with JAX's deps
+        return t.view(torch.int16).numpy().view(np.uint16).view(
+            ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def params_from_jax(tree: Any, device=None) -> Any:
+    """A tree of numpy arrays (the reference's params or cache, converted
+    with ``np.asarray``) -> the same tree of torch tensors on ``device``."""
+    return tree_map(lambda a: array_to_torch(a, device), tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The reverse, for comparing caches: torch tensors -> numpy arrays
+    (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    return tree_map(array_to_numpy, tree)

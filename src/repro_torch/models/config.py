@@ -1,0 +1,65 @@
+"""Model configuration (port of ``repro.models.config``, dense fields).
+
+A model is ``n_periods`` repetitions of a ``pattern`` of blocks; parameters
+are stacked over periods.  The port serves dense attention blocks; the
+fields of the other families (MoE, SSM, RWKV, encoder-decoder, modality
+front ends) and of training wait for their ROADMAP items.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+from repro_torch.quant.policy import QuantConfig
+
+
+@dataclass(frozen=True)
+class Block:
+    kind: str = "attn"        # the port runs "attn" only
+    moe: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[Block, ...]
+    n_periods: int
+    act: str = "silu"                # silu | gelu | relu2
+    glu: bool = True                 # gated MLP (SwiGLU/GeGLU)
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    quant: QuantConfig = QuantConfig()
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.pattern) * self.n_periods
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a multiple of 512; logits beyond
+        ``vocab_size`` are masked in the head."""
+        return -(-self.vocab_size // 512) * 512
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def with_quant(self, quant: QuantConfig) -> "ModelConfig":
+        return replace(self, quant=quant)
+
+    def scaled_down(self, **kw) -> "ModelConfig":
+        """Reduced config of the same family (tests, smoke runs)."""
+        return replace(self, **kw)

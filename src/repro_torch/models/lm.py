@@ -1,0 +1,239 @@
+"""Dense decoder assembly for serving (port of ``repro.models.lm``, dense
+path): parameters, embeddings and head, the KV cache, ``prefill`` and
+``decode_step``.
+
+Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
+{"pos0": {...}}}`` with block parameters stacked over periods on axis 0
+(plus ``"lm_head"`` for untied models).  The reference's ``lax.scan`` over
+periods is a Python loop over that axis here.  Cache tensors are updated
+in place and returned.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.quant.qmatmul import maybe_quantized_matmul
+
+Params = Dict[str, Any]
+
+PREFILL_CHUNK = 2048
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def _cdtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    for spec in cfg.pattern:
+        if spec.kind != "attn" or spec.moe:
+            raise NotImplementedError(
+                f"block {spec} is not ported yet (ROADMAP: MoE, recurrent "
+                f"and multimodal families)")
+
+
+# ---------------------------------------------------------------------------
+# Init.
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                device) -> Params:
+    """Random parameters from ``gen`` (a seeded ``torch.Generator`` on
+    ``device``).  They do not reproduce the reference's ``jax.random``
+    values; tests carry the reference's parameters over with
+    :func:`repro_torch.bridge.params_from_jax` instead."""
+    _check_dense(cfg)
+    dtype = _dtype(cfg)
+    n = cfg.n_periods
+    d = cfg.d_model
+
+    def stacked(make):
+        parts = [make() for _ in range(n)]
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    blocks = {}
+    for pos, _ in enumerate(cfg.pattern):
+        blocks[f"pos{pos}"] = {
+            "ln1": stacked(lambda: L.norm_init(d, device)),
+            "ln2": stacked(lambda: L.norm_init(d, device)),
+            "attn": stacked(lambda: L.attn_init(gen, cfg, dtype, device)),
+            "mlp": stacked(lambda: L.mlp_init(gen, d, cfg.d_ff, cfg.glu,
+                                              dtype, device)),
+        }
+    params: Params = {
+        "embed": L._normal(gen, (cfg.padded_vocab, d), d ** -0.5, dtype,
+                           device),
+        "blocks": blocks,
+        "ln_f": L.norm_init(d, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._normal(gen, (d, cfg.padded_vocab), d ** -0.5,
+                                      dtype, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head.
+# ---------------------------------------------------------------------------
+
+
+def _embed(params: Params, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    cd = _cdtype(cfg)
+    x = params["embed"][tokens.long()].to(cd)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=x.device)
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    x = L.norm_apply(params["ln_f"], x)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out = maybe_quantized_matmul(x, w, cfg.quant, "lm_head")
+    return _mask_padded_vocab(cfg, out)
+
+
+def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor
+                       ) -> torch.Tensor:
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    iota = torch.arange(cfg.padded_vocab, device=logits.device)
+    return torch.where(iota < cfg.vocab_size, logits,
+                       torch.full_like(logits, -1e30))
+
+
+# ---------------------------------------------------------------------------
+# Cache / blocks.
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device) -> Params:
+    """Zeroed KV cache: {"posN": {"k", "v"}} of (n_periods, B, Smax, K, D)
+    in the compute dtype."""
+    _check_dense(cfg)
+    shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {f"pos{pos}": {"k": torch.zeros(shape, dtype=_cdtype(cfg),
+                                           device=device),
+                          "v": torch.zeros(shape, dtype=_cdtype(cfg),
+                                           device=device)}
+            for pos, _ in enumerate(cfg.pattern)}
+
+
+def _period(tree, i: int):
+    """Period ``i``'s slice of a period-stacked tree (views, not copies)."""
+    if isinstance(tree, dict):
+        return {k: _period(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int
+         ) -> torch.Tensor:
+    h = L.norm_apply(p["ln2"], x)
+    return x + L.mlp_apply(p["mlp"], h, cfg.act, cfg.glu, cfg.quant,
+                           f"blk{pos}.mlp")
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params, t, positions=None,
+                kv_valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step. token: (B,) int; returns (logits (B, V), cache).
+
+    ``t`` is the KV-cache write index: a scalar, or a (B,) vector for
+    continuous batching where every slot sits at its own depth.
+    ``positions`` optionally gives distinct RoPE positions; ``kv_valid``
+    (B, Smax) masks pad cache slots."""
+    _check_dense(cfg)
+    x = _embed(params, cfg, token[:, None])
+    for i in range(cfg.n_periods):
+        pp = _period(params["blocks"], i)
+        pc = _period(cache, i)
+        for pos, spec in enumerate(cfg.pattern):
+            p = pp[f"pos{pos}"]
+            h = L.norm_apply(p["ln1"], x)
+            y, _ = L.attn_decode(p["attn"], h, pc[f"pos{pos}"], t, cfg,
+                                 cfg.quant, f"blk{pos}.{spec.kind}",
+                                 positions=positions, kv_valid=kv_valid)
+            x = _mlp(p, x + y, cfg, pos)
+    logits = _logits(params, cfg, x)
+    return logits[:, 0, :], cache
+
+
+def _attn_max_seq(cfg: ModelConfig, cache: Params) -> int:
+    return cache["pos0"]["k"].shape[2]
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Params, chunk_size: int = PREFILL_CHUNK,
+            positions: Optional[torch.Tensor] = None,
+            pad_mask: Optional[torch.Tensor] = None,
+            last_idx: Optional[torch.Tensor] = None,
+            start: Optional[int] = None):
+    """Prefill ``tokens`` (B, S) into ``cache``; returns (logits at each
+    row's last real position (B, V), cache, None).
+
+    Ragged calls (``positions``, ``pad_mask``, ``last_idx`` or ``start``
+    given) run as one chunk: ``pad_mask`` (B, S) marks real tokens and masks
+    pad keys, ``positions`` (B, S) overrides RoPE positions, ``last_idx``
+    (B,) picks the logits row, and ``start`` resumes at that cache offset
+    (cache contents below it are valid earlier keys).  Plain calls run
+    ``chunk_size`` tokens at a time and return the last position's logits.
+    The third element mirrors the reference's cross-attention memory, which
+    dense models do not have.
+    """
+    _check_dense(cfg)
+    ragged = (positions is not None or pad_mask is not None
+              or last_idx is not None or start is not None)
+    x = _embed(params, cfg, tokens)
+    b, s, _ = x.shape
+    off = 0 if start is None else int(start)
+    kv_valid = None
+    if pad_mask is not None:
+        smax = _attn_max_seq(cfg, cache)
+        kvpos = torch.arange(smax, device=x.device)[None, :]
+        rel = (kvpos - off).clamp(0, s - 1)
+        in_chunk = (kvpos >= off) & (kvpos < off + s)
+        chunk_valid = torch.gather(pad_mask.bool(), 1, rel.expand(b, smax))
+        kv_valid = torch.where(in_chunk, chunk_valid,
+                               torch.ones_like(chunk_valid))
+
+    def run_chunk(xc, offset, pos_c):
+        for i in range(cfg.n_periods):
+            pp = _period(params["blocks"], i)
+            pc = _period(cache, i)
+            for pos, spec in enumerate(cfg.pattern):
+                p = pp[f"pos{pos}"]
+                h = L.norm_apply(p["ln1"], xc)
+                y, _ = L.attn_prefill_chunk(
+                    p["attn"], h, pc[f"pos{pos}"], offset, cfg, cfg.quant,
+                    f"blk{pos}.{spec.kind}", positions=pos_c,
+                    kv_valid=kv_valid)
+                xc = _mlp(p, xc + y, cfg, pos)
+        return xc
+
+    if ragged:
+        li = (last_idx.to(torch.int64) if last_idx is not None
+              else torch.full((b,), s - 1, dtype=torch.int64,
+                              device=x.device))
+        xall = run_chunk(x, off, positions)
+        last_h = torch.gather(xall, 1, li[:, None, None].expand(
+            b, 1, xall.shape[-1]))
+        return _logits(params, cfg, last_h)[:, 0, :], cache, None
+
+    cs = min(chunk_size, s)
+    while s % cs:
+        cs //= 2
+    last = None
+    for ci in range(s // cs):
+        last = run_chunk(x[:, ci * cs:(ci + 1) * cs], ci * cs, None)[:, -1]
+    return _logits(params, cfg, last[:, None, :])[:, 0, :], cache, None
