@@ -1,2 +1,2 @@
 """Hand-written Hopper kernels (``csrc/``), their wrappers and plain
-PyTorch versions, and the int64 oracle."""
+PyTorch versions, the int64 oracle, and an A/B timing tool (``compare``)."""

@@ -16,6 +16,19 @@
 //   both:            optional dequant epilogue val * (sx[m] * sw[n]) and an
 //                    int32 / fp32 / bf16 store.
 //
+// The grouped entry (`fused_gemm_grouped_launch`) also replaces
+// `fused_gemm_grouped` (line 437 there): G independent GEMMs
+// (G, M, K) x (G, K, N) -> (G, M, N), the group index on grid z, each group
+// bit-identical to a dense launch on its slices.  With `counts` (G, S) and a
+// static `seg` it is ragged, as the MoE expert GEMMs are: row r of group g
+// is live iff r / seg < S and r % seg < counts[g, r / seg].  Dead rows are
+// written as exact zeros; live rows never see the mask (it touches the
+// store only, never the digit accumulators or the zero-point sums), so
+// they equal the dense launch bit for bit.  A block with no live row skips
+// its K loop and writes its zero tile; a warp whose 16 rows are all dead
+// skips its MMAs.  The skips change speed, never a value, so the 64-row
+// tile need not match the reference's block_m.
+//
 // Every digit entering a product fits s8 (at w = 14 the pre-adder spans
 // [-128, 126]), so each pass is an exact tensor-core integer product.
 //
@@ -40,7 +53,10 @@
 // So the design reads each original operand once per output tile (no digit
 // planes in device memory), splits digits in registers on the way into
 // shared memory, keeps the accumulators on chip across the whole K loop,
-// and writes the output once, dequantized.  It is the simple first version:
+// and writes the output once, dequantized.  The grouped MoE GEMMs at decode
+// are bound the same way: each live expert's B is read once (at most 1 row
+// in 8 is live there, so the MMAs are mostly idle), and an expert with no
+// live row reads nothing.  It is the simple first version:
 // one 64x64 output tile per 128-thread block, a synchronous K loop of
 // 64-deep stages and 16x16x16 s8 WMMA products.  Asynchronous copies (TMA),
 // wgmma, a persistent schedule and split-K for narrow N are later work.
@@ -71,7 +87,8 @@ struct Params {
   const float* sx;     // (M,) row scales, or null (no dequant)
   const float* sw;     // (N,) column scales, or null
   void* out;           // (M, N) row-major
-  int M, K, N, kp, h, z, combine_int32, out_kind;
+  const int* counts;   // (G, n_seg) live rows per segment, or null: all live
+  int M, K, N, kp, h, z, combine_int32, out_kind, seg, n_seg;
   float pow_h, pow_2h, zf, zzkp;
 };
 
@@ -145,16 +162,29 @@ __device__ __forceinline__ void store_out(const Params& p, int c1, int cs,
   }
 }
 
-// One block computes one BM x BN output tile over the whole K loop.
+__device__ __forceinline__ void store_zero(const Params& p, int m, int n) {
+  const size_t o = static_cast<size_t>(m) * p.N + n;
+  if (p.out_kind == OUT_BF16) {
+    static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(0.f);
+  } else if (p.out_kind == OUT_F32) {
+    static_cast<float*>(p.out)[o] = 0.f;
+  } else {
+    static_cast<int*>(p.out)[o] = 0;
+  }
+}
+
+// One block computes one BM x BN output tile of group blockIdx.z over the
+// whole K loop.  GROUPED instantiates the grouped entry (its own name in a
+// profile; the dense instance compiles the liveness test out).
 //
 // Shared-memory layout (int8 digits), chosen so every loader thread writes
 // 16 contiguous bytes and every WMMA fragment starts 256-bit aligned:
 //   A plane q: [KSUB][BM][16]  (row-major 16-deep sub-tiles, ldm 16)
 //   B plane q: [KSUB][BN][16]  (column-major 16-deep sub-tiles, ldm 16)
 // Warp w owns output rows [16w, 16w + 16) and all BN columns.
-template <int NACC, typename T>
+template <int NACC, typename T, bool GROUPED>
 __global__ void __launch_bounds__(NTHREADS)
-fused_gemm_kernel(const Params p) {
+fused_gemm_kernel(const Params p0) {
   constexpr int NPLANE = NACC;                   // digit planes per operand
   constexpr int A_PLANE = BM * BK;
   constexpr int B_PLANE = BK * BN;
@@ -166,6 +196,22 @@ fused_gemm_kernel(const Params p) {
   __shared__ __align__(128) int8_t smem[SMEM_BYTES];
   __shared__ int row_part[2][BM];
   __shared__ int col_part[2][BN];
+  __shared__ int row_live[BM];
+
+  // This group's operands, scales and output (group 0 for a dense launch).
+  Params p = p0;
+  const size_t g = blockIdx.z;
+  const size_t mk = static_cast<size_t>(p0.M) * p0.K;
+  const size_t kn = static_cast<size_t>(p0.K) * p0.N;
+  const size_t mn = static_cast<size_t>(p0.M) * p0.N;
+  p.a = static_cast<const T*>(p0.a) + g * mk;
+  p.b = static_cast<const T*>(p0.b) + g * kn;
+  if (p0.sx != nullptr) {
+    p.sx = p0.sx + g * p0.M;
+    p.sw = p0.sw + g * p0.N;
+  }
+  p.out = static_cast<char*>(p0.out)
+      + g * mn * (p0.out_kind == OUT_BF16 ? 2 : 4);
 
   const T* __restrict__ A = static_cast<const T*>(p.a);
   const T* __restrict__ B = static_cast<const T*>(p.b);
@@ -178,6 +224,25 @@ fused_gemm_kernel(const Params p) {
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
+  // Ragged liveness of this block's rows (all rows below M when dense).
+  if (tid < BM) {
+    const int r = m0 + tid;
+    bool live = r < p.M;
+    if (GROUPED && live && p.counts != nullptr) {
+      const int s = r / p.seg;
+      live = s < p.n_seg && r - s * p.seg < p.counts[g * p.n_seg + s];
+    }
+    row_live[tid] = live;
+  }
+  if (!__syncthreads_or(tid < BM && row_live[tid])) {
+    // No live row: skip the K loop, write the tile's exact zeros.
+    for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
+      const int m = m0 + idx / BN, n = n0 + idx % BN;
+      if (m < p.M && n < p.N) store_zero(p, m, n);
+    }
+    return;
+  }
+
   // Loader roles: thread t loads KPT consecutive k of A row t/2 and of
   // B column t % 64, and keeps that row's (column's) partial raw sum.
   const int a_row = tid >> 1, a_half = tid & 1;
@@ -187,7 +252,10 @@ fused_gemm_kernel(const Params p) {
   const bool a_ok = gm < p.M;
   const bool b_ok = gn < p.N;
 
-  const bool warp_live = m0 + warp * 16 < p.M;
+  const bool warp_in = m0 + warp * 16 < p.M;
+  // A warp whose 16 rows are all dead skips its MMAs (warp-uniform).
+  const bool warp_mma = __any_sync(0xffffffffu,
+                                   lane < 16 && row_live[warp * 16 + lane]);
   const int k_end = NACC == 1 ? p.K : p.kp;      // logical (padded) K
   const int mask = (1 << p.h) - 1;
 
@@ -238,7 +306,7 @@ fused_gemm_kernel(const Params p) {
       }
     }
     __syncthreads();
-    if (warp_live) {
+    if (warp_mma) {
 #pragma unroll
       for (int kk = 0; kk < KSUB; ++kk) {
 #pragma unroll
@@ -265,7 +333,14 @@ fused_gemm_kernel(const Params p) {
   row_part[a_half][a_row] = row_sum;
   col_part[b_half][b_col] = col_sum;
   __syncthreads();
-  if (!warp_live) return;
+  if (!warp_in) return;
+  if (!warp_mma) {
+    for (int idx = lane; idx < 16 * BN; idx += 32) {
+      const int m = m0 + warp * 16 + idx / BN, n = n0 + idx % BN;
+      if (m < p.M && n < p.N) store_zero(p, m, n);
+    }
+    return;
+  }
 
   // Epilogue: each warp stages its 16x16 accumulator fragments in the
   // (now free) tile memory and its lanes combine and store 8 elements each.
@@ -283,36 +358,33 @@ fused_gemm_kernel(const Params p) {
       const int r = warp * 16 + (idx >> 4);
       const int c = j * 16 + (idx & 15);
       const int m = m0 + r, n = n0 + c;
-      if (m < p.M && n < p.N) {
-        if constexpr (NACC == 3) {
-          store_out<NACC>(p, stage[idx], stage[256 + idx], stage[512 + idx],
-                          row_part[0][r] + row_part[1][r],
-                          col_part[0][c] + col_part[1][c], m, n);
-        } else {
-          store_out<NACC>(p, stage[idx], 0, 0, 0, 0, m, n);
-        }
+      if (m >= p.M || n >= p.N) continue;
+      if (!row_live[r]) {
+        store_zero(p, m, n);                     // dead row: exact zero
+      } else if constexpr (NACC == 3) {
+        store_out<NACC>(p, stage[idx], stage[256 + idx], stage[512 + idx],
+                        row_part[0][r] + row_part[1][r],
+                        col_part[0][c] + col_part[1][c], m, n);
+      } else {
+        store_out<NACC>(p, stage[idx], 0, 0, 0, 0, m, n);
       }
     }
     __syncwarp();
   }
 }
 
-}  // namespace
-
-// C entry point.  mode 1 = mm1 (int8 operands), 2 = kmm2 (int16 operands);
-// out_kind 0 = int32, 1 = float32, 2 = bfloat16; sx/sw null for no dequant.
-// Launches on `stream` without synchronising and returns cudaGetLastError().
-extern "C" int fused_gemm_launch(const void* a, const void* b,
-                                 const void* sx, const void* sw, void* out,
-                                 int M, int K, int N, int kp, int mode, int h,
-                                 int z, int combine_int32, int out_kind,
-                                 void* stream) {
+// Fill the fields both entry points share; mode 1 = mm1 (int8 operands),
+// 2 = kmm2 (int16 operands); out_kind 0 = int32, 1 = float32, 2 = bfloat16.
+Params make_params(const void* a, const void* b, const void* sx,
+                   const void* sw, void* out, int M, int K, int N, int kp,
+                   int h, int z, int combine_int32, int out_kind) {
   Params p;
   p.a = a;
   p.b = b;
   p.sx = static_cast<const float*>(sx);
   p.sw = static_cast<const float*>(sw);
   p.out = out;
+  p.counts = nullptr;
   p.M = M;
   p.K = K;
   p.N = N;
@@ -321,18 +393,64 @@ extern "C" int fused_gemm_launch(const void* a, const void* b,
   p.z = z;
   p.combine_int32 = combine_int32;
   p.out_kind = out_kind;
+  p.seg = 1;
+  p.n_seg = 0;
   p.pow_h = std::ldexp(1.0f, h);
   p.pow_2h = std::ldexp(1.0f, 2 * h);
   p.zf = static_cast<float>(z);
   p.zzkp = static_cast<float>(static_cast<double>(z) * z * kp);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  return p;
+}
+
+// Launches on `stream` without synchronising; returns cudaGetLastError().
+template <bool GROUPED>
+int launch(const Params& p, int groups, int mode, void* stream) {
+  if (groups < 1 || groups > 65535 || (p.M + BM - 1) / BM > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 1) {
-    fused_gemm_kernel<1, int8_t><<<grid, NTHREADS, 0, s>>>(p);
+    fused_gemm_kernel<1, int8_t, GROUPED><<<grid, NTHREADS, 0, s>>>(p);
   } else if (mode == 2) {
-    fused_gemm_kernel<3, int16_t><<<grid, NTHREADS, 0, s>>>(p);
+    fused_gemm_kernel<3, int16_t, GROUPED><<<grid, NTHREADS, 0, s>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dense C entry point: (M, K) x (K, N) -> (M, N); sx (M,) and sw (N,) or
+// both null for no dequant.
+extern "C" int fused_gemm_launch(const void* a, const void* b,
+                                 const void* sx, const void* sw, void* out,
+                                 int M, int K, int N, int kp, int mode, int h,
+                                 int z, int combine_int32, int out_kind,
+                                 void* stream) {
+  const Params p = make_params(a, b, sx, sw, out, M, K, N, kp, h, z,
+                               combine_int32, out_kind);
+  return launch<false>(p, 1, mode, stream);
+}
+
+// Grouped C entry point: (G, M, K) x (G, K, N) -> (G, M, N), contiguous;
+// sx (G, M) and sw (G, N) or both null; counts (G, n_seg) int32 with a
+// positive seg, or null for a dense grouped launch.
+extern "C" int fused_gemm_grouped_launch(
+    const void* a, const void* b, const void* sx, const void* sw,
+    const void* counts, void* out, int G, int M, int K, int N, int kp,
+    int seg, int n_seg, int mode, int h, int z, int combine_int32,
+    int out_kind, void* stream) {
+  Params p = make_params(a, b, sx, sw, out, M, K, N, kp, h, z,
+                         combine_int32, out_kind);
+  if (counts != nullptr) {
+    if (seg <= 0 || n_seg <= 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.counts = static_cast<const int*>(counts);
+    p.seg = seg;
+    p.n_seg = n_seg;
+  }
+  return launch<true>(p, G, mode, stream);
 }

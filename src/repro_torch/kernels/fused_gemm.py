@@ -1,11 +1,17 @@
-"""Fused single-pass integer GEMM (modes mm1 and kmm2): wrapper, plain
-PyTorch version and launch counts.
+"""Fused single-pass integer GEMM (modes mm1 and kmm2), dense and grouped:
+wrappers, plain PyTorch versions and launch counts.
 
-Port of ``repro.kernels.fused_gemm.fused_gemm``.  On a CUDA tensor
-:func:`fused_gemm` launches the hand-written Hopper kernel
-(``csrc/fused_gemm.cu``) or raises; on CPU tensors it runs
-:func:`fused_gemm_reference`, the plain PyTorch version of the same function.
-There is no other route and no fallback.
+Port of ``repro.kernels.fused_gemm.fused_gemm`` and ``fused_gemm_grouped``.
+On CUDA tensors :func:`fused_gemm` and :func:`fused_gemm_grouped` launch the
+hand-written Hopper kernel (``csrc/fused_gemm.cu``) or raise; on CPU tensors
+they run :func:`fused_gemm_reference` and :func:`fused_gemm_grouped_reference`,
+the plain PyTorch versions of the same functions.  There is no other route
+and no fallback.
+
+The grouped GEMM is ragged when it gets ``counts`` (E, S) and a static
+``seg``: row ``r`` of expert ``e`` is live iff ``r // seg < S`` and
+``r % seg < counts[e, r // seg]`` (:func:`ragged_row_mask`).  Dead rows are
+exact zeros; live rows equal a dense :func:`fused_gemm` of that expert.
 
 Numerics are the reference's, bit for bit: the centered digit split at
 ``h = ceil(w/2)`` with ``z = 2^(h-1)``, the padded contraction length
@@ -28,17 +34,20 @@ from repro_torch.kernels import build
 MODES = ("mm1", "kmm2", "mm2", "kmm4")
 PORTED_MODES = ("mm1", "kmm2")
 
-# Launches of the CUDA kernel per mode; the wrapper adds one where it
-# launches and nowhere else (CPU calls run the plain version and count 0).
+# Launches of the CUDA kernel per mode, dense and grouped; each wrapper adds
+# one where it launches and nowhere else (CPU calls run the plain version
+# and count 0).
 launches: Dict[str, int] = {mode: 0 for mode in PORTED_MODES}
+grouped_launches: Dict[str, int] = {mode: 0 for mode in PORTED_MODES}
 
 _MODE_ID = {"mm1": 1, "kmm2": 2}
 _OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def reset_launches() -> None:
-    for mode in launches:
-        launches[mode] = 0
+    for counts in (launches, grouped_launches):
+        for mode in counts:
+            counts[mode] = 0
 
 
 def resolve(w: int, m: int = 8, mode: str = "auto"):
@@ -80,6 +89,15 @@ def _out_dtype(mode: str, dequant: bool, combine_int32: bool, out_dtype):
     return out_dtype
 
 
+def _check_devices(tensors) -> None:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_gemm runs on cuda or cpu, not {device}")
+
+
 def fused_gemm(a: torch.Tensor, b: torch.Tensor,
                sx: Optional[torch.Tensor] = None,
                sw: Optional[torch.Tensor] = None, *,
@@ -92,72 +110,137 @@ def fused_gemm(a: torch.Tensor, b: torch.Tensor,
     dequant epilogue ``acc * (sx * sw)`` runs in the kernel.  Without scales
     the output is int32 for exact plans, fp32 otherwise.
     """
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"need (M, K) x (K, N) operands, got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    a, b, sx, sw, kw = _prepare(a, b, sx, sw, w=w, m=m, mode=mode,
+                                block_k=block_k, combine_int32=combine_int32,
+                                out_dtype=out_dtype)
+    if a.device.type == "cpu":
+        return fused_gemm_reference(a, b, sx, sw, **kw)
+    return _launch(a, b, sx, sw, None, seg=0, **kw)
+
+
+def fused_gemm_grouped(a: torch.Tensor, b: torch.Tensor,
+                       sx: Optional[torch.Tensor] = None,
+                       sw: Optional[torch.Tensor] = None,
+                       counts: Optional[torch.Tensor] = None, *,
+                       w: int, m: int = 8, mode: str = "auto",
+                       seg: Optional[int] = None, block_k: int = 256,
+                       combine_int32: bool = False,
+                       out_dtype=None) -> torch.Tensor:
+    """Grouped :func:`fused_gemm`: (E, C, K) x (E, K, N) -> (E, C, N) in one
+    launch, each group equal to a dense call on its slices.
+
+    Scales, when given, are (E, C, 1) and (E, 1, N).  ``counts`` (E, S)
+    integer with a static positive ``seg`` makes the launch ragged: the C
+    rows of expert ``e`` are S segments of ``seg`` rows, of which the first
+    ``counts[e, s]`` are live; dead rows come out as exact zeros.  The MoE
+    dispatch passes S = batch and seg = capacity.  ``counts`` stays on the
+    device: the kernel reads it, the host never does.
+    """
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2] != b.shape[1]:
+        raise ValueError(f"need (E, C, K) x (E, K, N) operands, got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    if counts is not None:
+        if seg is None or seg <= 0:
+            raise ValueError("ragged counts need a positive static seg")
+        if counts.dim() != 2 or counts.shape[0] != a.shape[0] \
+                or counts.shape[1] == 0:
+            raise ValueError(f"counts must be (E, S) with S > 0, got "
+                             f"{tuple(counts.shape)}")
+        if counts.dtype.is_floating_point:
+            raise TypeError("counts must be integer")
+    a, b, sx, sw, kw = _prepare(a, b, sx, sw, w=w, m=m, mode=mode,
+                                block_k=block_k, combine_int32=combine_int32,
+                                out_dtype=out_dtype, extra=counts)
+    if counts is not None:
+        counts = counts.to(torch.int32)
+    if a.device.type == "cpu":
+        return fused_gemm_grouped_reference(a, b, sx, sw, counts, seg=seg,
+                                            **kw)
+    return _launch(a, b, sx, sw, counts, seg=seg or 0, **kw)
+
+
+def _prepare(a, b, sx, sw, *, w, m, mode, block_k, combine_int32, out_dtype,
+             extra=None):
+    """Shared checks and casts: operands in the mode's carrier, scales in
+    fp32 shaped (..., M, 1) / (..., 1, N), and the plain version's
+    keyword arguments (which the launch takes too)."""
     if (sx is None) != (sw is None):
         raise ValueError("pass both sx and sw for the dequant epilogue")
     dequant = sx is not None
     mode, h, z, carrier = resolve(w, m, mode)
     out_dtype = _out_dtype(mode, dequant, combine_int32, out_dtype)
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"need (M, K) x (K, N) operands, got "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
     if a.dtype.is_floating_point or b.dtype.is_floating_point:
         raise TypeError("fused_gemm takes integer operands")
-    m_dim, k_dim = a.shape
-    n_dim = b.shape[1]
-    kp = padded_k(k_dim, block_k)
-    tensors = [a, b] + ([sx, sw] if dequant else [])
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"operands on different devices: {devices}")
-    device = devices.pop()
+    _check_devices([a, b, sx, sw, extra])
+    lead = tuple(a.shape[:-2])
+    m_dim, k_dim = a.shape[-2:]
+    n_dim = b.shape[-1]
     if dequant:
-        sx = sx.to(torch.float32).reshape(m_dim, 1)
-        sw = sw.to(torch.float32).reshape(1, n_dim)
-    a = a.to(carrier)
-    b = b.to(carrier)
-    if device.type == "cpu":
-        return fused_gemm_reference(
-            a, b, sx, sw, mode=mode, h=h, z=z, kp=kp,
-            combine_int32=combine_int32, out_dtype=out_dtype)
-    if device.type != "cuda":
-        raise ValueError(f"fused_gemm runs on cuda or cpu, not {device}")
-    return _launch(a, b, sx, sw, mode=mode, h=h, z=z, kp=kp,
-                   combine_int32=combine_int32, out_dtype=out_dtype)
+        sx = sx.to(torch.float32).reshape(lead + (m_dim, 1))
+        sw = sw.to(torch.float32).reshape(lead + (1, n_dim))
+    kw = dict(mode=mode, h=h, z=z, kp=padded_k(k_dim, block_k),
+              combine_int32=combine_int32, out_dtype=out_dtype)
+    return a.to(carrier), b.to(carrier), sx, sw, kw
 
 
-def _launch(a, b, sx, sw, *, mode, h, z, kp, combine_int32, out_dtype):
-    for name, t in (("a", a), ("b", b), ("sx", sx), ("sw", sw)):
+def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
+            out_dtype):
+    """One launch of the CUDA kernel: dense for 2-D operands, grouped (and
+    ragged with ``counts``) for 3-D ones."""
+    for name, t in (("a", a), ("b", b), ("sx", sx), ("sw", sw),
+                    ("counts", counts)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"fused_gemm: {name} must be contiguous "
                              f"(got strides {t.stride()})")
-    m_dim, k_dim = a.shape
-    n_dim = b.shape[1]
+    grouped = a.dim() == 3
+    lead = tuple(a.shape[:-2])
+    m_dim, k_dim = a.shape[-2:]
+    n_dim = b.shape[-1]
     if max(m_dim, k_dim, n_dim, kp) >= 2 ** 31:
         raise ValueError("fused_gemm: dimensions must fit int32")
-    out = torch.empty((m_dim, n_dim), dtype=out_dtype, device=a.device)
+    out = torch.empty(lead + (m_dim, n_dim), dtype=out_dtype,
+                      device=a.device)
     if out.numel() == 0:
         return out
+    ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _kernel()(
-            a.data_ptr(), b.data_ptr(),
-            sx.data_ptr() if sx is not None else None,
-            sw.data_ptr() if sw is not None else None,
-            out.data_ptr(), m_dim, k_dim, n_dim, kp, _MODE_ID[mode], h, z,
-            int(combine_int32), _OUT_KIND[out_dtype], stream)
+        if grouped:
+            err = _kernel("fused_gemm_grouped_launch")(
+                a.data_ptr(), b.data_ptr(), ptr(sx), ptr(sw), ptr(counts),
+                out.data_ptr(), lead[0], m_dim, k_dim, n_dim, kp, seg,
+                counts.shape[1] if counts is not None else 0,
+                _MODE_ID[mode], h, z, int(combine_int32),
+                _OUT_KIND[out_dtype], stream)
+        else:
+            err = _kernel("fused_gemm_launch")(
+                a.data_ptr(), b.data_ptr(), ptr(sx), ptr(sw), out.data_ptr(),
+                m_dim, k_dim, n_dim, kp, _MODE_ID[mode], h, z,
+                int(combine_int32), _OUT_KIND[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"fused_gemm kernel launch failed: CUDA error "
                            f"{err}")
-    launches[mode] += 1
+    (grouped_launches if grouped else launches)[mode] += 1
     return out
 
 
+# C entry points of csrc/fused_gemm.cu: pointer arguments, then int ones,
+# then the stream.
+_SIGNATURES = {"fused_gemm_launch": (5, 9),
+               "fused_gemm_grouped_launch": (6, 12)}
+
+
 @functools.cache
-def _kernel():
-    """The C entry point of the built library, with its signature."""
-    fn = build.load("fused_gemm").fused_gemm_launch
+def _kernel(entry: str):
+    """A C entry point of the built library, with its signature."""
+    n_ptr, n_int = _SIGNATURES[entry]
+    fn = getattr(build.load("fused_gemm"), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     return fn
 
@@ -167,13 +250,14 @@ def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,
                          sw: Optional[torch.Tensor], *, mode: str, h: int,
                          z: int, kp: int, combine_int32: bool,
                          out_dtype) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (any device).
+    """Plain PyTorch version of the kernel (any device), on (M, K) x (K, N)
+    or, batched over leading dimensions, on (E, M, K) x (E, K, N).
 
     Digit products run as float64 matmuls, which are exact here: every
     partial sum is an integer below K * 2^14 << 2^53.  The epilogue repeats
     the kernel's fp32 operation order one rounded op at a time.
     """
-    k_dim = a.shape[1]
+    k_dim = a.shape[-1]
     a = a.to(torch.int64)
     b = b.to(torch.int64)
 
@@ -195,8 +279,8 @@ def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,
         c1 = dot(a1, b1).to(torch.int32)
         cs = dot(a1 + a0, b1 + b0).to(torch.int32)
         c0 = dot(a0, b0).to(torch.int32)
-        row = a.sum(dim=1, keepdim=True).to(torch.int32) - kp * z
-        col = b.sum(dim=0, keepdim=True).to(torch.int32) - kp * z
+        row = a.sum(dim=-1, keepdim=True).to(torch.int32) - kp * z
+        col = b.sum(dim=-2, keepdim=True).to(torch.int32) - kp * z
         if combine_int32:
             c1, cs, c0 = c1.to(torch.int64), cs.to(torch.int64), \
                 c0.to(torch.int64)
@@ -220,6 +304,34 @@ def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,
     if out_dtype == torch.int32:
         return val
     return val.to(out_dtype)
+
+
+def fused_gemm_grouped_reference(a: torch.Tensor, b: torch.Tensor,
+                                 sx: Optional[torch.Tensor],
+                                 sw: Optional[torch.Tensor],
+                                 counts: Optional[torch.Tensor], *,
+                                 seg: Optional[int], **kw) -> torch.Tensor:
+    """Plain PyTorch version of the grouped kernel (any device): the
+    batched :func:`fused_gemm_reference`, dead rows set to exact zeros."""
+    out = fused_gemm_reference(a, b, sx, sw, **kw)
+    if counts is None:
+        return out
+    live = ragged_row_mask(counts, seg, out.shape[1])
+    return torch.where(live, out, torch.zeros_like(out))
+
+
+def ragged_row_mask(counts: torch.Tensor, seg: int,
+                    c_dim: int) -> torch.Tensor:
+    """(E, C, 1) liveness of capacity-bucketed expert rows: row ``r`` is
+    live iff ``r // seg < S`` and ``r % seg < counts[e, r // seg]`` — the
+    predicate the kernel evaluates per row (port of
+    ``repro.quant.qmatmul._ragged_row_mask``)."""
+    rows = torch.arange(c_dim, device=counts.device)
+    seg_ids = rows // seg
+    n_seg = counts.shape[-1]
+    limit = counts.to(torch.int64)[:, seg_ids.clamp(0, n_seg - 1)]   # (E, C)
+    live = (rows - seg_ids * seg < limit) & (seg_ids < n_seg)
+    return live[..., None]
 
 
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Model configuration (port of ``repro.models.config``, dense fields).
+"""Model configuration (port of ``repro.models.config``, the dense and MoE
+fields).
 
 A model is ``n_periods`` repetitions of a ``pattern`` of blocks; parameters
-are stacked over periods.  The port serves dense attention blocks; the
-fields of the other families (MoE, SSM, RWKV, encoder-decoder, modality
-front ends) and of training wait for their ROADMAP items.
+are stacked over periods.  The port serves attention blocks with a dense or
+an MoE MLP; the fields of the other families (SSM, RWKV, encoder-decoder,
+modality front ends) and of training wait for their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch.quant.policy import QuantConfig
 @dataclass(frozen=True)
 class Block:
     kind: str = "attn"        # the port runs "attn" only
-    moe: bool = False
+    moe: bool = False         # MoE MLP instead of dense MLP
 
 
 @dataclass(frozen=True)
@@ -35,6 +36,11 @@ class ModelConfig:
     glu: bool = True                 # gated MLP (SwiGLU/GeGLU)
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
     quant: QuantConfig = QuantConfig()
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

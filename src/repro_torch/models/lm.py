@@ -1,6 +1,6 @@
-"""Dense decoder assembly for serving (port of ``repro.models.lm``, dense
-path): parameters, embeddings and head, the KV cache, ``prefill`` and
-``decode_step``.
+"""Decoder assembly for serving (port of ``repro.models.lm``, attention
+blocks with a dense or an MoE MLP): parameters, embeddings and head, the KV
+cache, ``prefill`` and ``decode_step``.
 
 Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
 {"pos0": {...}}}`` with block parameters stacked over periods on axis 0
@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
@@ -33,12 +34,12 @@ def _cdtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        if spec.kind != "attn" or spec.moe:
+        if spec.kind != "attn":
             raise NotImplementedError(
-                f"block {spec} is not ported yet (ROADMAP: MoE, recurrent "
-                f"and multimodal families)")
+                f"block {spec} is not ported yet (ROADMAP: recurrent and "
+                f"multimodal families)")
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +53,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     ``device``).  They do not reproduce the reference's ``jax.random``
     values; tests carry the reference's parameters over with
     :func:`repro_torch.bridge.params_from_jax` instead."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dtype = _dtype(cfg)
     n = cfg.n_periods
     d = cfg.d_model
@@ -62,14 +63,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
     blocks = {}
-    for pos, _ in enumerate(cfg.pattern):
+    for pos, spec in enumerate(cfg.pattern):
         blocks[f"pos{pos}"] = {
             "ln1": stacked(lambda: L.norm_init(d, device)),
             "ln2": stacked(lambda: L.norm_init(d, device)),
             "attn": stacked(lambda: L.attn_init(gen, cfg, dtype, device)),
-            "mlp": stacked(lambda: L.mlp_init(gen, d, cfg.d_ff, cfg.glu,
-                                              dtype, device)),
         }
+        if spec.moe:
+            blocks[f"pos{pos}"]["moe"] = stacked(
+                lambda: M.moe_init(gen, cfg, dtype, device))
+        else:
+            blocks[f"pos{pos}"]["mlp"] = stacked(
+                lambda: L.mlp_init(gen, d, cfg.d_ff, cfg.glu, dtype, device))
     params: Params = {
         "embed": L._normal(gen, (cfg.padded_vocab, d), d ** -0.5, dtype,
                            device),
@@ -120,7 +125,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device) -> Params:
     """Zeroed KV cache: {"posN": {"k", "v"}} of (n_periods, B, Smax, K, D)
     in the compute dtype."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {f"pos{pos}": {"k": torch.zeros(shape, dtype=_cdtype(cfg),
                                            device=device),
@@ -139,6 +144,8 @@ def _period(tree, i: int):
 def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int
          ) -> torch.Tensor:
     h = L.norm_apply(p["ln2"], x)
+    if cfg.pattern[pos].moe:
+        return x + M.moe_apply(p["moe"], h, cfg, cfg.quant, f"blk{pos}.moe")
     return x + L.mlp_apply(p["mlp"], h, cfg.act, cfg.glu, cfg.quant,
                            f"blk{pos}.mlp")
 
@@ -153,7 +160,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     continuous batching where every slot sits at its own depth.
     ``positions`` optionally gives distinct RoPE positions; ``kv_valid``
     (B, Smax) masks pad cache slots."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     for i in range(cfg.n_periods):
         pp = _period(params["blocks"], i)
@@ -191,7 +198,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     The third element mirrors the reference's cross-attention memory, which
     dense models do not have.
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
     ragged = (positions is not None or pad_mask is not None
               or last_idx is not None or start is not None)
     x = _embed(params, cfg, tokens)
