@@ -8,15 +8,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources in this checkout (one nvcc
-     per source, started together);
+     per build unit of every source, started together);
   3. hold each kernel to its plain PyTorch version on the card with
      ``torch.equal``, at the shapes the serve paths give it: the dense
      fused GEMM in mode mm1 (every w=8 projection of llama3.2-1b and
-     granite-moe-3b-a800m) and kmm2 (lm_head and the MoE router at w=12),
-     and the grouped ragged fused GEMM (granite's 40 expert GEMMs, mm1 at
-     w=8 and kmm2 at w=12, at the decode and prefill capacities, with
-     router-like live counts and an edge case of zero-count experts and
-     full segments), raw and dequantized outputs;
+     granite-moe-3b-a800m), kmm2 (lm_head and the MoE router at w=12), and
+     mm2 and kmm4 (every one of those GEMMs at w=16, and at w=20 and w=24,
+     kmm4's two digit layouts), and the grouped ragged fused GEMM
+     (granite's 40 expert GEMMs in every mode and layout, at the decode and
+     prefill capacities, with router-like live counts and an edge case of
+     zero-count experts and full segments), raw and dequantized outputs;
+     then kmm4 at every width 17-26 (both layouts), with +-2^25 operands at
+     w=26 and, at w=24, rows whose int32 sums wrap as the reference's do;
+     and the two kmm4 layouts timed side by side from decode to a
+     compute-bound prefill (M = 4 to 2048);
   4. small-input agreement: the smoke-size models in float32 on the card
      against the same models on the CPU (the kernels' plain versions,
      which the test suite holds to the JAX reference);
@@ -27,9 +32,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      counts set to 0 just before each run and read just after: every
      quantized GEMM must have gone through the kernels, exactly as many
      launches as the model has quantized GEMMs per prefill and per decode
-     step; a second identical run must repeat every greedy stream; then a
-     short granite serve under w12 (2 requests, 4 new tokens) must launch
-     the grouped kmm2 kernel for every expert GEMM;
+     step; a second identical run must repeat every greedy stream.  Then
+     every GEMM at one width: llama under w16 (mm2; the same 6 requests,
+     twice, greedy streams repeating) and w20 (kmm4, s8 pre-adders), and
+     granite under w12 (kmm2), w16 (mm2), w20 (kmm4, s8 pre-adders) and
+     w24 (kmm4, split pre-adders), 2 requests of 4 new tokens each, every
+     dense and grouped GEMM of a step launching that width's mode and no
+     other;
   6. time each kernel against its bound, its plain version and the
      library call that computes the same product where there is one (CUDA
      events, warm-up excluded), and each model's prefill and decode
@@ -63,6 +72,17 @@ GRANITE_MM1_KN = [(1536, 1536), (1536, 512)]
 GRANITE_KMM2_KN = [(1536, 40), (1536, 49664)]
 ROWS = [1, 4, 16, 64]                               # decode widths, prefill
 RAGGED = (5, 300, 130)
+# Under w16 (mm2), w20 and w24 (kmm4) every one of those GEMMs runs at that
+# width.  kmm4 is two kernel instances a entry: s8 pre-adders through w=22
+# (h <= 11) and split pre-adders from w=23; w20 and w24 hold one each.  The
+# kmm4 width sweep covers both and the +-2^(w-1) edge.
+WIDE_MODES = [("mm2", 16), ("kmm4", 20), ("kmm4", 24)]
+KMM4_WIDTHS = [17, 20, 22, 23, 24, 25, 26]
+SWEEP_SHAPES = [(4, 2048, 8192), (64, 1536, 512), RAGGED]
+# The two kmm4 layouts side by side (w=22 s8, w=23 split) at llama's wi/wg
+# (K, N) from decode to a compute-bound prefill.
+ROUTE_ROWS = [4, 64, 512, 2048]
+ROUTE_KN = (2048, 8192)
 
 # granite's grouped expert GEMMs: (K, N) of wi/wg and of wo, 40 experts,
 # top-8 routing
@@ -80,12 +100,19 @@ GROUPED_CASES = [("decode W=1", 8, 8, 1, 1), ("decode W=2", 16, 8, 2, 1),
 # launches per prefill and per decode step: dense, grouped).  llama's 16
 # layers have 7 w=8 projections each and w=12 lm_head; granite's 32 have
 # 4 attention projections, the w=12 router, and 3 expert GEMMs (wi, wg,
-# wo) as grouped launches; under w12 every one of them is kmm2.
+# wo) as grouped launches; under one width every GEMM runs in that width's
+# mode (w12 kmm2, w16 mm2, w20 kmm4 on s8 pre-adders, w24 kmm4 on split
+# ones), so each path's kmm4 launches all go to one of its two instances.
 PATHS = [
     ("llama3.2-1b", "mixed", 6, 16, 2, {"mm1": 112, "kmm2": 1}, {}),
+    ("llama3.2-1b", "w16", 6, 16, 2, {"mm2": 113}, {}),
+    ("llama3.2-1b", "w20", 2, 4, 1, {"kmm4": 113}, {}),
     ("granite-moe-3b-a800m", "mixed", 6, 16, 2, {"mm1": 128, "kmm2": 33},
      {"mm1": 96}),
     ("granite-moe-3b-a800m", "w12", 2, 4, 1, {"kmm2": 161}, {"kmm2": 96}),
+    ("granite-moe-3b-a800m", "w16", 2, 4, 1, {"mm2": 161}, {"mm2": 96}),
+    ("granite-moe-3b-a800m", "w20", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
+    ("granite-moe-3b-a800m", "w24", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
 ]
 
 
@@ -113,19 +140,47 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gemm_bound_ms(mode: str, m: int, k: int, n: int, out_bytes: int,
-                  dequant: bool):
+# Operand bytes of each mode's carrier (int8, int16 through w=16, int32).
+CARRIER_BYTES = {"mm1": 1, "kmm2": 2, "mm2": 2, "kmm4": 4}
+
+
+def instance(fg, mode: str, w: int) -> str:
+    """The kernel instance that ``mode`` launches at width ``w``: kmm4 is
+    two, on s8 pre-adders through h = 11 (w <= 22) and on split ones
+    above, as ``fused_gemm.cu`` picks them."""
+    if mode == "kmm4" and fg.resolve(w, mode=mode)[1] >= 12:
+        return "kmm4_split"
+    return mode
+
+
+def passes(mode: str, w: int) -> int:
+    """s8 tensor-core products per output element and K step: 1, 3, 4, or
+    9 for kmm4 — 12 from w=23, where the three nested pre-adder products
+    do not fit s8 and each costs its leaves' cross products."""
+    return {"mm1": 1, "kmm2": 3, "mm2": 4}.get(mode, 12 if w >= 23 else 9)
+
+
+def gemm_bound_ms(mode: str, w: int, m: int, k: int, n: int,
+                  out_bytes: int, dequant: bool):
     """Least time for one fused GEMM: each input read once, the output
     written once, at the card's memory rate; or its int8 tensor-core
-    operations (1 pass for mm1, 3 for kmm2) at the int8 peak."""
-    carrier = 1 if mode == "mm1" else 2
-    nbytes = (m * k + k * n) * carrier + m * n * out_bytes
+    operations (``passes`` s8 products) at the int8 peak."""
+    nbytes = (m * k + k * n) * CARRIER_BYTES[mode] + m * n * out_bytes
     if dequant:
         nbytes += 4 * (m + n)
-    ops = 2 * m * k * n * (1 if mode == "mm1" else 3)
+    ops = 2 * m * k * n * passes(mode, w)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def operands(torch, fg, gen, mode: str, w: int, shape_a, shape_b):
+    """Random w-bit operands in the mode's carrier, on the card."""
+    q = 2 ** (w - 1) - 1
+    carrier = fg.resolve(w, mode=mode)[3]
+    return tuple(torch.randint(-q, q + 1, shape, generator=gen,
+                               device="cuda", dtype=torch.int32).to(carrier)
+                 for shape in (shape_a, shape_b))
 
 
 def kernel_checks(torch, fg):
@@ -134,18 +189,18 @@ def kernel_checks(torch, fg):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
+    every_kn = MM1_KN + KMM2_KN + GRANITE_MM1_KN + GRANITE_KMM2_KN
     cases = ([("mm1", 8, m, k, n) for k, n in MM1_KN + GRANITE_MM1_KN
               for m in ROWS]
              + [("kmm2", 12, m, k, n) for k, n in KMM2_KN + GRANITE_KMM2_KN
                 for m in ROWS]
-             + [("mm1", 8) + RAGGED, ("kmm2", 12) + RAGGED])
+             + [("mm1", 8) + RAGGED, ("kmm2", 12) + RAGGED]
+             + [(mode, w, m, k, n) for mode, w in WIDE_MODES
+                for k, n in every_kn for m in ROWS]
+             + [(mode, w) + RAGGED for mode, w in WIDE_MODES])
     for mode, w, m, k, n in cases:
-        q = 2 ** (w - 1) - 1
-        _, h, z, carrier = fg.resolve(w)
-        a = torch.randint(-q, q + 1, (m, k), generator=gen, device=dev,
-                          dtype=torch.int32).to(carrier)
-        b = torch.randint(-q, q + 1, (k, n), generator=gen, device=dev,
-                          dtype=torch.int32).to(carrier)
+        _, h, z, _ = fg.resolve(w, mode=mode)
+        a, b = operands(torch, fg, gen, mode, w, (m, k), (k, n))
         sx = torch.rand((m, 1), generator=gen, device=dev) * 1e-3 + 1e-4
         sw = torch.rand((1, n), generator=gen, device=dev) * 1e-3 + 1e-4
         # the serve path's tile clamp (qmatmul._shrink_tiles) fixes kp
@@ -156,8 +211,8 @@ def kernel_checks(torch, fg):
                 ("dequant_bf16", True, torch.bfloat16),
                 ("raw", False, None)):
             s_x, s_w = (sx, sw) if scales else (None, None)
-            got = fg.fused_gemm(a, b, s_x, s_w, w=w, block_k=block_k,
-                                out_dtype=out_dtype)
+            got = fg.fused_gemm(a, b, s_x, s_w, w=w, mode=mode,
+                                block_k=block_k, out_dtype=out_dtype)
             ref = fg.fused_gemm_reference(
                 a, b, s_x, s_w, mode=mode, h=h, z=z, kp=kp,
                 combine_int32=False,
@@ -172,7 +227,8 @@ def kernel_checks(torch, fg):
                      f"(max abs err {err})")
             row[f"max_abs_err_{label}"] = err
             row[f"ms_{label}"] = cuda_ms(torch, lambda: fg.fused_gemm(
-                a, b, s_x, s_w, w=w, block_k=block_k, out_dtype=out_dtype))
+                a, b, s_x, s_w, w=w, mode=mode, block_k=block_k,
+                out_dtype=out_dtype))
             if label == "dequant_bf16":
                 def plain():
                     return fg.fused_gemm_reference(
@@ -180,16 +236,16 @@ def kernel_checks(torch, fg):
                         combine_int32=False, out_dtype=torch.bfloat16)
                 row["plain_ms"] = cuda_ms(torch, plain, iters=5, warmup=1)
                 row["bound_ms"], row["bound_by"] = gemm_bound_ms(
-                    mode, m, k, n, 2, True)
-        row["bound_ms_raw"], _ = gemm_bound_ms(mode, m, k, n, 4, False)
+                    mode, w, m, k, n, 2, True)
+        row["bound_ms_raw"], _ = gemm_bound_ms(mode, w, m, k, n, 4, False)
         # torch._int_mm computes the raw mm1 product (int8 x int8 -> int32);
         # it takes only M > 16 and K, N multiples of 8.  No single library
-        # call computes the kmm2 function.
+        # call computes the kmm2, mm2 or kmm4 function.
         row["library_ms_raw"] = None
         if mode == "mm1" and m > 16 and k % 8 == 0 and n % 8 == 0:
             row["library_ms_raw"] = library_int_mm_ms(torch, fg, a, b)
         rows.append(row)
-        log(f"  {mode} w={w} M={m:<3d} K={k:<5d} N={n:<6d} equal | "
+        log(f"  {mode:4s} w={w} M={m:<3d} K={k:<5d} N={n:<6d} equal | "
             f"kernel {row['ms_dequant_bf16']:.4f} ms (raw "
             f"{row['ms_raw']:.4f}) | bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms | "
@@ -216,8 +272,8 @@ def routed_counts(torch, gen, c: int, seg: int, n_seg: int, tokens: int):
     return counts.to(torch.int32)
 
 
-def grouped_bound_ms(mode: str, live, k: int, n: int, out_bytes: int,
-                     dequant: bool):
+def grouped_bound_ms(mode: str, w: int, live, k: int, n: int,
+                     out_bytes: int, dequant: bool):
     """Least time for one ragged grouped GEMM with these live rows (E, C):
     the live rows of A and the B of every expert with a live row, each
     read once, the whole (E, C, N) output written once, at the card's
@@ -226,11 +282,11 @@ def grouped_bound_ms(mode: str, live, k: int, n: int, out_bytes: int,
     e, c = live.shape
     rows = int(live.sum())
     experts = int(live.any(dim=1).sum())
-    carrier = 1 if mode == "mm1" else 2
-    nbytes = (rows * k + experts * k * n) * carrier + e * c * n * out_bytes
+    nbytes = ((rows * k + experts * k * n) * CARRIER_BYTES[mode]
+              + e * c * n * out_bytes)
     if dequant:
         nbytes += 4 * (rows + experts * n)
-    ops = 2 * rows * k * n * (1 if mode == "mm1" else 3)
+    ops = 2 * rows * k * n * passes(mode, w)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -244,18 +300,14 @@ def grouped_checks(torch, fg):
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(2)
     rows = []
-    for mode, w in (("mm1", 8), ("kmm2", 12)):
-        q = 2 ** (w - 1) - 1
-        _, h, z, carrier = fg.resolve(w)
+    for mode, w in [("mm1", 8), ("kmm2", 12)] + WIDE_MODES:
+        _, h, z, _ = fg.resolve(w, mode=mode)
         for k, n in GROUPED_KN:
             block_k = min(256, 1 << max(3, (k - 1).bit_length()))
             kp = fg.padded_k(k, block_k)
             for label, c, seg, n_seg, tokens in GROUPED_CASES:
                 e = N_EXPERTS
-                a = torch.randint(-q, q + 1, (e, c, k), generator=gen,
-                                  device=dev, dtype=torch.int32).to(carrier)
-                b = torch.randint(-q, q + 1, (e, k, n), generator=gen,
-                                  device=dev, dtype=torch.int32).to(carrier)
+                a, b = operands(torch, fg, gen, mode, w, (e, c, k), (e, k, n))
                 sx = torch.rand((e, c, 1), generator=gen, device=dev) * 1e-3 \
                     + 1e-4
                 sw = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-3 \
@@ -274,7 +326,7 @@ def grouped_checks(torch, fg):
 
                     def kernel():
                         return fg.fused_gemm_grouped(
-                            a, b, s_x, s_w, counts, w=w, seg=seg,
+                            a, b, s_x, s_w, counts, w=w, mode=mode, seg=seg,
                             block_k=block_k, out_dtype=out_dtype)
 
                     got = kernel()
@@ -302,15 +354,129 @@ def grouped_checks(torch, fg):
                                 out_dtype=torch.bfloat16),
                             iters=5, warmup=1)
                         row["bound_ms"], row["bound_by"] = grouped_bound_ms(
-                            mode, live, k, n, 2, True)
+                            mode, w, live, k, n, 2, True)
                 row["library_ms"] = None      # no single call computes it
                 rows.append(row)
-                log(f"  grouped {mode} w={w} {label:<13s} C={c:<3d} "
+                log(f"  grouped {mode:4s} w={w} {label:<13s} C={c:<3d} "
                     f"K={k:<5d} N={n:<5d} live rows {row['live_rows']:<4d} "
                     f"experts {row['live_experts']:<3d} equal | kernel "
                     f"{row['ms_dequant_bf16']:.4f} ms (raw "
                     f"{row['ms_raw']:.4f}) | bound {row['bound_ms']:.4f} ms "
                     f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms")
+    return rows
+
+
+def width_sweep(torch, fg):
+    """Phase 3 for every kmm4 width (both digit routes): dense kernel ==
+    plain version, raw and bf16, at a few shapes, timed at llama's wi/wg
+    decode shape; then the +-2^(w-1) operands at w=26 (the quantizer's
+    one-past-qmax values) and, at w=24, rows of +-2^22 over K=8192, whose
+    int32 row sums wrap in the reference and must wrap the same way here."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    rows = []
+
+    def check(what, w, a, b, block_k, timed=False):
+        _, h, z, _ = fg.resolve(w, mode="kmm4")
+        kp = fg.padded_k(a.shape[1], block_k)
+        n = b.shape[1]
+        sx = torch.rand((a.shape[0], 1), generator=gen, device="cuda") \
+            * 1e-3 + 1e-4
+        sw = torch.rand((1, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+        row = {"mode": "kmm4", "case": what, "w": w, "M": a.shape[0],
+               "K": a.shape[1], "N": n, "kp": kp}
+        for label, s_x, s_w, out_dtype in (
+                ("dequant_bf16", sx, sw, torch.bfloat16),
+                ("raw", None, None, None)):
+            def kernel():
+                return fg.fused_gemm(a, b, s_x, s_w, w=w, mode="kmm4",
+                                     block_k=block_k, out_dtype=out_dtype)
+
+            got = kernel()
+            ref = fg.fused_gemm_reference(
+                a, b, s_x, s_w, mode="kmm4", h=h, z=z, kp=kp,
+                combine_int32=False, out_dtype=got.dtype)
+            torch.cuda.synchronize()
+            err = (got.double() - ref.double()).abs().max().item()
+            if not torch.equal(got, ref):
+                fail(f"kmm4 {what} w={w}: kernel != plain version (max abs "
+                     f"err {err})")
+            row[f"max_abs_err_{label}"] = err
+            if timed:
+                row[f"ms_{label}"] = cuda_ms(torch, kernel)
+        rows.append(row)
+        return got
+
+    for w in KMM4_WIDTHS:
+        for m, k, n in SWEEP_SHAPES:
+            a, b = operands(torch, fg, gen, "kmm4", w, (m, k), (k, n))
+            check("sweep", w, a, b, min(256, 1 << max(3, (k - 1).bit_length())),
+                  timed=(m, k, n) == SWEEP_SHAPES[0])
+        r = rows[-len(SWEEP_SHAPES)]
+        log(f"  kmm4 w={w} ({'split' if w >= 23 else 's8'} pre-adders): "
+            f"equal at {len(SWEEP_SHAPES)} shapes | {r['M']}x{r['K']}x"
+            f"{r['N']} {r['ms_dequant_bf16']:.4f} ms (raw {r['ms_raw']:.4f})")
+    w, top = 26, 2 ** 25
+    a, b = operands(torch, fg, gen, "kmm4", w, (64, 1536), (1536, 512))
+    a[0], a[1], a[2, ::2] = top, -top, top
+    b[:, 0], b[:, 1], b[::3, 2] = top, -top, top
+    check("edge +-2^25", w, a, b, 256)
+    log("  kmm4 w=26 with +-2^25 rows and columns: equal")
+    w, k = 24, 8192
+    a, b = operands(torch, fg, gen, "kmm4", w, (4, k), (k, 256))
+    a[0], a[1] = 2 ** 22, -2 ** 22
+    got = check("biased rows", w, a, b, 256)
+    exact = a.double() @ b.double()
+    rel = ((got.double() - exact).abs().amax(dim=1)
+           / exact.abs().amax(dim=1)).tolist()
+    rows[-1]["rel_err_vs_exact_by_row"] = rel
+    log(f"  kmm4 w=24 K=8192 rows of +-2^22 (int32 row sums wrap, as in the "
+        f"reference): equal; max error vs the exact product by row, "
+        f"relative to the row's largest: {[f'{x:.2e}' for x in rel]}")
+    return rows
+
+
+def route_timing(torch, fg):
+    """The two kmm4 instances side by side on the same shapes: w=22 (s8
+    pre-adders, 9 MMAs a 16-deep step) and w=23 (split pre-adders, 12
+    MMAs), from decode to a compute-bound prefill, dequant to bf16; each
+    held to its plain version before it is timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    k, n = ROUTE_KN
+    rows = []
+    for m in ROUTE_ROWS:
+        row = {"M": m, "K": k, "N": n}
+        for w in (22, 23):
+            _, h, z, _ = fg.resolve(w, mode="kmm4")
+            a, b = operands(torch, fg, gen, "kmm4", w, (m, k), (k, n))
+            sx = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3 \
+                + 1e-4
+            sw = torch.rand((1, n), generator=gen, device="cuda") * 1e-3 \
+                + 1e-4
+
+            def kernel():
+                return fg.fused_gemm(a, b, sx, sw, w=w, mode="kmm4",
+                                     block_k=256, out_dtype=torch.bfloat16)
+
+            got = kernel()
+            ref = fg.fused_gemm_reference(
+                a, b, sx, sw, mode="kmm4", h=h, z=z, kp=fg.padded_k(k, 256),
+                combine_int32=False, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"kmm4 w={w} {m}x{k}x{n}: kernel != plain version")
+            inst = instance(fg, "kmm4", w)
+            row[f"{inst}_w"] = w
+            row[f"{inst}_ms"] = cuda_ms(torch, kernel)
+            row[f"{inst}_bound_ms"], row[f"{inst}_bound_by"] = \
+                gemm_bound_ms("kmm4", w, m, k, n, 2, True)
+        rows.append(row)
+        log(f"  kmm4 layouts at M={m:<4d} K={k} N={n}: s8 (w=22) "
+            f"{row['kmm4_ms']:.4f} ms, split (w=23) "
+            f"{row['kmm4_split_ms']:.4f} ms; bounds "
+            f"{row['kmm4_bound_ms']:.4f} / {row['kmm4_split_bound_ms']:.4f}"
+            f" ms ({row['kmm4_bound_by']} / {row['kmm4_split_bound_by']})")
     return rows
 
 
@@ -372,19 +538,33 @@ def smoke_parity(torch, np, arch: str):
 
 
 def expected_launches(fg, per_call: dict, calls: int) -> dict:
-    return {mode: per_call.get(mode, 0) * calls for mode in fg.PORTED_MODES}
+    return {mode: per_call.get(mode, 0) * calls for mode in fg.MODES}
+
+
+def path_config(arch: str, policy: str):
+    """The full-width config of ``arch`` under a named policy: the
+    registry's (``mixed``, ``w12``), ``POLICY_W16``, or every site at the
+    width a ``wNN`` name gives, as ``QuantConfig(enabled=True,
+    default_bits=NN)``."""
+    from repro_torch.configs import QUANT_POLICIES, get_config
+    from repro_torch.quant.policy import POLICY_W16, QuantConfig
+
+    if policy in QUANT_POLICIES:
+        return get_config(arch, quant=policy)
+    quant = (POLICY_W16 if policy == "w16" else
+             QuantConfig(enabled=True, default_bits=int(policy[1:])))
+    return get_config(arch).with_quant(quant)
 
 
 def serve_full(torch, np, fg, arch: str, profile: bool):
     """Phase 5 and the engine half of phase 6 for every path of ``arch``:
     one set of full-width weights, each path's runs with the launch counts
     set to 0 just before and read just after."""
-    from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, Request
 
     paths = [p for p in PATHS if p[0] == arch]
-    cfg = get_config(arch, quant=paths[0][1])
+    cfg = path_config(arch, paths[0][1])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.monotonic()
@@ -404,7 +584,7 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
                            for t in _leaves(params)) / 1e9}
     launches_by_path = {}
     for _, policy, n_req, new, n_runs, dense, grouped in paths:
-        pcfg = get_config(arch, quant=policy)
+        pcfg = path_config(arch, policy)
         eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda")
         runs = []
         for _ in range(n_runs):
@@ -445,9 +625,19 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
         launches_by_path[f"{arch} {policy}"] = {"dense": got_dense,
                                                 "grouped": got_grouped}
         if policy != "mixed":
-            out[f"{policy}_run"] = {"calls": calls, "wall_s": wall,
-                                    "launches": launches_by_path[
-                                        f"{arch} {policy}"]}
+            stats_w, wall_w = runs[-1][1], runs[-1][4]
+            out[f"{policy}_run"] = {
+                "calls": calls, "wall_s": wall, "wall_s_last": wall_w,
+                "decode_steps": stats_w.decode_steps,
+                "decode_step_ms": stats_w.decode_s / stats_w.decode_steps
+                * 1e3,
+                "prefill_ms_per_request": stats_w.prefill_s / len(reqs) * 1e3,
+                "launches": launches_by_path[f"{arch} {policy}"]}
+            log(f"  {arch} {policy} run {len(runs)}: "
+                f"{out[f'{policy}_run']['decode_step_ms']:.2f} ms a decode "
+                f"step, {out[f'{policy}_run']['prefill_ms_per_request']:.1f}"
+                f" ms a prefill" + ("; greedy streams repeat"
+                                    if n_runs > 1 else ""))
             continue
         # full-width logits: finite, padded vocab masked
         with torch.inference_mode():
@@ -521,11 +711,12 @@ def profile_decode(torch, eng, prompts, step_ms: float):
                      "per_step": ev.count / n})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
+    # kernel names carry the digit layout: 1 mm1, 2 kmm2 (the mixed path)
     gemm = {f"{kind}{mode}": sum(
         r["ms_per_step"] for r in rows
-        if f"fused_gemm_kernel<{acc}," in r["name"]
+        if f"fused_gemm_kernel<{layout}," in r["name"]
         and r["name"].split(">")[0].endswith(flag))
-        for mode, acc in (("mm1", 1), ("kmm2", 3))
+        for mode, layout in (("mm1", 1), ("kmm2", 2))
         for kind, flag in (("", "false"), ("grouped_", "true"))}
     out = {"steps": n, "lanes": 4, "device_busy_ms_per_step": busy,
            "fused_gemm_ms_per_step": gemm,
@@ -551,19 +742,30 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_entries(rows, grouped_rows, launches_by_path):
-    """One entry per kernel for the result line; ``launches`` sums the
-    first run of every serve path (``launches_by_path`` has each).
+def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path):
+    """One entry per kernel instance (dense and grouped; mm1, kmm2, mm2 and
+    kmm4's two layouts) for the result line.  ``launches`` sums the first
+    run of every serve path (``launches_by_path`` has each); a path runs
+    every GEMM at one width, so its kmm4 launches all belong to the
+    instance that width picks.
 
     Dense mm1 at the prefill shape of llama's wi/wg (M=64, where
     torch._int_mm, which needs M > 16, can run on the same inputs); dense
-    kmm2 at decode on 4 lanes (llama's lm_head); the grouped kernel at
-    granite's decode on 4 lanes (wi/wg, C=32).  No library call computes
-    the kmm2 function or the ragged grouped product."""
-    def total(kind, mode):
-        return sum(p[kind][mode] for p in launches_by_path.values())
+    kmm2, mm2 (w=16) and kmm4 (w=20 s8, w=24 split) at decode on 4 lanes
+    (llama's lm_head); the grouped kernel at granite's decode on 4 lanes
+    (wi/wg, C=32).  No library call computes the kmm2, mm2 or kmm4
+    function or the ragged grouped product."""
+    def total(kind, inst):
+        n = 0
+        for key, counts in launches_by_path.items():
+            got = counts[kind][inst.split("_")[0]]
+            if got and inst.startswith("kmm4") and instance(
+                    fg, "kmm4", int(key.split()[-1][1:])) != inst:
+                continue
+            n += got
+        return n
 
-    def entry(name, kind, mode, row, all_rows, shape, library_ms):
+    def entry(name, kind, inst, row, all_rows, shape, library_ms):
         return {
             "name": name,
             "route": "cuda",
@@ -571,10 +773,11 @@ def kernel_entries(rows, grouped_rows, launches_by_path):
             "replaces": ("src/repro/kernels/fused_gemm.py:119"
                          if kind == "dense" else
                          "src/repro/kernels/fused_gemm.py:437"),
-            "launches": total(kind, mode),
+            "launches": total(kind, inst),
             "max_abs_err": max(max(r["max_abs_err_dequant_bf16"],
                                    r["max_abs_err_raw"])
-                               for r in all_rows if r["mode"] == mode),
+                               for r in all_rows
+                               if instance(fg, r["mode"], r["w"]) == inst),
             "ms": row["ms_dequant_bf16"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
@@ -585,19 +788,25 @@ def kernel_entries(rows, grouped_rows, launches_by_path):
         }
 
     out = []
-    pick = {"mm1": (64, 2048, 8192), "kmm2": (4, 2048, 128512)}
-    for mode, (m, k, n) in pick.items():
-        row = next(r for r in rows if r["mode"] == mode
+    pick = {"mm1": (64, 2048, 8192), "kmm2": (4, 2048, 128512),
+            "mm2": (4, 2048, 128512), "kmm4": (4, 2048, 128512),
+            "kmm4_split": (4, 2048, 128512)}
+    for inst, (m, k, n) in pick.items():
+        row = next(r for r in rows
+                   if instance(fg, r["mode"], r["w"]) == inst
                    and (r["M"], r["K"], r["N"]) == (m, k, n))
-        out.append(entry(f"fused_gemm_{mode}", "dense", mode, row, rows,
-                         f"M={m} K={k} N={n}, dequant to bf16",
+        out.append(entry(f"fused_gemm_{inst}", "dense", inst, row,
+                         rows + sweep_rows,
+                         f"w={row['w']} M={m} K={k} N={n}, dequant to bf16",
                          row["library_ms_raw"]))
-    for mode in ("mm1", "kmm2"):
-        row = next(r for r in grouped_rows if r["mode"] == mode
+    for inst in pick:
+        row = next(r for r in grouped_rows
+                   if instance(fg, r["mode"], r["w"]) == inst
                    and r["case"] == "decode W=4" and r["K"] == 1536)
         out.append(entry(
-            f"fused_gemm_grouped_{mode}", "grouped", mode, row, grouped_rows,
-            f"E={row['E']} C={row['C']} K={row['K']} N={row['N']}, "
+            f"fused_gemm_grouped_{inst}", "grouped", inst, row, grouped_rows,
+            f"w={row['w']} E={row['E']} C={row['C']} K={row['K']} "
+            f"N={row['N']}, "
             f"{row['live_rows']} live rows in {row['live_experts']} "
             f"experts, dequant to bf16", None))
     return out
@@ -647,6 +856,8 @@ def main() -> int:
     log("[3] kernels vs plain versions (torch.equal) at the paths' shapes")
     rows = kernel_checks(torch, fg)
     grouped_rows = grouped_checks(torch, fg)
+    sweep_rows = width_sweep(torch, fg)
+    route_rows = route_timing(torch, fg)
 
     archs = list(dict.fromkeys(p[0] for p in PATHS))
     log("[4] smoke-size models: card vs CPU")
@@ -656,7 +867,7 @@ def main() -> int:
     for arch in archs:
         log(f"[5] serve full-width {arch} ("
             + ", then ".join(p[1] for p in PATHS if p[0] == arch)
-            + " policy)")
+            + " policies)")
         engines[arch], by_path = serve_full(torch, np, fg, arch,
                                             args.profile)
         launches_by_path.update(by_path)
@@ -664,7 +875,8 @@ def main() -> int:
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
-              "grouped_shapes": grouped_rows,
+              "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
+              "kmm4_layouts": route_rows,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
               "seconds": time.monotonic() - t_start}
@@ -674,9 +886,8 @@ def main() -> int:
     log(f"[6] details in chiprun_out/chip_smoke.json; "
         f"{report['seconds']:.1f} s in all")
     print(card, flush=True)
-    print(json.dumps({"kernels": kernel_entries(rows, grouped_rows,
-                                                launches_by_path)}),
-          flush=True)
+    print(json.dumps({"kernels": kernel_entries(
+        fg, rows, grouped_rows, sweep_rows, launches_by_path)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,16 @@
 """Build and load the CUDA C++ kernels under ``csrc/``.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  Libraries go to ``build/kernels/`` at the root of the
-checkout, named by a digest of the source and flags, so an edited source
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers).  A source
+is split into build units (``-DFUSED_GEMM_UNIT=u`` for ``fused_gemm.cu``:
+the C entry points and one unit per digit layout); each unit compiles to
+one object and the objects are linked into the library.  Without the macro
+the same source compiles whole (``kernels.compare`` builds another
+checkout's source so).  Libraries go to ``build/kernels/`` at the root of
+the checkout, named by a digest of the source and flags, so an edited source
 rebuilds and an unchanged one is reused.  Builds happen at first use, never
-at import; :func:`build` starts one ``nvcc`` per missing library, all at
-once.  A failed build raises — there is no fallback.
+at import; :func:`build` starts one ``nvcc`` per unit of every missing
+library, all at once.  A failed build raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -23,13 +27,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # name -> source file under csrc/
 SOURCES = {"fused_gemm": "fused_gemm.cu"}
+# name -> (unit macro, number of units), one nvcc per unit
+UNITS = {"fused_gemm": ("FUSED_GEMM_UNIT", 6)}
 
 # --fmad=false keeps every fp32 add and multiply separately rounded, so the
 # epilogue reproduces the reference's operation order bit for bit (the
-# sources also spell the order out with __fadd_rn / __fmul_rn).
+# sources also spell the order out with __fadd_rn / __fmul_rn).  These build
+# a whole source into a library in one call; a unit drops -shared for -c.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas=-v")
+UNIT_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 # What nvcc printed for each library built by this process (ptxas register
 # and spill counts); empty for a library that was already built.
@@ -47,16 +55,40 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join(NVCC_FLAGS) + repr(UNITS[name])
+    digest = hashlib.sha1(src.read_bytes() + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _compile_jobs(name: str, tmp: Path):
+    """(object, command) pairs that compile library ``name``, one per build
+    unit."""
+    src = str(CSRC / SOURCES[name])
+    macro, n_units = UNITS[name]
+    return [(tmp.with_name(f"{tmp.name}.{u}.o"),
+             [nvcc(), *UNIT_FLAGS, f"-D{macro}={u}", "-o",
+              str(tmp.with_name(f"{tmp.name}.{u}.o")), src])
+            for u in range(n_units)]
+
+
+def _run_all(cmds):
+    """Run the commands together; their (exit code, output) in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    results = []
+    for proc in procs:
+        log, _ = proc.communicate()
+        results.append((proc.returncode, log))
+    return results
+
+
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile every named library not built yet, one nvcc each, started
-    together; returns name -> library path."""
+    """Compile every named library not built yet — every unit of every
+    library in its own nvcc, all started together, then one link per
+    library; returns name -> library path."""
     out: Dict[str, Path] = {}
-    jobs = []
+    todo = []
     for name in names:
         lib = library_path(name)
         out[name] = lib
@@ -64,18 +96,26 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
-        jobs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        todo.append((name, lib, tmp, _compile_jobs(name, tmp)))
+    results = iter(_run_all([cmd for *_, jobs in todo for _, cmd in jobs]))
     failed = []
-    for name, lib, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name} "
-                          f"(exit {proc.returncode}):\n{log}")
+    for name, lib, tmp, jobs in todo:
+        logs, ok = [], True
+        for _ in jobs:
+            code, log = next(results)
+            logs.append(log)
+            ok = ok and code == 0
+        objs = [obj for obj, _ in jobs]
+        if ok:
+            code, log = _run_all([[nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                   *map(str, objs)]])[0]
+            logs.append(log)
+            ok = code == 0
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        BUILD_LOG[name] = "".join(logs)
+        if not ok:
+            failed.append(f"nvcc failed for {name}:\n{BUILD_LOG[name]}")
             continue
         os.replace(tmp, lib)
     if failed:

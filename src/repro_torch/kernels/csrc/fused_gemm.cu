@@ -1,19 +1,28 @@
-// Fused single-pass integer GEMM for NVIDIA Hopper (sm_90a): modes mm1 and
-// kmm2 of the paper's precision-scalable KMM unit.
+// Fused single-pass integer GEMM for NVIDIA Hopper (sm_90a): modes mm1,
+// kmm2, mm2 and kmm4 of the paper's precision-scalable KMM unit.
 //
 // Replaces the TPU kernel `_fused_kernel` in src/repro/kernels/fused_gemm.py
-// (line 119; entry point `fused_gemm`, line 395) in its `mm1` and `kmm2`
-// modes, and computes what it computes, bit for bit:
+// (line 119; entry point `fused_gemm`, line 395) in all four of its modes,
+// and computes what it computes, bit for bit:
 //
 //   mm1  (w <= 8):   C = A . B, one exact s8 x s8 -> s32 pass.
 //   kmm2 (9..14):    split every operand at h = ceil(w/2) into a signed high
 //                    digit and a low digit centered by z = 2^(h-1);
 //                    three digit passes with the Fig. 8 pre-adders
-//                    (C1 = A1.B1, Cs = (A1+A0).(B1+B0), C0 = A0.B0), int32
-//                    row sums of A and column sums of B, the Fig. 9 post-adder
-//                    in fp32 (or int32), and the Section IV-D zero-point
-//                    correction over the *logical* padded K `kp`.
-//   both:            optional dequant epilogue val * (sx[m] * sw[n]) and an
+//                    (C1 = A1.B1, Cs = (A1+A0).(B1+B0), C0 = A0.B0), the
+//                    Fig. 9 post-adder in fp32 (or int32).
+//   mm2  (15..16):   the same split, four passes without pre-adders
+//                    (C1 = A1.B1, C10 = A1.B0, C01 = A0.B1, C0 = A0.B0) and
+//                    the conventional combine.
+//   kmm4 (17..26):   depth-2 KMM: each level-1 branch {A1, A1+A0, A0} is
+//                    re-split plainly (uncentered) at h2 = ceil((h+1)/2)
+//                    and runs the three Fig. 8 passes of its own; nine
+//                    accumulators, the level-2 combine at h2 per branch,
+//                    then the level-1 combine at h.
+//   all split modes: int32 row sums of A and column sums of B and the
+//                    Section IV-D zero-point correction over the *logical*
+//                    padded K `kp`;
+//   all modes:       optional dequant epilogue val * (sx[m] * sw[n]) and an
 //                    int32 / fp32 / bf16 store.
 //
 // The grouped entry (`fused_gemm_grouped_launch`) also replaces
@@ -29,37 +38,68 @@
 // skips its MMAs.  The skips change speed, never a value, so the 64-row
 // tile need not match the reference's block_m.
 //
-// Every digit entering a product fits s8 (at w = 14 the pre-adder spans
-// [-128, 126]), so each pass is an exact tensor-core integer product.
+// Every product is an exact s8 x s8 -> s32 tensor-core MMA.  The digits
+// entering them fit s8 (checked for every value of every width):
+//   kmm2: the pre-adder spans [-128, 126] at w = 14;
+//   mm2:  the int16 carrier's digits are [-128, 127];
+//   kmm4: every leaf digit fits s8 at every width through w = 26, and so
+//         does the nested pre-adder through w = 22 (h <= 11; [-32, 93]).
+//         For w = 23..26 (h >= 12) the pre-adder reaches [-64, 189], which
+//         fits neither s8 nor u8.  That instance (KMM4_WIDE) keeps the two
+//         leaves of each branch as its planes and computes the pre-adder
+//         product through the integer identity
+//           (a1 + a0)(b1 + b0) = a1.b1 + (a1.b0 + a0.b1) + a0.b0:
+//         its middle accumulator gathers the two cross products, and the
+//         epilogue adds C1 and C0 back in int32 before the combine.  The
+//         value is the same integer the reference's pass computes, so the
+//         result is bit-exact by construction, at 12 MMAs for 9.
 //
 // Numerics the design must keep:
 //   * K positions in [K, kp) are the value 0 before the split, i.e. digits
-//     (0, -z): the reference zero-pads K to kp = ceil(K / block_k) * block_k
-//     and splits the padding too, so C0 and Cs each gain z^2 per padded
-//     position and kp enters the correction.  The kernel's own K tile is free;
-//     positions at or beyond kp contribute nothing.
+//     (0, -z), re-split at level 2 for kmm4: the reference zero-pads K to
+//     kp = ceil(K / block_k) * block_k and splits the padding too, so the
+//     low-digit passes gain terms per padded position and kp enters the
+//     correction.  The kernel's own K tile is free; positions at or beyond
+//     kp contribute nothing.
+//   * Row and column sums wrap modulo 2^32, as the reference's int32
+//     scratch does (at w = 24 a row of 2^22s wraps once K reaches 512);
+//     they are kept in uint32, where wrapping is defined.
 //   * The fp32 epilogue follows the reference's operation order with
 //     explicitly rounded intrinsics (and the library is built with
-//     --fmad=false): mid = (Cs - C1) - C0; core = (C1 * 2^2h + mid * 2^h) + C0;
-//     corr = (z * row + z * col) + z^2 * kp; val = core + corr;
-//     out = val * (sx * sw), with sx * sw rounded first; bf16 rounds to
-//     nearest even.
+//     --fmad=false): kmm2 mid = (Cs - C1) - C0 and
+//     core = (C1 * 2^2h + mid * 2^h) + C0; mm2 mid = C10 + C01 in fp32;
+//     kmm4 the kmm2 combine at h2 per branch, then the same sequence at h
+//     on the three fp32 branch values; corr = (z * row + z * col) + z^2 kp;
+//     val = core + corr; out = val * (sx * sw), with sx * sw rounded
+//     first; bf16 rounds to nearest even.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1979 TOP/s int8): for
 // the serve path's row counts (decode M = live slots, prefill M <= 64) the
-// GEMM is bound by reading B once.  At lm_head, B is (2048, 128512) int16,
-// 526 MB, about 0.16 ms; the 3 digit passes there are 2*3*M*K*N int8
-// operations, which take longer than the read only above a few hundred rows.
-// So the design reads each original operand once per output tile (no digit
-// planes in device memory), splits digits in registers on the way into
-// shared memory, keeps the accumulators on chip across the whole K loop,
-// and writes the output once, dequantized.  The grouped MoE GEMMs at decode
-// are bound the same way: each live expert's B is read once (at most 1 row
-// in 8 is live there, so the MMAs are mostly idle), and an expert with no
-// live row reads nothing.  It is the simple first version:
-// one 64x64 output tile per 128-thread block, a synchronous K loop of
-// 64-deep stages and 16x16x16 s8 WMMA products.  Asynchronous copies (TMA),
-// wgmma, a persistent schedule and split-K for narrow N are later work.
+// GEMM is bound by reading B once.  At lm_head, B is (2048, 128512): 526 MB
+// in int16 (kmm2, mm2), 1.05 GB in int32 (kmm4), about 0.16 and 0.31 ms;
+// the 3, 4 or 9 digit passes take longer than the read only above a few
+// hundred rows.  So the design reads each original operand once per output
+// tile (no digit planes in device memory), splits digits in registers on
+// the way into shared memory, keeps the accumulators on chip across the
+// whole K loop, and writes the output once, dequantized.  The grouped MoE
+// GEMMs at decode are bound the same way: each live expert's B is read once
+// (at most 1 row in 8 is live there, so the MMAs are mostly idle), and an
+// expert with no live row reads nothing.  At these shapes the K loop is
+// bound by load latency, so each loader thread issues all of a pass's
+// global loads (16 values of A and 16 of B) before it packs any digit.
+// It is the simple first version: one 64x64 output tile per block, a
+// synchronous K loop of 64-deep stages and 16x16x16 s8 WMMA products.
+// mm1, kmm2 and mm2 run 4 warps, each
+// owning 16 rows and all 64 columns; kmm4's nine accumulators would need
+// 288 registers a thread there, so it runs 8 warps of 16 x 32 (144) and
+// keeps its 72 KB of digit planes in dynamic shared memory.  Asynchronous
+// copies (TMA), wgmma, a persistent schedule and split-K for narrow N are
+// later work.
+//
+// Build: the whole file compiles into one library.  Built with
+// -DFUSED_GEMM_UNIT=u it compiles only unit u (0: the C entry points;
+// 1-5: the kernel instances of one digit layout), so the instances can be
+// compiled by parallel nvcc processes and linked together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,76 +108,219 @@
 
 #include <cmath>
 
-namespace {
+#ifdef FUSED_GEMM_UNIT
+#define FG_UNIT(u) (FUSED_GEMM_UNIT == (u))
+#else
+#define FG_UNIT(u) 1
+#endif
+
+namespace fused_gemm_detail {
 
 using namespace nvcuda;
 
-constexpr int BM = 64;               // output rows per block (4 warps x 16)
+constexpr int BM = 64;               // output rows per block (4 x 16)
 constexpr int BN = 64;               // output columns per block
 constexpr int BK = 64;               // K depth of one shared-memory stage
-constexpr int KSUB = BK / 16;        // 16-deep sub-tiles per stage
-constexpr int NTHREADS = 128;
-constexpr int NWARPS = NTHREADS / 32;
 
 enum OutKind { OUT_I32 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
 
+// Digit layouts, one kernel instance each; 1-4 are the wrapper's mode ids,
+// and mode 4 runs as KMM4_WIDE for h >= 12.
+enum Layout { MM1 = 1, KMM2 = 2, MM2 = 3, KMM4 = 4, KMM4_WIDE = 5 };
+
+// Shape of each layout: digit planes per operand, int32 accumulators,
+// tensor-core products per 16-deep step, threads, and warps side by side
+// along N.
+template <int L>
+struct Shape {
+  static constexpr int NPLANE = L == MM1 ? 1 : L == KMM2 ? 3 : L == MM2 ? 2
+                              : L == KMM4 ? 9 : 6;
+  static constexpr int NACC = L == MM1 ? 1 : L == KMM2 ? 3 : L == MM2 ? 4 : 9;
+  static constexpr int NPROD = L == KMM4_WIDE ? 12 : NACC;
+  static constexpr int NTHREADS = (L == KMM4 || L == KMM4_WIDE) ? 256 : 128;
+  static constexpr int WARPS_N = NTHREADS / 128;
+  static constexpr int NWARPS = NTHREADS / 32;
+  static constexpr int TILE_BYTES = NPLANE * (BM * BK + BK * BN);
+  static constexpr int STAGE_BYTES = NWARPS * NACC * 256 * sizeof(int);
+  static constexpr int SMEM_BYTES = TILE_BYTES > STAGE_BYTES ? TILE_BYTES
+                                                             : STAGE_BYTES;
+};
+
+// Product p of layout L: A plane, B plane and accumulator.
+struct Prod {
+  int a, b, acc;
+};
+
+template <int L>
+__host__ __device__ constexpr Prod product(int p) {
+  // mm2: (A1, B1), (A1, B0), (A0, B1), (A0, B0); plane 0 is the high digit
+  if (L == MM2) return Prod{p >> 1, p & 1, p};
+  if (L == KMM4_WIDE) {
+    // branch v: planes 2v (high leaf) and 2v + 1 (low leaf); accumulator
+    // 3v + 1 takes both cross products
+    const int v = p / 4, r = p % 4;
+    return Prod{2 * v + (r >> 1), 2 * v + (r & 1),
+                3 * v + (r == 0 ? 0 : r == 3 ? 2 : 1)};
+  }
+  return Prod{p, p, p};
+}
+
 struct Params {
-  const void* a;       // (M, K) row-major: int8 (mm1) or int16 (kmm2)
+  const void* a;       // (M, K) row-major: int8 (mm1), int16, int32 (kmm4)
   const void* b;       // (K, N) row-major, same type
   const float* sx;     // (M,) row scales, or null (no dequant)
   const float* sw;     // (N,) column scales, or null
   void* out;           // (M, N) row-major
   const int* counts;   // (G, n_seg) live rows per segment, or null: all live
-  int M, K, N, kp, h, z, combine_int32, out_kind, seg, n_seg;
-  float pow_h, pow_2h, zf, zzkp;
+  int M, K, N, kp, h, h2, z, combine_int32, out_kind, seg, n_seg;
+  float pow_h, pow_2h, pow_h2, pow_2h2, zf, zzkp;
 };
 
-// Pack one operand value's digits into byte `c` of the 16-byte rows that go
-// to shared memory.  Plane 0 = high digit, 1 = pre-adder sum, 2 = centered
-// low digit (kmm2); plane 0 = the value itself (mm1).
-template <int NPLANE>
-__device__ __forceinline__ void put_digits(uint32_t (&w)[NPLANE][4], int c,
-                                           int v, bool in_kp, int h,
-                                           int mask, int z) {
-  const int word = c >> 2, sh = 8 * (c & 3);
-  if constexpr (NPLANE == 1) {
-    w[0][word] |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << sh;
+__device__ __forceinline__ void put(uint32_t (&w)[4], int c, int v) {
+  w[c >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(v))
+               << (8 * (c & 3));
+}
+
+// Pack one operand value's digits into byte `c` of each plane's 16-byte
+// row: the value itself (mm1); high, pre-adder sum, low (kmm2); high, low
+// (mm2); per level-1 branch high, pre-adder, low leaf (kmm4) or high, low
+// leaf (kmm4 wide).
+template <int L>
+__device__ __forceinline__ void put_digits(
+    uint32_t (&w)[Shape<L>::NPLANE][4], int c, int v, bool in_kp,
+    const Params& p, int mask, int mask2) {
+  if constexpr (L == MM1) {
+    put(w[0], c, v);
   } else {
     if (!in_kp) return;              // beyond the logical padded K: no term
-    const int hi = v >> h;
-    const int lo = (v & mask) - z;
-    w[0][word] |= static_cast<uint32_t>(static_cast<uint8_t>(hi)) << sh;
-    w[1][word] |= static_cast<uint32_t>(static_cast<uint8_t>(hi + lo)) << sh;
-    w[2][word] |= static_cast<uint32_t>(static_cast<uint8_t>(lo)) << sh;
+    const int hi = v >> p.h;
+    const int lo = (v & mask) - p.z;
+    if constexpr (L == KMM2) {
+      put(w[0], c, hi);
+      put(w[1], c, hi + lo);
+      put(w[2], c, lo);
+    } else if constexpr (L == MM2) {
+      put(w[0], c, hi);
+      put(w[1], c, lo);
+    } else {
+      const int branch[3] = {hi, hi + lo, lo};
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int v1 = branch[q] >> p.h2;
+        const int v0 = branch[q] & mask2;
+        if constexpr (L == KMM4) {
+          put(w[3 * q], c, v1);
+          put(w[3 * q + 1], c, v1 + v0);
+          put(w[3 * q + 2], c, v0);
+        } else {
+          put(w[2 * q], c, v1);
+          put(w[2 * q + 1], c, v0);
+        }
+      }
+    }
   }
 }
 
-template <int NACC>
-__device__ __forceinline__ void store_out(const Params& p, int c1, int cs,
-                                          int c0, int row, int col, int m,
+// Split 16 consecutive k values (from k = k0) of one A row or B column into
+// the layout's digit planes and store each plane's 16 bytes at `dst`, the
+// planes `plane_bytes` apart.
+template <int L>
+__device__ __forceinline__ void pack_store(const int (&v)[16], int k0,
+                                           int k_end, const Params& p,
+                                           int mask, int mask2, int8_t* dst,
+                                           int plane_bytes) {
+  uint32_t w[Shape<L>::NPLANE][4] = {};
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    put_digits<L>(w, c, v[c], k0 + c < k_end, p, mask, mask2);
+  }
+#pragma unroll
+  for (int q = 0; q < Shape<L>::NPLANE; ++q) {
+    *reinterpret_cast<uint4*>(dst + q * plane_bytes) =
+        make_uint4(w[q][0], w[q][1], w[q][2], w[q][3]);
+  }
+}
+
+// The Fig. 9 post-adder on int32 digit products, in fp32 as the reference
+// orders it (_combine_kmm2).
+__device__ __forceinline__ float combine_kmm2_f(int c1, int cs, int c0,
+                                                float pow_h, float pow_2h) {
+  const float c1f = __int2float_rn(c1);
+  const float c0f = __int2float_rn(c0);
+  const float mid = __fsub_rn(__fsub_rn(__int2float_rn(cs), c1f), c0f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(c1f, pow_2h), __fmul_rn(mid, pow_h)),
+                   c0f);
+}
+
+// The same on fp32 branch values (_combine_kmm2_wide).
+__device__ __forceinline__ float combine_wide_f(float c1, float cs, float c0,
+                                                float pow_h, float pow_2h) {
+  const float mid = __fsub_rn(__fsub_rn(cs, c1), c0);
+  return __fadd_rn(__fadd_rn(__fmul_rn(c1, pow_2h), __fmul_rn(mid, pow_h)),
+                   c0);
+}
+
+// The int32-ring post-adder (combine_int32), modulo 2^32.
+__device__ __forceinline__ uint32_t combine_kmm2_u(uint32_t c1, uint32_t cs,
+                                                   uint32_t c0, int h) {
+  return (c1 << (2 * h)) + ((cs - c1 - c0) << h) + c0;
+}
+
+template <int L>
+__device__ __forceinline__ void store_out(const Params& p,
+                                          int (&c)[Shape<L>::NACC],
+                                          uint32_t row, uint32_t col, int m,
                                           int n) {
   bool is_int = true;
-  int vi = c1;
+  int vi = c[0];
   float vf = 0.f;
-  if constexpr (NACC == 3) {
+  if constexpr (L != MM1) {
+    if constexpr (L == KMM4_WIDE) {
+      // the middle accumulators hold the cross products only
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        c[3 * q + 1] = static_cast<int>(static_cast<uint32_t>(c[3 * q + 1])
+                                        + static_cast<uint32_t>(c[3 * q])
+                                        + static_cast<uint32_t>(c[3 * q + 2]));
+      }
+    }
+    const uint32_t zu = p.z;
+    const uint32_t kpz = static_cast<uint32_t>(p.kp) * zu;
+    const uint32_t r = row - kpz;    // rowsum(A) - kp z, modulo 2^32
+    const uint32_t cc = col - kpz;
     if (p.combine_int32) {
-      // Ring arithmetic mod 2^32, as the reference's int32 combine.
-      const uint32_t u1 = c1, us = cs, u0 = c0, zu = p.z;
-      const uint32_t kpz = static_cast<uint32_t>(p.kp) * zu;
-      const uint32_t core = (u1 << (2 * p.h)) + ((us - u1 - u0) << p.h) + u0;
-      const uint32_t r = static_cast<uint32_t>(row) - kpz;
-      const uint32_t cc = static_cast<uint32_t>(col) - kpz;
+      uint32_t core;
+      if constexpr (L == KMM2) {
+        core = combine_kmm2_u(c[0], c[1], c[2], p.h);
+      } else if constexpr (L == MM2) {
+        const uint32_t u1 = c[0], u10 = c[1], u01 = c[2], u0 = c[3];
+        core = (u1 << (2 * p.h)) + ((u10 + u01) << p.h) + u0;
+      } else {
+        core = combine_kmm2_u(combine_kmm2_u(c[0], c[1], c[2], p.h2),
+                              combine_kmm2_u(c[3], c[4], c[5], p.h2),
+                              combine_kmm2_u(c[6], c[7], c[8], p.h2), p.h);
+      }
       vi = static_cast<int>(core + (zu * r + zu * cc
                                     + zu * zu * static_cast<uint32_t>(p.kp)));
     } else {
-      const float c1f = __int2float_rn(c1);
-      const float c0f = __int2float_rn(c0);
-      const float mid = __fsub_rn(__fsub_rn(__int2float_rn(cs), c1f), c0f);
-      const float core = __fadd_rn(
-          __fadd_rn(__fmul_rn(c1f, p.pow_2h), __fmul_rn(mid, p.pow_h)), c0f);
-      const int kpz = p.kp * p.z;
-      const float rf = __int2float_rn(row - kpz);
-      const float cf = __int2float_rn(col - kpz);
+      float core;
+      if constexpr (L == KMM2) {
+        core = combine_kmm2_f(c[0], c[1], c[2], p.pow_h, p.pow_2h);
+      } else if constexpr (L == MM2) {
+        const float mid = __fadd_rn(__int2float_rn(c[1]),
+                                    __int2float_rn(c[2]));
+        core = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(c[0]), p.pow_2h),
+                                   __fmul_rn(mid, p.pow_h)),
+                         __int2float_rn(c[3]));
+      } else {
+        core = combine_wide_f(
+            combine_kmm2_f(c[0], c[1], c[2], p.pow_h2, p.pow_2h2),
+            combine_kmm2_f(c[3], c[4], c[5], p.pow_h2, p.pow_2h2),
+            combine_kmm2_f(c[6], c[7], c[8], p.pow_h2, p.pow_2h2),
+            p.pow_h, p.pow_2h);
+      }
+      const float rf = __int2float_rn(static_cast<int>(r));
+      const float cf = __int2float_rn(static_cast<int>(cc));
       const float corr = __fadd_rn(
           __fadd_rn(__fmul_rn(p.zf, rf), __fmul_rn(p.zf, cf)), p.zzkp);
       vf = __fadd_rn(core, corr);
@@ -181,21 +364,26 @@ __device__ __forceinline__ void store_zero(const Params& p, int m, int n) {
 // 16 contiguous bytes and every WMMA fragment starts 256-bit aligned:
 //   A plane q: [KSUB][BM][16]  (row-major 16-deep sub-tiles, ldm 16)
 //   B plane q: [KSUB][BN][16]  (column-major 16-deep sub-tiles, ldm 16)
-// Warp w owns output rows [16w, 16w + 16) and all BN columns.
-template <int NACC, typename T, bool GROUPED>
-__global__ void __launch_bounds__(NTHREADS)
+// Warp w owns output rows [16 wm, 16 wm + 16) with wm = w % 4, and the
+// 64 / WARPS_N columns of column group w / 4.
+template <int L, typename T, bool GROUPED>
+__global__ void __launch_bounds__(Shape<L>::NTHREADS)
 fused_gemm_kernel(const Params p0) {
-  constexpr int NPLANE = NACC;                   // digit planes per operand
+  using S = Shape<L>;
+  constexpr int NPLANE = S::NPLANE;
+  constexpr int NACC = S::NACC;
+  constexpr int NTHREADS = S::NTHREADS;
+  constexpr int WN = BN / 16 / S::WARPS_N;       // 16-column fragments a warp
   constexpr int A_PLANE = BM * BK;
   constexpr int B_PLANE = BK * BN;
-  constexpr int TILE_BYTES = NPLANE * (A_PLANE + B_PLANE);
-  constexpr int STAGE_BYTES = NWARPS * NACC * 256 * sizeof(int);
-  constexpr int SMEM_BYTES = TILE_BYTES > STAGE_BYTES ? TILE_BYTES
-                                                      : STAGE_BYTES;
-  constexpr int KPT = BK / 2;                    // k values per loader thread
-  __shared__ __align__(128) int8_t smem[SMEM_BYTES];
-  __shared__ int row_part[2][BM];
-  __shared__ int col_part[2][BN];
+  constexpr int LPR = NTHREADS / BM;             // loaders per row (column)
+  constexpr int KPT = BK / LPR;                  // k values per loader thread
+  constexpr int KSUB = BK / 16;                  // 16-deep sub-tiles a stage
+  static_assert(KPT % 16 == 0 && S::NWARPS / S::WARPS_N * 16 == BM,
+                "tile and thread counts do not fit");
+  extern __shared__ __align__(128) int8_t smem[];
+  __shared__ uint32_t row_part[LPR][BM];
+  __shared__ uint32_t col_part[LPR][BN];
   __shared__ int row_live[BM];
 
   // This group's operands, scales and output (group 0 for a dense launch).
@@ -221,6 +409,8 @@ fused_gemm_kernel(const Params p0) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int wm = warp % (BM / 16);
+  const int wn = warp / (BM / 16);
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
@@ -243,85 +433,75 @@ fused_gemm_kernel(const Params p0) {
     return;
   }
 
-  // Loader roles: thread t loads KPT consecutive k of A row t/2 and of
+  // Loader roles: thread t loads KPT consecutive k of A row t / LPR and of
   // B column t % 64, and keeps that row's (column's) partial raw sum.
-  const int a_row = tid >> 1, a_half = tid & 1;
-  const int b_col = tid & (BN - 1), b_half = tid >> 6;
+  const int a_row = tid / LPR, a_part = tid % LPR;
+  const int b_col = tid % BN, b_part = tid / BN;
   const int gm = m0 + a_row;
   const int gn = n0 + b_col;
   const bool a_ok = gm < p.M;
   const bool b_ok = gn < p.N;
 
-  const bool warp_in = m0 + warp * 16 < p.M;
+  const bool warp_in = m0 + wm * 16 < p.M;
   // A warp whose 16 rows are all dead skips its MMAs (warp-uniform).
   const bool warp_mma = __any_sync(0xffffffffu,
-                                   lane < 16 && row_live[warp * 16 + lane]);
-  const int k_end = NACC == 1 ? p.K : p.kp;      // logical (padded) K
+                                   lane < 16 && row_live[wm * 16 + lane]);
+  const int k_end = L == MM1 ? p.K : p.kp;       // logical (padded) K
   const int mask = (1 << p.h) - 1;
+  const int mask2 = (1 << p.h2) - 1;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[NACC][BN / 16];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[NACC][WN];
 #pragma unroll
   for (int q = 0; q < NACC; ++q)
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[q][j], 0);
-  int row_sum = 0, col_sum = 0;
+    for (int j = 0; j < WN; ++j) wmma::fill_fragment(acc[q][j], 0);
+  uint32_t row_sum = 0, col_sum = 0;             // modulo 2^32
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
 #pragma unroll
     for (int s = 0; s < KPT / 16; ++s) {
-      const int sub = a_half * (KPT / 16) + s;   // A sub-tile of this pass
-      const int kb = k0 + sub * 16;
-      uint32_t wa[NPLANE][4] = {};
-      uint32_t wb[NPLANE][4] = {};
+      // This pass's A and B sub-tiles: every global load is issued before
+      // any digit is packed, so the loads are in flight together.
+      const int sa = a_part * (KPT / 16) + s;
+      const int sb = b_part * (KPT / 16) + s;
+      const int ka = k0 + sa * 16, kb = k0 + sb * 16;
+      int va[16], vb[16];
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
-        const int k = kb + c;
-        const bool in_k = k < p.K;
-        const bool in_kp = k < k_end;
-        const int va = (a_ok && in_k)
-            ? static_cast<int>(A[static_cast<size_t>(gm) * p.K + k]) : 0;
-        row_sum += va;
-        put_digits<NPLANE>(wa, c, va, in_kp, p.h, mask, p.z);
+        va[c] = (a_ok && ka + c < p.K)
+            ? static_cast<int>(A[static_cast<size_t>(gm) * p.K + ka + c]) : 0;
+        vb[c] = (b_ok && kb + c < p.K)
+            ? static_cast<int>(B[static_cast<size_t>(kb + c) * p.N + gn]) : 0;
       }
-      const int kbb = k0 + (b_half * (KPT / 16) + s) * 16;
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
-        const int k = kbb + c;
-        const bool in_k = k < p.K;
-        const bool in_kp = k < k_end;
-        const int vb = (b_ok && in_k)
-            ? static_cast<int>(B[static_cast<size_t>(k) * p.N + gn]) : 0;
-        col_sum += vb;
-        put_digits<NPLANE>(wb, c, vb, in_kp, p.h, mask, p.z);
+        row_sum += static_cast<uint32_t>(va[c]);
+        col_sum += static_cast<uint32_t>(vb[c]);
       }
-      const int bsub = b_half * (KPT / 16) + s;
-#pragma unroll
-      for (int q = 0; q < NPLANE; ++q) {
-        *reinterpret_cast<uint4*>(a_s + q * A_PLANE + sub * BM * 16
-                                  + a_row * 16) =
-            make_uint4(wa[q][0], wa[q][1], wa[q][2], wa[q][3]);
-        *reinterpret_cast<uint4*>(b_s + q * B_PLANE + bsub * BN * 16
-                                  + b_col * 16) =
-            make_uint4(wb[q][0], wb[q][1], wb[q][2], wb[q][3]);
-      }
+      pack_store<L>(va, ka, k_end, p, mask, mask2,
+                    a_s + sa * BM * 16 + a_row * 16, A_PLANE);
+      pack_store<L>(vb, kb, k_end, p, mask, mask2,
+                    b_s + sb * BN * 16 + b_col * 16, B_PLANE);
     }
     __syncthreads();
     if (warp_mma) {
 #pragma unroll
       for (int kk = 0; kk < KSUB; ++kk) {
 #pragma unroll
-        for (int q = 0; q < NACC; ++q) {
+        for (int pi = 0; pi < S::NPROD; ++pi) {
+          const Prod pr = product<L>(pi);
           wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
                          wmma::row_major> af;
           wmma::load_matrix_sync(
-              af, a_s + q * A_PLANE + kk * BM * 16 + warp * 256, 16);
+              af, a_s + pr.a * A_PLANE + kk * BM * 16 + wm * 256, 16);
 #pragma unroll
-          for (int j = 0; j < BN / 16; ++j) {
+          for (int j = 0; j < WN; ++j) {
             wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
                            wmma::col_major> bf;
             wmma::load_matrix_sync(
-                bf, b_s + q * B_PLANE + kk * BN * 16 + j * 256, 16);
-            wmma::mma_sync(acc[q][j], af, bf, acc[q][j]);
+                bf, b_s + pr.b * B_PLANE + kk * BN * 16 + (wn * WN + j) * 256,
+                16);
+            wmma::mma_sync(acc[pr.acc][j], af, bf, acc[pr.acc][j]);
           }
         }
       }
@@ -329,14 +509,15 @@ fused_gemm_kernel(const Params p0) {
     __syncthreads();
   }
 
-  // Zero-point sums: two loader threads share each row (column).
-  row_part[a_half][a_row] = row_sum;
-  col_part[b_half][b_col] = col_sum;
+  // Zero-point sums: LPR loader threads share each row (column).
+  row_part[a_part][a_row] = row_sum;
+  col_part[b_part][b_col] = col_sum;
   __syncthreads();
   if (!warp_in) return;
   if (!warp_mma) {
-    for (int idx = lane; idx < 16 * BN; idx += 32) {
-      const int m = m0 + warp * 16 + idx / BN, n = n0 + idx % BN;
+    for (int idx = lane; idx < 16 * WN * 16; idx += 32) {
+      const int m = m0 + wm * 16 + idx / (WN * 16);
+      const int n = n0 + wn * WN * 16 + idx % (WN * 16);
       if (m < p.M && n < p.N) store_zero(p, m, n);
     }
     return;
@@ -346,7 +527,7 @@ fused_gemm_kernel(const Params p0) {
   // (now free) tile memory and its lanes combine and store 8 elements each.
   int* stage = reinterpret_cast<int*>(smem) + warp * NACC * 256;
 #pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
+  for (int j = 0; j < WN; ++j) {
 #pragma unroll
     for (int q = 0; q < NACC; ++q)
       wmma::store_matrix_sync(stage + q * 256, acc[q][j], 16,
@@ -355,26 +536,98 @@ fused_gemm_kernel(const Params p0) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int idx = e * 32 + lane;
-      const int r = warp * 16 + (idx >> 4);
-      const int c = j * 16 + (idx & 15);
+      const int r = wm * 16 + (idx >> 4);
+      const int c = (wn * WN + j) * 16 + (idx & 15);
       const int m = m0 + r, n = n0 + c;
       if (m >= p.M || n >= p.N) continue;
       if (!row_live[r]) {
         store_zero(p, m, n);                     // dead row: exact zero
-      } else if constexpr (NACC == 3) {
-        store_out<NACC>(p, stage[idx], stage[256 + idx], stage[512 + idx],
-                        row_part[0][r] + row_part[1][r],
-                        col_part[0][c] + col_part[1][c], m, n);
-      } else {
-        store_out<NACC>(p, stage[idx], 0, 0, 0, 0, m, n);
+        continue;
       }
+      int cv[NACC];
+#pragma unroll
+      for (int q = 0; q < NACC; ++q) cv[q] = stage[q * 256 + idx];
+      uint32_t row = 0, col = 0;
+#pragma unroll
+      for (int q = 0; q < LPR; ++q) {
+        row += row_part[q][r];
+        col += col_part[q][c];
+      }
+      store_out<L>(p, cv, row, col, m, n);
     }
     __syncwarp();
   }
 }
 
+// Launches one instance on `stream` without synchronising; returns
+// cudaGetLastError().
+template <int L, typename T, bool GROUPED>
+int launch_instance(const Params& p, int groups, cudaStream_t stream) {
+  constexpr int smem = Shape<L>::SMEM_BYTES;
+  if (smem > 48 * 1024) {            // above the default: opt in per device
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_gemm_kernel<L, T, GROUPED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, groups);
+  fused_gemm_kernel<L, T, GROUPED>
+      <<<grid, Shape<L>::NTHREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, typename T>
+int launch_layout(const Params& p, int groups, bool grouped,
+                  cudaStream_t stream) {
+  return grouped ? launch_instance<L, T, true>(p, groups, stream)
+                 : launch_instance<L, T, false>(p, groups, stream);
+}
+
+// One function per layout, each defined in its own build unit.
+int launch_mm1(const Params& p, int groups, bool grouped, cudaStream_t s);
+int launch_kmm2(const Params& p, int groups, bool grouped, cudaStream_t s);
+int launch_mm2(const Params& p, int groups, bool grouped, cudaStream_t s);
+int launch_kmm4(const Params& p, int groups, bool grouped, cudaStream_t s);
+int launch_kmm4_wide(const Params& p, int groups, bool grouped,
+                     cudaStream_t s);
+
+#if FG_UNIT(1)
+int launch_mm1(const Params& p, int groups, bool grouped, cudaStream_t s) {
+  return launch_layout<MM1, int8_t>(p, groups, grouped, s);
+}
+#endif
+#if FG_UNIT(2)
+int launch_kmm2(const Params& p, int groups, bool grouped, cudaStream_t s) {
+  return launch_layout<KMM2, int16_t>(p, groups, grouped, s);
+}
+#endif
+#if FG_UNIT(3)
+int launch_mm2(const Params& p, int groups, bool grouped, cudaStream_t s) {
+  return launch_layout<MM2, int16_t>(p, groups, grouped, s);
+}
+#endif
+#if FG_UNIT(4)
+int launch_kmm4(const Params& p, int groups, bool grouped, cudaStream_t s) {
+  return launch_layout<KMM4, int32_t>(p, groups, grouped, s);
+}
+#endif
+#if FG_UNIT(5)
+int launch_kmm4_wide(const Params& p, int groups, bool grouped,
+                     cudaStream_t s) {
+  return launch_layout<KMM4_WIDE, int32_t>(p, groups, grouped, s);
+}
+#endif
+
+}  // namespace fused_gemm_detail
+
+#if FG_UNIT(0)
+namespace {
+
+using namespace fused_gemm_detail;
+
 // Fill the fields both entry points share; mode 1 = mm1 (int8 operands),
-// 2 = kmm2 (int16 operands); out_kind 0 = int32, 1 = float32, 2 = bfloat16.
+// 2 = kmm2 and 3 = mm2 (int16), 4 = kmm4 (int32); out_kind 0 = int32,
+// 1 = float32, 2 = bfloat16.
 Params make_params(const void* a, const void* b, const void* sx,
                    const void* sw, void* out, int M, int K, int N, int kp,
                    int h, int z, int combine_int32, int out_kind) {
@@ -390,6 +643,7 @@ Params make_params(const void* a, const void* b, const void* sx,
   p.N = N;
   p.kp = kp;
   p.h = h;
+  p.h2 = (h + 2) / 2;                // ceil((h + 1) / 2), kmm4's level 2
   p.z = z;
   p.combine_int32 = combine_int32;
   p.out_kind = out_kind;
@@ -397,27 +651,37 @@ Params make_params(const void* a, const void* b, const void* sx,
   p.n_seg = 0;
   p.pow_h = std::ldexp(1.0f, h);
   p.pow_2h = std::ldexp(1.0f, 2 * h);
+  p.pow_h2 = std::ldexp(1.0f, p.h2);
+  p.pow_2h2 = std::ldexp(1.0f, 2 * p.h2);
   p.zf = static_cast<float>(z);
   p.zzkp = static_cast<float>(static_cast<double>(z) * z * kp);
   return p;
 }
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-template <bool GROUPED>
-int launch(const Params& p, int groups, int mode, void* stream) {
+// Refuses digit splits whose digits would not fit s8 (see the header).
+int launch(const Params& p, int groups, bool grouped, int mode,
+           void* stream) {
   if (groups < 1 || groups > 65535 || (p.M + BM - 1) / BM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 1) {
-    fused_gemm_kernel<1, int8_t, GROUPED><<<grid, NTHREADS, 0, s>>>(p);
-  } else if (mode == 2) {
-    fused_gemm_kernel<3, int16_t, GROUPED><<<grid, NTHREADS, 0, s>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case MM1:
+      return launch_mm1(p, groups, grouped, s);
+    case KMM2:
+      if (p.h < 1 || p.h > 7) break;
+      return launch_kmm2(p, groups, grouped, s);
+    case MM2:
+      if (p.h < 1 || p.h > 8) break;
+      return launch_mm2(p, groups, grouped, s);
+    case KMM4:
+      if (p.h < 9 || p.h > 13) break;
+      return p.h <= 11 ? launch_kmm4(p, groups, grouped, s)
+                       : launch_kmm4_wide(p, groups, grouped, s);
+    default:
+      break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -431,7 +695,7 @@ extern "C" int fused_gemm_launch(const void* a, const void* b,
                                  void* stream) {
   const Params p = make_params(a, b, sx, sw, out, M, K, N, kp, h, z,
                                combine_int32, out_kind);
-  return launch<false>(p, 1, mode, stream);
+  return launch(p, 1, false, mode, stream);
 }
 
 // Grouped C entry point: (G, M, K) x (G, K, N) -> (G, M, N), contiguous;
@@ -452,5 +716,6 @@ extern "C" int fused_gemm_grouped_launch(
     p.seg = seg;
     p.n_seg = n_seg;
   }
-  return launch<true>(p, G, mode, stream);
+  return launch(p, G, true, mode, stream);
 }
+#endif

@@ -1,5 +1,5 @@
-"""Fused single-pass integer GEMM (modes mm1 and kmm2), dense and grouped:
-wrappers, plain PyTorch versions and launch counts.
+"""Fused single-pass integer GEMM (modes mm1, kmm2, mm2 and kmm4), dense and
+grouped: wrappers, plain PyTorch versions and launch counts.
 
 Port of ``repro.kernels.fused_gemm.fused_gemm`` and ``fused_gemm_grouped``.
 On CUDA tensors :func:`fused_gemm` and :func:`fused_gemm_grouped` launch the
@@ -14,11 +14,14 @@ The grouped GEMM is ragged when it gets ``counts`` (E, S) and a static
 exact zeros; live rows equal a dense :func:`fused_gemm` of that expert.
 
 Numerics are the reference's, bit for bit: the centered digit split at
-``h = ceil(w/2)`` with ``z = 2^(h-1)``, the padded contraction length
+``h = ceil(w/2)`` with ``z = 2^(h-1)`` (kmm4 re-splits each branch plainly
+at ``h2 = ceil((h+1)/2)``), the padded contraction length
 ``kp = ceil(K / block_k) * block_k`` (padding positions split as (0, -z) and
-``kp`` enters the Section IV-D correction), and the fp32 operation order of
-the Fig. 9 combine, correction and dequant epilogue.  Of the reference's
-tile arguments only ``block_k`` is taken, because it fixes ``kp``; the CUDA
+``kp`` enters the Section IV-D correction), the int32 row and column sums
+(which wrap modulo 2^32 as the reference's scratch does, visible at kmm4
+widths for rows that lean one way), and the fp32 operation order of the
+mode's combine, correction and dequant epilogue.  Of the reference's tile
+arguments only ``block_k`` is taken, because it fixes ``kp``; the CUDA
 kernel picks its own tiles.
 """
 from __future__ import annotations
@@ -32,15 +35,18 @@ import torch
 from repro_torch.kernels import build
 
 MODES = ("mm1", "kmm2", "mm2", "kmm4")
-PORTED_MODES = ("mm1", "kmm2")
 
 # Launches of the CUDA kernel per mode, dense and grouped; each wrapper adds
 # one where it launches and nowhere else (CPU calls run the plain version
 # and count 0).
-launches: Dict[str, int] = {mode: 0 for mode in PORTED_MODES}
-grouped_launches: Dict[str, int] = {mode: 0 for mode in PORTED_MODES}
+launches: Dict[str, int] = {mode: 0 for mode in MODES}
+grouped_launches: Dict[str, int] = {mode: 0 for mode in MODES}
 
-_MODE_ID = {"mm1": 1, "kmm2": 2}
+_MODE_ID = {"mm1": 1, "kmm2": 2, "mm2": 3, "kmm4": 4}
+# Widths (lo, hi] at which mm2's and kmm4's digits fit the card's s8 MMAs
+# (kmm2's window is (m, 14]).  kmm4 inside the KMM2 window is a tuner-only
+# alternative in the reference, and the tuner is not ported.
+_WINDOWS = {"mm2": (8, 16), "kmm4": (16, 26)}
 _OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
@@ -52,22 +58,22 @@ def reset_launches() -> None:
 
 def resolve(w: int, m: int = 8, mode: str = "auto"):
     """(mode, h, z, carrier dtype) for a w-bit GEMM, as the reference's
-    ``_resolve``: int8 carrier in the MM1 window, int16 through w = 16."""
+    ``_resolve``: int8 carrier in the MM1 window, int16 through w = 16,
+    int32 above.  kmm4's level-2 split point is ``h2 = ceil((h+1)/2)``."""
     if mode == "auto":
         mode = "mm1" if w <= m else "kmm2"
     if mode not in MODES:
         raise ValueError(f"unknown fused mode {mode!r}; choices {MODES}")
-    if mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"fused mode {mode!r} is not ported yet (ROADMAP: TPU kernel "
-            f"rows 1c/1d, modes mm2 and kmm4 of the fused kernel)")
-    if mode == "kmm2" and not m < w <= 14:
-        raise ValueError(f"kmm2 digits fit s8 only for {m} < w <= 14, "
-                         f"got w={w}")
     split = mode != "mm1"
+    if split:
+        lo, hi = (m, 14) if mode == "kmm2" else _WINDOWS[mode]
+        if not lo < w <= hi:
+            raise ValueError(f"{mode} digits fit s8 only for {lo} < w <= "
+                             f"{hi}, got w={w}")
     h = -(-w // 2) if split else 0
     z = (1 << (h - 1)) if split else 0
-    carrier = torch.int16 if split else torch.int8
+    carrier = (torch.int8 if not split else
+               torch.int16 if w <= 16 else torch.int32)
     return mode, h, z, carrier
 
 
@@ -254,20 +260,23 @@ def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,
     or, batched over leading dimensions, on (E, M, K) x (E, K, N).
 
     Digit products run as float64 matmuls, which are exact here: every
-    partial sum is an integer below K * 2^14 << 2^53.  The epilogue repeats
-    the kernel's fp32 operation order one rounded op at a time.
+    digit entering a product is below 2^8 in magnitude (kmm4's nested
+    pre-adder reaches 189 at w = 26), so every partial sum is an integer
+    below K * 2^16 << 2^53.  Digit products and the row and column sums are
+    then taken modulo 2^32, as the reference's int32 scratch holds them.
+    The epilogue repeats the kernel's fp32 operation order one rounded op
+    at a time.
     """
     k_dim = a.shape[-1]
     a = a.to(torch.int64)
     b = b.to(torch.int64)
 
     def dot(x, y):
-        return torch.matmul(x.to(torch.float64),
-                            y.to(torch.float64)).to(torch.int64)
+        return _wrap_int32(torch.matmul(x.to(torch.float64),
+                                        y.to(torch.float64)).to(torch.int64))
 
     if mode == "mm1":
-        val = dot(a, b).to(torch.int32)
-        is_int = True
+        val = dot(a, b)
     else:
         pad = kp - k_dim
         if pad:
@@ -276,34 +285,74 @@ def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,
         mask = (1 << h) - 1
         a1, a0 = a >> h, (a & mask) - z
         b1, b0 = b >> h, (b & mask) - z
-        c1 = dot(a1, b1).to(torch.int32)
-        cs = dot(a1 + a0, b1 + b0).to(torch.int32)
-        c0 = dot(a0, b0).to(torch.int32)
-        row = a.sum(dim=-1, keepdim=True).to(torch.int32) - kp * z
-        col = b.sum(dim=-2, keepdim=True).to(torch.int32) - kp * z
+        if mode == "kmm2":
+            accs = [dot(a1, b1), dot(a1 + a0, b1 + b0), dot(a0, b0)]
+        elif mode == "mm2":
+            accs = [dot(a1, b1), dot(a1, b0), dot(a0, b1), dot(a0, b0)]
+        else:                   # kmm4: plain re-split of each branch at h2
+            h2 = -(-(h + 1) // 2)
+            mask2 = (1 << h2) - 1
+            accs = []
+            for av, bv in ((a1, b1), (a1 + a0, b1 + b0), (a0, b0)):
+                av1, av0 = av >> h2, av & mask2
+                bv1, bv0 = bv >> h2, bv & mask2
+                accs += [dot(av1, bv1), dot(av1 + av0, bv1 + bv0),
+                         dot(av0, bv0)]
+        row = _wrap_int32(a.sum(dim=-1, keepdim=True) - kp * z)
+        col = _wrap_int32(b.sum(dim=-2, keepdim=True) - kp * z)
         if combine_int32:
-            c1, cs, c0 = c1.to(torch.int64), cs.to(torch.int64), \
-                c0.to(torch.int64)
-            core = (c1 << (2 * h)) + ((cs - c1 - c0) << h) + c0
-            val = core + (z * row.to(torch.int64) + z * col.to(torch.int64)
-                          + z * z * kp)
-            val = _wrap_int32(val)
-            is_int = True
+            val = _wrap_int32(_combine_int(mode, accs, h)
+                              + (z * row.to(torch.int64)
+                                 + z * col.to(torch.int64) + z * z * kp))
         else:
             f32 = torch.float32
-            c1f, c0f = c1.to(f32), c0.to(f32)
-            mid = (cs.to(f32) - c1f) - c0f
-            core = (c1f * float(2 ** (2 * h)) + mid * float(2 ** h)) + c0f
+            core = _combine_f32(mode, accs, h)
             corr = ((row.to(f32) * float(z) + col.to(f32) * float(z))
                     + float(z) * float(z) * float(kp))
             val = core + corr
-            is_int = False
     if sx is not None:
         val = val.to(torch.float32) * (sx * sw)
-        is_int = False
     if out_dtype == torch.int32:
         return val
     return val.to(out_dtype)
+
+
+def _kmm2_f32(c1, cs, c0, h: int):
+    """Fig. 9 post-adder in fp32, the reference's ``_combine_kmm2`` order on
+    int32 digit products (and ``_combine_kmm2_wide``'s on fp32 branch
+    values, for which the casts are no-ops)."""
+    c1, cs, c0 = (c.to(torch.float32) for c in (c1, cs, c0))
+    mid = (cs - c1) - c0
+    return (c1 * float(2 ** (2 * h)) + mid * float(2 ** h)) + c0
+
+
+def _combine_f32(mode: str, accs, h: int) -> torch.Tensor:
+    """The mode's fp32 combine of its int32 digit products."""
+    if mode == "kmm2":
+        return _kmm2_f32(*accs, h)
+    if mode == "mm2":
+        c1, c10, c01, c0 = (c.to(torch.float32) for c in accs)
+        mid = c10 + c01
+        return (c1 * float(2 ** (2 * h)) + mid * float(2 ** h)) + c0
+    h2 = -(-(h + 1) // 2)
+    branches = [_kmm2_f32(*accs[i:i + 3], h2) for i in (0, 3, 6)]
+    return _kmm2_f32(*branches, h)
+
+
+def _combine_int(mode: str, accs, h: int) -> torch.Tensor:
+    """The mode's int32-ring combine (int64 values, wrapped per level)."""
+    def kmm2(c1, cs, c0, shift):
+        c1, cs, c0 = (c.to(torch.int64) for c in (c1, cs, c0))
+        return _wrap_int32((c1 << (2 * shift)) + ((cs - c1 - c0) << shift)
+                           + c0).to(torch.int64)
+
+    if mode == "kmm2":
+        return kmm2(*accs, h)
+    if mode == "mm2":
+        c1, c10, c01, c0 = (c.to(torch.int64) for c in accs)
+        return (c1 << (2 * h)) + ((c10 + c01) << h) + c0
+    h2 = -(-(h + 1) // 2)
+    return kmm2(*(kmm2(*accs[i:i + 3], h2) for i in (0, 3, 6)), h)
 
 
 def fused_gemm_grouped_reference(a: torch.Tensor, b: torch.Tensor,

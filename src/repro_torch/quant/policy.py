@@ -39,3 +39,5 @@ POLICY_MIXED = QuantConfig(
     enabled=True, default_bits=8,
     overrides=(("*lm_head", 12), ("*o_proj", 12), ("*router", 12)),
 )
+# The (2m-2, 2m] boundary: every site runs the fused kernel's mm2 mode.
+POLICY_W16 = QuantConfig(enabled=True, default_bits=16)

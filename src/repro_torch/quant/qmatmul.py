@@ -3,7 +3,8 @@
 
 Dynamic per-token activation quantization and per-channel weight
 quantization to ``w`` bits, then one fused kernel launch that does the
-integer GEMM (MM1 or KMM2), the zero-point correction and the dequant
+integer GEMM in the width's mode (MM1 for w <= 8, KMM2 for 9-14, MM2 for
+15-16, depth-2 KMM for 17-26), the zero-point correction and the dequant
 epilogue.  Two entry points, as in the reference: ``quantized_matmul`` for
 (..., K) @ (K, N) dense layers and ``quantized_matmul_batched`` for
 (E, C, K) @ (E, K, N) expert GEMMs, which run as one grouped launch (ragged
@@ -15,7 +16,8 @@ that the fp32 combine rounds with.
 
 Not ported yet, and raising rather than changing route: the XLA
 digit-recursion GEMM (``_int_dot``) that the reference falls back to
-outside the fused window or the kernel's bounds, ``force_mode="mm2"``,
+outside the fused windows (w >= 27, recursion deeper than 2 levels) or the
+kernel's bounds, ``force_mode="mm2"``,
 pre-quantized weight records, and the straight-through backward
 (training).
 """

@@ -76,7 +76,7 @@ def test_fused_gemm_matches_jax(w):
                 np.testing.assert_array_equal(got.astype(np.int64),
                                               ref_int_gemm_i64(a, b))
     # CPU tensors run the plain version: the CUDA kernel never launched.
-    assert fg.launches == {"mm1": 0, "kmm2": 0}
+    assert fg.launches == {mode: 0 for mode in fg.MODES}
 
 
 @pytest.mark.parametrize("w", [9, 12, 14])
@@ -125,5 +125,5 @@ def test_wrapper_validates_inputs():
         fg.fused_gemm(a, b, w=12, out_dtype=torch.int32)   # fp32 combine
     with pytest.raises(ValueError):
         fg.fused_gemm(a, b, w=15)                      # digits exceed s8
-    with pytest.raises(NotImplementedError):
-        fg.fused_gemm(a, b, w=16, mode="mm2")          # not ported yet
+    with pytest.raises(ValueError):
+        fg.fused_gemm(a, b, w=27, mode="kmm4")         # depth 3: no s8 digits

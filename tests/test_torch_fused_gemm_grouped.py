@@ -78,8 +78,8 @@ def test_grouped_matches_jax(w):
         if counts is not None:
             assert not got[~np.broadcast_to(live, got.shape)].any()
     # CPU tensors run the plain version: the CUDA kernel never launched.
-    assert fg.grouped_launches == {"mm1": 0, "kmm2": 0}
-    assert fg.launches == {"mm1": 0, "kmm2": 0}
+    assert fg.grouped_launches == {mode: 0 for mode in fg.MODES}
+    assert fg.launches == {mode: 0 for mode in fg.MODES}
 
 
 @pytest.mark.parametrize("w,out_dtype", [(8, None), (12, torch.bfloat16)])

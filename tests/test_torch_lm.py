@@ -105,7 +105,7 @@ def both(request):
     fg.reset_launches()
     with torch.inference_mode():
         got = _run_torch(tcfg, tparams, toks, mask, last)
-    assert fg.launches == {"mm1": 0, "kmm2": 0}       # CPU: plain version
+    assert fg.launches == {m: 0 for m in fg.MODES}    # CPU: plain version
     return request.param, _run_jax(jcfg, jparams, toks, mask, last), got
 
 

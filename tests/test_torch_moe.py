@@ -48,7 +48,7 @@ ARCH = "granite-moe-3b-a800m"
 MOE_ATOL = 1e-5
 F32_ATOL = 1e-4
 MAX_SEQ = 32
-NO_LAUNCH = {"mm1": 0, "kmm2": 0}
+NO_LAUNCH = {mode: 0 for mode in fg.MODES}
 
 
 @pytest.fixture(scope="module")
@@ -137,7 +137,7 @@ def test_batched_outside_fused_window_raises():
     x = torch.randn(2, 4, 32)
     wm = torch.randn(2, 32, 8)
     with pytest.raises(NotImplementedError):
-        quantized_matmul_batched(x, wm, 16)
+        quantized_matmul_batched(x, wm, 27)
     with pytest.raises(NotImplementedError):
         quantized_matmul_batched(x, wm, 8,
                                  context=ExecContext(force_mode="mm2"))

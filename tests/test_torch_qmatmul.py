@@ -68,7 +68,7 @@ def test_quantized_matmul_matches_jax(bits, dtype):
         assert tuple(got.shape) == tuple(ref.shape)
         np.testing.assert_array_equal(_np(got), np.asarray(
             ref.astype(jnp.float32)), err_msg=f"shape {sx_} x {sw_}")
-    assert fg.launches == {"mm1": 0, "kmm2": 0}
+    assert fg.launches == {mode: 0 for mode in fg.MODES}
 
 
 def test_mixed_policy_sites_match_reference():
@@ -81,11 +81,12 @@ def test_mixed_policy_sites_match_reference():
 
 
 def test_outside_fused_window_raises():
-    """No silent route change: w=16 (mm2 window) and force_mode="mm2" are
-    the reference's XLA route, which the port does not have yet."""
+    """No silent route change: w=27 (digit recursion of depth 3) and
+    force_mode="mm2" are the reference's XLA route, which the port does not
+    have yet."""
     x = torch.randn(2, 32)
     wm = torch.randn(32, 8)
     with pytest.raises(NotImplementedError):
-        quantized_matmul(x, wm, 16)
+        quantized_matmul(x, wm, 27)
     with pytest.raises(NotImplementedError):
         quantized_matmul(x, wm, 8, context=ExecContext(force_mode="mm2"))

@@ -68,7 +68,7 @@ def test_greedy_tokens_match_jax_engine(models):
     got = _run_port(tcfg, tparams, GREEDY, slots=2)
     assert got == ref
     assert [len(g) for g in got] == [4, 3, 5]
-    assert fg.launches == {"mm1": 0, "kmm2": 0}       # CPU: plain version
+    assert fg.launches == {m: 0 for m in fg.MODES}    # CPU: plain version
 
 
 def test_continuous_matches_sequential_with_temperature(models):
