@@ -44,6 +44,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      events, warm-up excluded), and each model's prefill and decode
      tokens/s, step ms and peak device memory.
 
+The staged path (kernels/ops.py's run_plan and its kernels mm1_gemm,
+kmm2_gemm_planes and mm2_gemm_planes, csrc/staged_gemm.cu) and the tuner
+add, within the phases above:
+
+  3a. each staged kernel torch.equal to its plain version on int8 planes
+      at every dense serve (K, N) at M 1, 4, 16, 64, at granite's expert
+      (K, N) at M 8, 16, 32, at 5x300x130 and at M=2048, both combines
+      (mm1 at w=8, kmm2 at 12 and 14, mm2 at 15 and 16); the int16 planes
+      of the depth-2 staged path (kmm2's s8 route at w 17, 20, 22, its
+      split route at 23, 24, 26) through run_plan against its mirror, at
+      every llama projection at M 1-64 for w 20 and 24, with +-2^25 codes
+      and wrapping rows;
+  3b. run_plan on the card: staged == fused == mirror in each numerics
+      class, staged and fused timed side by side at llama's lm_head and
+      wi;
+  3c. the tuner (python -m repro_torch.tune) over llama's five (K, N) at
+      M 4 and 64, w 8, 12, 16 and 20, writing chiprun_out/tuned-h100.json,
+      with no candidate rejected;
+  3e. staged KMM2 against staged MM2 at w=12, M = 4 to 2048;
+  5.  serve paths under a table, each held to the same path without one
+      (tokens and full-width prefill logits torch.equal): llama mixed
+      under the tuned table, and forced onto the staged kernels — llama
+      mixed (112 mm1_gemm + 1 kmm2_gemm_planes a step), w16 (113
+      mm2_gemm_planes), w24 (339 split kmm2_gemm_planes), granite mixed
+      (128 + 3,840 per-expert mm1_gemm + 33 kmm2_gemm_planes) — with
+      exact launch counts and no fused launch; the tuned path's decode
+      step also timed in turns against the untabled one.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json`` beside this script.
@@ -52,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -88,6 +117,8 @@ ROUTE_KN = (2048, 8192)
 # top-8 routing
 GROUPED_KN = [(1536, 512), (512, 1536)]
 N_EXPERTS, TOP_K = 40, 8
+# The rows of one expert's GEMM: the capacities of GROUPED_CASES.
+EXPERT_ROWS = [8, 16, 32]
 # (label, C, seg, segments, tokens per segment): decode at widths 1, 2, 4
 # (capacity 8 per lane, S = 1), a prefill bucket of 8-32 tokens (capacity
 # 8) and of 64 tokens (capacity 16, overflow drops), and an edge case
@@ -114,6 +145,58 @@ PATHS = [
     ("granite-moe-3b-a800m", "w20", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
     ("granite-moe-3b-a800m", "w24", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
 ]
+
+
+# The staged kernels (rows 2-4 of PERF.md's table) on their digit planes:
+# mm1 at w=8, kmm2 at w=12 and 14, mm2 at w=15 and 16, at every dense
+# serve (K, N) at ROWS and RAGGED plus a compute-bound M=2048 at llama's
+# wi, both combines; timed at decode M=4 and prefill M=64 at wi and
+# lm_head and at M=2048.  The depth-2 staged path runs kmm2 on int16
+# planes (s8 route through w=22, split from w=23), checked through run_plan.
+STAGED_MODES = [("mm1", 8), ("kmm2", 12), ("kmm2", 14), ("mm2", 15),
+                ("mm2", 16)]
+STAGED_TIMED = [(4, 2048, 8192), (64, 2048, 8192), (4, 2048, 128512),
+                (64, 2048, 128512), (2048, 2048, 8192)]
+DEPTH2_WIDTHS = [17, 20, 22, 23, 24, 26]
+# ... and at every llama projection at the serve rows: w=24 is the forced
+# w24 path's split route, w=20 the s8 route on int16 planes.
+DEPTH2_SERVE_WIDTHS = [20, 24]
+# run_plan's numerics classes, staged against fused on the same operands
+# and block_k: (w, staged variant, depth, int32 combine).  Depth 2 at w=12
+# runs the fused kmm4 mode below its analytic window, as the tuner may.
+CLASSES = [(8, "mm1", 0, True), (12, "kmm2", 1, False),
+           (12, "kmm2", 1, True), (16, "mm2", 1, False),
+           (12, "kmm2", 2, False), (20, "kmm2", 2, False),
+           (24, "kmm2", 2, False)]
+CLASS_SHAPES = [(4, 2048, 128512), (4, 2048, 8192), (64, 2048, 8192),
+                RAGGED]
+# Staged KMM2 against staged MM2 at w=12 on the same planes.
+KMM_VS_MM_ROWS = [4, 64, 512, 2048]
+# The tuner: llama's five (K, N) at M in {4, 64} and four widths.
+TUNE_ROWS = [4, 64]
+TUNE_WIDTHS = [8, 12, 16, 20]
+# Serve paths under a tuning table, 2 requests of 4 new tokens each, held
+# to the same path without a table: (arch, policy, table, staged launches
+# per prefill and decode step; None for the tuned table, whose mix of
+# fused and staged plans the sweep decides).  "forced" pins the staged
+# plan of each width's numerics class at every key, so no fused kernel
+# runs: llama w24 runs kmm2 at depth 2 (three split launches a GEMM), and
+# granite's expert GEMMs run one staged mm1 per expert (40 a GEMM).
+TABLE_PATHS = [
+    ("llama3.2-1b", "mixed", "tuned", None),
+    ("llama3.2-1b", "mixed", "forced",
+     {"mm1_gemm": 112, "kmm2_gemm_planes_s8": 1}),
+    ("llama3.2-1b", "w16", "forced", {"mm2_gemm_planes": 113}),
+    ("llama3.2-1b", "w24", "forced", {"kmm2_gemm_planes_split": 339}),
+    ("granite-moe-3b-a800m", "mixed", "forced",
+     {"mm1_gemm": 128 + 96 * N_EXPERTS, "kmm2_gemm_planes_s8": 33}),
+]
+TUNED_TABLE = ROOT / "chiprun_out" / "tuned-h100.json"
+# The tuned table's timing runs (tuned_ab): new tokens a request, and the
+# order of the runs with and without the table.
+AB_NEW_TOKENS = 16
+AB_ORDER = ("plain", "tuned", "tuned", "plain", "plain", "tuned")
+STAGED_SOURCE = "src/repro_torch/kernels/csrc/staged_gemm.cu"
 
 
 def log(msg: str) -> None:
@@ -500,6 +583,490 @@ def library_int_mm_ms(torch, fg, a, b):
     return None
 
 
+def staged_modules():
+    """The staged kernels' wrapper modules (each keeps its launch counts)."""
+    from repro_torch.kernels import kmm_gemm, mm1_gemm, mm2_gemm
+    return mm1_gemm, kmm_gemm, mm2_gemm
+
+
+def staged_launches() -> dict:
+    out = {}
+    for mod in staged_modules():
+        out.update(mod.launches)
+    return out
+
+
+def reset_all(fg) -> None:
+    fg.reset_launches()
+    for mod in staged_modules():
+        mod.reset_launches()
+
+
+def pow2_cover(k: int) -> int:
+    return 1 << max(3, (k - 1).bit_length())
+
+
+# s8 tensor-core products per output element and K step of each staged
+# kernel, and its input planes per operand.
+STAGED_PRODUCTS = {"mm1_gemm": 1, "kmm2_gemm_planes_s8": 3,
+                   "kmm2_gemm_planes_split": 4, "mm2_gemm_planes": 4}
+
+
+def staged_bound_ms(kernel: str, m: int, k: int, n: int, plane_bytes: int,
+                    out_bytes: int = 4):
+    """Least time for one staged kernel: its input planes read once and
+    the output written once at the card's memory rate, or its s8
+    tensor-core products at the int8 peak."""
+    nin = 1 if kernel == "mm1_gemm" else 2
+    nbytes = nin * (m * k + k * n) * plane_bytes + m * n * out_bytes
+    ops = 2 * m * k * n * STAGED_PRODUCTS[kernel]
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rand_bits(torch, gen, w: int, shape):
+    q = 2 ** (w - 1) - 1
+    return torch.randint(-q, q + 1, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def staged_call(kernel: str, planes, h: int, ci: bool, plain: bool):
+    """A zero-argument call of one staged kernel (or its plain version) on
+    ``planes``."""
+    from repro_torch.kernels import ref
+    mm1_gemm, kmm_gemm, mm2_gemm = staged_modules()
+    if kernel == "mm1_gemm":
+        fn = ref.ref_int_gemm if plain else mm1_gemm.mm1_gemm
+        return lambda: fn(*planes)
+    if kernel.startswith("kmm2"):
+        if plain:
+            return lambda: ref.ref_kmm2_planes(*planes, h, combine_int32=ci)
+        return lambda: kmm_gemm.kmm2_gemm_planes(*planes, h=h,
+                                                 combine_int32=ci)
+    if plain:
+        return lambda: ref.ref_mm2_planes(*planes, h, combine_int32=ci)
+    return lambda: mm2_gemm.mm2_gemm_planes(*planes, h=h, combine_int32=ci)
+
+
+def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
+    """One staged kernel against its plain version (``torch.equal``),
+    timed with its plain version and bound when ``timed``."""
+    got = staged_call(kernel, planes, h, ci, False)()
+    want = staged_call(kernel, planes, h, ci, True)()
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max().item()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        fail(f"{kernel} {what}: kernel != plain version (max abs err {err})")
+    m, k = planes[0].shape
+    n = planes[-1].shape[1]
+    row = {"kernel": kernel, "case": what, "M": m, "K": k, "N": n,
+           "combine_int32": ci, "plane_dtype": str(planes[0].dtype),
+           "max_abs_err": err, **dict(extra)}
+    if timed:
+        row["ms"] = cuda_ms(torch, staged_call(kernel, planes, h, ci, False))
+        row["plain_ms"] = cuda_ms(torch, staged_call(kernel, planes, h, ci,
+                                                     True), iters=3,
+                                  warmup=1)
+        row["bound_ms"], row["bound_by"] = staged_bound_ms(
+            kernel, m, k, n, planes[0].element_size())
+    rows.append(row)
+    return row
+
+
+def staged_checks(torch, fg):
+    """Phase 3 (a) and (e) for the staged kernels on int8 planes: every
+    dense serve (K, N) at ROWS, granite's expert (K, N) at EXPERT_ROWS (one
+    expert's GEMM, as a table's batched redirect runs it), RAGGED and
+    M=2048 at llama's wi, both
+    combines (mm1 is int32 only), the K padded as the staged path pads it;
+    timed at STAGED_TIMED with the fp32 combine the serve redirect runs,
+    and torch._int_mm beside mm1 at M=64."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    every_kn = MM1_KN + KMM2_KN + GRANITE_MM1_KN + GRANITE_KMM2_KN
+    shapes = ([(m, k, n) for k, n in every_kn for m in ROWS]
+              + [(m, k, n) for k, n in GROUPED_KN for m in EXPERT_ROWS]
+              + [RAGGED, (2048, 2048, 8192)])
+    rows = []
+    for mode, w in STAGED_MODES:
+        h = -(-w // 2)
+        kernel = {"mm1": "mm1_gemm", "kmm2": "kmm2_gemm_planes_s8",
+                  "mm2": "mm2_gemm_planes"}[mode]
+        for m, k, n in shapes:
+            bk = min(256, pow2_cover(k))
+            a = ops._pad_to(rand_bits(torch, gen, w, (m, k)), 1, bk)
+            b = ops._pad_to(rand_bits(torch, gen, w, (k, n)), bk, 1)
+            if mode == "mm1":
+                planes = (a.to(torch.int8), b.to(torch.int8))
+            else:
+                planes = ops._planes(a, h)[:2] + ops._planes(b, h)[:2]
+            for ci in ((True,) if mode == "mm1" else (False, True)):
+                timed = (m, k, n) in STAGED_TIMED and (mode == "mm1"
+                                                       or not ci)
+                row = check_staged(torch, kernel, planes, h, ci,
+                                   f"w={w} {m}x{k}x{n}", timed, rows,
+                                   {"w": w})
+                if timed and mode == "mm1" and m == 64:
+                    row["library_ms"] = library_int_mm_ms(
+                        torch, fg, a[:, :k].to(torch.int8),
+                        b[:k].to(torch.int8))
+                if timed:
+                    log(f"  {kernel:22s} w={w} {m}x{k}x{n}: equal | "
+                        f"kernel {row['ms']:.4f} ms | bound "
+                        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | "
+                        f"plain {row['plain_ms']:.3f} ms"
+                        + (f" | _int_mm {row['library_ms']}"
+                           if "library_ms" in row else ""))
+        log(f"  {kernel} w={w}: equal to its plain version at "
+            f"{len(shapes)} shapes")
+    return rows
+
+
+def kmm4_branch_planes(a, b, w: int):
+    """The int16 planes of the depth-2 staged path's middle branch
+    (A1 + A0bar), as ops._kmm4_core forms them, and its split point."""
+    import torch
+    h = -(-w // 2)
+    z = 1 << (h - 1)
+    h2 = -(-(h + 1) // 2)
+    av = (a >> h) + ((a & ((1 << h) - 1)) - z)
+    bv = (b >> h) + ((b & ((1 << h) - 1)) - z)
+    m2 = (1 << h2) - 1
+    return ((av >> h2).to(torch.int16), (av & m2).to(torch.int16),
+            (bv >> h2).to(torch.int16), (bv & m2).to(torch.int16)), h2
+
+
+def depth2_checks(torch, rows):
+    """Phase 3 (a) for the int16 route: run_plan's staged depth-2 path
+    (three kmm2_gemm_planes launches on int16 planes, s8 route through
+    w=22, split from w=23) equal to its mirror at SWEEP_SHAPES and llama's
+    lm_head in both combines, at every llama projection (K, N) at ROWS for
+    DEPTH2_SERVE_WIDTHS, with rows whose int32 sums wrap at w=24 and
+    +-2^25 codes at w=26; the middle branch's kernel timed directly at
+    llama's wi and lm_head (decode)."""
+    from repro_torch.core.dispatch import ExecPlan
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    out = []
+
+    def run(what, w, a, b):
+        bk = min(256, pow2_cover(a.shape[1]))
+        for ci in (False, True):
+            plan = ExecPlan("kmm2", w, block_k=bk, combine_int32=ci,
+                            depth=2)
+            got = ops.run_plan(a, b, plan=plan)
+            want = ops.run_plan(a, b, plan=plan, use_ref_kernels=True)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"staged depth 2 {what} w={w} int32={ci}: kernels != "
+                     f"mirror")
+        out.append({"case": what, "w": w, "M": a.shape[0], "K": a.shape[1],
+                    "N": b.shape[1], "equal": True})
+
+    for w in DEPTH2_WIDTHS:
+        for m, k, n in SWEEP_SHAPES + [(4, 2048, 128512)]:
+            run("sweep", w, rand_bits(torch, gen, w, (m, k)),
+                rand_bits(torch, gen, w, (k, n)))
+        log(f"  run_plan kmm2 depth 2 w={w} "
+            f"({'split' if w >= 23 else 's8'} route, int16 planes): equal "
+            f"to the mirror at {len(SWEEP_SHAPES) + 1} shapes, both "
+            f"combines")
+    for w in DEPTH2_SERVE_WIDTHS:
+        for k, n in MM1_KN:
+            for m in ROWS:
+                run("serve", w, rand_bits(torch, gen, w, (m, k)),
+                    rand_bits(torch, gen, w, (k, n)))
+        log(f"  run_plan kmm2 depth 2 w={w}: equal to the mirror at every "
+            f"llama projection (K, N) at M {ROWS}, both combines")
+    top = 2 ** 25
+    a, b = (rand_bits(torch, gen, 26, (64, 1536)),
+            rand_bits(torch, gen, 26, (1536, 512)))
+    a[0], a[1], a[2, ::2] = top, -top, top
+    b[:, 0], b[:, 1], b[::3, 2] = top, -top, top
+    run("edge +-2^25", 26, a, b)
+    a, b = (rand_bits(torch, gen, 24, (4, 8192)),
+            rand_bits(torch, gen, 24, (8192, 256)))
+    a[0], a[1] = 2 ** 22, -2 ** 22
+    run("wrapping rows", 24, a, b)
+    log("  run_plan kmm2 depth 2: +-2^25 at w=26 and wrapping rows at w=24 "
+        "equal to the mirror")
+    for w in (20, 24):
+        for m, k, n in [(4, 2048, 8192), (4, 2048, 128512)]:
+            planes, h2 = kmm4_branch_planes(rand_bits(torch, gen, w, (m, k)),
+                                            rand_bits(torch, gen, w, (k, n)),
+                                            w)
+            kernel = ("kmm2_gemm_planes_split" if w >= 23 else
+                      "kmm2_gemm_planes_s8")
+            row = check_staged(torch, kernel, planes, h2, False,
+                               f"w={w} branch {m}x{k}x{n}", True, rows,
+                               {"w": w})
+            log(f"  {kernel:22s} w={w} int16 branch {m}x{k}x{n}: equal | "
+                f"kernel {row['ms']:.4f} ms | bound {row['bound_ms']:.4f} "
+                f"ms ({row['bound_by']}) | plain {row['plain_ms']:.3f} ms")
+    return out
+
+
+def class_checks(torch):
+    """Phase 3 (b) and (e): run_plan on the card, staged == fused ==
+    mirror (torch.equal) in each numerics class at llama's lm_head and wi
+    and RAGGED, the staged and fused plans timed side by side."""
+    from repro_torch.core.dispatch import ExecPlan
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    rows = []
+    for w, variant, depth, ci in CLASSES:
+        fused_variant = "fused_mm2" if variant == "mm2" else "fused"
+        for m, k, n in CLASS_SHAPES:
+            bk = 32 if (m, k, n) == RAGGED else min(256, pow2_cover(k))
+            staged = ExecPlan(variant, w, block_k=bk, combine_int32=ci,
+                              depth=depth)
+            fused = ExecPlan(fused_variant, w, block_k=bk, combine_int32=ci,
+                             depth=depth)
+            a = rand_bits(torch, gen, w, (m, k))
+            b = rand_bits(torch, gen, w, (k, n))
+            got = [ops.run_plan(a, b, plan=staged),
+                   ops.run_plan(a, b, plan=fused),
+                   ops.run_plan(a, b, plan=fused, use_ref_kernels=True)]
+            torch.cuda.synchronize()
+            what = (f"w={w} {variant} depth {depth} int32={ci} "
+                    f"{m}x{k}x{n} block_k={bk}")
+            if not (torch.equal(got[0], got[1])
+                    and torch.equal(got[0], got[2])):
+                fail(f"run_plan {what}: staged, fused and mirror differ")
+            row = {"w": w, "variant": variant, "depth": depth,
+                   "combine_int32": ci, "M": m, "K": k, "N": n,
+                   "block_k": bk, "equal": True}
+            if (m, k, n) != RAGGED:
+                row["staged_ms"] = cuda_ms(
+                    torch, lambda: ops.run_plan(a, b, plan=staged), iters=10)
+                row["fused_ms"] = cuda_ms(
+                    torch, lambda: ops.run_plan(a, b, plan=fused), iters=10)
+                log(f"  {what}: staged == fused == mirror | staged "
+                    f"{row['staged_ms']:.4f} ms, fused "
+                    f"{row['fused_ms']:.4f} ms "
+                    f"({row['staged_ms'] / row['fused_ms']:.2f}x)")
+            rows.append(row)
+    log(f"  run_plan: staged == fused == mirror in {len(CLASSES)} classes "
+        f"at {len(CLASS_SHAPES)} shapes")
+    return rows
+
+
+def kmm2_vs_mm2(torch):
+    """Phase 3 (e): staged KMM2 (3 products) against staged MM2 (4) at
+    w=12 on the same int8 planes, kernel alone and through run_plan, from
+    decode to a compute-bound prefill at llama's wi (K=2048, N=8192)."""
+    from repro_torch.core.dispatch import ExecPlan
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    w, h, (k, n) = 12, 6, ROUTE_KN
+    rows = []
+    for m in KMM_VS_MM_ROWS:
+        a, b = rand_bits(torch, gen, w, (m, k)), rand_bits(torch, gen, w,
+                                                           (k, n))
+        planes = ops._planes(a, h)[:2] + ops._planes(b, h)[:2]
+        row = {"w": w, "M": m, "K": k, "N": n}
+        for kernel, variant in (("kmm2_gemm_planes_s8", "kmm2"),
+                                ("mm2_gemm_planes", "mm2")):
+            r = check_staged(torch, kernel, planes, h, False,
+                             f"w=12 {m}x{k}x{n}", True, [])
+            plan = ExecPlan(variant, w, block_k=256)
+            row[variant] = {
+                "kernel_ms": r["ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "run_plan_ms": cuda_ms(
+                    torch, lambda: ops.run_plan(a, b, plan=plan), iters=10)}
+        row["kernel_ratio"] = (row["kmm2"]["kernel_ms"]
+                               / row["mm2"]["kernel_ms"])
+        rows.append(row)
+        log(f"  staged w=12 M={m:<4d} K={k} N={n}: kmm2 "
+            f"{row['kmm2']['kernel_ms']:.4f} ms, mm2 "
+            f"{row['mm2']['kernel_ms']:.4f} ms (kmm2/mm2 "
+            f"{row['kernel_ratio']:.2f}; bounds "
+            f"{row['kmm2']['bound_ms']:.4f} / {row['mm2']['bound_ms']:.4f} "
+            f"ms, {row['kmm2']['bound_by']}); run_plan "
+            f"{row['kmm2']['run_plan_ms']:.4f} / "
+            f"{row['mm2']['run_plan_ms']:.4f} ms")
+    return rows
+
+
+def tuner_phase(torch):
+    """Phase 3 (c): ``python -m repro_torch.tune`` over llama's five (K, N)
+    at M in TUNE_ROWS and TUNE_WIDTHS on the card, writing TUNED_TABLE; no
+    candidate rejected (a launch failure raises out of the sweep), every
+    winner passes check_plan again at its shape."""
+    from repro_torch.tune import runner
+    from repro_torch.tune.__main__ import main as tune_main
+    from repro_torch.tune.table import TuningTable, key_for
+
+    shapes = [(m, k, n) for k, n in MM1_KN + KMM2_KN for m in TUNE_ROWS]
+    TUNED_TABLE.parent.mkdir(exist_ok=True)
+    TUNED_TABLE.unlink(missing_ok=True)
+    t0 = time.monotonic()
+    rc = tune_main(["--shapes", *(f"{m}x{k}x{n}" for m, k, n in shapes),
+                    "--w", *map(str, TUNE_WIDTHS), "--out", str(TUNED_TABLE),
+                    "--device", "cuda", "--iters", "3"])
+    seconds = time.monotonic() - t0
+    table = TuningTable.load(TUNED_TABLE)
+    if rc != 0 or len(table) != len(shapes) * len(TUNE_WIDTHS):
+        fail(f"the tuner wrote {len(table)} entries (rc {rc})")
+    rejected = {k: r["n_rejected"] for k, r in table.entries.items()
+                if r["n_rejected"]}
+    if rejected:
+        fail(f"the tuner rejected candidates that passed validate (each "
+             f"must run and be exact; its log names them): {rejected}")
+    rows = []
+    for w in TUNE_WIDTHS:
+        for shape in shapes:
+            plan = table.lookup("cuda", shape, w)
+            a, b = runner.make_operands(shape, w, seed=1, device="cuda")
+            ok, err = runner.check_plan(plan, a, b)
+            if not ok:
+                fail(f"tuned winner {plan} at {shape}: {err}")
+            rec = table.entries[key_for("cuda", shape, w)]
+            rows.append({"shape": shape, "w": w, "variant": plan.variant,
+                         "block_k": plan.block_k, "depth": plan.depth,
+                         "combine_int32": plan.combine_int32,
+                         "us": rec["us"], "us_default": rec["us_default"],
+                         "speedup_vs_default": rec["us_default"] / rec["us"],
+                         "n_candidates": rec["n_candidates"]})
+    log(f"  tuner: {len(table)} keys in {seconds:.1f} s; every winner "
+        f"passes check_plan again; table in {TUNED_TABLE.name}")
+    return {"seconds": seconds, "winners": rows}
+
+
+def forcing_table(cfg):
+    """A table pinning the staged plan of each width's numerics class at
+    every key the serve paths hit (M buckets 8-256, the model's (K, N),
+    widths 8, 12, 16 and 24): mm1, kmm2, mm2, kmm2 at depth 2, each with
+    block_k 256, which keeps the fp32 classes' padded K."""
+    from repro_torch.core.dispatch import ExecPlan
+    from repro_torch.tune.space import gemm_kn
+    from repro_torch.tune.table import TuningTable
+    staged = {8: ("mm1", 0, True), 12: ("kmm2", 1, False),
+              16: ("mm2", 1, False), 24: ("kmm2", 2, False)}
+    table = TuningTable(device="forcing")
+    for m in (8, 16, 32, 64, 128, 256):
+        for k, n in gemm_kn(cfg):
+            for w, (variant, depth, ci) in staged.items():
+                table.put("cuda", (m, k, n), w, ExecPlan(
+                    variant, w, block_k=256, combine_int32=ci, depth=depth))
+    return table
+
+
+def table_paths(torch, fg, arch, params, prompts):
+    """Phase 5 (d): each TABLE_PATHS entry of ``arch`` run twice — without
+    a table, then under it — with the launch counts set to 0 just before
+    each run and read just after: the same greedy tokens and full-width
+    prefill logits (torch.equal), and under a forcing table no fused
+    launch and exactly the staged launches per prefill and decode step."""
+    from repro_torch.core.context import ExecContext
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.tune.table import TuningTable, set_active_table
+
+    out = {}
+    for _, policy, kind, per_call in [p for p in TABLE_PATHS
+                                      if p[0] == arch]:
+        pcfg = path_config(arch, policy)
+        table = (TuningTable.load(TUNED_TABLE) if kind == "tuned" else
+                 forcing_table(pcfg))
+        runs = {}
+        for label, tbl in (("plain", None), (kind, table)):
+            set_active_table(None)
+            eng = Engine(pcfg, params, max_seq=256, batch_size=4,
+                         device="cuda", context=ExecContext(tuning_table=tbl))
+            reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts[:2]]
+            reset_all(fg)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            stats = eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {"fused": {m: c for m, c in fg.launches.items() if c},
+                        "fused_grouped": {m: c for m, c in
+                                          fg.grouped_launches.items() if c},
+                        "staged": {k: c for k, c in staged_launches().items()
+                                   if c}}
+            with torch.inference_mode():
+                logits, _, _ = lm.prefill(
+                    eng.params, pcfg, torch.tensor([prompts[0]],
+                                                   device="cuda"),
+                    lm.init_cache(pcfg, 1, 256, device="cuda"))
+            runs[label] = ([r.generated for r in reqs], logits, launches,
+                           stats, wall, len(reqs) + stats.decode_steps)
+        set_active_table(None)
+        (tok0, log0, l0, _, _, _), (tok1, log1, l1, stats, wall, calls) = \
+            runs["plain"], runs[kind]
+        what = f"{arch} {policy} under the {kind} table"
+        if tok0 != tok1 or not torch.equal(log0, log1):
+            fail(f"{what}: tokens or prefill logits differ from the path "
+                 f"without a table")
+        if l0["staged"]:
+            fail(f"{arch} {policy} without a table launched staged kernels: "
+                 f"{l0['staged']}")
+        if per_call is not None:
+            want = {k: c * calls for k, c in per_call.items()}
+            if l1["fused"] or l1["fused_grouped"] or l1["staged"] != want:
+                fail(f"{what}: launches {l1}, expected staged {want} and no "
+                     f"fused kernel")
+        elif sum(c for d in l1.values() for c in d.values()) < 113 * calls:
+            fail(f"{what}: fewer launches than GEMMs: {l1}")
+        out[f"{arch} {policy} {kind}"] = {
+            "calls": calls, "launches": l1, "launches_plain": l0,
+            "decode_steps": stats.decode_steps,
+            "decode_step_ms": stats.decode_s / stats.decode_steps * 1e3,
+            "decode_step_ms_plain": runs["plain"][3].decode_s
+            / runs["plain"][3].decode_steps * 1e3,
+            "prefill_ms_per_request": stats.prefill_s / 2 * 1e3,
+            "wall_s": wall}
+        r = out[f"{arch} {policy} {kind}"]
+        log(f"  {what}: tokens and prefill logits equal to the path without "
+            f"a table; launches {l1} over {calls} calls; "
+            f"{r['decode_step_ms']:.2f} ms a decode step "
+            f"({r['decode_step_ms_plain']:.2f} without the table)")
+        if kind == "tuned":
+            ab = tuned_ab(torch, pcfg, params, prompts, table)
+            r["ab_decode_step_ms"] = ab
+            med = {lab: statistics.median(ms for l, ms in ab if l == lab)
+                   for lab in ("plain", "tuned")}
+            r["ab_median_decode_step_ms"] = med
+            log(f"  {what}, decode step ms in turns (2 requests x "
+                f"{AB_NEW_TOKENS} new; {' / '.join(AB_ORDER)}): "
+                + " / ".join(f"{ms:.2f}" for _, ms in ab)
+                + f"; median plain {med['plain']:.2f}, tuned "
+                f"{med['tuned']:.2f}")
+    return out
+
+
+def tuned_ab(torch, pcfg, params, prompts, table):
+    """Decode step ms without the table and under it, in turns (AB_ORDER),
+    2 requests of AB_NEW_TOKENS new tokens each: the host clock moves
+    between runs, so one run of each says little."""
+    from repro_torch.core.context import ExecContext
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.tune.table import set_active_table
+
+    out = []
+    for label in AB_ORDER:
+        tbl = table if label == "tuned" else None
+        set_active_table(None)
+        eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda",
+                     context=ExecContext(tuning_table=tbl))
+        reqs = [Request(prompt=p, max_new_tokens=AB_NEW_TOKENS)
+                for p in prompts[:2]]
+        torch.cuda.synchronize()
+        stats = eng.generate(reqs)
+        torch.cuda.synchronize()
+        out.append((label, stats.decode_s / stats.decode_steps * 1e3))
+    set_active_table(None)
+    return out
+
+
 def smoke_parity(torch, np, arch: str):
     """Phase 4: the smoke-size model on the card against the CPU."""
     from repro_torch.bridge import tree_map
@@ -590,12 +1157,15 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
         for _ in range(n_runs):
             reqs = [Request(prompt=p, max_new_tokens=new, temperature=t)
                     for p, t in zip(prompts[:n_req], temps)]
-            fg.reset_launches()
+            reset_all(fg)
             torch.cuda.synchronize()
             t0 = time.monotonic()
             stats = eng.generate(reqs)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
+            if any(staged_launches().values()):
+                fail(f"{arch} {policy} without a table launched a staged "
+                     f"kernel: {staged_launches()}")
             runs.append((reqs, stats, dict(fg.launches),
                          dict(fg.grouped_launches), wall))
         reqs, stats, got_dense, got_grouped, wall = runs[0]
@@ -674,6 +1244,7 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
         if profile:
             out["profile"] = profile_decode(torch, eng, prompts,
                                             out["decode_step_ms"])
+    out["table_paths"] = table_paths(torch, fg, arch, params, prompts)
     return out, launches_by_path
 
 
@@ -742,7 +1313,8 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path):
+def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
+                   staged_rows, table_runs):
     """One entry per kernel instance (dense and grouped; mm1, kmm2, mm2 and
     kmm4's two layouts) for the result line.  ``launches`` sums the first
     run of every serve path (``launches_by_path`` has each); a path runs
@@ -809,6 +1381,39 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path):
             f"N={row['N']}, "
             f"{row['live_rows']} live rows in {row['live_experts']} "
             f"experts, dequant to bf16", None))
+    # The staged kernels: launches summed over the serve paths under a
+    # table; mm1 at the prefill shape of llama's wi (where torch._int_mm
+    # runs), kmm2 (w=12) and mm2 (w=16) on int8 planes and kmm2's split
+    # route on the int16 planes of w=24's middle branch at llama's lm_head
+    # on 4 lanes, fp32 combine.
+    pick = {"mm1_gemm": (8, (64, 2048, 8192)),
+            "kmm2_gemm_planes_s8": (12, (4, 2048, 128512)),
+            "kmm2_gemm_planes_split": (24, (4, 2048, 128512)),
+            "mm2_gemm_planes": (16, (4, 2048, 128512))}
+    replaces = {"mm1_gemm": "src/repro/kernels/mm1_gemm.py:23",
+                "kmm2_gemm_planes_s8": "src/repro/kernels/kmm_gemm.py:45",
+                "kmm2_gemm_planes_split": "src/repro/kernels/kmm_gemm.py:45",
+                "mm2_gemm_planes": "src/repro/kernels/mm2_gemm.py:24"}
+    for name, (w, shape) in pick.items():
+        row = next(r for r in staged_rows
+                   if r["kernel"] == name and r["w"] == w and "ms" in r
+                   and (r["M"], r["K"], r["N"]) == shape)
+        out.append({
+            "name": name, "route": "cuda", "source": STAGED_SOURCE,
+            "replaces": replaces[name],
+            "launches": sum(run["launches"]["staged"].get(name, 0)
+                            for runs in table_runs.values()
+                            for run in runs.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in staged_rows
+                               if r["kernel"] == name),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"),
+            "shape": f"w={w} M={shape[0]} K={shape[1]} N={shape[2]}, "
+                     f"{row['plane_dtype']} planes, "
+                     + ("int32 out" if name == "mm1_gemm" else
+                        "fp32 combine"),
+        })
     return out
 
 
@@ -853,41 +1458,68 @@ def main() -> int:
                                            "spill")):
                 log(f"  {name}: {line.strip()}")
 
+    seconds = {"build": time.monotonic() - t0}
+    t0 = time.monotonic()
     log("[3] kernels vs plain versions (torch.equal) at the paths' shapes")
     rows = kernel_checks(torch, fg)
     grouped_rows = grouped_checks(torch, fg)
     sweep_rows = width_sweep(torch, fg)
     route_rows = route_timing(torch, fg)
+    seconds["fused_checks"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    log("[3a] staged kernels vs plain versions (torch.equal): int8 planes "
+        "at the serve shapes, int16 planes through run_plan at depth 2")
+    staged_rows = staged_checks(torch, fg)
+    depth2_rows = depth2_checks(torch, staged_rows)
+    log("[3b] run_plan on the card: staged == fused == mirror by class")
+    class_rows = class_checks(torch)
+    log("[3e] staged KMM2 against staged MM2 at w=12")
+    kvm_rows = kmm2_vs_mm2(torch)
+    seconds["staged_checks"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    log("[3c] tune llama's GEMMs on the card")
+    tuner = tuner_phase(torch)
+    seconds["tuner"] = time.monotonic() - t0
 
+    t0 = time.monotonic()
     archs = list(dict.fromkeys(p[0] for p in PATHS))
     log("[4] smoke-size models: card vs CPU")
     smoke_diff = {arch: smoke_parity(torch, np, arch) for arch in archs}
+    seconds["smoke"] = time.monotonic() - t0
 
     engines, launches_by_path = {}, {}
     for arch in archs:
         log(f"[5] serve full-width {arch} ("
             + ", then ".join(p[1] for p in PATHS if p[0] == arch)
             + " policies)")
+        t0 = time.monotonic()
         engines[arch], by_path = serve_full(torch, np, fg, arch,
                                             args.profile)
+        seconds[f"serve {arch}"] = time.monotonic() - t0
         launches_by_path.update(by_path)
         torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
-              "kmm4_layouts": route_rows,
+              "kmm4_layouts": route_rows, "staged_shapes": staged_rows,
+              "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
+              "kmm2_vs_mm2": kvm_rows, "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
+              "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[6] details in chiprun_out/chip_smoke.json; "
-        f"{report['seconds']:.1f} s in all")
+        f"{report['seconds']:.1f} s in all ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     print(card, flush=True)
+    table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()}
     print(json.dumps({"kernels": kernel_entries(
-        fg, rows, grouped_rows, sweep_rows, launches_by_path)}), flush=True)
+        fg, rows, grouped_rows, sweep_rows, launches_by_path, staged_rows,
+        table_runs)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

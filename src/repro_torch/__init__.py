@@ -1,11 +1,12 @@
 """repro_torch: the PyTorch / CUDA port of :mod:`repro`.
 
 Subpackages mirror ``repro``'s names (``core``, ``quant``, ``kernels``,
-``models``, ``configs``, ``serve``, ``launch``) so each module's reference
-counterpart is found by path.  The port imports ``torch`` and numpy only —
-never ``jax`` and nothing of ``repro``.  Every quantized GEMM on the serve
-path runs through one hand-written CUDA kernel
-(``kernels/csrc/fused_gemm.cu``), the Hopper counterpart of the fused Pallas
-KMM kernel.
+``models``, ``configs``, ``serve``, ``launch``, ``tune``) so each module's
+reference counterpart is found by path.  The port imports ``torch`` and
+numpy only — never ``jax`` and nothing of ``repro``.  Every quantized GEMM
+on the serve path runs through hand-written CUDA kernels: the fused KMM
+kernel (``kernels/csrc/fused_gemm.cu``), or under a tuning table the staged
+digit-plane kernels (``kernels/csrc/staged_gemm.cu``) it may pick, the
+Hopper counterparts of the Pallas kernels.
 """
 __version__ = "0.1.0"

@@ -1,15 +1,19 @@
 """ExecContext: how GEMMs execute, and on which device entry points run.
 
-Port of ``repro.core.context`` with ``backend`` and ``force_mode`` only; the
-mesh and tuning-table fields wait for their ROADMAP items.  The port has one
+Port of ``repro.core.context`` with ``backend``, ``tuning_table`` and
+``force_mode``; the mesh waits for its ROADMAP item.  The port has one
 backend, ``"cuda"`` — the counterpart of the reference's ``"pallas"``: every
-quantized GEMM goes to the hand-written fused kernel (its plain PyTorch
-version when the tensors lie on the CPU).
+quantized GEMM goes to the hand-written kernels (their plain PyTorch
+versions when the tensors lie on the CPU).  A tuning table (a
+:class:`repro_torch.tune.table.TuningTable` or a path to one) is consulted
+by plan selection; tables are numerics-pinned, so it takes no part in the
+context's equality or hash.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import contextlib
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import torch
 
@@ -20,6 +24,7 @@ FORCE_MODES = ("auto", "mm2")
 @dataclass(frozen=True)
 class ExecContext:
     backend: str = "cuda"
+    tuning_table: Optional[Any] = field(default=None, compare=False)
     force_mode: str = "auto"        # "auto" | "mm2" (conventional baseline)
 
     def __post_init__(self):
@@ -29,6 +34,24 @@ class ExecContext:
         if self.force_mode not in FORCE_MODES:
             raise ValueError(f"unknown force_mode {self.force_mode!r}; "
                              f"choices {FORCE_MODES}")
+
+    def resolve_table(self):
+        """The context's table as a loaded TuningTable (a path is loaded on
+        each call: pass the loaded object where that matters), or None."""
+        if self.tuning_table is None:
+            return None
+        from repro_torch.tune.table import TuningTable
+        if isinstance(self.tuning_table, TuningTable):
+            return self.tuning_table
+        return TuningTable.load(self.tuning_table)
+
+    def activate(self):
+        """Context manager installing ``tuning_table`` as the process-wide
+        active table for the enclosed calls; a no-op without a table."""
+        if self.tuning_table is None:
+            return contextlib.nullcontext()
+        from repro_torch.tune.table import use_table
+        return use_table(self.tuning_table)
 
 
 def resolve_device(device: Optional[str | torch.device] = None

@@ -8,13 +8,17 @@ and multiplier bitwidth ``m``:
   * ``m < w <= 2m - 2``  -> KMM2 (3 tile passes)
   * ``2m - 2 < w <= 2m`` -> MM2  (4 tile passes)
 
-and wider ``w`` recurses.  The tuning-table path (``select_plan``) is not
-ported: every plan here is the analytic one.
+and wider ``w`` recurses.  ``select_plan`` resolves the plan a GEMM runs:
+the analytic one, or an installed tuning table's winner (``repro_torch.tune``)
+pinned to the analytic plan's numerics, so a table changes speed, never a
+value.
 """
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
 
 class Mode(enum.Enum):
@@ -64,28 +68,80 @@ def select_mode(w: int, m: int = 8) -> Plan:
     return Plan(Mode.KMM2, w, m, passes=3 ** r, digits=2 ** r, recursion=r)
 
 
+# Kernel variants of the reference's registry.  "mm1"/"kmm2"/"mm2" are the
+# staged kernels on digit planes (kernels/ops.py's staged path), "fused" the
+# single-pass kernel (MM1 window at depth 0, KMM2 at depth 1, 4-digit KMM at
+# depth 2), "fused_mm2" its 4-pass conventional mode.  The port runs
+# PORTED_VARIANTS on its one backend, "cuda"; "xla_ref", "ffip" and the
+# strassen variants raise until their ROADMAP items land.
+VARIANTS = ("mm1", "kmm2", "mm2", "fused", "fused_mm2", "xla_ref", "ffip",
+            "strassen", "strassen+kmm2")
+PORTED_VARIANTS = ("mm1", "kmm2", "mm2", "fused", "fused_mm2")
+
+# Integer core, no fp32 combine anywhere.
+_EXACT_VARIANTS = ("mm1", "xla_ref", "ffip", "strassen", "strassen+kmm2")
+
+
 @dataclass(frozen=True)
 class ExecPlan:
     """A resolved way to run one integer GEMM: kernel variant, backend,
     K tile, combine precision and digit-recursion depth.  Of the
     reference's tiles only ``block_k`` is kept: it fixes the padded K that
     the fp32 combine rounds with, while M/N tiles never change a value and
-    the CUDA kernel picks its own."""
+    the CUDA kernels pick their own."""
 
-    variant: str             # "fused" | "fused_mm2" | "mm1" | "kmm2" | "mm2"
+    variant: str             # one of VARIANTS
     w: int
     m: int = 8
     backend: str = "cuda"
     block_k: int = 256
     combine_int32: bool = False  # int32 post-adder (exact) vs fp32
     depth: int = 1               # digit-recursion levels (digits = 2**depth)
+    source: str = "analytic"     # "analytic" | "table" | "prior" (+notes)
+    # "none" (raw accumulator out) or "dequant": a call-site property that
+    # enters the numerics fingerprint, never stored in tuning tables.
+    epilogue: str = "none"
+
+    @property
+    def digits(self) -> int:
+        if self.variant == "fused":
+            return 2 ** self.depth      # depth 0 in the MM1 window
+        if self.variant == "fused_mm2":
+            return 2
+        return 2 ** self.depth if self.variant in ("kmm2", "mm2") else 1
+
+    @property
+    def mode(self) -> Optional[Mode]:
+        if self.variant == "fused":
+            return Mode.KMM2 if self.w > self.m else Mode.MM1
+        if self.variant in ("mm2", "fused_mm2"):
+            return Mode.MM2
+        if self.variant == "kmm2":
+            return Mode.KMM2
+        if self.variant in ("mm1", "xla_ref"):
+            return Mode.MM1
+        return None
 
     @property
     def is_exact_int(self) -> bool:
         """True when the plan computes the exact integer product in int32."""
         if self.variant == "fused" and self.w <= self.m:
             return True
-        return self.combine_int32 or self.variant == "mm1"
+        return self.combine_int32 or self.variant in _EXACT_VARIANTS
+
+
+def numerics_fingerprint(plan: ExecPlan):
+    """Plans with equal fingerprints give bit-identical outputs on the same
+    operands (both valid).  Exact-int plans all compute the same integer;
+    fp32-combine plans are keyed by what changes rounding — variant, depth,
+    backend and epilogue.  The fused kernel runs the staged kernels' fp32
+    operation sequence, so "fused" shares the "kmm2" class and "fused_mm2"
+    the "mm2" one."""
+    if plan.is_exact_int:
+        return ("exact", plan.epilogue)
+    variant = {"fused": "kmm2", "fused_mm2": "mm2"}.get(plan.variant,
+                                                        plan.variant)
+    return ("fp32", variant, plan.depth, plan.backend, plan.epilogue)
 
 
 DEFAULT_BLOCK_K = 256
@@ -114,3 +170,88 @@ def analytic_plan(w: int, m: int = 8, *, backend: str = "cuda",
     return ExecPlan(variant=variant, w=w, m=m, backend=backend,
                     block_k=DEFAULT_BLOCK_K, combine_int32=combine_int32,
                     depth=depth)
+
+
+def _padded(dim: int, block: int) -> int:
+    return -(-dim // block) * block
+
+
+def select_plan(shape: Tuple[int, int, int], w: int, *, m: int = 8,
+                backend: str = "cuda", exact: bool = False, table=None,
+                context=None) -> ExecPlan:
+    """Table-backed execution-plan selection for an (M, K, N) integer GEMM
+    (the reference's ``select_plan``; its metrics counter waits for the
+    observability port).
+
+    ``context`` supplies the backend and, when it carries one, the tuning
+    table.  Resolution order:
+
+      1. no table (none passed, none in the context, none installed with
+         ``tune.table.set_active_table``) -> the analytic plan;
+      2. a table entry for this (backend, bucketed M/K/N, w, m) key -> the
+         recorded winner, validated against the search space's bounds
+         (``tune.space.validate``); an invalid entry is never run;
+      3. no entry -> the cost-model prior's best plan in the analytic
+         plan's numerics class (memoized per bucketed key).
+
+    The plan is always numerics-identical to the analytic one (the
+    reference's ``pin_numerics``, which every model-facing path sets): the
+    winner is taken when its
+    :func:`numerics_fingerprint` matches and, for fp32 plans, its padded K
+    equals the unclamped analytic plan's; otherwise only its ``block_k``,
+    under the same padding rule; otherwise the analytic plan.
+    """
+    if context is not None:
+        backend = context.backend
+        if table is None and context.tuning_table is not None:
+            table = context.resolve_table()
+    base = analytic_plan(w, m, backend=backend, exact=exact)
+    if table is None:
+        from repro_torch.tune import table as tune_table   # lazy: core must
+        table = tune_table.get_active_table()              # not need tune
+    if table is None:
+        return base
+    from repro_torch.tune import space as tune_space
+    entry = table.lookup(backend, shape, w, m)
+    source = "table"
+    if entry is None:
+        entry = _prior_plan_cached(tune_space.bucket_shape(shape), w, m,
+                                   backend, exact)
+        source = "prior"
+    if entry is None:
+        return base
+    entry = replace(entry, w=w, m=m, backend=backend, source=source)
+    if tune_space.validate(entry, shape) is not None:
+        return base                      # never run a candidate that fails
+    if (numerics_fingerprint(entry) == numerics_fingerprint(base)
+            and _k_padding_matches(shape, base, entry)):
+        return entry
+    if not _k_padding_matches(shape, base,
+                              replace(base, block_k=entry.block_k)):
+        return base
+    return replace(base, block_k=entry.block_k, source=source + "+tiles")
+
+
+@functools.lru_cache(maxsize=4096)
+def _prior_plan_cached(bucket: Tuple[int, int, int], w: int, m: int,
+                       backend: str, exact: bool) -> Optional[ExecPlan]:
+    """The cost-model prior per bucketed key, memoized: a table miss would
+    otherwise rank the whole candidate space on every GEMM call.  The plan
+    is re-validated against the real shape in :func:`select_plan`, and it
+    does not depend on any table's contents."""
+    from repro_torch.tune import space as tune_space
+    return tune_space.prior_plan(bucket, w, m=m, backend=backend,
+                                 exact=exact)
+
+
+def _k_padding_matches(shape, base: ExecPlan, entry: ExecPlan) -> bool:
+    """An fp32-combine plan's value depends on its padded K: padded
+    positions contribute centered digits and the ``z*z*kp`` correction,
+    which cancel in real arithmetic but round in fp32.  Bit identity with
+    the analytic plan therefore needs the same padded K (against the
+    *unclamped* analytic ``block_k``, as the reference compares).  Exact-int
+    plans equal the true product for any padding."""
+    if entry.is_exact_int:
+        return True
+    k = shape[1]
+    return _padded(k, base.block_k) == _padded(k, entry.block_k)

@@ -2,9 +2,10 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes`` (no PyTorch headers).  A source
-is split into build units (``-DFUSED_GEMM_UNIT=u`` for ``fused_gemm.cu``:
-the C entry points and one unit per digit layout); each unit compiles to
-one object and the objects are linked into the library.  Without the macro
+is split into build units (``-DFUSED_GEMM_UNIT=u`` for ``fused_gemm.cu``,
+``-DSTAGED_GEMM_UNIT=u`` for ``staged_gemm.cu``: the C entry points and one
+unit per digit layout); each unit compiles to one object and the objects
+are linked into the library.  Without the macro
 the same source compiles whole (``kernels.compare`` builds another
 checkout's source so).  Libraries go to ``build/kernels/`` at the root of
 the checkout, named by a digest of the source and flags, so an edited source
@@ -15,6 +16,7 @@ library, all at once.  A failed build raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,9 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # name -> source file under csrc/
-SOURCES = {"fused_gemm": "fused_gemm.cu"}
+SOURCES = {"fused_gemm": "fused_gemm.cu", "staged_gemm": "staged_gemm.cu"}
 # name -> (unit macro, number of units), one nvcc per unit
-UNITS = {"fused_gemm": ("FUSED_GEMM_UNIT", 6)}
+UNITS = {"fused_gemm": ("FUSED_GEMM_UNIT", 6),
+         "staged_gemm": ("STAGED_GEMM_UNIT", 5)}
 
 # --fmad=false keeps every fp32 add and multiply separately rounded, so the
 # epilogue reproduces the reference's operation order bit for bit (the
@@ -130,3 +133,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LOADED[name] = lib
     return lib
+
+
+@functools.cache
+def entry(name: str, fn: str, n_ptr: int, n_int: int):
+    """C entry point ``fn`` of library ``name`` taking ``n_ptr`` pointers,
+    ``n_int`` ints and the stream, and returning an int (a CUDA error
+    code, 0 on success)."""
+    func = getattr(load(name), fn)
+    func.restype = ctypes.c_int
+    func.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                     + [ctypes.c_void_p])
+    return func

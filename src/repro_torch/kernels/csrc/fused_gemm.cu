@@ -14,7 +14,8 @@
 //   mm2  (15..16):   the same split, four passes without pre-adders
 //                    (C1 = A1.B1, C10 = A1.B0, C01 = A0.B1, C0 = A0.B0) and
 //                    the conventional combine.
-//   kmm4 (17..26):   depth-2 KMM: each level-1 branch {A1, A1+A0, A0} is
+//   kmm4 (17..26; 9..16 for the tuner):
+//                    depth-2 KMM: each level-1 branch {A1, A1+A0, A0} is
 //                    re-split plainly (uncentered) at h2 = ceil((h+1)/2)
 //                    and runs the three Fig. 8 passes of its own; nine
 //                    accumulators, the level-2 combine at h2 per branch,
@@ -675,7 +676,7 @@ int launch(const Params& p, int groups, bool grouped, int mode,
       if (p.h < 1 || p.h > 8) break;
       return launch_mm2(p, groups, grouped, s);
     case KMM4:
-      if (p.h < 9 || p.h > 13) break;
+      if (p.h < 5 || p.h > 13) break;
       return p.h <= 11 ? launch_kmm4(p, groups, grouped, s)
                        : launch_kmm4_wide(p, groups, grouped, s);
     default:

@@ -26,8 +26,6 @@ kernel picks its own tiles.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Dict, Optional
 
 import torch
@@ -44,9 +42,9 @@ grouped_launches: Dict[str, int] = {mode: 0 for mode in MODES}
 
 _MODE_ID = {"mm1": 1, "kmm2": 2, "mm2": 3, "kmm4": 4}
 # Widths (lo, hi] at which mm2's and kmm4's digits fit the card's s8 MMAs
-# (kmm2's window is (m, 14]).  kmm4 inside the KMM2 window is a tuner-only
-# alternative in the reference, and the tuner is not ported.
-_WINDOWS = {"mm2": (8, 16), "kmm4": (16, 26)}
+# (kmm2's window is (m, 14]).  kmm4 at w <= 16 is a tuner-only alternative
+# (the analytic plan runs it from w = 17).
+_WINDOWS = {"mm2": (8, 16), "kmm4": (8, 26)}
 _OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
@@ -59,7 +57,8 @@ def reset_launches() -> None:
 def resolve(w: int, m: int = 8, mode: str = "auto"):
     """(mode, h, z, carrier dtype) for a w-bit GEMM, as the reference's
     ``_resolve``: int8 carrier in the MM1 window, int16 through w = 16,
-    int32 above.  kmm4's level-2 split point is ``h2 = ceil((h+1)/2)``."""
+    int32 above and for kmm4 at any width (its one kernel instance reads
+    int32).  kmm4's level-2 split point is ``h2 = ceil((h+1)/2)``."""
     if mode == "auto":
         mode = "mm1" if w <= m else "kmm2"
     if mode not in MODES:
@@ -73,7 +72,7 @@ def resolve(w: int, m: int = 8, mode: str = "auto"):
     h = -(-w // 2) if split else 0
     z = (1 << (h - 1)) if split else 0
     carrier = (torch.int8 if not split else
-               torch.int16 if w <= 16 else torch.int32)
+               torch.int16 if w <= 16 and mode != "kmm4" else torch.int32)
     return mode, h, z, carrier
 
 
@@ -240,15 +239,9 @@ _SIGNATURES = {"fused_gemm_launch": (5, 9),
                "fused_gemm_grouped_launch": (6, 12)}
 
 
-@functools.cache
 def _kernel(entry: str):
     """A C entry point of the built library, with its signature."""
-    n_ptr, n_int = _SIGNATURES[entry]
-    fn = getattr(build.load("fused_gemm"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
-    return fn
+    return build.entry("fused_gemm", entry, *_SIGNATURES[entry])
 
 
 def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,

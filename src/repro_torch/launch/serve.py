@@ -3,12 +3,15 @@
     python -m repro_torch.launch.serve --arch llama3.2-1b --quant mixed \
         --full-size
 
-The reference launcher's flags, minus ``--mesh``, ``--tuning-table``,
-``--metrics-out`` and ``--trace-out``, plus ``--device``.  Runs on the CUDA
-device; ``--device cpu`` runs the kernels' plain PyTorch versions on the
-CPU instead.  Weights come from a ``torch.Generator`` seeded with 0.  With
-``--poisson RATE`` the requests arrive as a Poisson process (RATE
-requests/s), so TTFT includes queueing delay.  ``--prefill-chunk`` and
+The reference launcher's flags, minus ``--mesh``, ``--metrics-out`` and
+``--trace-out``, plus ``--device``.  Runs on the CUDA device; ``--device
+cpu`` runs the kernels' plain PyTorch versions on the CPU instead.  With
+``--tuning-table PATH`` (a table written by ``python -m repro_torch.tune``)
+each GEMM runs the plan the table picks in the analytic plan's numerics
+class: the same tokens, possibly other kernels.  Weights come from a
+``torch.Generator`` seeded with 0.  With ``--poisson RATE`` the requests
+arrive as a Poisson process (RATE requests/s), so TTFT includes queueing
+delay.  ``--prefill-chunk`` and
 ``--prefix-cache`` are not ported yet and raise.
 """
 from __future__ import annotations
@@ -47,6 +50,9 @@ def main() -> int:
                     default="cuda", choices=["cuda"],
                     help="quantized-GEMM backend: 'cuda' serves through the "
                          "hand-written fused KMM kernel")
+    ap.add_argument("--tuning-table", default=None,
+                    help="tuning table (JSON) from python -m "
+                         "repro_torch.tune, installed for every GEMM")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args()
 
@@ -61,7 +67,8 @@ def main() -> int:
     gen.manual_seed(0)
     params = lm.init_params(gen, cfg, device=device)
     engine = Engine(cfg, params, max_seq=args.max_seq, batch_size=args.batch,
-                    context=ExecContext(backend=args.backend),
+                    context=ExecContext(backend=args.backend,
+                                        tuning_table=args.tuning_table),
                     prefill_chunk=args.prefill_chunk or None,
                     prefix_cache=args.prefix_cache, device=device)
     rng = np.random.default_rng(0)

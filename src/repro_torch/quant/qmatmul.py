@@ -1,25 +1,31 @@
-"""Quantized matmul on the fused KMM kernel, forward only (port of
-``repro.quant.qmatmul``'s fused route).
+"""Quantized matmul on the integer-GEMM kernels, forward only (port of
+``repro.quant.qmatmul``'s fused route and its staged redirect).
 
 Dynamic per-token activation quantization and per-channel weight
-quantization to ``w`` bits, then one fused kernel launch that does the
-integer GEMM in the width's mode (MM1 for w <= 8, KMM2 for 9-14, MM2 for
-15-16, depth-2 KMM for 17-26), the zero-point correction and the dequant
-epilogue.  Two entry points, as in the reference: ``quantized_matmul`` for
-(..., K) @ (K, N) dense layers and ``quantized_matmul_batched`` for
-(E, C, K) @ (E, K, N) expert GEMMs, which run as one grouped launch (ragged
-with ``counts``/``seg``: dead rows exact zeros, see
-``kernels.fused_gemm.ragged_row_mask``).  The plan is the reference's
-analytic one with its tiles clamped to the (C, K, N) shape
-(``_shrink_tiles``), because the clamped ``block_k`` fixes the padded K
-that the fp32 combine rounds with.
+quantization to ``w`` bits, then the integer GEMM and the dequant.  Two
+entry points, as in the reference: ``quantized_matmul`` for (..., K) @
+(K, N) dense layers and ``quantized_matmul_batched`` for (E, C, K) @
+(E, K, N) expert GEMMs (ragged with ``counts``/``seg``: dead rows exact
+zeros, see ``kernels.fused_gemm.ragged_row_mask``).
+
+The plan comes from :func:`repro_torch.core.dispatch.select_plan`.  With no
+tuning table installed it is the analytic one with its ``block_k`` clamped
+to the shape (``_shrink_tiles``: the clamped ``block_k`` fixes the padded K
+that the fp32 combine rounds with), and the GEMM is one launch of the fused
+kernel (MM1 for w <= 8, KMM2 for 9-14, MM2 for 15-16, depth-2 KMM for
+17-26) with the dequant epilogue in the kernel; batched GEMMs are one
+grouped launch.  Under a table the plan is the table's (or the cost prior's)
+within the analytic plan's numerics class, unclamped as the reference
+leaves it; a staged plan runs through ``kernels.ops.run_plan`` and the
+dequant ``acc * (sx * sw)`` follows — one expert at a time for batched
+GEMMs — bit-identical to the fused epilogue, so a table never moves a
+token.
 
 Not ported yet, and raising rather than changing route: the XLA
 digit-recursion GEMM (``_int_dot``) that the reference falls back to
 outside the fused windows (w >= 27, recursion deeper than 2 levels) or the
-kernel's bounds, ``force_mode="mm2"``,
-pre-quantized weight records, and the straight-through backward
-(training).
+kernel's bounds, ``force_mode="mm2"``, pre-quantized weight records, and
+the straight-through backward (training).
 """
 from __future__ import annotations
 
@@ -30,10 +36,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.context import ExecContext
-from repro_torch.core.dispatch import ExecPlan, analytic_plan
+from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_plan
 from repro_torch.core.kmm import max_exact_k, plan_accum_k_bound
-from repro_torch.kernels.fused_gemm import fused_gemm, fused_gemm_grouped
-from repro_torch.quant.quantize import quantize_symmetric
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_gemm import (fused_gemm, fused_gemm_grouped,
+                                            ragged_row_mask)
+from repro_torch.quant.quantize import carrier_dtype, quantize_symmetric
+from repro_torch.tune.table import get_active_table
 
 _NO_FALLBACK = ("the reference runs this GEMM on its XLA digit recursion "
                 "(quant/qmatmul._int_dot, core/kmm.kmm_n), which the port "
@@ -63,12 +72,33 @@ def _shrink_tiles(plan: ExecPlan, shape) -> ExecPlan:
     return replace(plan, block_k=min(plan.block_k, _pow2_cover(shape[1])))
 
 
-def _fused_plan_for(shape, w: int, m: int) -> Optional[ExecPlan]:
-    """The tile-clamped fused plan for an (M, K, N) GEMM, or None when the
-    shape exceeds the kernel's exactness bounds."""
-    k_dim = shape[1]
-    plan = _shrink_tiles(analytic_plan(w, m, backend="cuda"), shape)
-    if plan.is_exact_int and max_exact_k(w) < k_dim:
+def _fused_plan_for(shape, w: int, m: int,
+                    context: Optional[ExecContext] = None
+                    ) -> Optional[ExecPlan]:
+    """The plan for an (M, K, N) GEMM, or None when the shape exceeds the
+    kernels' exactness bounds.  Without a table: the analytic plan with
+    its K tile clamped.  Under the context's or the active table: the
+    plan ``select_plan`` resolves, clamped only when it is the analytic one
+    (as the reference does), memoized on the table per (M, K, N, w, m)."""
+    table = context.resolve_table() if context is not None else None
+    if table is None:
+        table = get_active_table()
+    if table is None:
+        return _checked(_shrink_tiles(analytic_plan(w, m, backend="cuda"),
+                                      shape), shape[1])
+    key = (tuple(shape), w, m)
+    if key not in table.plans:
+        plan = select_plan(shape, w, m=m, backend="cuda", table=table)
+        if plan.source == "analytic":
+            plan = _shrink_tiles(plan, shape)
+        table.plans[key] = _checked(plan, shape[1])
+    return table.plans[key]
+
+
+def _checked(plan: ExecPlan, k_dim: int) -> Optional[ExecPlan]:
+    """``plan``, or None outside its int32 headroom or digit-accumulator
+    bound (the reference's XLA route)."""
+    if plan.is_exact_int and max_exact_k(plan.w) < k_dim:
         return None
     kp = -(-k_dim // plan.block_k) * plan.block_k
     bound = plan_accum_k_bound(plan)
@@ -85,10 +115,12 @@ def _fused_mode(plan: ExecPlan) -> str:
 
 def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
                 counts: Optional[torch.Tensor] = None,
-                seg: Optional[int] = None) -> Optional[torch.Tensor]:
-    """The GEMM + dequant epilogue on the fused kernel: dense (..., K) x
-    (K, N), or batched (E, C, K) x (E, K, N) as one grouped launch.
-    Returns None where the reference would take its XLA route."""
+                seg: Optional[int] = None,
+                context: Optional[ExecContext] = None
+                ) -> Optional[torch.Tensor]:
+    """The GEMM + dequant: dense (..., K) x (K, N), or batched (E, C, K) x
+    (E, K, N), on the resolved plan (:func:`run_plan_dequant`).  Returns
+    None where the reference would take its XLA route."""
     batched = qw.dim() == 3
     if batched:
         _, m_dim, k_dim = qx.shape
@@ -100,22 +132,53 @@ def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
     if analytic_plan(w, m, backend="cuda").variant \
             not in ("fused", "fused_mm2"):
         return None                     # recursion deeper than 2 levels
-    plan = _fused_plan_for((m_dim, k_dim, n_dim), w, m)
+    plan = _fused_plan_for((m_dim, k_dim, n_dim), w, m, context)
     if plan is None:
         return None
-    kw = dict(w=w, m=m, mode=_fused_mode(plan), block_k=plan.block_k,
-              combine_int32=plan.combine_int32, out_dtype=out_dtype)
-    if batched:
+    return run_plan_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
+
+
+def run_plan_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
+                     counts: Optional[torch.Tensor] = None,
+                     seg: Optional[int] = None) -> torch.Tensor:
+    """One resolved plan on quantized codes, dequantized to ``out_dtype``:
+    the GEMM the quantized matmul runs, and what the autotuner times.  A
+    fused plan is one launch (grouped for batched GEMMs) with the dequant
+    epilogue in the kernel; a staged plan runs through ``ops.run_plan`` —
+    per expert for batched GEMMs, dead rows then zeroed — and the dequant
+    ``acc * (sx * sw)`` follows in the fused epilogue's fp32 order."""
+    if plan.variant not in ("fused", "fused_mm2"):
+        return _staged_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
+    kw = dict(w=plan.w, m=plan.m, mode=_fused_mode(plan),
+              block_k=plan.block_k, combine_int32=plan.combine_int32,
+              out_dtype=out_dtype)
+    if qw.dim() == 3:
         return fused_gemm_grouped(qx.contiguous(), qw.contiguous(),
                                   sx.contiguous(), sw.contiguous(), counts,
                                   seg=seg, **kw)
+    k_dim, n_dim = qw.shape
+    m_dim = math.prod(qx.shape[:-1])
     out = fused_gemm(qx.reshape(m_dim, k_dim).contiguous(), qw.contiguous(),
                      sx.reshape(m_dim, 1), sw.reshape(1, n_dim), **kw)
     return out.reshape(qx.shape[:-1] + (n_dim,))
 
 
-def _carrier(w: int, m: int) -> torch.dtype:
-    return torch.int8 if w <= m else torch.int16 if w <= 16 else torch.int32
+def _staged_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
+                    counts: Optional[torch.Tensor], seg: Optional[int]
+                    ) -> torch.Tensor:
+    f32 = torch.float32
+    if qw.dim() == 2:
+        k_dim, n_dim = qw.shape
+        acc = ops.run_plan(qx.reshape(-1, k_dim), qw, plan=plan)
+        out = acc.to(f32) * (sx.reshape(-1, 1) * sw.reshape(1, n_dim))
+        return out.to(out_dtype).reshape(qx.shape[:-1] + (n_dim,))
+    acc = torch.stack([ops.run_plan(qx[e], qw[e], plan=plan)
+                       for e in range(qx.shape[0])])
+    out = (acc.to(f32) * (sx * sw)).to(out_dtype)
+    if counts is not None:
+        out = torch.where(ragged_row_mask(counts, seg, out.shape[1]), out,
+                          torch.zeros_like(out))
+    return out
 
 
 def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
@@ -128,10 +191,10 @@ def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
     in the narrow carrier, before the launch.
     """
     _check_context(context)
-    carrier = _carrier(w_bits, m)
+    carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per token
     qw, sw = _quantize(wmat, w_bits, 0, carrier)      # per output channel
-    out = _fused_cuda(qx, qw, sx, sw, w_bits, m, x.dtype)
+    out = _fused_cuda(qx, qw, sx, sw, w_bits, m, x.dtype, context=context)
     if out is None:
         raise NotImplementedError(
             f"w={w_bits} GEMM {tuple(x.shape)} x {tuple(wmat.shape)} is "
@@ -160,10 +223,11 @@ def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
                          f"{tuple(x.shape)} x {tuple(wmat.shape)}")
     if counts is not None and (seg is None or seg <= 0):
         raise ValueError("ragged counts need a positive static seg")
-    carrier = _carrier(w_bits, m)
+    carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
     qw, sw = _quantize(wmat, w_bits, 1, carrier)      # per (expert, channel)
-    out = _fused_cuda(qx, qw, sx, sw, w_bits, m, x.dtype, counts, seg)
+    out = _fused_cuda(qx, qw, sx, sw, w_bits, m, x.dtype, counts, seg,
+                      context=context)
     if out is None:
         raise NotImplementedError(
             f"w={w_bits} expert GEMM {tuple(x.shape)} x "

@@ -18,6 +18,12 @@ from typing import Optional, Tuple
 import torch
 
 
+def carrier_dtype(w: int, m: int = 8) -> torch.dtype:
+    """The integer dtype w-bit codes are stored in: int8 in the MM1 window
+    (w <= m), int16 through w = 16, int32 above."""
+    return torch.int8 if w <= m else torch.int16 if w <= 16 else torch.int32
+
+
 def quantize_symmetric(x: torch.Tensor, bits: int, axis=None,
                        keepdims: Optional[bool] = None,
                        storage_dtype=torch.int32

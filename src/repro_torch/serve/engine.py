@@ -8,11 +8,14 @@ per-slot position vector.  Admission order and per-(request, step) sampling
 seeds make the output token-identical to sequential single-request
 generation, whatever the slot count and bucket width.
 
-Every quantized GEMM goes through the fused CUDA kernel (the context's
-``"cuda"`` backend).  The engine runs on CUDA unless ``device="cpu"`` is
-passed; then each GEMM runs the kernel's plain PyTorch version.  Chunked
-prefill (``prefill_chunk``), prefix sharing (``prefix_cache``) and meshes
-are not ported yet and raise.
+Every quantized GEMM goes through the CUDA kernels (the context's
+``"cuda"`` backend): the fused kernel, or under a tuning table
+(``ExecContext(tuning_table=...)``, installed process-wide as the reference
+does) the plan the table picks within the same numerics, so the tokens do
+not change.  The engine runs on CUDA unless ``device="cpu"`` is passed;
+then each GEMM runs the kernels' plain PyTorch versions.  Chunked prefill
+(``prefill_chunk``), prefix sharing (``prefix_cache``) and meshes are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -57,6 +60,12 @@ class Engine:
                 or ctx.force_mode != cfg.quant.force_mode):
             cfg = cfg.with_quant(dataclasses.replace(
                 cfg.quant, backend=ctx.backend, force_mode=ctx.force_mode))
+        if ctx.tuning_table is not None:
+            # Process-wide, as the reference installs it: every GEMM of the
+            # model resolves its plan against it.  Tables are
+            # numerics-pinned: they change speed, never tokens.
+            from repro_torch.tune.table import set_active_table
+            set_active_table(ctx.tuning_table)
         self.context = ctx
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)
