@@ -44,6 +44,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      events, warm-up excluded), and each model's prefill and decode
      tokens/s, step ms and peak device memory.
 
+The RWKV path (rwkv6-3b: models/rwkv.py, the WKV recurrence kernel
+kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
+
+  3w. the WKV kernel against its plain version (``allclose``, rtol = atol =
+      WKV_TOL, on y and the final state): decode on 1, 2 and 4 lanes x 40
+      heads (S = 1, D = 64) from a nonzero state, prefill of 1 x 40 heads at
+      every prompt bucket 8-64, ``wkv_apply``'s own (BH, S, D) layout at
+      (160, 256, 64) with chunk 128 and 32, an S that no chunk divides, and
+      the smoke model's D = 16; timed against its bound and plain version at
+      decode on 4 lanes, prefill S = 64 and (160, 256, 64); and the fused
+      kernel (torch.equal) at rwkv's GEMM shapes: mm1 at its time-mix
+      (2560 x 2560) and channel-mix (2560 x 8960, 8960 x 2560) projections
+      and kmm2 at its untied lm_head (2560 x 65536), M 1, 4 and 64;
+  4.  the rwkv smoke model in float32, card against CPU;
+  5.  full-width rwkv6-3b under mixed (the same 6 requests, twice): per
+      prefill and per decode step exactly 224 fused mm1 + 1 fused kmm2 + 32
+      WKV launches, and no other kernel; greedy streams repeat.
+
 The staged path (kernels/ops.py's run_plan and its kernels mm1_gemm,
 kmm2_gemm_planes and mm2_gemm_planes, csrc/staged_gemm.cu) and the tuner
 add, within the phases above:
@@ -127,6 +145,34 @@ GROUPED_CASES = [("decode W=1", 8, 8, 1, 1), ("decode W=2", 16, 8, 2, 1),
                  ("decode W=4", 32, 8, 4, 1), ("prefill S=32", 8, 8, 1, 32),
                  ("prefill S=64", 16, 16, 1, 64), ("edge", 32, 8, 4, 0)]
 
+# rwkv6-3b (32 layers, d_model 2560, d_ff 8960, untied lm_head over vocab
+# 65536): mm1 at its w=8 projections — 5 time-mix (wr, wk, wv, wg, wo)
+# and 2 channel-mix (wi, wo) — and kmm2 at the w=12 lm_head; its first K
+# that is not a power of two (8960: 35 blocks of 256) and first untied
+# lm_head.  The fused kernel is held to its plain version there at M 1, 4
+# and 64.
+RWKV_MM1_KN = [(2560, 2560), (2560, 8960), (8960, 2560)]
+RWKV_KMM2_KN = [(2560, 65536)]
+RWKV_ROWS = [1, 4, 64]
+# The WKV kernel (row 5): tolerance against its plain version (fp32 sums
+# over i in another order), the full-width heads, and its check cases:
+# (label, entry, B or BH, S, H, D, chunk, nonzero initial state, timed).
+WKV_TOL = 1e-5
+WKV_HEADS, WKV_D = 40, 64
+WKV_CASES = (
+    [(f"decode W={w}", "stateful", w, 1, WKV_HEADS, WKV_D, None, True,
+      w == 4) for w in (1, 2, 4)]
+    + [(f"prefill S={s}", "stateful", 1, s, WKV_HEADS, WKV_D, None, False,
+        s == 64) for s in (8, 16, 32, 64)]
+    + [("apply", "apply", 160, 256, 1, WKV_D, 128, False, True),
+       ("apply", "apply", 160, 256, 1, WKV_D, 32, False, False),
+       ("apply S=37", "apply", 160, 37, 1, WKV_D, 32, False, False),
+       ("smoke D=16", "stateful", 2, 16, 4, 16, None, True, False),
+       ("smoke decode D=16", "stateful", 2, 1, 4, 16, None, True, False)])
+WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv.cu"
+# Published fp32 peak of one H100 SXM outside the tensor cores.
+PEAK_FP32_OPS_PER_S = 67e12
+
 # The serve paths: (arch, policy, requests, new tokens, identical runs,
 # launches per prefill and per decode step: dense, grouped).  llama's 16
 # layers have 7 w=8 projections each and w=12 lm_head; granite's 32 have
@@ -144,7 +190,10 @@ PATHS = [
     ("granite-moe-3b-a800m", "w16", 2, 4, 1, {"mm2": 161}, {"mm2": 96}),
     ("granite-moe-3b-a800m", "w20", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
     ("granite-moe-3b-a800m", "w24", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
+    ("rwkv6-3b", "mixed", 6, 16, 2, {"mm1": 224, "kmm2": 1}, {}),
 ]
+# WKV launches per prefill and per decode step: one a RWKV layer.
+WKV_PER_CALL = {"rwkv6-3b": 32}
 
 
 # The staged kernels (rows 2-4 of PERF.md's table) on their digit planes:
@@ -208,11 +257,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            lead_ms: float = 0.0) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events).
+    Where a call's host work outlasts its kernels, the events measure the
+    host; ``lead_ms`` > 0 first queues a device sleep of about that long
+    (``torch.cuda._sleep``, at most 2 GHz of clock), so the calls queue up
+    behind it and run back to back: the interval is device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if lead_ms > 0:
+        torch.cuda._sleep(int(lead_ms * 2e6))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -278,6 +334,10 @@ def kernel_checks(torch, fg):
              + [("kmm2", 12, m, k, n) for k, n in KMM2_KN + GRANITE_KMM2_KN
                 for m in ROWS]
              + [("mm1", 8) + RAGGED, ("kmm2", 12) + RAGGED]
+             + [("mm1", 8, m, k, n) for k, n in RWKV_MM1_KN
+                for m in RWKV_ROWS]
+             + [("kmm2", 12, m, k, n) for k, n in RWKV_KMM2_KN
+                for m in RWKV_ROWS]
              + [(mode, w, m, k, n) for mode, w in WIDE_MODES
                 for k, n in every_kn for m in ROWS]
              + [(mode, w) + RAGGED for mode, w in WIDE_MODES])
@@ -597,9 +657,96 @@ def staged_launches() -> dict:
 
 
 def reset_all(fg) -> None:
+    from repro_torch.kernels import wkv_gemm
     fg.reset_launches()
+    wkv_gemm.reset_launches()
     for mod in staged_modules():
         mod.reset_launches()
+
+
+def wkv_bound_ms(b: int, s: int, h: int, d: int, u_elems: int,
+                 state: bool):
+    """Least time for one WKV call: the r, k, v, w streams and u read once,
+    y written once, and a carried state read and written once, at the
+    card's memory rate; or its 7 fp32 operations per state element and step
+    at the fp32 peak outside the tensor cores."""
+    nbytes = 4 * (5 * b * s * h * d + u_elems + (2 * b * h * d * d
+                                                 if state else 0))
+    ops = 7 * b * h * s * d * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wkv_checks(torch):
+    """Phase 3w and the WKV half of phase 6: the kernel against its plain
+    version (allclose within WKV_TOL on y and the final state) at every
+    WKV_CASES entry, timed where marked."""
+    from repro_torch.kernels import wkv_gemm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    rows = []
+    for label, entry, b, s, h, d, chunk, warm, timed in WKV_CASES:
+        shape = (b, s, h, d) if entry == "stateful" else (b, s, d)
+        r, k, v = (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                   for _ in range(3))
+        w = torch.rand(shape, generator=gen, device="cuda") * 0.199 + 0.8
+        u = torch.randn((h, d) if entry == "stateful" else (b, d),
+                        generator=gen, device="cuda") * 0.1
+        if entry == "stateful":
+            st0 = torch.zeros((b, h, d, d), device="cuda")
+            if warm:
+                st0 = torch.randn((b, h, d, d), generator=gen,
+                                  device="cuda") * 0.2
+
+            def kernel():
+                return wkv_gemm.wkv_stateful(r, k, v, w, u, st0)
+
+            def plain():
+                return wkv_gemm.wkv_stateful_reference(r, k, v, w, u, st0)
+        else:
+            def kernel():
+                return (wkv_gemm.wkv_apply(r, k, v, w, u, chunk=chunk),)
+
+            def plain():
+                return (wkv_gemm.wkv_reference(r, k, v, w, u),)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [(g - p).abs().max().item() for g, p in zip(got, want)]
+        what = f"wkv {label} {shape}" + (f" chunk {chunk}" if chunk else "")
+        for g, p in zip(got, want):
+            if g.shape != p.shape or not torch.isfinite(g).all() or \
+                    not torch.allclose(g, p, rtol=WKV_TOL, atol=WKV_TOL):
+                fail(f"{what}: kernel != plain version (max abs err "
+                     f"{errs}, tolerance {WKV_TOL})")
+        row = {"case": label, "entry": entry, "B": b, "S": s, "H": h, "D": d,
+               "chunk": chunk, "state0": "random" if warm else "zero",
+               "max_abs_err_y": errs[0],
+               "max_abs_err_state": errs[1] if len(errs) > 1 else None,
+               "max_abs_err": max(errs)}
+        if timed:
+            # A call's host work (the wrapper's checks, the ctypes call)
+            # outlasts the kernel: timed back to back, the events measure
+            # the host (host_ms); queued behind a device sleep that covers
+            # the host's enqueueing, they measure the device (ms).
+            row["host_ms"] = cuda_ms(torch, kernel)
+            row["ms"] = cuda_ms(torch, kernel,
+                                lead_ms=2 * 20 * row["host_ms"] + 1)
+            row["plain_host_ms"] = cuda_ms(torch, plain, iters=3, warmup=1)
+            row["plain_ms"] = cuda_ms(torch, plain, iters=3, warmup=1,
+                                      lead_ms=2 * 3 * row["plain_host_ms"]
+                                      + 1)
+            row["bound_ms"], row["bound_by"] = wkv_bound_ms(
+                b, s, h, d, u.numel(), entry == "stateful")
+        rows.append(row)
+        log(f"  {what}: allclose ({WKV_TOL}), max abs err y "
+            f"{errs[0]:.3e}" + (f", state {errs[1]:.3e}" if len(errs) > 1
+                                else "")
+            + (f" | kernel {row['ms']:.4f} ms (host-bound back to back: "
+               f"{row['host_ms']:.4f}) | bound {row['bound_ms']:.5f} ms "
+               f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms "
+               f"({row['plain_host_ms']:.3f})" if timed else ""))
+    return rows
 
 
 def pow2_cover(k: int) -> int:
@@ -1127,6 +1274,7 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
     """Phase 5 and the engine half of phase 6 for every path of ``arch``:
     one set of full-width weights, each path's runs with the launch counts
     set to 0 just before and read just after."""
+    from repro_torch.kernels import wkv_gemm
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, Request
 
@@ -1167,14 +1315,22 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
                 fail(f"{arch} {policy} without a table launched a staged "
                      f"kernel: {staged_launches()}")
             runs.append((reqs, stats, dict(fg.launches),
-                         dict(fg.grouped_launches), wall))
-        reqs, stats, got_dense, got_grouped, wall = runs[0]
+                         dict(fg.grouped_launches), wall,
+                         wkv_gemm.launches["wkv"]))
+        reqs, stats, got_dense, got_grouped, wall, got_wkv = runs[0]
         calls = len(reqs) + stats.decode_steps   # prefills + decode steps
         want_dense = expected_launches(fg, dense, calls)
         want_grouped = expected_launches(fg, grouped, calls)
+        want_wkv = WKV_PER_CALL.get(arch, 0) * calls
         log(f"  {arch} {policy} run 1: {stats.generated_tokens} tokens, "
             f"{stats.decode_steps} decode steps, launches dense {got_dense} "
-            f"grouped {got_grouped} (expected {want_dense}, {want_grouped})")
+            f"grouped {got_grouped} wkv {got_wkv} (expected {want_dense}, "
+            f"{want_grouped}, {want_wkv})")
+        if any(run[5] != WKV_PER_CALL.get(arch, 0)
+               * (len(run[0]) + run[1].decode_steps) for run in runs):
+            fail(f"{arch} {policy}: WKV launches {[run[5] for run in runs]}"
+                 f", expected {WKV_PER_CALL.get(arch, 0)} a prefill and a "
+                 f"decode step")
         for kind, per_call, got in (("dense", dense, got_dense),
                                     ("grouped", grouped, got_grouped)):
             if any(got[mode] <= 0 for mode in per_call):
@@ -1193,7 +1349,8 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
                     fail(f"{arch} {policy}: greedy output changed on an "
                          f"identical second run")
         launches_by_path[f"{arch} {policy}"] = {"dense": got_dense,
-                                                "grouped": got_grouped}
+                                                "grouped": got_grouped,
+                                                "wkv": got_wkv}
         if policy != "mixed":
             stats_w, wall_w = runs[-1][1], runs[-1][4]
             out[f"{policy}_run"] = {
@@ -1314,7 +1471,7 @@ def _leaves(tree):
 
 
 def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
-                   staged_rows, table_runs):
+                   staged_rows, table_runs, wkv_rows):
     """One entry per kernel instance (dense and grouped; mm1, kmm2, mm2 and
     kmm4's two layouts) for the result line.  ``launches`` sums the first
     run of every serve path (``launches_by_path`` has each); a path runs
@@ -1414,6 +1571,21 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
                      + ("int32 out" if name == "mm1_gemm" else
                         "fp32 combine"),
         })
+    # The WKV kernel at decode on 4 lanes (40 heads of 64, S = 1), the
+    # shape it runs at each decode step of the rwkv path; no single
+    # library call computes the recurrence.
+    row = next(r for r in wkv_rows if r["case"] == "decode W=4")
+    out.append({
+        "name": "wkv", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": "src/repro/kernels/wkv_gemm.py:33",
+        "launches": sum(c.get("wkv", 0) for c in launches_by_path.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None,
+        "shape": f"B={row['B']} S={row['S']} H={row['H']} D={row['D']}, "
+                 f"fp32, state in and out",
+    })
     return out
 
 
@@ -1477,6 +1649,11 @@ def main() -> int:
     kvm_rows = kmm2_vs_mm2(torch)
     seconds["staged_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
+    log(f"[3w] WKV kernel vs plain version (allclose, rtol = atol = "
+        f"{WKV_TOL})")
+    wkv_rows = wkv_checks(torch)
+    seconds["wkv_checks"] = time.monotonic() - t0
+    t0 = time.monotonic()
     log("[3c] tune llama's GEMMs on the card")
     tuner = tuner_phase(torch)
     seconds["tuner"] = time.monotonic() - t0
@@ -1504,7 +1681,8 @@ def main() -> int:
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
               "kmm4_layouts": route_rows, "staged_shapes": staged_rows,
               "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
-              "kmm2_vs_mm2": kvm_rows, "tuner": tuner,
+              "kmm2_vs_mm2": kvm_rows, "wkv_shapes": wkv_rows,
+              "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
               "phase_seconds": seconds,
@@ -1519,7 +1697,7 @@ def main() -> int:
     table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()}
     print(json.dumps({"kernels": kernel_entries(
         fg, rows, grouped_rows, sweep_rows, launches_by_path, staged_rows,
-        table_runs)}), flush=True)
+        table_runs, wkv_rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

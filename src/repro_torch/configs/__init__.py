@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch, smoke=False, quant=...)``.
 
-The port registers the architectures it can serve: ``llama3.2-1b`` and
-``granite-moe-3b-a800m``.
+The port registers the architectures it can serve: ``llama3.2-1b``,
+``granite-moe-3b-a800m`` and ``rwkv6-3b``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.quant.policy import (POLICY_MIXED, POLICY_W12, POLICY_W8,
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 QUANT_POLICIES = {

@@ -1,10 +1,11 @@
-"""Model configuration (port of ``repro.models.config``, the dense and MoE
-fields).
+"""Model configuration (port of ``repro.models.config``, the dense, MoE
+and RWKV fields).
 
 A model is ``n_periods`` repetitions of a ``pattern`` of blocks; parameters
-are stacked over periods.  The port serves attention blocks with a dense or
-an MoE MLP; the fields of the other families (SSM, RWKV, encoder-decoder,
-modality front ends) and of training wait for their ROADMAP items.
+are stacked over periods.  The port serves attention and RWKV blocks, each
+with a dense or an MoE MLP; the fields of the other families (mamba,
+encoder-decoder, modality front ends) and of training wait for their
+ROADMAP items.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch.quant.policy import QuantConfig
 
 @dataclass(frozen=True)
 class Block:
-    kind: str = "attn"        # the port runs "attn" only
+    kind: str = "attn"        # "attn" | "rwkv" (the port has no "mamba")
     moe: bool = False         # MoE MLP instead of dense MLP
 
 
@@ -41,6 +42,8 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # RWKV
+    rwkv_head_dim: int = 64
     quant: QuantConfig = QuantConfig()
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -62,6 +65,16 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def attn_free(self) -> bool:
+        return all(b.kind != "attn" for b in self.pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True where a block carries recurrent state (mamba, rwkv): decode
+        cost per token does not grow with the sequence."""
+        return any(b.kind in ("mamba", "rwkv") for b in self.pattern)
 
     def with_quant(self, quant: QuantConfig) -> "ModelConfig":
         return replace(self, quant=quant)

@@ -1,6 +1,6 @@
-"""Model building blocks for dense decoders (port of ``repro.models.layers``):
-RMSNorm, RoPE, the gated MLP, GQA attention for prefill (chunked,
-against the KV cache) and one-token decode.
+"""Model building blocks (port of ``repro.models.layers``): RMSNorm and
+LayerNorm, RoPE, the MLP (gated or plain), GQA attention for prefill
+(chunked, against the KV cache) and one-token decode.
 
 Plain functions on tensors and parameter dicts, in the reference's layouts:
 activations (B, S, d), heads (B, S, H, D), caches (B, Smax, K, D).  Every
@@ -28,17 +28,25 @@ Params = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
-def norm_init(d: int, device) -> Params:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def norm_init(d: int, device, kind: str = "rms") -> Params:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "ln":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
 
 
-def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
-               ) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to the input dtype (the reference's
-    ``kind="rms"``; its layer norm waits for a config that uses it)."""
+def norm_apply(p: Params, x: torch.Tensor, kind: str = "rms",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (``kind="rms"``) or LayerNorm with bias (``"ln"``) over the
+    last axis in fp32, cast back to the input dtype."""
     xf = x.to(torch.float32)
-    ms = (xf * xf).mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    if kind == "ln":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
     return out.to(x.dtype)
 
 

@@ -1,6 +1,7 @@
-"""Decoder assembly for serving (port of ``repro.models.lm``, attention
-blocks with a dense or an MoE MLP): parameters, embeddings and head, the KV
-cache, ``prefill`` and ``decode_step``.
+"""Decoder assembly for serving (port of ``repro.models.lm``, attention and
+RWKV blocks with a dense or an MoE MLP): parameters, embeddings and head,
+the cache (K/V for attention, the carried state for RWKV), ``prefill`` and
+``decode_step``.
 
 Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
 {"pos0": {...}}}`` with block parameters stacked over periods on axis 0
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rwkv as R
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
@@ -36,7 +38,7 @@ def _cdtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "rwkv"):
             raise NotImplementedError(
                 f"block {spec} is not ported yet (ROADMAP: recurrent and "
                 f"multimodal families)")
@@ -58,17 +60,26 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     n = cfg.n_periods
     d = cfg.d_model
 
+    def stack(parts):
+        if isinstance(parts[0], dict):
+            return {k: stack([p[k] for p in parts]) for k in parts[0]}
+        return torch.stack(parts)
+
     def stacked(make):
-        parts = [make() for _ in range(n)]
-        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        return stack([make() for _ in range(n)])
 
     blocks = {}
     for pos, spec in enumerate(cfg.pattern):
         blocks[f"pos{pos}"] = {
             "ln1": stacked(lambda: L.norm_init(d, device)),
             "ln2": stacked(lambda: L.norm_init(d, device)),
-            "attn": stacked(lambda: L.attn_init(gen, cfg, dtype, device)),
         }
+        if spec.kind == "rwkv":
+            blocks[f"pos{pos}"]["rwkv"] = stacked(
+                lambda: R.rwkv_init(gen, cfg, dtype, device))
+        else:
+            blocks[f"pos{pos}"]["attn"] = stacked(
+                lambda: L.attn_init(gen, cfg, dtype, device))
         if spec.moe:
             blocks[f"pos{pos}"]["moe"] = stacked(
                 lambda: M.moe_init(gen, cfg, dtype, device))
@@ -123,15 +134,25 @@ def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device) -> Params:
-    """Zeroed KV cache: {"posN": {"k", "v"}} of (n_periods, B, Smax, K, D)
-    in the compute dtype."""
+    """Zeroed cache, every leaf stacked over periods: attention blocks
+    {"k", "v"} of (n_periods, B, Smax, K, D) in the compute dtype; RWKV
+    blocks {"shift": (n_periods, B, 1, d) in the compute dtype, "wkv":
+    (n_periods, B, H, D, D) fp32}."""
     _check_ported(cfg)
-    shape = (cfg.n_periods, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {f"pos{pos}": {"k": torch.zeros(shape, dtype=_cdtype(cfg),
-                                           device=device),
-                          "v": torch.zeros(shape, dtype=_cdtype(cfg),
-                                           device=device)}
-            for pos, _ in enumerate(cfg.pattern)}
+    n = cfg.n_periods
+    cache = {}
+    for pos, spec in enumerate(cfg.pattern):
+        if spec.kind == "rwkv":
+            cache[f"pos{pos}"] = {
+                name: leaf[None].repeat((n,) + (1,) * leaf.dim())
+                for name, leaf in R.rwkv_cache_init(
+                    cfg, batch, _cdtype(cfg), device=device).items()}
+            continue
+        shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        cache[f"pos{pos}"] = {
+            "k": torch.zeros(shape, dtype=_cdtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_cdtype(cfg), device=device)}
+    return cache
 
 
 def _period(tree, i: int):
@@ -159,7 +180,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     ``t`` is the KV-cache write index: a scalar, or a (B,) vector for
     continuous batching where every slot sits at its own depth.
     ``positions`` optionally gives distinct RoPE positions; ``kv_valid``
-    (B, Smax) masks pad cache slots."""
+    (B, Smax) masks pad cache slots.  RWKV blocks step their carried state
+    and ignore all three."""
     _check_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     for i in range(cfg.n_periods):
@@ -167,17 +189,26 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         pc = _period(cache, i)
         for pos, spec in enumerate(cfg.pattern):
             p = pp[f"pos{pos}"]
+            name = f"blk{pos}.{spec.kind}"
             h = L.norm_apply(p["ln1"], x)
-            y, _ = L.attn_decode(p["attn"], h, pc[f"pos{pos}"], t, cfg,
-                                 cfg.quant, f"blk{pos}.{spec.kind}",
-                                 positions=positions, kv_valid=kv_valid)
+            if spec.kind == "rwkv":
+                y, _ = R.rwkv_decode(p["rwkv"], h, pc[f"pos{pos}"], cfg,
+                                     cfg.quant, name)
+            else:
+                y, _ = L.attn_decode(p["attn"], h, pc[f"pos{pos}"], t, cfg,
+                                     cfg.quant, name, positions=positions,
+                                     kv_valid=kv_valid)
             x = _mlp(p, x + y, cfg, pos)
     logits = _logits(params, cfg, x)
     return logits[:, 0, :], cache
 
 
-def _attn_max_seq(cfg: ModelConfig, cache: Params) -> int:
-    return cache["pos0"]["k"].shape[2]
+def _attn_max_seq(cfg: ModelConfig, cache: Params) -> Optional[int]:
+    """Smax of the attention KV cache, or None for attention-free models."""
+    for pos, spec in enumerate(cfg.pattern):
+        if spec.kind == "attn":
+            return cache[f"pos{pos}"]["k"].shape[2]
+    return None
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -190,10 +221,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     row's last real position (B, V), cache, None).
 
     Ragged calls (``positions``, ``pad_mask``, ``last_idx`` or ``start``
-    given) run as one chunk: ``pad_mask`` (B, S) marks real tokens and masks
-    pad keys, ``positions`` (B, S) overrides RoPE positions, ``last_idx``
-    (B,) picks the logits row, and ``start`` resumes at that cache offset
-    (cache contents below it are valid earlier keys).  Plain calls run
+    given) run as one chunk: ``pad_mask`` (B, S) marks real tokens, masks
+    pad keys and freezes the recurrent state on pads, ``positions`` (B, S)
+    overrides RoPE positions, ``last_idx`` (B,) picks the logits row (and
+    the carried token shift), and ``start`` resumes at that cache offset
+    (cache contents below it are valid earlier keys; the recurrent state
+    sits at ``start``).  Plain calls run
     ``chunk_size`` tokens at a time and return the last position's logits.
     The third element mirrors the reference's cross-attention memory, which
     dense models do not have.
@@ -205,8 +238,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     b, s, _ = x.shape
     off = 0 if start is None else int(start)
     kv_valid = None
-    if pad_mask is not None:
-        smax = _attn_max_seq(cfg, cache)
+    smax = _attn_max_seq(cfg, cache)
+    if pad_mask is not None and smax is not None:
         kvpos = torch.arange(smax, device=x.device)[None, :]
         rel = (kvpos - off).clamp(0, s - 1)
         in_chunk = (kvpos >= off) & (kvpos < off + s)
@@ -214,17 +247,24 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         kv_valid = torch.where(in_chunk, chunk_valid,
                                torch.ones_like(chunk_valid))
 
-    def run_chunk(xc, offset, pos_c):
+    def run_chunk(xc, offset, pos_c, mask_c, li):
+        """One chunk through all periods; pos_c/mask_c/li are the ragged
+        extras (None on the plain path)."""
         for i in range(cfg.n_periods):
             pp = _period(params["blocks"], i)
             pc = _period(cache, i)
             for pos, spec in enumerate(cfg.pattern):
                 p = pp[f"pos{pos}"]
+                name = f"blk{pos}.{spec.kind}"
                 h = L.norm_apply(p["ln1"], xc)
-                y, _ = L.attn_prefill_chunk(
-                    p["attn"], h, pc[f"pos{pos}"], offset, cfg, cfg.quant,
-                    f"blk{pos}.{spec.kind}", positions=pos_c,
-                    kv_valid=kv_valid)
+                if spec.kind == "rwkv":
+                    y, _ = R.rwkv_apply_stateful(
+                        p["rwkv"], h, pc[f"pos{pos}"], cfg, cfg.quant, name,
+                        mask=mask_c, last_idx=li)
+                else:
+                    y, _ = L.attn_prefill_chunk(
+                        p["attn"], h, pc[f"pos{pos}"], offset, cfg,
+                        cfg.quant, name, positions=pos_c, kv_valid=kv_valid)
                 xc = _mlp(p, xc + y, cfg, pos)
         return xc
 
@@ -232,7 +272,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         li = (last_idx.to(torch.int64) if last_idx is not None
               else torch.full((b,), s - 1, dtype=torch.int64,
                               device=x.device))
-        xall = run_chunk(x, off, positions)
+        xall = run_chunk(x, off, positions, pad_mask, li)
         last_h = torch.gather(xall, 1, li[:, None, None].expand(
             b, 1, xall.shape[-1]))
         return _logits(params, cfg, last_h)[:, 0, :], cache, None
@@ -242,5 +282,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         cs //= 2
     last = None
     for ci in range(s // cs):
-        last = run_chunk(x[:, ci * cs:(ci + 1) * cs], ci * cs, None)[:, -1]
+        last = run_chunk(x[:, ci * cs:(ci + 1) * cs], ci * cs, None, None,
+                         None)[:, -1]
     return _logits(params, cfg, last[:, None, :])[:, 0, :], cache, None

@@ -157,6 +157,9 @@ class Engine:
         token.  Returns the request if it finished at admission."""
         slot = self.scheduler.slots[idx]
         req = slot.req
+        # recurrent state is not masked by position: a reused slot must not
+        # start from the previous request's state
+        self.pool.zero_slot_state(idx)
         plen = len(req.prompt)
         width = self._bucket(plen)
         toks = np.zeros((1, width), np.int32)
