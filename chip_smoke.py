@@ -11,8 +11,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      per build unit of every source, started together);
   3. hold each kernel to its plain PyTorch version on the card with
      ``torch.equal``, at the shapes the serve paths give it: the dense
-     fused GEMM in mode mm1 (every w=8 projection of llama3.2-1b and
-     granite-moe-3b-a800m), kmm2 (lm_head and the MoE router at w=12), and
+     fused GEMM in mode mm1 (csrc/fused_mm1.cu: every w=8 projection of
+     llama3.2-1b and granite-moe-3b-a800m, llama's wi and wd also at
+     M=256 and 2048, and an unaligned decode shape, 4x2050x8200, whose
+     rows take the byte-load path), kmm2 (lm_head and the MoE router at
+     w=12), and
      mm2 and kmm4 (every one of those GEMMs at w=16, and at w=20 and w=24,
      kmm4's two digit layouts), and the grouped ragged fused GEMM
      (granite's 40 expert GEMMs in every mode and layout, at the decode and
@@ -41,8 +44,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      other;
   6. time each kernel against its bound, its plain version and the
      library call that computes the same product where there is one (CUDA
-     events, warm-up excluded), and each model's prefill and decode
-     tokens/s, step ms and peak device memory.
+     events, warm-up excluded; the mm1 kernel, dense and grouped, and
+     ``torch._int_mm`` beside it in device time, queued behind a device
+     sleep, with ``_int_mm`` on A zero-padded to 32 rows where M <= 16,
+     which it refuses), and each model's prefill and decode tokens/s,
+     step ms and peak device memory.
 
 The RWKV path (rwkv6-3b: models/rwkv.py, the WKV recurrence kernel
 kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
@@ -154,6 +160,13 @@ GROUPED_CASES = [("decode W=1", 8, 8, 1, 1), ("decode W=2", 16, 8, 2, 1),
 RWKV_MM1_KN = [(2560, 2560), (2560, 8960), (8960, 2560)]
 RWKV_KMM2_KN = [(2560, 65536)]
 RWKV_ROWS = [1, 4, 64]
+# The mm1 kernel (csrc/fused_mm1.cu) also at a compute-bound prefill
+# (llama's wi and wd at M 256 and 2048) and at an unaligned decode shape:
+# K and N not multiples of 16, so its rows take the byte-load path, and a
+# split K whose last split is ragged.
+MM1_EXTRA = [(m, k, n) for k, n in ((2048, 8192), (8192, 2048))
+             for m in (256, 2048)] + [(4, 2050, 8200)]
+MM1_SOURCE = "src/repro_torch/kernels/csrc/fused_mm1.cu"
 # The WKV kernel (row 5): tolerance against its plain version (fp32 sums
 # over i in another order), the full-width heads, and its check cases:
 # (label, entry, B or BH, S, H, D, chunk, nonzero initial state, timed).
@@ -336,6 +349,7 @@ def kernel_checks(torch, fg):
              + [("mm1", 8) + RAGGED, ("kmm2", 12) + RAGGED]
              + [("mm1", 8, m, k, n) for k, n in RWKV_MM1_KN
                 for m in RWKV_ROWS]
+             + [("mm1", 8) + shape for shape in MM1_EXTRA]
              + [("kmm2", 12, m, k, n) for k, n in RWKV_KMM2_KN
                 for m in RWKV_ROWS]
              + [(mode, w, m, k, n) for mode, w in WIDE_MODES
@@ -369,9 +383,16 @@ def kernel_checks(torch, fg):
                 fail(f"{mode} {m}x{k}x{n} {label}: kernel != plain version "
                      f"(max abs err {err})")
             row[f"max_abs_err_{label}"] = err
-            row[f"ms_{label}"] = cuda_ms(torch, lambda: fg.fused_gemm(
-                a, b, s_x, s_w, w=w, mode=mode, block_k=block_k,
-                out_dtype=out_dtype))
+
+            def kernel():
+                return fg.fused_gemm(a, b, s_x, s_w, w=w, mode=mode,
+                                     block_k=block_k, out_dtype=out_dtype)
+
+            if mode == "mm1":
+                row[f"ms_{label}"], row[f"host_ms_{label}"] = device_ms(
+                    torch, kernel)
+            else:
+                row[f"ms_{label}"] = cuda_ms(torch, kernel)
             if label == "dequant_bf16":
                 def plain():
                     return fg.fused_gemm_reference(
@@ -382,17 +403,22 @@ def kernel_checks(torch, fg):
                     mode, w, m, k, n, 2, True)
         row["bound_ms_raw"], _ = gemm_bound_ms(mode, w, m, k, n, 4, False)
         # torch._int_mm computes the raw mm1 product (int8 x int8 -> int32);
-        # it takes only M > 16 and K, N multiples of 8.  No single library
-        # call computes the kmm2, mm2 or kmm4 function.
-        row["library_ms_raw"] = None
-        if mode == "mm1" and m > 16 and k % 8 == 0 and n % 8 == 0:
-            row["library_ms_raw"] = library_int_mm_ms(torch, fg, a, b)
+        # it takes only M > 16 and K, N multiples of 8, so at M <= 16 it is
+        # timed on A zero-padded to 32 rows (library_ms_raw_padded32).  No
+        # single library call computes the kmm2, mm2 or kmm4 function.
+        key = "library_ms_raw" if m > 16 else "library_ms_raw_padded32"
+        row["library_ms_raw"] = row["library_ms_raw_padded32"] = None
+        if mode == "mm1" and k % 8 == 0 and n % 8 == 0:
+            row[key], row[key + "_b_col_major"] = library_int_mm_ms(
+                torch, fg, a, b)
         rows.append(row)
-        log(f"  {mode:4s} w={w} M={m:<3d} K={k:<5d} N={n:<6d} equal | "
+        lib = (f" | _int_mm raw{'' if m > 16 else ', A padded to 32 rows'}"
+               f" {row[key]} (B column-major "
+               f"{row.get(key + '_b_col_major')})") if mode == "mm1" else ""
+        log(f"  {mode:4s} w={w} M={m:<4d} K={k:<5d} N={n:<6d} equal | "
             f"kernel {row['ms_dequant_bf16']:.4f} ms (raw "
             f"{row['ms_raw']:.4f}) | bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms | "
-            f"_int_mm raw {row['library_ms_raw']}")
+            f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms{lib}")
     return rows
 
 
@@ -488,7 +514,11 @@ def grouped_checks(torch, fg):
                     if got[~live].any():
                         fail(f"{what}: a dead row is not zero")
                     row[f"max_abs_err_{out_label}"] = err
-                    row[f"ms_{out_label}"] = cuda_ms(torch, kernel)
+                    if mode == "mm1":
+                        row[f"ms_{out_label}"], row[f"host_ms_{out_label}"] \
+                            = device_ms(torch, kernel)
+                    else:
+                        row[f"ms_{out_label}"] = cuda_ms(torch, kernel)
                     if scales:
                         row["plain_ms"] = cuda_ms(
                             torch, lambda: fg.fused_gemm_grouped_reference(
@@ -623,24 +653,39 @@ def route_timing(torch, fg):
     return rows
 
 
+def device_ms(torch, fn, iters: int = 20):
+    """(device ms, host ms) of ``fn``: timed back to back first, which
+    measures the host where its work outlasts the kernel, then queued
+    behind a device sleep that covers that host time."""
+    host = cuda_ms(torch, fn, iters=iters)
+    return cuda_ms(torch, fn, iters=iters, lead_ms=2 * iters * host + 1), host
+
+
 def library_int_mm_ms(torch, fg, a, b):
-    """Time of ``torch._int_mm`` on the same int8 operands (the yardstick;
-    the port never calls it), after checking it computes the same product.
-    cuBLASLt may refuse a row-major B; the same values column-major are the
-    same inputs.  None, with the reason printed, if it takes neither."""
+    """Device times of ``torch._int_mm`` on the same int8 operands (the
+    yardstick; the port never calls it), after checking it computes the
+    same product: (B row-major, as the port holds it; the same values laid
+    out column-major beforehand, a layout cuBLASLt runs on a faster path).
+    It refuses M <= 16, so there A is zero-padded to 32 rows.  None for a
+    layout it refuses, with the reason printed."""
+    m, k = a.shape
     want = fg.fused_gemm(a, b, w=8)
+    if m <= 16:
+        a = torch.cat([a, a.new_zeros((32 - m, k))])
+    out = []
     for b_lib in (b, b.t().contiguous().t()):
         try:
             got = torch._int_mm(a, b_lib)
         except RuntimeError as exc:
             log(f"  torch._int_mm refused B strides {b_lib.stride()}: "
                 f"{str(exc).splitlines()[0]}")
+            out.append(None)
             continue
-        if not torch.equal(got, want):
+        if not torch.equal(got[:m], want) or got[m:].any():
             fail(f"torch._int_mm disagrees with the kernel at "
                  f"{tuple(a.shape)} x {tuple(b.shape)}")
-        return cuda_ms(torch, lambda: torch._int_mm(a, b_lib))
-    return None
+        out.append(device_ms(torch, lambda: torch._int_mm(a, b_lib))[0])
+    return tuple(out)
 
 
 def staged_modules():
@@ -856,9 +901,9 @@ def staged_checks(torch, fg):
                                    f"w={w} {m}x{k}x{n}", timed, rows,
                                    {"w": w})
                 if timed and mode == "mm1" and m == 64:
-                    row["library_ms"] = library_int_mm_ms(
-                        torch, fg, a[:, :k].to(torch.int8),
-                        b[:k].to(torch.int8))
+                    row["library_ms"], row["library_ms_b_col_major"] = \
+                        library_int_mm_ms(torch, fg, a[:, :k].to(torch.int8),
+                                          b[:k].to(torch.int8))
                 if timed:
                     log(f"  {kernel:22s} w={w} {m}x{k}x{n}: equal | "
                         f"kernel {row['ms']:.4f} ms | bound "
@@ -1439,12 +1484,13 @@ def profile_decode(torch, eng, prompts, step_ms: float):
                      "per_step": ev.count / n})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
-    # kernel names carry the digit layout: 1 mm1, 2 kmm2 (the mixed path)
+    # mm1 is fused_mm1_kernel<tile rows, grouped>; the split modes'
+    # kernel names carry the digit layout: 2 kmm2 (the mixed path)
     gemm = {f"{kind}{mode}": sum(
         r["ms_per_step"] for r in rows
-        if f"fused_gemm_kernel<{layout}," in r["name"]
-        and r["name"].split(">")[0].endswith(flag))
-        for mode, layout in (("mm1", 1), ("kmm2", 2))
+        if name in r["name"] and r["name"].split(">")[0].endswith(flag))
+        for mode, name in (("mm1", "fused_mm1_kernel<"),
+                           ("kmm2", "fused_gemm_kernel<2,"))
         for kind, flag in (("", "false"), ("grouped_", "true"))}
     out = {"steps": n, "lanes": 4, "device_busy_ms_per_step": busy,
            "fused_gemm_ms_per_step": gemm,
@@ -1479,7 +1525,9 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
     instance that width picks.
 
     Dense mm1 at the prefill shape of llama's wi/wg (M=64, where
-    torch._int_mm, which needs M > 16, can run on the same inputs); dense
+    torch._int_mm, which needs M > 16, can run on the same inputs; its
+    decode time at M=4 beside it, with _int_mm on A padded to 32 rows);
+    dense
     kmm2, mm2 (w=16) and kmm4 (w=20 s8, w=24 split) at decode on 4 lanes
     (llama's lm_head); the grouped kernel at granite's decode on 4 lanes
     (wi/wg, C=32).  No library call computes the kmm2, mm2 or kmm4
@@ -1498,7 +1546,8 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
         return {
             "name": name,
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fused_gemm.cu",
+            "source": (MM1_SOURCE if inst == "mm1" else
+                       "src/repro_torch/kernels/csrc/fused_gemm.cu"),
             "replaces": ("src/repro/kernels/fused_gemm.py:119"
                          if kind == "dense" else
                          "src/repro/kernels/fused_gemm.py:437"),
@@ -1528,6 +1577,17 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
                          rows + sweep_rows,
                          f"w={row['w']} M={m} K={k} N={n}, dequant to bf16",
                          row["library_ms_raw"]))
+        if inst == "mm1":
+            dec = next(r for r in rows if r["mode"] == "mm1"
+                       and (r["M"], r["K"], r["N"]) == (4, k, n))
+            out[-1].update({
+                "library_ms_b_col_major": row["library_ms_raw_b_col_major"],
+                "decode_ms": dec["ms_dequant_bf16"],
+                "decode_bound_ms": dec["bound_ms"],
+                "decode_library_ms_padded32":
+                    dec["library_ms_raw_padded32"],
+                "decode_library_ms_padded32_b_col_major":
+                    dec["library_ms_raw_padded32_b_col_major"]})
     for inst in pick:
         row = next(r for r in grouped_rows
                    if instance(fg, r["mode"], r["w"]) == inst
@@ -1566,6 +1626,7 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
+            "library_ms_b_col_major": row.get("library_ms_b_col_major"),
             "shape": f"w={w} M={shape[0]} K={shape[1]} N={shape[2]}, "
                      f"{row['plane_dtype']} planes, "
                      + ("int32 out" if name == "mm1_gemm" else

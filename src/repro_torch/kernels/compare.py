@@ -1,22 +1,32 @@
-"""Time this checkout's dense fused GEMM against another checkout's, in
-turns on one card.
+"""Time this checkout's fused GEMM against another checkout's, in turns on
+one card.
 
     python -m repro_torch.kernels.compare --base path/to/other/checkout
 
-Builds ``csrc/fused_gemm.cu`` of both checkouts (this one as the port
-builds it, the other one whole, in one nvcc, into ``build/kernels/`` under
-its own name), checks at each shape that the two libraries'
-``fused_gemm_launch`` give equal outputs, and times them with CUDA events
-in the order base, this, this, base, after printing how long each build
-took (this checkout's in its parallel units; the other's whole, in one
-nvcc).  Shapes are the dense serve-path GEMMs
-of llama3.2-1b and granite-moe-3b-a800m at decode (M=4) and prefill
-(M=64), dequantized to bf16, in every mode: mm1 and kmm2 at the widths the
-mixed policy gives them, mm2 at w=16 and kmm4 at w=20 and w=24.  mm2 and
-kmm4 against a checkout whose kernel refuses them (one from before they
-were ported) are timed for this checkout alone; any other failed launch
-raises.  Prints a table and the card, and writes
-``chiprun_out/compare_fused_gemm.json``.  Needs a GPU.
+Builds ``csrc/fused_gemm.cu`` of the other checkout whole, in one nvcc,
+into ``build/kernels/`` under its own name, and calls its C entry points
+``fused_gemm_launch`` and ``fused_gemm_grouped_launch`` with the signatures
+they have had since the grouped entry came in (5 pointers and 9 ints; 6 and
+12), mode ids 1-4.  This checkout runs through its wrappers
+(``fused_gemm.fused_gemm`` / ``fused_gemm_grouped``), so mode mm1 runs on
+``csrc/fused_mm1.cu`` and the split modes on ``csrc/fused_gemm.cu``.  At
+each shape it checks that both give equal outputs, then times them in the
+order base, this, this, base, and ``torch._int_mm`` on the same int8
+operands beside mm1 (A zero-padded to 32 rows where M <= 16, which it
+refuses).  Every time is device time: the calls queue behind a device sleep
+that covers their host work (``torch.cuda._sleep``), so the events measure
+the kernels, not the wrappers.
+
+Shapes: every dense mm1 GEMM of llama3.2-1b, granite-moe-3b-a800m and
+rwkv6-3b at decode (M=4) and prefill (M=64), llama's wi and wd also at
+M=256 and 2048, an unaligned decode shape (4x2050x8200); granite's grouped
+expert GEMMs in mm1 (40 experts, decode capacities 8/16/32 and the prefill
+bucket of 16, router-like live counts); and, in the split modes, llama's
+and granite's lm_head and wi at M=4 and 64 (kmm2, mm2 at w=16, kmm4 at w=20
+and 24).  Split modes against a checkout whose kernel refuses them are
+timed for this checkout alone; any other failed launch raises.  Prints a
+table and the card, and writes ``chiprun_out/compare_fused_gemm.json``.
+Needs a GPU.
 """
 from __future__ import annotations
 
@@ -32,52 +42,70 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_gemm as fg
 
-# (mode, w, K, N): llama (wq, wi, mlp.wo, lm_head), granite (wq, wk, router,
-# lm_head)
-SHAPES = [("mm1", 8, 2048, 2048), ("mm1", 8, 2048, 8192),
-          ("mm1", 8, 8192, 2048), ("kmm2", 12, 2048, 128512),
-          ("mm1", 8, 1536, 1536), ("mm1", 8, 1536, 512),
-          ("kmm2", 12, 1536, 40), ("kmm2", 12, 1536, 49664),
-          ("mm2", 16, 2048, 8192), ("mm2", 16, 2048, 128512),
-          ("kmm4", 20, 2048, 8192), ("kmm4", 20, 2048, 128512),
-          ("kmm4", 24, 2048, 8192), ("kmm4", 24, 2048, 128512)]
-ROWS = (4, 64)
+# (mode, w, M, K, N)
+MM1_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+          (1536, 1536), (1536, 512), (2560, 2560), (2560, 8960),
+          (8960, 2560)]
+DENSE = ([("mm1", 8, m, k, n) for k, n in MM1_KN for m in (4, 64)]
+         + [("mm1", 8, m, k, n) for k, n in ((2048, 8192), (8192, 2048))
+            for m in (256, 2048)]
+         + [("mm1", 8, 4, 2050, 8200)]
+         + [(mode, w, m, k, n)
+            for mode, w in (("kmm2", 12), ("mm2", 16), ("kmm4", 20),
+                            ("kmm4", 24))
+            for k, n in ((2048, 128512), (2048, 8192), (1536, 49664))
+            for m in (4, 64)])
+# (label, E, C, seg, segments, K, N): granite's grouped expert GEMMs
+GROUPED = [(label, 40, c, seg, n_seg, k, n)
+           for label, c, seg, n_seg in (("decode W=1", 8, 8, 1),
+                                        ("decode W=2", 16, 8, 2),
+                                        ("decode W=4", 32, 8, 4),
+                                        ("prefill S=64", 16, 16, 1))
+           for k, n in ((1536, 512), (512, 1536))]
+TOP_K = 8
 # Modes an older checkout's kernel may lack (ported after mm1 and kmm2).
 LATER_MODES = ("mm2", "kmm4")
+# The base's C entry points: (pointers, ints), then the stream.
+BASE_SIGNATURES = {"fused_gemm_launch": (5, 9),
+                   "fused_gemm_grouped_launch": (6, 12)}
+ORDER = ("base", "this", "this", "base")
 
 
 def _library(src: Path, tag: str):
-    """The dense entry of ``src`` built whole into its own library."""
+    """The C entry points of ``src`` built whole into their own library."""
     out = build.BUILD_DIR / f"libfused_gemm-{tag}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out)).fused_gemm_launch
-    n_ptr, n_int = fg._SIGNATURES["fused_gemm_launch"]
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
-    return fn
+    lib = ctypes.CDLL(str(out))
+    fns = {}
+    for name, (n_ptr, n_int) in BASE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fns[name] = fn
+    return fns
 
 
-def _call(fn, a, b, sx, sw, out, mode, h, z, kp) -> int:
-    """One launch; the CUDA error code (0 on success)."""
-    m_dim, k_dim = a.shape
-    return fn(a.data_ptr(), b.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-              out.data_ptr(), m_dim, k_dim, b.shape[1], kp,
-              fg._MODE_ID[mode], h, z, 0, fg._OUT_KIND[out.dtype],
-              torch.cuda.current_stream().cuda_stream)
+def _base_call(fns, a, b, sx, sw, counts, seg, out, mode, h, z, kp) -> int:
+    """One launch of the base kernel; the CUDA error code (0 on success)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (fg._MODE_ID[mode], h, z, 0, fg._OUT_KIND[out.dtype], stream)
+    if a.dim() == 3:
+        return fns["fused_gemm_grouped_launch"](
+            a.data_ptr(), b.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1],
+            a.shape[2], b.shape[2], kp, seg, counts.shape[1], *tail)
+    return fns["fused_gemm_launch"](
+        a.data_ptr(), b.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), a.shape[0], a.shape[1], b.shape[1], kp, *tail)
 
 
-def _launch(fn, *args) -> None:
-    err = _call(fn, *args)
-    if err:
-        raise RuntimeError(f"launch failed: CUDA error {err}")
-
-
-def _ms(fn, iters: int = 50) -> float:
-    for _ in range(3):
-        fn()
+def _events_ms(fn, iters: int, lead_ms: float) -> float:
+    torch.cuda.synchronize()
+    if lead_ms > 0:
+        torch.cuda._sleep(int(lead_ms * 2e6))   # at most 2 GHz of clock
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -86,6 +114,69 @@ def _ms(fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn``: warm up, measure its host time back to
+    back, then time ``iters`` calls queued behind a device sleep twice that
+    long, so they run back to back on the device."""
+    for _ in range(3):
+        fn()
+    host = _events_ms(fn, iters, 0.0)
+    return _events_ms(fn, iters, 2 * iters * host + 1)
+
+
+def _int_mm_ms(a, b):
+    """torch._int_mm on the same int8 operands (A zero-padded to 32 rows
+    where M <= 16, which it refuses; B column-major, which cuBLASLt takes),
+    or None where K or N is not a multiple of 8."""
+    m, k = a.shape
+    if k % 8 or b.shape[1] % 8:
+        return None
+    if m <= 16:
+        a = torch.cat([a, a.new_zeros((32 - m, k))])
+    b = b.t().contiguous().t()
+    return device_ms(lambda: torch._int_mm(a, b))
+
+
+def _routed_counts(gen, n_exp, seg, n_seg, tokens):
+    """(E, n_seg) live rows: ``tokens`` tokens a segment each pick TOP_K
+    distinct experts at random; each expert keeps at most ``seg``."""
+    counts = torch.zeros((n_exp, n_seg), dtype=torch.int64)
+    for s in range(n_seg):
+        picks = torch.stack([torch.randperm(n_exp, generator=gen)[:TOP_K]
+                             for _ in range(tokens)])
+        counts[:, s] = torch.bincount(picks.reshape(-1),
+                                      minlength=n_exp).clamp(max=seg)
+    return counts.to(torch.int32)
+
+
+def _rand(gen, w, shape, carrier):
+    q = 2 ** (w - 1) - 1
+    return torch.randint(-q, q + 1, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(carrier)
+
+
+def _compare(base, what, mode, a, b, sx, sw, counts, seg, h, z, kp,
+             this_fn, out_shape):
+    """Equal outputs, then base/this in turns; the row's times."""
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device="cuda")
+    got = this_fn()
+    err = _base_call(base, a, b, sx, sw, counts, seg, out, mode, h, z, kp)
+    if err and mode not in LATER_MODES:
+        raise RuntimeError(f"{what}: base launch failed: CUDA error {err}")
+    times = {"base": [], "this": []}
+    order = ("this", "this")
+    if not err:
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            raise SystemExit(f"{what}: outputs differ")
+        order = ORDER
+    for tag in order:
+        fn = this_fn if tag == "this" else (lambda: _base_call(
+            base, a, b, sx, sw, counts, seg, out, mode, h, z, kp))
+        times[tag].append(device_ms(fn))
+    return times
 
 
 def main() -> int:
@@ -99,63 +190,85 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     base_src = (args.base / "src" / "repro_torch" / "kernels" / "csrc"
-                / build.SOURCES["fused_gemm"])
+                / "fused_gemm.cu")
     t0 = time.monotonic()
-    this = fg._kernel("fused_gemm_launch")
+    build.build(["fused_gemm", "fused_mm1"])
     t1 = time.monotonic()
-    libs = {"base": _library(base_src, "base"), "this": this}
+    base = _library(base_src, "base")
     builds = {"this_units_s": t1 - t0, "base_whole_s": time.monotonic() - t1}
-    print(f"build: this checkout {builds['this_units_s']:.1f} s "
-          f"({build.UNITS['fused_gemm'][1]} units in parallel, then linked; "
-          f"0 if it was built already), base {builds['base_whole_s']:.1f} s "
-          f"(whole, one nvcc)", flush=True)
+    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_gemm "
+          f"and fused_mm1 units in parallel, then linked; 0 if built "
+          f"already), base {builds['base_whole_s']:.1f} s (whole, one nvcc)",
+          flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(0)
     rows = []
-    for mode, w, k, n in SHAPES:
-        for m in ROWS:
-            _, h, z, carrier = fg.resolve(w, mode=mode)
-            q = 2 ** (w - 1) - 1
-            a = torch.randint(-q, q + 1, (m, k), generator=gen,
-                              device="cuda", dtype=torch.int32).to(carrier)
-            b = torch.randint(-q, q + 1, (k, n), generator=gen,
-                              device="cuda", dtype=torch.int32).to(carrier)
-            sx = torch.rand((m, 1), generator=gen, device="cuda") + 1e-3
-            sw = torch.rand((1, n), generator=gen, device="cuda") + 1e-3
-            kp = fg.padded_k(k, min(256, 1 << max(3, (k - 1).bit_length())))
-            outs = {tag: torch.empty((m, n), dtype=torch.bfloat16,
-                                     device="cuda") for tag in libs}
-            args = (a, b, sx, sw)
-            _launch(libs["this"], *args, outs["this"], mode, h, z, kp)
-            tags = ["this", "this"]
-            err = _call(libs["base"], *args, outs["base"], mode, h, z, kp)
-            if err and mode not in LATER_MODES:
-                raise RuntimeError(f"base launch failed for {mode}: CUDA "
-                                   f"error {err}")
-            if not err:
-                torch.cuda.synchronize()
-                if not torch.equal(outs["base"], outs["this"]):
-                    raise SystemExit(f"{mode} {m}x{k}x{n}: outputs differ")
-                tags = ["base", "this", "this", "base"]
-            times = {"base": [], "this": []}
-            for tag in tags:
-                times[tag].append(_ms(lambda: _launch(
-                    libs[tag], *args, outs[tag], mode, h, z, kp)))
-            row = {"mode": mode, "w": w, "M": m, "K": k, "N": n,
-                   "base_ms": times["base"], "this_ms": times["this"]}
-            rows.append(row)
-            base = (" ".join(f"{t:.4f}" for t in times["base"]) + " ms"
-                    if times["base"] else "refuses this mode")
-            print(f"{mode:4s} w={w:<2d} M={m:<3d} K={k:<5d} N={n:<6d} base "
-                  f"{base} | this {times['this'][0]:.4f} "
-                  f"{times['this'][1]:.4f} ms", flush=True)
+    for mode, w, m, k, n in DENSE:
+        _, h, z, carrier = fg.resolve(w, mode=mode)
+        a = _rand(gen, w, (m, k), carrier)
+        b = _rand(gen, w, (k, n), carrier)
+        sx = torch.rand((m, 1), generator=gen, device="cuda") + 1e-3
+        sw = torch.rand((1, n), generator=gen, device="cuda") + 1e-3
+        block_k = min(256, 1 << max(3, (k - 1).bit_length()))
+        kp = fg.padded_k(k, block_k)
+        times = _compare(
+            base, f"{mode} {m}x{k}x{n}", mode, a, b, sx, sw, None, 0, h, z,
+            kp, lambda: fg.fused_gemm(a, b, sx, sw, w=w, mode=mode,
+                                      block_k=block_k,
+                                      out_dtype=torch.bfloat16), (m, n))
+        row = {"kind": "dense", "mode": mode, "w": w, "M": m, "K": k,
+               "N": n, "base_ms": times["base"], "this_ms": times["this"]}
+        if mode == "mm1":
+            row["int_mm_ms"] = _int_mm_ms(a, b)
+            row["int_mm_padded_to_32_rows"] = m <= 16
+        rows.append(row)
+        _print(row)
+    for label, e, c, seg, n_seg, k, n in GROUPED:
+        a = _rand(gen, 8, (e, c, k), torch.int8)
+        b = _rand(gen, 8, (e, k, n), torch.int8)
+        sx = torch.rand((e, c, 1), generator=gen, device="cuda") + 1e-3
+        sw = torch.rand((e, 1, n), generator=gen, device="cuda") + 1e-3
+        tokens = 64 if label.startswith("prefill") else 1
+        counts = _routed_counts(cpu_gen, e, seg, n_seg, tokens).cuda()
+        kp = fg.padded_k(k, 256)
+        times = _compare(
+            base, f"grouped mm1 {label} {k}x{n}", "mm1", a, b, sx, sw,
+            counts, seg, 0, 0, kp,
+            lambda: fg.fused_gemm_grouped(a, b, sx, sw, counts, w=8,
+                                          seg=seg, block_k=256,
+                                          out_dtype=torch.bfloat16),
+            (e, c, n))
+        live = fg.ragged_row_mask(counts, seg, c)[..., 0]
+        row = {"kind": "grouped", "mode": "mm1", "w": 8, "case": label,
+               "E": e, "C": c, "K": k, "N": n, "seg": seg,
+               "live_rows": int(live.sum()),
+               "live_experts": int(live.any(dim=1).sum()),
+               "base_ms": times["base"], "this_ms": times["this"]}
+        rows.append(row)
+        _print(row)
     out_dir = build.BUILD_DIR.parents[1] / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "compare_fused_gemm.json").write_text(
-        json.dumps({"card": card, "builds": builds, "rows": rows},
-                   indent=1))
+        json.dumps({"card": card, "builds": builds, "order": ORDER,
+                    "timing": "device time (calls queued behind a sleep)",
+                    "rows": rows}, indent=1))
     print(card)
     return 0
+
+
+def _print(row) -> None:
+    shape = (f"M={row['M']:<4d}" if row["kind"] == "dense" else
+             f"{row['case']:<12s} C={row['C']:<3d}")
+    base = (" ".join(f"{t:.4f}" for t in row["base_ms"]) + " ms"
+            if row["base_ms"] else "refuses this mode")
+    lib = row.get("int_mm_ms")
+    print(f"{row['kind']:7s} {row['mode']:4s} w={row['w']:<2d} {shape} "
+          f"K={row['K']:<5d} N={row['N']:<6d} base {base} | this "
+          + " ".join(f"{t:.4f}" for t in row["this_ms"]) + " ms"
+          + (f" | _int_mm{' (A padded to 32 rows)' if row['M'] <= 16 else ''}"
+             f" {lib:.4f} ms" if lib is not None else ""), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
-// Fused single-pass integer GEMM for NVIDIA Hopper (sm_90a): modes mm1,
-// kmm2, mm2 and kmm4 of the paper's precision-scalable KMM unit.
+// Fused single-pass integer GEMM for NVIDIA Hopper (sm_90a): the split
+// modes kmm2, mm2 and kmm4 of the paper's precision-scalable KMM unit.
 //
 // Replaces the TPU kernel `_fused_kernel` in src/repro/kernels/fused_gemm.py
-// (line 119; entry point `fused_gemm`, line 395) in all four of its modes,
-// and computes what it computes, bit for bit:
+// (line 119; entry point `fused_gemm`, line 395) in its three split modes,
+// and computes what it computes, bit for bit (mode mm1, w <= 8, one exact
+// s8 x s8 -> s32 pass, is its own kernel in fused_mm1.cu):
 //
-//   mm1  (w <= 8):   C = A . B, one exact s8 x s8 -> s32 pass.
 //   kmm2 (9..14):    split every operand at h = ceil(w/2) into a signed high
 //                    digit and a low digit centered by z = 2^(h-1);
 //                    three digit passes with the Fig. 8 pre-adders
@@ -20,7 +20,7 @@
 //                    and runs the three Fig. 8 passes of its own; nine
 //                    accumulators, the level-2 combine at h2 per branch,
 //                    then the level-1 combine at h.
-//   all split modes: int32 row sums of A and column sums of B and the
+//   all modes:       int32 row sums of A and column sums of B and the
 //                    Section IV-D zero-point correction over the *logical*
 //                    padded K `kp`;
 //   all modes:       optional dequant epilogue val * (sx[m] * sw[n]) and an
@@ -90,17 +90,19 @@
 // global loads (16 values of A and 16 of B) before it packs any digit.
 // It is the simple first version: one 64x64 output tile per block, a
 // synchronous K loop of 64-deep stages and 16x16x16 s8 WMMA products.
-// mm1, kmm2 and mm2 run 4 warps, each
+// kmm2 and mm2 run 4 warps, each
 // owning 16 rows and all 64 columns; kmm4's nine accumulators would need
 // 288 registers a thread there, so it runs 8 warps of 16 x 32 (144) and
-// keeps its 72 KB of digit planes in dynamic shared memory.  Asynchronous
-// copies (TMA), wgmma, a persistent schedule and split-K for narrow N are
-// later work.
+// keeps its 72 KB of digit planes in dynamic shared memory.  The mm1
+// kernel's pipelined 16-byte copies and exact split-K (fused_mm1.cu) are
+// the route for these modes too, with the digit split done from shared
+// memory; wgmma and a persistent schedule are later work.
 //
 // Build: the whole file compiles into one library.  Built with
 // -DFUSED_GEMM_UNIT=u it compiles only unit u (0: the C entry points;
-// 1-5: the kernel instances of one digit layout), so the instances can be
-// compiled by parallel nvcc processes and linked together.
+// 1-4: the kernel instances of one digit layout: kmm2, mm2, kmm4 on s8
+// pre-adders, kmm4 on split ones), so the instances can be compiled by
+// parallel nvcc processes and linked together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,18 +127,19 @@ constexpr int BK = 64;               // K depth of one shared-memory stage
 
 enum OutKind { OUT_I32 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
 
-// Digit layouts, one kernel instance each; 1-4 are the wrapper's mode ids,
-// and mode 4 runs as KMM4_WIDE for h >= 12.
-enum Layout { MM1 = 1, KMM2 = 2, MM2 = 3, KMM4 = 4, KMM4_WIDE = 5 };
+// Digit layouts, one kernel instance each; 2-4 are the wrapper's mode ids
+// (mode 1, mm1, is fused_mm1.cu's), and mode 4 runs as KMM4_WIDE for
+// h >= 12.
+enum Layout { KMM2 = 2, MM2 = 3, KMM4 = 4, KMM4_WIDE = 5 };
 
 // Shape of each layout: digit planes per operand, int32 accumulators,
 // tensor-core products per 16-deep step, threads, and warps side by side
 // along N.
 template <int L>
 struct Shape {
-  static constexpr int NPLANE = L == MM1 ? 1 : L == KMM2 ? 3 : L == MM2 ? 2
+  static constexpr int NPLANE = L == KMM2 ? 3 : L == MM2 ? 2
                               : L == KMM4 ? 9 : 6;
-  static constexpr int NACC = L == MM1 ? 1 : L == KMM2 ? 3 : L == MM2 ? 4 : 9;
+  static constexpr int NACC = L == KMM2 ? 3 : L == MM2 ? 4 : 9;
   static constexpr int NPROD = L == KMM4_WIDE ? 12 : NACC;
   static constexpr int NTHREADS = (L == KMM4 || L == KMM4_WIDE) ? 256 : 128;
   static constexpr int WARPS_N = NTHREADS / 128;
@@ -167,7 +170,7 @@ __host__ __device__ constexpr Prod product(int p) {
 }
 
 struct Params {
-  const void* a;       // (M, K) row-major: int8 (mm1), int16, int32 (kmm4)
+  const void* a;       // (M, K) row-major: int16, int32 (kmm4)
   const void* b;       // (K, N) row-major, same type
   const float* sx;     // (M,) row scales, or null (no dequant)
   const float* sw;     // (N,) column scales, or null
@@ -183,40 +186,36 @@ __device__ __forceinline__ void put(uint32_t (&w)[4], int c, int v) {
 }
 
 // Pack one operand value's digits into byte `c` of each plane's 16-byte
-// row: the value itself (mm1); high, pre-adder sum, low (kmm2); high, low
+// row: high, pre-adder sum, low (kmm2); high, low
 // (mm2); per level-1 branch high, pre-adder, low leaf (kmm4) or high, low
 // leaf (kmm4 wide).
 template <int L>
 __device__ __forceinline__ void put_digits(
     uint32_t (&w)[Shape<L>::NPLANE][4], int c, int v, bool in_kp,
     const Params& p, int mask, int mask2) {
-  if constexpr (L == MM1) {
-    put(w[0], c, v);
+  if (!in_kp) return;                // beyond the logical padded K: no term
+  const int hi = v >> p.h;
+  const int lo = (v & mask) - p.z;
+  if constexpr (L == KMM2) {
+    put(w[0], c, hi);
+    put(w[1], c, hi + lo);
+    put(w[2], c, lo);
+  } else if constexpr (L == MM2) {
+    put(w[0], c, hi);
+    put(w[1], c, lo);
   } else {
-    if (!in_kp) return;              // beyond the logical padded K: no term
-    const int hi = v >> p.h;
-    const int lo = (v & mask) - p.z;
-    if constexpr (L == KMM2) {
-      put(w[0], c, hi);
-      put(w[1], c, hi + lo);
-      put(w[2], c, lo);
-    } else if constexpr (L == MM2) {
-      put(w[0], c, hi);
-      put(w[1], c, lo);
-    } else {
-      const int branch[3] = {hi, hi + lo, lo};
+    const int branch[3] = {hi, hi + lo, lo};
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const int v1 = branch[q] >> p.h2;
-        const int v0 = branch[q] & mask2;
-        if constexpr (L == KMM4) {
-          put(w[3 * q], c, v1);
-          put(w[3 * q + 1], c, v1 + v0);
-          put(w[3 * q + 2], c, v0);
-        } else {
-          put(w[2 * q], c, v1);
-          put(w[2 * q + 1], c, v0);
-        }
+    for (int q = 0; q < 3; ++q) {
+      const int v1 = branch[q] >> p.h2;
+      const int v0 = branch[q] & mask2;
+      if constexpr (L == KMM4) {
+        put(w[3 * q], c, v1);
+        put(w[3 * q + 1], c, v1 + v0);
+        put(w[3 * q + 2], c, v0);
+      } else {
+        put(w[2 * q], c, v1);
+        put(w[2 * q + 1], c, v0);
       }
     }
   }
@@ -275,58 +274,56 @@ __device__ __forceinline__ void store_out(const Params& p,
   bool is_int = true;
   int vi = c[0];
   float vf = 0.f;
-  if constexpr (L != MM1) {
-    if constexpr (L == KMM4_WIDE) {
-      // the middle accumulators hold the cross products only
+  if constexpr (L == KMM4_WIDE) {
+    // the middle accumulators hold the cross products only
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        c[3 * q + 1] = static_cast<int>(static_cast<uint32_t>(c[3 * q + 1])
-                                        + static_cast<uint32_t>(c[3 * q])
-                                        + static_cast<uint32_t>(c[3 * q + 2]));
-      }
+    for (int q = 0; q < 3; ++q) {
+      c[3 * q + 1] = static_cast<int>(static_cast<uint32_t>(c[3 * q + 1])
+                                      + static_cast<uint32_t>(c[3 * q])
+                                      + static_cast<uint32_t>(c[3 * q + 2]));
     }
-    const uint32_t zu = p.z;
-    const uint32_t kpz = static_cast<uint32_t>(p.kp) * zu;
-    const uint32_t r = row - kpz;    // rowsum(A) - kp z, modulo 2^32
-    const uint32_t cc = col - kpz;
-    if (p.combine_int32) {
-      uint32_t core;
-      if constexpr (L == KMM2) {
-        core = combine_kmm2_u(c[0], c[1], c[2], p.h);
-      } else if constexpr (L == MM2) {
-        const uint32_t u1 = c[0], u10 = c[1], u01 = c[2], u0 = c[3];
-        core = (u1 << (2 * p.h)) + ((u10 + u01) << p.h) + u0;
-      } else {
-        core = combine_kmm2_u(combine_kmm2_u(c[0], c[1], c[2], p.h2),
-                              combine_kmm2_u(c[3], c[4], c[5], p.h2),
-                              combine_kmm2_u(c[6], c[7], c[8], p.h2), p.h);
-      }
-      vi = static_cast<int>(core + (zu * r + zu * cc
-                                    + zu * zu * static_cast<uint32_t>(p.kp)));
+  }
+  const uint32_t zu = p.z;
+  const uint32_t kpz = static_cast<uint32_t>(p.kp) * zu;
+  const uint32_t r = row - kpz;    // rowsum(A) - kp z, modulo 2^32
+  const uint32_t cc = col - kpz;
+  if (p.combine_int32) {
+    uint32_t core;
+    if constexpr (L == KMM2) {
+      core = combine_kmm2_u(c[0], c[1], c[2], p.h);
+    } else if constexpr (L == MM2) {
+      const uint32_t u1 = c[0], u10 = c[1], u01 = c[2], u0 = c[3];
+      core = (u1 << (2 * p.h)) + ((u10 + u01) << p.h) + u0;
     } else {
-      float core;
-      if constexpr (L == KMM2) {
-        core = combine_kmm2_f(c[0], c[1], c[2], p.pow_h, p.pow_2h);
-      } else if constexpr (L == MM2) {
-        const float mid = __fadd_rn(__int2float_rn(c[1]),
-                                    __int2float_rn(c[2]));
-        core = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(c[0]), p.pow_2h),
-                                   __fmul_rn(mid, p.pow_h)),
-                         __int2float_rn(c[3]));
-      } else {
-        core = combine_wide_f(
-            combine_kmm2_f(c[0], c[1], c[2], p.pow_h2, p.pow_2h2),
-            combine_kmm2_f(c[3], c[4], c[5], p.pow_h2, p.pow_2h2),
-            combine_kmm2_f(c[6], c[7], c[8], p.pow_h2, p.pow_2h2),
-            p.pow_h, p.pow_2h);
-      }
-      const float rf = __int2float_rn(static_cast<int>(r));
-      const float cf = __int2float_rn(static_cast<int>(cc));
-      const float corr = __fadd_rn(
-          __fadd_rn(__fmul_rn(p.zf, rf), __fmul_rn(p.zf, cf)), p.zzkp);
-      vf = __fadd_rn(core, corr);
-      is_int = false;
+      core = combine_kmm2_u(combine_kmm2_u(c[0], c[1], c[2], p.h2),
+                            combine_kmm2_u(c[3], c[4], c[5], p.h2),
+                            combine_kmm2_u(c[6], c[7], c[8], p.h2), p.h);
     }
+    vi = static_cast<int>(core + (zu * r + zu * cc
+                                  + zu * zu * static_cast<uint32_t>(p.kp)));
+  } else {
+    float core;
+    if constexpr (L == KMM2) {
+      core = combine_kmm2_f(c[0], c[1], c[2], p.pow_h, p.pow_2h);
+    } else if constexpr (L == MM2) {
+      const float mid = __fadd_rn(__int2float_rn(c[1]),
+                                  __int2float_rn(c[2]));
+      core = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(c[0]), p.pow_2h),
+                                 __fmul_rn(mid, p.pow_h)),
+                       __int2float_rn(c[3]));
+    } else {
+      core = combine_wide_f(
+          combine_kmm2_f(c[0], c[1], c[2], p.pow_h2, p.pow_2h2),
+          combine_kmm2_f(c[3], c[4], c[5], p.pow_h2, p.pow_2h2),
+          combine_kmm2_f(c[6], c[7], c[8], p.pow_h2, p.pow_2h2),
+          p.pow_h, p.pow_2h);
+    }
+    const float rf = __int2float_rn(static_cast<int>(r));
+    const float cf = __int2float_rn(static_cast<int>(cc));
+    const float corr = __fadd_rn(
+        __fadd_rn(__fmul_rn(p.zf, rf), __fmul_rn(p.zf, cf)), p.zzkp);
+    vf = __fadd_rn(core, corr);
+    is_int = false;
   }
   if (p.sx != nullptr) {
     const float v = is_int ? __int2float_rn(vi) : vf;
@@ -447,7 +444,7 @@ fused_gemm_kernel(const Params p0) {
   // A warp whose 16 rows are all dead skips its MMAs (warp-uniform).
   const bool warp_mma = __any_sync(0xffffffffu,
                                    lane < 16 && row_live[wm * 16 + lane]);
-  const int k_end = L == MM1 ? p.K : p.kp;       // logical (padded) K
+  const int k_end = p.kp;                        // logical (padded) K
   const int mask = (1 << p.h) - 1;
   const int mask2 = (1 << p.h2) - 1;
 
@@ -585,7 +582,6 @@ int launch_layout(const Params& p, int groups, bool grouped,
 }
 
 // One function per layout, each defined in its own build unit.
-int launch_mm1(const Params& p, int groups, bool grouped, cudaStream_t s);
 int launch_kmm2(const Params& p, int groups, bool grouped, cudaStream_t s);
 int launch_mm2(const Params& p, int groups, bool grouped, cudaStream_t s);
 int launch_kmm4(const Params& p, int groups, bool grouped, cudaStream_t s);
@@ -593,26 +589,21 @@ int launch_kmm4_wide(const Params& p, int groups, bool grouped,
                      cudaStream_t s);
 
 #if FG_UNIT(1)
-int launch_mm1(const Params& p, int groups, bool grouped, cudaStream_t s) {
-  return launch_layout<MM1, int8_t>(p, groups, grouped, s);
-}
-#endif
-#if FG_UNIT(2)
 int launch_kmm2(const Params& p, int groups, bool grouped, cudaStream_t s) {
   return launch_layout<KMM2, int16_t>(p, groups, grouped, s);
 }
 #endif
-#if FG_UNIT(3)
+#if FG_UNIT(2)
 int launch_mm2(const Params& p, int groups, bool grouped, cudaStream_t s) {
   return launch_layout<MM2, int16_t>(p, groups, grouped, s);
 }
 #endif
-#if FG_UNIT(4)
+#if FG_UNIT(3)
 int launch_kmm4(const Params& p, int groups, bool grouped, cudaStream_t s) {
   return launch_layout<KMM4, int32_t>(p, groups, grouped, s);
 }
 #endif
-#if FG_UNIT(5)
+#if FG_UNIT(4)
 int launch_kmm4_wide(const Params& p, int groups, bool grouped,
                      cudaStream_t s) {
   return launch_layout<KMM4_WIDE, int32_t>(p, groups, grouped, s);
@@ -626,8 +617,8 @@ namespace {
 
 using namespace fused_gemm_detail;
 
-// Fill the fields both entry points share; mode 1 = mm1 (int8 operands),
-// 2 = kmm2 and 3 = mm2 (int16), 4 = kmm4 (int32); out_kind 0 = int32,
+// Fill the fields both entry points share; mode 2 = kmm2 and 3 = mm2
+// (int16 operands), 4 = kmm4 (int32); out_kind 0 = int32,
 // 1 = float32, 2 = bfloat16.
 Params make_params(const void* a, const void* b, const void* sx,
                    const void* sw, void* out, int M, int K, int N, int kp,
@@ -659,7 +650,8 @@ Params make_params(const void* a, const void* b, const void* sx,
   return p;
 }
 
-// Refuses digit splits whose digits would not fit s8 (see the header).
+// Refuses mode 1 (mm1 runs in fused_mm1.cu) and digit splits whose digits
+// would not fit s8 (see the header).
 int launch(const Params& p, int groups, bool grouped, int mode,
            void* stream) {
   if (groups < 1 || groups > 65535 || (p.M + BM - 1) / BM > 65535) {
@@ -667,8 +659,6 @@ int launch(const Params& p, int groups, bool grouped, int mode,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case MM1:
-      return launch_mm1(p, groups, grouped, s);
     case KMM2:
       if (p.h < 1 || p.h > 7) break;
       return launch_kmm2(p, groups, grouped, s);

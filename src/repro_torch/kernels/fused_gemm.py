@@ -2,8 +2,10 @@
 grouped: wrappers, plain PyTorch versions and launch counts.
 
 Port of ``repro.kernels.fused_gemm.fused_gemm`` and ``fused_gemm_grouped``.
-On CUDA tensors :func:`fused_gemm` and :func:`fused_gemm_grouped` launch the
-hand-written Hopper kernel (``csrc/fused_gemm.cu``) or raise; on CPU tensors
+On CUDA tensors :func:`fused_gemm` and :func:`fused_gemm_grouped` launch a
+hand-written Hopper kernel — ``csrc/fused_mm1.cu`` in mode mm1 (pipelined
+16-byte copies and exact split-K, planned by :mod:`.mm1_plan`),
+``csrc/fused_gemm.cu`` in the split modes — or raise; on CPU tensors
 they run :func:`fused_gemm_reference` and :func:`fused_gemm_grouped_reference`,
 the plain PyTorch versions of the same functions.  There is no other route
 and no fallback.
@@ -26,11 +28,12 @@ kernel picks its own tiles.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, mm1_plan
 
 MODES = ("mm1", "kmm2", "mm2", "kmm4")
 
@@ -192,6 +195,10 @@ def _prepare(a, b, sx, sw, *, w, m, mode, block_k, combine_int32, out_dtype,
     return a.to(carrier), b.to(carrier), sx, sw, kw
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
+
+
 def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
             out_dtype):
     """One launch of the CUDA kernel: dense for 2-D operands, grouped (and
@@ -211,19 +218,20 @@ def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
                       device=a.device)
     if out.numel() == 0:
         return out
-    ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        if grouped:
+        if mode == "mm1":
+            err = _launch_mm1(a, b, sx, sw, counts, out, seg, stream)
+        elif grouped:
             err = _kernel("fused_gemm_grouped_launch")(
-                a.data_ptr(), b.data_ptr(), ptr(sx), ptr(sw), ptr(counts),
+                a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), _ptr(counts),
                 out.data_ptr(), lead[0], m_dim, k_dim, n_dim, kp, seg,
                 counts.shape[1] if counts is not None else 0,
                 _MODE_ID[mode], h, z, int(combine_int32),
                 _OUT_KIND[out_dtype], stream)
         else:
             err = _kernel("fused_gemm_launch")(
-                a.data_ptr(), b.data_ptr(), ptr(sx), ptr(sw), out.data_ptr(),
+                a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), out.data_ptr(),
                 m_dim, k_dim, n_dim, kp, _MODE_ID[mode], h, z,
                 int(combine_int32), _OUT_KIND[out_dtype], stream)
     if err != 0:
@@ -233,15 +241,70 @@ def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
     return out
 
 
-# C entry points of csrc/fused_gemm.cu: pointer arguments, then int ones,
-# then the stream.
-_SIGNATURES = {"fused_gemm_launch": (5, 9),
-               "fused_gemm_grouped_launch": (6, 12)}
+def _launch_mm1(a, b, sx, sw, counts, out, seg, stream) -> int:
+    """One launch of the mm1 kernel on the plan for this shape and card;
+    the CUDA error code."""
+    grouped = a.dim() == 3
+    groups = a.shape[0] if grouped else 1
+    m_dim, k_dim = a.shape[-2:]
+    n_dim = b.shape[-1]
+    plan = mm1_plan.plan_mm1(groups, m_dim, k_dim, n_dim,
+                             _sm_count(a.device.index))
+    ws, counters = _mm1_workspace(a.device, stream, plan)
+    # 16-byte copies need every row 16-byte aligned; the kernel checks too
+    vec_a = int(k_dim % 16 == 0 and a.data_ptr() % 16 == 0)
+    vec_b = int(n_dim % 16 == 0 and b.data_ptr() % 16 == 0)
+    tail = (plan.bm, plan.split, plan.k_split, vec_a, vec_b,
+            _OUT_KIND[out.dtype], stream)
+    if grouped:
+        return _kernel("fused_mm1_grouped_launch")(
+            a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), _ptr(counts),
+            out.data_ptr(), _ptr(ws), _ptr(counters), groups, m_dim, k_dim,
+            n_dim, seg, counts.shape[1] if counts is not None else 0, *tail)
+    return _kernel("fused_mm1_launch")(
+        a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), out.data_ptr(),
+        _ptr(ws), _ptr(counters), m_dim, k_dim, n_dim, *tail)
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# Split-K workspace of the mm1 kernel, one (partials, counters) pair per
+# (device, stream): the kernel leaves the counters at 0, and launches on
+# one stream run in order, so each launch finds them at 0.  Two streams
+# must not share a pair (their launches could interleave on the counters),
+# hence the key.  Both grow, zeroed, when a plan needs more.
+_MM1_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _mm1_workspace(device, stream: int, plan: mm1_plan.Mm1Plan):
+    if plan.split == 1:
+        return None, None
+    key = (device.index, stream)
+    ws, counters = _MM1_WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < plan.ws_ints:
+        ws = torch.zeros(plan.ws_ints, dtype=torch.int32, device=device)
+    if counters is None or counters.numel() < plan.n_counters:
+        counters = torch.zeros(plan.n_counters, dtype=torch.int32,
+                               device=device)
+    _MM1_WORKSPACE[key] = (ws, counters)
+    return ws, counters
+
+
+# C entry points: library, pointer arguments, then int ones, then the
+# stream.
+_SIGNATURES = {"fused_gemm_launch": ("fused_gemm", 5, 9),
+               "fused_gemm_grouped_launch": ("fused_gemm", 6, 12),
+               "fused_mm1_launch": ("fused_mm1", 7, 9),
+               "fused_mm1_grouped_launch": ("fused_mm1", 8, 12)}
 
 
 def _kernel(entry: str):
-    """A C entry point of the built library, with its signature."""
-    return build.entry("fused_gemm", entry, *_SIGNATURES[entry])
+    """A C entry point of its built library, with its signature."""
+    lib, n_ptr, n_int = _SIGNATURES[entry]
+    return build.entry(lib, entry, n_ptr, n_int)
 
 
 def fused_gemm_reference(a: torch.Tensor, b: torch.Tensor,
