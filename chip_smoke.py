@@ -23,8 +23,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      zero-count experts and full segments), raw and dequantized outputs;
      then kmm4 at every width 17-26 (both layouts), with +-2^25 operands at
      w=26 and, at w=24, rows whose int32 sums wrap as the reference's do;
-     and the two kmm4 layouts timed side by side from decode to a
-     compute-bound prefill (M = 4 to 2048);
+     the split modes' kernel (csrc/fused_split.cu) at every width, kmm2
+     9-14 and mm2 15-16, at a split-K decode shape, M=64, the router, the
+     unaligned shape and a split ending inside the padded K, raw, bf16 and
+     int32-ring; and the two kmm4 layouts timed side by side from decode to
+     a compute-bound prefill (M = 4 to 2048);
   4. small-input agreement: the smoke-size models in float32 on the card
      against the same models on the CPU (the kernels' plain versions,
      which the test suite holds to the JAX reference);
@@ -44,11 +47,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      other;
   6. time each kernel against its bound, its plain version and the
      library call that computes the same product where there is one (CUDA
-     events, warm-up excluded; the mm1 kernel, dense and grouped, and
-     ``torch._int_mm`` beside it in device time, queued behind a device
-     sleep, with ``_int_mm`` on A zero-padded to 32 rows where M <= 16,
-     which it refuses), and each model's prefill and decode tokens/s,
-     step ms and peak device memory.
+     events, warm-up excluded; every fused and staged kernel in device
+     time, its calls queued behind a device sleep, and ``torch._int_mm``
+     beside mm1, on A zero-padded to 32 rows where M <= 16, which it
+     refuses), and each model's prefill and decode tokens/s, step ms and
+     peak device memory.
 
 The RWKV path (rwkv6-3b: models/rwkv.py, the WKV recurrence kernel
 kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
@@ -86,7 +89,8 @@ add, within the phases above:
   3c. the tuner (python -m repro_torch.tune) over llama's five (K, N) at
       M 4 and 64, w 8, 12, 16 and 20, writing chiprun_out/tuned-h100.json,
       with no candidate rejected;
-  3e. staged KMM2 against staged MM2 at w=12, M = 4 to 2048;
+  3e. staged KMM2 against staged MM2 at w=12, M = 4 to 2048, and the
+      fused pair (csrc/fused_split.cu) on the same codes;
   5.  serve paths under a table, each held to the same path without one
       (tokens and full-width prefill logits torch.equal): llama mixed
       under the tuned table, and forced onto the staged kernels — llama
@@ -167,6 +171,17 @@ RWKV_ROWS = [1, 4, 64]
 MM1_EXTRA = [(m, k, n) for k, n in ((2048, 8192), (8192, 2048))
              for m in (256, 2048)] + [(4, 2050, 8200)]
 MM1_SOURCE = "src/repro_torch/kernels/csrc/fused_mm1.cu"
+# The split modes' kernel (csrc/fused_split.cu): every width at one split-K
+# decode shape (llama's wq, M=4: K split 8-10 ways), at prefill M=64 (wi),
+# at granite's router (N=40, one tile, split), at the unaligned 5x300x130
+# (element loads) and at a K whose padded kp ends a split past K
+# (3x1560x100, block_k 256: kp 1792; kmm2's splits end at 1568), raw, bf16
+# and combine_int32; fused kmm2 against fused mm2 at w=12 beside the
+# staged pair (phase 3e).
+SPLIT_SOURCE = "src/repro_torch/kernels/csrc/fused_split.cu"
+SPLIT_WIDTHS = [("kmm2", w) for w in range(9, 15)] + [("mm2", 15), ("mm2", 16)]
+SPLIT_SHAPES = [(4, 2048, 2048), (64, 2048, 8192), (4, 1536, 40), RAGGED,
+                (3, 1560, 100)]
 # The WKV kernel (row 5): tolerance against its plain version (fp32 sums
 # over i in another order), the full-width heads, and its check cases:
 # (label, entry, B or BH, S, H, D, chunk, nonzero initial state, timed).
@@ -388,11 +403,8 @@ def kernel_checks(torch, fg):
                 return fg.fused_gemm(a, b, s_x, s_w, w=w, mode=mode,
                                      block_k=block_k, out_dtype=out_dtype)
 
-            if mode == "mm1":
-                row[f"ms_{label}"], row[f"host_ms_{label}"] = device_ms(
-                    torch, kernel)
-            else:
-                row[f"ms_{label}"] = cuda_ms(torch, kernel)
+            row[f"ms_{label}"], row[f"host_ms_{label}"] = device_ms(
+                torch, kernel)
             if label == "dequant_bf16":
                 def plain():
                     return fg.fused_gemm_reference(
@@ -514,11 +526,8 @@ def grouped_checks(torch, fg):
                     if got[~live].any():
                         fail(f"{what}: a dead row is not zero")
                     row[f"max_abs_err_{out_label}"] = err
-                    if mode == "mm1":
-                        row[f"ms_{out_label}"], row[f"host_ms_{out_label}"] \
-                            = device_ms(torch, kernel)
-                    else:
-                        row[f"ms_{out_label}"] = cuda_ms(torch, kernel)
+                    row[f"ms_{out_label}"], row[f"host_ms_{out_label}"] = \
+                        device_ms(torch, kernel)
                     if scales:
                         row["plain_ms"] = cuda_ms(
                             torch, lambda: fg.fused_gemm_grouped_reference(
@@ -576,7 +585,7 @@ def width_sweep(torch, fg):
                      f"err {err})")
             row[f"max_abs_err_{label}"] = err
             if timed:
-                row[f"ms_{label}"] = cuda_ms(torch, kernel)
+                row[f"ms_{label}"] = device_ms(torch, kernel)[0]
         rows.append(row)
         return got
 
@@ -606,6 +615,59 @@ def width_sweep(torch, fg):
     log(f"  kmm4 w=24 K=8192 rows of +-2^22 (int32 row sums wrap, as in the "
         f"reference): equal; max error vs the exact product by row, "
         f"relative to the row's largest: {[f'{x:.2e}' for x in rel]}")
+    return rows
+
+
+def split_sweep(torch, fg):
+    """Phase 3 for the split modes' kernel (csrc/fused_split.cu) at every
+    width: kmm2 at w 9-14, mm2 at 15-16, at SPLIT_SHAPES (split-K decode,
+    M=64, the router, element loads, a split ending inside [K, kp)), each
+    torch.equal to its plain version raw, dequantized to bf16 and under the
+    int32-ring combine, with +-qmax rows and columns (and -2^13 at w=14,
+    the pre-adder's -128); the plan's split count recorded."""
+    from repro_torch.kernels import mm1_plan
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for mode, w in SPLIT_WIDTHS:
+        _, h, z, _ = fg.resolve(w, mode=mode)
+        q = 2 ** (w - 1) - 1
+        for m, k, n in SPLIT_SHAPES:
+            a, b = operands(torch, fg, gen, mode, w, (m, k), (k, n))
+            a[0], a[1 % m] = q, -q
+            b[:, 0], b[:, 1 % n] = q, -q
+            if w == 14:
+                a[-1, ::2] = -2 ** 13
+                b[::3, -1] = -2 ** 13
+            sx = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3 \
+                + 1e-4
+            sw = torch.rand((1, n), generator=gen, device="cuda") * 1e-3 \
+                + 1e-4
+            kp = fg.padded_k(k, 256)
+            plan = mm1_plan.plan_split(mode, 1, m, kp, n, sms)
+            row = {"mode": mode, "w": w, "M": m, "K": k, "N": n, "kp": kp,
+                   "split": plan.split, "k_split": plan.k_split}
+            for label, s_x, s_w, ci, out_dtype in (
+                    ("dequant_bf16", sx, sw, False, torch.bfloat16),
+                    ("raw", None, None, False, None),
+                    ("raw_int32", None, None, True, None)):
+                got = fg.fused_gemm(a, b, s_x, s_w, w=w, mode=mode,
+                                    block_k=256, combine_int32=ci,
+                                    out_dtype=out_dtype)
+                ref = fg.fused_gemm_reference(
+                    a, b, s_x, s_w, mode=mode, h=h, z=z, kp=kp,
+                    combine_int32=ci, out_dtype=got.dtype)
+                torch.cuda.synchronize()
+                err = (got.double() - ref.double()).abs().max().item()
+                if not torch.equal(got, ref):
+                    fail(f"{mode} w={w} {m}x{k}x{n} {label}: kernel != "
+                         f"plain version (max abs err {err})")
+                row[f"max_abs_err_{label}"] = err
+            rows.append(row)
+        log(f"  {mode} w={w}: equal at {len(SPLIT_SHAPES)} shapes (raw, "
+            f"bf16, int32 ring; splits "
+            f"{[r['split'] for r in rows[-len(SPLIT_SHAPES):]]})")
     return rows
 
 
@@ -641,7 +703,7 @@ def route_timing(torch, fg):
                 fail(f"kmm4 w={w} {m}x{k}x{n}: kernel != plain version")
             inst = instance(fg, "kmm4", w)
             row[f"{inst}_w"] = w
-            row[f"{inst}_ms"] = cuda_ms(torch, kernel)
+            row[f"{inst}_ms"] = device_ms(torch, kernel)[0]
             row[f"{inst}_bound_ms"], row[f"{inst}_bound_by"] = \
                 gemm_bound_ms("kmm4", w, m, k, n, 2, True)
         rows.append(row)
@@ -856,7 +918,8 @@ def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
            "combine_int32": ci, "plane_dtype": str(planes[0].dtype),
            "max_abs_err": err, **dict(extra)}
     if timed:
-        row["ms"] = cuda_ms(torch, staged_call(kernel, planes, h, ci, False))
+        row["ms"], row["host_ms"] = device_ms(
+            torch, staged_call(kernel, planes, h, ci, False))
         row["plain_ms"] = cuda_ms(torch, staged_call(kernel, planes, h, ci,
                                                      True), iters=3,
                                   warmup=1)
@@ -1047,10 +1110,12 @@ def class_checks(torch):
     return rows
 
 
-def kmm2_vs_mm2(torch):
+def kmm2_vs_mm2(torch, fg):
     """Phase 3 (e): staged KMM2 (3 products) against staged MM2 (4) at
-    w=12 on the same int8 planes, kernel alone and through run_plan, from
-    decode to a compute-bound prefill at llama's wi (K=2048, N=8192)."""
+    w=12 on the same int8 planes, kernel alone and through run_plan, and
+    fused kmm2 against fused mm2 (csrc/fused_split.cu) on the same int16
+    codes, from decode to a compute-bound prefill at llama's wi (K=2048,
+    N=8192); kernels in device time, run_plan back to back."""
     from repro_torch.core.dispatch import ExecPlan
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
@@ -1074,6 +1139,24 @@ def kmm2_vs_mm2(torch):
                     torch, lambda: ops.run_plan(a, b, plan=plan), iters=10)}
         row["kernel_ratio"] = (row["kmm2"]["kernel_ms"]
                                / row["mm2"]["kernel_ms"])
+        a16, b16 = a.to(torch.int16), b.to(torch.int16)
+        sx = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3 + 1e-4
+        sw = torch.rand((1, n), generator=gen, device="cuda") * 1e-3 + 1e-4
+        for mode in ("kmm2", "mm2"):
+            def fused(mode=mode):
+                return fg.fused_gemm(a16, b16, sx, sw, w=w, mode=mode,
+                                     out_dtype=torch.bfloat16)
+            _, hh, zz, _ = fg.resolve(w, mode=mode)
+            want = fg.fused_gemm_reference(
+                a16, b16, sx, sw, mode=mode, h=hh, z=zz, kp=k,
+                combine_int32=False, out_dtype=torch.bfloat16)
+            if not torch.equal(fused(), want):
+                fail(f"fused {mode} w=12 {m}x{k}x{n}: kernel != plain")
+            bound, by = gemm_bound_ms(mode, w, m, k, n, 2, True)
+            row[f"fused_{mode}"] = {"kernel_ms": device_ms(torch, fused)[0],
+                                    "bound_ms": bound, "bound_by": by}
+        row["fused_ratio"] = (row["fused_kmm2"]["kernel_ms"]
+                              / row["fused_mm2"]["kernel_ms"])
         rows.append(row)
         log(f"  staged w=12 M={m:<4d} K={k} N={n}: kmm2 "
             f"{row['kmm2']['kernel_ms']:.4f} ms, mm2 "
@@ -1082,7 +1165,13 @@ def kmm2_vs_mm2(torch):
             f"{row['kmm2']['bound_ms']:.4f} / {row['mm2']['bound_ms']:.4f} "
             f"ms, {row['kmm2']['bound_by']}); run_plan "
             f"{row['kmm2']['run_plan_ms']:.4f} / "
-            f"{row['mm2']['run_plan_ms']:.4f} ms")
+            f"{row['mm2']['run_plan_ms']:.4f} ms; fused kmm2 "
+            f"{row['fused_kmm2']['kernel_ms']:.4f} ms, mm2 "
+            f"{row['fused_mm2']['kernel_ms']:.4f} ms (kmm2/mm2 "
+            f"{row['fused_ratio']:.2f}; bounds "
+            f"{row['fused_kmm2']['bound_ms']:.4f} / "
+            f"{row['fused_mm2']['bound_ms']:.4f} ms, "
+            f"{row['fused_kmm2']['bound_by']})")
     return rows
 
 
@@ -1484,14 +1573,28 @@ def profile_decode(torch, eng, prompts, step_ms: float):
                      "per_step": ev.count / n})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
-    # mm1 is fused_mm1_kernel<tile rows, grouped>; the split modes'
-    # kernel names carry the digit layout: 2 kmm2 (the mixed path)
-    gemm = {f"{kind}{mode}": sum(
-        r["ms_per_step"] for r in rows
-        if name in r["name"] and r["name"].split(">")[0].endswith(flag))
-        for mode, name in (("mm1", "fused_mm1_kernel<"),
-                           ("kmm2", "fused_gemm_kernel<2,"))
-        for kind, flag in (("", "false"), ("grouped_", "true"))}
+    # mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2 and mm2
+    # fused_split_kernel16 / 64<layout, grouped> (layout 2 kmm2, 3 mm2);
+    # kmm4 fused_gemm_kernel<layout, carrier, grouped>
+    def bucket(name):
+        for mode, prefixes in (("mm1", ("fused_mm1_kernel<",)),
+                               ("kmm2", ("fused_split_kernel16<2,",
+                                         "fused_split_kernel64<2,")),
+                               ("mm2", ("fused_split_kernel16<3,",
+                                        "fused_split_kernel64<3,")),
+                               ("kmm4", ("fused_gemm_kernel<4,",
+                                         "fused_gemm_kernel<5,"))):
+            if any(pre in name for pre in prefixes):
+                grouped = name.split(">")[0].endswith("true")
+                return ("grouped_" if grouped else "") + mode
+        return None
+
+    gemm = {f"{kind}{mode}": 0.0 for mode in ("mm1", "kmm2", "mm2", "kmm4")
+            for kind in ("", "grouped_")}
+    for r in rows:
+        key = bucket(r["name"])
+        if key is not None:
+            gemm[key] += r["ms_per_step"]
     out = {"steps": n, "lanes": 4, "device_busy_ms_per_step": busy,
            "fused_gemm_ms_per_step": gemm,
            "kernels_per_step": sum(r["per_step"] for r in rows),
@@ -1499,7 +1602,7 @@ def profile_decode(torch, eng, prompts, step_ms: float):
            "idle_share": 1 - busy / step_ms, "by_kernel": rows[:30]}
     log(f"  profile, {n} decode steps at 4 lanes: device busy {busy:.2f} "
         f"ms/step (fused_gemm " + ", ".join(
-            f"{k} {v:.2f}" for k, v in gemm.items()) + f"), "
+            f"{k} {v:.3f}" for k, v in gemm.items() if v) + f"), "
         f"{out['kernels_per_step']:.0f} kernels/step; idle share "
         f"{out['idle_share']:.2f} of the {step_ms:.2f} ms step")
     for r in rows[:10]:
@@ -1516,8 +1619,8 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
-                   staged_rows, table_runs, wkv_rows):
+def kernel_entries(fg, rows, grouped_rows, sweep_rows, split_rows,
+                   launches_by_path, staged_rows, table_runs, wkv_rows):
     """One entry per kernel instance (dense and grouped; mm1, kmm2, mm2 and
     kmm4's two layouts) for the result line.  ``launches`` sums the first
     run of every serve path (``launches_by_path`` has each); a path runs
@@ -1547,6 +1650,7 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
             "name": name,
             "route": "cuda",
             "source": (MM1_SOURCE if inst == "mm1" else
+                       SPLIT_SOURCE if inst in ("kmm2", "mm2") else
                        "src/repro_torch/kernels/csrc/fused_gemm.cu"),
             "replaces": ("src/repro/kernels/fused_gemm.py:119"
                          if kind == "dense" else
@@ -1563,6 +1667,7 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
             "library_ms": library_ms,
             "shape": shape,
             "ms_raw": row["ms_raw"],
+            "host_ms": row.get("host_ms_dequant_bf16"),
         }
 
     out = []
@@ -1574,7 +1679,7 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, launches_by_path,
                    if instance(fg, r["mode"], r["w"]) == inst
                    and (r["M"], r["K"], r["N"]) == (m, k, n))
         out.append(entry(f"fused_gemm_{inst}", "dense", inst, row,
-                         rows + sweep_rows,
+                         rows + sweep_rows + split_rows,
                          f"w={row['w']} M={m} K={k} N={n}, dequant to bf16",
                          row["library_ms_raw"]))
         if inst == "mm1":
@@ -1697,6 +1802,7 @@ def main() -> int:
     rows = kernel_checks(torch, fg)
     grouped_rows = grouped_checks(torch, fg)
     sweep_rows = width_sweep(torch, fg)
+    split_rows = split_sweep(torch, fg)
     route_rows = route_timing(torch, fg)
     seconds["fused_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
@@ -1706,8 +1812,8 @@ def main() -> int:
     depth2_rows = depth2_checks(torch, staged_rows)
     log("[3b] run_plan on the card: staged == fused == mirror by class")
     class_rows = class_checks(torch)
-    log("[3e] staged KMM2 against staged MM2 at w=12")
-    kvm_rows = kmm2_vs_mm2(torch)
+    log("[3e] KMM2 against MM2 at w=12: staged, then fused")
+    kvm_rows = kmm2_vs_mm2(torch, fg)
     seconds["staged_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
     log(f"[3w] WKV kernel vs plain version (allclose, rtol = atol = "
@@ -1740,6 +1846,7 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
+              "split_sweep": split_rows,
               "kmm4_layouts": route_rows, "staged_shapes": staged_rows,
               "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
               "kmm2_vs_mm2": kvm_rows, "wkv_shapes": wkv_rows,
@@ -1757,8 +1864,8 @@ def main() -> int:
     print(card, flush=True)
     table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()}
     print(json.dumps({"kernels": kernel_entries(
-        fg, rows, grouped_rows, sweep_rows, launches_by_path, staged_rows,
-        table_runs, wkv_rows)}), flush=True)
+        fg, rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
+        staged_rows, table_runs, wkv_rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,26 +7,33 @@ Builds ``csrc/fused_gemm.cu`` of the other checkout whole, in one nvcc,
 into ``build/kernels/`` under its own name, and calls its C entry points
 ``fused_gemm_launch`` and ``fused_gemm_grouped_launch`` with the signatures
 they have had since the grouped entry came in (5 pointers and 9 ints; 6 and
-12), mode ids 1-4.  This checkout runs through its wrappers
-(``fused_gemm.fused_gemm`` / ``fused_gemm_grouped``), so mode mm1 runs on
-``csrc/fused_mm1.cu`` and the split modes on ``csrc/fused_gemm.cu``.  At
-each shape it checks that both give equal outputs, then times them in the
-order base, this, this, base, and ``torch._int_mm`` on the same int8
-operands beside mm1 (A zero-padded to 32 rows where M <= 16, which it
-refuses).  Every time is device time: the calls queue behind a device sleep
-that covers their host work (``torch.cuda._sleep``), so the events measure
-the kernels, not the wrappers.
+12), mode ids 1-4.  Where the other checkout has ``csrc/fused_mm1.cu`` or
+``csrc/fused_split.cu``, they are built too and run mode mm1 through
+``fused_mm1_launch`` / ``fused_mm1_grouped_launch`` (7 pointers and 9
+ints; 8 and 12) and modes kmm2 and mm2 through ``fused_split_launch`` /
+``fused_split_grouped_launch`` (7 and 14; 8 and 17), on this checkout's
+split-K plans and workspace.  This checkout runs
+through its wrappers (``fused_gemm.fused_gemm`` / ``fused_gemm_grouped``),
+so mode mm1 runs on ``csrc/fused_mm1.cu``, kmm2 and mm2 on
+``csrc/fused_split.cu`` and kmm4 on ``csrc/fused_gemm.cu``.  At each shape
+it checks that both give equal outputs, then times them in the order base,
+this, this, base, and ``torch._int_mm`` on the same int8 operands beside
+mm1 (A zero-padded to 32 rows where M <= 16, which it refuses).  Every
+time is device time: the calls queue behind a device sleep that covers
+their host work (``torch.cuda._sleep``), so the events measure the
+kernels, not the wrappers.
 
 Shapes: every dense mm1 GEMM of llama3.2-1b, granite-moe-3b-a800m and
 rwkv6-3b at decode (M=4) and prefill (M=64), llama's wi and wd also at
-M=256 and 2048, an unaligned decode shape (4x2050x8200); granite's grouped
-expert GEMMs in mm1 (40 experts, decode capacities 8/16/32 and the prefill
-bucket of 16, router-like live counts); and, in the split modes, llama's
-and granite's lm_head and wi at M=4 and 64 (kmm2, mm2 at w=16, kmm4 at w=20
-and 24).  Split modes against a checkout whose kernel refuses them are
-timed for this checkout alone; any other failed launch raises.  Prints a
-table and the card, and writes ``chiprun_out/compare_fused_gemm.json``.
-Needs a GPU.
+M=256 and 2048, an unaligned decode shape (4x2050x8200); in the split
+modes (kmm2 at w=12, mm2 at w=16, kmm4 at w=20 and 24) llama's, granite's
+and rwkv's lm_head, llama's wi and granite's router at M=4 and 64, and
+kmm2 and mm2 also at wi with M=2048; granite's grouped expert GEMMs in
+mm1, kmm2 and mm2 (40 experts, decode capacities 8/16/32 and the prefill
+bucket of 16, router-like live counts).  Split modes against a checkout
+whose kernel refuses them are timed for this checkout alone; any other
+failed launch raises.  Prints a table and the card, and writes
+``chiprun_out/compare_fused_gemm.json``.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_gemm as fg
+from repro_torch.kernels import mm1_plan
 
 # (mode, w, M, K, N)
 MM1_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
@@ -53,10 +61,15 @@ DENSE = ([("mm1", 8, m, k, n) for k, n in MM1_KN for m in (4, 64)]
          + [(mode, w, m, k, n)
             for mode, w in (("kmm2", 12), ("mm2", 16), ("kmm4", 20),
                             ("kmm4", 24))
-            for k, n in ((2048, 128512), (2048, 8192), (1536, 49664))
-            for m in (4, 64)])
-# (label, E, C, seg, segments, K, N): granite's grouped expert GEMMs
-GROUPED = [(label, 40, c, seg, n_seg, k, n)
+            for k, n in ((2048, 128512), (2048, 8192), (1536, 49664),
+                         (2560, 65536), (1536, 40))
+            for m in (4, 64)]
+         + [(mode, w, 2048, 2048, 8192) for mode, w in (("kmm2", 12),
+                                                         ("mm2", 16))])
+# (mode, w, label, E, C, seg, segments, K, N): granite's grouped expert
+# GEMMs
+GROUPED = [(mode, w, label, 40, c, seg, n_seg, k, n)
+           for mode, w in (("mm1", 8), ("kmm2", 12), ("mm2", 16))
            for label, c, seg, n_seg in (("decode W=1", 8, 8, 1),
                                         ("decode W=2", 16, 8, 2),
                                         ("decode W=4", 32, 8, 4),
@@ -65,32 +78,56 @@ GROUPED = [(label, 40, c, seg, n_seg, k, n)
 TOP_K = 8
 # Modes an older checkout's kernel may lack (ported after mm1 and kmm2).
 LATER_MODES = ("mm2", "kmm4")
-# The base's C entry points: (pointers, ints), then the stream.
-BASE_SIGNATURES = {"fused_gemm_launch": (5, 9),
-                   "fused_gemm_grouped_launch": (6, 12)}
+# The base's C entry points by source: (pointers, ints), then the stream.
+BASE_SIGNATURES = {
+    "fused_gemm.cu": {"fused_gemm_launch": (5, 9),
+                      "fused_gemm_grouped_launch": (6, 12)},
+    "fused_mm1.cu": {"fused_mm1_launch": (7, 9),
+                     "fused_mm1_grouped_launch": (8, 12)},
+    "fused_split.cu": {"fused_split_launch": (7, 14),
+                       "fused_split_grouped_launch": (8, 17)}}
 ORDER = ("base", "this", "this", "base")
 
 
-def _library(src: Path, tag: str):
-    """The C entry points of ``src`` built whole into their own library."""
-    out = build.BUILD_DIR / f"libfused_gemm-{tag}.so"
+def _libraries(csrc: Path, tag: str):
+    """The C entry points of the base's sources (``fused_mm1.cu`` and
+    ``fused_split.cu`` where it has them), each built whole into its own
+    library, the nvcc processes started together."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    jobs = []
+    for src in BASE_SIGNATURES:
+        if not (csrc / src).exists():
+            continue
+        out = build.BUILD_DIR / f"lib{Path(src).stem}-{tag}.so"
+        jobs.append((src, out, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+             str(csrc / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     fns = {}
-    for name, (n_ptr, n_int) in BASE_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fns[name] = fn
+    for src, out, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the base's {src}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for name, (n_ptr, n_int) in BASE_SIGNATURES[src].items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+            fns[name] = fn
     return fns
 
 
 def _base_call(fns, a, b, sx, sw, counts, seg, out, mode, h, z, kp) -> int:
     """One launch of the base kernel; the CUDA error code (0 on success)."""
     stream = torch.cuda.current_stream().cuda_stream
+    if mode in mm1_plan.SPLIT_ACCS and "fused_split_launch" in fns:
+        return fg._launch_split(a, b, sx, sw, counts, out, seg, stream,
+                                mode=mode, h=h, z=z, kp=kp,
+                                combine_int32=False, kernel=fns.__getitem__)
+    if mode == "mm1" and "fused_mm1_launch" in fns:
+        return fg._launch_mm1(a, b, sx, sw, counts, out, seg, stream,
+                              kernel=fns.__getitem__)
     tail = (fg._MODE_ID[mode], h, z, 0, fg._OUT_KIND[out.dtype], stream)
     if a.dim() == 3:
         return fns["fused_gemm_grouped_launch"](
@@ -189,16 +226,19 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    base_src = (args.base / "src" / "repro_torch" / "kernels" / "csrc"
-                / "fused_gemm.cu")
+    base_csrc = args.base / "src" / "repro_torch" / "kernels" / "csrc"
     t0 = time.monotonic()
-    build.build(["fused_gemm", "fused_mm1"])
+    build.build(["fused_gemm", "fused_mm1", "fused_split"])
     t1 = time.monotonic()
-    base = _library(base_src, "base")
-    builds = {"this_units_s": t1 - t0, "base_whole_s": time.monotonic() - t1}
-    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_gemm "
-          f"and fused_mm1 units in parallel, then linked; 0 if built "
-          f"already), base {builds['base_whole_s']:.1f} s (whole, one nvcc)",
+    base = _libraries(base_csrc, "base")
+    builds = {"this_units_s": t1 - t0, "base_whole_s": time.monotonic() - t1,
+              "base_sources": sorted({src for src, sig in
+                                      BASE_SIGNATURES.items()
+                                      if set(sig) & set(base)})}
+    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_gemm, "
+          f"fused_mm1 and fused_split units in parallel, then linked; 0 if "
+          f"built already), base {builds['base_whole_s']:.1f} s "
+          f"({', '.join(builds['base_sources'])}, whole, one nvcc each)",
           flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -225,23 +265,24 @@ def main() -> int:
             row["int_mm_padded_to_32_rows"] = m <= 16
         rows.append(row)
         _print(row)
-    for label, e, c, seg, n_seg, k, n in GROUPED:
-        a = _rand(gen, 8, (e, c, k), torch.int8)
-        b = _rand(gen, 8, (e, k, n), torch.int8)
+    for mode, w, label, e, c, seg, n_seg, k, n in GROUPED:
+        _, h, z, carrier = fg.resolve(w, mode=mode)
+        a = _rand(gen, w, (e, c, k), carrier)
+        b = _rand(gen, w, (e, k, n), carrier)
         sx = torch.rand((e, c, 1), generator=gen, device="cuda") + 1e-3
         sw = torch.rand((e, 1, n), generator=gen, device="cuda") + 1e-3
         tokens = 64 if label.startswith("prefill") else 1
         counts = _routed_counts(cpu_gen, e, seg, n_seg, tokens).cuda()
         kp = fg.padded_k(k, 256)
         times = _compare(
-            base, f"grouped mm1 {label} {k}x{n}", "mm1", a, b, sx, sw,
-            counts, seg, 0, 0, kp,
-            lambda: fg.fused_gemm_grouped(a, b, sx, sw, counts, w=8,
-                                          seg=seg, block_k=256,
+            base, f"grouped {mode} {label} {k}x{n}", mode, a, b, sx, sw,
+            counts, seg, h, z, kp,
+            lambda: fg.fused_gemm_grouped(a, b, sx, sw, counts, w=w,
+                                          mode=mode, seg=seg, block_k=256,
                                           out_dtype=torch.bfloat16),
             (e, c, n))
         live = fg.ragged_row_mask(counts, seg, c)[..., 0]
-        row = {"kind": "grouped", "mode": "mm1", "w": 8, "case": label,
+        row = {"kind": "grouped", "mode": mode, "w": w, "case": label,
                "E": e, "C": c, "K": k, "N": n, "seg": seg,
                "live_rows": int(live.sum()),
                "live_experts": int(live.any(dim=1).sum()),

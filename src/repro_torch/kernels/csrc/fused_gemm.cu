@@ -1,29 +1,23 @@
-// Fused single-pass integer GEMM for NVIDIA Hopper (sm_90a): the split
-// modes kmm2, mm2 and kmm4 of the paper's precision-scalable KMM unit.
+// Fused single-pass integer GEMM for NVIDIA Hopper (sm_90a): the depth-2
+// split mode kmm4 of the paper's precision-scalable KMM unit.
 //
 // Replaces the TPU kernel `_fused_kernel` in src/repro/kernels/fused_gemm.py
-// (line 119; entry point `fused_gemm`, line 395) in its three split modes,
-// and computes what it computes, bit for bit (mode mm1, w <= 8, one exact
-// s8 x s8 -> s32 pass, is its own kernel in fused_mm1.cu):
+// (line 119; entry point `fused_gemm`, line 395) in mode kmm4, and computes
+// what it computes, bit for bit (mode mm1, w <= 8, is its own kernel in
+// fused_mm1.cu; kmm2 and mm2, w 9..16, in fused_split.cu):
 //
-//   kmm2 (9..14):    split every operand at h = ceil(w/2) into a signed high
-//                    digit and a low digit centered by z = 2^(h-1);
-//                    three digit passes with the Fig. 8 pre-adders
-//                    (C1 = A1.B1, Cs = (A1+A0).(B1+B0), C0 = A0.B0), the
-//                    Fig. 9 post-adder in fp32 (or int32).
-//   mm2  (15..16):   the same split, four passes without pre-adders
-//                    (C1 = A1.B1, C10 = A1.B0, C01 = A0.B1, C0 = A0.B0) and
-//                    the conventional combine.
 //   kmm4 (17..26; 9..16 for the tuner):
-//                    depth-2 KMM: each level-1 branch {A1, A1+A0, A0} is
+//                    split every operand at h = ceil(w/2) into a signed high
+//                    digit and a low digit centered by z = 2^(h-1); depth-2
+//                    KMM: each level-1 branch {A1, A1+A0, A0} is
 //                    re-split plainly (uncentered) at h2 = ceil((h+1)/2)
 //                    and runs the three Fig. 8 passes of its own; nine
 //                    accumulators, the level-2 combine at h2 per branch,
-//                    then the level-1 combine at h.
-//   all modes:       int32 row sums of A and column sums of B and the
+//                    then the level-1 combine at h;
+//                    int32 row sums of A and column sums of B and the
 //                    Section IV-D zero-point correction over the *logical*
 //                    padded K `kp`;
-//   all modes:       optional dequant epilogue val * (sx[m] * sw[n]) and an
+//                    optional dequant epilogue val * (sx[m] * sw[n]) and an
 //                    int32 / fp32 / bf16 store.
 //
 // The grouped entry (`fused_gemm_grouped_launch`) also replaces
@@ -40,20 +34,18 @@
 // tile need not match the reference's block_m.
 //
 // Every product is an exact s8 x s8 -> s32 tensor-core MMA.  The digits
-// entering them fit s8 (checked for every value of every width):
-//   kmm2: the pre-adder spans [-128, 126] at w = 14;
-//   mm2:  the int16 carrier's digits are [-128, 127];
-//   kmm4: every leaf digit fits s8 at every width through w = 26, and so
-//         does the nested pre-adder through w = 22 (h <= 11; [-32, 93]).
-//         For w = 23..26 (h >= 12) the pre-adder reaches [-64, 189], which
-//         fits neither s8 nor u8.  That instance (KMM4_WIDE) keeps the two
-//         leaves of each branch as its planes and computes the pre-adder
-//         product through the integer identity
-//           (a1 + a0)(b1 + b0) = a1.b1 + (a1.b0 + a0.b1) + a0.b0:
-//         its middle accumulator gathers the two cross products, and the
-//         epilogue adds C1 and C0 back in int32 before the combine.  The
-//         value is the same integer the reference's pass computes, so the
-//         result is bit-exact by construction, at 12 MMAs for 9.
+// entering them fit s8 (checked for every value of every width): every
+// leaf digit fits s8 at every width through w = 26, and so does the nested
+// pre-adder through w = 22 (h <= 11; [-32, 93]).  For w = 23..26
+// (h >= 12) the pre-adder reaches [-64, 189], which fits neither s8 nor
+// u8.  That instance (KMM4_WIDE) keeps the two leaves of each branch as
+// its planes and computes the pre-adder product through the integer
+// identity
+//   (a1 + a0)(b1 + b0) = a1.b1 + (a1.b0 + a0.b1) + a0.b0:
+// its middle accumulator gathers the two cross products, and the epilogue
+// adds C1 and C0 back in int32 before the combine.  The value is the same
+// integer the reference's pass computes, so the result is bit-exact by
+// construction, at 12 MMAs for 9.
 //
 // Numerics the design must keep:
 //   * K positions in [K, kp) are the value 0 before the split, i.e. digits
@@ -67,42 +59,38 @@
 //     they are kept in uint32, where wrapping is defined.
 //   * The fp32 epilogue follows the reference's operation order with
 //     explicitly rounded intrinsics (and the library is built with
-//     --fmad=false): kmm2 mid = (Cs - C1) - C0 and
-//     core = (C1 * 2^2h + mid * 2^h) + C0; mm2 mid = C10 + C01 in fp32;
-//     kmm4 the kmm2 combine at h2 per branch, then the same sequence at h
-//     on the three fp32 branch values; corr = (z * row + z * col) + z^2 kp;
-//     val = core + corr; out = val * (sx * sw), with sx * sw rounded
-//     first; bf16 rounds to nearest even.
+//     --fmad=false): the kmm2 combine mid = (Cs - C1) - C0,
+//     (C1 * 2^2h + mid * 2^h) + C0 at h2 per branch, then the same sequence
+//     at h on the three fp32 branch values; corr = (z * row + z * col) +
+//     z^2 kp; val = core + corr; out = val * (sx * sw), with sx * sw
+//     rounded first; bf16 rounds to nearest even.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1979 TOP/s int8): for
 // the serve path's row counts (decode M = live slots, prefill M <= 64) the
-// GEMM is bound by reading B once.  At lm_head, B is (2048, 128512): 526 MB
-// in int16 (kmm2, mm2), 1.05 GB in int32 (kmm4), about 0.16 and 0.31 ms;
-// the 3, 4 or 9 digit passes take longer than the read only above a few
-// hundred rows.  So the design reads each original operand once per output
-// tile (no digit planes in device memory), splits digits in registers on
-// the way into shared memory, keeps the accumulators on chip across the
-// whole K loop, and writes the output once, dequantized.  The grouped MoE
+// GEMM is bound by reading B once.  At lm_head, B is (2048, 128512): 1.05 GB
+// in int32, about 0.31 ms; the 9 digit passes take longer than the read
+// only above a few hundred rows.  So the design reads each original
+// operand once per output tile (no digit planes in device memory), splits
+// digits in registers on the way into shared memory, keeps the
+// accumulators on chip across the whole K loop, and writes the output
+// once, dequantized.  The grouped MoE
 // GEMMs at decode are bound the same way: each live expert's B is read once
 // (at most 1 row in 8 is live there, so the MMAs are mostly idle), and an
 // expert with no live row reads nothing.  At these shapes the K loop is
 // bound by load latency, so each loader thread issues all of a pass's
 // global loads (16 values of A and 16 of B) before it packs any digit.
 // It is the simple first version: one 64x64 output tile per block, a
-// synchronous K loop of 64-deep stages and 16x16x16 s8 WMMA products.
-// kmm2 and mm2 run 4 warps, each
-// owning 16 rows and all 64 columns; kmm4's nine accumulators would need
-// 288 registers a thread there, so it runs 8 warps of 16 x 32 (144) and
-// keeps its 72 KB of digit planes in dynamic shared memory.  The mm1
-// kernel's pipelined 16-byte copies and exact split-K (fused_mm1.cu) are
-// the route for these modes too, with the digit split done from shared
-// memory; wgmma and a persistent schedule are later work.
+// synchronous K loop of 64-deep stages and 16x16x16 s8 WMMA products; the
+// nine accumulators run 8 warps of 16 x 32 (144 registers) and keep their
+// 72 KB of digit planes in dynamic shared memory.  fused_split.cu's
+// pipeline (16-byte copies of the carrier, the digit split from shared
+// memory, exact split-K) is the route for this mode too.
 //
 // Build: the whole file compiles into one library.  Built with
 // -DFUSED_GEMM_UNIT=u it compiles only unit u (0: the C entry points;
-// 1-4: the kernel instances of one digit layout: kmm2, mm2, kmm4 on s8
-// pre-adders, kmm4 on split ones), so the instances can be compiled by
-// parallel nvcc processes and linked together.
+// 1-2: the kernel instances of one digit layout: kmm4 on s8 pre-adders,
+// kmm4 on split ones), so the instances can be compiled by parallel nvcc
+// processes and linked together.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,21 +115,20 @@ constexpr int BK = 64;               // K depth of one shared-memory stage
 
 enum OutKind { OUT_I32 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
 
-// Digit layouts, one kernel instance each; 2-4 are the wrapper's mode ids
-// (mode 1, mm1, is fused_mm1.cu's), and mode 4 runs as KMM4_WIDE for
-// h >= 12.
-enum Layout { KMM2 = 2, MM2 = 3, KMM4 = 4, KMM4_WIDE = 5 };
+// Digit layouts, one kernel instance each; 4 is the wrapper's mode id
+// (modes 1-3 are fused_mm1.cu's and fused_split.cu's), and mode 4 runs as
+// KMM4_WIDE for h >= 12.
+enum Layout { KMM4 = 4, KMM4_WIDE = 5 };
 
 // Shape of each layout: digit planes per operand, int32 accumulators,
 // tensor-core products per 16-deep step, threads, and warps side by side
 // along N.
 template <int L>
 struct Shape {
-  static constexpr int NPLANE = L == KMM2 ? 3 : L == MM2 ? 2
-                              : L == KMM4 ? 9 : 6;
-  static constexpr int NACC = L == KMM2 ? 3 : L == MM2 ? 4 : 9;
+  static constexpr int NPLANE = L == KMM4 ? 9 : 6;
+  static constexpr int NACC = 9;
   static constexpr int NPROD = L == KMM4_WIDE ? 12 : NACC;
-  static constexpr int NTHREADS = (L == KMM4 || L == KMM4_WIDE) ? 256 : 128;
+  static constexpr int NTHREADS = 256;
   static constexpr int WARPS_N = NTHREADS / 128;
   static constexpr int NWARPS = NTHREADS / 32;
   static constexpr int TILE_BYTES = NPLANE * (BM * BK + BK * BN);
@@ -157,8 +144,6 @@ struct Prod {
 
 template <int L>
 __host__ __device__ constexpr Prod product(int p) {
-  // mm2: (A1, B1), (A1, B0), (A0, B1), (A0, B0); plane 0 is the high digit
-  if (L == MM2) return Prod{p >> 1, p & 1, p};
   if (L == KMM4_WIDE) {
     // branch v: planes 2v (high leaf) and 2v + 1 (low leaf); accumulator
     // 3v + 1 takes both cross products
@@ -170,7 +155,7 @@ __host__ __device__ constexpr Prod product(int p) {
 }
 
 struct Params {
-  const void* a;       // (M, K) row-major: int16, int32 (kmm4)
+  const void* a;       // (M, K) row-major, int32
   const void* b;       // (K, N) row-major, same type
   const float* sx;     // (M,) row scales, or null (no dequant)
   const float* sw;     // (N,) column scales, or null
@@ -186,8 +171,7 @@ __device__ __forceinline__ void put(uint32_t (&w)[4], int c, int v) {
 }
 
 // Pack one operand value's digits into byte `c` of each plane's 16-byte
-// row: high, pre-adder sum, low (kmm2); high, low
-// (mm2); per level-1 branch high, pre-adder, low leaf (kmm4) or high, low
+// row: per level-1 branch high, pre-adder, low leaf (kmm4) or high, low
 // leaf (kmm4 wide).
 template <int L>
 __device__ __forceinline__ void put_digits(
@@ -196,27 +180,18 @@ __device__ __forceinline__ void put_digits(
   if (!in_kp) return;                // beyond the logical padded K: no term
   const int hi = v >> p.h;
   const int lo = (v & mask) - p.z;
-  if constexpr (L == KMM2) {
-    put(w[0], c, hi);
-    put(w[1], c, hi + lo);
-    put(w[2], c, lo);
-  } else if constexpr (L == MM2) {
-    put(w[0], c, hi);
-    put(w[1], c, lo);
-  } else {
-    const int branch[3] = {hi, hi + lo, lo};
+  const int branch[3] = {hi, hi + lo, lo};
 #pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const int v1 = branch[q] >> p.h2;
-      const int v0 = branch[q] & mask2;
-      if constexpr (L == KMM4) {
-        put(w[3 * q], c, v1);
-        put(w[3 * q + 1], c, v1 + v0);
-        put(w[3 * q + 2], c, v0);
-      } else {
-        put(w[2 * q], c, v1);
-        put(w[2 * q + 1], c, v0);
-      }
+  for (int q = 0; q < 3; ++q) {
+    const int v1 = branch[q] >> p.h2;
+    const int v0 = branch[q] & mask2;
+    if constexpr (L == KMM4) {
+      put(w[3 * q], c, v1);
+      put(w[3 * q + 1], c, v1 + v0);
+      put(w[3 * q + 2], c, v0);
+    } else {
+      put(w[2 * q], c, v1);
+      put(w[2 * q + 1], c, v0);
     }
   }
 }
@@ -288,36 +263,18 @@ __device__ __forceinline__ void store_out(const Params& p,
   const uint32_t r = row - kpz;    // rowsum(A) - kp z, modulo 2^32
   const uint32_t cc = col - kpz;
   if (p.combine_int32) {
-    uint32_t core;
-    if constexpr (L == KMM2) {
-      core = combine_kmm2_u(c[0], c[1], c[2], p.h);
-    } else if constexpr (L == MM2) {
-      const uint32_t u1 = c[0], u10 = c[1], u01 = c[2], u0 = c[3];
-      core = (u1 << (2 * p.h)) + ((u10 + u01) << p.h) + u0;
-    } else {
-      core = combine_kmm2_u(combine_kmm2_u(c[0], c[1], c[2], p.h2),
-                            combine_kmm2_u(c[3], c[4], c[5], p.h2),
-                            combine_kmm2_u(c[6], c[7], c[8], p.h2), p.h);
-    }
+    const uint32_t core =
+        combine_kmm2_u(combine_kmm2_u(c[0], c[1], c[2], p.h2),
+                       combine_kmm2_u(c[3], c[4], c[5], p.h2),
+                       combine_kmm2_u(c[6], c[7], c[8], p.h2), p.h);
     vi = static_cast<int>(core + (zu * r + zu * cc
                                   + zu * zu * static_cast<uint32_t>(p.kp)));
   } else {
-    float core;
-    if constexpr (L == KMM2) {
-      core = combine_kmm2_f(c[0], c[1], c[2], p.pow_h, p.pow_2h);
-    } else if constexpr (L == MM2) {
-      const float mid = __fadd_rn(__int2float_rn(c[1]),
-                                  __int2float_rn(c[2]));
-      core = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(c[0]), p.pow_2h),
-                                 __fmul_rn(mid, p.pow_h)),
-                       __int2float_rn(c[3]));
-    } else {
-      core = combine_wide_f(
-          combine_kmm2_f(c[0], c[1], c[2], p.pow_h2, p.pow_2h2),
-          combine_kmm2_f(c[3], c[4], c[5], p.pow_h2, p.pow_2h2),
-          combine_kmm2_f(c[6], c[7], c[8], p.pow_h2, p.pow_2h2),
-          p.pow_h, p.pow_2h);
-    }
+    const float core = combine_wide_f(
+        combine_kmm2_f(c[0], c[1], c[2], p.pow_h2, p.pow_2h2),
+        combine_kmm2_f(c[3], c[4], c[5], p.pow_h2, p.pow_2h2),
+        combine_kmm2_f(c[6], c[7], c[8], p.pow_h2, p.pow_2h2),
+        p.pow_h, p.pow_2h);
     const float rf = __int2float_rn(static_cast<int>(r));
     const float cf = __int2float_rn(static_cast<int>(cc));
     const float corr = __fadd_rn(
@@ -582,28 +539,16 @@ int launch_layout(const Params& p, int groups, bool grouped,
 }
 
 // One function per layout, each defined in its own build unit.
-int launch_kmm2(const Params& p, int groups, bool grouped, cudaStream_t s);
-int launch_mm2(const Params& p, int groups, bool grouped, cudaStream_t s);
 int launch_kmm4(const Params& p, int groups, bool grouped, cudaStream_t s);
 int launch_kmm4_wide(const Params& p, int groups, bool grouped,
                      cudaStream_t s);
 
 #if FG_UNIT(1)
-int launch_kmm2(const Params& p, int groups, bool grouped, cudaStream_t s) {
-  return launch_layout<KMM2, int16_t>(p, groups, grouped, s);
-}
-#endif
-#if FG_UNIT(2)
-int launch_mm2(const Params& p, int groups, bool grouped, cudaStream_t s) {
-  return launch_layout<MM2, int16_t>(p, groups, grouped, s);
-}
-#endif
-#if FG_UNIT(3)
 int launch_kmm4(const Params& p, int groups, bool grouped, cudaStream_t s) {
   return launch_layout<KMM4, int32_t>(p, groups, grouped, s);
 }
 #endif
-#if FG_UNIT(4)
+#if FG_UNIT(2)
 int launch_kmm4_wide(const Params& p, int groups, bool grouped,
                      cudaStream_t s) {
   return launch_layout<KMM4_WIDE, int32_t>(p, groups, grouped, s);
@@ -617,9 +562,8 @@ namespace {
 
 using namespace fused_gemm_detail;
 
-// Fill the fields both entry points share; mode 2 = kmm2 and 3 = mm2
-// (int16 operands), 4 = kmm4 (int32); out_kind 0 = int32,
-// 1 = float32, 2 = bfloat16.
+// Fill the fields both entry points share; mode 4 = kmm4 (int32
+// operands); out_kind 0 = int32, 1 = float32, 2 = bfloat16.
 Params make_params(const void* a, const void* b, const void* sx,
                    const void* sw, void* out, int M, int K, int N, int kp,
                    int h, int z, int combine_int32, int out_kind) {
@@ -650,29 +594,18 @@ Params make_params(const void* a, const void* b, const void* sx,
   return p;
 }
 
-// Refuses mode 1 (mm1 runs in fused_mm1.cu) and digit splits whose digits
-// would not fit s8 (see the header).
+// Refuses modes 1-3 (mm1 runs in fused_mm1.cu, kmm2 and mm2 in
+// fused_split.cu) and digit splits whose digits would not fit s8 (see the
+// header).
 int launch(const Params& p, int groups, bool grouped, int mode,
            void* stream) {
-  if (groups < 1 || groups > 65535 || (p.M + BM - 1) / BM > 65535) {
+  if (groups < 1 || groups > 65535 || (p.M + BM - 1) / BM > 65535
+      || mode != KMM4 || p.h < 5 || p.h > 13) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case KMM2:
-      if (p.h < 1 || p.h > 7) break;
-      return launch_kmm2(p, groups, grouped, s);
-    case MM2:
-      if (p.h < 1 || p.h > 8) break;
-      return launch_mm2(p, groups, grouped, s);
-    case KMM4:
-      if (p.h < 5 || p.h > 13) break;
-      return p.h <= 11 ? launch_kmm4(p, groups, grouped, s)
-                       : launch_kmm4_wide(p, groups, grouped, s);
-    default:
-      break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return p.h <= 11 ? launch_kmm4(p, groups, grouped, s)
+                   : launch_kmm4_wide(p, groups, grouped, s);
 }
 
 }  // namespace

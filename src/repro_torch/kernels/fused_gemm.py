@@ -3,12 +3,13 @@ grouped: wrappers, plain PyTorch versions and launch counts.
 
 Port of ``repro.kernels.fused_gemm.fused_gemm`` and ``fused_gemm_grouped``.
 On CUDA tensors :func:`fused_gemm` and :func:`fused_gemm_grouped` launch a
-hand-written Hopper kernel — ``csrc/fused_mm1.cu`` in mode mm1 (pipelined
-16-byte copies and exact split-K, planned by :mod:`.mm1_plan`),
-``csrc/fused_gemm.cu`` in the split modes — or raise; on CPU tensors
-they run :func:`fused_gemm_reference` and :func:`fused_gemm_grouped_reference`,
-the plain PyTorch versions of the same functions.  There is no other route
-and no fallback.
+hand-written Hopper kernel — ``csrc/fused_mm1.cu`` in mode mm1 and
+``csrc/fused_split.cu`` in modes kmm2 and mm2 (pipelined 16-byte copies,
+the digit split from shared memory, exact split-K, both planned by
+:mod:`.mm1_plan`), ``csrc/fused_gemm.cu`` in mode kmm4 — or raise; on CPU
+tensors they run :func:`fused_gemm_reference` and
+:func:`fused_gemm_grouped_reference`, the plain PyTorch versions of the
+same functions.  There is no other route and no fallback.
 
 The grouped GEMM is ragged when it gets ``counts`` (E, S) and a static
 ``seg``: row ``r`` of expert ``e`` is live iff ``r // seg < S`` and
@@ -222,6 +223,10 @@ def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if mode == "mm1":
             err = _launch_mm1(a, b, sx, sw, counts, out, seg, stream)
+        elif mode in mm1_plan.SPLIT_ACCS:
+            err = _launch_split(a, b, sx, sw, counts, out, seg, stream,
+                                mode=mode, h=h, z=z, kp=kp,
+                                combine_int32=combine_int32)
         elif grouped:
             err = _kernel("fused_gemm_grouped_launch")(
                 a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), _ptr(counts),
@@ -241,29 +246,63 @@ def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
     return out
 
 
-def _launch_mm1(a, b, sx, sw, counts, out, seg, stream) -> int:
+def _launch_mm1(a, b, sx, sw, counts, out, seg, stream, *,
+                kernel=None) -> int:
     """One launch of the mm1 kernel on the plan for this shape and card;
-    the CUDA error code."""
+    the CUDA error code.  ``kernel`` maps a C entry's name to its function
+    (this checkout's library by default)."""
+    kernel = kernel or _kernel
     grouped = a.dim() == 3
     groups = a.shape[0] if grouped else 1
     m_dim, k_dim = a.shape[-2:]
     n_dim = b.shape[-1]
     plan = mm1_plan.plan_mm1(groups, m_dim, k_dim, n_dim,
                              _sm_count(a.device.index))
-    ws, counters = _mm1_workspace(a.device, stream, plan)
+    ws, counters = _workspace(a.device, stream, plan)
     # 16-byte copies need every row 16-byte aligned; the kernel checks too
     vec_a = int(k_dim % 16 == 0 and a.data_ptr() % 16 == 0)
     vec_b = int(n_dim % 16 == 0 and b.data_ptr() % 16 == 0)
     tail = (plan.bm, plan.split, plan.k_split, vec_a, vec_b,
             _OUT_KIND[out.dtype], stream)
     if grouped:
-        return _kernel("fused_mm1_grouped_launch")(
+        return kernel("fused_mm1_grouped_launch")(
             a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), _ptr(counts),
             out.data_ptr(), _ptr(ws), _ptr(counters), groups, m_dim, k_dim,
             n_dim, seg, counts.shape[1] if counts is not None else 0, *tail)
-    return _kernel("fused_mm1_launch")(
+    return kernel("fused_mm1_launch")(
         a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), out.data_ptr(),
         _ptr(ws), _ptr(counters), m_dim, k_dim, n_dim, *tail)
+
+
+def _launch_split(a, b, sx, sw, counts, out, seg, stream, *, mode, h, z,
+                  kp, combine_int32, kernel=None) -> int:
+    """One launch of the kmm2 / mm2 kernel on the plan for this shape, its
+    padded K and the card; the CUDA error code.  ``kernel`` as in
+    :func:`_launch_mm1`."""
+    kernel = kernel or _kernel
+    grouped = a.dim() == 3
+    groups = a.shape[0] if grouped else 1
+    m_dim, k_dim = a.shape[-2:]
+    n_dim = b.shape[-1]
+    plan = mm1_plan.plan_split(mode, groups, m_dim, kp, n_dim,
+                               _sm_count(a.device.index),
+                               ragged=counts is not None)
+    ws, counters = _workspace(a.device, stream, plan)
+    # 16-byte copies (8 int16) need every row 16-byte aligned; the kernel
+    # checks too
+    vec_a = int(k_dim % 8 == 0 and a.data_ptr() % 16 == 0)
+    vec_b = int(n_dim % 8 == 0 and b.data_ptr() % 16 == 0)
+    tail = (_MODE_ID[mode], h, z, int(combine_int32), _OUT_KIND[out.dtype],
+            plan.bm, plan.split, plan.k_split, vec_a, vec_b, stream)
+    if grouped:
+        return kernel("fused_split_grouped_launch")(
+            a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), _ptr(counts),
+            out.data_ptr(), _ptr(ws), _ptr(counters), groups, m_dim, k_dim,
+            n_dim, kp, seg, counts.shape[1] if counts is not None else 0,
+            *tail)
+    return kernel("fused_split_launch")(
+        a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), out.data_ptr(),
+        _ptr(ws), _ptr(counters), m_dim, k_dim, n_dim, kp, *tail)
 
 
 @functools.cache
@@ -271,25 +310,26 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# Split-K workspace of the mm1 kernel, one (partials, counters) pair per
-# (device, stream): the kernel leaves the counters at 0, and launches on
-# one stream run in order, so each launch finds them at 0.  Two streams
-# must not share a pair (their launches could interleave on the counters),
-# hence the key.  Both grow, zeroed, when a plan needs more.
-_MM1_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# Split-K workspace of the pipelined kernels (mm1, kmm2, mm2), one
+# (partials, counters) pair per (device, stream), shared by both kernels:
+# each leaves the counters at 0, and launches on one stream run in order,
+# so each launch finds them at 0.  Two streams must not share a pair
+# (their launches could interleave on the counters), hence the key.  Both
+# grow, zeroed, when a plan needs more.
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _mm1_workspace(device, stream: int, plan: mm1_plan.Mm1Plan):
+def _workspace(device, stream: int, plan: mm1_plan.SplitKPlan):
     if plan.split == 1:
         return None, None
     key = (device.index, stream)
-    ws, counters = _MM1_WORKSPACE.get(key, (None, None))
+    ws, counters = _WORKSPACE.get(key, (None, None))
     if ws is None or ws.numel() < plan.ws_ints:
         ws = torch.zeros(plan.ws_ints, dtype=torch.int32, device=device)
     if counters is None or counters.numel() < plan.n_counters:
         counters = torch.zeros(plan.n_counters, dtype=torch.int32,
                                device=device)
-    _MM1_WORKSPACE[key] = (ws, counters)
+    _WORKSPACE[key] = (ws, counters)
     return ws, counters
 
 
@@ -298,7 +338,9 @@ def _mm1_workspace(device, stream: int, plan: mm1_plan.Mm1Plan):
 _SIGNATURES = {"fused_gemm_launch": ("fused_gemm", 5, 9),
                "fused_gemm_grouped_launch": ("fused_gemm", 6, 12),
                "fused_mm1_launch": ("fused_mm1", 7, 9),
-               "fused_mm1_grouped_launch": ("fused_mm1", 8, 12)}
+               "fused_mm1_grouped_launch": ("fused_mm1", 8, 12),
+               "fused_split_launch": ("fused_split", 7, 14),
+               "fused_split_grouped_launch": ("fused_split", 8, 17)}
 
 
 def _kernel(entry: str):

@@ -1,13 +1,17 @@
-"""Tile and split-K plan of the fused GEMM's mm1 kernel (``csrc/fused_mm1.cu``).
+"""Tile and split-K plan of the fused GEMM's pipelined kernels: mm1
+(``csrc/fused_mm1.cu``) and the split modes kmm2 and mm2
+(``csrc/fused_split.cu``).
 
-The kernel computes one ``bm`` x ``BN`` output tile of one group per block,
+Each kernel computes one ``bm`` x ``BN`` output tile of one group per block,
 over a K range read through a ring of ``STAGES`` shared-memory stages of
 ``BK`` deep.  Where the (N-tile x M-tile x group) grid cannot fill the card,
 K is split across blocks: each split sums its own range into exact int32
-partials, and the last block to arrive on a tile adds them (modulo 2^32,
-so the order of arrival changes no bit) and runs the epilogue.  This module
-picks the tile, the split count and each split's K range; the C entry takes
-the result.  It is plain Python so the CPU tests reach it.
+partials (the split modes also their row and column sums), and the last
+block to arrive on a tile adds them (modulo 2^32, so the order of arrival
+changes no bit) and runs the epilogue.  This module picks the tile, the
+split count and each split's K range — one rule for both kernels, over K
+for mm1 and over the logical padded K ``kp`` for the split modes; the C
+entries take the result.  It is plain Python so the CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -25,23 +29,35 @@ TILE_M = (16, 64)   # decode tile (one m16 MMA row block) and prefill tile
 # where the MMAs become the limit (M = 256 and up at N >= 8192).
 DECODE_MAX_M = 64
 # Each split covers at least this many stages, so its copies fill the ring,
-# and at least 8 bm deep, so the int32 partials it writes and the last block
-# reads (2 x bm x BN x 4 bytes) are no more bytes than its slice of B.
+# and deep enough that the int32 partials it writes and the last block
+# reads (2 x accs x bm x BN x 4 bytes) are no more bytes than its slice of B
+# (depth x BN x carrier bytes): 8 bm deep for mm1.
 MIN_SPLIT_STAGES = STAGES
+# The split modes' accumulators: kmm2 three digit products, mm2 four; and
+# the K depth of their stages by tile rows.
+SPLIT_ACCS = {"kmm2": 3, "mm2": 4}
+SPLIT_BK = {16: 32, 64: 64}
 # Split until the grid holds about this many blocks per SM (two waves keep
 # twice the copies in flight on every SM).
 BLOCKS_PER_SM = 2
+# A ragged grouped launch (the MoE expert GEMMs) with a grid that fills the
+# card splits K in pieces of at least this many stages all the same: its
+# live tiles are unknown on the host, and at decode a token's top-k leaves
+# most of them dead, so the live grid is narrow and each live block's K
+# loop is the launch's latency.
+RAGGED_SPLIT_STAGES = 16
 
 
 @dataclass(frozen=True)
-class Mm1Plan:
+class SplitKPlan:
     bm: int              # output rows per block: 16 (decode) or 64
     tiles_m: int
     tiles_n: int
     groups: int
     split: int           # blocks per output tile along K
     k_split: int         # K depth of every split but the last (multiple of BK)
-    k: int
+    k: int               # the K extent the splits cover (kp for split modes)
+    tile_ints: int       # workspace int32 a split of a tile
 
     @property
     def tiles(self) -> int:
@@ -53,9 +69,12 @@ class Mm1Plan:
 
     @property
     def ws_ints(self) -> int:
-        """int32 partials the workspace must hold: one bm x BN tile per
-        split of every tile (none without a split)."""
-        return self.tiles * self.split * self.bm * BN if self.split > 1 else 0
+        """int32 the workspace must hold: one tile's partials per split of
+        every tile — bm x BN for mm1; for the split modes every
+        accumulator's and the bm row and BN column sums (none without a
+        split)."""
+        return (self.tiles * self.split * self.tile_ints
+                if self.split > 1 else 0)
 
     @property
     def n_counters(self) -> int:
@@ -68,31 +87,65 @@ class Mm1Plan:
                 for s in range(self.split)]
 
 
-@functools.lru_cache(maxsize=4096)     # planned once per shape: host time
-def plan_mm1(groups: int, m: int, k: int, n: int, num_sms: int) -> Mm1Plan:
-    """The plan for a (groups, m, k) x (groups, k, n) mm1 launch on a card
-    with ``num_sms`` SMs.
+def tile_rows(m: int) -> int:
+    """Output rows per block for an m-row launch: the 16-row tile through
+    DECODE_MAX_M, the 64-row tile above."""
+    return TILE_M[0] if m <= DECODE_MAX_M else TILE_M[1]
+
+
+def plan_split_k(groups: int, m: int, k: int, n: int, num_sms: int, *,
+                 accs: int = 1, carrier_bytes: int = 1, sums: bool = False,
+                 bk: int = BK, ragged: bool = False) -> SplitKPlan:
+    """The plan for a (groups, m, k) x (groups, k, n) launch on a card with
+    ``num_sms`` SMs, of a kernel with ``accs`` int32 accumulators a tile
+    element, operands of ``carrier_bytes`` a value and stages ``bk`` deep;
+    ``sums`` adds the row and column sums to each split's partials;
+    ``ragged`` marks a ragged grouped launch.
 
     The 16-row tile serves m <= DECODE_MAX_M (decode, the ragged expert
-    GEMMs, prefill buckets), the 64-row tile larger m.  K is split only when the tile grid
-    holds fewer blocks than the card has SMs; then into as many splits as
-    bring the grid to BLOCKS_PER_SM blocks an SM, each at least
-    MIN_SPLIT_STAGES stages and 8 bm deep.  Every split is a whole number
-    of stages except the last, which ends at k."""
-    if min(groups, m, n, num_sms) < 1 or k < 0:
-        raise ValueError(f"bad mm1 problem: groups={groups} m={m} k={k} "
-                         f"n={n} num_sms={num_sms}")
-    bm = TILE_M[0] if m <= DECODE_MAX_M else TILE_M[1]
+    GEMMs, prefill buckets), the 64-row tile larger m.  K is split only
+    when the tile grid holds fewer blocks than the card has SMs; then into
+    as many splits as bring the grid to BLOCKS_PER_SM blocks an SM, each
+    at least MIN_SPLIT_STAGES stages and 8 accs bm / carrier_bytes deep.
+    A ragged launch whose grid fills the card splits into pieces of at
+    least RAGGED_SPLIT_STAGES stages.  Every split is a whole number of
+    stages except the last, which ends at k."""
+    if min(groups, m, n, num_sms, accs, carrier_bytes, bk) < 1 or k < 0:
+        raise ValueError(f"bad split-K problem: groups={groups} m={m} k={k} "
+                         f"n={n} num_sms={num_sms} accs={accs}")
+    bm = tile_rows(m)
     tiles_m, tiles_n = -(-m // bm), -(-n // BN)
     tiles = groups * tiles_m * tiles_n
-    stages = max(1, -(-k // BK))
+    stages = max(1, -(-k // bk))
     split = 1
     if tiles < num_sms:
-        min_stages = max(MIN_SPLIT_STAGES, 8 * bm // BK)
+        min_stages = max(MIN_SPLIT_STAGES,
+                         -(-8 * accs * bm // (carrier_bytes * bk)))
         split = max(1, min(-(-BLOCKS_PER_SM * num_sms // tiles),
                            stages // min_stages))
+    elif ragged:
+        split = max(1, stages // RAGGED_SPLIT_STAGES)
     per = -(-stages // split)            # stages a split
     split = -(-stages // per)            # no empty split
-    k_split = per * BK if split > 1 else max(k, BK)
-    return Mm1Plan(bm=bm, tiles_m=tiles_m, tiles_n=tiles_n, groups=groups,
-                   split=split, k_split=k_split, k=k)
+    k_split = per * bk if split > 1 else max(k, bk)
+    tile_ints = accs * bm * BN + (bm + BN if sums else 0)
+    return SplitKPlan(bm=bm, tiles_m=tiles_m, tiles_n=tiles_n, groups=groups,
+                      split=split, k_split=k_split, k=k, tile_ints=tile_ints)
+
+
+@functools.lru_cache(maxsize=4096)     # planned once per shape: host time
+def plan_mm1(groups: int, m: int, k: int, n: int, num_sms: int) -> SplitKPlan:
+    """The plan for a (groups, m, k) x (groups, k, n) mm1 launch: int8
+    operands, one accumulator, the splits over [0, k)."""
+    return plan_split_k(groups, m, k, n, num_sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_split(mode: str, groups: int, m: int, kp: int, n: int,
+               num_sms: int, ragged: bool = False) -> SplitKPlan:
+    """The plan for a split-mode (kmm2, mm2) launch on int16 carriers: its
+    digit accumulators and row and column sums, the splits over the logical
+    padded K [0, kp), whose padding positions are digits too."""
+    return plan_split_k(groups, m, kp, n, num_sms, accs=SPLIT_ACCS[mode],
+                        carrier_bytes=2, sums=True,
+                        bk=SPLIT_BK[tile_rows(m)], ragged=ragged)
