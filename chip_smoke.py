@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the whole check, one card
-    python3 chip_smoke.py --profile   # also trace four decode steps
+    python3 chip_smoke.py --profile   # also trace four decode steps a model
+                                      # (and of llama under w20)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -16,18 +17,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      M=256 and 2048, and an unaligned decode shape, 4x2050x8200, whose
      rows take the byte-load path), kmm2 (lm_head and the MoE router at
      w=12), and
-     mm2 and kmm4 (every one of those GEMMs at w=16, and at w=20 and w=24,
-     kmm4's two digit layouts), and the grouped ragged fused GEMM
-     (granite's 40 expert GEMMs in every mode and layout, at the decode and
-     prefill capacities, with router-like live counts and an edge case of
-     zero-count experts and full segments), raw and dequantized outputs;
-     then kmm4 at every width 17-26 (both layouts), with +-2^25 operands at
-     w=26 and, at w=24, rows whose int32 sums wrap as the reference's do;
-     the split modes' kernel (csrc/fused_split.cu) at every width, kmm2
-     9-14 and mm2 15-16, at a split-K decode shape, M=64, the router, the
-     unaligned shape and a split ending inside the padded K, raw, bf16 and
-     int32-ring; and the two kmm4 layouts timed side by side from decode to
-     a compute-bound prefill (M = 4 to 2048);
+     mm2 and kmm4 (every one of those GEMMs at w=16, and at w=20 and
+     w=24), and the grouped ragged fused GEMM (granite's 40 expert GEMMs in
+     every mode, at the decode and prefill capacities, with router-like
+     live counts and an edge case of zero-count experts and full
+     segments), raw and dequantized outputs; then kmm4 at every width
+     17-26, with +-2^25 operands at w=26 and, at w=24, rows whose int32
+     sums wrap as the reference's do; the split modes' kernel
+     (csrc/fused_split.cu) at every width, kmm2 9-14, mm2 15-16 and kmm4
+     at 9, 12, 16, 17, 20, 22, 23, 24 and 26, at a split-K decode shape,
+     M=64, the router, the unaligned shape and a split ending inside the
+     padded K (kmm4 also at a K that is not a multiple of 4), raw, bf16 and
+     int32-ring; and kmm4 timed at w=22 and w=23, where its bound moves
+     from 9 to 12 products, from decode to a compute-bound prefill (M = 4
+     to 2048);
   4. small-input agreement: the smoke-size models in float32 on the card
      against the same models on the CPU (the kernels' plain versions,
      which the test suite holds to the JAX reference);
@@ -40,11 +43,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      launches as the model has quantized GEMMs per prefill and per decode
      step; a second identical run must repeat every greedy stream.  Then
      every GEMM at one width: llama under w16 (mm2; the same 6 requests,
-     twice, greedy streams repeating) and w20 (kmm4, s8 pre-adders), and
-     granite under w12 (kmm2), w16 (mm2), w20 (kmm4, s8 pre-adders) and
-     w24 (kmm4, split pre-adders), 2 requests of 4 new tokens each, every
-     dense and grouped GEMM of a step launching that width's mode and no
-     other;
+     twice, greedy streams repeating) and w20 (kmm4), and granite under w12
+     (kmm2), w16 (mm2), w20 and w24 (kmm4), 2 requests of 4 new tokens
+     each, every dense and grouped GEMM of a step launching that width's
+     mode and no other;
   6. time each kernel against its bound, its plain version and the
      library call that computes the same product where there is one (CUDA
      events, warm-up excluded; every fused and staged kernel in device
@@ -130,14 +132,14 @@ GRANITE_KMM2_KN = [(1536, 40), (1536, 49664)]
 ROWS = [1, 4, 16, 64]                               # decode widths, prefill
 RAGGED = (5, 300, 130)
 # Under w16 (mm2), w20 and w24 (kmm4) every one of those GEMMs runs at that
-# width.  kmm4 is two kernel instances a entry: s8 pre-adders through w=22
-# (h <= 11) and split pre-adders from w=23; w20 and w24 hold one each.  The
-# kmm4 width sweep covers both and the +-2^(w-1) edge.
+# width.  The kmm4 width sweep covers its analytic window and the
+# +-2^(w-1) edge.
 WIDE_MODES = [("mm2", 16), ("kmm4", 20), ("kmm4", 24)]
 KMM4_WIDTHS = [17, 20, 22, 23, 24, 25, 26]
 SWEEP_SHAPES = [(4, 2048, 8192), (64, 1536, 512), RAGGED]
-# The two kmm4 layouts side by side (w=22 s8, w=23 split) at llama's wi/wg
-# (K, N) from decode to a compute-bound prefill.
+# kmm4 at w=22 and w=23 (one digit layout; its bound counts 9 products
+# through w=22 and 12 from w=23) at llama's wi/wg (K, N) from decode to a
+# compute-bound prefill.
 ROUTE_ROWS = [4, 64, 512, 2048]
 ROUTE_KN = (2048, 8192)
 
@@ -172,16 +174,20 @@ MM1_EXTRA = [(m, k, n) for k, n in ((2048, 8192), (8192, 2048))
              for m in (256, 2048)] + [(4, 2050, 8200)]
 MM1_SOURCE = "src/repro_torch/kernels/csrc/fused_mm1.cu"
 # The split modes' kernel (csrc/fused_split.cu): every width at one split-K
-# decode shape (llama's wq, M=4: K split 8-10 ways), at prefill M=64 (wi),
+# decode shape (llama's wq, M=4: K split 7-10 ways), at prefill M=64 (wi),
 # at granite's router (N=40, one tile, split), at the unaligned 5x300x130
 # (element loads) and at a K whose padded kp ends a split past K
 # (3x1560x100, block_k 256: kp 1792; kmm2's splits end at 1568), raw, bf16
-# and combine_int32; fused kmm2 against fused mm2 at w=12 beside the
-# staged pair (phase 3e).
+# and combine_int32; kmm4 (int32 carrier) also at a K that is not a
+# multiple of 4 (4x2050x8200: A's rows take element loads); fused kmm2
+# against fused mm2 at w=12 beside the staged pair (phase 3e).
 SPLIT_SOURCE = "src/repro_torch/kernels/csrc/fused_split.cu"
-SPLIT_WIDTHS = [("kmm2", w) for w in range(9, 15)] + [("mm2", 15), ("mm2", 16)]
+SPLIT_WIDTHS = ([("kmm2", w) for w in range(9, 15)]
+                + [("mm2", 15), ("mm2", 16)]
+                + [("kmm4", w) for w in (9, 12, 16, 17, 20, 22, 23, 24, 26)])
 SPLIT_SHAPES = [(4, 2048, 2048), (64, 2048, 8192), (4, 1536, 40), RAGGED,
                 (3, 1560, 100)]
+KMM4_SPLIT_EXTRA = [(4, 2050, 8200)]
 # The WKV kernel (row 5): tolerance against its plain version (fp32 sums
 # over i in another order), the full-width heads, and its check cases:
 # (label, entry, B or BH, S, H, D, chunk, nonzero initial state, timed).
@@ -206,8 +212,7 @@ PEAK_FP32_OPS_PER_S = 67e12
 # layers have 7 w=8 projections each and w=12 lm_head; granite's 32 have
 # 4 attention projections, the w=12 router, and 3 expert GEMMs (wi, wg,
 # wo) as grouped launches; under one width every GEMM runs in that width's
-# mode (w12 kmm2, w16 mm2, w20 kmm4 on s8 pre-adders, w24 kmm4 on split
-# ones), so each path's kmm4 launches all go to one of its two instances.
+# mode (w12 kmm2, w16 mm2, w20 and w24 kmm4).
 PATHS = [
     ("llama3.2-1b", "mixed", 6, 16, 2, {"mm1": 112, "kmm2": 1}, {}),
     ("llama3.2-1b", "w16", 6, 16, 2, {"mm2": 113}, {}),
@@ -220,6 +225,9 @@ PATHS = [
     ("granite-moe-3b-a800m", "w24", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
     ("rwkv6-3b", "mixed", 6, 16, 2, {"mm1": 224, "kmm2": 1}, {}),
 ]
+# The one-width paths that --profile traces beside each model's mixed one:
+# llama under w20, every GEMM on the kmm4 kernel.
+PROFILED_WIDE = {("llama3.2-1b", "w20")}
 # WKV launches per prefill and per decode step: one a RWKV layer.
 WKV_PER_CALL = {"rwkv6-3b": 32}
 
@@ -311,19 +319,12 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
 CARRIER_BYTES = {"mm1": 1, "kmm2": 2, "mm2": 2, "kmm4": 4}
 
 
-def instance(fg, mode: str, w: int) -> str:
-    """The kernel instance that ``mode`` launches at width ``w``: kmm4 is
-    two, on s8 pre-adders through h = 11 (w <= 22) and on split ones
-    above, as ``fused_gemm.cu`` picks them."""
-    if mode == "kmm4" and fg.resolve(w, mode=mode)[1] >= 12:
-        return "kmm4_split"
-    return mode
-
-
 def passes(mode: str, w: int) -> int:
-    """s8 tensor-core products per output element and K step: 1, 3, 4, or
-    9 for kmm4 — 12 from w=23, where the three nested pre-adder products
-    do not fit s8 and each costs its leaves' cross products."""
+    """s8 tensor-core products per output element and K step that the
+    width needs: 1, 3, 4, or 9 for kmm4 — 12 from w=23, where the three
+    nested pre-adder products do not fit s8 and each costs its leaves'
+    cross products.  The kmm4 kernel runs 12 at every width (six leaf
+    planes); the bound counts what the width needs."""
     return {"mm1": 1, "kmm2": 3, "mm2": 4}.get(mode, 12 if w >= 23 else 9)
 
 
@@ -549,11 +550,11 @@ def grouped_checks(torch, fg):
 
 
 def width_sweep(torch, fg):
-    """Phase 3 for every kmm4 width (both digit routes): dense kernel ==
-    plain version, raw and bf16, at a few shapes, timed at llama's wi/wg
-    decode shape; then the +-2^(w-1) operands at w=26 (the quantizer's
-    one-past-qmax values) and, at w=24, rows of +-2^22 over K=8192, whose
-    int32 row sums wrap in the reference and must wrap the same way here."""
+    """Phase 3 for every kmm4 width: dense kernel == plain version, raw
+    and bf16, at a few shapes, timed at llama's wi/wg decode shape; then
+    the +-2^(w-1) operands at w=26 (the quantizer's one-past-qmax values)
+    and, at w=24, rows of +-2^22 over K=8192, whose int32 row sums wrap in
+    the reference and must wrap the same way here."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     rows = []
@@ -595,9 +596,9 @@ def width_sweep(torch, fg):
             check("sweep", w, a, b, min(256, 1 << max(3, (k - 1).bit_length())),
                   timed=(m, k, n) == SWEEP_SHAPES[0])
         r = rows[-len(SWEEP_SHAPES)]
-        log(f"  kmm4 w={w} ({'split' if w >= 23 else 's8'} pre-adders): "
-            f"equal at {len(SWEEP_SHAPES)} shapes | {r['M']}x{r['K']}x"
-            f"{r['N']} {r['ms_dequant_bf16']:.4f} ms (raw {r['ms_raw']:.4f})")
+        log(f"  kmm4 w={w}: equal at {len(SWEEP_SHAPES)} shapes | "
+            f"{r['M']}x{r['K']}x{r['N']} {r['ms_dequant_bf16']:.4f} ms (raw "
+            f"{r['ms_raw']:.4f})")
     w, top = 26, 2 ** 25
     a, b = operands(torch, fg, gen, "kmm4", w, (64, 1536), (1536, 512))
     a[0], a[1], a[2, ::2] = top, -top, top
@@ -620,11 +621,13 @@ def width_sweep(torch, fg):
 
 def split_sweep(torch, fg):
     """Phase 3 for the split modes' kernel (csrc/fused_split.cu) at every
-    width: kmm2 at w 9-14, mm2 at 15-16, at SPLIT_SHAPES (split-K decode,
-    M=64, the router, element loads, a split ending inside [K, kp)), each
-    torch.equal to its plain version raw, dequantized to bf16 and under the
-    int32-ring combine, with +-qmax rows and columns (and -2^13 at w=14,
-    the pre-adder's -128); the plan's split count recorded."""
+    width: kmm2 at w 9-14, mm2 at 15-16, kmm4 at SPLIT_WIDTHS' nine, at
+    SPLIT_SHAPES (split-K decode, M=64, the router, element loads, a split
+    ending inside [K, kp); kmm4 also KMM4_SPLIT_EXTRA), each torch.equal to
+    its plain version raw, dequantized to bf16 and under the int32-ring
+    combine, with +-qmax rows and columns (and -2^13 at w=14, the
+    pre-adder's -128; for kmm4 -2^(w-1), and the quantizer's +2^25 at
+    w=26); the plan's split count recorded."""
     from repro_torch.kernels import mm1_plan
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
@@ -633,13 +636,20 @@ def split_sweep(torch, fg):
     for mode, w in SPLIT_WIDTHS:
         _, h, z, _ = fg.resolve(w, mode=mode)
         q = 2 ** (w - 1) - 1
-        for m, k, n in SPLIT_SHAPES:
+        shapes = SPLIT_SHAPES + (KMM4_SPLIT_EXTRA if mode == "kmm4" else [])
+        for m, k, n in shapes:
             a, b = operands(torch, fg, gen, mode, w, (m, k), (k, n))
             a[0], a[1 % m] = q, -q
             b[:, 0], b[:, 1 % n] = q, -q
             if w == 14:
                 a[-1, ::2] = -2 ** 13
                 b[::3, -1] = -2 ** 13
+            if mode == "kmm4":
+                a[-1, ::2] = -2 ** (w - 1)
+                b[::3, -1] = -2 ** (w - 1)
+                if w == 26:
+                    a[-1, 1::2] = 2 ** 25
+                    b[1::3, -1] = 2 ** 25
             sx = torch.rand((m, 1), generator=gen, device="cuda") * 1e-3 \
                 + 1e-4
             sw = torch.rand((1, n), generator=gen, device="cuda") * 1e-3 \
@@ -665,17 +675,17 @@ def split_sweep(torch, fg):
                          f"plain version (max abs err {err})")
                 row[f"max_abs_err_{label}"] = err
             rows.append(row)
-        log(f"  {mode} w={w}: equal at {len(SPLIT_SHAPES)} shapes (raw, "
-            f"bf16, int32 ring; splits "
-            f"{[r['split'] for r in rows[-len(SPLIT_SHAPES):]]})")
+        log(f"  {mode} w={w}: equal at {len(shapes)} shapes (raw, bf16, "
+            f"int32 ring; splits "
+            f"{[r['split'] for r in rows[-len(shapes):]]})")
     return rows
 
 
 def route_timing(torch, fg):
-    """The two kmm4 instances side by side on the same shapes: w=22 (s8
-    pre-adders, 9 MMAs a 16-deep step) and w=23 (split pre-adders, 12
-    MMAs), from decode to a compute-bound prefill, dequant to bf16; each
-    held to its plain version before it is timed."""
+    """The kmm4 kernel (one digit layout, twelve leaf products) at w=22 and
+    w=23, where its bound moves from 9 to 12 products, from decode to a
+    compute-bound prefill, dequant to bf16; each held to its plain version
+    before it is timed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     k, n = ROUTE_KN
@@ -701,17 +711,14 @@ def route_timing(torch, fg):
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
                 fail(f"kmm4 w={w} {m}x{k}x{n}: kernel != plain version")
-            inst = instance(fg, "kmm4", w)
-            row[f"{inst}_w"] = w
-            row[f"{inst}_ms"] = device_ms(torch, kernel)[0]
-            row[f"{inst}_bound_ms"], row[f"{inst}_bound_by"] = \
+            row[f"w{w}_ms"] = device_ms(torch, kernel)[0]
+            row[f"w{w}_bound_ms"], row[f"w{w}_bound_by"] = \
                 gemm_bound_ms("kmm4", w, m, k, n, 2, True)
         rows.append(row)
-        log(f"  kmm4 layouts at M={m:<4d} K={k} N={n}: s8 (w=22) "
-            f"{row['kmm4_ms']:.4f} ms, split (w=23) "
-            f"{row['kmm4_split_ms']:.4f} ms; bounds "
-            f"{row['kmm4_bound_ms']:.4f} / {row['kmm4_split_bound_ms']:.4f}"
-            f" ms ({row['kmm4_bound_by']} / {row['kmm4_split_bound_by']})")
+        log(f"  kmm4 at M={m:<4d} K={k} N={n}: w=22 {row['w22_ms']:.4f} ms, "
+            f"w=23 {row['w23_ms']:.4f} ms; bounds "
+            f"{row['w22_bound_ms']:.4f} / {row['w23_bound_ms']:.4f} ms "
+            f"({row['w22_bound_by']} / {row['w23_bound_by']})")
     return rows
 
 
@@ -1404,6 +1411,28 @@ def path_config(arch: str, policy: str):
     return get_config(arch).with_quant(quant)
 
 
+def serve_inputs(torch, np, arch: str):
+    """The full-width config of ``arch``'s first path, its weights (from a
+    generator seeded 0) and the 6 prompts of 8-64 tokens every path
+    serves."""
+    from repro_torch.models import lm
+
+    cfg = path_config(arch, next(p[1] for p in PATHS if p[0] == arch))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params = lm.init_params(gen, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {arch} full width: "
+        f"{sum(t.numel() for t in _leaves(params))} parameters (fp32, "
+        f"{time.monotonic() - t0:.1f} s to init on the card)")
+    rng = np.random.default_rng(0)
+    lens = [8, 64] + [int(x) for x in rng.integers(8, 65, size=4)]
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in lens]
+    return cfg, params, prompts
+
+
 def serve_full(torch, np, fg, arch: str, profile: bool):
     """Phase 5 and the engine half of phase 6 for every path of ``arch``:
     one set of full-width weights, each path's runs with the launch counts
@@ -1413,19 +1442,9 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
     from repro_torch.serve.engine import Engine, Request
 
     paths = [p for p in PATHS if p[0] == arch]
-    cfg = path_config(arch, paths[0][1])
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    t0 = time.monotonic()
-    params = lm.init_params(gen, cfg, device="cuda")
-    torch.cuda.synchronize()
+    cfg, params, prompts = serve_inputs(torch, np, arch)
+    lens = [len(p) for p in prompts]
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"  {arch} full width: {n_params} parameters (fp32, "
-        f"{time.monotonic() - t0:.1f} s to init on the card)")
-    rng = np.random.default_rng(0)
-    lens = [8, 64] + [int(x) for x in rng.integers(8, 65, size=4)]
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
-               for n in lens]
     temps = [0.0, 0.0, 0.0, 0.8, 0.0, 0.0]
     torch.cuda.reset_peak_memory_stats()
     out = {"arch": arch, "parameters": n_params,
@@ -1499,6 +1518,10 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
                 f"step, {out[f'{policy}_run']['prefill_ms_per_request']:.1f}"
                 f" ms a prefill" + ("; greedy streams repeat"
                                     if n_runs > 1 else ""))
+            if profile and (arch, policy) in PROFILED_WIDE:
+                out[f"{policy}_run"]["profile"] = profile_decode(
+                    torch, eng, prompts,
+                    out[f"{policy}_run"]["decode_step_ms"])
             continue
         # full-width logits: finite, padded vocab masked
         with torch.inference_mode():
@@ -1539,6 +1562,31 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
     return out, launches_by_path
 
 
+def profile_path(torch, np, fg, arch: str, policy: str):
+    """``--profile-path``: one run of one serve path (its requests, the
+    launch counts printed), then its decode steps traced as phase 6 traces
+    them.  It uses nothing but the port's public entries, so a copy of this
+    script beside another checkout traces that checkout the same way."""
+    from repro_torch.serve.engine import Engine, Request
+
+    _, _, n_req, new, _, dense, grouped = next(
+        p for p in PATHS if p[:2] == (arch, policy))
+    _, params, prompts = serve_inputs(torch, np, arch)
+    eng = Engine(path_config(arch, policy), params, max_seq=256,
+                 batch_size=4, device="cuda")
+    reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts[:n_req]]
+    reset_all(fg)
+    stats = eng.generate(reqs)
+    torch.cuda.synchronize()
+    calls = len(reqs) + stats.decode_steps
+    log(f"  {arch} {policy}: {stats.decode_steps} decode steps, launches "
+        f"dense {dict(fg.launches)} grouped {dict(fg.grouped_launches)} "
+        f"(expected {expected_launches(fg, dense, calls)}, "
+        f"{expected_launches(fg, grouped, calls)})")
+    return profile_decode(torch, eng, prompts,
+                          stats.decode_s / stats.decode_steps * 1e3)
+
+
 def profile_decode(torch, eng, prompts, step_ms: float):
     """Device time by kernel over decode steps only (torch.profiler): four
     requests are admitted and prefilled first, then ``n`` engine steps at 4
@@ -1573,18 +1621,14 @@ def profile_decode(torch, eng, prompts, step_ms: float):
                      "per_step": ev.count / n})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
-    # mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2 and mm2
-    # fused_split_kernel16 / 64<layout, grouped> (layout 2 kmm2, 3 mm2);
-    # kmm4 fused_gemm_kernel<layout, carrier, grouped>
+    # mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2, mm2 and kmm4
+    # fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4)
     def bucket(name):
-        for mode, prefixes in (("mm1", ("fused_mm1_kernel<",)),
-                               ("kmm2", ("fused_split_kernel16<2,",
-                                         "fused_split_kernel64<2,")),
-                               ("mm2", ("fused_split_kernel16<3,",
-                                        "fused_split_kernel64<3,")),
-                               ("kmm4", ("fused_gemm_kernel<4,",
-                                         "fused_gemm_kernel<5,"))):
-            if any(pre in name for pre in prefixes):
+        for mode, prefix in (("mm1", "fused_mm1_kernel<"),
+                             ("kmm2", "fused_split_kernel<2,"),
+                             ("mm2", "fused_split_kernel<3,"),
+                             ("kmm4", "fused_split_kernel<4,")):
+            if prefix in name:
                 grouped = name.split(">")[0].endswith("true")
                 return ("grouped_" if grouped else "") + mode
         return None
@@ -1619,47 +1663,34 @@ def _leaves(tree):
         yield tree
 
 
-def kernel_entries(fg, rows, grouped_rows, sweep_rows, split_rows,
+def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    launches_by_path, staged_rows, table_runs, wkv_rows):
-    """One entry per kernel instance (dense and grouped; mm1, kmm2, mm2 and
-    kmm4's two layouts) for the result line.  ``launches`` sums the first
-    run of every serve path (``launches_by_path`` has each); a path runs
-    every GEMM at one width, so its kmm4 launches all belong to the
-    instance that width picks.
+    """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
+    for the result line.  ``launches`` sums the first run of every serve
+    path (``launches_by_path`` has each).
 
     Dense mm1 at the prefill shape of llama's wi/wg (M=64, where
     torch._int_mm, which needs M > 16, can run on the same inputs; its
     decode time at M=4 beside it, with _int_mm on A padded to 32 rows);
-    dense
-    kmm2, mm2 (w=16) and kmm4 (w=20 s8, w=24 split) at decode on 4 lanes
-    (llama's lm_head); the grouped kernel at granite's decode on 4 lanes
-    (wi/wg, C=32).  No library call computes the kmm2, mm2 or kmm4
+    dense kmm2, mm2 (w=16) and kmm4 (w=20, and w=24 beside it) at decode on
+    4 lanes (llama's lm_head); the grouped kernel at granite's decode on 4
+    lanes (wi/wg, C=32).  No library call computes the kmm2, mm2 or kmm4
     function or the ragged grouped product."""
-    def total(kind, inst):
-        n = 0
-        for key, counts in launches_by_path.items():
-            got = counts[kind][inst.split("_")[0]]
-            if got and inst.startswith("kmm4") and instance(
-                    fg, "kmm4", int(key.split()[-1][1:])) != inst:
-                continue
-            n += got
-        return n
+    def total(kind, mode):
+        return sum(counts[kind][mode] for counts in launches_by_path.values())
 
-    def entry(name, kind, inst, row, all_rows, shape, library_ms):
+    def entry(name, kind, mode, row, all_rows, shape, library_ms):
         return {
             "name": name,
             "route": "cuda",
-            "source": (MM1_SOURCE if inst == "mm1" else
-                       SPLIT_SOURCE if inst in ("kmm2", "mm2") else
-                       "src/repro_torch/kernels/csrc/fused_gemm.cu"),
+            "source": MM1_SOURCE if mode == "mm1" else SPLIT_SOURCE,
             "replaces": ("src/repro/kernels/fused_gemm.py:119"
                          if kind == "dense" else
                          "src/repro/kernels/fused_gemm.py:437"),
-            "launches": total(kind, inst),
+            "launches": total(kind, mode),
             "max_abs_err": max(max(r["max_abs_err_dequant_bf16"],
                                    r["max_abs_err_raw"])
-                               for r in all_rows
-                               if instance(fg, r["mode"], r["w"]) == inst),
+                               for r in all_rows if r["mode"] == mode),
             "ms": row["ms_dequant_bf16"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
@@ -1670,19 +1701,28 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, split_rows,
             "host_ms": row.get("host_ms_dequant_bf16"),
         }
 
+    def w24(entry_, row_24):
+        # kmm4 at w=24 beside w=20: the same kernel, a 12-product bound
+        entry_.update({"w24_ms": row_24["ms_dequant_bf16"],
+                       "w24_plain_ms": row_24["plain_ms"],
+                       "w24_bound_ms": row_24["bound_ms"],
+                       "w24_bound_by": row_24["bound_by"]})
+
     out = []
     pick = {"mm1": (64, 2048, 8192), "kmm2": (4, 2048, 128512),
-            "mm2": (4, 2048, 128512), "kmm4": (4, 2048, 128512),
-            "kmm4_split": (4, 2048, 128512)}
-    for inst, (m, k, n) in pick.items():
-        row = next(r for r in rows
-                   if instance(fg, r["mode"], r["w"]) == inst
+            "mm2": (4, 2048, 128512), "kmm4": (4, 2048, 128512)}
+    for mode, (m, k, n) in pick.items():
+        row = next(r for r in rows if r["mode"] == mode
                    and (r["M"], r["K"], r["N"]) == (m, k, n))
-        out.append(entry(f"fused_gemm_{inst}", "dense", inst, row,
+        out.append(entry(f"fused_gemm_{mode}", "dense", mode, row,
                          rows + sweep_rows + split_rows,
                          f"w={row['w']} M={m} K={k} N={n}, dequant to bf16",
                          row["library_ms_raw"]))
-        if inst == "mm1":
+        if mode == "kmm4":
+            w24(out[-1], next(r for r in rows if r["mode"] == mode
+                              and r["w"] == 24
+                              and (r["M"], r["K"], r["N"]) == (m, k, n)))
+        if mode == "mm1":
             dec = next(r for r in rows if r["mode"] == "mm1"
                        and (r["M"], r["K"], r["N"]) == (4, k, n))
             out[-1].update({
@@ -1693,16 +1733,18 @@ def kernel_entries(fg, rows, grouped_rows, sweep_rows, split_rows,
                     dec["library_ms_raw_padded32"],
                 "decode_library_ms_padded32_b_col_major":
                     dec["library_ms_raw_padded32_b_col_major"]})
-    for inst in pick:
-        row = next(r for r in grouped_rows
-                   if instance(fg, r["mode"], r["w"]) == inst
-                   and r["case"] == "decode W=4" and r["K"] == 1536)
+    for mode in pick:
+        dec = [r for r in grouped_rows if r["mode"] == mode
+               and r["case"] == "decode W=4" and r["K"] == 1536]
+        row = dec[0]
         out.append(entry(
-            f"fused_gemm_grouped_{inst}", "grouped", inst, row, grouped_rows,
+            f"fused_gemm_grouped_{mode}", "grouped", mode, row, grouped_rows,
             f"w={row['w']} E={row['E']} C={row['C']} K={row['K']} "
             f"N={row['N']}, "
             f"{row['live_rows']} live rows in {row['live_experts']} "
             f"experts, dequant to bf16", None))
+        if mode == "kmm4":
+            w24(out[-1], next(r for r in dec if r["w"] == 24))
     # The staged kernels: launches summed over the serve paths under a
     # table; mm1 at the prefill shape of llama's wi (where torch._int_mm
     # runs), kmm2 (w=12) and mm2 (w=16) on int8 planes and kmm2's split
@@ -1759,6 +1801,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a short serve run with torch.profiler")
+    ap.add_argument("--profile-path", metavar="ARCH:POLICY",
+                    help="only build, serve this one path of PATHS once and "
+                    "trace its decode steps (writes "
+                    "chiprun_out/profile_ARCH_POLICY.json)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1795,6 +1841,20 @@ def main() -> int:
             if any(key in line for key in ("entry function", "registers",
                                            "spill")):
                 log(f"  {name}: {line.strip()}")
+
+    if args.profile_path:
+        arch, policy = args.profile_path.split(":")
+        prof = profile_path(torch, np, fg, arch, policy)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / f"profile_{arch}_{policy}.json").write_text(json.dumps(
+            {"card": card, "path": args.profile_path, "profile": prof},
+            indent=1))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     seconds = {"build": time.monotonic() - t0}
     t0 = time.monotonic()
@@ -1847,7 +1907,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
               "split_sweep": split_rows,
-              "kmm4_layouts": route_rows, "staged_shapes": staged_rows,
+              "kmm4_w22_w23": route_rows, "staged_shapes": staged_rows,
               "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
               "kmm2_vs_mm2": kvm_rows, "wkv_shapes": wkv_rows,
               "tuner": tuner,
@@ -1864,7 +1924,7 @@ def main() -> int:
     print(card, flush=True)
     table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()}
     print(json.dumps({"kernels": kernel_entries(
-        fg, rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
+        rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, table_runs, wkv_rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

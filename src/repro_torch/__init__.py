@@ -5,8 +5,8 @@ Subpackages mirror ``repro``'s names (``core``, ``quant``, ``kernels``,
 reference counterpart is found by path.  The port imports ``torch`` and
 numpy only — never ``jax`` and nothing of ``repro``.  Every quantized GEMM
 on the serve path runs through hand-written CUDA kernels: the fused KMM
-kernels (``kernels/csrc/fused_mm1.cu``, ``fused_split.cu`` and
-``fused_gemm.cu``), or under a tuning table the staged digit-plane kernels
+kernels (``kernels/csrc/fused_mm1.cu`` and ``fused_split.cu``), or under
+a tuning table the staged digit-plane kernels
 (``kernels/csrc/staged_gemm.cu``) it may pick, the Hopper counterparts of
 the Pallas kernels.
 """

@@ -2,12 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes`` (no PyTorch headers).  A source
-is split into build units (``-DFUSED_GEMM_UNIT=u`` for ``fused_gemm.cu``,
-``-DSTAGED_GEMM_UNIT=u`` for ``staged_gemm.cu``: the C entry points and one
-unit per digit layout; ``-DFUSED_MM1_UNIT=u`` for ``fused_mm1.cu``: the
-entry points and one unit per tile; ``-DFUSED_SPLIT_UNIT=u`` for
-``fused_split.cu``: the entry points and one unit per digit layout and
-tile; ``wkv.cu`` is one unit); each unit
+is split into build units (``-DSTAGED_GEMM_UNIT=u`` for ``staged_gemm.cu``:
+the C entry points and one unit per digit layout; ``-DFUSED_MM1_UNIT=u``
+for ``fused_mm1.cu``: the entry points and one unit per tile;
+``-DFUSED_SPLIT_UNIT=u`` for ``fused_split.cu``: the entry points and one
+unit per digit layout and tile; ``wkv.cu`` is one unit); each unit
 compiles to one object and the objects are linked into the library.
 Without the macro the same source compiles whole (``kernels.compare``
 builds another checkout's source so).  Libraries go to ``build/kernels/`` at the root of
@@ -31,13 +30,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # name -> source file under csrc/
-SOURCES = {"fused_gemm": "fused_gemm.cu", "fused_mm1": "fused_mm1.cu",
-           "fused_split": "fused_split.cu", "staged_gemm": "staged_gemm.cu",
-           "wkv": "wkv.cu"}
+SOURCES = {"fused_mm1": "fused_mm1.cu", "fused_split": "fused_split.cu",
+           "staged_gemm": "staged_gemm.cu", "wkv": "wkv.cu"}
 # name -> (unit macro, number of units), one nvcc per unit
-UNITS = {"fused_gemm": ("FUSED_GEMM_UNIT", 3),
-         "fused_mm1": ("FUSED_MM1_UNIT", 3),
-         "fused_split": ("FUSED_SPLIT_UNIT", 5),
+UNITS = {"fused_mm1": ("FUSED_MM1_UNIT", 3),
+         "fused_split": ("FUSED_SPLIT_UNIT", 7),
          "staged_gemm": ("STAGED_GEMM_UNIT", 5),
          "wkv": ("WKV_UNIT", 1)}
 

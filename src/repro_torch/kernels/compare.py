@@ -3,19 +3,21 @@ one card.
 
     python -m repro_torch.kernels.compare --base path/to/other/checkout
 
-Builds ``csrc/fused_gemm.cu`` of the other checkout whole, in one nvcc,
-into ``build/kernels/`` under its own name, and calls its C entry points
-``fused_gemm_launch`` and ``fused_gemm_grouped_launch`` with the signatures
-they have had since the grouped entry came in (5 pointers and 9 ints; 6 and
-12), mode ids 1-4.  Where the other checkout has ``csrc/fused_mm1.cu`` or
-``csrc/fused_split.cu``, they are built too and run mode mm1 through
-``fused_mm1_launch`` / ``fused_mm1_grouped_launch`` (7 pointers and 9
-ints; 8 and 12) and modes kmm2 and mm2 through ``fused_split_launch`` /
+Builds the other checkout's fused GEMM sources whole, one nvcc each, into
+``build/kernels/`` under their own names, and calls their C entry points:
+``csrc/fused_gemm.cu``, where it has one (checkouts before kmm4 moved to
+``fused_split.cu``), through ``fused_gemm_launch`` and
+``fused_gemm_grouped_launch`` with the signatures they have had since the
+grouped entry came in (5 pointers and 9 ints; 6 and 12), mode ids 1-4;
+``csrc/fused_mm1.cu`` for mode mm1 through ``fused_mm1_launch`` /
+``fused_mm1_grouped_launch`` (7 pointers and 9 ints; 8 and 12); and
+``csrc/fused_split.cu`` for kmm2 and mm2, and for kmm4 where it has no
+``fused_gemm.cu``, through ``fused_split_launch`` /
 ``fused_split_grouped_launch`` (7 and 14; 8 and 17), on this checkout's
-split-K plans and workspace.  This checkout runs
-through its wrappers (``fused_gemm.fused_gemm`` / ``fused_gemm_grouped``),
-so mode mm1 runs on ``csrc/fused_mm1.cu``, kmm2 and mm2 on
-``csrc/fused_split.cu`` and kmm4 on ``csrc/fused_gemm.cu``.  At each shape
+split-K plans and workspace.  This checkout runs through its wrappers
+(``fused_gemm.fused_gemm`` / ``fused_gemm_grouped``), so mode mm1 runs on
+``csrc/fused_mm1.cu`` and kmm2, mm2 and kmm4 on ``csrc/fused_split.cu``.
+At each shape
 it checks that both give equal outputs, then times them in the order base,
 this, this, base, and ``torch._int_mm`` on the same int8 operands beside
 mm1 (A zero-padded to 32 rows where M <= 16, which it refuses).  Every
@@ -28,9 +30,9 @@ rwkv6-3b at decode (M=4) and prefill (M=64), llama's wi and wd also at
 M=256 and 2048, an unaligned decode shape (4x2050x8200); in the split
 modes (kmm2 at w=12, mm2 at w=16, kmm4 at w=20 and 24) llama's, granite's
 and rwkv's lm_head, llama's wi and granite's router at M=4 and 64, and
-kmm2 and mm2 also at wi with M=2048; granite's grouped expert GEMMs in
-mm1, kmm2 and mm2 (40 experts, decode capacities 8/16/32 and the prefill
-bucket of 16, router-like live counts).  Split modes against a checkout
+wi with M=2048; granite's grouped expert GEMMs in every mode (40
+experts, decode capacities 8/16/32 and the prefill bucket of 16,
+router-like live counts).  Split modes against a checkout
 whose kernel refuses them are timed for this checkout alone; any other
 failed launch raises.  Prints a table and the card, and writes
 ``chiprun_out/compare_fused_gemm.json``.  Needs a GPU.
@@ -65,11 +67,14 @@ DENSE = ([("mm1", 8, m, k, n) for k, n in MM1_KN for m in (4, 64)]
                          (2560, 65536), (1536, 40))
             for m in (4, 64)]
          + [(mode, w, 2048, 2048, 8192) for mode, w in (("kmm2", 12),
-                                                         ("mm2", 16))])
+                                                         ("mm2", 16),
+                                                         ("kmm4", 20),
+                                                         ("kmm4", 24))])
 # (mode, w, label, E, C, seg, segments, K, N): granite's grouped expert
 # GEMMs
 GROUPED = [(mode, w, label, 40, c, seg, n_seg, k, n)
-           for mode, w in (("mm1", 8), ("kmm2", 12), ("mm2", 16))
+           for mode, w in (("mm1", 8), ("kmm2", 12), ("mm2", 16),
+                           ("kmm4", 20), ("kmm4", 24))
            for label, c, seg, n_seg in (("decode W=1", 8, 8, 1),
                                         ("decode W=2", 16, 8, 2),
                                         ("decode W=4", 32, 8, 4),
@@ -90,9 +95,9 @@ ORDER = ("base", "this", "this", "base")
 
 
 def _libraries(csrc: Path, tag: str):
-    """The C entry points of the base's sources (``fused_mm1.cu`` and
-    ``fused_split.cu`` where it has them), each built whole into its own
-    library, the nvcc processes started together."""
+    """The C entry points of the base's sources (each of BASE_SIGNATURES'
+    that it has), each built whole into its own library, the nvcc
+    processes started together."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in BASE_SIGNATURES:
@@ -121,7 +126,10 @@ def _libraries(csrc: Path, tag: str):
 def _base_call(fns, a, b, sx, sw, counts, seg, out, mode, h, z, kp) -> int:
     """One launch of the base kernel; the CUDA error code (0 on success)."""
     stream = torch.cuda.current_stream().cuda_stream
-    if mode in mm1_plan.SPLIT_ACCS and "fused_split_launch" in fns:
+    # a base with fused_gemm.cu runs kmm4 there
+    old_kmm4 = mode == "kmm4" and "fused_gemm_launch" in fns
+    if mode in mm1_plan.SPLIT_ACCS and "fused_split_launch" in fns \
+            and not old_kmm4:
         return fg._launch_split(a, b, sx, sw, counts, out, seg, stream,
                                 mode=mode, h=h, z=z, kp=kp,
                                 combine_int32=False, kernel=fns.__getitem__)
@@ -228,15 +236,15 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     base_csrc = args.base / "src" / "repro_torch" / "kernels" / "csrc"
     t0 = time.monotonic()
-    build.build(["fused_gemm", "fused_mm1", "fused_split"])
+    build.build(["fused_mm1", "fused_split"])
     t1 = time.monotonic()
     base = _libraries(base_csrc, "base")
     builds = {"this_units_s": t1 - t0, "base_whole_s": time.monotonic() - t1,
               "base_sources": sorted({src for src, sig in
                                       BASE_SIGNATURES.items()
                                       if set(sig) & set(base)})}
-    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_gemm, "
-          f"fused_mm1 and fused_split units in parallel, then linked; 0 if "
+    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_mm1 "
+          f"and fused_split units in parallel, then linked; 0 if "
           f"built already), base {builds['base_whole_s']:.1f} s "
           f"({', '.join(builds['base_sources'])}, whole, one nvcc each)",
           flush=True)

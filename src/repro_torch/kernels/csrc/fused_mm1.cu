@@ -11,7 +11,7 @@
 // static `seg`: row r of group g is live iff r / seg < S and
 // r % seg < counts[g, r / seg].  Dead rows are exact zeros, and a block with
 // no live row writes its zero tile without reading A or B.  The other modes
-// (kmm2, mm2, kmm4) stay in fused_gemm.cu.
+// (kmm2, mm2, kmm4) are fused_split.cu's.
 //
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1979 TOP/s int8): at
 // the serve path's row counts (decode M = 1-4 live lanes, expert GEMMs of

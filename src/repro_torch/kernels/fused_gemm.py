@@ -4,9 +4,9 @@ grouped: wrappers, plain PyTorch versions and launch counts.
 Port of ``repro.kernels.fused_gemm.fused_gemm`` and ``fused_gemm_grouped``.
 On CUDA tensors :func:`fused_gemm` and :func:`fused_gemm_grouped` launch a
 hand-written Hopper kernel — ``csrc/fused_mm1.cu`` in mode mm1 and
-``csrc/fused_split.cu`` in modes kmm2 and mm2 (pipelined 16-byte copies,
-the digit split from shared memory, exact split-K, both planned by
-:mod:`.mm1_plan`), ``csrc/fused_gemm.cu`` in mode kmm4 — or raise; on CPU
+``csrc/fused_split.cu`` in modes kmm2, mm2 and kmm4 (pipelined 16-byte
+copies, the digit split from shared memory, exact split-K, both planned by
+:mod:`.mm1_plan`) — or raise; on CPU
 tensors they run :func:`fused_gemm_reference` and
 :func:`fused_gemm_grouped_reference`, the plain PyTorch versions of the
 same functions.  There is no other route and no fallback.
@@ -61,8 +61,8 @@ def reset_launches() -> None:
 def resolve(w: int, m: int = 8, mode: str = "auto"):
     """(mode, h, z, carrier dtype) for a w-bit GEMM, as the reference's
     ``_resolve``: int8 carrier in the MM1 window, int16 through w = 16,
-    int32 above and for kmm4 at any width (its one kernel instance reads
-    int32).  kmm4's level-2 split point is ``h2 = ceil((h+1)/2)``."""
+    int32 above and for kmm4 at any width (its kernel reads int32).  kmm4's
+    level-2 split point is ``h2 = ceil((h+1)/2)``."""
     if mode == "auto":
         mode = "mm1" if w <= m else "kmm2"
     if mode not in MODES:
@@ -223,22 +223,10 @@ def _launch(a, b, sx, sw, counts, *, seg, mode, h, z, kp, combine_int32,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if mode == "mm1":
             err = _launch_mm1(a, b, sx, sw, counts, out, seg, stream)
-        elif mode in mm1_plan.SPLIT_ACCS:
+        else:
             err = _launch_split(a, b, sx, sw, counts, out, seg, stream,
                                 mode=mode, h=h, z=z, kp=kp,
                                 combine_int32=combine_int32)
-        elif grouped:
-            err = _kernel("fused_gemm_grouped_launch")(
-                a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), _ptr(counts),
-                out.data_ptr(), lead[0], m_dim, k_dim, n_dim, kp, seg,
-                counts.shape[1] if counts is not None else 0,
-                _MODE_ID[mode], h, z, int(combine_int32),
-                _OUT_KIND[out_dtype], stream)
-        else:
-            err = _kernel("fused_gemm_launch")(
-                a.data_ptr(), b.data_ptr(), _ptr(sx), _ptr(sw), out.data_ptr(),
-                m_dim, k_dim, n_dim, kp, _MODE_ID[mode], h, z,
-                int(combine_int32), _OUT_KIND[out_dtype], stream)
     if err != 0:
         raise RuntimeError(f"fused_gemm kernel launch failed: CUDA error "
                            f"{err}")
@@ -276,9 +264,9 @@ def _launch_mm1(a, b, sx, sw, counts, out, seg, stream, *,
 
 def _launch_split(a, b, sx, sw, counts, out, seg, stream, *, mode, h, z,
                   kp, combine_int32, kernel=None) -> int:
-    """One launch of the kmm2 / mm2 kernel on the plan for this shape, its
-    padded K and the card; the CUDA error code.  ``kernel`` as in
-    :func:`_launch_mm1`."""
+    """One launch of the split modes' kernel (kmm2, mm2, kmm4) on the plan
+    for this shape, its padded K and the card; the CUDA error code.
+    ``kernel`` as in :func:`_launch_mm1`."""
     kernel = kernel or _kernel
     grouped = a.dim() == 3
     groups = a.shape[0] if grouped else 1
@@ -288,10 +276,11 @@ def _launch_split(a, b, sx, sw, counts, out, seg, stream, *, mode, h, z,
                                _sm_count(a.device.index),
                                ragged=counts is not None)
     ws, counters = _workspace(a.device, stream, plan)
-    # 16-byte copies (8 int16) need every row 16-byte aligned; the kernel
-    # checks too
-    vec_a = int(k_dim % 8 == 0 and a.data_ptr() % 16 == 0)
-    vec_b = int(n_dim % 8 == 0 and b.data_ptr() % 16 == 0)
+    # 16-byte copies (8 int16, 4 int32) need every row 16-byte aligned; the
+    # kernel checks too
+    vals = 16 // mm1_plan.SPLIT_CARRIER[mode]
+    vec_a = int(k_dim % vals == 0 and a.data_ptr() % 16 == 0)
+    vec_b = int(n_dim % vals == 0 and b.data_ptr() % 16 == 0)
     tail = (_MODE_ID[mode], h, z, int(combine_int32), _OUT_KIND[out.dtype],
             plan.bm, plan.split, plan.k_split, vec_a, vec_b, stream)
     if grouped:
@@ -310,7 +299,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# Split-K workspace of the pipelined kernels (mm1, kmm2, mm2), one
+# Split-K workspace of the pipelined kernels (mm1; kmm2, mm2, kmm4), one
 # (partials, counters) pair per (device, stream), shared by both kernels:
 # each leaves the counters at 0, and launches on one stream run in order,
 # so each launch finds them at 0.  Two streams must not share a pair
@@ -335,9 +324,7 @@ def _workspace(device, stream: int, plan: mm1_plan.SplitKPlan):
 
 # C entry points: library, pointer arguments, then int ones, then the
 # stream.
-_SIGNATURES = {"fused_gemm_launch": ("fused_gemm", 5, 9),
-               "fused_gemm_grouped_launch": ("fused_gemm", 6, 12),
-               "fused_mm1_launch": ("fused_mm1", 7, 9),
+_SIGNATURES = {"fused_mm1_launch": ("fused_mm1", 7, 9),
                "fused_mm1_grouped_launch": ("fused_mm1", 8, 12),
                "fused_split_launch": ("fused_split", 7, 14),
                "fused_split_grouped_launch": ("fused_split", 8, 17)}

@@ -1,5 +1,5 @@
 """Tile and split-K plan of the fused GEMM's pipelined kernels: mm1
-(``csrc/fused_mm1.cu``) and the split modes kmm2 and mm2
+(``csrc/fused_mm1.cu``) and the split modes kmm2, mm2 and kmm4
 (``csrc/fused_split.cu``).
 
 Each kernel computes one ``bm`` x ``BN`` output tile of one group per block,
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 BN = 128            # output columns per block (four 32-column warp spans)
 BK = 64             # K depth of one shared-memory stage
@@ -33,10 +33,19 @@ DECODE_MAX_M = 64
 # reads (2 x accs x bm x BN x 4 bytes) are no more bytes than its slice of B
 # (depth x BN x carrier bytes): 8 bm deep for mm1.
 MIN_SPLIT_STAGES = STAGES
-# The split modes' accumulators: kmm2 three digit products, mm2 four; and
-# the K depth of their stages by tile rows.
-SPLIT_ACCS = {"kmm2": 3, "mm2": 4}
-SPLIT_BK = {16: 32, 64: 64}
+# The split modes' accumulators (kmm2 three digit products, mm2 four, kmm4
+# nine) and carrier bytes (int16; int32 for kmm4); the K depth of their
+# stages by tile rows.
+SPLIT_ACCS = {"kmm2": 3, "mm2": 4, "kmm4": 9}
+SPLIT_CARRIER = {"kmm2": 2, "mm2": 2, "kmm4": 4}
+SPLIT_BK = {16: 32, 32: 32, 64: 64}
+# kmm4's nine accumulators allow one m16 row block a warp, so its larger
+# tile has 32 rows (eight warps, one block an SM).  It halves the digit
+# split a row against two 16-row tiles, and wins from M = 17 on; the
+# 16-row tile stays for ragged launches (it skips dead 16-row tiles) and
+# for a single column tile (N <= BN, the router), where the larger tile's
+# deeper minimum split leaves too few blocks (PERF.md §6, row 1d).
+KMM4_TILE_M = (16, 32)
 # Split until the grid holds about this many blocks per SM (two waves keep
 # twice the copies in flight on every SM).
 BLOCKS_PER_SM = 2
@@ -50,7 +59,7 @@ RAGGED_SPLIT_STAGES = 16
 
 @dataclass(frozen=True)
 class SplitKPlan:
-    bm: int              # output rows per block: 16 (decode) or 64
+    bm: int              # output rows per block: 16 (decode), 32 or 64
     tiles_m: int
     tiles_n: int
     groups: int
@@ -93,14 +102,26 @@ def tile_rows(m: int) -> int:
     return TILE_M[0] if m <= DECODE_MAX_M else TILE_M[1]
 
 
+def split_tile_rows(mode: str, m: int, n: int, ragged: bool = False) -> int:
+    """Output rows per block of a split-mode launch: :func:`tile_rows` for
+    kmm2 and mm2; for kmm4 the 32-row tile where m > 16, N spans more than
+    one column tile and the launch is not ragged, else the 16-row tile."""
+    if mode != "kmm4":
+        return tile_rows(m)
+    wide = m > KMM4_TILE_M[0] and n > BN and not ragged
+    return KMM4_TILE_M[1] if wide else KMM4_TILE_M[0]
+
+
 def plan_split_k(groups: int, m: int, k: int, n: int, num_sms: int, *,
                  accs: int = 1, carrier_bytes: int = 1, sums: bool = False,
-                 bk: int = BK, ragged: bool = False) -> SplitKPlan:
+                 bk: int = BK, ragged: bool = False,
+                 bm: Optional[int] = None) -> SplitKPlan:
     """The plan for a (groups, m, k) x (groups, k, n) launch on a card with
     ``num_sms`` SMs, of a kernel with ``accs`` int32 accumulators a tile
     element, operands of ``carrier_bytes`` a value and stages ``bk`` deep;
     ``sums`` adds the row and column sums to each split's partials;
-    ``ragged`` marks a ragged grouped launch.
+    ``ragged`` marks a ragged grouped launch; ``bm`` the tile rows
+    (:func:`tile_rows` by default).
 
     The 16-row tile serves m <= DECODE_MAX_M (decode, the ragged expert
     GEMMs, prefill buckets), the 64-row tile larger m.  K is split only
@@ -113,7 +134,7 @@ def plan_split_k(groups: int, m: int, k: int, n: int, num_sms: int, *,
     if min(groups, m, n, num_sms, accs, carrier_bytes, bk) < 1 or k < 0:
         raise ValueError(f"bad split-K problem: groups={groups} m={m} k={k} "
                          f"n={n} num_sms={num_sms} accs={accs}")
-    bm = tile_rows(m)
+    bm = bm or tile_rows(m)
     tiles_m, tiles_n = -(-m // bm), -(-n // BN)
     tiles = groups * tiles_m * tiles_n
     stages = max(1, -(-k // bk))
@@ -143,9 +164,11 @@ def plan_mm1(groups: int, m: int, k: int, n: int, num_sms: int) -> SplitKPlan:
 @functools.lru_cache(maxsize=4096)
 def plan_split(mode: str, groups: int, m: int, kp: int, n: int,
                num_sms: int, ragged: bool = False) -> SplitKPlan:
-    """The plan for a split-mode (kmm2, mm2) launch on int16 carriers: its
-    digit accumulators and row and column sums, the splits over the logical
-    padded K [0, kp), whose padding positions are digits too."""
+    """The plan for a split-mode launch (kmm2, mm2 on int16 carriers, kmm4
+    on int32): its digit accumulators and row and column sums, the splits
+    over the logical padded K [0, kp), whose padding positions are digits
+    too."""
+    bm = split_tile_rows(mode, m, n, ragged)
     return plan_split_k(groups, m, kp, n, num_sms, accs=SPLIT_ACCS[mode],
-                        carrier_bytes=2, sums=True,
-                        bk=SPLIT_BK[tile_rows(m)], ragged=ragged)
+                        carrier_bytes=SPLIT_CARRIER[mode], sums=True,
+                        bk=SPLIT_BK[bm], ragged=ragged, bm=bm)

@@ -13,9 +13,9 @@ ranks what survives with the op counts of :mod:`repro_torch.core.complexity`.
 
 Against the reference, the M/N tiles and the VMEM footprint go: the CUDA
 kernels pick their own M/N tiles and hold fixed shared-memory tiles (at
-most 32 KB for the staged kernels, 72 KB for fused kmm4) whatever the plan,
-so no plan can exceed them.  ``cost_prior`` keeps the reference's terms at
-the reference's default M/N tiles, 128 x 128.
+most 32 KB for the staged kernels, 113 KB for fused kmm4) whatever the
+plan, so no plan can exceed them.  ``cost_prior`` keeps the reference's
+terms at the reference's default M/N tiles, 128 x 128.
 
 Pruning is a correctness filter, never a performance heuristic: every
 candidate that survives ``validate`` equals the int64 oracle (exact plans)
