@@ -4,6 +4,9 @@
     python3 chip_smoke.py             # the whole check, one card
     python3 chip_smoke.py --profile   # also trace four decode steps a model
                                       # (and of llama under w20)
+    python3 chip_smoke.py --profile-path llama3.2-1b:w24:forced
+                                      # only trace one path (here under its
+                                      # forcing table)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -73,14 +76,19 @@ kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
       prefill and per decode step exactly 224 fused mm1 + 1 fused kmm2 + 32
       WKV launches, and no other kernel; greedy streams repeat.
 
-The staged path (kernels/ops.py's run_plan and its kernels mm1_gemm,
-kmm2_gemm_planes and mm2_gemm_planes, csrc/staged_gemm.cu) and the tuner
-add, within the phases above:
+The staged path (kernels/ops.py's run_plan and its kernels: mm1_gemm and
+kmm2_gemm_planes on csrc/staged_pipe.cu, mm2_gemm_planes on
+csrc/staged_gemm.cu) and the tuner add, within the phases above:
 
   3a. each staged kernel torch.equal to its plain version on int8 planes
       at every dense serve (K, N) at M 1, 4, 16, 64, at granite's expert
       (K, N) at M 8, 16, 32, at 5x300x130 and at M=2048, both combines
-      (mm1 at w=8, kmm2 at 12 and 14, mm2 at 15 and 16); the int16 planes
+      (mm1 at w=8, kmm2 at 12 and 14, mm2 at 15 and 16), mm1 and kmm2 with
+      B row-major and K-major and split-K as planned, forced off and
+      forced on, timed in both layouts beside torch._int_mm (mm1); a sweep
+      of the staged_pipe.cu kernels at M 1, 3, 16, 17, 64, 65, 2048, K not
+      a multiple of 16 and odd N, kmm2 at every split point 1-7 on int8
+      and int16 planes; the int16 planes
       of the depth-2 staged path (kmm2's s8 route at w 17, 20, 22, its
       split route at 23, 24, 26) through run_plan against its mirror, at
       every llama projection at M 1-64 for w 20 and 24, with +-2^25 codes
@@ -91,8 +99,8 @@ add, within the phases above:
   3c. the tuner (python -m repro_torch.tune) over llama's five (K, N) at
       M 4 and 64, w 8, 12, 16 and 20, writing chiprun_out/tuned-h100.json,
       with no candidate rejected;
-  3e. staged KMM2 against staged MM2 at w=12, M = 4 to 2048, and the
-      fused pair (csrc/fused_split.cu) on the same codes;
+  3e. staged KMM2 (both B layouts) against staged MM2 at w=12, M = 4 to
+      2048, and the fused pair (csrc/fused_split.cu) on the same codes;
   5.  serve paths under a table, each held to the same path without one
       (tokens and full-width prefill logits torch.equal): llama mixed
       under the tuned table, and forced onto the staged kernels — llama
@@ -238,10 +246,22 @@ WKV_PER_CALL = {"rwkv6-3b": 32}
 # wi, both combines; timed at decode M=4 and prefill M=64 at wi and
 # lm_head and at M=2048.  The depth-2 staged path runs kmm2 on int16
 # planes (s8 route through w=22, split from w=23), checked through run_plan.
+# mm1 and kmm2 (csrc/staged_pipe.cu) are held in both B layouts (row-major
+# and K-major) with split-K as planned, forced off and forced to
+# STAGED_FORCED_SPLIT ways; mm2 (csrc/staged_gemm.cu) takes row-major B.
 STAGED_MODES = [("mm1", 8), ("kmm2", 12), ("kmm2", 14), ("mm2", 15),
                 ("mm2", 16)]
 STAGED_TIMED = [(4, 2048, 8192), (64, 2048, 8192), (4, 2048, 128512),
                 (64, 2048, 128512), (2048, 2048, 8192)]
+STAGED_FORCED_SPLIT = 3
+# The staged_pipe.cu sweep: every tile edge (M 1, 3, 16, 17, 64, 65, 2048),
+# K not a multiple of 16 (150 values: byte loads for int8 and int16 rows;
+# 1000: 16-byte copies of int16 rows, byte loads of int8 ones) and odd N;
+# kmm2 at every split point h 1-7, int8 planes at w = 2h and the int16
+# depth-2 branch planes of the width whose leaves split at h.
+STAGED_SWEEP_ROWS = [1, 3, 16, 17, 64, 65, 2048]
+STAGED_SWEEP_KN = [(150, 129), (1000, 1001)]
+STAGED_SWEEP_BRANCH_W = {1: 2, 2: 4, 3: 10, 4: 14, 5: 18, 6: 22, 7: 26}
 DEPTH2_WIDTHS = [17, 20, 22, 23, 24, 26]
 # ... and at every llama projection at the serve rows: w=24 is the forced
 # w24 path's split route, w=20 the s8 route on int16 planes.
@@ -281,7 +301,11 @@ TUNED_TABLE = ROOT / "chiprun_out" / "tuned-h100.json"
 # order of the runs with and without the table.
 AB_NEW_TOKENS = 16
 AB_ORDER = ("plain", "tuned", "tuned", "plain", "plain", "tuned")
-STAGED_SOURCE = "src/repro_torch/kernels/csrc/staged_gemm.cu"
+STAGED_SOURCES = {
+    "mm1_gemm": "src/repro_torch/kernels/csrc/staged_pipe.cu",
+    "kmm2_gemm_planes_s8": "src/repro_torch/kernels/csrc/staged_pipe.cu",
+    "kmm2_gemm_planes_split": "src/repro_torch/kernels/csrc/staged_pipe.cu",
+    "mm2_gemm_planes": "src/repro_torch/kernels/csrc/staged_gemm.cu"}
 
 
 def log(msg: str) -> None:
@@ -893,8 +917,8 @@ def rand_bits(torch, gen, w: int, shape):
 
 
 def staged_call(kernel: str, planes, h: int, ci: bool, plain: bool):
-    """A zero-argument call of one staged kernel (or its plain version) on
-    ``planes``."""
+    """A zero-argument call of one staged kernel's wrapper (or its plain
+    version) on ``planes``."""
     from repro_torch.kernels import ref
     mm1_gemm, kmm_gemm, mm2_gemm = staged_modules()
     if kernel == "mm1_gemm":
@@ -910,23 +934,74 @@ def staged_call(kernel: str, planes, h: int, ci: bool, plain: bool):
     return lambda: mm2_gemm.mm2_gemm_planes(*planes, h=h, combine_int32=ci)
 
 
+def k_major_planes(planes):
+    """The same planes with B's (the second half) laid out K-major: each
+    the transpose of a contiguous (N, K) copy."""
+    half = len(planes) // 2
+    return tuple(planes[:half]) + tuple(t.t().contiguous().t()
+                                        for t in planes[half:])
+
+
+def pipe_variants(kernel: str, planes, h: int, ci: bool):
+    """(label, call) of every staged_pipe.cu instance one staged_pipe
+    kernel runs on ``planes``: B row-major and K-major, each through its
+    wrapper (the plan's split-K) and straight through the binding with
+    split-K forced off and forced to STAGED_FORCED_SPLIT ways (those calls
+    count no launch)."""
+    from repro_torch.kernels import staged_pipe
+    layout = {"mm1_gemm": "mm1", "kmm2_gemm_planes_s8": "kmm2",
+              "kmm2_gemm_planes_split": "kmm2_split"}[kernel]
+    out = []
+    for label, p in (("n_major", planes), ("k_major", k_major_planes(planes))):
+        a1, b1 = p[0], p[len(p) // 2]
+        a0, b0 = (p[1], p[3]) if len(p) == 4 else (None, None)
+        out.append((f"{label} plan", staged_call(kernel, p, h, ci, False)))
+        for split in (1, STAGED_FORCED_SPLIT):
+            out.append((f"{label} split={split}", lambda a1=a1, a0=a0,
+                        b1=b1, b0=b0, split=split, km=label == "k_major":
+                        staged_pipe.launch(layout, a1, a0, b1, b0, h=h,
+                                           combine_int32=ci or layout == "mm1",
+                                           b_kmajor=km, split=split)))
+    return out
+
+
 def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
-    """One staged kernel against its plain version (``torch.equal``),
-    timed with its plain version and bound when ``timed``."""
-    got = staged_call(kernel, planes, h, ci, False)()
+    """One staged kernel against its plain version (``torch.equal``): the
+    staged_pipe.cu kernels in both B layouts with split-K as planned,
+    forced off and forced on (pipe_variants), the staged_gemm.cu MM2 kernel
+    on its row-major planes; timed with its plain version and bound when
+    ``timed`` (the pipe kernels in both layouts)."""
     want = staged_call(kernel, planes, h, ci, True)()
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs().max().item()
-    if got.dtype != want.dtype or not torch.equal(got, want):
-        fail(f"{kernel} {what}: kernel != plain version (max abs err {err})")
+    pipe = kernel != "mm2_gemm_planes"
+    calls = (pipe_variants(kernel, planes, h, ci) if pipe else
+             [("n_major plan", staged_call(kernel, planes, h, ci, False))])
+    err = 0.0
+    for label, call in calls:
+        got = call()
+        torch.cuda.synchronize()
+        e = (got.double() - want.double()).abs().max().item()
+        err = max(err, e)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"{kernel} {what} B {label}: kernel != plain version (max "
+                 f"abs err {e})")
     m, k = planes[0].shape
     n = planes[-1].shape[1]
     row = {"kernel": kernel, "case": what, "M": m, "K": k, "N": n,
            "combine_int32": ci, "plane_dtype": str(planes[0].dtype),
-           "max_abs_err": err, **dict(extra)}
+           "max_abs_err": err, "checked": [label for label, _ in calls],
+           **dict(extra)}
     if timed:
-        row["ms"], row["host_ms"] = device_ms(
+        row["ms_n_major"], row["host_ms"] = device_ms(
             torch, staged_call(kernel, planes, h, ci, False))
+        if pipe:
+            kp = k_major_planes(planes)
+            row["ms_k_major"] = device_ms(
+                torch, staged_call(kernel, kp, h, ci, False))[0]
+        # the layout the serve path hands the kernel at the result line's
+        # shapes: kmm2's at the tied lm_head K-major (embed.T's planes),
+        # mm1's row-major codes
+        row["ms"] = row["ms_k_major" if kernel.startswith("kmm2")
+                        else "ms_n_major"]
         row["plain_ms"] = cuda_ms(torch, staged_call(kernel, planes, h, ci,
                                                      True), iters=3,
                                   warmup=1)
@@ -936,14 +1011,27 @@ def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
     return row
 
 
+def log_staged(row, prefix="") -> None:
+    log(f"  {row['kernel']:22s} {prefix}{row['case']}: equal | kernel "
+        f"B row-major {row['ms_n_major']:.4f} ms"
+        + (f", K-major {row['ms_k_major']:.4f} ms" if "ms_k_major" in row
+           else "")
+        + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | plain "
+        f"{row['plain_ms']:.3f} ms"
+        + (f" | _int_mm {row['library_ms']} [B column-major "
+           f"{row['library_ms_b_col_major']}]" if "library_ms" in row
+           else ""))
+
+
 def staged_checks(torch, fg):
     """Phase 3 (a) and (e) for the staged kernels on int8 planes: every
     dense serve (K, N) at ROWS, granite's expert (K, N) at EXPERT_ROWS (one
     expert's GEMM, as a table's batched redirect runs it), RAGGED and
-    M=2048 at llama's wi, both
-    combines (mm1 is int32 only), the K padded as the staged path pads it;
-    timed at STAGED_TIMED with the fp32 combine the serve redirect runs,
-    and torch._int_mm beside mm1 at M=64."""
+    M=2048 at llama's wi, both combines (mm1 is int32 only), the K padded
+    as the staged path pads it; mm1 and kmm2 in both B layouts with
+    split-K as planned, off and on; timed at STAGED_TIMED with the fp32
+    combine the serve redirect runs, and torch._int_mm (B row-major and
+    column-major) beside mm1 at each timed shape."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
@@ -970,19 +1058,55 @@ def staged_checks(torch, fg):
                 row = check_staged(torch, kernel, planes, h, ci,
                                    f"w={w} {m}x{k}x{n}", timed, rows,
                                    {"w": w})
-                if timed and mode == "mm1" and m == 64:
+                if timed and mode == "mm1":
                     row["library_ms"], row["library_ms_b_col_major"] = \
                         library_int_mm_ms(torch, fg, a[:, :k].to(torch.int8),
                                           b[:k].to(torch.int8))
                 if timed:
-                    log(f"  {kernel:22s} w={w} {m}x{k}x{n}: equal | "
-                        f"kernel {row['ms']:.4f} ms | bound "
-                        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | "
-                        f"plain {row['plain_ms']:.3f} ms"
-                        + (f" | _int_mm {row['library_ms']}"
-                           if "library_ms" in row else ""))
+                    log_staged(row)
         log(f"  {kernel} w={w}: equal to its plain version at "
-            f"{len(shapes)} shapes")
+            f"{len(shapes)} shapes"
+            + (", B row-major and K-major, split-K as planned, off and on"
+               if mode != "mm2" else ""))
+    return rows
+
+
+def staged_sweep(torch):
+    """Phase 3 (a): the staged_pipe.cu kernels at hostile shapes — M in
+    STAGED_SWEEP_ROWS, K not a multiple of 16 (byte loads for int8; int16
+    rows of 150 values too) and odd N (STAGED_SWEEP_KN) — mm1 on int8
+    codes, kmm2 on int8 centered planes split at h 1-7 (w = 2h) and on the
+    int16 depth-2 branch planes split at h2 1-7 (the s8 route through 6,
+    the split route at 7), both combines, both B layouts, split-K as
+    planned, off and on."""
+    from repro_torch.kernels import kmm_gemm, ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    rows = []
+    for m in STAGED_SWEEP_ROWS:
+        for k, n in STAGED_SWEEP_KN:
+            what = f"sweep {m}x{k}x{n}"
+            check_staged(torch, "mm1_gemm",
+                         (rand_bits(torch, gen, 8, (m, k)).to(torch.int8),
+                          rand_bits(torch, gen, 8, (k, n)).to(torch.int8)),
+                         0, True, what, False, rows, {"w": 8})
+            for h in range(1, 8):
+                a, b = (rand_bits(torch, gen, 2 * h, (m, k)),
+                        rand_bits(torch, gen, 2 * h, (k, n)))
+                int8 = ops._planes(a, h)[:2] + ops._planes(b, h)[:2]
+                w16 = STAGED_SWEEP_BRANCH_W[h]
+                int16, h2 = kmm4_branch_planes(
+                    rand_bits(torch, gen, w16, (m, k)),
+                    rand_bits(torch, gen, w16, (k, n)), w16)
+                for planes, hh, w in ((int8, h, 2 * h), (int16, h2, w16)):
+                    kernel = ("kmm2_gemm_planes_"
+                              + kmm_gemm.route(planes[0].dtype, hh))
+                    for ci in (False, True):
+                        check_staged(torch, kernel, planes, hh, ci, what,
+                                     False, rows, {"w": w})
+        log(f"  staged_pipe sweep M={m}: mm1 and kmm2 (int8 h 1-7, int16 "
+            f"h2 1-7) equal at {STAGED_SWEEP_KN}, both combines, B "
+            f"row-major and K-major, split-K as planned, off and on")
     return rows
 
 
@@ -1065,9 +1189,7 @@ def depth2_checks(torch, rows):
             row = check_staged(torch, kernel, planes, h2, False,
                                f"w={w} branch {m}x{k}x{n}", True, rows,
                                {"w": w})
-            log(f"  {kernel:22s} w={w} int16 branch {m}x{k}x{n}: equal | "
-                f"kernel {row['ms']:.4f} ms | bound {row['bound_ms']:.4f} "
-                f"ms ({row['bound_by']}) | plain {row['plain_ms']:.3f} ms")
+            log_staged(row, "int16 ")
     return out
 
 
@@ -1119,7 +1241,9 @@ def class_checks(torch):
 
 def kmm2_vs_mm2(torch, fg):
     """Phase 3 (e): staged KMM2 (3 products) against staged MM2 (4) at
-    w=12 on the same int8 planes, kernel alone and through run_plan, and
+    w=12 on the same int8 planes (B row-major; kmm2 also held and timed on
+    K-major B, with split-K off and on), kernel alone and through
+    run_plan, and
     fused kmm2 against fused mm2 (csrc/fused_split.cu) on the same int16
     codes, from decode to a compute-bound prefill at llama's wi (K=2048,
     N=8192); kernels in device time, run_plan back to back."""
@@ -1140,7 +1264,9 @@ def kmm2_vs_mm2(torch, fg):
                              f"w=12 {m}x{k}x{n}", True, [])
             plan = ExecPlan(variant, w, block_k=256)
             row[variant] = {
-                "kernel_ms": r["ms"], "bound_ms": r["bound_ms"],
+                "kernel_ms": r["ms_n_major"],
+                "kernel_ms_k_major": r.get("ms_k_major"),
+                "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
                 "run_plan_ms": cuda_ms(
                     torch, lambda: ops.run_plan(a, b, plan=plan), iters=10)}
@@ -1166,7 +1292,8 @@ def kmm2_vs_mm2(torch, fg):
                               / row["fused_mm2"]["kernel_ms"])
         rows.append(row)
         log(f"  staged w=12 M={m:<4d} K={k} N={n}: kmm2 "
-            f"{row['kmm2']['kernel_ms']:.4f} ms, mm2 "
+            f"{row['kmm2']['kernel_ms']:.4f} ms (B K-major "
+            f"{row['kmm2']['kernel_ms_k_major']:.4f}), mm2 "
             f"{row['mm2']['kernel_ms']:.4f} ms (kmm2/mm2 "
             f"{row['kernel_ratio']:.2f}; bounds "
             f"{row['kmm2']['bound_ms']:.4f} / {row['mm2']['bound_ms']:.4f} "
@@ -1562,27 +1689,43 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
     return out, launches_by_path
 
 
-def profile_path(torch, np, fg, arch: str, policy: str):
+def profile_path(torch, np, fg, arch: str, policy: str,
+                 table_kind: str = ""):
     """``--profile-path``: one run of one serve path (its requests, the
     launch counts printed), then its decode steps traced as phase 6 traces
-    them.  It uses nothing but the port's public entries, so a copy of this
-    script beside another checkout traces that checkout the same way."""
+    them; with ``table_kind`` "forced", the TABLE_PATHS path of ``arch``
+    and ``policy`` under its forcing table (its 2 requests of 4 new
+    tokens).  It uses nothing but the port's public entries, so a copy of
+    this script beside another checkout traces that checkout the same
+    way."""
+    from repro_torch.core.context import ExecContext
     from repro_torch.serve.engine import Engine, Request
 
-    _, _, n_req, new, _, dense, grouped = next(
-        p for p in PATHS if p[:2] == (arch, policy))
+    pcfg = path_config(arch, policy)
+    if table_kind:
+        per_call = next(p[3] for p in TABLE_PATHS
+                        if p[:3] == (arch, policy, table_kind))
+        n_req, new, dense, grouped = 2, 4, {}, {}
+        context = ExecContext(tuning_table=forcing_table(pcfg))
+    else:
+        _, _, n_req, new, _, dense, grouped = next(
+            p for p in PATHS if p[:2] == (arch, policy))
+        per_call, context = {}, None
     _, params, prompts = serve_inputs(torch, np, arch)
-    eng = Engine(path_config(arch, policy), params, max_seq=256,
-                 batch_size=4, device="cuda")
+    eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda",
+                 context=context)
     reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts[:n_req]]
     reset_all(fg)
     stats = eng.generate(reqs)
     torch.cuda.synchronize()
     calls = len(reqs) + stats.decode_steps
-    log(f"  {arch} {policy}: {stats.decode_steps} decode steps, launches "
-        f"dense {dict(fg.launches)} grouped {dict(fg.grouped_launches)} "
-        f"(expected {expected_launches(fg, dense, calls)}, "
-        f"{expected_launches(fg, grouped, calls)})")
+    log(f"  {arch} {policy}{' ' + table_kind if table_kind else ''}: "
+        f"{stats.decode_steps} decode steps, launches dense "
+        f"{dict(fg.launches)} grouped {dict(fg.grouped_launches)} staged "
+        f"{staged_launches()} (expected "
+        f"{expected_launches(fg, dense, calls)}, "
+        f"{expected_launches(fg, grouped, calls)}, staged "
+        f"{ {k: c * calls for k, c in per_call.items()} })")
     return profile_decode(torch, eng, prompts,
                           stats.decode_s / stats.decode_steps * 1e3)
 
@@ -1622,7 +1765,10 @@ def profile_decode(torch, eng, prompts, step_ms: float):
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
     # mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2, mm2 and kmm4
-    # fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4)
+    # fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4); the
+    # staged mm1, kmm2 s8 and split kernels staged_pipe_kernel<layout, ...>
+    # (layout 1, 2, 3; before it, staged_gemm_kernel<layout, ...>), staged
+    # mm2 staged_gemm_kernel (before, staged_gemm_kernel<4, ...>)
     def bucket(name):
         for mode, prefix in (("mm1", "fused_mm1_kernel<"),
                              ("kmm2", "fused_split_kernel<2,"),
@@ -1631,21 +1777,29 @@ def profile_decode(torch, eng, prompts, step_ms: float):
             if prefix in name:
                 grouped = name.split(">")[0].endswith("true")
                 return ("grouped_" if grouped else "") + mode
+        for key, layout in (("staged_mm1", 1), ("staged_kmm2_s8", 2),
+                            ("staged_kmm2_split", 3), ("staged_mm2", 4)):
+            if (f"staged_pipe_kernel<{layout}," in name
+                    or f"staged_gemm_kernel<{layout}," in name
+                    or (layout == 4 and "staged_gemm_kernel(" in name)):
+                return key
         return None
 
     gemm = {f"{kind}{mode}": 0.0 for mode in ("mm1", "kmm2", "mm2", "kmm4")
             for kind in ("", "grouped_")}
+    gemm.update({f"staged_{k}": 0.0 for k in ("mm1", "kmm2_s8",
+                                              "kmm2_split", "mm2")})
     for r in rows:
         key = bucket(r["name"])
         if key is not None:
             gemm[key] += r["ms_per_step"]
     out = {"steps": n, "lanes": 4, "device_busy_ms_per_step": busy,
-           "fused_gemm_ms_per_step": gemm,
+           "gemm_ms_per_step": gemm,
            "kernels_per_step": sum(r["per_step"] for r in rows),
            "profiled_step_wall_ms": wall_ms, "step_ms": step_ms,
            "idle_share": 1 - busy / step_ms, "by_kernel": rows[:30]}
     log(f"  profile, {n} decode steps at 4 lanes: device busy {busy:.2f} "
-        f"ms/step (fused_gemm " + ", ".join(
+        f"ms/step (integer GEMM kernels " + ", ".join(
             f"{k} {v:.3f}" for k, v in gemm.items() if v) + f"), "
         f"{out['kernels_per_step']:.0f} kernels/step; idle share "
         f"{out['idle_share']:.2f} of the {step_ms:.2f} ms step")
@@ -1664,7 +1818,8 @@ def _leaves(tree):
 
 
 def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
-                   launches_by_path, staged_rows, table_runs, wkv_rows):
+                   launches_by_path, staged_rows, sweep_staged, table_runs,
+                   wkv_rows):
     """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
     for the result line.  ``launches`` sums the first run of every serve
     path (``launches_by_path`` has each).
@@ -1749,7 +1904,9 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
     # table; mm1 at the prefill shape of llama's wi (where torch._int_mm
     # runs), kmm2 (w=12) and mm2 (w=16) on int8 planes and kmm2's split
     # route on the int16 planes of w=24's middle branch at llama's lm_head
-    # on 4 lanes, fp32 combine.
+    # on 4 lanes, fp32 combine.  ``ms`` is the B layout the serve path
+    # hands the kernel there (mm1: the row-major codes; kmm2: the tied
+    # lm_head's K-major planes), both layouts beside it.
     pick = {"mm1_gemm": (8, (64, 2048, 8192)),
             "kmm2_gemm_planes_s8": (12, (4, 2048, 128512)),
             "kmm2_gemm_planes_split": (24, (4, 2048, 128512)),
@@ -1763,17 +1920,20 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    if r["kernel"] == name and r["w"] == w and "ms" in r
                    and (r["M"], r["K"], r["N"]) == shape)
         out.append({
-            "name": name, "route": "cuda", "source": STAGED_SOURCE,
+            "name": name, "route": "cuda", "source": STAGED_SOURCES[name],
             "replaces": replaces[name],
             "launches": sum(run["launches"]["staged"].get(name, 0)
                             for runs in table_runs.values()
                             for run in runs.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in staged_rows
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in staged_rows + sweep_staged
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
             "library_ms_b_col_major": row.get("library_ms_b_col_major"),
+            "ms_b_row_major": row["ms_n_major"],
+            "ms_b_k_major": row.get("ms_k_major"),
             "shape": f"w={w} M={shape[0]} K={shape[1]} N={shape[2]}, "
                      f"{row['plane_dtype']} planes, "
                      + ("int32 out" if name == "mm1_gemm" else
@@ -1801,10 +1961,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a short serve run with torch.profiler")
-    ap.add_argument("--profile-path", metavar="ARCH:POLICY",
-                    help="only build, serve this one path of PATHS once and "
-                    "trace its decode steps (writes "
-                    "chiprun_out/profile_ARCH_POLICY.json)")
+    ap.add_argument("--profile-path", metavar="ARCH:POLICY[:forced]",
+                    help="only build, serve this one path of PATHS (with "
+                    ":forced, of TABLE_PATHS under its forcing table) once "
+                    "and trace its decode steps (writes "
+                    "chiprun_out/profile_ARCH_POLICY[_forced].json)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1843,11 +2004,12 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     if args.profile_path:
-        arch, policy = args.profile_path.split(":")
-        prof = profile_path(torch, np, fg, arch, policy)
+        arch, policy, *kind = args.profile_path.split(":")
+        prof = profile_path(torch, np, fg, arch, policy, *kind)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / f"profile_{arch}_{policy}.json").write_text(json.dumps(
+        tag = "_".join([arch, policy] + kind)
+        (out_dir / f"profile_{tag}.json").write_text(json.dumps(
             {"card": card, "path": args.profile_path, "profile": prof},
             indent=1))
         print(card, flush=True)
@@ -1869,6 +2031,7 @@ def main() -> int:
     log("[3a] staged kernels vs plain versions (torch.equal): int8 planes "
         "at the serve shapes, int16 planes through run_plan at depth 2")
     staged_rows = staged_checks(torch, fg)
+    sweep_staged = staged_sweep(torch)
     depth2_rows = depth2_checks(torch, staged_rows)
     log("[3b] run_plan on the card: staged == fused == mirror by class")
     class_rows = class_checks(torch)
@@ -1908,6 +2071,7 @@ def main() -> int:
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
               "split_sweep": split_rows,
               "kmm4_w22_w23": route_rows, "staged_shapes": staged_rows,
+              "staged_sweep": sweep_staged,
               "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
               "kmm2_vs_mm2": kvm_rows, "wkv_shapes": wkv_rows,
               "tuner": tuner,
@@ -1925,7 +2089,7 @@ def main() -> int:
     table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()}
     print(json.dumps({"kernels": kernel_entries(
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
-        staged_rows, table_runs, wkv_rows)}), flush=True)
+        staged_rows, sweep_staged, table_runs, wkv_rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

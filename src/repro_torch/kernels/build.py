@@ -3,11 +3,13 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes`` (no PyTorch headers).  A source
 is split into build units (``-DSTAGED_GEMM_UNIT=u`` for ``staged_gemm.cu``:
-the C entry points and one unit per digit layout; ``-DFUSED_MM1_UNIT=u``
-for ``fused_mm1.cu``: the entry points and one unit per tile;
-``-DFUSED_SPLIT_UNIT=u`` for ``fused_split.cu``: the entry points and one
-unit per digit layout and tile; ``wkv.cu`` is one unit); each unit
-compiles to one object and the objects are linked into the library.
+the C entry point and the MM2 kernel; ``-DSTAGED_PIPE_UNIT=u`` for
+``staged_pipe.cu``: the entry point and one unit per layout, plane type and
+tile; ``-DFUSED_MM1_UNIT=u`` for ``fused_mm1.cu``: the entry points and one
+unit per tile; ``-DFUSED_SPLIT_UNIT=u`` for ``fused_split.cu``: the entry
+points and one unit per digit layout and tile; ``wkv.cu`` is one unit);
+each unit compiles to one object and the objects are linked into the
+library.
 Without the macro the same source compiles whole (``kernels.compare``
 builds another checkout's source so).  Libraries go to ``build/kernels/`` at the root of
 the checkout, named by a digest of the source and flags, so an edited source
@@ -31,11 +33,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # name -> source file under csrc/
 SOURCES = {"fused_mm1": "fused_mm1.cu", "fused_split": "fused_split.cu",
-           "staged_gemm": "staged_gemm.cu", "wkv": "wkv.cu"}
+           "staged_gemm": "staged_gemm.cu", "staged_pipe": "staged_pipe.cu",
+           "wkv": "wkv.cu"}
 # name -> (unit macro, number of units), one nvcc per unit
 UNITS = {"fused_mm1": ("FUSED_MM1_UNIT", 3),
          "fused_split": ("FUSED_SPLIT_UNIT", 7),
-         "staged_gemm": ("STAGED_GEMM_UNIT", 5),
+         "staged_gemm": ("STAGED_GEMM_UNIT", 2),
+         "staged_pipe": ("STAGED_PIPE_UNIT", 9),
          "wkv": ("WKV_UNIT", 1)}
 
 # --fmad=false keeps every fp32 add and multiply separately rounded, so the

@@ -1,7 +1,8 @@
-"""Time this checkout's fused GEMM against another checkout's, in turns on
-one card.
+"""Time this checkout's fused GEMM and staged kernels against another
+checkout's, in turns on one card.
 
-    python -m repro_torch.kernels.compare --base path/to/other/checkout
+    python -m repro_torch.kernels.compare --base path/to/other/checkout \
+        [--kernels fused|staged|all]
 
 Builds the other checkout's fused GEMM sources whole, one nvcc each, into
 ``build/kernels/`` under their own names, and calls their C entry points:
@@ -25,6 +26,19 @@ time is device time: the calls queue behind a device sleep that covers
 their host work (``torch.cuda._sleep``), so the events measure the
 kernels, not the wrappers.
 
+The staged kernels (``--kernels staged`` or ``all``): the base's
+``csrc/staged_gemm.cu``, built whole, through ``staged_gemm_launch`` (5
+pointers and 7 ints; layout ids 1 mm1, 2 kmm2 on s8 pre-adders, 3 kmm2
+split, on row-major planes), against this checkout's wrappers
+(``mm1_gemm``, ``kmm2_gemm_planes`` on ``csrc/staged_pipe.cu``) on the
+same planes with B row-major and K-major; outputs equal, then base, this,
+this, base (each "this" both layouts), ``torch._int_mm`` beside mm1 (B
+row-major and column-major).  Shapes (STAGED): mm1 at llama's wi and wd
+at M 4, 64 and 2048, its lm_head and granite's expert GEMMs at M 8 and
+32; kmm2 at w=12 on int8 planes at llama's and granite's lm_head, the
+router and wi; on the int16 branch planes of w=20 (s8 route) and w=24
+(split route) at llama's lm_head, wi, wq and wd.
+
 Shapes: every dense mm1 GEMM of llama3.2-1b, granite-moe-3b-a800m and
 rwkv6-3b at decode (M=4) and prefill (M=64), llama's wi and wd also at
 M=256 and 2048, an unaligned decode shape (4x2050x8200); in the split
@@ -35,7 +49,8 @@ experts, decode capacities 8/16/32 and the prefill bucket of 16,
 router-like live counts).  Split modes against a checkout
 whose kernel refuses them are timed for this checkout alone; any other
 failed launch raises.  Prints a table and the card, and writes
-``chiprun_out/compare_fused_gemm.json``.  Needs a GPU.
+``chiprun_out/compare_fused_gemm.json`` (with ``--kernels staged`` alone,
+``compare_staged.json``).  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -50,7 +65,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_gemm as fg
-from repro_torch.kernels import mm1_plan
+from repro_torch.kernels import kmm_gemm, mm1_gemm, mm1_plan, ops
 
 # (mode, w, M, K, N)
 MM1_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
@@ -90,8 +105,27 @@ BASE_SIGNATURES = {
     "fused_mm1.cu": {"fused_mm1_launch": (7, 9),
                      "fused_mm1_grouped_launch": (8, 12)},
     "fused_split.cu": {"fused_split_launch": (7, 14),
-                       "fused_split_grouped_launch": (8, 17)}}
+                       "fused_split_grouped_launch": (8, 17)},
+    "staged_gemm.cu": {"staged_gemm_launch": (5, 7)}}
 ORDER = ("base", "this", "this", "base")
+# The staged kernels: (kernel, w, M, K, N); kmm2 at w <= 14 on int8
+# centered planes, above on the int16 planes of the depth-2 middle branch
+# (the s8 route at w=20, the split route at w=24).
+STAGED = ([("mm1_gemm", 8, m, k, n)
+           for k, n in ((2048, 8192), (8192, 2048)) for m in (4, 64, 2048)]
+          + [("mm1_gemm", 8, 4, 2048, 128512)]
+          + [("mm1_gemm", 8, m, k, n) for k, n in ((1536, 512), (512, 1536))
+             for m in (8, 32)]
+          + [("kmm2_gemm_planes", 12, m, k, n)
+             for k, n in ((2048, 128512), (2048, 8192)) for m in (4, 64)]
+          + [("kmm2_gemm_planes", 12, 2048, 2048, 8192),
+             ("kmm2_gemm_planes", 12, 4, 1536, 49664),
+             ("kmm2_gemm_planes", 12, 4, 1536, 40)]
+          + [("kmm2_gemm_planes", w, 4, k, n) for w in (20, 24)
+             for k, n in ((2048, 128512), (2048, 8192), (2048, 2048),
+                          (8192, 2048))])
+# staged_gemm.cu's layout ids
+STAGED_LAYOUT = {"mm1": 1, "kmm2": 2, "kmm2_split": 3}
 
 
 def _libraries(csrc: Path, tag: str):
@@ -171,16 +205,22 @@ def device_ms(fn, iters: int = 50) -> float:
     return _events_ms(fn, iters, 2 * iters * host + 1)
 
 
-def _int_mm_ms(a, b):
-    """torch._int_mm on the same int8 operands (A zero-padded to 32 rows
-    where M <= 16, which it refuses; B column-major, which cuBLASLt takes),
-    or None where K or N is not a multiple of 8."""
+def _int_mm_ms(a, b, b_layout: str = "col"):
+    """torch._int_mm on the same int8 operands, B as it is ("row") or laid
+    out column-major ("col", which cuBLASLt takes); A zero-padded to 32
+    rows where M <= 16, which it refuses.  None where K or N is not a
+    multiple of 8 or it refuses the layout."""
     m, k = a.shape
     if k % 8 or b.shape[1] % 8:
         return None
     if m <= 16:
         a = torch.cat([a, a.new_zeros((32 - m, k))])
-    b = b.t().contiguous().t()
+    if b_layout == "col":
+        b = b.t().contiguous().t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        return None
     return device_ms(lambda: torch._int_mm(a, b))
 
 
@@ -224,10 +264,104 @@ def _compare(base, what, mode, a, b, sx, sw, counts, seg, h, z, kp,
     return times
 
 
+def _staged_planes(gen, kernel, w, m, k, n):
+    """(planes, h, plain-version route) of one STAGED case: int8 codes for
+    mm1; centered int8 planes at h = ceil(w/2) for kmm2 at w <= 14; the
+    int16 planes of the depth-2 middle branch (A1 + A0bar) above."""
+    a = _rand(gen, w, (m, k), torch.int32)
+    b = _rand(gen, w, (k, n), torch.int32)
+    if kernel == "mm1_gemm":
+        return (a.to(torch.int8), b.to(torch.int8)), 0, "mm1"
+    h = -(-w // 2)
+    if w <= 14:
+        return (ops._planes(a, h)[:2] + ops._planes(b, h)[:2]), h, "kmm2"
+    z = 1 << (h - 1)
+    h2 = -(-(h + 1) // 2)
+    m2 = (1 << h2) - 1
+    av = (a >> h) + ((a & ((1 << h) - 1)) - z)
+    bv = (b >> h) + ((b & ((1 << h) - 1)) - z)
+    planes = tuple(t.to(torch.int16) for t in (av >> h2, av & m2, bv >> h2,
+                                               bv & m2))
+    return planes, h2, ("kmm2_split" if kmm_gemm.route(torch.int16, h2)
+                        == "split" else "kmm2")
+
+
+def _staged_base(fns, planes, h, layout, out) -> int:
+    """One launch of the base's staged_gemm.cu on row-major planes (fp32
+    combine); the CUDA error code."""
+    a1, b1 = planes[0], planes[len(planes) // 2]
+    a0, b0 = (planes[1], planes[3]) if len(planes) == 4 else (None, None)
+    m, k = a1.shape
+    return fns["staged_gemm_launch"](
+        a1.data_ptr(), fg._ptr(a0), b1.data_ptr(), fg._ptr(b0),
+        out.data_ptr(), m, k, b1.shape[1], STAGED_LAYOUT[layout],
+        a1.element_size(), h, 0, torch.cuda.current_stream().cuda_stream)
+
+
+def compare_staged(base, gen):
+    """The STAGED rows: outputs equal (base, this on B row-major and
+    K-major), then base, this, this, base in device time."""
+    rows = []
+    for kernel, w, m, k, n in STAGED:
+        planes, h, layout = _staged_planes(gen, kernel, w, m, k, n)
+        half = len(planes) // 2
+        k_major = planes[:half] + tuple(t.t().contiguous().t()
+                                        for t in planes[half:])
+        if kernel == "mm1_gemm":
+            this = {lay: (lambda p=p: mm1_gemm.mm1_gemm(*p))
+                    for lay, p in (("b_row_major", planes),
+                                   ("b_k_major", k_major))}
+        else:
+            this = {lay: (lambda p=p: kmm_gemm.kmm2_gemm_planes(*p, h=h))
+                    for lay, p in (("b_row_major", planes),
+                                   ("b_k_major", k_major))}
+        got = {lay: fn() for lay, fn in this.items()}
+        out = torch.empty_like(got["b_row_major"])
+        what = f"{kernel} ({layout}) w={w} {m}x{k}x{n}"
+        err = _staged_base(base, planes, h, layout, out)
+        torch.cuda.synchronize()
+        times = {"base": [], "b_row_major": [], "b_k_major": []}
+        if not all(torch.equal(g, got["b_row_major"]) for g in got.values()):
+            raise SystemExit(f"{what}: B row-major and K-major differ")
+        if err:
+            print(f"{what}: the base refuses it (CUDA error {err}); this "
+                  f"checkout alone", flush=True)
+        elif not torch.equal(out, got["b_row_major"]):
+            raise SystemExit(f"{what}: outputs differ from the base")
+        for tag in (ORDER if not err else ("this", "this")):
+            if tag == "base":
+                times["base"].append(device_ms(lambda: _staged_base(
+                    base, planes, h, layout, out)))
+            else:
+                for lay, fn in this.items():
+                    times[lay].append(device_ms(fn))
+        row = {"kind": "staged", "kernel": kernel, "layout": layout, "w": w,
+               "M": m, "K": k, "N": n, "plane_dtype": str(planes[0].dtype),
+               "base_ms": times["base"],
+               "this_ms_b_row_major": times["b_row_major"],
+               "this_ms_b_k_major": times["b_k_major"]}
+        if kernel == "mm1_gemm":
+            row["int_mm_ms"] = _int_mm_ms(planes[0], planes[1], "row")
+            row["int_mm_ms_b_col_major"] = _int_mm_ms(planes[0], planes[1])
+            row["int_mm_padded_to_32_rows"] = m <= 16
+        rows.append(row)
+        fmt = " ".join
+        print(f"staged  {layout:10s} w={w:<2d} M={m:<4d} K={k:<5d} N={n:<6d} "
+              f"base {fmt(f'{t:.4f}' for t in row['base_ms'])} ms | this B "
+              f"row-major {fmt(f'{t:.4f}' for t in times['b_row_major'])}, "
+              f"K-major {fmt(f'{t:.4f}' for t in times['b_k_major'])} ms"
+              + (f" | _int_mm {row['int_mm_ms']} [B column-major "
+                 f"{row['int_mm_ms_b_col_major']}]"
+                 if kernel == "mm1_gemm" else ""), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", required=True, type=Path,
                     help="root of the checkout to compare against")
+    ap.add_argument("--kernels", choices=("fused", "staged", "all"),
+                    default="all", help="which kernels to compare")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare needs a GPU")
@@ -236,16 +370,16 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     base_csrc = args.base / "src" / "repro_torch" / "kernels" / "csrc"
     t0 = time.monotonic()
-    build.build(["fused_mm1", "fused_split"])
+    build.build(["fused_mm1", "fused_split", "staged_pipe"])
     t1 = time.monotonic()
     base = _libraries(base_csrc, "base")
     builds = {"this_units_s": t1 - t0, "base_whole_s": time.monotonic() - t1,
               "base_sources": sorted({src for src, sig in
                                       BASE_SIGNATURES.items()
                                       if set(sig) & set(base)})}
-    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_mm1 "
-          f"and fused_split units in parallel, then linked; 0 if "
-          f"built already), base {builds['base_whole_s']:.1f} s "
+    print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_mm1, "
+          f"fused_split and staged_pipe units in parallel, then linked; 0 "
+          f"if built already), base {builds['base_whole_s']:.1f} s "
           f"({', '.join(builds['base_sources'])}, whole, one nvcc each)",
           flush=True)
     gen = torch.Generator(device="cuda")
@@ -253,7 +387,9 @@ def main() -> int:
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(0)
     rows = []
-    for mode, w, m, k, n in DENSE:
+    if args.kernels != "fused":
+        rows += compare_staged(base, gen)
+    for mode, w, m, k, n in (DENSE if args.kernels != "staged" else ()):
         _, h, z, carrier = fg.resolve(w, mode=mode)
         a = _rand(gen, w, (m, k), carrier)
         b = _rand(gen, w, (k, n), carrier)
@@ -273,7 +409,8 @@ def main() -> int:
             row["int_mm_padded_to_32_rows"] = m <= 16
         rows.append(row)
         _print(row)
-    for mode, w, label, e, c, seg, n_seg, k, n in GROUPED:
+    for mode, w, label, e, c, seg, n_seg, k, n in (
+            GROUPED if args.kernels != "staged" else ()):
         _, h, z, carrier = fg.resolve(w, mode=mode)
         a = _rand(gen, w, (e, c, k), carrier)
         b = _rand(gen, w, (e, k, n), carrier)
@@ -299,7 +436,9 @@ def main() -> int:
         _print(row)
     out_dir = build.BUILD_DIR.parents[1] / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "compare_fused_gemm.json").write_text(
+    name = ("compare_staged.json" if args.kernels == "staged" else
+            "compare_fused_gemm.json")
+    (out_dir / name).write_text(
         json.dumps({"card": card, "builds": builds, "order": ORDER,
                     "timing": "device time (calls queued behind a sleep)",
                     "rows": rows}, indent=1))

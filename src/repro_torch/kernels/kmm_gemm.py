@@ -4,22 +4,26 @@ products C1, Cs, C0 into three int32 accumulators, and the Fig. 9
 post-adder in int32 or fp32.
 
 On CUDA tensors :func:`kmm2_gemm_planes` launches the hand-written Hopper
-kernel (``csrc/staged_gemm.cu``) or raises; on CPU tensors it runs the plain
+kernel (``csrc/staged_pipe.cu``) or raises; on CPU tensors it runs the plain
 version, :func:`repro_torch.kernels.ref.ref_kmm2_planes`.  Planes are int8
 (depth 1: the centered split of ``ops._planes``, w <= 14) or int16 (the
 depth-2 branches of ``ops._kmm4_core``), and every value in them must fit
 s8, as the reference's callers guarantee: Hopper has no int16 MMA, so the
-kernel narrows int16 planes to s8 as it loads them.  Two routes, counted
-apart:
+kernel narrows int16 planes to s8 in shared memory.  B's planes are all
+the reference's contiguous (K, N), or all K-major (``t.t()`` of a
+contiguous (N, K) tensor, as ``ops`` splits them from the tied
+``lm_head``'s ``embed.T``); anything else raises.
+Two routes, counted apart:
 
-  * ``s8``: three products on the s8 pre-adder sums — int8 planes, and
-    int16 planes split at ``h <= 6`` (w <= 22 at depth 2);
+  * ``s8``: three products, the pre-adder operands formed from the digit
+    fragments — int8 planes, and int16 planes split at ``h <= 6``
+    (w <= 22 at depth 2);
   * ``split``: int16 planes split at ``h = 7`` (w 23-26), whose pre-adder
     sums reach 189: four leaf products, Cs rebuilt as C1 + C0 + the cross
     products, the same integer.
 
 Of the reference's arguments the tile sizes and ``interpret`` are gone: the
-kernel picks its own tiles and takes any M, K, N.
+kernel picks its own tiles and split-K plan and takes any M, K, N.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import staged_gemm
+from repro_torch.kernels import staged_gemm, staged_pipe
 from repro_torch.kernels.ref import ref_kmm2_planes
 
 # Launches of the CUDA kernel by route; the wrapper adds one where it
@@ -55,8 +59,8 @@ def kmm2_gemm_planes(a1: torch.Tensor, a0: torch.Tensor, b1: torch.Tensor,
                      combine_int32: bool = False) -> torch.Tensor:
     """KMM2 GEMM on digit planes a1, a0 (M, K) and b1, b0 (K, N), split at
     ``h``.  Returns (M, N) int32 if ``combine_int32`` else float32."""
-    staged_gemm.check_operands("kmm2_gemm_planes", [a1, a0], [b1, b0],
-                               (torch.int8, torch.int16))
+    k_major = staged_gemm.check_operands("kmm2_gemm_planes", [a1, a0],
+                                         [b1, b0], (torch.int8, torch.int16))
     if not 1 <= h <= MAX_H:
         raise ValueError(f"kmm2_gemm_planes: digits fit s8 only for "
                          f"1 <= h <= {MAX_H}, got h={h}")
@@ -64,9 +68,9 @@ def kmm2_gemm_planes(a1: torch.Tensor, a0: torch.Tensor, b1: torch.Tensor,
         return ref_kmm2_planes(a1, a0, b1, b0, h,
                                combine_int32=combine_int32)
     path = route(a1.dtype, h)
-    out = staged_gemm.launch("kmm2" if path == "s8" else "kmm2_split",
+    out = staged_pipe.launch("kmm2" if path == "s8" else "kmm2_split",
                              a1, a0, b1, b0, h=h,
-                             combine_int32=combine_int32)
+                             combine_int32=combine_int32, b_kmajor=k_major)
     if out.numel():    # an empty output launches nothing
         launches[f"kmm2_gemm_planes_{path}"] += 1
     return out

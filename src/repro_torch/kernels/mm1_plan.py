@@ -1,6 +1,7 @@
-"""Tile and split-K plan of the fused GEMM's pipelined kernels: mm1
-(``csrc/fused_mm1.cu``) and the split modes kmm2, mm2 and kmm4
-(``csrc/fused_split.cu``).
+"""Tile and split-K plan of the pipelined GEMM kernels: the fused GEMM's
+mm1 (``csrc/fused_mm1.cu``) and split modes kmm2, mm2 and kmm4
+(``csrc/fused_split.cu``), and the staged MM1 and KMM2 digit-plane kernels
+(``csrc/staged_pipe.cu``).
 
 Each kernel computes one ``bm`` x ``BN`` output tile of one group per block,
 over a K range read through a ring of ``STAGES`` shared-memory stages of
@@ -9,9 +10,10 @@ K is split across blocks: each split sums its own range into exact int32
 partials (the split modes also their row and column sums), and the last
 block to arrive on a tile adds them (modulo 2^32, so the order of arrival
 changes no bit) and runs the epilogue.  This module picks the tile, the
-split count and each split's K range — one rule for both kernels, over K
-for mm1 and over the logical padded K ``kp`` for the split modes; the C
-entries take the result.  It is plain Python so the CPU tests reach it.
+split count and each split's K range — one rule for every kernel, over K
+for mm1 and the staged kernels and over the logical padded K ``kp`` for
+the split modes; the C entries take the result.  It is plain Python so
+the CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -55,6 +57,26 @@ BLOCKS_PER_SM = 2
 # most of them dead, so the live grid is narrow and each live block's K
 # loop is the launch's latency.
 RAGGED_SPLIT_STAGES = 16
+# The staged kernels (staged_pipe.cu) by layout: int32 accumulators (mm1
+# one; kmm2 three, C1, Cs and C0; its split route three, C1, the cross
+# products and C0) and planes an operand.  Their stages hold 64 bytes of K
+# a row: 64 int8 values or 32 int16 ones.
+STAGED_ACCS = {"mm1": 1, "kmm2": 3, "kmm2_split": 3}
+STAGED_PLANES = {"mm1": 1, "kmm2": 2, "kmm2_split": 2}
+STAGED_ROW_BYTES = 64
+# Blocks of a staged kernel an SM holds at once, by layout family and tile
+# rows (shared memory bounds them: mm1 37-45 KB at the 16-row tile, 53-60
+# KB at the 64-row one; the KMM2 layouts 75-106 KB and 104-138 KB).  A
+# split grid past that many blocks runs a second wave that is mostly idle,
+# so the split is cut to what one wave holds.
+STAGED_BLOCKS_PER_SM = {("mm1", 16): 4, ("mm1", 64): 3,
+                        ("kmm2", 16): 2, ("kmm2", 64): 1}
+# The KMM2 layouts take the 64-row tile above this many rows where N spans
+# more than one column tile: with three accumulators and two B planes a
+# 16-row tile's share of B is dear, and one 64-row tile (row blocks past M
+# skipped) reads B once.  A single column tile (the MoE router) keeps the
+# 16-row tile, whose shallower minimum split leaves more blocks.
+STAGED_KMM2_DECODE_MAX_M = 16
 
 
 @dataclass(frozen=True)
@@ -79,9 +101,8 @@ class SplitKPlan:
     @property
     def ws_ints(self) -> int:
         """int32 the workspace must hold: one tile's partials per split of
-        every tile — bm x BN for mm1; for the split modes every
-        accumulator's and the bm row and BN column sums (none without a
-        split)."""
+        every tile — bm x BN for each accumulator, and for the split modes
+        the bm row and BN column sums (none without a split)."""
         return (self.tiles * self.split * self.tile_ints
                 if self.split > 1 else 0)
 
@@ -115,13 +136,15 @@ def split_tile_rows(mode: str, m: int, n: int, ragged: bool = False) -> int:
 def plan_split_k(groups: int, m: int, k: int, n: int, num_sms: int, *,
                  accs: int = 1, carrier_bytes: int = 1, sums: bool = False,
                  bk: int = BK, ragged: bool = False,
-                 bm: Optional[int] = None) -> SplitKPlan:
+                 bm: Optional[int] = None,
+                 split: Optional[int] = None) -> SplitKPlan:
     """The plan for a (groups, m, k) x (groups, k, n) launch on a card with
     ``num_sms`` SMs, of a kernel with ``accs`` int32 accumulators a tile
     element, operands of ``carrier_bytes`` a value and stages ``bk`` deep;
     ``sums`` adds the row and column sums to each split's partials;
     ``ragged`` marks a ragged grouped launch; ``bm`` the tile rows
-    (:func:`tile_rows` by default).
+    (:func:`tile_rows` by default); ``split`` forces the split count
+    (at most one split a stage; 1 turns split-K off).
 
     The 16-row tile serves m <= DECODE_MAX_M (decode, the ragged expert
     GEMMs, prefill buckets), the 64-row tile larger m.  K is split only
@@ -138,14 +161,17 @@ def plan_split_k(groups: int, m: int, k: int, n: int, num_sms: int, *,
     tiles_m, tiles_n = -(-m // bm), -(-n // BN)
     tiles = groups * tiles_m * tiles_n
     stages = max(1, -(-k // bk))
-    split = 1
-    if tiles < num_sms:
+    if split is not None:
+        split = max(1, min(split, stages))
+    elif tiles < num_sms:
         min_stages = max(MIN_SPLIT_STAGES,
                          -(-8 * accs * bm // (carrier_bytes * bk)))
         split = max(1, min(-(-BLOCKS_PER_SM * num_sms // tiles),
                            stages // min_stages))
     elif ragged:
         split = max(1, stages // RAGGED_SPLIT_STAGES)
+    else:
+        split = 1
     per = -(-stages // split)            # stages a split
     split = -(-stages // per)            # no empty split
     k_split = per * bk if split > 1 else max(k, bk)
@@ -172,3 +198,38 @@ def plan_split(mode: str, groups: int, m: int, kp: int, n: int,
     return plan_split_k(groups, m, kp, n, num_sms, accs=SPLIT_ACCS[mode],
                         carrier_bytes=SPLIT_CARRIER[mode], sums=True,
                         bk=SPLIT_BK[bm], ragged=ragged, bm=bm)
+
+
+def staged_tile_rows(layout: str, m: int, n: int) -> int:
+    """Output rows per block of a staged launch: mm1 as the fused mm1
+    (:func:`tile_rows`); the KMM2 layouts the 64-row tile where m >
+    STAGED_KMM2_DECODE_MAX_M and N spans more than one column tile, else
+    the 16-row tile."""
+    if layout == "mm1":
+        return tile_rows(m)
+    wide = m > STAGED_KMM2_DECODE_MAX_M and n > BN
+    return TILE_M[1] if wide else TILE_M[0]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_staged(layout: str, m: int, k: int, n: int, num_sms: int,
+                plane_bytes: int, split: Optional[int] = None) -> SplitKPlan:
+    """The plan for a staged digit-plane launch (``layout`` mm1, kmm2 or
+    kmm2_split on planes of ``plane_bytes`` 1 or 2): its tile, its
+    accumulators, B's bytes a K position over all its planes, stages of
+    STAGED_ROW_BYTES a row, the splits over [0, k), cut to the blocks one
+    wave holds (STAGED_BLOCKS_PER_SM); ``split`` forces the split count."""
+    if plane_bytes not in (1, 2):
+        raise ValueError(f"staged planes are int8 or int16, got "
+                         f"{plane_bytes} bytes")
+    bm = staged_tile_rows(layout, m, n)
+    kw = dict(accs=STAGED_ACCS[layout],
+              carrier_bytes=plane_bytes * STAGED_PLANES[layout],
+              bk=STAGED_ROW_BYTES // plane_bytes, bm=bm)
+    plan = plan_split_k(1, m, k, n, num_sms, split=split, **kw)
+    family = "mm1" if layout == "mm1" else "kmm2"
+    slots = STAGED_BLOCKS_PER_SM[(family, bm)] * num_sms
+    if split is None and plan.split > 1 and plan.blocks > slots:
+        plan = plan_split_k(1, m, k, n, num_sms,
+                            split=max(1, slots // plan.tiles), **kw)
+    return plan

@@ -6,8 +6,9 @@ KMM2's three products are measured against.
 On CUDA tensors :func:`mm2_gemm_planes` launches the hand-written Hopper
 kernel (``csrc/staged_gemm.cu``, layout mm2) or raises; on CPU tensors it
 runs the plain version, :func:`repro_torch.kernels.ref.ref_mm2_planes`.
-Planes are the int8 centered digits of ``ops._planes`` (w <= 16).  Of the
-reference's arguments the tile sizes and ``interpret`` are gone.
+Planes are the int8 centered digits of ``ops._planes`` (w <= 16), all
+contiguous: the kernel takes B row-major only.  Of the reference's
+arguments the tile sizes and ``interpret`` are gone.
 """
 from __future__ import annotations
 
@@ -36,15 +37,15 @@ def mm2_gemm_planes(a1: torch.Tensor, a0: torch.Tensor, b1: torch.Tensor,
     """MM2 GEMM on int8 digit planes a1, a0 (M, K) and b1, b0 (K, N), split
     at ``h``.  Returns (M, N) int32 if ``combine_int32`` else float32."""
     staged_gemm.check_operands("mm2_gemm_planes", [a1, a0], [b1, b0],
-                               (torch.int8,))
+                               (torch.int8,), k_major_b=False)
     if not 1 <= h <= MAX_H:
         raise ValueError(f"mm2_gemm_planes: digits fit s8 only for "
                          f"1 <= h <= {MAX_H}, got h={h}")
     if a1.device.type == "cpu":
         return ref_mm2_planes(a1, a0, b1, b0, h,
                               combine_int32=combine_int32)
-    out = staged_gemm.launch("mm2", a1, a0, b1, b0, h=h,
-                             combine_int32=combine_int32)
+    out = staged_gemm.launch_mm2(a1, a0, b1, b0, h=h,
+                                 combine_int32=combine_int32)
     if out.numel():    # an empty output launches nothing
         launches["mm2_gemm_planes"] += 1
     return out

@@ -12,9 +12,10 @@ accumulator headroom and the ``block_k`` sanity rule — and ``cost_prior``
 ranks what survives with the op counts of :mod:`repro_torch.core.complexity`.
 
 Against the reference, the M/N tiles and the VMEM footprint go: the CUDA
-kernels pick their own M/N tiles and hold fixed shared-memory tiles (at
-most 32 KB for the staged kernels, 113 KB for fused kmm4) whatever the
-plan, so no plan can exceed them.  ``cost_prior`` keeps the reference's
+kernels pick their own M/N tiles and hold fixed shared-memory tiles
+whatever the plan (the staged MM1 and KMM2 kernels a four-stage ring of
+37-138 KB by layout, plane type and tile; staged MM2 32 KB; fused kmm4 at
+most 113 KB), so no plan can exceed them.  ``cost_prior`` keeps the reference's
 terms at the reference's default M/N tiles, 128 x 128.
 
 Pruning is a correctness filter, never a performance heuristic: every
