@@ -66,7 +66,8 @@ kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
       heads (S = 1, D = 64) from a nonzero state, prefill of 1 x 40 heads at
       every prompt bucket 8-64, ``wkv_apply``'s own (BH, S, D) layout at
       (160, 256, 64) with chunk 128 and 32, an S that no chunk divides, and
-      the smoke model's D = 16; timed against its bound and plain version at
+      the smoke model's D = 16, D = 8 and 4, and streams whose rows are not
+      16-byte aligned; timed against its bound and plain version at
       decode on 4 lanes, prefill S = 64 and (160, 256, 64); and the fused
       kernel (torch.equal) at rwkv's GEMM shapes: mm1 at its time-mix
       (2560 x 2560) and channel-mix (2560 x 8960, 8960 x 2560) projections
@@ -76,19 +77,19 @@ kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
       prefill and per decode step exactly 224 fused mm1 + 1 fused kmm2 + 32
       WKV launches, and no other kernel; greedy streams repeat.
 
-The staged path (kernels/ops.py's run_plan and its kernels: mm1_gemm and
-kmm2_gemm_planes on csrc/staged_pipe.cu, mm2_gemm_planes on
-csrc/staged_gemm.cu) and the tuner add, within the phases above:
+The staged path (kernels/ops.py's run_plan and its kernels: mm1_gemm,
+kmm2_gemm_planes and mm2_gemm_planes on csrc/staged_pipe.cu) and the tuner
+add, within the phases above:
 
   3a. each staged kernel torch.equal to its plain version on int8 planes
       at every dense serve (K, N) at M 1, 4, 16, 64, at granite's expert
       (K, N) at M 8, 16, 32, at 5x300x130 and at M=2048, both combines
-      (mm1 at w=8, kmm2 at 12 and 14, mm2 at 15 and 16), mm1 and kmm2 with
+      (mm1 at w=8, kmm2 at 12 and 14, mm2 at 15 and 16), every kernel with
       B row-major and K-major and split-K as planned, forced off and
       forced on, timed in both layouts beside torch._int_mm (mm1); a sweep
       of the staged_pipe.cu kernels at M 1, 3, 16, 17, 64, 65, 2048, K not
       a multiple of 16 and odd N, kmm2 at every split point 1-7 on int8
-      and int16 planes; the int16 planes
+      and int16 planes, mm2 at every split point 1-8; the int16 planes
       of the depth-2 staged path (kmm2's s8 route at w 17, 20, 22, its
       split route at 23, 24, 26) through run_plan against its mirror, at
       every llama projection at M 1-64 for w 20 and 24, with +-2^25 codes
@@ -198,7 +199,9 @@ SPLIT_SHAPES = [(4, 2048, 2048), (64, 2048, 8192), (4, 1536, 40), RAGGED,
 KMM4_SPLIT_EXTRA = [(4, 2050, 8200)]
 # The WKV kernel (row 5): tolerance against its plain version (fp32 sums
 # over i in another order), the full-width heads, and its check cases:
-# (label, entry, B or BH, S, H, D, chunk, nonzero initial state, timed).
+# (label, entry, B or BH, S, H, D, chunk, nonzero initial state, timed);
+# the "unaligned" case's streams are views one float into a wider tensor
+# (rows not 16-byte aligned: the kernel's 4-byte staging copies).
 WKV_TOL = 1e-5
 WKV_HEADS, WKV_D = 40, 64
 WKV_CASES = (
@@ -210,7 +213,10 @@ WKV_CASES = (
        ("apply", "apply", 160, 256, 1, WKV_D, 32, False, False),
        ("apply S=37", "apply", 160, 37, 1, WKV_D, 32, False, False),
        ("smoke D=16", "stateful", 2, 16, 4, 16, None, True, False),
-       ("smoke decode D=16", "stateful", 2, 1, 4, 16, None, True, False)])
+       ("smoke decode D=16", "stateful", 2, 1, 4, 16, None, True, False),
+       ("D=8", "stateful", 3, 9, 5, 8, None, True, False),
+       ("decode D=4", "stateful", 3, 1, 5, 4, None, True, False),
+       ("unaligned S=20", "stateful", 2, 20, 3, WKV_D, None, True, False)])
 WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv.cu"
 # Published fp32 peak of one H100 SXM outside the tensor cores.
 PEAK_FP32_OPS_PER_S = 67e12
@@ -246,9 +252,9 @@ WKV_PER_CALL = {"rwkv6-3b": 32}
 # wi, both combines; timed at decode M=4 and prefill M=64 at wi and
 # lm_head and at M=2048.  The depth-2 staged path runs kmm2 on int16
 # planes (s8 route through w=22, split from w=23), checked through run_plan.
-# mm1 and kmm2 (csrc/staged_pipe.cu) are held in both B layouts (row-major
-# and K-major) with split-K as planned, forced off and forced to
-# STAGED_FORCED_SPLIT ways; mm2 (csrc/staged_gemm.cu) takes row-major B.
+# Every staged kernel (csrc/staged_pipe.cu) is held in both B layouts
+# (row-major and K-major) with split-K as planned, forced off and forced to
+# STAGED_FORCED_SPLIT ways.
 STAGED_MODES = [("mm1", 8), ("kmm2", 12), ("kmm2", 14), ("mm2", 15),
                 ("mm2", 16)]
 STAGED_TIMED = [(4, 2048, 8192), (64, 2048, 8192), (4, 2048, 128512),
@@ -258,7 +264,8 @@ STAGED_FORCED_SPLIT = 3
 # K not a multiple of 16 (150 values: byte loads for int8 and int16 rows;
 # 1000: 16-byte copies of int16 rows, byte loads of int8 ones) and odd N;
 # kmm2 at every split point h 1-7, int8 planes at w = 2h and the int16
-# depth-2 branch planes of the width whose leaves split at h.
+# depth-2 branch planes of the width whose leaves split at h; mm2 at every
+# split point h 1-8 on int8 planes at w = 2h.
 STAGED_SWEEP_ROWS = [1, 3, 16, 17, 64, 65, 2048]
 STAGED_SWEEP_KN = [(150, 129), (1000, 1001)]
 STAGED_SWEEP_BRANCH_W = {1: 2, 2: 4, 3: 10, 4: 14, 5: 18, 6: 22, 7: 26}
@@ -305,7 +312,7 @@ STAGED_SOURCES = {
     "mm1_gemm": "src/repro_torch/kernels/csrc/staged_pipe.cu",
     "kmm2_gemm_planes_s8": "src/repro_torch/kernels/csrc/staged_pipe.cu",
     "kmm2_gemm_planes_split": "src/repro_torch/kernels/csrc/staged_pipe.cu",
-    "mm2_gemm_planes": "src/repro_torch/kernels/csrc/staged_gemm.cu"}
+    "mm2_gemm_planes": "src/repro_torch/kernels/csrc/staged_pipe.cu"}
 
 
 def log(msg: str) -> None:
@@ -826,9 +833,12 @@ def wkv_checks(torch):
     rows = []
     for label, entry, b, s, h, d, chunk, warm, timed in WKV_CASES:
         shape = (b, s, h, d) if entry == "stateful" else (b, s, d)
-        r, k, v = (torch.randn(shape, generator=gen, device="cuda") * 0.5
-                   for _ in range(3))
-        w = torch.rand(shape, generator=gen, device="cuda") * 0.199 + 0.8
+        pad = 1 if label.startswith("unaligned") else 0
+        wide = shape[:-1] + (d + pad,)
+        r, k, v = ((torch.randn(wide, generator=gen, device="cuda")
+                    * 0.5)[..., pad:] for _ in range(3))
+        w = (torch.rand(wide, generator=gen, device="cuda") * 0.199
+             + 0.8)[..., pad:]
         u = torch.randn((h, d) if entry == "stateful" else (b, d),
                         generator=gen, device="cuda") * 0.1
         if entry == "stateful":
@@ -943,14 +953,15 @@ def k_major_planes(planes):
 
 
 def pipe_variants(kernel: str, planes, h: int, ci: bool):
-    """(label, call) of every staged_pipe.cu instance one staged_pipe
-    kernel runs on ``planes``: B row-major and K-major, each through its
-    wrapper (the plan's split-K) and straight through the binding with
-    split-K forced off and forced to STAGED_FORCED_SPLIT ways (those calls
-    count no launch)."""
+    """(label, call) of every staged_pipe.cu instance one staged kernel
+    runs on ``planes``: B row-major and K-major, each through its wrapper
+    (the plan's split-K) and straight through the binding with split-K
+    forced off and forced to STAGED_FORCED_SPLIT ways (those calls count
+    no launch)."""
     from repro_torch.kernels import staged_pipe
     layout = {"mm1_gemm": "mm1", "kmm2_gemm_planes_s8": "kmm2",
-              "kmm2_gemm_planes_split": "kmm2_split"}[kernel]
+              "kmm2_gemm_planes_split": "kmm2_split",
+              "mm2_gemm_planes": "mm2"}[kernel]
     out = []
     for label, p in (("n_major", planes), ("k_major", k_major_planes(planes))):
         a1, b1 = p[0], p[len(p) // 2]
@@ -966,15 +977,12 @@ def pipe_variants(kernel: str, planes, h: int, ci: bool):
 
 
 def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
-    """One staged kernel against its plain version (``torch.equal``): the
-    staged_pipe.cu kernels in both B layouts with split-K as planned,
-    forced off and forced on (pipe_variants), the staged_gemm.cu MM2 kernel
-    on its row-major planes; timed with its plain version and bound when
-    ``timed`` (the pipe kernels in both layouts)."""
+    """One staged kernel against its plain version (``torch.equal``) in
+    both B layouts with split-K as planned, forced off and forced on
+    (pipe_variants); timed in both layouts with its plain version and
+    bound when ``timed``."""
     want = staged_call(kernel, planes, h, ci, True)()
-    pipe = kernel != "mm2_gemm_planes"
-    calls = (pipe_variants(kernel, planes, h, ci) if pipe else
-             [("n_major plan", staged_call(kernel, planes, h, ci, False))])
+    calls = pipe_variants(kernel, planes, h, ci)
     err = 0.0
     for label, call in calls:
         got = call()
@@ -993,15 +1001,14 @@ def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
     if timed:
         row["ms_n_major"], row["host_ms"] = device_ms(
             torch, staged_call(kernel, planes, h, ci, False))
-        if pipe:
-            kp = k_major_planes(planes)
-            row["ms_k_major"] = device_ms(
-                torch, staged_call(kernel, kp, h, ci, False))[0]
+        row["ms_k_major"] = device_ms(
+            torch, staged_call(kernel, k_major_planes(planes), h, ci,
+                               False))[0]
         # the layout the serve path hands the kernel at the result line's
-        # shapes: kmm2's at the tied lm_head K-major (embed.T's planes),
-        # mm1's row-major codes
-        row["ms"] = row["ms_k_major" if kernel.startswith("kmm2")
-                        else "ms_n_major"]
+        # shapes: kmm2's and mm2's at the tied lm_head K-major (embed.T's
+        # planes), mm1's row-major codes
+        row["ms"] = row["ms_n_major" if kernel == "mm1_gemm"
+                        else "ms_k_major"]
         row["plain_ms"] = cuda_ms(torch, staged_call(kernel, planes, h, ci,
                                                      True), iters=3,
                                   warmup=1)
@@ -1013,10 +1020,8 @@ def check_staged(torch, kernel, planes, h, ci, what, timed, rows, extra=()):
 
 def log_staged(row, prefix="") -> None:
     log(f"  {row['kernel']:22s} {prefix}{row['case']}: equal | kernel "
-        f"B row-major {row['ms_n_major']:.4f} ms"
-        + (f", K-major {row['ms_k_major']:.4f} ms" if "ms_k_major" in row
-           else "")
-        + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | plain "
+        f"B row-major {row['ms_n_major']:.4f} ms, K-major "
+        f"{row['ms_k_major']:.4f} ms | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | plain "
         f"{row['plain_ms']:.3f} ms"
         + (f" | _int_mm {row['library_ms']} [B column-major "
            f"{row['library_ms_b_col_major']}]" if "library_ms" in row
@@ -1028,7 +1033,7 @@ def staged_checks(torch, fg):
     dense serve (K, N) at ROWS, granite's expert (K, N) at EXPERT_ROWS (one
     expert's GEMM, as a table's batched redirect runs it), RAGGED and
     M=2048 at llama's wi, both combines (mm1 is int32 only), the K padded
-    as the staged path pads it; mm1 and kmm2 in both B layouts with
+    as the staged path pads it; every kernel in both B layouts with
     split-K as planned, off and on; timed at STAGED_TIMED with the fp32
     combine the serve redirect runs, and torch._int_mm (B row-major and
     column-major) beside mm1 at each timed shape."""
@@ -1065,9 +1070,8 @@ def staged_checks(torch, fg):
                 if timed:
                     log_staged(row)
         log(f"  {kernel} w={w}: equal to its plain version at "
-            f"{len(shapes)} shapes"
-            + (", B row-major and K-major, split-K as planned, off and on"
-               if mode != "mm2" else ""))
+            f"{len(shapes)} shapes, B row-major and K-major, split-K as "
+            f"planned, off and on")
     return rows
 
 
@@ -1077,8 +1081,8 @@ def staged_sweep(torch):
     rows of 150 values too) and odd N (STAGED_SWEEP_KN) — mm1 on int8
     codes, kmm2 on int8 centered planes split at h 1-7 (w = 2h) and on the
     int16 depth-2 branch planes split at h2 1-7 (the s8 route through 6,
-    the split route at 7), both combines, both B layouts, split-K as
-    planned, off and on."""
+    the split route at 7), mm2 on int8 centered planes split at h 1-8 (w =
+    2h), both combines, both B layouts, split-K as planned, off and on."""
     from repro_torch.kernels import kmm_gemm, ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(10)
@@ -1104,9 +1108,17 @@ def staged_sweep(torch):
                     for ci in (False, True):
                         check_staged(torch, kernel, planes, hh, ci, what,
                                      False, rows, {"w": w})
-        log(f"  staged_pipe sweep M={m}: mm1 and kmm2 (int8 h 1-7, int16 "
-            f"h2 1-7) equal at {STAGED_SWEEP_KN}, both combines, B "
-            f"row-major and K-major, split-K as planned, off and on")
+            for h in range(1, 9):
+                a, b = (rand_bits(torch, gen, 2 * h, (m, k)),
+                        rand_bits(torch, gen, 2 * h, (k, n)))
+                planes = ops._planes(a, h)[:2] + ops._planes(b, h)[:2]
+                for ci in (False, True):
+                    check_staged(torch, "mm2_gemm_planes", planes, h, ci,
+                                 what, False, rows, {"w": 2 * h})
+        log(f"  staged_pipe sweep M={m}: mm1, kmm2 (int8 h 1-7, int16 "
+            f"h2 1-7) and mm2 (h 1-8) equal at {STAGED_SWEEP_KN}, both "
+            f"combines, B row-major and K-major, split-K as planned, off "
+            f"and on")
     return rows
 
 
@@ -1241,7 +1253,7 @@ def class_checks(torch):
 
 def kmm2_vs_mm2(torch, fg):
     """Phase 3 (e): staged KMM2 (3 products) against staged MM2 (4) at
-    w=12 on the same int8 planes (B row-major; kmm2 also held and timed on
+    w=12 on the same int8 planes (B row-major; both also held and timed on
     K-major B, with split-K off and on), kernel alone and through
     run_plan, and
     fused kmm2 against fused mm2 (csrc/fused_split.cu) on the same int16
@@ -1294,7 +1306,8 @@ def kmm2_vs_mm2(torch, fg):
         log(f"  staged w=12 M={m:<4d} K={k} N={n}: kmm2 "
             f"{row['kmm2']['kernel_ms']:.4f} ms (B K-major "
             f"{row['kmm2']['kernel_ms_k_major']:.4f}), mm2 "
-            f"{row['mm2']['kernel_ms']:.4f} ms (kmm2/mm2 "
+            f"{row['mm2']['kernel_ms']:.4f} ms (B K-major "
+            f"{row['mm2']['kernel_ms_k_major']:.4f}; kmm2/mm2 "
             f"{row['kernel_ratio']:.2f}; bounds "
             f"{row['kmm2']['bound_ms']:.4f} / {row['mm2']['bound_ms']:.4f} "
             f"ms, {row['kmm2']['bound_by']}); run_plan "
@@ -1766,9 +1779,10 @@ def profile_decode(torch, eng, prompts, step_ms: float):
     busy = sum(r["ms_per_step"] for r in rows)
     # mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2, mm2 and kmm4
     # fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4); the
-    # staged mm1, kmm2 s8 and split kernels staged_pipe_kernel<layout, ...>
-    # (layout 1, 2, 3; before it, staged_gemm_kernel<layout, ...>), staged
-    # mm2 staged_gemm_kernel (before, staged_gemm_kernel<4, ...>)
+    # staged mm1, kmm2 s8, kmm2 split and mm2 kernels
+    # staged_pipe_kernel<layout, ...> (layout 1, 2, 3, 4; in older
+    # checkouts staged_gemm_kernel<layout, ...>, and mm2 the untemplated
+    # staged_gemm_kernel)
     def bucket(name):
         for mode, prefix in (("mm1", "fused_mm1_kernel<"),
                              ("kmm2", "fused_split_kernel<2,"),

@@ -2,8 +2,7 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes`` (no PyTorch headers).  A source
-is split into build units (``-DSTAGED_GEMM_UNIT=u`` for ``staged_gemm.cu``:
-the C entry point and the MM2 kernel; ``-DSTAGED_PIPE_UNIT=u`` for
+is split into build units (``-DSTAGED_PIPE_UNIT=u`` for
 ``staged_pipe.cu``: the entry point and one unit per layout, plane type and
 tile; ``-DFUSED_MM1_UNIT=u`` for ``fused_mm1.cu``: the entry points and one
 unit per tile; ``-DFUSED_SPLIT_UNIT=u`` for ``fused_split.cu``: the entry
@@ -33,13 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # name -> source file under csrc/
 SOURCES = {"fused_mm1": "fused_mm1.cu", "fused_split": "fused_split.cu",
-           "staged_gemm": "staged_gemm.cu", "staged_pipe": "staged_pipe.cu",
-           "wkv": "wkv.cu"}
+           "staged_pipe": "staged_pipe.cu", "wkv": "wkv.cu"}
 # name -> (unit macro, number of units), one nvcc per unit
 UNITS = {"fused_mm1": ("FUSED_MM1_UNIT", 3),
          "fused_split": ("FUSED_SPLIT_UNIT", 7),
-         "staged_gemm": ("STAGED_GEMM_UNIT", 2),
-         "staged_pipe": ("STAGED_PIPE_UNIT", 9),
+         "staged_pipe": ("STAGED_PIPE_UNIT", 11),
          "wkv": ("WKV_UNIT", 1)}
 
 # --fmad=false keeps every fp32 add and multiply separately rounded, so the

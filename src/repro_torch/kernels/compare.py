@@ -1,8 +1,8 @@
-"""Time this checkout's fused GEMM and staged kernels against another
+"""Time this checkout's fused GEMM, staged and WKV kernels against another
 checkout's, in turns on one card.
 
     python -m repro_torch.kernels.compare --base path/to/other/checkout \
-        [--kernels fused|staged|all]
+        [--kernels fused|staged|wkv|all]
 
 Builds the other checkout's fused GEMM sources whole, one nvcc each, into
 ``build/kernels/`` under their own names, and calls their C entry points:
@@ -27,17 +27,29 @@ their host work (``torch.cuda._sleep``), so the events measure the
 kernels, not the wrappers.
 
 The staged kernels (``--kernels staged`` or ``all``): the base's
-``csrc/staged_gemm.cu``, built whole, through ``staged_gemm_launch`` (5
-pointers and 7 ints; layout ids 1 mm1, 2 kmm2 on s8 pre-adders, 3 kmm2
-split, on row-major planes), against this checkout's wrappers
-(``mm1_gemm``, ``kmm2_gemm_planes`` on ``csrc/staged_pipe.cu``) on the
-same planes with B row-major and K-major; outputs equal, then base, this,
-this, base (each "this" both layouts), ``torch._int_mm`` beside mm1 (B
-row-major and column-major).  Shapes (STAGED): mm1 at llama's wi and wd
-at M 4, 64 and 2048, its lm_head and granite's expert GEMMs at M 8 and
-32; kmm2 at w=12 on int8 planes at llama's and granite's lm_head, the
-router and wi; on the int16 branch planes of w=20 (s8 route) and w=24
-(split route) at llama's lm_head, wi, wq and wd.
+``csrc/staged_gemm.cu``, where it has one, built whole, through
+``staged_gemm_launch`` (5 pointers and 7 ints; layout ids 1 mm1, 2 kmm2
+on s8 pre-adders, 3 kmm2 split, 4 mm2, on row-major planes; checkouts
+after mm1 and kmm2 moved to ``staged_pipe.cu`` keep only 4), against this
+checkout's wrappers (``mm1_gemm``, ``kmm2_gemm_planes``,
+``mm2_gemm_planes``, all on ``csrc/staged_pipe.cu``) on the same planes
+with B row-major and K-major; outputs equal, then base, this, this, base
+(each "this" both layouts), ``torch._int_mm`` beside mm1 (B row-major and
+column-major).  A layout the base refuses is timed for this checkout
+alone.  Shapes (STAGED): mm1 at llama's wi and wd at M 4, 64 and 2048,
+its lm_head and granite's expert GEMMs at M 8 and 32; kmm2 at w=12 on
+int8 planes at llama's and granite's lm_head, the router and wi; on the
+int16 branch planes of w=20 (s8 route) and w=24 (split route) at llama's
+lm_head, wi, wq and wd; mm2 at w=16 at llama's lm_head and wi at M 4 and
+64, and wi at M=2048.
+
+The WKV kernel (``--kernels wkv`` or ``all``): the base's ``csrc/wkv.cu``,
+built whole, through ``wkv_launch`` (8 pointers and 9 ints), against this
+checkout's ``wkv_gemm.wkv_stateful`` / ``wkv_apply`` on the same inputs,
+outputs within 1e-5 of each other (the kernels sum in different orders),
+then base, this, this, base, at the three shapes ``chip_smoke.py`` times
+(WKV): decode on 4 lanes x 40 heads from a random state, prefill of 1 x 40
+heads over 64 steps, ``wkv_apply`` at (160, 256, 64).
 
 Shapes: every dense mm1 GEMM of llama3.2-1b, granite-moe-3b-a800m and
 rwkv6-3b at decode (M=4) and prefill (M=64), llama's wi and wd also at
@@ -49,8 +61,9 @@ experts, decode capacities 8/16/32 and the prefill bucket of 16,
 router-like live counts).  Split modes against a checkout
 whose kernel refuses them are timed for this checkout alone; any other
 failed launch raises.  Prints a table and the card, and writes
-``chiprun_out/compare_fused_gemm.json`` (with ``--kernels staged`` alone,
-``compare_staged.json``).  Needs a GPU.
+``chiprun_out/compare_fused_gemm.json`` (with ``--kernels staged`` or
+``wkv`` alone, ``compare_staged.json`` or ``compare_wkv.json``).  Needs a
+GPU.
 """
 from __future__ import annotations
 
@@ -65,7 +78,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_gemm as fg
-from repro_torch.kernels import kmm_gemm, mm1_gemm, mm1_plan, ops
+from repro_torch.kernels import (kmm_gemm, mm1_gemm, mm1_plan, mm2_gemm,
+                                 ops, wkv_gemm)
 
 # (mode, w, M, K, N)
 MM1_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
@@ -106,7 +120,8 @@ BASE_SIGNATURES = {
                      "fused_mm1_grouped_launch": (8, 12)},
     "fused_split.cu": {"fused_split_launch": (7, 14),
                        "fused_split_grouped_launch": (8, 17)},
-    "staged_gemm.cu": {"staged_gemm_launch": (5, 7)}}
+    "staged_gemm.cu": {"staged_gemm_launch": (5, 7)},
+    "wkv.cu": {"wkv_launch": (8, 9)}}
 ORDER = ("base", "this", "this", "base")
 # The staged kernels: (kernel, w, M, K, N); kmm2 at w <= 14 on int8
 # centered planes, above on the int16 planes of the depth-2 middle branch
@@ -123,9 +138,17 @@ STAGED = ([("mm1_gemm", 8, m, k, n)
              ("kmm2_gemm_planes", 12, 4, 1536, 40)]
           + [("kmm2_gemm_planes", w, 4, k, n) for w in (20, 24)
              for k, n in ((2048, 128512), (2048, 8192), (2048, 2048),
-                          (8192, 2048))])
+                          (8192, 2048))]
+          + [("mm2_gemm_planes", 16, m, k, n)
+             for k, n in ((2048, 128512), (2048, 8192)) for m in (4, 64)]
+          + [("mm2_gemm_planes", 16, 2048, 2048, 8192)])
 # staged_gemm.cu's layout ids
-STAGED_LAYOUT = {"mm1": 1, "kmm2": 2, "kmm2_split": 3}
+STAGED_LAYOUT = {"mm1": 1, "kmm2": 2, "kmm2_split": 3, "mm2": 4}
+# The WKV shapes: (label, B or BH, S, H, D, entry).
+WKV = [("decode W=4", 4, 1, 40, 64, "stateful"),
+       ("prefill S=64", 1, 64, 40, 64, "stateful"),
+       ("apply", 160, 256, 1, 64, "apply")]
+WKV_TOL = 1e-5
 
 
 def _libraries(csrc: Path, tag: str):
@@ -265,16 +288,18 @@ def _compare(base, what, mode, a, b, sx, sw, counts, seg, h, z, kp,
 
 
 def _staged_planes(gen, kernel, w, m, k, n):
-    """(planes, h, plain-version route) of one STAGED case: int8 codes for
-    mm1; centered int8 planes at h = ceil(w/2) for kmm2 at w <= 14; the
-    int16 planes of the depth-2 middle branch (A1 + A0bar) above."""
+    """(planes, h, layout) of one STAGED case: int8 codes for mm1;
+    centered int8 planes at h = ceil(w/2) for mm2 and for kmm2 at w <= 14;
+    the int16 planes of the depth-2 middle branch (A1 + A0bar) above."""
     a = _rand(gen, w, (m, k), torch.int32)
     b = _rand(gen, w, (k, n), torch.int32)
     if kernel == "mm1_gemm":
         return (a.to(torch.int8), b.to(torch.int8)), 0, "mm1"
     h = -(-w // 2)
-    if w <= 14:
-        return (ops._planes(a, h)[:2] + ops._planes(b, h)[:2]), h, "kmm2"
+    if kernel == "mm2_gemm_planes" or w <= 14:
+        planes = ops._planes(a, h)[:2] + ops._planes(b, h)[:2]
+        return planes, h, ("mm2" if kernel == "mm2_gemm_planes" else
+                           "kmm2")
     z = 1 << (h - 1)
     h2 = -(-(h + 1) // 2)
     m2 = (1 << h2) - 1
@@ -288,7 +313,10 @@ def _staged_planes(gen, kernel, w, m, k, n):
 
 def _staged_base(fns, planes, h, layout, out) -> int:
     """One launch of the base's staged_gemm.cu on row-major planes (fp32
-    combine); the CUDA error code."""
+    combine); the CUDA error code (``cudaErrorInvalidValue`` without
+    one)."""
+    if "staged_gemm_launch" not in fns:
+        return 1
     a1, b1 = planes[0], planes[len(planes) // 2]
     a0, b0 = (planes[1], planes[3]) if len(planes) == 4 else (None, None)
     m, k = a1.shape
@@ -307,14 +335,14 @@ def compare_staged(base, gen):
         half = len(planes) // 2
         k_major = planes[:half] + tuple(t.t().contiguous().t()
                                         for t in planes[half:])
-        if kernel == "mm1_gemm":
-            this = {lay: (lambda p=p: mm1_gemm.mm1_gemm(*p))
-                    for lay, p in (("b_row_major", planes),
-                                   ("b_k_major", k_major))}
-        else:
-            this = {lay: (lambda p=p: kmm_gemm.kmm2_gemm_planes(*p, h=h))
-                    for lay, p in (("b_row_major", planes),
-                                   ("b_k_major", k_major))}
+        wrapper = {"mm1_gemm": lambda *p: mm1_gemm.mm1_gemm(*p),
+                   "kmm2_gemm_planes": lambda *p: kmm_gemm.kmm2_gemm_planes(
+                       *p, h=h),
+                   "mm2_gemm_planes": lambda *p: mm2_gemm.mm2_gemm_planes(
+                       *p, h=h)}[kernel]
+        this = {lay: (lambda p=p: wrapper(*p))
+                for lay, p in (("b_row_major", planes),
+                               ("b_k_major", k_major))}
         got = {lay: fn() for lay, fn in this.items()}
         out = torch.empty_like(got["b_row_major"])
         what = f"{kernel} ({layout}) w={w} {m}x{k}x{n}"
@@ -356,11 +384,71 @@ def compare_staged(base, gen):
     return rows
 
 
+def _wkv_inputs(gen, b, s, h, d, entry):
+    """Streams, bonus and initial state (stateful: random, as a decode
+    step's carried state) in the entry's layout."""
+    shape = (b, s, h, d) if entry == "stateful" else (b, s, d)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda") * 0.5
+               for _ in range(3))
+    w = torch.rand(shape, generator=gen, device="cuda") * 0.199 + 0.8
+    u = torch.randn((h, d) if entry == "stateful" else (b, d),
+                    generator=gen, device="cuda") * 0.1
+    st0 = (torch.randn((b, h, d, d), generator=gen, device="cuda") * 0.2
+           if entry == "stateful" else None)
+    return r, k, v, w, u, st0
+
+
+def compare_wkv(base, gen):
+    """The WKV rows: this checkout's wrappers against the base's
+    ``wkv_launch`` on the same inputs (y and the final state within
+    WKV_TOL), then base, this, this, base in device time."""
+    rows = []
+    for label, b, s, h, d, entry in WKV:
+        r, k, v, w, u, st0 = _wkv_inputs(gen, b, s, h, d, entry)
+        if entry == "stateful":
+            def this():
+                return wkv_gemm.wkv_stateful(r, k, v, w, u, st0)
+            streams, ub, st_out = (r, k, v, w), u, torch.empty_like(st0)
+        else:
+            def this():
+                return (wkv_gemm.wkv_apply(r, k, v, w, u),)
+            streams = tuple(t[:, :, None] for t in (r, k, v, w))
+            ub, st_out = u[:, None], None
+
+        def base_call():
+            return wkv_gemm._launch(*streams, ub, st0, st_out,
+                                    kernel=base["wkv_launch"])
+
+        got = this()
+        y_base = base_call()
+        torch.cuda.synchronize()
+        want = (y_base.reshape(got[0].shape),) + ((st_out,) if st0 is
+                                                  not None else ())
+        errs = [(g - p).abs().max().item() for g, p in zip(got, want)]
+        if not all(torch.allclose(g, p, rtol=WKV_TOL, atol=WKV_TOL)
+                   for g, p in zip(got, want)):
+            raise SystemExit(f"wkv {label}: outputs differ from the base "
+                             f"by {errs}")
+        times = {"base": [], "this": []}
+        for tag in ORDER:
+            times[tag].append(device_ms(this if tag == "this" else
+                                        base_call))
+        row = {"kind": "wkv", "case": label, "B": b, "S": s, "H": h, "D": d,
+               "entry": entry, "max_abs_diff": max(errs),
+               "base_ms": times["base"], "this_ms": times["this"]}
+        rows.append(row)
+        print(f"wkv     {label:12s} B={b:<3d} S={s:<3d} H={h:<2d} D={d} "
+              f"base {' '.join(f'{t:.4f}' for t in row['base_ms'])} ms | "
+              f"this {' '.join(f'{t:.4f}' for t in row['this_ms'])} ms | "
+              f"max |this - base| {max(errs):.2e}", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", required=True, type=Path,
                     help="root of the checkout to compare against")
-    ap.add_argument("--kernels", choices=("fused", "staged", "all"),
+    ap.add_argument("--kernels", choices=("fused", "staged", "wkv", "all"),
                     default="all", help="which kernels to compare")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -370,7 +458,7 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     base_csrc = args.base / "src" / "repro_torch" / "kernels" / "csrc"
     t0 = time.monotonic()
-    build.build(["fused_mm1", "fused_split", "staged_pipe"])
+    build.build(["fused_mm1", "fused_split", "staged_pipe", "wkv"])
     t1 = time.monotonic()
     base = _libraries(base_csrc, "base")
     builds = {"this_units_s": t1 - t0, "base_whole_s": time.monotonic() - t1,
@@ -378,8 +466,8 @@ def main() -> int:
                                       BASE_SIGNATURES.items()
                                       if set(sig) & set(base)})}
     print(f"build: this checkout {builds['this_units_s']:.1f} s (fused_mm1, "
-          f"fused_split and staged_pipe units in parallel, then linked; 0 "
-          f"if built already), base {builds['base_whole_s']:.1f} s "
+          f"fused_split, staged_pipe and wkv units in parallel, then "
+          f"linked; 0 if built already), base {builds['base_whole_s']:.1f} s "
           f"({', '.join(builds['base_sources'])}, whole, one nvcc each)",
           flush=True)
     gen = torch.Generator(device="cuda")
@@ -387,9 +475,12 @@ def main() -> int:
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(0)
     rows = []
-    if args.kernels != "fused":
+    if args.kernels in ("staged", "all"):
         rows += compare_staged(base, gen)
-    for mode, w, m, k, n in (DENSE if args.kernels != "staged" else ()):
+    if args.kernels in ("wkv", "all"):
+        rows += compare_wkv(base, gen)
+    fused = args.kernels in ("fused", "all")
+    for mode, w, m, k, n in (DENSE if fused else ()):
         _, h, z, carrier = fg.resolve(w, mode=mode)
         a = _rand(gen, w, (m, k), carrier)
         b = _rand(gen, w, (k, n), carrier)
@@ -410,7 +501,7 @@ def main() -> int:
         rows.append(row)
         _print(row)
     for mode, w, label, e, c, seg, n_seg, k, n in (
-            GROUPED if args.kernels != "staged" else ()):
+            GROUPED if fused else ()):
         _, h, z, carrier = fg.resolve(w, mode=mode)
         a = _rand(gen, w, (e, c, k), carrier)
         b = _rand(gen, w, (e, k, n), carrier)
@@ -436,8 +527,8 @@ def main() -> int:
         _print(row)
     out_dir = build.BUILD_DIR.parents[1] / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    name = ("compare_staged.json" if args.kernels == "staged" else
-            "compare_fused_gemm.json")
+    name = {"staged": "compare_staged.json", "wkv": "compare_wkv.json"}.get(
+        args.kernels, "compare_fused_gemm.json")
     (out_dir / name).write_text(
         json.dumps({"card": card, "builds": builds, "order": ORDER,
                     "timing": "device time (calls queued behind a sleep)",

@@ -1,7 +1,7 @@
-// The staged MM1 and KMM2 digit-plane kernels for NVIDIA Hopper (sm_90a):
-// C = A . B on planes already in device memory, (M, K) x (K, N).
+// The staged MM1, KMM2 and MM2 digit-plane kernels for NVIDIA Hopper
+// (sm_90a): C = A . B on planes already in device memory, (M, K) x (K, N).
 //
-// Replaces two TPU kernels of src/repro/kernels/ and computes what each
+// Replaces three TPU kernels of src/repro/kernels/ and computes what each
 // computes, bit for bit:
 //
 //   `_mm1_kernel`  (mm1_gemm.py:23; entry `mm1_gemm`, :40):
@@ -11,10 +11,14 @@
 //       pre-adders a1 + a0 and b1 + b0, three accumulators
 //       C1 = A1.B1, Cs = (A1+A0).(B1+B0), C0 = A0.B0, and the Fig. 9
 //       post-adder C1<<2h + (Cs-C1-C0)<<h + C0 in int32 or fp32.
+//   `_mm2_kernel`  (mm2_gemm.py:24; entry `mm2_gemm_planes`, :65):
+//       conventional MM2 on the same int8 planes: four accumulators
+//       C1 = A1.B1, C10 = A1.B0, C01 = A0.B1, C0 = A0.B0 and the combine
+//       C1<<2h + (C10+C01)<<h + C0 in int32 or fp32.
 //
 // The zero-point correction, the padding of K and the digit split stay in
 // the caller (repro_torch/kernels/ops.py), as in the reference: K arrives
-// padded and the planes hold the padding's digits.  Three layouts, one
+// padded and the planes hold the padding's digits.  Four layouts, one
 // kernel template:
 //
 //   MM1         one int8 plane an operand, one accumulator;
@@ -30,7 +34,12 @@
 //               the four leaf products, the two cross products a1.b0 and
 //               a0.b1 into one accumulator, and Cs = C1 + cross + C0 formed
 //               in uint32 in the epilogue, the same integer by
-//               (a1 + a0)(b1 + b0) = a1.b1 + (a1.b0 + a0.b1) + a0.b0.
+//               (a1 + a0)(b1 + b0) = a1.b1 + (a1.b0 + a0.b1) + a0.b0;
+//   MM2         int8 planes split at h <= 8 (w <= 16): the same four
+//               products as KMM2_SPLIT, but the two cross products in two
+//               accumulators, C10 and C01, kept apart to the combine: the
+//               reference's fp32 combine rounds f32(C10) + f32(C01), which
+//               is not f32(C10 + C01).
 //
 // Hopper has no int16 MMA: int16 planes (every value fits s8, as the
 // callers guarantee) are copied as they lie and narrowed to s8 in one
@@ -56,8 +65,8 @@
 // What bounds it on this card (H100 SXM: 3.35 TB/s, 1979 TOP/s int8): at
 // the serve path's rows (decode M = live slots, prefill M <= 64, the
 // per-expert redirect's 8-32 rows) the kernel is bound by reading the B
-// planes once (K N plane bytes each; one plane for MM1, two for KMM2); at
-// M = 2048 by its 1, 3 or 4 s8 products.  The design:
+// planes once (K N plane bytes each; one plane for MM1, two for the
+// others); at M = 2048 by its 1, 3 or 4 s8 products.  The design:
 //
 //   * Copies: 16-byte `cp.async.cg` copies of the A and B planes into a
 //     ring of STAGES = 4 shared-memory stages of 64 bytes of K a row (64
@@ -79,20 +88,23 @@
 //     workspace and counters belong to the caller's stream.
 //   * Tiles: 16 rows through M = 64 (one m16 row block; four warps), 64
 //     rows above: MM1 four warps of 64 x 32 (64 accumulators a thread),
-//     the KMM2 layouts eight warps of 32 x 32 (96).  A warp skips the MMAs
-//     of its m16 row blocks that lie wholly below M.
+//     the KMM2 layouts eight warps of 32 x 32 (96), MM2 sixteen warps of
+//     16 x 32 (its four accumulators of 32 x 32 spans would be 128 a
+//     thread; at 16 rows a warp they are 64, as at the 16-row tile).  A
+//     warp skips the MMAs of its m16 row blocks that lie wholly below M.
 //
 // Numerics the design must keep: accumulators wrap modulo 2^32 as the
 // reference's int32 scratch does, so the int32 combine runs in uint32; the
 // fp32 combine follows the reference's operation order with explicitly
-// rounded intrinsics (the library is built with --fmad=false):
-// mid = (Cs - C1) - C0, out = (C1 * 2^2h + mid * 2^h) + C0.
+// rounded intrinsics (the library is built with --fmad=false): KMM2
+// mid = (Cs - C1) - C0, MM2 mid = C10 + C01, then out = (C1 * 2^2h +
+// mid * 2^h) + C0.
 //
 // Build: the whole file compiles into one library.  Built with
 // -DSTAGED_PIPE_UNIT=u it compiles only unit u (0: the C entry point;
 // 1-2: MM1 at the 16- and 64-row tile; 3-4: KMM2 on int8 planes; 5-6:
-// KMM2 on int16 planes; 7-8: KMM2_SPLIT; each unit both B layouts), so
-// parallel nvcc processes compile the units and link them.
+// KMM2 on int16 planes; 7-8: KMM2_SPLIT; 9-10: MM2; each unit both B
+// layouts), so parallel nvcc processes compile the units and link them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,11 +124,12 @@ constexpr int STAGES = 4;            // shared-memory ring depth
 constexpr int ROW_BYTES = 64;        // bytes of K a stage holds of a row
 
 // Layouts; the values are the wrapper's layout ids.
-enum Layout { MM1 = 1, KMM2 = 2, KMM2_SPLIT = 3 };
+enum Layout { MM1 = 1, KMM2 = 2, KMM2_SPLIT = 3, MM2 = 4 };
 
 // A BM x BN tile of layout L on planes of PB bytes a value, B K-major or
 // N-major: WARPS_M x 4 warps, each MT m16 row blocks of one 32-column
-// span; NACC accumulators of MT x 16 int32 a thread.
+// span; NACC accumulators of MT x 16 int32 a thread (MM2 one row block a
+// warp, so its four accumulators take 64 registers at either tile).
 //   Ring stage (planes as they lie): NP A planes of BM rows of RP bytes,
 //   then NP B planes: K-major BN rows of RP bytes, N-major BK rows of
 //   BN * PB bytes (swizzled for int8).
@@ -125,8 +138,9 @@ enum Layout { MM1 = 1, KMM2 = 2, KMM2_SPLIT = 3 };
 template <int L, int BM, int PB, bool KMAJ>
 struct Tile {
   static constexpr int NP = L == MM1 ? 1 : 2;    // planes an operand
-  static constexpr int NACC = L == MM1 ? 1 : 3;
-  static constexpr int WARPS_M = (L == MM1 || BM < 32) ? 1 : BM / 32;
+  static constexpr int NACC = L == MM1 ? 1 : L == MM2 ? 4 : 3;
+  static constexpr int WARPS_M =
+      (L == MM1 || BM < 32) ? 1 : L == MM2 ? BM / 16 : BM / 32;
   static constexpr int MT = BM / 16 / WARPS_M;
   static constexpr int NT = 128 * WARPS_M;
   static constexpr int REGS = NACC * MT * 16;    // accumulators a thread
@@ -145,6 +159,7 @@ struct Tile {
                             && B8_PLANE == B_PLANE),
                 "int8 planes are read where they land");
   static_assert(MT * 16 * WARPS_M == BM && BK % 32 == 0, "warp grid");
+  static_assert(L != MM2 || PB == 1, "MM2 takes int8 planes");
 };
 
 struct Params {
@@ -252,6 +267,7 @@ __device__ __forceinline__ void load_stage(const Params& p, int8_t* st,
       // as they lie (the narrowing pass swizzles their s8 bytes)
       constexpr int CPR = BN * PB / 16;
       constexpr int CHUNKS = T::BK * CPR;
+      static_assert(CHUNKS % T::NT == 0, "whole chunks a thread");
       const int n_len = p.N * PB;                // bytes of a B row
 #pragma unroll
       for (int i = 0; i < CHUNKS / T::NT; ++i) {
@@ -316,6 +332,7 @@ __device__ __forceinline__ void narrow_stage(const int8_t* st, int8_t* p8,
       // BK rows of BN int16 (16 chunks of 8 values) to BN swizzled bytes:
       // 8 values land in half of 16-byte chunk cc / 2
       constexpr int CHUNKS = T::BK * 16;
+      static_assert(CHUNKS % T::NT == 0, "whole chunks a thread");
 #pragma unroll
       for (int i = 0; i < CHUNKS / T::NT; ++i) {
         const int c = tid + i * T::NT;
@@ -457,11 +474,16 @@ __device__ __forceinline__ void mma_stage(
           mma_s8(acc[0][mt][j], af[0], bf[0][0][j], bf[0][1][j]);
           mma_s8(acc[1][mt][j], as, bs[0][j], bs[1][j]);
           mma_s8(acc[2][mt][j], af[1], bf[1][0][j], bf[1][1][j]);
-        } else {
+        } else if constexpr (L == KMM2_SPLIT) {
           mma_s8(acc[0][mt][j], af[0], bf[0][0][j], bf[0][1][j]);
           mma_s8(acc[1][mt][j], af[0], bf[1][0][j], bf[1][1][j]);
           mma_s8(acc[1][mt][j], af[1], bf[0][0][j], bf[0][1][j]);
           mma_s8(acc[2][mt][j], af[1], bf[1][0][j], bf[1][1][j]);
+        } else {                     // MM2: C1, C10, C01, C0
+          mma_s8(acc[0][mt][j], af[0], bf[0][0][j], bf[0][1][j]);
+          mma_s8(acc[1][mt][j], af[0], bf[1][0][j], bf[1][1][j]);
+          mma_s8(acc[2][mt][j], af[1], bf[0][0][j], bf[0][1][j]);
+          mma_s8(acc[3][mt][j], af[1], bf[1][0][j], bf[1][1][j]);
         }
       }
     }
@@ -475,6 +497,18 @@ __device__ __forceinline__ void store_out(const Params& p, const int* c,
   const size_t o = static_cast<size_t>(m) * p.N + n;
   if constexpr (L == MM1) {
     static_cast<int*>(p.out)[o] = c[0];
+  } else if constexpr (L == MM2) {
+    const uint32_t u1 = c[0], u10 = c[1], u01 = c[2], u0 = c[3];
+    if (p.combine_int32) {
+      static_cast<int*>(p.out)[o] = static_cast<int>(
+          (u1 << (2 * p.h)) + ((u10 + u01) << p.h) + u0);
+      return;
+    }
+    const float mid = __fadd_rn(__int2float_rn(c[1]), __int2float_rn(c[2]));
+    static_cast<float*>(p.out)[o] = __fadd_rn(
+        __fadd_rn(__fmul_rn(__int2float_rn(c[0]), p.pow_2h),
+                  __fmul_rn(mid, p.pow_h)),
+        __int2float_rn(c[3]));
   } else {
     uint32_t u1 = c[0], us = c[1], u0 = c[2];
     // Cs = C1 + (A1.B0 + A0.B1) + C0, modulo 2^32
@@ -654,6 +688,8 @@ int launch_kmm2_i16_bm16(const Params& p, bool k_major, cudaStream_t s);
 int launch_kmm2_i16_bm64(const Params& p, bool k_major, cudaStream_t s);
 int launch_split_bm16(const Params& p, bool k_major, cudaStream_t s);
 int launch_split_bm64(const Params& p, bool k_major, cudaStream_t s);
+int launch_mm2_bm16(const Params& p, bool k_major, cudaStream_t s);
+int launch_mm2_bm64(const Params& p, bool k_major, cudaStream_t s);
 
 #if SP_UNIT(1)
 int launch_mm1_bm16(const Params& p, bool k_major, cudaStream_t s) {
@@ -695,13 +731,24 @@ int launch_split_bm64(const Params& p, bool k_major, cudaStream_t s) {
   return launch_b<KMM2_SPLIT, 64, 2>(p, k_major, s);
 }
 #endif
+#if SP_UNIT(9)
+int launch_mm2_bm16(const Params& p, bool k_major, cudaStream_t s) {
+  return launch_b<MM2, 16, 1>(p, k_major, s);
+}
+#endif
+#if SP_UNIT(10)
+int launch_mm2_bm64(const Params& p, bool k_major, cudaStream_t s) {
+  return launch_b<MM2, 64, 1>(p, k_major, s);
+}
+#endif
 
 }  // namespace staged_pipe_detail
 
 #if SP_UNIT(0)
 // C entry point: layout 1 = mm1 (a1 (M, K), b1 (K, N) int8; a0, b0 null;
 // int32 out), 2 = kmm2 on s8 pre-adders (int8 planes, or int16 at h <= 6),
-// 3 = kmm2 split (int16 planes): planes a1, a0 (M, K) row-major and b1, b0
+// 3 = kmm2 split (int16 planes), 4 = mm2 (int8 planes, h <= 8): planes
+// a1, a0 (M, K) row-major and b1, b0
 // (K, N), row-major or, with b_kmajor, K-major (each the transpose of a
 // contiguous (N, K) tensor), of plane_bytes 1 or 2; int32 out with
 // combine_int32 (always for mm1), else float32; h the digit split point.
@@ -724,13 +771,14 @@ extern "C" int staged_pipe_launch(const void* a1, const void* a0,
   const long long tiles_m = (M + 15) / 16;
   const long long tiles_n = (N + BN - 1) / BN;
   // the digits and pre-adder sums fit s8: kmm2 int8 planes h <= 7, int16
-  // h <= 6 (the depth-2 leaves); the split route's leaves at every h <= 7
+  // h <= 6 (the depth-2 leaves); the split route's leaves at every h <= 7;
+  // mm2's centered int8 digits at every h <= 8 (no pre-adder)
+  const bool two_planes = a0 != nullptr && b0 != nullptr;
   const bool layout_ok =
       (layout == MM1 && pb == 1)
-      || (layout == KMM2 && h >= 1 && h <= (pb == 1 ? 7 : 6)
-          && a0 != nullptr && b0 != nullptr)
-      || (layout == KMM2_SPLIT && pb == 2 && h >= 1 && h <= 7
-          && a0 != nullptr && b0 != nullptr);
+      || (layout == KMM2 && h >= 1 && h <= (pb == 1 ? 7 : 6) && two_planes)
+      || (layout == KMM2_SPLIT && pb == 2 && h >= 1 && h <= 7 && two_planes)
+      || (layout == MM2 && pb == 1 && h >= 1 && h <= 8 && two_planes);
   const bool split_ok = split == 1
       ? k_split >= K
       : (ws != nullptr && counters != nullptr && split > 1 && k_split > 0
@@ -781,8 +829,10 @@ extern "C" int staged_pipe_launch(const void* a1, const void* a0,
       }
       return big ? launch_kmm2_i16_bm64(p, km, s)
                  : launch_kmm2_i16_bm16(p, km, s);
-    default:
+    case KMM2_SPLIT:
       return big ? launch_split_bm64(p, km, s) : launch_split_bm16(p, km, s);
+    default:
+      return big ? launch_mm2_bm64(p, km, s) : launch_mm2_bm16(p, km, s);
   }
 }
 #endif

@@ -31,7 +31,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import staged_gemm, staged_pipe
+from repro_torch.kernels import staged_pipe
 from repro_torch.kernels.ref import ref_kmm2_planes
 
 # Launches of the CUDA kernel by route; the wrapper adds one where it
@@ -59,7 +59,7 @@ def kmm2_gemm_planes(a1: torch.Tensor, a0: torch.Tensor, b1: torch.Tensor,
                      combine_int32: bool = False) -> torch.Tensor:
     """KMM2 GEMM on digit planes a1, a0 (M, K) and b1, b0 (K, N), split at
     ``h``.  Returns (M, N) int32 if ``combine_int32`` else float32."""
-    k_major = staged_gemm.check_operands("kmm2_gemm_planes", [a1, a0],
+    k_major = staged_pipe.check_operands("kmm2_gemm_planes", [a1, a0],
                                          [b1, b0], (torch.int8, torch.int16))
     if not 1 <= h <= MAX_H:
         raise ValueError(f"kmm2_gemm_planes: digits fit s8 only for "

@@ -15,7 +15,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import staged_gemm, staged_pipe
+from repro_torch.kernels import staged_pipe
 from repro_torch.kernels.ref import ref_int_gemm
 
 # Launches of the CUDA kernel; the wrapper adds one where it launches and
@@ -29,7 +29,7 @@ def reset_launches() -> None:
 
 def mm1_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int8 (M, K) @ (K, N) -> int32, exact (int32 accumulation)."""
-    k_major = staged_gemm.check_operands("mm1_gemm", [a], [b],
+    k_major = staged_pipe.check_operands("mm1_gemm", [a], [b],
                                          (torch.int8,))
     if a.device.type == "cpu":
         return ref_int_gemm(a, b)

@@ -1,7 +1,7 @@
 """Tile and split-K plan of the pipelined GEMM kernels: the fused GEMM's
 mm1 (``csrc/fused_mm1.cu``) and split modes kmm2, mm2 and kmm4
-(``csrc/fused_split.cu``), and the staged MM1 and KMM2 digit-plane kernels
-(``csrc/staged_pipe.cu``).
+(``csrc/fused_split.cu``), and the staged MM1, KMM2 and MM2 digit-plane
+kernels (``csrc/staged_pipe.cu``).
 
 Each kernel computes one ``bm`` x ``BN`` output tile of one group per block,
 over a K range read through a ring of ``STAGES`` shared-memory stages of
@@ -59,23 +59,26 @@ BLOCKS_PER_SM = 2
 RAGGED_SPLIT_STAGES = 16
 # The staged kernels (staged_pipe.cu) by layout: int32 accumulators (mm1
 # one; kmm2 three, C1, Cs and C0; its split route three, C1, the cross
-# products and C0) and planes an operand.  Their stages hold 64 bytes of K
-# a row: 64 int8 values or 32 int16 ones.
-STAGED_ACCS = {"mm1": 1, "kmm2": 3, "kmm2_split": 3}
-STAGED_PLANES = {"mm1": 1, "kmm2": 2, "kmm2_split": 2}
+# products and C0; mm2 four, C1, C10, C01 and C0) and planes an operand.
+# Their stages hold 64 bytes of K a row: 64 int8 values or 32 int16 ones.
+STAGED_ACCS = {"mm1": 1, "kmm2": 3, "kmm2_split": 3, "mm2": 4}
+STAGED_PLANES = {"mm1": 1, "kmm2": 2, "kmm2_split": 2, "mm2": 2}
 STAGED_ROW_BYTES = 64
-# Blocks of a staged kernel an SM holds at once, by layout family and tile
-# rows (shared memory bounds them: mm1 37-45 KB at the 16-row tile, 53-60
-# KB at the 64-row one; the KMM2 layouts 75-106 KB and 104-138 KB).  A
+# Blocks of a staged kernel an SM holds at once, by layout and tile rows
+# (shared memory bounds them: mm1 37-45 KB at the 16-row tile, 53-60 KB at
+# the 64-row one; the two-plane layouts 75-106 KB and 104-138 KB).  A
 # split grid past that many blocks runs a second wave that is mostly idle,
 # so the split is cut to what one wave holds.
 STAGED_BLOCKS_PER_SM = {("mm1", 16): 4, ("mm1", 64): 3,
-                        ("kmm2", 16): 2, ("kmm2", 64): 1}
-# The KMM2 layouts take the 64-row tile above this many rows where N spans
-# more than one column tile: with three accumulators and two B planes a
-# 16-row tile's share of B is dear, and one 64-row tile (row blocks past M
-# skipped) reads B once.  A single column tile (the MoE router) keeps the
-# 16-row tile, whose shallower minimum split leaves more blocks.
+                        ("kmm2", 16): 2, ("kmm2", 64): 1,
+                        ("kmm2_split", 16): 2, ("kmm2_split", 64): 1,
+                        ("mm2", 16): 2, ("mm2", 64): 1}
+# The two-plane layouts take the 64-row tile above this many rows where N
+# spans more than one column tile: with three or four accumulators and two
+# B planes a 16-row tile's share of B is dear, and one 64-row tile (row
+# blocks past M skipped) reads B once.  A single column tile (the MoE
+# router) keeps the 16-row tile, whose shallower minimum split leaves more
+# blocks.
 STAGED_KMM2_DECODE_MAX_M = 16
 
 
@@ -202,9 +205,9 @@ def plan_split(mode: str, groups: int, m: int, kp: int, n: int,
 
 def staged_tile_rows(layout: str, m: int, n: int) -> int:
     """Output rows per block of a staged launch: mm1 as the fused mm1
-    (:func:`tile_rows`); the KMM2 layouts the 64-row tile where m >
-    STAGED_KMM2_DECODE_MAX_M and N spans more than one column tile, else
-    the 16-row tile."""
+    (:func:`tile_rows`); the two-plane layouts (kmm2, kmm2_split, mm2) the
+    64-row tile where m > STAGED_KMM2_DECODE_MAX_M and N spans more than
+    one column tile, else the 16-row tile."""
     if layout == "mm1":
         return tile_rows(m)
     wide = m > STAGED_KMM2_DECODE_MAX_M and n > BN
@@ -214,8 +217,8 @@ def staged_tile_rows(layout: str, m: int, n: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def plan_staged(layout: str, m: int, k: int, n: int, num_sms: int,
                 plane_bytes: int, split: Optional[int] = None) -> SplitKPlan:
-    """The plan for a staged digit-plane launch (``layout`` mm1, kmm2 or
-    kmm2_split on planes of ``plane_bytes`` 1 or 2): its tile, its
+    """The plan for a staged digit-plane launch (``layout`` mm1, kmm2,
+    kmm2_split or mm2 on planes of ``plane_bytes`` 1 or 2): its tile, its
     accumulators, B's bytes a K position over all its planes, stages of
     STAGED_ROW_BYTES a row, the splits over [0, k), cut to the blocks one
     wave holds (STAGED_BLOCKS_PER_SM); ``split`` forces the split count."""
@@ -227,8 +230,7 @@ def plan_staged(layout: str, m: int, k: int, n: int, num_sms: int,
               carrier_bytes=plane_bytes * STAGED_PLANES[layout],
               bk=STAGED_ROW_BYTES // plane_bytes, bm=bm)
     plan = plan_split_k(1, m, k, n, num_sms, split=split, **kw)
-    family = "mm1" if layout == "mm1" else "kmm2"
-    slots = STAGED_BLOCKS_PER_SM[(family, bm)] * num_sms
+    slots = STAGED_BLOCKS_PER_SM[(layout, bm)] * num_sms
     if split is None and plan.split > 1 and plan.blocks > slots:
         plan = plan_split_k(1, m, k, n, num_sms,
                             split=max(1, slots // plan.tiles), **kw)

@@ -133,21 +133,19 @@ def _int_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
     int32 above, the carriers the quantizer stores — where the reference
     widens everything to int32: the same values, so the same result, and
     a caller passing carrier codes (the quantized matmul) pays no widening
-    copy.  A becomes row-major.  The MM1 and KMM2 kernels take B row-major
-    or K-major, so B keeps its layout: it is used as it is where it needs
-    no padding or cast (the tied ``lm_head`` weight arrives as the K-major
-    view ``embed.T`` and is not copied), padded or cast in its own layout
-    where it does, and the KMM2 digit planes, elementwise functions of B,
-    come out in B's layout too.  Nothing transposes B: a transposing copy
-    on the card costs far more than the kernel gains from K-major planes.
-    MM2's kernel takes row-major planes only, so its B is made row-major
-    and padded as the reference pads it."""
+    copy.  A becomes row-major.  The MM1, KMM2 and MM2 kernels take B
+    row-major or K-major, so B keeps its layout: it is used as it is where
+    it needs no padding or cast (the tied ``lm_head`` weight arrives as the
+    K-major view ``embed.T`` and is not copied), padded or cast in its own
+    layout where it does, and the digit planes, elementwise functions of
+    B, come out in B's layout too.  Nothing transposes B: a transposing
+    copy on the card costs far more than the kernel gains from K-major
+    planes."""
     exact = plan.combine_int32
     carrier = (torch.int8 if plan.mode is Mode.MM1 else
                torch.int16 if plan.w <= 16 else torch.int32)
     a = _pad_to(a.to(carrier), 1, plan.block_k).contiguous()
-    if plan.mode is not Mode.MM2 and not b.is_contiguous() \
-            and b.t().is_contiguous():
+    if not b.is_contiguous() and b.t().is_contiguous():
         # K-major B stays K-major (copied only to pad or cast)
         b = _pad_to(b.t().to(carrier), 1, plan.block_k).contiguous().t()
     else:

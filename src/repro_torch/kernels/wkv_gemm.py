@@ -2,8 +2,9 @@
 
 Per (batch row, head), with a D x D fp32 state S:
 ``y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)``, ``S_t = diag(w_t) S_{t-1} +
-k_t^T v_t``.  Two entries over one hand-written Hopper kernel
-(``csrc/wkv.cu``):
+k_t^T v_t``.  Two entries over one hand-written Hopper source
+(``csrc/wkv.cu``: a one-step kernel for decode, a chunked one for longer
+sequences, chosen by S behind one C entry point):
 
   * :func:`wkv_apply` — the reference's signature: (BH, S, D) streams, a
     (BH, D) bonus, zero initial state, returns y.
@@ -100,9 +101,11 @@ def _check(name: str, streams, u: torch.Tensor,
 
 
 def _launch(r, k, v, w, u, state0: Optional[torch.Tensor],
-            state_out: Optional[torch.Tensor]) -> torch.Tensor:
+            state_out: Optional[torch.Tensor], kernel=None) -> torch.Tensor:
     """One launch of the CUDA kernel on operands that passed
-    :func:`_check`; returns y (B, S, H, D), contiguous."""
+    :func:`_check`; returns y (B, S, H, D), contiguous.  ``kernel`` is
+    another build's ``wkv_launch`` with the same signature (the A/B of
+    ``kernels.compare``; its launches are not counted)."""
     b, s, h, d = r.shape
     ub = u.expand(b, h, d)
     ints = list(r.stride()[:3]) + [ub.stride(0), ub.stride(1)]
@@ -111,7 +114,7 @@ def _launch(r, k, v, w, u, state0: Optional[torch.Tensor],
                          "int arguments")
     y = torch.empty((b, s, h, d), dtype=torch.float32, device=r.device)
     ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
-    fn = build.entry("wkv", "wkv_launch", 8, 9)
+    fn = kernel or build.entry("wkv", "wkv_launch", 8, 9)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -119,7 +122,8 @@ def _launch(r, k, v, w, u, state0: Optional[torch.Tensor],
                  b, s, h, d, *ints, stream)
     if err != 0:
         raise RuntimeError(f"wkv launch failed: CUDA error {err}")
-    launches["wkv"] += 1
+    if kernel is None:
+        launches["wkv"] += 1
     return y
 
 

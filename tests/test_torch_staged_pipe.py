@@ -1,7 +1,8 @@
-"""The staged MM1 and KMM2 digit-plane kernels of ``csrc/staged_pipe.cu``
-(``mm1_gemm``, ``kmm_gemm.kmm2_gemm_planes``) on the CPU: what their
-wrappers take, the K-major B planes the staged path now writes, the
-kernels' split-K plan, and a numpy emulation of the kernel's data path.
+"""The staged digit-plane kernels of ``csrc/staged_pipe.cu`` (``mm1_gemm``,
+``kmm_gemm.kmm2_gemm_planes``; ``mm2_gemm.mm2_gemm_planes`` in
+``tests/test_torch_staged_mm2.py``) on the CPU: what their wrappers take,
+the K-major B planes the staged path now writes, the kernels' split-K
+plan, and a numpy emulation of the kernel's data path (mm2's layout too).
 
   * K-major B: ``mm1_gemm`` and ``kmm2_gemm_planes`` on B planes that are
     ``t.t()`` of contiguous (N, K) tensors (int8 and int16, h 1-7, both
@@ -9,9 +10,9 @@ kernels' split-K plan, and a numpy emulation of the kernel's data path.
     ``tests/test_torch_staged_gemm.py`` runs them, at hostile shapes;
   * ``ops.run_plan`` on every staged numerics class with B row-major, as a
     transposed view and as a K-major carrier view equals JAX's
-    ``run_plan``; ``ops`` hands kmm2 its planes in B's layout (K-major for
-    a K-major B) and mm2 row-major planes, and copies B only where it pads
-    or casts it, in B's layout;
+    ``run_plan``; ``ops`` hands kmm2 and mm2 their planes in B's layout
+    (K-major for a K-major B), and copies B only where it pads or casts
+    it, in B's layout;
   * ``mm1_plan.plan_staged`` covers K in whole stages, sizes the workspace
     and picks the tile;
   * an emulation of one launch — the ring stages as the copies lay them
@@ -20,7 +21,7 @@ kernels' split-K plan, and a numpy emulation of the kernel's data path.
     pre-adder on packed fragments, ``mma.m16n8k32`` as the PTX fragment
     layouts define it, the split-K sum modulo 2^32 and the epilogue's
     combine in fp32 one rounded operation at a time — equals
-    ``ref_kmm2_planes`` / ``ref_int_gemm``.
+    ``ref_kmm2_planes`` / ``ref_int_gemm`` / ``ref_mm2_planes``.
 
 The CUDA kernel itself is held to the plain versions on the card by
 ``chip_smoke.py``.
@@ -38,9 +39,10 @@ from repro.kernels.kmm_gemm import kmm2_gemm_planes as jax_kmm2  # noqa: E402
 from repro.kernels.mm1_gemm import mm1_gemm as jax_mm1  # noqa: E402
 from repro_torch.core.dispatch import ExecPlan  # noqa: E402
 from repro_torch.kernels import (kmm_gemm, mm1_gemm, mm1_plan,  # noqa: E402
-                                 ops, staged_gemm)
+                                 ops, staged_pipe)
 from repro_torch.kernels.ref import (ref_int_gemm,  # noqa: E402
-                                     ref_kmm2_planes, split_planes)
+                                     ref_kmm2_planes, ref_mm2_planes,
+                                     split_planes)
 
 H100_SMS = 132
 BN = mm1_plan.BN
@@ -118,7 +120,7 @@ def test_kmm2_planes_k_major_match_jax(mkn, h):
         jp = [jnp.asarray(p) for p in planes]
         tp = [torch.from_numpy(p) for p in planes[:2]] \
             + [_k_major(p) for p in planes[2:]]
-        assert staged_gemm.check_operands("t", tp[:2], tp[2:],
+        assert staged_pipe.check_operands("t", tp[:2], tp[2:],
                                           (torch.int8, torch.int16)) \
             == (k > 1 and n > 1)
         for ci in (False, True):
@@ -136,19 +138,16 @@ def test_check_operands_takes_row_major_or_k_major_b():
     a = torch.zeros((4, 8), dtype=torch.int8)
     b = torch.zeros((8, 6), dtype=torch.int8)
     bk = torch.zeros((6, 8), dtype=torch.int8).t()
-    assert staged_gemm.check_operands("t", [a], [b], (torch.int8,)) is False
-    assert staged_gemm.check_operands("t", [a], [bk], (torch.int8,)) is True
+    assert staged_pipe.check_operands("t", [a], [b], (torch.int8,)) is False
+    assert staged_pipe.check_operands("t", [a], [bk], (torch.int8,)) is True
     with pytest.raises(ValueError, match="contiguous or K-major"):
-        staged_gemm.check_operands("t", [a, a], [b, bk], (torch.int8,))
+        staged_pipe.check_operands("t", [a, a], [b, bk], (torch.int8,))
     strided = torch.zeros((8, 12), dtype=torch.int8)[:, ::2]
     with pytest.raises(ValueError, match="contiguous or K-major"):
-        staged_gemm.check_operands("t", [a], [strided], (torch.int8,))
+        staged_pipe.check_operands("t", [a], [strided], (torch.int8,))
     with pytest.raises(ValueError, match="A plane 0 must be contiguous"):
-        staged_gemm.check_operands("t", [a.t().contiguous().t()], [b],
+        staged_pipe.check_operands("t", [a.t().contiguous().t()], [b],
                                    (torch.int8,))
-    with pytest.raises(ValueError, match="contiguous"):
-        staged_gemm.check_operands("t", [a], [bk], (torch.int8,),
-                                   k_major_b=False)
 
 
 # ------------------------------------------------------ run_plan and ops
@@ -219,10 +218,10 @@ def _spied(monkeypatch):
 
 
 def test_ops_hands_kmm2_planes_in_b_layout_and_mm2_row_major(monkeypatch):
-    """kmm2 (depth 1 and the three depth-2 launches) gets its B planes in
-    B's own layout: K-major for a K-major B (the tied lm_head's
-    ``embed.T``), padded or not; row-major for a row-major B.  mm2 gets
-    row-major planes whatever B's layout."""
+    """kmm2 (depth 1 and the three depth-2 launches) and mm2 get their B
+    planes in B's own layout: K-major for a K-major B (the tied lm_head's
+    ``embed.T``), padded or not; row-major for a row-major B (mm2's only
+    layout before its kernel took K-major B, hence the name)."""
     spies = _spied(monkeypatch)
     rng = np.random.default_rng(5)
     a = torch.from_numpy(_rand(12, (5, 150), rng))
@@ -243,7 +242,11 @@ def test_ops_hands_kmm2_planes_in_b_layout_and_mm2_row_major(monkeypatch):
         assert b_planes[0].shape == (192, 13)
     mm2 = spies["mm2_gemm_planes"].calls
     assert len(mm2) == 2
-    assert all(t.is_contiguous() for planes in mm2 for t in planes)
+    for i, planes in enumerate(mm2):
+        assert all(t.is_contiguous() for t in planes[:2])
+        assert all(t.t().is_contiguous() == (i == 1)
+                   and t.is_contiguous() != (i == 1) for t in planes[2:])
+        assert planes[2].shape == (192, 13)
 
 
 def test_ops_copies_b_only_to_pad_or_cast_and_keeps_its_layout(
@@ -310,9 +313,8 @@ def test_staged_plan_covers_k_in_whole_stages(layout, pb, m, k, n):
             >= 8 * accs * p.bm
         assert p.tiles < H100_SMS
         # one wave: the split grid fits the blocks the card holds at once
-        family = "mm1" if layout == "mm1" else "kmm2"
         assert p.blocks <= H100_SMS * mm1_plan.STAGED_BLOCKS_PER_SM[
-            (family, p.bm)]
+            (layout, p.bm)]
         assert p.ws_ints == p.tiles * p.split * accs * p.bm * BN
         assert p.n_counters == p.tiles
     else:
@@ -502,7 +504,7 @@ def _mma_stage(layout, a8, b8, bm, pb, k_major, rows_live, acc):
     planes, by the kernel's addresses; acc[q][wm][mt][wn][j] (16, 8)."""
     bk = RB // pb
     p8 = bk + 16
-    warps_m = 1 if layout == "mm1" or bm < 32 else bm // 32
+    warps_m = _warps_m(layout, bm)
     mt_n = bm // 16 // warps_m
     for wm in range(warps_m):
         for wn in range(4):
@@ -546,10 +548,20 @@ def _mma_stage(layout, a8, b8, bm, pb, k_major, rows_live, acc):
                     prods = {"mm1": [(0, 0, 0)],
                              "kmm2": [(0, 0, 0), (1, 2, 2), (2, 1, 1)],
                              "kmm2_split": [(0, 0, 0), (1, 0, 1), (1, 1, 0),
-                                            (2, 1, 1)]}[layout]
+                                            (2, 1, 1)],
+                             "mm2": [(0, 0, 0), (1, 0, 1), (2, 1, 0),
+                                     (3, 1, 1)]}[layout]
                     for j in range(4):
                         for q, qa, qb in prods:
                             acc[q][wm][mt][wn][j] += amat[qa] @ bmat[qb][j]
+
+
+def _warps_m(layout, bm):
+    """Warp rows of a tile: one at 16 rows and for mm1; at 64 rows the
+    KMM2 layouts two (32-row spans), mm2 four (16-row spans)."""
+    if layout == "mm1" or bm < 32:
+        return 1
+    return bm // 16 if layout == "mm2" else bm // 32
 
 
 def emulate_launch(layout, a_planes, b_planes, h, combine_int32, k_major,
@@ -563,8 +575,8 @@ def emulate_launch(layout, a_planes, b_planes, h, combine_int32, k_major,
     n = b_planes[0].shape[1]
     plan = mm1_plan.plan_staged(layout, m, k, n, H100_SMS, pb, split)
     bm, bk = plan.bm, RB // pb
-    nacc = 1 if layout == "mm1" else 3
-    warps_m = 1 if layout == "mm1" or bm < 32 else bm // 32
+    nacc = mm1_plan.STAGED_ACCS[layout]
+    warps_m = _warps_m(layout, bm)
     mt_n = bm // 16 // warps_m
     a_bytes = [np.ascontiguousarray(x).view(np.uint8).reshape(m, k * pb)
                for x in a_planes]
@@ -610,15 +622,24 @@ def emulate_launch(layout, a_planes, b_planes, h, combine_int32, k_major,
 
 def _epilogue(layout, c, h, combine_int32):
     """store_out: the split route's Cs rebuild, then the int32-ring or fp32
-    combine, one rounded operation at a time."""
+    combine, one rounded operation at a time (mm2: C10 and C01 converted
+    apart, then added in fp32)."""
     if layout == "mm1":
         return c[0]
+    f = np.float32
+    if layout == "mm2":
+        u1, u10, u01, u0 = (int(v) & 0xFFFFFFFF for v in c)
+        if combine_int32:
+            return _wrap((u1 << (2 * h)) + ((u10 + u01) << h) + u0)
+        c1f, c10f, c01f, c0f = (f(_wrap(v)) for v in (u1, u10, u01, u0))
+        mid = f(c10f + c01f)
+        return f(f(f(c1f * f(2.0 ** (2 * h))) + f(mid * f(2.0 ** h)))
+                 + c0f)
     u1, us, u0 = (int(v) & 0xFFFFFFFF for v in c)
     if layout == "kmm2_split":
         us = (us + u1 + u0) & 0xFFFFFFFF
     if combine_int32:
         return _wrap((u1 << (2 * h)) + ((us - u1 - u0) << h) + u0)
-    f = np.float32
     c1f, csf, c0f = (f(_wrap(v)) for v in (u1, us, u0))
     mid = f(f(csf - c1f) - c0f)
     return f(f(f(c1f * f(2.0 ** (2 * h))) + f(mid * f(2.0 ** h))) + c0f)
@@ -628,13 +649,16 @@ def _ref(layout, planes, h, ci):
     tp = [torch.from_numpy(p) for p in planes]
     if layout == "mm1":
         return ref_int_gemm(*tp).numpy()
+    if layout == "mm2":
+        return ref_mm2_planes(*tp, h, combine_int32=ci).numpy()
     return ref_kmm2_planes(*tp, h, combine_int32=ci).numpy()
 
 
 def _edge_planes(layout, m, k, n, rng):
     """Planes at the layout's extremes: mm1 int8 codes with +-127 and -128;
     kmm2 int8 planes at h = 7 (pre-adder sums down to -128); int16 branch
-    planes at h2 = 6 (s8 route) and 7 (split route, leaves up to 127)."""
+    planes at h2 = 6 (s8 route) and 7 (split route, leaves up to 127); mm2
+    int8 planes at h = 8 (w = 16: digits -128 .. 127)."""
     if layout == "mm1":
         a = rng.integers(-128, 128, (m, k)).astype(np.int8)
         b = rng.integers(-128, 128, (k, n)).astype(np.int8)
@@ -646,6 +670,11 @@ def _edge_planes(layout, m, k, n, rng):
         planes[0][0], planes[1][0] = -64, -64          # a1 + a0 = -128
         planes[2][:, 0], planes[3][:, 0] = -64, -64
         return planes, h
+    if layout == "mm2":
+        planes, h = _int8_planes(16, (m, k), (k, n), rng)
+        planes[0][0], planes[1][0] = -128, -128
+        planes[2][:, 0], planes[3][:, 0] = -128, 127
+        return planes, h
     return _branch_planes(6 if layout == "kmm2_i16" else 7, (m, k), (k, n),
                           rng)
 
@@ -653,7 +682,9 @@ def _edge_planes(layout, m, k, n, rng):
 EMULATED = [("mm1", (5, 150, 130), None), ("mm1", (70, 100, 40), 2),
             ("kmm2_i8", (5, 150, 130), None), ("kmm2_i8", (70, 100, 140), 2),
             ("kmm2_i16", (3, 70, 140), 2), ("kmm2_i16", (66, 40, 140), None),
-            ("split", (3, 70, 140), 2), ("split", (66, 40, 140), None)]
+            ("split", (3, 70, 140), 2), ("split", (66, 40, 140), None),
+            ("mm2", (5, 150, 130), None), ("mm2", (70, 100, 140), 2),
+            ("mm2", (3, 300, 200), 3)]
 
 
 @pytest.mark.parametrize("kind,mkn,split", EMULATED)
@@ -667,7 +698,7 @@ def test_emulated_launch_equals_the_plain_version(kind, mkn, split, k_major):
     rng = np.random.default_rng(m * k + n)
     planes, h = _edge_planes(kind, m, k, n, rng)
     layout = {"mm1": "mm1", "kmm2_i8": "kmm2", "kmm2_i16": "kmm2",
-              "split": "kmm2_split"}[kind]
+              "split": "kmm2_split", "mm2": "mm2"}[kind]
     assert mm1_plan.staged_tile_rows(layout, m, n) == (16 if m < 64 else 64)
     if split is not None:
         assert mm1_plan.plan_staged(layout, m, k, n, H100_SMS,

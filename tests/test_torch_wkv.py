@@ -12,6 +12,13 @@ their own order, so they agree to rounding; the reference's own test gates
 the kernel at a max error relative to the output's largest value of 1e-5
 (``REL_TOL``), and the stateful comparisons use ``rtol = atol = 1e-5``.
 Split runs equal one run exactly (the same steps on the same values).
+
+The CUDA kernel (``csrc/wkv.cu``) splits each step's sum over i across G
+lanes and adds their partials by a shuffle butterfly; a numpy emulation of
+that order (fused multiply-adds, the butterfly's pairwise tree) at G = 2,
+4, 8, 16 and at the kernel's own G for each head size is held to the same
+tolerance against ``wkv_reference``, JAX's ``wkv_apply`` and the stateful
+plain version.
 """
 import numpy as np
 import pytest
@@ -170,3 +177,99 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="chunk"):
         wkv_gemm.wkv_apply(*(torch.zeros((2, 4, 16)) for _ in range(4)),
                            torch.zeros((2, 16)), chunk=0)
+
+
+# ------------------------------------------- the kernel's split-sum order
+
+# csrc/wkv.cu's sum split by head size: G lanes of D / G rows each form a
+# partial y[j]; G as its Cfg<D, STEP> sets it (R = D / G rows a lane), for
+# the chunked kernel (S > 1) and the decode kernel (S = 1).
+KERNEL_G = {4: (4, 4), 8: (4, 4), 16: (8, 8), 64: (16, 8)}
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add (the kernel's ``__fmaf_rn``): the product
+    exact in float64, one rounding to float32 after the add (float64's own
+    rounding of the sum first: a double rounding that differs from a true
+    fma in the last bit at most, far inside the tolerance)."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def emulate_split_sum(r, k, v, w, u, state0, g_count):
+    """The kernel's step order on (N, S, D) fp32 streams (N = B H heads),
+    (N, D) bonus and (N, D, D) state: lane group g keeps rows g R .. g R +
+    R - 1 (R = D / G) and forms each step's partial y[j] over them in order
+    of i with fused multiply-adds, reading the old state before updating
+    it; the G partials are then summed by the shuffle butterfly (level l
+    adds the partial of group g ^ 2^l), which leaves the same sum in every
+    group.  Returns (y (N, S, D), final state)."""
+    n, s, d = r.shape
+    rows = d // g_count
+    st = state0.reshape(n, g_count, rows, d).astype(np.float32).copy()
+    ur = u.reshape(n, g_count, rows)
+    ys = np.zeros((n, s, d), np.float32)
+    for t in range(s):
+        rt, kt, wt = (x[:, t].reshape(n, g_count, rows) for x in (r, k, w))
+        vt = v[:, t][:, None, :]
+        part = np.zeros((n, g_count, d), np.float32)
+        for rr in range(rows):
+            kv = (kt[:, :, rr, None] * vt).astype(np.float32)
+            old = st[:, :, rr]
+            part = _fma(_fma(ur[:, :, rr, None], kv, old),
+                        rt[:, :, rr, None], part)
+            st[:, :, rr] = _fma(wt[:, :, rr, None], old, kv)
+        lvl = 1
+        while lvl < g_count:
+            part = (part + part[:, np.arange(g_count) ^ lvl]).astype(
+                np.float32)
+            lvl <<= 1
+        assert (part == part[:, :1]).all()      # every group holds the sum
+        ys[:, t] = part[:, 0]
+    return ys, st.reshape(n, d, d)
+
+
+@pytest.mark.parametrize("g_count", [2, 4, 8, 16])
+@pytest.mark.parametrize("bh,s,d", [(4, 64, 16), (8, 128, 64)])
+def test_split_sum_order_matches_reference_and_jax(g_count, bh, s, d):
+    """The split-sum order from a zero state, G = 2 .. 16 groups of rows:
+    within 1e-5 of ``wkv_reference`` and of JAX's ``wkv_apply`` in
+    interpret mode, on y."""
+    rng = np.random.default_rng(g_count * 10 + d)
+    r, k, v, w = _streams(rng, (bh, s, d))
+    u = rng.standard_normal((bh, d)).astype(np.float32) * 0.1
+    y, _ = emulate_split_sum(r, k, v, w, u, np.zeros((bh, d, d), np.float32),
+                             g_count)
+    ref = wkv_gemm.wkv_reference(*map(torch.from_numpy,
+                                      (r, k, v, w, u))).numpy()
+    jx = np.asarray(jax_wkv_apply(*map(jnp.asarray, (r, k, v, w, u)),
+                                  chunk=64, interpret=True))
+    np.testing.assert_allclose(y, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(y, jx, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("d", sorted(KERNEL_G))
+def test_kernel_split_matches_stateful_reference(d):
+    """The kernel's own G at each supported head size, from a nonzero
+    state over the serve layout's (B, S, H, D) streams: y and the final
+    state within rtol = atol = 1e-5 of ``wkv_stateful_reference`` (the
+    chip's gate), over 20 steps (the chunked kernel's G) and one step (the
+    decode kernel's)."""
+    for s, g_count in zip((20, 1), KERNEL_G[d]):
+        r, k, v, w, u, state0 = _stateful_inputs(d + s, b=2, s=s, h=3, d=d)
+        b, _, h, _ = r.shape
+        y_ref, st_ref = wkv_gemm.wkv_stateful_reference(
+            *map(torch.from_numpy, (r, k, v, w, u, state0)))
+
+        def heads(x):                  # (B, S, H, D) -> (B H, S, D)
+            return np.ascontiguousarray(x.transpose(0, 2, 1, 3)).reshape(
+                b * h, s, d)
+
+        y, st = emulate_split_sum(*(heads(x) for x in (r, k, v, w)),
+                                  np.broadcast_to(u, (b, h, d)).reshape(
+                                      b * h, d),
+                                  state0.reshape(b * h, d, d), g_count)
+        np.testing.assert_allclose(
+            y.reshape(b, h, s, d).transpose(0, 2, 1, 3), y_ref.numpy(),
+            rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(st.reshape(b, h, d, d), st_ref.numpy(),
+                                   rtol=RTOL, atol=ATOL)
