@@ -2,11 +2,16 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the whole check, one card
-    python3 chip_smoke.py --profile   # also trace four decode steps a model
-                                      # (and of llama under w20)
+    python3 chip_smoke.py --profile   # also trace four decode steps of each
+                                      # model four ways (per-call and
+                                      # prequantized weights, eager and
+                                      # graphed; and of llama under w20)
     python3 chip_smoke.py --profile-path llama3.2-1b:w24:forced
                                       # only trace one path (here under its
                                       # forcing table)
+    python3 chip_smoke.py --chunk-study
+                                      # only compare chunked with
+                                      # single-shot prefill (5c's engines)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -77,6 +82,44 @@ kernels/wkv_gemm.py on csrc/wkv.cu) adds, within the phases above:
       prefill and per decode step exactly 224 fused mm1 + 1 fused kmm2 + 32
       WKV launches, and no other kernel; greedy streams repeat.
 
+Serving in its steady state (quant/prequant.py, serve/executor.py's decode
+graphs, serve/engine.py's warm(), chunked prefill and prefix cache) adds,
+within phase 5:
+
+  5g. every serve engine is warmed first (``Engine.warm()``: one CUDA graph
+      per decode width, every prefill width run once); in each counted run
+      the wrappers' counters (which a graph replay does not reach) hold
+      exactly prefills x the per-call launches, the graph replays equal
+      the decode steps, and every width's graph captured exactly the
+      per-call launches, and every graph holds exactly those integer-GEMM
+      and WKV kernels as nodes (read from the driver: what each replay
+      launches; under the forcing and tuned tables too); on each mixed
+      path one decode step runs eagerly and through the graph from the
+      same pool contents (logits and every pool tensor torch.equal);
+  5p. llama, granite and rwkv under mixed and llama under w16 served again
+      on prequantized weights (``prequantize``; the fp32 leaves that became
+      records freed and the peak memory reset first), graphed: tokens and
+      full-width prefill logits torch.equal to the per-call run, the same
+      exact launch and graph-node gates, one step graphed against eager,
+      under mixed a profiler witness (the integer-GEMM and WKV kernels
+      the profiler sees in each of two replayed decode steps equal what
+      the graph captured), and every record's codes reaching the kernel
+      as stored (no weight-sized cast or copy);
+  5c. llama and rwkv on the mixed records with chunked prefill (chunks of
+      32) and prefix sharing (2 slots, four prompts sharing an 80-token
+      head): at least 2 prefix hits, greedy tokens equal to the chunked
+      engine without prefix sharing (a hit restores what a cold chunked
+      prefill computes), exact launch gates over the prefill chunks and
+      decode steps (against single-shot prefill the tokens need not be
+      equal on the card: ATen's fp32 matmul and row means change bits
+      with the number of rows, phase 5r; ``--chunk-study`` reports it);
+  5r. that row-count dependence, reported: rwkv's decay LoRA products and
+      a row mean at M 1-64 against the same rows of M = 128.
+
+With ``--profile`` each model's mixed path also runs eagerly, per call and
+on records (tokens equal to the graphed run), and is traced four ways:
+per-call and prequantized weights, eager and graphed.
+
 The staged path (kernels/ops.py's run_plan and its kernels: mm1_gemm,
 kmm2_gemm_planes and mm2_gemm_planes on csrc/staged_pipe.cu) and the tuner
 add, within the phases above:
@@ -118,6 +161,7 @@ last line is ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -239,6 +283,20 @@ PATHS = [
     ("granite-moe-3b-a800m", "w24", 2, 4, 1, {"kmm4": 161}, {"kmm4": 96}),
     ("rwkv6-3b", "mixed", 6, 16, 2, {"mm1": 224, "kmm2": 1}, {}),
 ]
+# Every full-width engine's prompt buckets (the prompts are 8-64 tokens),
+# so ``Engine.warm()`` runs four prefill widths.
+SERVE_BUCKETS = (8, 16, 32, 64)
+# The paths served again on prequantized weights (quant/prequant.py),
+# eager and graphed, held to the per-call run of the same path (tokens and
+# full-width prefill logits torch.equal).
+PREQUANT_PATHS = [("llama3.2-1b", "mixed"), ("llama3.2-1b", "w16"),
+                  ("granite-moe-3b-a800m", "mixed"), ("rwkv6-3b", "mixed")]
+# Chunked prefill with prefix sharing at full width, on the mixed records:
+# the chunk, the prompts' shared head and their tails (tokens).
+CHUNKED_PATHS = [("llama3.2-1b", "mixed"), ("rwkv6-3b", "mixed")]
+CHUNK, SHARED_HEAD, TAILS = 32, 80, (10, 25, 17, 40)
+# Replayed decode steps the profiler witness counts kernels over.
+WITNESS_STEPS = 2
 # The one-width paths that --profile traces beside each model's mixed one:
 # llama under w20, every GEMM on the kmm4 kernel.
 PROFILED_WIDE = {("llama3.2-1b", "w20")}
@@ -1388,73 +1446,80 @@ def forcing_table(cfg):
 
 def table_paths(torch, fg, arch, params, prompts):
     """Phase 5 (d): each TABLE_PATHS entry of ``arch`` run twice — without
-    a table, then under it — with the launch counts set to 0 just before
-    each run and read just after: the same greedy tokens and full-width
-    prefill logits (torch.equal), and under a forcing table no fused
-    launch and exactly the staged launches per prefill and decode step."""
+    a table, then under it — each engine warmed, with the launch counts set
+    to 0 just before each run and read just after: the same greedy tokens
+    and full-width prefill logits (torch.equal), and under a forcing table
+    exactly the staged launches per prefill, in every decode graph, and no
+    fused launch.  A policy under two tables shares its untabled run."""
     from repro_torch.core.context import ExecContext
-    from repro_torch.models import lm
-    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.engine import Request
     from repro_torch.tune.table import TuningTable, set_active_table
 
-    out = {}
+    out, plain_runs = {}, {}
     for _, policy, kind, per_call in [p for p in TABLE_PATHS
                                       if p[0] == arch]:
         pcfg = path_config(arch, policy)
         table = (TuningTable.load(TUNED_TABLE) if kind == "tuned" else
                  forcing_table(pcfg))
+        what = f"{arch} {policy} under the {kind} table"
         runs = {}
         for label, tbl in (("plain", None), (kind, table)):
+            if label == "plain" and policy in plain_runs:
+                runs[label] = plain_runs[policy]
+                continue
             set_active_table(None)
-            eng = Engine(pcfg, params, max_seq=256, batch_size=4,
-                         device="cuda", context=ExecContext(tuning_table=tbl))
+            eng = serve_engine(torch, pcfg, params,
+                               context=ExecContext(tuning_table=tbl))
             reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts[:2]]
-            reset_all(fg)
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            stats = eng.generate(reqs)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            launches = {"fused": {m: c for m, c in fg.launches.items() if c},
-                        "fused_grouped": {m: c for m, c in
-                                          fg.grouped_launches.items() if c},
-                        "staged": {k: c for k, c in staged_launches().items()
-                                   if c}}
-            with torch.inference_mode():
-                logits, _, _ = lm.prefill(
-                    eng.params, pcfg, torch.tensor([prompts[0]],
-                                                   device="cuda"),
-                    lm.init_cache(pcfg, 1, 256, device="cuda"))
-            runs[label] = ([r.generated for r in reqs], logits, launches,
-                           stats, wall, len(reqs) + stats.decode_steps)
+            run = serve_counted(torch, fg, eng, reqs)
+            run["logits"] = full_logits(torch, eng, prompts[0])
+            path = next((p for p in PATHS if p[:2] == (arch, policy)),
+                        None)
+            if label == "plain" and path is not None:
+                run["launches"] = check_counted(
+                    f"{arch} {policy}", eng, run,
+                    path_per_call(arch, path[5], path[6]))
+            elif label == "plain" or per_call is None:
+                # the tuned table's mix of fused and staged plans is the
+                # sweep's (and llama w24 without a table has no PATHS
+                # entry): no staged launch without a table, and at least
+                # one launch a GEMM, in every graph too
+                staged = [k for c in [run["host"]] + list(
+                    eng.executor.captured.values()) for k in c
+                    if k in STAGED_SOURCES]
+                if (label == "plain" and staged) or \
+                        sum(run["host"].values()) < 113 * run["prefills"] \
+                        or any(sum(c.values()) < 113 for c in
+                               eng.executor.captured.values()):
+                    fail(f"{what} ({label}): launches {run['host']}, in "
+                         f"the graphs {eng.executor.captured}")
+                run["launches"] = {"host": run["host"]} | graph_launches(
+                    f"{what} ({label})", eng, run)
+            else:
+                run["launches"] = check_counted(what, eng, run, per_call)
+            runs[label] = run
+            if label == "plain":
+                plain_runs[policy] = run
         set_active_table(None)
-        (tok0, log0, l0, _, _, _), (tok1, log1, l1, stats, wall, calls) = \
-            runs["plain"], runs[kind]
-        what = f"{arch} {policy} under the {kind} table"
-        if tok0 != tok1 or not torch.equal(log0, log1):
-            fail(f"{what}: tokens or prefill logits differ from the path "
-                 f"without a table")
-        if l0["staged"]:
-            fail(f"{arch} {policy} without a table launched staged kernels: "
-                 f"{l0['staged']}")
-        if per_call is not None:
-            want = {k: c * calls for k, c in per_call.items()}
-            if l1["fused"] or l1["fused_grouped"] or l1["staged"] != want:
-                fail(f"{what}: launches {l1}, expected staged {want} and no "
-                     f"fused kernel")
-        elif sum(c for d in l1.values() for c in d.values()) < 113 * calls:
-            fail(f"{what}: fewer launches than GEMMs: {l1}")
-        out[f"{arch} {policy} {kind}"] = {
-            "calls": calls, "launches": l1, "launches_plain": l0,
+        r0, r1 = runs["plain"], runs[kind]
+        if r0["tokens"] != r1["tokens"] or not torch.equal(r0["logits"],
+                                                           r1["logits"]):
+            diff = (r0["logits"].float() - r1["logits"].float()).abs().max()
+            fail(f"{what}: tokens {r1['tokens']} against {r0['tokens']} "
+                 f"without a table, prefill logits max |diff| {float(diff)}")
+        stats, stats0 = r1["stats"], r0["stats"]
+        out[f"{arch} {policy} {kind}"] = r = {
+            "prefills": r1["prefills"], "launches": r1["launches"],
+            "launches_plain": r0["launches"],
             "decode_steps": stats.decode_steps,
             "decode_step_ms": stats.decode_s / stats.decode_steps * 1e3,
-            "decode_step_ms_plain": runs["plain"][3].decode_s
-            / runs["plain"][3].decode_steps * 1e3,
+            "decode_step_ms_plain": stats0.decode_s / stats0.decode_steps
+            * 1e3,
             "prefill_ms_per_request": stats.prefill_s / 2 * 1e3,
-            "wall_s": wall}
-        r = out[f"{arch} {policy} {kind}"]
+            "wall_s": r1["wall"]}
         log(f"  {what}: tokens and prefill logits equal to the path without "
-            f"a table; launches {l1} over {calls} calls; "
+            f"a table; launches {r1['host']} over {r1['prefills']} "
+            f"prefills, and in each decode graph {per_call or 'the mix'}; "
             f"{r['decode_step_ms']:.2f} ms a decode step "
             f"({r['decode_step_ms_plain']:.2f} without the table)")
         if kind == "tuned":
@@ -1473,18 +1538,23 @@ def table_paths(torch, fg, arch, params, prompts):
 
 def tuned_ab(torch, pcfg, params, prompts, table):
     """Decode step ms without the table and under it, in turns (AB_ORDER),
-    2 requests of AB_NEW_TOKENS new tokens each: the host clock moves
-    between runs, so one run of each says little."""
+    2 requests of AB_NEW_TOKENS new tokens each, on two warmed engines
+    (each run under its own engine's table): the host clock moves between
+    runs, so one run of each says little."""
     from repro_torch.core.context import ExecContext
-    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.engine import Request
     from repro_torch.tune.table import set_active_table
 
+    tables = {"plain": None, "tuned": table}
+    engines = {}
+    for label, tbl in tables.items():
+        set_active_table(None)
+        engines[label] = serve_engine(torch, pcfg, params,
+                                      context=ExecContext(tuning_table=tbl))
     out = []
     for label in AB_ORDER:
-        tbl = table if label == "tuned" else None
-        set_active_table(None)
-        eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda",
-                     context=ExecContext(tuning_table=tbl))
+        set_active_table(tables[label])
+        eng = engines[label]
         reqs = [Request(prompt=p, max_new_tokens=AB_NEW_TOKENS)
                 for p in prompts[:2]]
         torch.cuda.synchronize()
@@ -1532,10 +1602,6 @@ def smoke_parity(torch, np, arch: str):
     return float(diff)
 
 
-def expected_launches(fg, per_call: dict, calls: int) -> dict:
-    return {mode: per_call.get(mode, 0) * calls for mode in fg.MODES}
-
-
 def path_config(arch: str, policy: str):
     """The full-width config of ``arch`` under a named policy: the
     registry's (``mixed``, ``w12``), ``POLICY_W16``, or every site at the
@@ -1573,133 +1639,688 @@ def serve_inputs(torch, np, arch: str):
     return cfg, params, prompts
 
 
+def nonzero(counts: dict) -> dict:
+    return {k: c for k, c in counts.items() if c}
+
+
+def path_per_call(arch: str, dense: dict, grouped: dict) -> dict:
+    """A path's kernel launches per prefill and per decode step, by the
+    executor's kernel keys (``repro_torch.kernels.launch_counts``)."""
+    out = {f"dense_{m}": c for m, c in dense.items()}
+    out.update({f"grouped_{m}": c for m, c in grouped.items()})
+    if WKV_PER_CALL.get(arch):
+        out["wkv"] = WKV_PER_CALL[arch]
+    return out
+
+
+def serve_counted(torch, fg, eng, reqs, graphs: bool = True):
+    """One ``generate`` with every launch count set to 0 just before and
+    read just after, decode graphed or eager; also the run's prefill calls
+    (the script wraps the executor's entry to count them) and graph
+    replays."""
+    from repro_torch.kernels import launch_counts
+    ex = eng.executor
+    n_prefill = [0]
+    inner = ex.prefill
+
+    def counted(*args, **kw):
+        n_prefill[0] += 1
+        return inner(*args, **kw)
+
+    ex.prefill, ex.graphs = counted, graphs
+    replays0 = dict(ex.replays)
+    reset_all(fg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    stats = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    del ex.prefill
+    ex.graphs = True
+    replays = {w: n - replays0.get(w, 0) for w, n in ex.replays.items()}
+    return {"stats": stats, "wall": wall, "host": nonzero(launch_counts()),
+            "replays": nonzero(replays), "prefills": n_prefill[0],
+            "graphs": graphs, "tokens": [r.generated for r in reqs]}
+
+
+def check_counted(what: str, eng, run: dict, per_call: dict) -> dict:
+    """The exact launch gates of one counted run.  Graphed: the host
+    counters hold prefills x per-call launches (a replay launches through
+    no wrapper), replays equal decode steps and every width's graph
+    captured exactly the per-call launches.  Eager: (prefills + decode
+    steps) x per-call.  Graphed, every width's graph also holds exactly
+    those kernels as nodes (``check_graph_nodes``).  Returns the run's
+    wrapper launches by kind and, graphed, the kernels the replays
+    launched by profile bucket (``replayed``)."""
+    stats = run["stats"]
+    out = {"host": run["host"]}
+    calls = run["prefills"] + (0 if run["graphs"] else stats.decode_steps)
+    want = {k: c * calls for k, c in per_call.items()}
+    if run["host"] != want:
+        fail(f"{what}: launches {run['host']} over {calls} calls, expected "
+             f"{want}: a quantized GEMM bypassed the kernels")
+    if run["graphs"]:
+        if sum(run["replays"].values()) != stats.decode_steps:
+            fail(f"{what}: {run['replays']} graph replays for "
+                 f"{stats.decode_steps} decode steps")
+        for w, got in eng.executor.captured.items():
+            if got != per_call:
+                fail(f"{what}: the width-{w} decode graph captured {got}, "
+                     f"expected {per_call}")
+        out.update(graph_launches(what, eng, run))
+    return out | {"prefill_calls": run["prefills"],
+                  "decode_steps": stats.decode_steps}
+
+
+def graph_launches(what: str, eng, run: dict) -> dict:
+    """A graphed run's decode graphs, their kernel nodes held to their
+    captures (``check_graph_nodes``), its replays, and the kernels those
+    replays launched, by profile bucket: each graph's nodes times its
+    replays."""
+    nodes = check_graph_nodes(what, eng)
+    replayed = {}
+    for w, n in run["replays"].items():
+        for k, c in nodes[w].items():
+            if k != "all":
+                replayed[k] = replayed.get(k, 0) + c * n
+    return {"graph_nodes": nodes, "replays": run["replays"],
+            "replayed": replayed}
+
+
+def check_graph_nodes(what: str, eng) -> dict:
+    """Every decode graph's integer-GEMM and WKV kernel nodes (what each
+    replay launches, read from the driver) equal the launches its capture
+    counted through the wrappers.  Each graph is read once.  Returns the
+    kernel nodes by width (``all``: every kernel node)."""
+    out = {}
+    for w, graph in eng.executor.decode_graphs.items():
+        if not hasattr(graph, "kernel_nodes"):
+            got = graph_kernels(graph)
+            nodes = {k: c for k, c in got.items() if k != "all"}
+            want = bucket_counts(eng.executor.captured[w])
+            if nodes != want:
+                fail(f"{what}: the width-{w} decode graph holds the kernel "
+                     f"nodes {nodes}, its capture launched {want}")
+            graph.kernel_nodes = got
+        out[w] = graph.kernel_nodes
+    return out
+
+
+def serve_engine(torch, pcfg, params, graphs: bool = True, **kw):
+    """A full-width engine as every serve path builds it (4 slots, max_seq
+    256, prompt buckets 8-64), warmed: its decode widths captured as graphs
+    (or, with ``graphs`` False, run eagerly) and its prefill widths run."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda",
+                 prompt_buckets=SERVE_BUCKETS, **kw)
+    eng.executor.graphs = graphs
+    eng.warm()
+    return eng
+
+
+def full_logits(torch, eng, prompt):
+    """Full-width prefill logits of one prompt through ``lm.prefill``."""
+    from repro_torch.models import lm
+    with torch.inference_mode():
+        cache = lm.init_cache(eng.cfg, 1, 256, device="cuda")
+        logits, _, _ = lm.prefill(eng.params, eng.cfg, torch.tensor(
+            [prompt], device="cuda"), cache)
+    return logits
+
+
+def graph_vs_eager(torch, eng, prompts):
+    """Graphed decode against the eager executor on the same pool state:
+    four requests prefilled and decoded once, then one decode step at 4
+    lanes run eagerly and, from the same pool contents, through the graph;
+    logits and every pool tensor ``torch.equal``.  The pool is put back
+    and the requests drained."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    for p in prompts[:4]:
+        eng.submit(Request(prompt=p, max_new_tokens=4))
+    eng.step()
+    n_live, lanes = eng.scheduler.decode_lanes()
+    slots = eng.scheduler.slots
+    toks = np.array([slots[j].last_tok for j in lanes], np.int32)
+    pos = np.array([slots[j].pos for j in lanes], np.int32)
+    ex = eng.executor
+    saved = {p: {k: t.clone() for k, t in leaves.items()}
+             for p, leaves in eng.pool.pools.items()}
+
+    def put_back():
+        for p, leaves in eng.pool.pools.items():
+            for k, t in leaves.items():
+                t.copy_(saved[p][k])
+
+    results = []
+    for graphs in (False, True):
+        put_back()
+        ex.graphs = graphs
+        logits = ex.decode(lanes, toks, pos).clone()
+        results.append((logits, {p: {k: t.clone() for k, t in leaves.items()}
+                                 for p, leaves in eng.pool.pools.items()}))
+    ex.graphs = True
+    put_back()
+    (le, pe), (lg, pg) = results
+    if n_live != 4 or not torch.equal(le, lg) or any(
+            not torch.equal(pe[p][k], pg[p][k]) for p in pe for k in pe[p]):
+        fail("graphed decode differs from the eager executor on the same "
+             "pool state")
+    while eng.num_active:
+        eng.step()
+    return float((le.float() - lg.float()).abs().max())
+
+
 def serve_full(torch, np, fg, arch: str, profile: bool):
     """Phase 5 and the engine half of phase 6 for every path of ``arch``:
-    one set of full-width weights, each path's runs with the launch counts
-    set to 0 just before and read just after."""
-    from repro_torch.kernels import wkv_gemm
-    from repro_torch.models import lm
-    from repro_torch.serve.engine import Engine, Request
+    one set of full-width weights; each path's engine warmed (its decode
+    graphs captured), then its runs with the launch counts set to 0 just
+    before and read just after, its graphs' kernel nodes held to their
+    captures.  The mixed path also runs one step graphed against eager on
+    the same pool state (with ``profile``, also a whole eager run first,
+    its tokens equal to the graphed ones).  Then the table paths, and the
+    paths of PREQUANT_PATHS again on prequantized weights, after the fp32
+    leaves that became records are freed: graphed (with ``profile``, eager
+    too), tokens and prefill logits equal to the per-call run."""
+    from repro_torch.quant.prequant import prequantize
+    from repro_torch.serve.engine import Request
 
     paths = [p for p in PATHS if p[0] == arch]
     cfg, params, prompts = serve_inputs(torch, np, arch)
     lens = [len(p) for p in prompts]
-    n_params = sum(t.numel() for t in _leaves(params))
     temps = [0.0, 0.0, 0.0, 0.8, 0.0, 0.0]
-    torch.cuda.reset_peak_memory_stats()
-    out = {"arch": arch, "parameters": n_params,
-           "param_gb": sum(t.numel() * t.element_size()
-                           for t in _leaves(params)) / 1e9}
-    launches_by_path = {}
+    out = {"arch": arch, "parameters": sum(t.numel()
+                                           for t in _leaves(params)),
+           "param_gb": tree_gb(params)}
+    launches_by_path, baseline = {}, {}
     for _, policy, n_req, new, n_runs, dense, grouped in paths:
         pcfg = path_config(arch, policy)
-        eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda")
-        runs = []
-        for _ in range(n_runs):
-            reqs = [Request(prompt=p, max_new_tokens=new, temperature=t)
+        per_call = path_per_call(arch, dense, grouped)
+        what = f"{arch} {policy}"
+
+        def requests():
+            return [Request(prompt=p, max_new_tokens=new, temperature=t)
                     for p, t in zip(prompts[:n_req], temps)]
-            reset_all(fg)
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            stats = eng.generate(reqs)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            if any(staged_launches().values()):
-                fail(f"{arch} {policy} without a table launched a staged "
-                     f"kernel: {staged_launches()}")
-            runs.append((reqs, stats, dict(fg.launches),
-                         dict(fg.grouped_launches), wall,
-                         wkv_gemm.launches["wkv"]))
-        reqs, stats, got_dense, got_grouped, wall, got_wkv = runs[0]
-        calls = len(reqs) + stats.decode_steps   # prefills + decode steps
-        want_dense = expected_launches(fg, dense, calls)
-        want_grouped = expected_launches(fg, grouped, calls)
-        want_wkv = WKV_PER_CALL.get(arch, 0) * calls
-        log(f"  {arch} {policy} run 1: {stats.generated_tokens} tokens, "
-            f"{stats.decode_steps} decode steps, launches dense {got_dense} "
-            f"grouped {got_grouped} wkv {got_wkv} (expected {want_dense}, "
-            f"{want_grouped}, {want_wkv})")
-        if any(run[5] != WKV_PER_CALL.get(arch, 0)
-               * (len(run[0]) + run[1].decode_steps) for run in runs):
-            fail(f"{arch} {policy}: WKV launches {[run[5] for run in runs]}"
-                 f", expected {WKV_PER_CALL.get(arch, 0)} a prefill and a "
-                 f"decode step")
-        for kind, per_call, got in (("dense", dense, got_dense),
-                                    ("grouped", grouped, got_grouped)):
-            if any(got[mode] <= 0 for mode in per_call):
-                fail(f"{arch} {policy}: the serve path did not launch every "
-                     f"{kind} kernel: {got}")
-        if got_dense != want_dense or got_grouped != want_grouped:
-            fail(f"{arch} {policy}: a quantized GEMM bypassed the kernels: "
-                 f"dense {got_dense}, grouped {got_grouped}")
-        for r in reqs:
-            if len(r.generated) != new or not all(
-                    0 <= t < cfg.vocab_size for t in r.generated):
-                fail(f"{arch} {policy}: bad token stream {r.generated}")
-        if n_runs > 1:
-            for r1, r2, t in zip(reqs, runs[1][0], temps):
-                if t == 0.0 and r1.generated != r2.generated:
-                    fail(f"{arch} {policy}: greedy output changed on an "
-                         f"identical second run")
-        launches_by_path[f"{arch} {policy}"] = {"dense": got_dense,
-                                                "grouped": got_grouped,
-                                                "wkv": got_wkv}
-        if policy != "mixed":
-            stats_w, wall_w = runs[-1][1], runs[-1][4]
-            out[f"{policy}_run"] = {
-                "calls": calls, "wall_s": wall, "wall_s_last": wall_w,
-                "decode_steps": stats_w.decode_steps,
-                "decode_step_ms": stats_w.decode_s / stats_w.decode_steps
-                * 1e3,
-                "prefill_ms_per_request": stats_w.prefill_s / len(reqs) * 1e3,
-                "launches": launches_by_path[f"{arch} {policy}"]}
-            log(f"  {arch} {policy} run {len(runs)}: "
-                f"{out[f'{policy}_run']['decode_step_ms']:.2f} ms a decode "
-                f"step, {out[f'{policy}_run']['prefill_ms_per_request']:.1f}"
-                f" ms a prefill" + ("; greedy streams repeat"
-                                    if n_runs > 1 else ""))
-            if profile and (arch, policy) in PROFILED_WIDE:
-                out[f"{policy}_run"]["profile"] = profile_decode(
-                    torch, eng, prompts,
-                    out[f"{policy}_run"]["decode_step_ms"])
-            continue
-        # full-width logits: finite, padded vocab masked
-        with torch.inference_mode():
-            cache = lm.init_cache(pcfg, 1, 256, device="cuda")
-            logits, _, _ = lm.prefill(eng.params, pcfg, torch.tensor(
-                [prompts[0]], device="cuda"), cache)
-        if tuple(logits.shape) != (1, cfg.padded_vocab) or not \
-                torch.isfinite(logits[:, :cfg.vocab_size].float()).all():
-            fail(f"{arch}: full-width logits bad: {tuple(logits.shape)}")
-        if not (logits[:, cfg.vocab_size:].float() < -1e29).all():
-            fail(f"{arch}: padded vocab columns are not masked")
-        stats2, wall2 = runs[1][1], runs[1][4]
-        prompt_tokens = sum(lens)
-        decode_tokens = stats2.generated_tokens - len(reqs)
-        out.update({
-            "requests": len(reqs), "prompt_tokens": prompt_tokens,
-            "generated_tokens": stats2.generated_tokens,
-            "decode_steps": stats2.decode_steps,
-            "prefill_s": stats2.prefill_s, "decode_s": stats2.decode_s,
-            "prefill_tokens_per_s": prompt_tokens / stats2.prefill_s,
-            "decode_tokens_per_s": decode_tokens / stats2.decode_s,
-            "decode_step_ms": stats2.decode_s / stats2.decode_steps * 1e3,
-            "prefill_ms_per_request": stats2.prefill_s / len(reqs) * 1e3,
-            "wall_s_run1": wall, "wall_s_run2": wall2,
-            "launches_run1": launches_by_path[f"{arch} {policy}"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        })
-        log(f"  {arch} run 2 (warm): prefill "
-            f"{out['prefill_tokens_per_s']:.1f} tok/s, decode "
-            f"{out['decode_tokens_per_s']:.1f} tok/s "
-            f"({out['decode_step_ms']:.2f} ms/step at <= 4 lanes), wall "
-            f"{wall2:.2f} s, peak {out['peak_mem_gb']:.2f} GB; greedy "
-            f"streams repeat")
-        if profile:
-            out["profile"] = profile_decode(torch, eng, prompts,
-                                            out["decode_step_ms"])
+
+        modes = ({"eager": serve_mode(torch, fg, pcfg, params, requests,
+                                      what, per_call, False, 1, profile,
+                                      prompts)}
+                 if policy == "mixed" and profile else {})
+        modes["graphed"] = serve_mode(
+            torch, fg, pcfg, params, requests, what, per_call, True, n_runs,
+            profile and (policy == "mixed" or (arch, policy)
+                         in PROFILED_WIDE), prompts,
+            check_eager=policy == "mixed")
+        first = modes["graphed"].pop("first")
+        logits = modes["graphed"].pop("logits")
+        if "eager" in modes and \
+                modes["eager"].pop("first")["tokens"] != first["tokens"]:
+            fail(f"{what}: graphed decode changed a token against the "
+                 f"eager executor")
+        for r in first["tokens"]:
+            if len(r) != new or not all(0 <= t < cfg.vocab_size
+                                        for t in r):
+                fail(f"{what}: bad token stream {r}")
+        launches_by_path[what] = modes["graphed"]["launches"]
+        if (arch, policy) in PREQUANT_PATHS:
+            baseline[policy] = (first["tokens"], logits)
+        out[f"{policy}_run"] = modes
+        log(f"  {what}: " + "; ".join(
+            f"{m} {r['decode_step_ms']:.2f} ms a decode step, "
+            f"{r['prefill_tokens_per_s']:.1f} prefill tok/s, peak "
+            f"{r['peak_mem_gb']:.2f} GB" for m, r in modes.items())
+            + ("; graphed == eager (one step's logits and pool"
+               + (", tokens" if "eager" in modes else "") + ")"
+               if policy == "mixed" else ""))
+    seconds = {"paths": sum(m["seconds"] for r in out.values()
+                            if isinstance(r, dict)
+                            for m in r.values() if isinstance(m, dict))}
+    t0 = time.monotonic()
     out["table_paths"] = table_paths(torch, fg, arch, params, prompts)
+    seconds["table_paths"] = time.monotonic() - t0
+
+    # Prequantized weights: records for every policy served on them (all
+    # but the first kept on the host until their turn), then the fp32
+    # leaves that became records freed before the peak is reset.
+    from repro_torch.bridge import tree_map
+    pols = [pol for a, pol in PREQUANT_PATHS if a == arch]
+    records = {}
+    for i, pol in enumerate(pols):
+        rec = prequantize(params, path_config(arch, pol).quant)
+        records[pol] = rec if i == 0 else tree_map(lambda t: t.cpu(), rec)
+        del rec
+    fp32_gb = out["param_gb"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prequant"] = {}
+    for pol in pols:
+        _, _, n_req, new, n_runs, dense, grouped = next(
+            p for p in paths if p[1] == pol)
+        pcfg = path_config(arch, pol)
+        per_call = path_per_call(arch, dense, grouped)
+        what = f"{arch} {pol} prequantized"
+        qparams = tree_map(lambda t: t.to("cuda"), records.pop(pol))
+
+        def requests():
+            return [Request(prompt=p, max_new_tokens=new, temperature=t)
+                    for p, t in zip(prompts[:n_req], temps)]
+
+        modes = ({"eager": serve_mode(
+            torch, fg, pcfg, qparams, requests, what, per_call, False, 1,
+            pol == "mixed", prompts)} if profile else {})
+        modes["graphed"] = serve_mode(
+            torch, fg, pcfg, qparams, requests, what, per_call, True, n_runs,
+            profile and pol == "mixed", prompts, check_eager=True,
+            witness=pol == "mixed", uncopied=True)
+        tokens, logits = baseline[pol]
+        for mode, r in list(modes.items()):
+            if r.pop("first")["tokens"] != tokens:
+                fail(f"{what} ({mode}): tokens differ from the per-call "
+                     f"weights' run")
+        if not torch.equal(modes["graphed"].pop("logits"), logits):
+            fail(f"{what}: full-width prefill logits differ from the "
+                 f"per-call weights'")
+        modes["weights_gb"] = tree_gb(qparams)
+        modes["fp32_weights_gb"] = fp32_gb
+        launches_by_path[what] = modes["graphed"]["launches"]
+        out["prequant"][pol] = modes
+        log(f"  {what}: weights {modes['weights_gb']:.2f} GB (fp32 "
+            f"{fp32_gb:.2f}); tokens and prefill logits equal to the "
+            f"per-call run; " + "; ".join(
+                f"{m} {r['decode_step_ms']:.2f} ms a decode step, "
+                f"peak {r['peak_mem_gb']:.2f} GB"
+                for m, r in modes.items() if isinstance(r, dict)))
+        seconds[f"prequant {pol}"] = sum(
+            r["seconds"] for r in modes.values() if isinstance(r, dict))
+        if (arch, pol) in CHUNKED_PATHS:
+            t0 = time.monotonic()
+            out["prequant"][pol]["chunked_prefix"] = chunked_prefix_run(
+                torch, np, fg, arch, pcfg, qparams, per_call)
+            seconds["chunked_prefix"] = time.monotonic() - t0
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    log(f"  {arch} serve seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
     return out, launches_by_path
+
+
+def tree_gb(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)) / 1e9
+
+
+def serve_mode(torch, fg, pcfg, params, requests, what, per_call,
+               graphs: bool, n_runs: int, profile: bool, prompts,
+               check_eager: bool = False, witness: bool = False,
+               uncopied: bool = False):
+    """One path on one engine, decode graphed or eager: ``n_runs``
+    identical counted runs (greedy streams repeat), each gated; timings
+    from the last; peak device memory from the engine's construction on;
+    with ``check_eager`` one step graphed against eager on the same pool
+    state, with ``witness`` a profiler count of the kernels replayed, with
+    ``uncopied`` the records' codes followed to the kernel, and with
+    ``profile`` a device-time profile."""
+    label = f"{what} {'graphed' if graphs else 'eager'}"
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve_engine(torch, pcfg, params, graphs)
+    runs = []
+    for _ in range(n_runs):
+        reqs = requests()
+        runs.append(serve_counted(torch, fg, eng, reqs, graphs))
+        launches = check_counted(label, eng, runs[-1], per_call)
+    for r1, r2, req in zip(runs[0]["tokens"], runs[-1]["tokens"], reqs):
+        if req.temperature == 0.0 and r1 != r2:
+            fail(f"{label}: greedy output changed on an identical run")
+    stats, n = runs[-1]["stats"], len(reqs)
+    out = {
+        "first": runs[0], "runs": n_runs, "launches": launches,
+        "decode_steps": stats.decode_steps,
+        "decode_step_ms": stats.decode_s / stats.decode_steps * 1e3,
+        "prefill_ms_per_request": stats.prefill_s / n * 1e3,
+        "prefill_tokens_per_s": sum(len(r.prompt) for r in reqs)
+        / stats.prefill_s,
+        "decode_tokens_per_s": (stats.generated_tokens - n) / stats.decode_s,
+        "wall_s": runs[-1]["wall"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if graphs:
+        out["graph_widths"] = sorted(eng.executor.captured)
+        out["logits"] = full_logits(torch, eng, prompts[0])
+        lg = out["logits"]
+        if not torch.isfinite(lg[:, :pcfg.vocab_size].float()).all() or \
+                not (lg[:, pcfg.vocab_size:].float() < -1e29).all():
+            fail(f"{label}: full-width logits are not finite or the padded "
+                 f"vocab is not masked")
+    if check_eager:
+        out["graph_vs_eager_max_abs"] = graph_vs_eager(torch, eng, prompts)
+    if witness:
+        out["witness"] = profile_witness(torch, eng, prompts, label)
+    if uncopied:
+        out["records_uncopied"] = records_uncopied(torch, fg, eng, prompts,
+                                                   label)
+        log(f"  {label}: all {out['records_uncopied']} record slices "
+            f"reached the kernel uncopied")
+    if profile:
+        eng.executor.graphs = graphs
+        out["profile"] = profile_decode(torch, eng, prompts,
+                                        out["decode_step_ms"])
+        eng.executor.graphs = True
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def records_uncopied(torch, fg, eng, prompts, label: str) -> int:
+    """Every record's codes reach the kernel as stored, with no
+    weight-sized cast or copy: two short requests run eagerly with the
+    fused kernel's launch spied on, and the storage of every record (each
+    period's slice of a stacked one) must be a B operand the kernel got.
+    Returns how many record slices were checked."""
+    from repro_torch.quant.prequant import is_prequantized
+    from repro_torch.serve.engine import Request
+    want = set()
+
+    def walk(tree, stacked):
+        if is_prequantized(tree):
+            q = tree["q"]
+            want.update(q[i].data_ptr() for i in range(q.shape[0])) \
+                if stacked else want.add(q.data_ptr())
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, stacked or k == "blocks")
+
+    walk(eng.params, False)
+    seen = set()
+    launch = fg._launch
+
+    def spy(a, b, *args, **kw):
+        seen.add(b.data_ptr())
+        return launch(a, b, *args, **kw)
+
+    fg._launch, eng.executor.graphs = spy, False
+    try:
+        eng.generate([Request(prompt=p, max_new_tokens=2)
+                      for p in prompts[:2]])
+    finally:
+        fg._launch, eng.executor.graphs = launch, True
+    if not want or want - seen:
+        fail(f"{label}: {len(want - seen)} of {len(want)} records reached "
+             f"the kernel copied")
+    return len(want)
+
+
+# The profile buckets (kernel_bucket) of the staged wrappers' counters.
+WITNESS_KEYS = {"mm1_gemm": "staged_mm1",
+                "kmm2_gemm_planes_s8": "staged_kmm2_s8",
+                "kmm2_gemm_planes_split": "staged_kmm2_split",
+                "mm2_gemm_planes": "staged_mm2"}
+
+
+def bucket_counts(captured: dict) -> dict:
+    """A graph's captured launches under the profile buckets' names."""
+    return {WITNESS_KEYS.get(k, k[len("dense_"):] if k.startswith("dense_")
+                             else k): c for k, c in captured.items()}
+
+
+def profile_witness(torch, eng, prompts, label: str) -> dict:
+    """The profiler's count of the integer-GEMM and WKV kernels in
+    WITNESS_STEPS replayed decode steps at 4 lanes, one profiler session
+    a step (CUPTI drops records from a session of ~20,000 kernels and
+    more): each step must launch exactly what the width-4 graph
+    captured."""
+    want = bucket_counts(eng.executor.captured[4])
+    steps = []
+    for _ in range(WITNESS_STEPS):
+        prof = profile_decode(torch, eng, prompts, None, n=1)
+        got = {k: c for k, c in prof["launches_per_step"].items() if c}
+        if got != want:
+            fail(f"{label}: the profiler saw {got} kernels in a replayed "
+                 f"step, the graph captured {want}")
+        steps.append(prof["kernels_per_step"])
+    log(f"  {label}: profiler witness, {WITNESS_STEPS} replayed steps: "
+        f"{want} a step, as captured")
+    return {"launches_per_step": want, "kernels_per_step": steps}
+
+
+def graph_kernels(graph) -> dict:
+    """The kernel nodes of a captured CUDA graph, by profile bucket
+    (``kernel_bucket`` of each node's demangled function name), read from
+    the driver: exactly what every replay of the graph launches.  Also
+    ``"all"``, every kernel node."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p),
+                    ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                    ("shared_mem_bytes", ctypes.c_uint),
+                    ("kernel_params", ctypes.c_void_p),
+                    ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                    ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    libc = ctypes.CDLL(None)
+    demangle = cxx.__cxa_demangle
+    demangle.restype = ctypes.c_void_p
+    demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.POINTER(ctypes.c_int)]
+
+    def check(err, what):
+        if err != 0:
+            fail(f"{what} failed: CUresult {err}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names, out = {}, {"all": 0}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        key = (params.func, params.kern)
+        if key not in names:
+            raw = ctypes.c_char_p()
+            if params.func:
+                check(cu.cuFuncGetName(ctypes.byref(raw),
+                                       ctypes.c_void_p(params.func)),
+                      "cuFuncGetName")
+            else:
+                check(cu.cuKernelGetName(ctypes.byref(raw),
+                                         ctypes.c_void_p(params.kern)),
+                      "cuKernelGetName")
+            status = ctypes.c_int()
+            text = demangle(raw.value, None, None, ctypes.byref(status))
+            names[key] = (ctypes.string_at(text).decode() if text
+                          else raw.value.decode())
+            if text:
+                libc.free(ctypes.c_void_p(text))
+        out["all"] += 1
+        bucket = kernel_bucket(names[key])
+        if bucket is not None:
+            out[bucket] = out.get(bucket, 0) + 1
+    return out
+
+
+def chunked_prefix_run(torch, np, fg, arch, pcfg, qparams, per_call):
+    """Chunked prefill with prefix sharing at full width, on records: four
+    prompts sharing an 80-token head, 2 slots, chunks of CHUNK tokens,
+    snapshots at 64 tokens (lcm of page 64, chunk 32 and 8), each engine
+    warmed and its run under the exact launch gates: with prefix sharing
+    (at least 2 hits) and chunked without it.  A hit restores what a cold
+    chunked prefill computes at the same chunk boundaries, so the prefix
+    engine's greedy tokens must equal the chunked engine's.  (Against the
+    unchunked engine the tokens need not be equal on the card: see
+    ``chunk_study``.)"""
+    from repro_torch.serve.engine import Engine, Request
+    prompts = shared_head_prompts(np, pcfg, 5)
+    runs = {}
+    for label, kw in (("prefix", dict(prefill_chunk=CHUNK,
+                                      prefix_cache=True)),
+                      ("chunked", dict(prefill_chunk=CHUNK))):
+        eng = Engine(pcfg, qparams, max_seq=256, batch_size=2,
+                     device="cuda", **kw)
+        eng.warm()
+        reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
+        run = serve_counted(torch, fg, eng, reqs)
+        run["launches"] = check_counted(f"{arch} {label}", eng, run,
+                                        per_call)
+        if label == "prefix":
+            run["prefix_cache"] = eng.prefix.stats()
+        runs[label] = run
+    st = runs["prefix"]["prefix_cache"]
+    if runs["prefix"]["tokens"] != runs["chunked"]["tokens"] \
+            or st["hits"] < 2:
+        fail(f"{arch} chunked prefill with prefix sharing: tokens differ "
+             f"from the chunked engine's or too few hits ({st})")
+    log(f"  {arch} chunked (chunk {CHUNK}) with prefix sharing: tokens "
+        f"equal to the chunked engine without it; prefix cache {st}; "
+        f"{runs['prefix']['prefills']} prefill chunks, launches exact")
+    return {label: {"tokens": r["tokens"], "launches": r["launches"],
+                    "prefill_s": r["stats"].prefill_s,
+                    "decode_s": r["stats"].decode_s,
+                    "decode_steps": r["stats"].decode_steps}
+            for label, r in runs.items()} | {"prefix_cache": st}
+
+
+def shared_head_prompts(np, pcfg, seed: int):
+    """Four prompts sharing a SHARED_HEAD-token head, tails TAILS long."""
+    rng = np.random.default_rng(seed)
+    head = [int(t) for t in rng.integers(1, pcfg.vocab_size, SHARED_HEAD)]
+    return [head + [int(t) for t in rng.integers(1, pcfg.vocab_size, n)]
+            for n in TAILS]
+
+
+def chunk_study(torch, np, fg):
+    """``--chunk-study``: chunked prefill (CHUNK) against single-shot
+    prefill on the card, for each model of CHUNKED_PATHS on its mixed
+    records, the 5c prompts (seed 5) and a second set (seed 6), each
+    served twice by the same two warmed engines (2 slots, 8 new greedy
+    tokens).  Every logits row the engines sample from is kept, so for
+    each stream it reports whether the tokens are equal, the first token
+    that differs, the first step whose logits differ at all and the max
+    |difference| there, and whether a second run repeats the first bit
+    for bit.  Reported, not gated."""
+    from repro_torch.quant.prequant import prequantize
+    from repro_torch.serve.engine import Engine, Request
+
+    out = {}
+    for arch, pol in CHUNKED_PATHS:
+        pcfg = path_config(arch, pol)
+        _, params, _ = serve_inputs(torch, np, arch)
+        qparams = prequantize(params, pcfg.quant)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        engines = {}
+        for label, kw in (("chunked", dict(prefill_chunk=CHUNK)),
+                          ("unchunked", {})):
+            eng = engines[label] = Engine(pcfg, qparams, max_seq=256,
+                                          batch_size=2, device="cuda", **kw)
+            eng.warm()
+
+        def serve(eng, prompts):
+            """Greedy tokens by request, and the logits row each token was
+            sampled from, by (request, step)."""
+            rows, ex = {}, eng.executor
+            inner = ex.sample
+
+            def keep(seed, logits, temps, rids, steps):
+                # a padding lane (request id 0, step 0) comes after the
+                # real (0, 0) row, which the engine samples at prefill
+                for lane, (rid, step) in enumerate(zip(rids, steps)):
+                    rows.setdefault((int(rid), int(step)),
+                                    logits[lane].float().cpu())
+                return inner(seed, logits, temps, rids, steps)
+
+            ex.sample = keep
+            reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
+            try:
+                eng.generate(reqs)
+            finally:
+                del ex.sample
+            return [r.generated for r in reqs], {
+                (i, j): rows[(r.stats.rid, j)] for i, r in enumerate(reqs)
+                for j in range(len(r.generated))}
+
+        for seed in (5, 6):
+            prompts = shared_head_prompts(np, pcfg, seed)
+            runs = [{label: serve(eng, prompts)
+                     for label, eng in engines.items()} for _ in range(2)]
+            streams = []
+            for i in range(len(prompts)):
+                (tc, lc), (tu, lu) = runs[0]["chunked"], runs[0]["unchunked"]
+                first_tok = next((j for j, (a, b) in enumerate(
+                    zip(tc[i], tu[i])) if a != b), None)
+                first_logit, max_abs = None, 0.0
+                for j in range(len(tc[i]) if first_tok is None
+                               else first_tok + 1):
+                    a, b = lc[(i, j)], lu[(i, j)]
+                    if not torch.equal(a, b):
+                        first_logit = j
+                        max_abs = float((a - b).abs().max())
+                        break
+                streams.append({
+                    "tokens_equal": first_tok is None,
+                    "first_token_differs": first_tok,
+                    "first_logits_differ": first_logit,
+                    "max_abs_logit_diff_there": max_abs})
+            repeat = all(
+                runs[0][k][0] == runs[1][k][0] and all(
+                    torch.equal(runs[0][k][1][key], runs[1][k][1][key])
+                    for key in runs[0][k][1])
+                for k in engines)
+            out[f"{arch} seed {seed}"] = {"streams": streams,
+                                          "second_run_repeats": repeat}
+            log(f"  {arch} seed {seed}: chunked vs unchunked per stream "
+                + "; ".join(
+                    "equal" if st["tokens_equal"] else
+                    f"token {st['first_token_differs']} differs (logits "
+                    f"first at step {st['first_logits_differ']}, max |diff| "
+                    f"{st['max_abs_logit_diff_there']:.4g})"
+                    for st in streams)
+                + f"; second run repeats bit for bit: {repeat}")
+        del engines, qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def row_invariance(torch) -> dict:
+    """Whether ops outside the integer GEMMs give a row the same bits
+    whatever the number of rows (what chunked prefill needs to equal a
+    single-shot prefill): rwkv's decay LoRA products in fp32 (ATen's
+    matmul, (M, 2560) x (2560, 64) and (M, 64) x (64, 2560)) and a row
+    mean over 2560, each at M 1-64 against the same rows of M = 128;
+    the max |difference|, reported, not gated."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = {}
+    for name, k, n in (("matmul fp32 2560x64", 2560, 64),
+                       ("matmul fp32 64x2560", 64, 2560)):
+        x = torch.randn(128, k, device="cuda", generator=gen)
+        w = torch.randn(k, n, device="cuda", generator=gen)
+        full = x @ w
+        for m in (1, 8, 32, 64):
+            out[f"{name} M={m}"] = float((x[:m] @ w - full[:m]).abs().max())
+    x = torch.randn(128, 2560, device="cuda", generator=gen)
+    full = x.mean(-1)
+    for m in (1, 8, 32, 64):
+        out[f"mean over 2560 M={m}"] = float((x[:m].mean(-1)
+                                              - full[:m]).abs().max())
+    log("  rows against the same rows of M = 128 (max |diff|): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    return out
 
 
 def profile_path(torch, np, fg, arch: str, policy: str,
@@ -1716,44 +2337,68 @@ def profile_path(torch, np, fg, arch: str, policy: str,
 
     pcfg = path_config(arch, policy)
     if table_kind:
-        per_call = next(p[3] for p in TABLE_PATHS
-                        if p[:3] == (arch, policy, table_kind))
-        n_req, new, dense, grouped = 2, 4, {}, {}
+        n_req, new = 2, 4
         context = ExecContext(tuning_table=forcing_table(pcfg))
     else:
-        _, _, n_req, new, _, dense, grouped = next(
+        _, _, n_req, new, _, _, _ = next(
             p for p in PATHS if p[:2] == (arch, policy))
-        per_call, context = {}, None
+        context = None
     _, params, prompts = serve_inputs(torch, np, arch)
     eng = Engine(pcfg, params, max_seq=256, batch_size=4, device="cuda",
                  context=context)
+    if hasattr(eng, "warm"):
+        eng.warm()
     reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts[:n_req]]
     reset_all(fg)
     stats = eng.generate(reqs)
     torch.cuda.synchronize()
-    calls = len(reqs) + stats.decode_steps
     log(f"  {arch} {policy}{' ' + table_kind if table_kind else ''}: "
         f"{stats.decode_steps} decode steps, launches dense "
         f"{dict(fg.launches)} grouped {dict(fg.grouped_launches)} staged "
-        f"{staged_launches()} (expected "
-        f"{expected_launches(fg, dense, calls)}, "
-        f"{expected_launches(fg, grouped, calls)}, staged "
-        f"{ {k: c * calls for k, c in per_call.items()} })")
+        f"{staged_launches()} (decode graphs: "
+        f"{getattr(eng.executor, 'captured', 'none')})")
     return profile_decode(torch, eng, prompts,
                           stats.decode_s / stats.decode_steps * 1e3)
 
 
-def profile_decode(torch, eng, prompts, step_ms: float):
+def kernel_bucket(name: str):
+    """The integer-GEMM or WKV kernel a profiler event name is, or None:
+    mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2, mm2 and kmm4
+    fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4); the
+    staged mm1, kmm2 s8, kmm2 split and mm2 kernels staged_pipe_kernel<
+    layout, ...> (layout 1, 2, 3, 4; in older checkouts
+    staged_gemm_kernel<layout, ...>, and mm2 the untemplated
+    staged_gemm_kernel); the WKV kernels wkv_kernel<D> and
+    wkv_step_kernel<D>."""
+    for mode, prefix in (("mm1", "fused_mm1_kernel<"),
+                         ("kmm2", "fused_split_kernel<2,"),
+                         ("mm2", "fused_split_kernel<3,"),
+                         ("kmm4", "fused_split_kernel<4,")):
+        if prefix in name:
+            grouped = name.split(">")[0].endswith("true")
+            return ("grouped_" if grouped else "") + mode
+    for key, layout in (("staged_mm1", 1), ("staged_kmm2_s8", 2),
+                        ("staged_kmm2_split", 3), ("staged_mm2", 4)):
+        if (f"staged_pipe_kernel<{layout}," in name
+                or f"staged_gemm_kernel<{layout}," in name
+                or (layout == 4 and "staged_gemm_kernel(" in name)):
+            return key
+    if "wkv_kernel<" in name or "wkv_step_kernel<" in name:
+        return "wkv"
+    return None
+
+
+def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     """Device time by kernel over decode steps only (torch.profiler): four
     requests are admitted and prefilled first, then ``n`` engine steps at 4
-    live lanes are traced.  Only GPU kernel events are summed (the
-    profiler also lists each ATen op with its kernels' time).  The device's
-    idle share is 1 - busy / ``step_ms``, the un-profiled decode step."""
+    live lanes are traced (graph replays or eager steps, as the executor
+    is set).  Only GPU kernel events are summed (the profiler also lists
+    each ATen op with its kernels' time).  The device's idle share is 1 -
+    busy / ``step_ms``, the un-profiled decode step."""
     from repro_torch.serve.engine import Request
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = 4
     for p in prompts[:4]:
         eng.submit(Request(prompt=p, max_new_tokens=n + 2))
     eng.step()                          # admit + prefill + first decode
@@ -1774,46 +2419,30 @@ def profile_decode(torch, eng, prompts, step_ms: float):
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         rows.append({"name": ev.key[:120], "ms_per_step": dev_us / 1e3 / n,
-                     "per_step": ev.count / n})
+                     "per_step": ev.count / n, "count": ev.count})
     rows.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in rows)
-    # mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2, mm2 and kmm4
-    # fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4); the
-    # staged mm1, kmm2 s8, kmm2 split and mm2 kernels
-    # staged_pipe_kernel<layout, ...> (layout 1, 2, 3, 4; in older
-    # checkouts staged_gemm_kernel<layout, ...>, and mm2 the untemplated
-    # staged_gemm_kernel)
-    def bucket(name):
-        for mode, prefix in (("mm1", "fused_mm1_kernel<"),
-                             ("kmm2", "fused_split_kernel<2,"),
-                             ("mm2", "fused_split_kernel<3,"),
-                             ("kmm4", "fused_split_kernel<4,")):
-            if prefix in name:
-                grouped = name.split(">")[0].endswith("true")
-                return ("grouped_" if grouped else "") + mode
-        for key, layout in (("staged_mm1", 1), ("staged_kmm2_s8", 2),
-                            ("staged_kmm2_split", 3), ("staged_mm2", 4)):
-            if (f"staged_pipe_kernel<{layout}," in name
-                    or f"staged_gemm_kernel<{layout}," in name
-                    or (layout == 4 and "staged_gemm_kernel(" in name)):
-                return key
-        return None
-
     gemm = {f"{kind}{mode}": 0.0 for mode in ("mm1", "kmm2", "mm2", "kmm4")
             for kind in ("", "grouped_")}
     gemm.update({f"staged_{k}": 0.0 for k in ("mm1", "kmm2_s8",
                                               "kmm2_split", "mm2")})
+    counts = {"wkv": 0, **{k: 0 for k in gemm}}
     for r in rows:
-        key = bucket(r["name"])
+        key = kernel_bucket(r["name"])
         if key is not None:
-            gemm[key] += r["ms_per_step"]
+            gemm[key] = gemm.get(key, 0.0) + r["ms_per_step"]
+            counts[key] += r["count"]
     out = {"steps": n, "lanes": 4, "device_busy_ms_per_step": busy,
            "gemm_ms_per_step": gemm,
+           "launches_per_step": {k: c / n for k, c in counts.items()},
            "kernels_per_step": sum(r["per_step"] for r in rows),
            "profiled_step_wall_ms": wall_ms, "step_ms": step_ms,
-           "idle_share": 1 - busy / step_ms, "by_kernel": rows[:30]}
+           "idle_share": 1 - busy / step_ms if step_ms else None,
+           "by_kernel": rows[:30]}
+    if step_ms is None:
+        return out
     log(f"  profile, {n} decode steps at 4 lanes: device busy {busy:.2f} "
-        f"ms/step (integer GEMM kernels " + ", ".join(
+        f"ms/step (integer GEMM and WKV kernels " + ", ".join(
             f"{k} {v:.3f}" for k, v in gemm.items() if v) + f"), "
         f"{out['kernels_per_step']:.0f} kernels/step; idle share "
         f"{out['idle_share']:.2f} of the {step_ms:.2f} ms step")
@@ -1835,8 +2464,12 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    launches_by_path, staged_rows, sweep_staged, table_runs,
                    wkv_rows):
     """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
-    for the result line.  ``launches`` sums the first run of every serve
-    path (``launches_by_path`` has each).
+    for the result line.  ``launches`` sums the wrapper's counts over the
+    last counted run of every serve path (``launches_by_path`` has each):
+    prefills, as a decode graph's replay passes no wrapper;
+    ``launches_in_graph_replays`` beside it is what the decode graphs'
+    replays in those runs launched: each graph's kernel nodes, read from
+    the driver, times the replays counted in the run.
 
     Dense mm1 at the prefill shape of llama's wi/wg (M=64, where
     torch._int_mm, which needs M > 16, can run on the same inputs; its
@@ -1846,7 +2479,11 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
     lanes (wi/wg, C=32).  No library call computes the kmm2, mm2 or kmm4
     function or the ragged grouped product."""
     def total(kind, mode):
-        return sum(counts[kind][mode] for counts in launches_by_path.values())
+        return sum(counts["host"].get(f"{kind}_{mode}", 0)
+                   for counts in launches_by_path.values())
+
+    def replayed(bucket, runs):
+        return sum(c.get("replayed", {}).get(bucket, 0) for c in runs)
 
     def entry(name, kind, mode, row, all_rows, shape, library_ms):
         return {
@@ -1857,6 +2494,9 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                          if kind == "dense" else
                          "src/repro/kernels/fused_gemm.py:437"),
             "launches": total(kind, mode),
+            "launches_in_graph_replays": replayed(
+                mode if kind == "dense" else f"grouped_{mode}",
+                launches_by_path.values()),
             "max_abs_err": max(max(r["max_abs_err_dequant_bf16"],
                                    r["max_abs_err_raw"])
                                for r in all_rows if r["mode"] == mode),
@@ -1936,9 +2576,13 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
         out.append({
             "name": name, "route": "cuda", "source": STAGED_SOURCES[name],
             "replaces": replaces[name],
-            "launches": sum(run["launches"]["staged"].get(name, 0)
+            "launches": sum(run["launches"]["host"].get(name, 0)
                             for runs in table_runs.values()
                             for run in runs.values()),
+            "launches_in_graph_replays": replayed(
+                WITNESS_KEYS[name], [run["launches"] for runs in
+                                     table_runs.values()
+                                     for run in runs.values()]),
             "max_abs_err": max(r["max_abs_err"]
                                for r in staged_rows + sweep_staged
                                if r["kernel"] == name),
@@ -1960,7 +2604,10 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
     out.append({
         "name": "wkv", "route": "cuda", "source": WKV_SOURCE,
         "replaces": "src/repro/kernels/wkv_gemm.py:33",
-        "launches": sum(c.get("wkv", 0) for c in launches_by_path.values()),
+        "launches": sum(c["host"].get("wkv", 0)
+                        for c in launches_by_path.values()),
+        "launches_in_graph_replays": replayed("wkv",
+                                              launches_by_path.values()),
         "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1975,6 +2622,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a short serve run with torch.profiler")
+    ap.add_argument("--chunk-study", action="store_true",
+                    help="only build and compare chunked with single-shot "
+                    "prefill at full width, two prompt sets, two runs "
+                    "(writes chiprun_out/chunk_study.json)")
     ap.add_argument("--profile-path", metavar="ARCH:POLICY[:forced]",
                     help="only build, serve this one path of PATHS (with "
                     ":forced, of TABLE_PATHS under its forcing table) once "
@@ -2032,6 +2683,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if args.chunk_study:
+        study = chunk_study(torch, np, fg)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chunk_study.json").write_text(json.dumps(
+            {"card": card, "chunk": CHUNK, "study": study}, indent=1))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     seconds = {"build": time.monotonic() - t0}
     t0 = time.monotonic()
     log("[3] kernels vs plain versions (torch.equal) at the paths' shapes")
@@ -2080,6 +2743,9 @@ def main() -> int:
         launches_by_path.update(by_path)
         torch.cuda.empty_cache()
 
+    log("[5r] row-count invariance of the ops outside the integer GEMMs")
+    rows_inv = row_invariance(torch)
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
@@ -2091,6 +2757,7 @@ def main() -> int:
               "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
+              "row_invariance": rows_inv,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

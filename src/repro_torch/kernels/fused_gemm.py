@@ -322,6 +322,19 @@ def _workspace(device, stream: int, plan: mm1_plan.SplitKPlan):
     return ws, counters
 
 
+def workspace_tensors(device, stream: int) -> Tuple[torch.Tensor, ...]:
+    """The split-K workspace tensors held now for (``device``, ``stream``):
+    a CUDA graph that captured launches on that stream must keep them
+    alive, and a capture that finds them replaced captured a freed one.
+    ``device`` is a tensor's device: the workspace is keyed by its index,
+    which a bare ``torch.device("cuda")`` lacks."""
+    if device.type == "cuda" and device.index is None:
+        raise ValueError("workspace_tensors needs an indexed CUDA device "
+                         "(a tensor's .device), got 'cuda'")
+    return tuple(t for t in _WORKSPACE.get((device.index, stream), ())
+                 if t is not None)
+
+
 # C entry points: library, pointer arguments, then int ones, then the
 # stream.
 _SIGNATURES = {"fused_mm1_launch": ("fused_mm1", 7, 9),

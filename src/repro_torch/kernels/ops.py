@@ -48,9 +48,9 @@ from repro_torch.kernels.ref import (ref_int_gemm, ref_kmm2_planes,
                                      ref_mm2_planes)
 from repro_torch.kernels.ref import split_planes as _planes
 
-_NOT_PORTED = ("is not ported yet (ROADMAP, modules to port: item 2, the "
-               "integer numerics core with its XLA digit recursion and "
-               "kernels/ffip.py, and item 10, core/strassen.py)")
+_NOT_PORTED = ("is not ported yet (ROADMAP, modules to port: \"Integer "
+               "numerics core and the ATen route\": the XLA digit "
+               "recursion, kernels/ffip.py and core/strassen.py)")
 
 
 def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:

@@ -11,8 +11,9 @@ each GEMM runs the plan the table picks in the analytic plan's numerics
 class: the same tokens, possibly other kernels.  Weights come from a
 ``torch.Generator`` seeded with 0.  With ``--poisson RATE`` the requests
 arrive as a Poisson process (RATE requests/s), so TTFT includes queueing
-delay.  ``--prefill-chunk`` and
-``--prefix-cache`` are not ported yet and raise.
+delay.  ``--prefill-chunk`` interleaves prompt chunks with decode steps,
+and ``--prefix-cache`` shares repeated prompt prefixes through the pool's
+snapshots.
 """
 from __future__ import annotations
 
@@ -36,10 +37,13 @@ def main() -> int:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (not ported yet; 0: whole-prompt "
-                         "prefill at admission)")
+                    help="chunked prefill: advance prompts this many tokens "
+                         "per engine step, interleaved with decode "
+                         "(power of two >= 8; 0: whole-prompt prefill at "
+                         "admission)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="prompt-prefix sharing (not ported yet)")
+                    help="share repeated prompt prefixes via paged-cache "
+                         "snapshots (implies chunked prefill)")
     ap.add_argument("--eos", type=int, default=-1,
                     help="stop token id (-1: none)")
     ap.add_argument("--poisson", type=float, default=0.0,
@@ -93,7 +97,9 @@ def main() -> int:
           f"in {stats.decode_steps} decode steps / {stats.decode_s:.2f}s "
           f"({stats.tokens_per_s:.1f} tok/s, occupancy "
           f"{stats.occupancy_pct:.0f}%, quant={args.quant}); "
-          f"device={device}")
+          f"traces={engine.n_traces()}; device={device}")
+    if engine.prefix is not None:
+        print(f"prefix cache: {engine.prefix.stats()}")
     return 0
 
 

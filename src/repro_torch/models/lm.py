@@ -107,7 +107,9 @@ def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
     cd = _cdtype(cfg)
     x = params["embed"][tokens.long()].to(cd)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=cd, device=x.device)
+    # the scale rounded to the compute dtype, filled on the device (no
+    # host-to-device copy, so a CUDA graph can capture the step)
+    return x * torch.full((), cfg.d_model ** 0.5, dtype=cd, device=x.device)
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor

@@ -1,2 +1,2 @@
-"""Symmetric quantizer, per-layer precision policy and the quantized
-matmul over the fused KMM kernel."""
+"""Symmetric quantizer, per-layer precision policy, pre-quantized weight
+records and the quantized matmul over the fused KMM kernel."""

@@ -21,11 +21,17 @@ dequant ``acc * (sx * sw)`` follows — one expert at a time for batched
 GEMMs — bit-identical to the fused epilogue, so a table never moves a
 token.
 
+Pre-quantized weights (``{"q", "scale"}`` records from
+:func:`repro_torch.quant.prequant.prequantize`) take
+:func:`prequant_matmul`: only x is quantized, and the record's codes and
+scale go to the same GEMM uncopied (cast only where the kernel's carrier
+is wider than the storage: int16 -> int32 above w = 16).
+
 Not ported yet, and raising rather than changing route: the XLA
 digit-recursion GEMM (``_int_dot``) that the reference falls back to
 outside the fused windows (w >= 27, recursion deeper than 2 levels) or the
-kernel's bounds, ``force_mode="mm2"``, pre-quantized weight records, and
-the straight-through backward (training).
+kernel's bounds, ``force_mode="mm2"``, and the straight-through backward
+(training).
 """
 from __future__ import annotations
 
@@ -247,17 +253,46 @@ def _model_context(quant) -> ExecContext:
     return ExecContext(backend=quant.backend, force_mode=quant.force_mode)
 
 
-def _no_prequant(wmat) -> None:
-    if isinstance(wmat, dict):
-        raise NotImplementedError("pre-quantized weight records are not "
-                                  "ported yet (ROADMAP: quant/prequant.py)")
+def prequant_matmul(x: torch.Tensor, wrec, w_bits: int, m: int = 8, *,
+                    batched: bool = False,
+                    context: Optional[ExecContext] = None,
+                    counts: Optional[torch.Tensor] = None,
+                    seg: Optional[int] = None) -> torch.Tensor:
+    """Serving GEMM on a pre-quantized weight record ({"q", "scale"}):
+    (..., K) @ (K, N), or with ``batched`` (E, C, K) @ (E, K, N) and the
+    ragged ``counts``/``seg`` contract of :func:`quantized_matmul_batched`.
+    x is quantized per token (per (expert, row)); the record's codes and
+    per-channel scale go to the kernel as they are stored, converted only
+    where the carrier is wider than the storage (w > 16: int16 -> int32).
+    Inference only."""
+    _check_context(context)
+    if batched and (x.dim() != 3 or wrec["q"].dim() != 3):
+        raise ValueError(f"need (E, C, K) x (E, K, N), got "
+                         f"{tuple(x.shape)} x {tuple(wrec['q'].shape)}")
+    if counts is not None and not batched:
+        raise ValueError("ragged counts require batched=True")
+    if counts is not None and (seg is None or seg <= 0):
+        raise ValueError("ragged counts need a positive static seg")
+    carrier = carrier_dtype(w_bits, m)
+    qx, sx = _quantize(x, w_bits, -1, carrier)
+    qw = wrec["q"].to(carrier)      # no copy where storage == carrier
+    out = _fused_cuda(qx, qw, sx, wrec["scale"], w_bits, m, x.dtype,
+                      counts, seg, context=context)
+    if out is None:
+        raise NotImplementedError(
+            f"w={w_bits} GEMM {tuple(x.shape)} x {tuple(qw.shape)} is "
+            f"outside the fused kernel's window or bounds: " + _NO_FALLBACK)
+    return out
 
 
 def maybe_quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, quant,
                            name: str) -> torch.Tensor:
     """Dense matmul that routes through the quantized KMM path when the
-    model's policy enables it, and a plain matmul otherwise."""
-    _no_prequant(wmat)
+    model's policy enables it (on a pre-quantized record: the record
+    route), and a plain matmul otherwise."""
+    if isinstance(wmat, dict):
+        return prequant_matmul(x, wmat, quant.bits_for(name), quant.m,
+                               context=_model_context(quant))
     if quant is not None and quant.enabled:
         return quantized_matmul(x, wmat, quant.bits_for(name), quant.m,
                                 context=_model_context(quant))
@@ -272,7 +307,10 @@ def maybe_quantized_batched(x: torch.Tensor, wmat: torch.Tensor, quant,
     ``counts``/``seg`` opt into the ragged grouped contract; the
     unquantized path ignores them, as the reference's einsum does, because
     the MoE combine gathers live slots only."""
-    _no_prequant(wmat)
+    if isinstance(wmat, dict):
+        return prequant_matmul(x, wmat, quant.bits_for(name), quant.m,
+                               batched=True, context=_model_context(quant),
+                               counts=counts, seg=seg)
     if quant is not None and quant.enabled:
         return quantized_matmul_batched(x, wmat, quant.bits_for(name),
                                         quant.m,

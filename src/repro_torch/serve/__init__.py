@@ -1,7 +1,7 @@
-from repro_torch.serve.cache import PagedCachePool
+from repro_torch.serve.cache import PagedCachePool, PrefixCache
 from repro_torch.serve.engine import Engine, Request, ServeStats
 from repro_torch.serve.scheduler import (Scheduler, decode_widths_for,
                                          prompt_buckets_for)
 
 __all__ = ["Engine", "Request", "ServeStats", "Scheduler", "PagedCachePool",
-           "decode_widths_for", "prompt_buckets_for"]
+           "PrefixCache", "decode_widths_for", "prompt_buckets_for"]

@@ -1,5 +1,5 @@
-"""Paged KV / recurrent-state pool for the serve engine (port of
-``repro.serve.cache``'s ``PagedCachePool``).
+"""Paged KV / recurrent-state pool and prompt-prefix sharing for the serve
+engine (port of ``repro.serve.cache``).
 
 Every cache leaf lives in a pool with a row dimension at axis 1, and the
 mapping from decode slots to pool rows is data, not layout:
@@ -11,17 +11,32 @@ mapping from decode slots to pool rows is data, not layout:
     pool layout ``(n_periods, n_states, ...)``, slot -> row through a
     ``(n_slots,)`` state table.
 
-One extra set of *parking* pages and one parking state row back decode
-lanes that pad a bucketed batch beyond the free-slot supply, so padded
-lanes never touch a live slot.  Stale K/V is masked by position, never
-zeroed; recurrent state is not masked, so the engine zeroes a slot's state
-rows (:meth:`PagedCachePool.zero_slot_state`) before it prefills a new
-request there.  The reference's snapshot region and ``PrefixCache`` wait
-for their ROADMAP item.
+Beyond the slot rows the pool keeps
+
+  * a **snapshot region** (``snapshot_slots`` extra slots' worth of pages
+    and state rows) backing :class:`PrefixCache` prompt-prefix snapshots,
+    allocated and freed through explicit free lists, and
+  * one **parking** row set: decode lanes that pad a bucketed batch beyond
+    the free-slot supply gather from (and scatter garbage into) the parking
+    rows, so padded lanes never touch a live slot or a snapshot.
+
+Stale K/V is masked by position, never zeroed; recurrent state is not
+masked, so the engine zeroes a slot's state rows
+(:meth:`PagedCachePool.zero_slot_state`) before it prefills a new request
+there.  Every operation updates the pool tensors in place: their addresses
+never change, which is what lets the executor's CUDA graphs read and write
+them.
+
+Prefix sharing is copy-on-reference: a snapshot stores a copy of the slot's
+first ``L / page_size`` pages plus its recurrent state row captured exactly
+at position ``L`` (a chunk boundary, so the state is exact), and a hit
+copies the snapshot back into the new slot's rows before prefill resumes at
+offset ``L``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +45,8 @@ from repro_torch.models import lm
 
 # Cache leaves that carry a per-token Smax axis and therefore page.
 PAGED_LEAVES = ("k", "v")
+
+Handle = Tuple[Tuple[int, ...], int]
 
 
 def default_page_size(max_seq: int, preferred: int = 64) -> int:
@@ -41,10 +58,10 @@ def default_page_size(max_seq: int, preferred: int = 64) -> int:
 
 
 class PagedCachePool:
-    """Fixed-size page and state-row pools plus the slot tables."""
+    """Fixed-size page and state-row pools, slot tables and free lists."""
 
     def __init__(self, cfg, n_slots: int, max_seq: int, page_size: int, *,
-                 device=None):
+                 snapshot_slots: int = 0, device=None):
         if max_seq % page_size:
             raise ValueError(f"page_size={page_size} must divide "
                              f"max_seq={max_seq}")
@@ -54,8 +71,8 @@ class PagedCachePool:
         self.page_size = page_size
         self.pages_per_slot = pps = max_seq // page_size
         # +1 slot's worth of parking rows (padded decode lanes land there)
-        self.n_pages = (n_slots + 1) * pps
-        self.n_states = n_slots + 1
+        self.n_pages = (n_slots + snapshot_slots + 1) * pps
+        self.n_states = n_slots + snapshot_slots + 1
         shapes = lm.init_cache(cfg, 1, max_seq, device="meta")
         self.pools: Dict[str, Dict[str, torch.Tensor]] = {}
         for pos, leaves in shapes.items():
@@ -69,20 +86,74 @@ class PagedCachePool:
                         leaf.shape[2:])
                 self.pools[pos][name] = torch.zeros(shape, dtype=leaf.dtype,
                                                     device=device)
-        pages = np.arange(self.n_pages, dtype=np.int64)
-        self.page_table = pages[:n_slots * pps].reshape(n_slots, pps)
-        self.parking_pages = pages[n_slots * pps:]
+        # Slot rows are fixed for the engine's lifetime; the snapshot
+        # region cycles through the free lists.
+        pages = list(range(self.n_pages))
+        self.page_table = np.array(pages[:n_slots * pps],
+                                   np.int64).reshape(n_slots, pps)
+        self.parking_pages = np.array(pages[n_slots * pps:(n_slots + 1)
+                                            * pps], np.int64)
+        self._free_pages: List[int] = pages[(n_slots + 1) * pps:]
         self.state_table = np.arange(n_slots, dtype=np.int64)
         self.parking_state = n_slots
+        self._free_states: List[int] = list(range(n_slots + 1,
+                                                  self.n_states))
+
+    def _leaves(self):
+        for leaves in self.pools.values():
+            yield from leaves.items()
 
     def zero_slot_state(self, slot: int) -> None:
         """Zero the slot's state row in every recurrent pool (slot
         (re)init); K/V pages are left as they are."""
         row = int(self.state_table[slot])
-        for leaves in self.pools.values():
-            for name, pool in leaves.items():
-                if name not in PAGED_LEAVES:
-                    pool[:, row].zero_()
+        for name, pool in self._leaves():
+            if name not in PAGED_LEAVES:
+                pool[:, row].zero_()
+
+    def _copy_rows(self, src_pages, dst_pages, src_state: int,
+                   dst_state: int) -> None:
+        """Copy page rows and one state row (snapshot take / restore)."""
+        dev = next(iter(self._leaves()))[1].device
+        src = torch.as_tensor(np.asarray(src_pages, np.int64), device=dev)
+        dst = torch.as_tensor(np.asarray(dst_pages, np.int64), device=dev)
+        for name, pool in self._leaves():
+            if name in PAGED_LEAVES:
+                pool[:, dst] = pool[:, src]
+            else:
+                pool[:, dst_state] = pool[:, src_state]
+
+    def take_snapshot(self, slot: int, n_pages: int) -> Optional[Handle]:
+        """Copy the slot's first ``n_pages`` pages and its state row into
+        freshly allocated snapshot rows; returns ``(page_rows, state_row)``
+        or None when the snapshot region is exhausted (the caller evicts
+        and retries)."""
+        if len(self._free_pages) < n_pages or not self._free_states:
+            return None
+        rows = tuple(self._free_pages.pop(0) for _ in range(n_pages))
+        srow = self._free_states.pop(0)
+        self._copy_rows(self.page_table[slot, :n_pages], rows,
+                        int(self.state_table[slot]), srow)
+        return rows, srow
+
+    def restore_snapshot(self, slot: int, handle: Handle) -> None:
+        """Copy-on-reference: snapshot rows -> the slot's own rows."""
+        rows, srow = handle
+        self._copy_rows(rows, self.page_table[slot, :len(rows)], srow,
+                        int(self.state_table[slot]))
+
+    def release_snapshot(self, handle: Handle) -> None:
+        rows, srow = handle
+        self._free_pages.extend(rows)
+        self._free_states.append(srow)
+
+    @property
+    def n_free_pages(self) -> int:
+        return len(self._free_pages)
+
+    @property
+    def n_free_states(self) -> int:
+        return len(self._free_states)
 
     def lane_rows(self, lane_slots: Sequence[Optional[int]]
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -94,3 +165,74 @@ class PagedCachePool:
                           else self.parking_state for i in lane_slots],
                          np.int64)
         return prows, srows
+
+
+class PrefixCache:
+    """LRU prompt-prefix snapshots over a :class:`PagedCachePool`.
+
+    Keys are ``tuple(prompt[:L])`` with ``L`` a multiple of ``align``
+    (the lcm of page size, prefill chunk and the smallest bucket, so a
+    snapshot sits on a page and a chunk boundary and the recurrent state is
+    captured exactly).
+    """
+
+    def __init__(self, pool: PagedCachePool, align: int,
+                 max_entries: int = 16):
+        self.pool = pool
+        self.align = align
+        self.max_entries = max_entries
+        self._entries: "OrderedDict[Tuple[int, ...], Tuple[Handle, int]]" \
+            = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def boundary_for(self, prompt_len: int) -> int:
+        """Longest snapshot boundary usable for this prompt (0: none).  At
+        least one token must remain to prefill (the first sampled token
+        comes from the prefill logits), hence ``<= prompt_len - 1``."""
+        return ((prompt_len - 1) // self.align) * self.align \
+            if prompt_len > self.align else 0
+
+    def lookup(self, prompt: Sequence[int]) -> Tuple[int, bool]:
+        """Longest cached prefix of ``prompt``; restores nothing itself.
+        Returns ``(L, hit)`` with ``L == 0`` on a miss."""
+        n = self.boundary_for(len(prompt))
+        while n > 0:
+            key = tuple(prompt[:n])
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return n, True
+            n -= self.align
+        self.misses += 1
+        return 0, False
+
+    def restore(self, slot: int, prompt: Sequence[int], n: int) -> None:
+        handle, _ = self._entries[tuple(prompt[:n])]
+        self.pool.restore_snapshot(slot, handle)
+
+    def store(self, slot: int, prompt: Sequence[int], n: int) -> None:
+        """Snapshot the slot's first ``n`` positions (``n`` page- and
+        chunk-aligned; the slot's prefill must sit exactly at offset n)."""
+        key = tuple(prompt[:n])
+        if n == 0 or key in self._entries:
+            return
+        n_pages = n // self.pool.page_size
+        handle = self.pool.take_snapshot(slot, n_pages)
+        while handle is None and self._entries:
+            _, (old, _) = self._entries.popitem(last=False)   # LRU evict
+            self.pool.release_snapshot(old)
+            handle = self.pool.take_snapshot(slot, n_pages)
+        if handle is None:
+            return
+        self._entries[key] = (handle, n)
+        while len(self._entries) > self.max_entries:
+            _, (old, _) = self._entries.popitem(last=False)
+            self.pool.release_snapshot(old)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries), "hits": self.hits,
+                "misses": self.misses}

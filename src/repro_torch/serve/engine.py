@@ -1,34 +1,51 @@
 """Continuous-batching serve engine (port of ``repro.serve.engine``): the
 orchestrator over the scheduler, the paged KV pool and the executor.
 
-Prompts are right-padded to power-of-two buckets with ``pad_mask`` and
-``last_idx`` threaded into :func:`repro_torch.models.lm.prefill`; decode
-runs on the smallest power-of-two bucket covering the live slots with a
-per-slot position vector.  Admission order and per-(request, step) sampling
-seeds make the output token-identical to sequential single-request
-generation, whatever the slot count and bucket width.
+  * :mod:`repro_torch.serve.scheduler` — admission and step policy.  Decode
+    runs on the smallest power-of-two bucket covering the live slots, one
+    CUDA graph per bucket width (:mod:`repro_torch.serve.executor`), which
+    :meth:`Engine.warm` captures ahead of a measured run.  With
+    ``prefill_chunk=`` long prompts prefill in fixed-size chunks, one chunk
+    an engine step, interleaved with decode steps.
+  * :mod:`repro_torch.serve.cache` — the paged K/V and recurrent-state pool
+    with optional prompt-prefix sharing (``prefix_cache=True``): a repeated
+    prompt prefix restores a page and state snapshot instead of being
+    computed again, exact against a cold prefill.
+  * :mod:`repro_torch.serve.executor` — gather, model and scatter over the
+    pool.
+
+Prompts (or chunks) are right-padded to power-of-two buckets with
+``pad_mask`` and ``last_idx`` threaded into
+:func:`repro_torch.models.lm.prefill` (``start=`` resumes a chunk at its
+offset); decode runs a per-slot position vector.  Admission order and
+per-(request, step) sampling seeds make the output token-identical to
+sequential single-request generation, whatever the slot count, bucket
+width, prefill chunking and prefix-cache hits.
 
 Every quantized GEMM goes through the CUDA kernels (the context's
 ``"cuda"`` backend): the fused kernel, or under a tuning table
 (``ExecContext(tuning_table=...)``, installed process-wide as the reference
-does) the plan the table picks within the same numerics, so the tokens do
-not change.  The engine runs on CUDA unless ``device="cpu"`` is passed;
-then each GEMM runs the kernels' plain PyTorch versions.  Chunked prefill
-(``prefill_chunk``), prefix sharing (``prefix_cache``) and meshes are not
-ported yet and raise.
+does, before any graph is captured) the plan the table picks within the
+same numerics, so the tokens do not change.  Parameters may hold
+pre-quantized weight records (:func:`repro_torch.quant.prequant.prequantize`).
+The engine runs on CUDA unless ``device="cpu"`` is passed; then each GEMM
+runs the kernels' plain PyTorch versions and decode runs its static
+buffers without a graph.  Meshes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.bridge import tree_map
 from repro_torch.core.context import ExecContext, resolve_device
-from repro_torch.serve.cache import PagedCachePool, default_page_size
+from repro_torch.serve.cache import (PagedCachePool, PrefixCache,
+                                     default_page_size)
 from repro_torch.serve.executor import Executor
 from repro_torch.serve.scheduler import (MIN_BUCKET, Request, RequestStats,
                                          Scheduler, ServeStats, SlotState,
@@ -45,14 +62,13 @@ class Engine:
 
     def __init__(self, cfg, params: Params, max_seq: int = 512,
                  batch_size: int = 4, rng_seed: int = 0,
+                 prompt_buckets: Optional[Sequence[int]] = None,
                  context: Optional[ExecContext] = None,
+                 page_size: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
+                 prefix_snapshots: int = 4,
                  device: Optional[str | torch.device] = None):
-        if prefill_chunk is not None or prefix_cache:
-            raise NotImplementedError(
-                "chunked prefill and prefix sharing are not ported yet "
-                "(ROADMAP: serve/cache.PrefixCache and chunked prefill)")
         self.device = resolve_device(device)
         ctx = context if context is not None else ExecContext(
             backend=cfg.quant.backend, force_mode=cfg.quant.force_mode)
@@ -61,9 +77,10 @@ class Engine:
             cfg = cfg.with_quant(dataclasses.replace(
                 cfg.quant, backend=ctx.backend, force_mode=ctx.force_mode))
         if ctx.tuning_table is not None:
-            # Process-wide, as the reference installs it: every GEMM of the
-            # model resolves its plan against it.  Tables are
-            # numerics-pinned: they change speed, never tokens.
+            # Process-wide, as the reference installs it, before any decode
+            # graph is captured: every GEMM of the model resolves its plan
+            # against it.  Tables are numerics-pinned: they change speed,
+            # never tokens.
             from repro_torch.tune.table import set_active_table
             set_active_table(ctx.tuning_table)
         self.context = ctx
@@ -72,13 +89,40 @@ class Engine:
         self.max_seq = max_seq
         self.batch = batch_size
         self.rng_seed = rng_seed
-        self.prompt_buckets = prompt_buckets_for(max_seq)
-        self.page_size = page_size = default_page_size(max_seq)
+        if prompt_buckets is None:
+            prompt_buckets = prompt_buckets_for(max_seq)
+        self.prompt_buckets = tuple(sorted(set(prompt_buckets)))
+
+        # -- chunked prefill / paging knobs ---------------------------------
+        if page_size is None:
+            page_size = default_page_size(max_seq)
+        if max_seq % page_size:
+            raise ValueError(f"page_size={page_size} must divide "
+                             f"max_seq={max_seq}")
+        if prefix_cache and prefill_chunk is None:
+            # a prefix restore resumes prefill mid-prompt, which needs the
+            # chunked entry; pick a chunk covering at least one page
+            prefill_chunk = max(page_size, MIN_BUCKET)
+        if prefill_chunk is not None and (
+                prefill_chunk < MIN_BUCKET
+                or prefill_chunk & (prefill_chunk - 1)):
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be a power "
+                             f"of two >= {MIN_BUCKET}")
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        self._chunk_buckets = (prompt_buckets_for(prefill_chunk)
+                               if prefill_chunk is not None else None)
 
         self.scheduler = Scheduler(batch_size, max_seq)
-        self.pool = PagedCachePool(cfg, batch_size, max_seq, page_size,
-                                   device=self.device)
+        self.pool = PagedCachePool(
+            cfg, batch_size, max_seq, page_size,
+            snapshot_slots=prefix_snapshots if prefix_cache else 0,
+            device=self.device)
         self.executor = Executor(cfg, self.params, self.pool, self.device)
+        self.prefix: Optional[PrefixCache] = None
+        if prefix_cache:
+            self.prefix = PrefixCache(
+                self.pool, math.lcm(page_size, prefill_chunk, MIN_BUCKET))
 
         self._next_rid = 0
         self._clock0 = time.monotonic()
@@ -95,12 +139,36 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _bucket(self, n: int) -> int:
-        for b in self.prompt_buckets:
+    def _bucket(self, n: int, buckets: Sequence[int]) -> int:
+        for b in buckets:
             if b >= n:
                 return b
         raise ValueError(f"prompt length {n} exceeds max bucket "
-                         f"{self.prompt_buckets[-1]}")
+                         f"{buckets[-1]}")
+
+    def n_traces(self) -> Dict[str, int]:
+        """Steady-state monitoring: ``decode`` counts one CUDA graph per
+        decode-bucket width (on the CPU, one static entry), ``prefill``
+        the prefill chunk or bucket widths run so far."""
+        return self.executor.n_traces()
+
+    def warm(self) -> None:
+        """Capture every decode-bucket width's graph and run every prefill
+        chunk or bucket width once, so that a measured run sees the steady
+        state.  Warm calls run on the pool's parking rows only — no slot
+        state is touched — and need an idle engine."""
+        if self.scheduler.num_active or self.scheduler.num_pending:
+            raise RuntimeError("warm() requires an idle engine")
+        for w in self.scheduler.decode_widths:
+            z = np.zeros((w,), np.int32)
+            logits = self.executor.decode([None] * w, z, z)
+            self.executor.sample(self.rng_seed, logits, [0.0] * w, z, z)
+        for w in self._chunk_buckets or self.prompt_buckets:
+            toks = np.zeros((1, w), np.int32)
+            logits = self.executor.prefill(None, toks, 0,
+                                           np.array([w - 1], np.int32))
+            self.executor.sample(self.rng_seed, logits, [0.0], [0], [0])
+        self._sync()
 
     # -- scheduling ---------------------------------------------------------
 
@@ -112,7 +180,8 @@ class Engine:
             raise ValueError(
                 f"prompt({len(req.prompt)}) + max_new({req.max_new_tokens}) "
                 f"exceeds max_seq={self.max_seq}")
-        if len(req.prompt) > self.prompt_buckets[-1]:
+        if self.prefill_chunk is None \
+                and len(req.prompt) > self.prompt_buckets[-1]:
             raise ValueError(
                 f"prompt length {len(req.prompt)} exceeds max prompt "
                 f"bucket {self.prompt_buckets[-1]}")
@@ -152,22 +221,49 @@ class Engine:
 
     # -- prefill ------------------------------------------------------------
 
-    def _run_prefill(self, idx: int) -> Optional[Request]:
-        """Prefill one admitted slot's whole prompt and sample its first
-        token.  Returns the request if it finished at admission."""
+    def _init_slot(self, idx: int, req: Request) -> None:
+        """Initialize an admitted slot's pool rows and prefill plan: zero
+        its recurrent state (a reused slot must not start from the previous
+        request's), then restore the longest cached prompt prefix."""
         slot = self.scheduler.slots[idx]
-        req = slot.req
-        # recurrent state is not masked by position: a reused slot must not
-        # start from the previous request's state
         self.pool.zero_slot_state(idx)
+        if self.prefix is not None:
+            slot.prefill.snap_at = self.prefix.boundary_for(len(req.prompt))
+            hit_len, hit = self.prefix.lookup(req.prompt)
+            if hit:
+                self.prefix.restore(idx, req.prompt, hit_len)
+                slot.prefill.off = hit_len
+                slot.prefill.from_prefix = True
+
+    def _run_prefill_chunk(self, idx: int) -> Optional[Request]:
+        """Advance one slot's prefill by one chunk (the whole remaining
+        prompt when chunking is off).  Returns the request if it finished
+        at admission (a 1-token budget or an instant stop token)."""
+        slot = self.scheduler.slots[idx]
+        req, ps = slot.req, slot.prefill
         plen = len(req.prompt)
-        width = self._bucket(plen)
+        if self.prefill_chunk is None:
+            take = plen - ps.off
+            width = self._bucket(take, self.prompt_buckets)
+        else:
+            take = min(self.prefill_chunk, plen - ps.off)
+            width = self._bucket(take, self._chunk_buckets)
         toks = np.zeros((1, width), np.int32)
-        toks[0, :plen] = req.prompt                         # right-pad
-        last = np.array([plen - 1], np.int32)
+        toks[0, :take] = req.prompt[ps.off:ps.off + take]   # right-pad
+        last = np.array([take - 1], np.int32)
         stats = self._stats
         t0 = time.monotonic()
-        logits = self.executor.prefill(idx, toks, 0, last)
+        logits = self.executor.prefill(idx, toks, ps.off, last)
+        ps.off += take
+        if ps.off < plen:
+            self._sync()
+            stats.prefill_s += time.monotonic() - t0
+            # a snapshot boundary lies before the prompt's last token
+            if self.prefix is not None and ps.off == ps.snap_at:
+                self.prefix.store(idx, req.prompt, ps.snap_at)
+            return None
+        # prompt complete: the first token from the last chunk's logits at
+        # its last real position
         tok = int(self.executor.sample(
             self.rng_seed, logits, [req.temperature], [req.stats.rid],
             [0])[0])
@@ -181,6 +277,18 @@ class Engine:
             self._finish(idx, reason)
             return req
         return None
+
+    def _prefill_step(self) -> None:
+        """Prefill policy for one engine step: with chunking off, complete
+        every admitted prompt; with chunking on, advance one prefilling
+        slot by one chunk, so prompts interleave with decode steps."""
+        idxs = self.scheduler.prefilling()
+        if self.prefill_chunk is not None:
+            idxs = idxs[:1]
+        for idx in idxs:
+            req = self._run_prefill_chunk(idx)
+            if req is not None:
+                self._admitted_done.append(req)
 
     # -- decode -------------------------------------------------------------
 
@@ -226,14 +334,14 @@ class Engine:
     # -- step / driver ------------------------------------------------------
 
     def step(self) -> List[Request]:
-        """Admit what fits, prefill the admitted prompts, then run one
-        bucketed decode step.  Returns the requests that finished."""
+        """Admit what fits, advance prefill (every admitted prompt whole, or
+        one chunk of one prompt), then run one bucketed decode step.
+        Returns the requests that finished, those that finished at
+        admission included."""
         t0 = time.monotonic()
-        self.scheduler.admit(self._now())
-        for idx in self.scheduler.prefilling():
-            req = self._run_prefill(idx)
-            if req is not None:
-                self._admitted_done.append(req)
+        for idx, req in self.scheduler.admit(self._now()):
+            self._init_slot(idx, req)
+        self._prefill_step()
         finished = self._admitted_done
         self._admitted_done = []
         finished += self._decode_step()

@@ -3,29 +3,77 @@
 
   * ``decode``  — gather the lane slots' pages and state rows into a dense
     ``(n_periods, W, ...)`` cache (K/V ``(n_periods, W, Smax, K, D)``),
-    run :func:`lm.decode_step`, scatter the lanes back.
-  * ``prefill`` — the same around a resume-from-offset :func:`lm.prefill`.
+    run :func:`lm.decode_step`, scatter the lanes back.  One CUDA graph per
+    decode-bucket width ``W``, the counterpart of the reference's one jit
+    trace per width (below).
+  * ``prefill`` — the same around a resume-from-offset :func:`lm.prefill`,
+    run eagerly (its widths are recorded for :meth:`Executor.n_traces`).
   * ``sample``  — greedy argmax, or temperature sampling with one seeded
     ``torch.Generator`` per (request, step).
 
-The port runs eagerly.  Where the reference donates the pool to its jit so
-the cache never copies, the port updates the pool in place: the scatter
-writes the lanes straight back into the pool tensors.  Sampling cannot
+The graphed decode.  Each width holds static device buffers for its inputs
+— tokens, positions, page rows and state rows — filled with ``copy_``
+before every step; the gather, the model and the scatter read them, and the
+logits are the step's static output, valid until the next decode of that
+width (the engine samples from them, outside the graph, before then).  On
+CUDA a width is captured the first time it decodes (``Engine.warm()``
+decodes every width): first one eager step on the executor's capture
+stream on the parking rows, which builds and loads every kernel and grows
+every split-K workspace of that stream (``kernels.fused_gemm``) to what
+the width needs, then the capture on the same stream.  The graph keeps a
+reference to the workspace tensors it captured, so a later width that
+grows the workspace cannot free them; a capture that finds the workspace
+grown raises.  Each graph also keeps its ``cudaGraph_t`` beside the
+instantiated executable, so its kernel nodes — what every replay launches
+— can be listed (:attr:`Executor.decode_graphs`).  The kernels' launch
+counters are host-side: they count during the warm-up and the capture,
+never at a replay, so each width records the launches it captured
+(``captured``) and its replays (``replays``).  On the CPU, and with
+``graphs`` set False, the same static buffers run eagerly.
+
+Where the reference donates the pool to its jit so the cache never copies,
+the port updates the pool in place: the scatter writes the lanes straight
+back into the pool tensors, whose addresses never change.  Sampling cannot
 reproduce the reference's PRNG bits; greedy decoding is exact.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import fused_gemm, launch_counts
 from repro_torch.models import lm
 from repro_torch.serve.cache import PAGED_LEAVES, PagedCachePool
 
 Params = Any
 
 _SEED_MIX = 1_000_003
+
+
+class _Decoder:
+    """One decode width's static inputs, its logits and, on CUDA, its
+    graph."""
+
+    def __init__(self, width: int, pool: PagedCachePool, device):
+        self.toks = torch.zeros((width,), dtype=torch.int32, device=device)
+        self.pos = torch.zeros((width,), dtype=torch.int32, device=device)
+        self.prows = torch.empty((width, pool.pages_per_slot),
+                                 dtype=torch.int64, device=device)
+        self.srows = torch.empty((width,), dtype=torch.int64, device=device)
+        self.park(pool)
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.workspace = ()     # split-K workspace the graph captured
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+
+    def park(self, pool: PagedCachePool) -> None:
+        """Point every lane at the parking rows."""
+        self.prows.copy_(torch.from_numpy(
+            np.tile(pool.parking_pages, (self.prows.shape[0], 1))))
+        self.srows.fill_(pool.parking_state)
 
 
 class Executor:
@@ -37,6 +85,12 @@ class Executor:
         self.params = params
         self.pool = pool
         self.device = device
+        # Decode through one CUDA graph per width; False runs the static
+        # buffers eagerly (the CPU's path), for A/B checks on the card.
+        self.graphs = device.type == "cuda"
+        self._decoders: Dict[int, _Decoder] = {}
+        self._prefill_widths: set = set()
+        self._stream = None
 
     def _rows(self, lane_slots):
         prows, srows = self.pool.lane_rows(lane_slots)
@@ -71,21 +125,71 @@ class Executor:
                     (pool.shape[0], w, pps, page)
                     + tuple(pool.shape[3:])).to(pool.dtype)
 
+    def _step(self, d: _Decoder) -> torch.Tensor:
+        """One decode step on ``d``'s buffers: what a graph captures."""
+        lanes = self._gather(d.prows, d.srows)
+        logits, lanes = lm.decode_step(self.params, self.cfg, d.toks, lanes,
+                                       d.pos)
+        self._scatter(lanes, d.prows, d.srows)
+        return logits
+
+    def _capture(self, d: _Decoder) -> None:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        current = torch.cuda.current_stream(self.device)
+        d.park(self.pool)       # the warm-up step touches no slot's rows
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self._step(d)       # eager: kernel builds, workspace growth
+        dev = d.toks.device         # indexed, as the launches' devices
+        before_ws = fused_gemm.workspace_tensors(dev, stream.cuda_stream)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=stream):
+            d.logits = self._step(d)
+        graph.instantiate()
+        after = launch_counts()
+        current.wait_stream(stream)
+        after_ws = fused_gemm.workspace_tensors(dev, stream.cuda_stream)
+        if len(before_ws) != len(after_ws) or any(
+                a is not b for a, b in zip(before_ws, after_ws)):
+            raise RuntimeError("a split-K workspace grew during the decode "
+                               "graph's capture")
+        d.graph = graph
+        d.workspace = before_ws
+        d.launches = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+
+    # -- entry points (update pool.pools in place) --------------------------
+
     @torch.inference_mode()
     def decode(self, lane_slots, toks: np.ndarray,
                pos: np.ndarray) -> torch.Tensor:
-        rows = self._rows(lane_slots)
-        lanes = self._gather(*rows)
-        logits, lanes = lm.decode_step(
-            self.params, self.cfg,
-            torch.as_tensor(toks, device=self.device), lanes,
-            torch.as_tensor(pos, dtype=torch.int32, device=self.device))
-        self._scatter(lanes, *rows)
-        return logits
+        """Logits (W, V) of one decode step over ``lane_slots``; on the
+        graphed path a static tensor, overwritten by the next decode of
+        the same width."""
+        width = len(lane_slots)
+        d = self._decoders.get(width)
+        if d is None:
+            d = self._decoders[width] = _Decoder(width, self.pool,
+                                                 self.device)
+        if self.graphs and d.graph is None:
+            self._capture(d)
+        prows, srows = self.pool.lane_rows(lane_slots)
+        for buf, val in ((d.toks, toks), (d.pos, pos), (d.prows, prows),
+                         (d.srows, srows)):
+            buf.copy_(torch.from_numpy(np.asarray(val)))
+        if not self.graphs:
+            return self._step(d)
+        d.graph.replay()
+        d.replays += 1
+        return d.logits
 
     @torch.inference_mode()
     def prefill(self, slot, toks: np.ndarray, start: int,
                 last: np.ndarray) -> torch.Tensor:
+        self._prefill_widths.add(int(toks.shape[1]))
         rows = self._rows([slot])
         lanes = self._gather(*rows)
         toks_t = torch.as_tensor(toks, device=self.device)
@@ -115,3 +219,28 @@ class Executor:
             probs = torch.softmax(scaled, dim=-1)
             out[lane] = int(torch.multinomial(probs, 1, generator=gen))
         return out.astype(np.int32)
+
+    # -- steady-state monitoring --------------------------------------------
+
+    def n_traces(self) -> Dict[str, int]:
+        """``decode``: the widths with a decode graph (CPU: static
+        entries); ``prefill``: the prefill widths run so far."""
+        return {"decode": len(self._decoders),
+                "prefill": len(self._prefill_widths)}
+
+    @property
+    def replays(self) -> Dict[int, int]:
+        """Graph replays by decode width."""
+        return {w: d.replays for w, d in self._decoders.items()}
+
+    @property
+    def decode_graphs(self) -> Dict[int, "torch.cuda.CUDAGraph"]:
+        """Each width's CUDA graph; it keeps its ``cudaGraph_t``
+        (``raw_cuda_graph()``), so what a replay launches can be listed."""
+        return {w: d.graph for w, d in self._decoders.items()
+                if d.graph is not None}
+
+    @property
+    def captured(self) -> Dict[int, Dict[str, int]]:
+        """Kernel launches each width's graph captured, by kernel."""
+        return {w: dict(d.launches) for w, d in self._decoders.items()}

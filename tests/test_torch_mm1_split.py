@@ -81,6 +81,25 @@ def test_plan_splits_narrow_decode_grids(k, n, split):
     assert plan.blocks >= min(H100_SMS, plan.tiles * (k // 256))
 
 
+def test_workspace_tensors_name_what_the_launches_use():
+    """A decode graph keeps the split-K workspace its launches captured
+    alive through ``workspace_tensors``: it must find the tensors
+    ``_workspace`` handed out for the same device and stream, and refuse a
+    bare ``cuda`` device, whose missing index names no workspace."""
+    plan = mm1_plan.plan_mm1(1, 4, 8192, 512, H100_SMS)
+    assert plan.split > 1
+    key = (None, -7)
+    try:
+        ws, counters = fg._workspace(torch.device("cpu"), -7, plan)
+        got = fg.workspace_tensors(torch.device("cpu"), -7)
+        assert len(got) == 2 and got[0] is ws and got[1] is counters
+        assert fg.workspace_tensors(torch.device("cpu"), -8) == ()
+        with pytest.raises(ValueError, match="indexed"):
+            fg.workspace_tensors(torch.device("cuda"), -7)
+    finally:
+        fg._WORKSPACE.pop(key, None)
+
+
 def test_plan_rejects_empty_problems():
     for args in [(0, 4, 64, 8), (1, 0, 64, 8), (1, 4, 64, 0), (1, 4, -1, 8)]:
         with pytest.raises(ValueError):

@@ -5,6 +5,8 @@ sequential generation inside the port with a temperature request (sampling
 seeds are per (request, step), so neither the slot count nor the decode
 bucket width may change a token).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,10 @@ from repro.serve.engine import Engine as JaxEngine  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.context import ExecContext  # noqa: E402
 from repro_torch.kernels import fused_gemm as fg  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.config import Block  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 # (prompt length, max_new_tokens, temperature)
@@ -81,11 +86,20 @@ def test_continuous_matches_sequential_with_temperature(models):
 
 
 def test_engine_refuses_what_is_not_ported(models):
+    """What the port still lacks raises rather than changing route: a mamba
+    block (jamba's pattern) in the engine and in the model, and the
+    reference's force_mode="mm2" baseline at the first quantized GEMM."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError):
-        Engine(tcfg, tparams, max_seq=32, prefill_chunk=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(tcfg, tparams, max_seq=32, prefix_cache=True, device="cpu")
+    jamba_like = dataclasses.replace(
+        tcfg, pattern=(Block("attn"), Block("mamba", moe=True)))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        Engine(jamba_like, tparams, max_seq=32, device="cpu")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        lm.init_cache(jamba_like, 1, 32, device="cpu")
+    eng = Engine(tcfg, tparams, max_seq=32, device="cpu",
+                 context=ExecContext(force_mode="mm2"))
+    with pytest.raises(NotImplementedError, match="force_mode"):
+        eng.generate([Request(prompt=[1, 2, 3], max_new_tokens=1)])
 
 
 def test_engine_runs_on_cuda_unless_asked_for_cpu(models):
