@@ -10,8 +10,9 @@
                                       # only trace one path (here under its
                                       # forcing table)
     python3 chip_smoke.py --chunk-study
-                                      # only compare chunked with
-                                      # single-shot prefill (5c's engines)
+                                      # only report phase 5r and compare
+                                      # chunked with single-shot prefill
+                                      # (5c's gate, each run twice)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -101,20 +102,50 @@ within phase 5:
       records freed and the peak memory reset first), graphed: tokens and
       full-width prefill logits torch.equal to the per-call run, the same
       exact launch and graph-node gates, one step graphed against eager,
-      under mixed a profiler witness (the integer-GEMM and WKV kernels
-      the profiler sees in each of two replayed decode steps equal what
-      the graph captured), and every record's codes reaching the kernel
-      as stored (no weight-sized cast or copy);
+      under mixed a profiler witness (the integer-GEMM, WKV and
+      row-invariant kernels the profiler sees in each of two replayed
+      decode steps equal what the graph captured; not under --profile,
+      whose earlier long sessions make the profiler lose records) and
+      then four decode steps profiled (device busy ms, kernels a step),
+      and every record's codes reaching the kernel as stored (no
+      weight-sized cast or copy);
   5c. llama and rwkv on the mixed records with chunked prefill (chunks of
       32) and prefix sharing (2 slots, four prompts sharing an 80-token
       head): at least 2 prefix hits, greedy tokens equal to the chunked
       engine without prefix sharing (a hit restores what a cold chunked
       prefill computes), exact launch gates over the prefill chunks and
-      decode steps (against single-shot prefill the tokens need not be
-      equal on the card: ATen's fp32 matmul and row means change bits
-      with the number of rows, phase 5r; ``--chunk-study`` reports it);
-  5r. that row-count dependence, reported: rwkv's decay LoRA products and
-      a row mean at M 1-64 against the same rows of M = 128.
+      decode steps; and chunked prefill against a single-shot prefill, on
+      that prompt set (seed 5) and a second (seed 6), 8 greedy tokens a
+      stream: every token and every sampled logits row torch.equal, as
+      the reference's ``start=`` contract makes them;
+  5r. the row-invariant kernels (csrc/rowinv.cu, kernels/rowinv.py), which
+      every norm and rwkv's decay LoRA products run on so that 5c holds:
+      rwkv's LoRA products (2560 x 64, 64 x 2560, fp32) and the norms
+      (LayerNorm over 2560 on fp32 and bf16 rows, RMSNorm over 2048 on
+      bf16 and over 6144 on fp32 rows) at M 1-256, every row torch.equal
+      to the same row of M = 256, and held to their plain versions
+      (allclose rtol 1e-5, atol 1e-6 on fp32 rows, one bf16 ulp on bf16
+      rows); ATen's own change with M reported beside; timed at M = 4 and
+      64 next to the ATen call each replaces.  Every serve path's exact
+      launch gates count their launches too: a norm launch a norm call
+      site, two LoRA products a rwkv layer.
+
+The dense configurations beside llama add:
+
+  5n. gemma-2b, stablelm-12b and nemotron-4-15b under mixed at full width
+      and depth (2 requests of 8 and 64 prompt tokens, 4 new tokens,
+      twice, greedy streams repeating; 126 / 280 / 192 fused mm1 + 1 fused
+      kmm2, plus 37 / 81 / 65 norm launches, a prefill and a decode step,
+      through the wrappers and in every decode graph's kernel nodes):
+      gemma per call, eager and graphed, then on records from the
+      leaf-wise init (``lm.init_params(..., prequant=)``), which must
+      equal ``prequantize(init_params)`` leaf for leaf and give the
+      per-call tokens and full-width prefill logits; stablelm and
+      nemotron only on leaf-wise records (their fp32 trees never sit on
+      the card whole), the init's peak memory at most the records plus
+      16 GB; each records path profiled (device busy ms, kernels a step),
+      its decode step beside its bound (record bytes read a step over the
+      card's memory rate).
 
 With ``--profile`` each model's mixed path also runs eagerly, per call and
 on records (tokens equal to the graphed run), and is traced four ways:
@@ -141,8 +172,12 @@ add, within the phases above:
       class, staged and fused timed side by side at llama's lm_head and
       wi;
   3c. the tuner (python -m repro_torch.tune) over llama's five (K, N) at
-      M 4 and 64, w 8, 12, 16 and 20, writing chiprun_out/tuned-h100.json,
-      with no candidate rejected;
+      M 4 and 64, w 8, 12, 16 and 20, writing its table (TUNED_TABLE):
+      each candidate timed in device time behind a sleep lead, one
+      candidate a distinct launch, only what select_plan serves as it is;
+      no candidate rejected, every winner in its served class, re-timed
+      here within 10 % of the tuner's time and at most 3 % slower than its
+      default;
   3e. staged KMM2 (both B layouts) against staged MM2 at w=12, M = 4 to
       2048, and the fused pair (csrc/fused_split.cu) on the same codes;
   5.  serve paths under a table, each held to the same path without one
@@ -151,11 +186,15 @@ add, within the phases above:
       mixed (112 mm1_gemm + 1 kmm2_gemm_planes a step), w16 (113
       mm2_gemm_planes), w24 (339 split kmm2_gemm_planes), granite mixed
       (128 + 3,840 per-expert mm1_gemm + 33 kmm2_gemm_planes) — with
-      exact launch counts and no fused launch; the tuned path's decode
-      step also timed in turns against the untabled one.
+      exact launch counts and no fused launch; and on llama's mixed
+      records the tuned table against none in device time: the width-4
+      decode graph replayed between CUDA events, six runs of each in
+      turns, one step's logits equal under both.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Details go to
+The line before the last is a JSON object with one entry per kernel (the
+five TPU kernels' counterparts, and the port-only rowinv_matmul and
+rowinv_norm); the last line is ``{"ok": true, "device": {...}}``.  The
+details go to
 ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
@@ -295,6 +334,38 @@ PREQUANT_PATHS = [("llama3.2-1b", "mixed"), ("llama3.2-1b", "w16"),
 # the chunk, the prompts' shared head and their tails (tokens).
 CHUNKED_PATHS = [("llama3.2-1b", "mixed"), ("rwkv6-3b", "mixed")]
 CHUNK, SHARED_HEAD, TAILS = 32, 80, (10, 25, 17, 40)
+# Phase 5r, the row-invariant kernels (csrc/rowinv.cu): the rows each is
+# run at (every one held to the same rows of the largest), the rows timed
+# (rwkv's decode and prefill), the tolerance against the plain version
+# (rtol, atol; fp32 rows), rwkv's LoRA width and the cases: rwkv's decay
+# LoRA products, rwkv's LayerNorms (ln_x on fp32 rows, ln1 / ln2 / ln_f on
+# bf16), llama's RMSNorm and nemotron's width.
+ROWINV_ROWS = [1, 2, 4, 8, 32, 64, 128, 256]
+ROWINV_TIMED = [4, 64]
+ROWINV_TOL = (1e-5, 1e-6)
+ROWINV_LORA = 64
+ROWINV_MATMULS = [(2560, ROWINV_LORA), (ROWINV_LORA, 2560)]
+ROWINV_NORMS = [("ln", 2560, "float32"), ("ln", 2560, "bfloat16"),
+                ("rms", 2048, "bfloat16"), ("rms", 6144, "float32")]
+ROWINV_KEYS = ("rowinv_matmul", "rowinv_norm")
+ROWINV_SOURCE = "src/repro_torch/kernels/csrc/rowinv.cu"
+# The dense configs served at full width and depth under mixed: (arch,
+# integer-GEMM launches per prefill and per decode step, served per call
+# too).  gemma's 18 layers have 7 w=8 projections each (q, k, v, o, wi,
+# wg, wo) and its tied w=12 lm_head (embed.T, 2048 x 256000); stablelm's
+# 40 layers the same 7 and an untied lm_head (5120 x 100352); nemotron's
+# 32 layers 6 (no GLU) and an untied lm_head (6144 x 256000).  gemma runs
+# per call too, its fp32 tree beside its records; stablelm (48.6 GB in
+# fp32) and nemotron (62.5 GB) only on records from the leaf-wise init.
+# Each serves 2 requests of 8 and 64 prompt tokens, 4 new tokens, twice
+# (the other two prompts feed the 4-lane checks and the profile).
+DENSE_PATHS = [("gemma-2b", {"mm1": 126, "kmm2": 1}, True),
+               ("stablelm-12b", {"mm1": 280, "kmm2": 1}, False),
+               ("nemotron-4-15b", {"mm1": 192, "kmm2": 1}, False)]
+DENSE_PROMPTS = (8, 64, 23, 41)
+DENSE_REQUESTS, DENSE_NEW = 2, 4
+# What the leaf-wise init may hold on the card beyond the records it makes.
+INIT_HEADROOM_GB = 16
 # Replayed decode steps the profiler witness counts kernels over.
 WITNESS_STEPS = 2
 # The one-width paths that --profile traces beside each model's mixed one:
@@ -345,6 +416,9 @@ KMM_VS_MM_ROWS = [4, 64, 512, 2048]
 # The tuner: llama's five (K, N) at M in {4, 64} and four widths.
 TUNE_ROWS = [4, 64]
 TUNE_WIDTHS = [8, 12, 16, 20]
+# A winner may be at most this much slower than its default, and a re-time
+# this far from the tuner's time (both device time).
+TUNE_SLOWER, TUNE_AGREE = 0.03, 0.10
 # Serve paths under a tuning table, 2 requests of 4 new tokens each, held
 # to the same path without a table: (arch, policy, table, staged launches
 # per prefill and decode step; None for the tuned table, whose mix of
@@ -362,10 +436,12 @@ TABLE_PATHS = [
      {"mm1_gemm": 128 + 96 * N_EXPERTS, "kmm2_gemm_planes_s8": 33}),
 ]
 TUNED_TABLE = ROOT / "chiprun_out" / "tuned-h100.json"
-# The tuned table's timing runs (tuned_ab): new tokens a request, and the
-# order of the runs with and without the table.
-AB_NEW_TOKENS = 16
-AB_ORDER = ("plain", "tuned", "tuned", "plain", "plain", "tuned")
+# The tuned table's A/B on the llama mixed records (tuned_ab): graph
+# replays a run, and the order of the runs, six with the table and six
+# without.
+AB_REPLAYS = 10
+TUNED_AB_PATH = ("llama3.2-1b", "mixed")
+AB_ORDER = ("plain", "tuned", "tuned", "plain") * 3
 STAGED_SOURCES = {
     "mm1_gemm": "src/repro_torch/kernels/csrc/staged_pipe.cu",
     "kmm2_gemm_planes_s8": "src/repro_torch/kernels/csrc/staged_pipe.cu",
@@ -388,19 +464,28 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
     Where a call's host work outlasts its kernels, the events measure the
     host; ``lead_ms`` > 0 first queues a device sleep of about that long
     (``torch.cuda._sleep``, at most 2 GHz of clock), so the calls queue up
-    behind it and run back to back: the interval is device time."""
+    behind it and run back to back: the interval is device time.  If
+    enqueuing the calls took the host longer than the lead (a slow call, a
+    pause), the measurement is taken again behind a lead twice that long,
+    up to three times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    if lead_ms > 0:
-        torch.cuda._sleep(int(lead_ms * 2e6))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    for _ in range(4):
+        if lead_ms > 0:
+            torch.cuda._sleep(int(lead_ms * 2e6))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if lead_ms <= 0 or enqueue_ms < lead_ms:
+            break
+        lead_ms = 2 * enqueue_ms
     return start.elapsed_time(end) / iters
 
 
@@ -860,10 +945,9 @@ def staged_launches() -> dict:
 
 
 def reset_all(fg) -> None:
-    from repro_torch.kernels import wkv_gemm
+    from repro_torch.kernels import rowinv, wkv_gemm
     fg.reset_launches()
-    wkv_gemm.reset_launches()
-    for mod in staged_modules():
+    for mod in (wkv_gemm, rowinv) + staged_modules():
         mod.reset_launches()
 
 
@@ -1382,9 +1466,17 @@ def kmm2_vs_mm2(torch, fg):
 
 def tuner_phase(torch):
     """Phase 3 (c): ``python -m repro_torch.tune`` over llama's five (K, N)
-    at M in TUNE_ROWS and TUNE_WIDTHS on the card, writing TUNED_TABLE; no
-    candidate rejected (a launch failure raises out of the sweep), every
-    winner passes check_plan again at its shape."""
+    at M in TUNE_ROWS and TUNE_WIDTHS on the card, writing TUNED_TABLE: in
+    device time behind a sleep lead, one candidate a distinct launch, only
+    the candidates ``select_plan`` serves as they are.  No candidate
+    rejected (a launch failure raises out of the sweep); every winner in
+    the class ``select_plan`` serves and passing check_plan again at its
+    shape; every winner and its default re-timed here, in turns, three
+    times each (median), with ``cuda_ms`` behind a lead: a winner more
+    than TUNE_SLOWER slower than its default, or a re-time more than
+    TUNE_AGREE off the tuner's own time, fails."""
+    from repro_torch.core.dispatch import analytic_plan
+    from repro_torch.quant.qmatmul import run_plan_dequant
     from repro_torch.tune import runner
     from repro_torch.tune.__main__ import main as tune_main
     from repro_torch.tune.table import TuningTable, key_for
@@ -1409,19 +1501,55 @@ def tuner_phase(torch):
     for w in TUNE_WIDTHS:
         for shape in shapes:
             plan = table.lookup("cuda", shape, w)
+            if not runner.served_as_is(plan, shape):
+                fail(f"tuned winner {plan} at {shape} is not what "
+                     f"select_plan serves from the table")
             a, b = runner.make_operands(shape, w, seed=1, device="cuda")
             ok, err = runner.check_plan(plan, a, b)
             if not ok:
                 fail(f"tuned winner {plan} at {shape}: {err}")
             rec = table.entries[key_for("cuda", shape, w)]
-            rows.append({"shape": shape, "w": w, "variant": plan.variant,
-                         "block_k": plan.block_k, "depth": plan.depth,
-                         "combine_int32": plan.combine_int32,
-                         "us": rec["us"], "us_default": rec["us_default"],
-                         "speedup_vs_default": rec["us_default"] / rec["us"],
-                         "n_candidates": rec["n_candidates"]})
-    log(f"  tuner: {len(table)} keys in {seconds:.1f} s; every winner "
-        f"passes check_plan again; table in {TUNED_TABLE.name}")
+            a, b = runner.make_operands(shape, w, seed=0, device="cuda")
+            sx = torch.full((a.shape[0], 1), 1e-3, device="cuda")
+            sw = torch.full((1, b.shape[1]), 1e-3, device="cuda")
+            calls = {label: (lambda p=p: run_plan_dequant(
+                a, b, sx, sw, p, torch.bfloat16))
+                for label, p in (("default", analytic_plan(w)),
+                                 ("winner", plan))}
+            ms = {label: [] for label in calls}
+            for _ in range(3):
+                for label in ("default", "winner"):
+                    ms[label].append(device_ms(torch, calls[label])[0])
+            ms = {label: statistics.median(v) for label, v in ms.items()}
+            row = {"shape": shape, "w": w, "variant": plan.variant,
+                   "block_k": plan.block_k, "depth": plan.depth,
+                   "combine_int32": plan.combine_int32,
+                   "us": rec["us"], "us_default": rec["us_default"],
+                   "lead_ms": rec.get("lead_ms"),
+                   "speedup_vs_default": rec["us_default"] / rec["us"],
+                   "n_candidates": rec["n_candidates"],
+                   "retimed_us": ms["winner"] * 1e3,
+                   "retimed_us_default": ms["default"] * 1e3}
+            rows.append(row)
+            if ms["winner"] > (1 + TUNE_SLOWER) * ms["default"]:
+                fail(f"tuned winner {plan} at {shape} w={w}: "
+                     f"{ms['winner'] * 1e3:.2f} us against its default's "
+                     f"{ms['default'] * 1e3:.2f} us, re-timed in device time")
+            for got, tuned in ((ms["winner"] * 1e3, rec["us"]),
+                               (ms["default"] * 1e3, rec["us_default"])):
+                if abs(got - tuned) > TUNE_AGREE * tuned:
+                    fail(f"at {shape} w={w} the re-time {got:.2f} us and the "
+                         f"tuner's {tuned:.2f} us disagree by more than "
+                         f"{TUNE_AGREE:.0%}: {row}")
+    log(f"  tuner: {len(table)} keys in {seconds:.1f} s; every winner in its "
+        f"served class, passing check_plan again, re-timed within "
+        f"{TUNE_AGREE:.0%} of the tuner and at most {TUNE_SLOWER:.0%} slower "
+        f"than its default; table in {TUNED_TABLE.name}")
+    for r in rows:
+        log(f"    w={r['w']} {r['shape']}: {r['variant']} bk={r['block_k']} "
+            f"{r['us']:.2f} us (default {r['us_default']:.2f}; re-timed "
+            f"{r['retimed_us']:.2f} / {r['retimed_us_default']:.2f}), "
+            f"{r['n_candidates']} timed")
     return {"seconds": seconds, "winners": rows}
 
 
@@ -1487,16 +1615,22 @@ def table_paths(torch, fg, arch, params, prompts):
                 staged = [k for c in [run["host"]] + list(
                     eng.executor.captured.values()) for k in c
                     if k in STAGED_SOURCES]
+
+                def gemms(c):
+                    return sum(n for k, n in c.items()
+                               if k not in ROWINV_KEYS)
+
                 if (label == "plain" and staged) or \
-                        sum(run["host"].values()) < 113 * run["prefills"] \
-                        or any(sum(c.values()) < 113 for c in
+                        gemms(run["host"]) < 113 * run["prefills"] \
+                        or any(gemms(c) < 113 for c in
                                eng.executor.captured.values()):
                     fail(f"{what} ({label}): launches {run['host']}, in "
                          f"the graphs {eng.executor.captured}")
                 run["launches"] = {"host": run["host"]} | graph_launches(
                     f"{what} ({label})", eng, run)
             else:
-                run["launches"] = check_counted(what, eng, run, per_call)
+                run["launches"] = check_counted(
+                    what, eng, run, per_call | rowinv_per_call(arch))
             runs[label] = run
             if label == "plain":
                 plain_runs[policy] = run
@@ -1522,47 +1656,67 @@ def table_paths(torch, fg, arch, params, prompts):
             f"prefills, and in each decode graph {per_call or 'the mix'}; "
             f"{r['decode_step_ms']:.2f} ms a decode step "
             f"({r['decode_step_ms_plain']:.2f} without the table)")
-        if kind == "tuned":
-            ab = tuned_ab(torch, pcfg, params, prompts, table)
-            r["ab_decode_step_ms"] = ab
-            med = {lab: statistics.median(ms for l, ms in ab if l == lab)
-                   for lab in ("plain", "tuned")}
-            r["ab_median_decode_step_ms"] = med
-            log(f"  {what}, decode step ms in turns (2 requests x "
-                f"{AB_NEW_TOKENS} new; {' / '.join(AB_ORDER)}): "
-                + " / ".join(f"{ms:.2f}" for _, ms in ab)
-                + f"; median plain {med['plain']:.2f}, tuned "
-                f"{med['tuned']:.2f}")
     return out
 
 
-def tuned_ab(torch, pcfg, params, prompts, table):
-    """Decode step ms without the table and under it, in turns (AB_ORDER),
-    2 requests of AB_NEW_TOKENS new tokens each, on two warmed engines
-    (each run under its own engine's table): the host clock moves between
-    runs, so one run of each says little."""
+def tuned_ab(torch, pcfg, qparams, prompts, table) -> dict:
+    """Decode device ms a step on the records without the table and under
+    it: two warmed engines, each with the same four requests prefilled and
+    decoded once, the first step's logits equal under both; then the runs
+    in turns (AB_ORDER), each AB_REPLAYS decode steps at 4 lanes replayed
+    back to back through the width-4 graph between two CUDA events (a
+    replay's host work is a few small copies, so the device is never idle
+    and the events time it)."""
+    import numpy as np
     from repro_torch.core.context import ExecContext
     from repro_torch.serve.engine import Request
     from repro_torch.tune.table import set_active_table
 
-    tables = {"plain": None, "tuned": table}
-    engines = {}
-    for label, tbl in tables.items():
-        set_active_table(None)
-        engines[label] = serve_engine(torch, pcfg, params,
-                                      context=ExecContext(tuning_table=tbl))
-    out = []
-    for label in AB_ORDER:
-        set_active_table(tables[label])
-        eng = engines[label]
-        reqs = [Request(prompt=p, max_new_tokens=AB_NEW_TOKENS)
-                for p in prompts[:2]]
-        torch.cuda.synchronize()
-        stats = eng.generate(reqs)
-        torch.cuda.synchronize()
-        out.append((label, stats.decode_s / stats.decode_steps * 1e3))
     set_active_table(None)
-    return out
+    steps = {}
+    for label, tbl in (("plain", None), ("tuned", table)):
+        eng = serve_engine(torch, pcfg, qparams,
+                           context=ExecContext(tuning_table=tbl))
+        for p in prompts[:4]:
+            eng.submit(Request(prompt=p, max_new_tokens=4))
+        eng.step()
+        n_live, lanes = eng.scheduler.decode_lanes()
+        slots = eng.scheduler.slots
+        toks = np.array([slots[j].last_tok for j in lanes], np.int32)
+        pos = np.array([slots[j].pos for j in lanes], np.int32)
+        if n_live != 4:
+            fail(f"tuned A/B: {n_live} live lanes, expected 4")
+        logits = eng.executor.decode(lanes, toks, pos).clone()
+        steps[label] = (eng, lanes, toks, pos, logits)
+    if not torch.equal(steps["plain"][4], steps["tuned"][4]):
+        fail("tuned A/B: a decode step's logits differ under the tuned "
+             "table")
+    runs = []
+    for label in AB_ORDER:
+        eng, lanes, toks, pos, _ = steps[label]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AB_REPLAYS):
+            eng.executor.decode(lanes, toks, pos)
+        end.record()
+        end.synchronize()
+        runs.append((label, start.elapsed_time(end) / AB_REPLAYS))
+    for eng, *_ in steps.values():
+        while eng.num_active:
+            eng.step()
+    set_active_table(None)
+    med = {lab: statistics.median(ms for l, ms in runs if l == lab)
+           for lab in ("plain", "tuned")}
+    log(f"  tuned table A/B on the records, decode device ms a step at 4 "
+        f"lanes in turns ({AB_REPLAYS} replays a run; "
+        f"{' / '.join(AB_ORDER)}): "
+        + " / ".join(f"{ms:.4f}" for _, ms in runs)
+        + f"; median untabled {med['plain']:.4f}, tuned {med['tuned']:.4f}"
+        f" ({med['plain'] / med['tuned']:.4f}x)")
+    return {"runs": runs, "median_ms": med,
+            "speedup": med["plain"] / med["tuned"]}
 
 
 def smoke_parity(torch, np, arch: str):
@@ -1643,14 +1797,28 @@ def nonzero(counts: dict) -> dict:
     return {k: c for k, c in counts.items() if c}
 
 
+def rowinv_per_call(arch: str) -> dict:
+    """The row-invariant kernels' launches per prefill and per decode step:
+    one norm launch a norm call site (ln1 and ln2 a layer, ln_f, and rwkv's
+    ln_x a layer), and two LoRA products a rwkv layer."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    rwkv = sum(b.kind == "rwkv" for b in cfg.pattern) * cfg.n_periods
+    out = {"rowinv_norm": 2 * cfg.n_layers + 1 + rwkv}
+    if rwkv:
+        out["rowinv_matmul"] = 2 * rwkv
+    return out
+
+
 def path_per_call(arch: str, dense: dict, grouped: dict) -> dict:
     """A path's kernel launches per prefill and per decode step, by the
-    executor's kernel keys (``repro_torch.kernels.launch_counts``)."""
+    executor's kernel keys (``repro_torch.kernels.launch_counts``): the
+    integer GEMMs', the WKV recurrence's and the row-invariant kernels'."""
     out = {f"dense_{m}": c for m, c in dense.items()}
     out.update({f"grouped_{m}": c for m, c in grouped.items()})
     if WKV_PER_CALL.get(arch):
         out["wkv"] = WKV_PER_CALL[arch]
-    return out
+    return out | rowinv_per_call(arch)
 
 
 def serve_counted(torch, fg, eng, reqs, graphs: bool = True):
@@ -1906,13 +2074,21 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
             return [Request(prompt=p, max_new_tokens=new, temperature=t)
                     for p, t in zip(prompts[:n_req], temps)]
 
-        modes = ({"eager": serve_mode(
-            torch, fg, pcfg, qparams, requests, what, per_call, False, 1,
-            pol == "mixed", prompts)} if profile else {})
-        modes["graphed"] = serve_mode(
+        # On the mixed records the graphed decode is profiled in every run
+        # (device busy ms, kernels a step) after the profiler witness.
+        # Under --profile the witness is not run: after that mode's long
+        # profiler sessions of every path, a one-step session on granite's
+        # records lost ~15 of its ~7,017 kernel records, one of them a
+        # norm kernel, while the default run, a standalone probe and the
+        # graph's own kernel nodes all give every kernel.
+        modes = {"graphed": serve_mode(
             torch, fg, pcfg, qparams, requests, what, per_call, True, n_runs,
-            profile and pol == "mixed", prompts, check_eager=True,
-            witness=pol == "mixed", uncopied=True)
+            pol == "mixed", prompts, check_eager=True,
+            witness=pol == "mixed" and not profile, uncopied=True)}
+        if profile:
+            modes["eager"] = serve_mode(
+                torch, fg, pcfg, qparams, requests, what, per_call, False, 1,
+                pol == "mixed", prompts)
         tokens, logits = baseline[pol]
         for mode, r in list(modes.items()):
             if r.pop("first")["tokens"] != tokens:
@@ -1938,6 +2114,16 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
             out["prequant"][pol]["chunked_prefix"] = chunked_prefix_run(
                 torch, np, fg, arch, pcfg, qparams, per_call)
             seconds["chunked_prefix"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            out["prequant"][pol]["chunked_gate"] = chunked_gate(
+                torch, np, arch, pcfg, qparams)
+            seconds["chunked_gate"] = time.monotonic() - t0
+        if (arch, pol) == TUNED_AB_PATH:
+            from repro_torch.tune.table import TuningTable
+            t0 = time.monotonic()
+            out["prequant"][pol]["tuned_ab"] = tuned_ab(
+                torch, pcfg, qparams, prompts, TuningTable.load(TUNED_TABLE))
+            seconds["tuned_ab"] = time.monotonic() - t0
         del qparams
         gc.collect()
         torch.cuda.empty_cache()
@@ -1945,6 +2131,155 @@ def serve_full(torch, np, fg, arch: str, profile: bool):
     log(f"  {arch} serve seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
     return out, launches_by_path
+
+
+def record_bytes(tree) -> int:
+    """Bytes of every prequantized record (codes and scale) in ``tree``."""
+    from repro_torch.quant.prequant import is_prequantized
+    if is_prequantized(tree):
+        return sum(t.numel() * t.element_size() for t in tree.values())
+    if isinstance(tree, dict):
+        return sum(record_bytes(v) for v in tree.values())
+    return 0
+
+
+def leafwise_init(torch, cfg):
+    """Records from the leaf-wise init (``lm.init_params(...,
+    prequant=)``, a generator seeded 0), and what it took: seconds, the
+    peak device memory it added, the records' GB; fails if the peak
+    exceeds the records by more than INIT_HEADROOM_GB."""
+    from repro_torch.models import lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    qparams = lm.init_params(gen, cfg, device="cuda", prequant=cfg.quant)
+    torch.cuda.synchronize()
+    out = {"init_s": time.monotonic() - t0,
+           "init_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "records_gb": tree_gb(qparams)}
+    if out["init_peak_gb"] > out["records_gb"] + INIT_HEADROOM_GB:
+        fail(f"{cfg.name} leaf-wise init peaked at {out['init_peak_gb']:.2f} "
+             f"GB for {out['records_gb']:.2f} GB of records")
+    return qparams, out
+
+
+def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool):
+    """Phase 5n: one dense config at full width and depth under mixed.
+    With ``per_call_too`` (gemma) its fp32 tree from a generator seeded 0
+    serves per call, eager and graphed (one step graphed against eager),
+    is prequantized, and is freed; then the leaf-wise init builds the
+    records from a generator seeded 0 (its peak memory gated), equal leaf
+    for leaf to ``prequantize(init_params)``, and they serve graphed: the
+    per-call run's tokens and full-width prefill logits (torch.equal).
+    Every run is counted under the exact launch gates (wrappers and decode
+    graph nodes), twice, greedy streams repeating; the records path is
+    profiled over its decode steps (device busy ms, kernels a step)."""
+    from repro_torch.models import lm
+    from repro_torch.quant.prequant import prequantize
+    from repro_torch.serve.engine import Request
+
+    t_start = time.monotonic()
+    pcfg = path_config(arch, "mixed")
+    per_call = path_per_call(arch, dense, {})
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, pcfg.vocab_size, n)]
+               for n in DENSE_PROMPTS]
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=DENSE_NEW)
+                for p in prompts[:DENSE_REQUESTS]]
+
+    out = {"arch": arch, "per_call_launches": per_call}
+    want = baseline = None
+    if per_call_too:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = lm.init_params(gen, pcfg, device="cuda")
+        out["fp32_gb"] = tree_gb(params)
+        modes = {"eager": serve_mode(torch, fg, pcfg, params, requests, arch,
+                                     per_call, False, 2, False, prompts)}
+        modes["graphed"] = serve_mode(torch, fg, pcfg, params, requests,
+                                      arch, per_call, True, 2, False,
+                                      prompts, check_eager=True)
+        tokens = modes["graphed"].pop("first")["tokens"]
+        if modes["eager"].pop("first")["tokens"] != tokens:
+            fail(f"{arch}: graphed decode changed a token against eager")
+        baseline = (tokens, modes["graphed"].pop("logits"))
+        out["per_call"] = modes
+        want = prequantize(params, pcfg.quant)
+        del params
+    qparams, out["init"] = leafwise_init(torch, pcfg)
+    if want is not None:
+        got = dict(_paths(qparams))
+        ref = dict(_paths(want))
+        if got.keys() != ref.keys() or not all(
+                got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k])
+                for k in ref):
+            fail(f"{arch}: the leaf-wise records differ from "
+                 f"prequantize(init_params)")
+        del want, got, ref
+    out["parameters"] = param_count(qparams)
+    rbytes = record_bytes(qparams)
+    read = rbytes + (qparams["embed"].numel() * 4 if pcfg.tie_embeddings
+                     else 0)
+    rec = serve_mode(torch, fg, pcfg, qparams, requests, f"{arch} records",
+                     per_call, True, 2, True, prompts, check_eager=True,
+                     uncopied=True)
+    first, logits = rec.pop("first"), rec.pop("logits")
+    for r in first["tokens"]:
+        if len(r) != DENSE_NEW or not all(0 <= t < pcfg.vocab_size
+                                          for t in r):
+            fail(f"{arch}: bad token stream {r}")
+    if baseline is not None and (first["tokens"] != baseline[0]
+                                 or not torch.equal(logits, baseline[1])):
+        fail(f"{arch}: the leaf-wise records' tokens or full-width prefill "
+             f"logits differ from the per-call run")
+    prof = rec.pop("profile")
+    rec.update({
+        "record_bytes": rbytes, "bytes_read_a_step": read,
+        "bound_ms": read / PEAK_BYTES_PER_S * 1e3,
+        "device_busy_ms": prof["device_busy_ms_per_step"],
+        "kernels_a_step": prof["kernels_per_step"],
+        "launches_per_profiled_step": prof["launches_per_step"],
+        "idle_share": prof["idle_share"]})
+    out["records"] = rec
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_start
+    init = out["init"]
+    log(f"  {arch} mixed: {out['parameters']} parameters; leaf-wise init "
+        f"{init['init_s']:.1f} s, peak {init['init_peak_gb']:.2f} GB for "
+        f"{init['records_gb']:.2f} GB of records"
+        + (" (equal to prequantize(init_params)); per call "
+           + "; ".join(f"{m} {r['decode_step_ms']:.2f} ms a decode step"
+                       for m, r in out["per_call"].items())
+           + ", records' tokens and prefill logits equal to it"
+           if per_call_too else "")
+        + f"; on records graphed {rec['decode_step_ms']:.2f} ms a decode "
+        f"step ({rec['decode_tokens_per_s']:.1f} tokens/s), device busy "
+        f"{rec['device_busy_ms']:.2f} ms and {rec['kernels_a_step']:.0f} "
+        f"kernels a step at 4 lanes, bound {rec['bound_ms']:.3f} ms "
+        f"({read / 1e9:.2f} GB read a step), peak serving "
+        f"{rec['peak_mem_gb']:.2f} GB; launches {per_call} a call "
+        f"({out['seconds']:.1f} s)")
+    return out
+
+
+def param_count(tree) -> int:
+    """Parameters of a tree whose weight leaves may be records (a record
+    counts its codes)."""
+    from repro_torch.quant.prequant import is_prequantized
+    if is_prequantized(tree):
+        return tree["q"].numel()
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return tree.numel()
 
 
 def tree_gb(tree) -> float:
@@ -2078,7 +2413,8 @@ def profile_witness(torch, eng, prompts, label: str) -> dict:
         got = {k: c for k, c in prof["launches_per_step"].items() if c}
         if got != want:
             fail(f"{label}: the profiler saw {got} kernels in a replayed "
-                 f"step, the graph captured {want}")
+                 f"step ({prof['kernels_per_step']:.0f} kernels in all), "
+                 f"the graph captured {want}")
         steps.append(prof["kernels_per_step"])
     log(f"  {label}: profiler witness, {WITNESS_STEPS} replayed steps: "
         f"{want} a step, as captured")
@@ -2159,9 +2495,8 @@ def chunked_prefix_run(torch, np, fg, arch, pcfg, qparams, per_call):
     warmed and its run under the exact launch gates: with prefix sharing
     (at least 2 hits) and chunked without it.  A hit restores what a cold
     chunked prefill computes at the same chunk boundaries, so the prefix
-    engine's greedy tokens must equal the chunked engine's.  (Against the
-    unchunked engine the tokens need not be equal on the card: see
-    ``chunk_study``.)"""
+    engine's greedy tokens must equal the chunked engine's (and
+    ``chunked_gate`` holds chunked to single-shot prefill)."""
     from repro_torch.serve.engine import Engine, Request
     prompts = shared_head_prompts(np, pcfg, 5)
     runs = {}
@@ -2201,20 +2536,118 @@ def shared_head_prompts(np, pcfg, seed: int):
             for n in TAILS]
 
 
-def chunk_study(torch, np, fg):
-    """``--chunk-study``: chunked prefill (CHUNK) against single-shot
-    prefill on the card, for each model of CHUNKED_PATHS on its mixed
-    records, the 5c prompts (seed 5) and a second set (seed 6), each
-    served twice by the same two warmed engines (2 slots, 8 new greedy
-    tokens).  Every logits row the engines sample from is kept, so for
+def chunk_compare(torch, np, pcfg, qparams, runs: int = 1) -> dict:
+    """Chunked prefill (CHUNK) against single-shot prefill on the card, on
+    records: two warmed engines (2 slots, 8 new greedy tokens), the 5c
+    prompts (seed 5) and a second set (seed 6), each served ``runs`` times
+    by both.  Every logits row the engines sample from is kept, so for
     each stream it reports whether the tokens are equal, the first token
     that differs, the first step whose logits differ at all and the max
-    |difference| there, and whether a second run repeats the first bit
-    for bit.  Reported, not gated."""
-    from repro_torch.quant.prequant import prequantize
+    |difference| there, and, with two runs, whether the second repeats the
+    first bit for bit."""
     from repro_torch.serve.engine import Engine, Request
 
+    engines = {}
+    for label, kw in (("chunked", dict(prefill_chunk=CHUNK)),
+                      ("unchunked", {})):
+        eng = engines[label] = Engine(pcfg, qparams, max_seq=256,
+                                      batch_size=2, device="cuda", **kw)
+        eng.warm()
+
+    def serve(eng, prompts):
+        """Greedy tokens by request, and the logits row each token was
+        sampled from, by (request, step)."""
+        rows, ex = {}, eng.executor
+        inner = ex.sample
+
+        def keep(seed, logits, temps, rids, steps):
+            # a padding lane (request id 0, step 0) comes after the real
+            # (0, 0) row, which the engine samples at prefill
+            for lane, (rid, step) in enumerate(zip(rids, steps)):
+                rows.setdefault((int(rid), int(step)),
+                                logits[lane].float().cpu())
+            return inner(seed, logits, temps, rids, steps)
+
+        ex.sample = keep
+        reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
+        try:
+            eng.generate(reqs)
+        finally:
+            del ex.sample
+        return [r.generated for r in reqs], {
+            (i, j): rows[(r.stats.rid, j)] for i, r in enumerate(reqs)
+            for j in range(len(r.generated))}
+
     out = {}
+    for seed in (5, 6):
+        prompts = shared_head_prompts(np, pcfg, seed)
+        done = [{label: serve(eng, prompts)
+                 for label, eng in engines.items()} for _ in range(runs)]
+        streams = []
+        for i in range(len(prompts)):
+            (tc, lc), (tu, lu) = done[0]["chunked"], done[0]["unchunked"]
+            first_tok = next((j for j, (a, b) in enumerate(
+                zip(tc[i], tu[i])) if a != b), None)
+            first_logit, max_abs = None, 0.0
+            for j in range(len(tc[i]) if first_tok is None
+                           else first_tok + 1):
+                a, b = lc[(i, j)], lu[(i, j)]
+                if not torch.equal(a, b):
+                    first_logit = j
+                    max_abs = float((a - b).abs().max())
+                    break
+            streams.append({
+                "tokens_equal": first_tok is None and tc[i] == tu[i],
+                "first_token_differs": first_tok,
+                "first_logits_differ": first_logit,
+                "max_abs_logit_diff_there": max_abs,
+                "tokens": len(tc[i])})
+        out[f"seed {seed}"] = {"streams": streams}
+        if runs > 1:
+            out[f"seed {seed}"]["second_run_repeats"] = all(
+                done[0][k][0] == done[1][k][0] and all(
+                    torch.equal(done[0][k][1][key], done[1][k][1][key])
+                    for key in done[0][k][1])
+                for k in engines)
+    return out
+
+
+def describe_streams(streams) -> str:
+    return "; ".join(
+        "equal" if st["tokens_equal"] and st["first_logits_differ"] is None
+        else f"token {st['first_token_differs']} differs (logits first at "
+        f"step {st['first_logits_differ']}, max |diff| "
+        f"{st['max_abs_logit_diff_there']:.4g})" for st in streams)
+
+
+def chunked_gate(torch, np, arch, pcfg, qparams) -> dict:
+    """Phase 5c's gate: chunked prefill (chunks of CHUNK) against a
+    single-shot prefill on the mixed records, both prompt sets, 8 greedy
+    tokens a stream: every token and every sampled logits row
+    torch.equal, as the reference's ``start=`` contract makes them."""
+    t0 = time.monotonic()
+    out = chunk_compare(torch, np, pcfg, qparams)
+    for seed, rec in out.items():
+        sts = rec["streams"]
+        if not all(st["tokens_equal"] and st["first_logits_differ"] is None
+                   and st["tokens"] == 8 for st in sts):
+            fail(f"{arch} chunked prefill (chunk {CHUNK}) differs from a "
+                 f"single-shot prefill, {seed}: {describe_streams(sts)}")
+    log(f"  {arch} chunked (chunk {CHUNK}) against single-shot prefill: "
+        f"every token and sampled logits row equal, "
+        f"{sum(len(r['streams']) for r in out.values())} streams of 8 "
+        f"greedy tokens, seeds 5 and 6 ({time.monotonic() - t0:.1f} s)")
+    return out
+
+
+def chunk_study(torch, np, fg):
+    """``--chunk-study``: the chunked gate's comparison as a report, each
+    prompt set served twice by the same two engines (does a second run
+    repeat the first bit for bit), for each model of CHUNKED_PATHS on its
+    mixed records; phase 5r's kernels reported first.  Not gated."""
+    from repro_torch.quant.prequant import prequantize
+
+    out = {"rowinv": rowinv_checks(torch, gate=False)}
     for arch, pol in CHUNKED_PATHS:
         pcfg = path_config(arch, pol)
         _, params, _ = serve_inputs(torch, np, arch)
@@ -2222,104 +2655,105 @@ def chunk_study(torch, np, fg):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        engines = {}
-        for label, kw in (("chunked", dict(prefill_chunk=CHUNK)),
-                          ("unchunked", {})):
-            eng = engines[label] = Engine(pcfg, qparams, max_seq=256,
-                                          batch_size=2, device="cuda", **kw)
-            eng.warm()
-
-        def serve(eng, prompts):
-            """Greedy tokens by request, and the logits row each token was
-            sampled from, by (request, step)."""
-            rows, ex = {}, eng.executor
-            inner = ex.sample
-
-            def keep(seed, logits, temps, rids, steps):
-                # a padding lane (request id 0, step 0) comes after the
-                # real (0, 0) row, which the engine samples at prefill
-                for lane, (rid, step) in enumerate(zip(rids, steps)):
-                    rows.setdefault((int(rid), int(step)),
-                                    logits[lane].float().cpu())
-                return inner(seed, logits, temps, rids, steps)
-
-            ex.sample = keep
-            reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
-            try:
-                eng.generate(reqs)
-            finally:
-                del ex.sample
-            return [r.generated for r in reqs], {
-                (i, j): rows[(r.stats.rid, j)] for i, r in enumerate(reqs)
-                for j in range(len(r.generated))}
-
-        for seed in (5, 6):
-            prompts = shared_head_prompts(np, pcfg, seed)
-            runs = [{label: serve(eng, prompts)
-                     for label, eng in engines.items()} for _ in range(2)]
-            streams = []
-            for i in range(len(prompts)):
-                (tc, lc), (tu, lu) = runs[0]["chunked"], runs[0]["unchunked"]
-                first_tok = next((j for j, (a, b) in enumerate(
-                    zip(tc[i], tu[i])) if a != b), None)
-                first_logit, max_abs = None, 0.0
-                for j in range(len(tc[i]) if first_tok is None
-                               else first_tok + 1):
-                    a, b = lc[(i, j)], lu[(i, j)]
-                    if not torch.equal(a, b):
-                        first_logit = j
-                        max_abs = float((a - b).abs().max())
-                        break
-                streams.append({
-                    "tokens_equal": first_tok is None,
-                    "first_token_differs": first_tok,
-                    "first_logits_differ": first_logit,
-                    "max_abs_logit_diff_there": max_abs})
-            repeat = all(
-                runs[0][k][0] == runs[1][k][0] and all(
-                    torch.equal(runs[0][k][1][key], runs[1][k][1][key])
-                    for key in runs[0][k][1])
-                for k in engines)
-            out[f"{arch} seed {seed}"] = {"streams": streams,
-                                          "second_run_repeats": repeat}
-            log(f"  {arch} seed {seed}: chunked vs unchunked per stream "
-                + "; ".join(
-                    "equal" if st["tokens_equal"] else
-                    f"token {st['first_token_differs']} differs (logits "
-                    f"first at step {st['first_logits_differ']}, max |diff| "
-                    f"{st['max_abs_logit_diff_there']:.4g})"
-                    for st in streams)
-                + f"; second run repeats bit for bit: {repeat}")
-        del engines, qparams
+        for seed, rec in chunk_compare(torch, np, pcfg, qparams,
+                                       runs=2).items():
+            out[f"{arch} {seed}"] = rec
+            log(f"  {arch} {seed}: chunked vs unchunked per stream "
+                f"{describe_streams(rec['streams'])}; second run repeats "
+                f"bit for bit: {rec['second_run_repeats']}")
+        del qparams
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def row_invariance(torch) -> dict:
-    """Whether ops outside the integer GEMMs give a row the same bits
-    whatever the number of rows (what chunked prefill needs to equal a
-    single-shot prefill): rwkv's decay LoRA products in fp32 (ATen's
-    matmul, (M, 2560) x (2560, 64) and (M, 64) x (64, 2560)) and a row
-    mean over 2560, each at M 1-64 against the same rows of M = 128;
-    the max |difference|, reported, not gated."""
+def rowinv_checks(torch, gate: bool = True) -> list:
+    """Phase 5r: the row-invariant kernels (csrc/rowinv.cu) at every M of
+    ROWINV_ROWS against the same rows of M = 256 (torch.equal), and against
+    their plain versions (ATen) on the same inputs: fp32 rows allclose at
+    ROWINV_TOL, bf16 rows within one bf16 ulp (the same fp32 value may
+    round either way once the sums differ in the last bit).  ATen's own
+    change with the row count (what the kernels cure) is reported beside
+    them: the max |difference| of its rows at M < 256 from the same rows
+    at M = 256.  Timed at rwkv's decode (M = 4) and prefill (M = 64) rows
+    in device time next to the ATen call it replaces and, for fp32 norms,
+    the one library call that computes the same function
+    (``F.layer_norm``, ``F.rms_norm``; the matmul's is ``x @ w``, its plain
+    version), with its bound (bytes over the card's rate).  ``gate`` False
+    only reports."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rowinv as R
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    out = {}
-    for name, k, n in (("matmul fp32 2560x64", 2560, 64),
-                       ("matmul fp32 64x2560", 64, 2560)):
-        x = torch.randn(128, k, device="cuda", generator=gen)
-        w = torch.randn(k, n, device="cuda", generator=gen)
-        full = x @ w
-        for m in (1, 8, 32, 64):
-            out[f"{name} M={m}"] = float((x[:m] @ w - full[:m]).abs().max())
-    x = torch.randn(128, 2560, device="cuda", generator=gen)
-    full = x.mean(-1)
-    for m in (1, 8, 32, 64):
-        out[f"mean over 2560 M={m}"] = float((x[:m].mean(-1)
-                                              - full[:m]).abs().max())
-    log("  rows against the same rows of M = 128 (max |diff|): "
-        + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    top = max(ROWINV_ROWS)
+    rtol, atol = ROWINV_TOL
+    out = []
+
+    def check(name, fn, plain, inputs, nbytes, bf16, library=None):
+        full = fn(*inputs)
+        ref = plain(*inputs)
+        torch.cuda.synchronize()
+        varies = [m for m in ROWINV_ROWS
+                  if not torch.equal(fn(inputs[0][:m], *inputs[1:]),
+                                     full[:m])]
+        aten = max(float((plain(inputs[0][:m], *inputs[1:]).float()
+                          - ref[:m].float()).abs().max())
+                   for m in ROWINV_ROWS)
+        diff = (full.float() - ref.float()).abs()
+        tol = (2.0 ** -7 if bf16 else rtol) * ref.float().abs() + atol
+        n_out = int((diff > tol).sum())
+        row = {"kernel": name, "rows_differing_from_M256": varies,
+               "max_abs_err": float(diff.max()), "outside_tol": n_out,
+               "aten_rows_max_abs_change": aten}
+        for m in ROWINV_TIMED:
+            sub = (inputs[0][:m],) + tuple(inputs[1:])
+            row[f"ms_M{m}"] = device_ms(torch, lambda: fn(*sub))[0]
+            row[f"plain_ms_M{m}"] = device_ms(torch, lambda: plain(*sub))[0]
+            row[f"library_ms_M{m}"] = (
+                row[f"plain_ms_M{m}"] if library == "plain" else
+                device_ms(torch, lambda: library(*sub))[0] if library
+                else None)
+            row[f"bound_ms_M{m}"] = nbytes(m) / PEAK_BYTES_PER_S * 1e3
+        out.append(row)
+        log(f"  {name}: rows equal to M={top}'s at every M "
+            f"{'(NOT at ' + str(varies) + ')' if varies else ''}; max |err| "
+            f"vs plain {row['max_abs_err']:.3g} ({n_out} outside tol); ATen "
+            f"changes rows by up to {aten:.3g}; " + ", ".join(
+                f"M={m} {row[f'ms_M{m}']:.4f} ms (ATen "
+                f"{row[f'plain_ms_M{m}']:.4f}, bound "
+                f"{row[f'bound_ms_M{m}']:.5f})" for m in ROWINV_TIMED))
+        if gate and (varies or n_out):
+            fail(f"{name}: rows differ with M at {varies}, or {n_out} "
+                 f"outputs outside the tolerance of the plain version")
+
+    for k, n in ROWINV_MATMULS:
+        x = torch.randn(top, k, generator=gen, device="cuda")
+        if k == ROWINV_LORA:                  # tanh of the first product
+            x = torch.tanh(x)
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        check(f"rowinv_matmul {k}x{n}", R.rowinv_matmul,
+              R.rowinv_matmul_reference, (x, w),
+              lambda m, k=k, n=n: 4 * (m * k + k * n + m * n), False,
+              "plain")
+    for kind, d, dtype in ROWINV_NORMS:
+        dt = getattr(torch, dtype)
+        x = (torch.randn(top, d, generator=gen, device="cuda") + 0.5).to(dt)
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        esz = x.element_size()
+        library = None
+        if dtype == "float32":
+            library = ((lambda x, s, b, d=d: F.layer_norm(x, (d,), s, b,
+                                                          1e-6))
+                       if kind == "ln" else
+                       (lambda x, s, b, d=d: F.rms_norm(x, (d,), s, 1e-6)))
+        check(f"rowinv_norm {kind} {d} {dtype}",
+              lambda x, s, b, kind=kind: R.rowinv_norm(x, s, b, kind=kind),
+              lambda x, s, b, kind=kind: R.rowinv_norm_reference(
+                  x, s, b, kind, 1e-6), (x, scale, bias),
+              lambda m, d=d, esz=esz, kind=kind: (2 * m * d * esz + 4 * d * (
+                  2 if kind == "ln" else 1)), dtype == "bfloat16", library)
     return out
 
 
@@ -2362,14 +2796,16 @@ def profile_path(torch, np, fg, arch: str, policy: str,
 
 
 def kernel_bucket(name: str):
-    """The integer-GEMM or WKV kernel a profiler event name is, or None:
+    """The integer-GEMM, WKV or row-invariant kernel a profiler event (or
+    graph node) name is, or None:
     mm1 is fused_mm1_kernel<tile rows, grouped>; kmm2, mm2 and kmm4
     fused_split_kernel<layout, tile rows, grouped> (layout 2, 3, 4); the
     staged mm1, kmm2 s8, kmm2 split and mm2 kernels staged_pipe_kernel<
     layout, ...> (layout 1, 2, 3, 4; in older checkouts
     staged_gemm_kernel<layout, ...>, and mm2 the untemplated
     staged_gemm_kernel); the WKV kernels wkv_kernel<D> and
-    wkv_step_kernel<D>."""
+    wkv_step_kernel<D>; rowinv_matmul_kernel<KW> and
+    rowinv_norm_kernel<T>."""
     for mode, prefix in (("mm1", "fused_mm1_kernel<"),
                          ("kmm2", "fused_split_kernel<2,"),
                          ("mm2", "fused_split_kernel<3,"),
@@ -2385,6 +2821,9 @@ def kernel_bucket(name: str):
             return key
     if "wkv_kernel<" in name or "wkv_step_kernel<" in name:
         return "wkv"
+    for key in ROWINV_KEYS:
+        if f"{key}_kernel" in name:
+            return key
     return None
 
 
@@ -2393,8 +2832,10 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     requests are admitted and prefilled first, then ``n`` engine steps at 4
     live lanes are traced (graph replays or eager steps, as the executor
     is set).  Only GPU kernel events are summed (the profiler also lists
-    each ATen op with its kernels' time).  The device's idle share is 1 -
-    busy / ``step_ms``, the un-profiled decode step."""
+    each ATen op with its kernels' time), less a short sleep kernel run
+    first in the session, which puts the device tracing under way before
+    the first traced step.  The device's idle share is 1 - busy /
+    ``step_ms``, the un-profiled decode step."""
     from repro_torch.serve.engine import Request
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2405,6 +2846,10 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a kernel the profiler sees first (dropped from the rows below),
+        # so the traced steps start with its device tracing under way
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(n):
             eng.step()
@@ -2414,7 +2859,7 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
         eng.step()
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.key:
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
@@ -2426,7 +2871,7 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
             for kind in ("", "grouped_")}
     gemm.update({f"staged_{k}": 0.0 for k in ("mm1", "kmm2_s8",
                                               "kmm2_split", "mm2")})
-    counts = {"wkv": 0, **{k: 0 for k in gemm}}
+    counts = {"wkv": 0, **{k: 0 for k in gemm}, **{k: 0 for k in ROWINV_KEYS}}
     for r in rows:
         key = kernel_bucket(r["name"])
         if key is not None:
@@ -2442,7 +2887,7 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     if step_ms is None:
         return out
     log(f"  profile, {n} decode steps at 4 lanes: device busy {busy:.2f} "
-        f"ms/step (integer GEMM and WKV kernels " + ", ".join(
+        f"ms/step (integer GEMM, WKV and row-invariant kernels " + ", ".join(
             f"{k} {v:.3f}" for k, v in gemm.items() if v) + f"), "
         f"{out['kernels_per_step']:.0f} kernels/step; idle share "
         f"{out['idle_share']:.2f} of the {step_ms:.2f} ms step")
@@ -2452,17 +2897,23 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     return out
 
 
-def _leaves(tree):
+def _paths(tree, path=()):
+    """(key path, leaf) of every leaf of a nested dict."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
     else:
-        yield tree
+        yield path, tree
+
+
+def _leaves(tree):
+    for _, leaf in _paths(tree):
+        yield leaf
 
 
 def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    launches_by_path, staged_rows, sweep_staged, table_runs,
-                   wkv_rows):
+                   wkv_rows, rowinv_rows):
     """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
     for the result line.  ``launches`` sums the wrapper's counts over the
     last counted run of every serve path (``launches_by_path`` has each):
@@ -2615,6 +3066,40 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
         "shape": f"B={row['B']} S={row['S']} H={row['H']} D={row['D']}, "
                  f"fp32, state in and out",
     })
+    # The row-invariant kernels, port-only (no TPU kernel: the reference
+    # runs these as jnp ops), at rwkv's decode rows (M = 4): the LoRA
+    # product K 2560 -> N 64, and ln_x (LayerNorm over 2560, fp32 rows).
+    # Their plain versions are single ATen calls (x @ w; the norm a few
+    # ops); the library call is x @ w itself and F.layer_norm.
+    for key, case, replaces in (
+            ("rowinv_matmul", "rowinv_matmul 2560x64",
+             "src/repro/models/rwkv.py:67 (_decay's jnp LoRA products; no "
+             "TPU kernel)"),
+            ("rowinv_norm", "rowinv_norm ln 2560 float32",
+             "src/repro/models/layers.py:32 (norm_apply in jnp; no TPU "
+             "kernel)")):
+        row = next(r for r in rowinv_rows if r["kernel"] == case)
+        mine = [r for r in rowinv_rows if r["kernel"].startswith(key)]
+        out.append({
+            "name": key, "route": "cuda", "source": ROWINV_SOURCE,
+            "replaces": replaces,
+            "launches": sum(c["host"].get(key, 0)
+                            for c in launches_by_path.values()),
+            "launches_in_graph_replays": replayed(
+                key, launches_by_path.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in mine
+                               if "bfloat16" not in r["kernel"]),
+            "max_abs_err_bf16_rows": max(
+                [r["max_abs_err"] for r in mine
+                 if "bfloat16" in r["kernel"]] or [None]),
+            "ms": row["ms_M4"], "plain_ms": row["plain_ms_M4"],
+            "bound_ms": row["bound_ms_M4"], "bound_by": "bytes",
+            "library_ms": row["library_ms_M4"],
+            "prefill_ms": row["ms_M64"],
+            "prefill_plain_ms": row["plain_ms_M64"],
+            "prefill_bound_ms": row["bound_ms_M64"],
+            "shape": f"{case}, M=4 (M=64 as prefill_*)",
+        })
     return out
 
 
@@ -2721,6 +3206,11 @@ def main() -> int:
     wkv_rows = wkv_checks(torch)
     seconds["wkv_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
+    log("[5r] row-invariant kernels: rows equal at every M, against their "
+        "plain versions")
+    rowinv_rows = rowinv_checks(torch)
+    seconds["rowinv_checks"] = time.monotonic() - t0
+    t0 = time.monotonic()
     log("[3c] tune llama's GEMMs on the card")
     tuner = tuner_phase(torch)
     seconds["tuner"] = time.monotonic() - t0
@@ -2743,8 +3233,19 @@ def main() -> int:
         launches_by_path.update(by_path)
         torch.cuda.empty_cache()
 
-    log("[5r] row-count invariance of the ops outside the integer GEMMs")
-    rows_inv = row_invariance(torch)
+    for arch, dense, per_call_too in DENSE_PATHS:
+        log(f"[5n] serve full-width {arch} under mixed"
+            + (", per call and" if per_call_too else "")
+            + " on records from the leaf-wise init")
+        t0 = time.monotonic()
+        engines[arch] = serve_dense(torch, np, fg, arch, dense, per_call_too)
+        seconds[f"serve {arch}"] = time.monotonic() - t0
+        launches_by_path[f"{arch} mixed records"] = \
+            engines[arch]["records"]["launches"]
+        if per_call_too:
+            for mode, run in engines[arch]["per_call"].items():
+                launches_by_path[f"{arch} mixed {mode}"] = run["launches"]
+        torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
@@ -2757,7 +3258,7 @@ def main() -> int:
               "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
-              "row_invariance": rows_inv,
+              "rowinv": rowinv_rows,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"
@@ -2767,10 +3268,12 @@ def main() -> int:
         f"{report['seconds']:.1f} s in all ("
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     print(card, flush=True)
-    table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()}
+    table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()
+                  if "table_paths" in eng}
     print(json.dumps({"kernels": kernel_entries(
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
-        staged_rows, sweep_staged, table_runs, wkv_rows)}), flush=True)
+        staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

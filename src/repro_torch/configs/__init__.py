@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch, smoke=False, quant=...)``.
 
-The port registers the architectures it can serve: ``llama3.2-1b``,
-``granite-moe-3b-a800m`` and ``rwkv6-3b``.
+The port registers the architectures it can serve: the dense
+``llama3.2-1b``, ``gemma-2b``, ``stablelm-12b`` and ``nemotron-4-15b``, the
+MoE ``granite-moe-3b-a800m`` and the attention-free ``rwkv6-3b``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "rwkv6-3b": "rwkv6_3b",
+    "gemma-2b": "gemma_2b",
+    "stablelm-12b": "stablelm_12b",
+    "nemotron-4-15b": "nemotron_4_15b",
 }
 
 QUANT_POLICIES = {

@@ -21,9 +21,11 @@ CONFIG = ModelConfig(
     n_experts=40,
     top_k=8,
     d_ff_expert=512,
+    n_microbatches=8,
 )
 
 SMOKE = CONFIG.scaled_down(
+    n_microbatches=1,
     d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96,
     vocab_size=512, n_periods=2, n_experts=8, top_k=2, d_ff_expert=96,
 )

@@ -17,9 +17,11 @@ CONFIG = ModelConfig(
     glu=True,
     rope_theta=500000.0,
     tie_embeddings=True,
+    n_microbatches=2,
 )
 
 SMOKE = CONFIG.scaled_down(
+    n_microbatches=1,
     d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
     vocab_size=512, n_periods=2,
 )

@@ -21,9 +21,11 @@ CONFIG = ModelConfig(
     glu=False,
     tie_embeddings=False,
     rwkv_head_dim=64,
+    n_microbatches=4,
 )
 
 SMOKE = CONFIG.scaled_down(
+    n_microbatches=1,
     d_model=64, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
     vocab_size=512, n_periods=2, rwkv_head_dim=16,
 )

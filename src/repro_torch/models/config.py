@@ -47,6 +47,10 @@ class ModelConfig:
     quant: QuantConfig = QuantConfig()
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # Gradient-accumulation microbatches of the reference's full-size train
+    # shape; serving ignores it (the configs carry it as the reference's
+    # do, for the training item).
+    n_microbatches: int = 1
 
     @property
     def n_layers(self) -> int:

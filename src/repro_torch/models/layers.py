@@ -4,8 +4,9 @@ LayerNorm, RoPE, the MLP (gated or plain), GQA attention for prefill
 
 Plain functions on tensors and parameter dicts, in the reference's layouts:
 activations (B, S, d), heads (B, S, H, D), caches (B, Smax, K, D).  Every
-weight matmul goes through :func:`maybe_quantized_matmul`.  Attention is
-plain PyTorch, as the reference's is plain jnp.
+weight matmul goes through :func:`maybe_quantized_matmul`, every norm
+through the row-invariant norm kernel.  Attention is plain PyTorch, as the
+reference's is plain jnp.
 
 Cache writes happen in place: where the reference returns an updated copy
 of the cache (``dynamic_update_slice``), the port writes into the cache
@@ -18,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rowinv import rowinv_norm
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
 Params = Dict[str, torch.Tensor]
@@ -38,16 +40,10 @@ def norm_init(d: int, device, kind: str = "rms") -> Params:
 def norm_apply(p: Params, x: torch.Tensor, kind: str = "rms",
                eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm (``kind="rms"``) or LayerNorm with bias (``"ln"``) over the
-    last axis in fp32, cast back to the input dtype."""
-    xf = x.to(torch.float32)
-    if kind == "ln":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    else:
-        ms = (xf * xf).mean(-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + eps) * p["scale"]
-    return out.to(x.dtype)
+    last axis in fp32, cast back to the input dtype: on the card the
+    row-invariant kernel (:func:`repro_torch.kernels.rowinv.rowinv_norm`),
+    so a row's bits never depend on how many rows a call has."""
+    return rowinv_norm(x, p["scale"], p.get("bias"), kind=kind, eps=eps)
 
 
 # ---------------------------------------------------------------------------

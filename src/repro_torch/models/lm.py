@@ -19,6 +19,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant.prequant import is_weight_leaf, record
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
 Params = Dict[str, Any]
@@ -49,43 +50,74 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, *,
-                device) -> Params:
+def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
+                prequant=None) -> Params:
     """Random parameters from ``gen`` (a seeded ``torch.Generator`` on
     ``device``).  They do not reproduce the reference's ``jax.random``
     values; tests carry the reference's parameters over with
-    :func:`repro_torch.bridge.params_from_jax` instead."""
+    :func:`repro_torch.bridge.params_from_jax` instead.
+
+    With ``prequant`` (a ``QuantConfig``) the result is
+    ``prequantize(init_params(gen, cfg, device=device), prequant)``, built
+    leaf by leaf so the fp32 tree never exists: each period's tensors are
+    drawn from ``gen`` in the same order, each weight leaf becomes its
+    record at once and is written into a preallocated stacked record (a
+    stack of per-period records is the stacked leaf's record: the scale
+    axis ``ndim - 2`` makes the period axis a batch axis), and an untied
+    ``lm_head`` is drawn whole, as ``init_params`` draws it, and quantized
+    a chunk of columns at a time (``prequant.record``).  Other leaves are
+    as ``init_params`` makes them."""
     _check_ported(cfg)
     dtype = _dtype(cfg)
     n = cfg.n_periods
     d = cfg.d_model
 
-    def stack(parts):
-        if isinstance(parts[0], dict):
-            return {k: stack([p[k] for p in parts]) for k in parts[0]}
-        return torch.stack(parts)
+    def convert(tree, path):
+        """One period's tree with its weight leaves as records."""
+        if isinstance(tree, dict):
+            return {k: convert(v, path + (k,)) for k, v in tree.items()}
+        if prequant is None or not is_weight_leaf(path[-1], tree.dim() + 1):
+            return tree
+        return record(tree, prequant.bits_for(".".join(path)))
 
-    def stacked(make):
-        return stack([make() for _ in range(n)])
+    def put(dst, src, i):
+        """``src`` written into period ``i`` of ``dst`` (made at the first
+        period)."""
+        if isinstance(src, dict):
+            dst = dst or {}
+            return {k: put(dst.get(k), v, i) for k, v in src.items()}
+        if dst is None:
+            dst = src.new_empty((n,) + tuple(src.shape))
+        dst[i].copy_(src)
+        return dst
+
+    def stacked(path, make):
+        """``n`` periods of ``make()``, stacked on axis 0: each period's
+        leaves (records) written into the stack as they are made."""
+        out = None
+        for i in range(n):
+            out = put(out, convert(make(), path), i)
+        return out
 
     blocks = {}
     for pos, spec in enumerate(cfg.pattern):
-        blocks[f"pos{pos}"] = {
-            "ln1": stacked(lambda: L.norm_init(d, device)),
-            "ln2": stacked(lambda: L.norm_init(d, device)),
+        path = ("blocks", f"pos{pos}")
+        blk = blocks[f"pos{pos}"] = {
+            "ln1": stacked(path + ("ln1",), lambda: L.norm_init(d, device)),
+            "ln2": stacked(path + ("ln2",), lambda: L.norm_init(d, device)),
         }
         if spec.kind == "rwkv":
-            blocks[f"pos{pos}"]["rwkv"] = stacked(
-                lambda: R.rwkv_init(gen, cfg, dtype, device))
+            blk["rwkv"] = stacked(path + ("rwkv",), lambda: R.rwkv_init(
+                gen, cfg, dtype, device))
         else:
-            blocks[f"pos{pos}"]["attn"] = stacked(
-                lambda: L.attn_init(gen, cfg, dtype, device))
+            blk["attn"] = stacked(path + ("attn",), lambda: L.attn_init(
+                gen, cfg, dtype, device))
         if spec.moe:
-            blocks[f"pos{pos}"]["moe"] = stacked(
-                lambda: M.moe_init(gen, cfg, dtype, device))
+            blk["moe"] = stacked(path + ("moe",), lambda: M.moe_init(
+                gen, cfg, dtype, device))
         else:
-            blocks[f"pos{pos}"]["mlp"] = stacked(
-                lambda: L.mlp_init(gen, d, cfg.d_ff, cfg.glu, dtype, device))
+            blk["mlp"] = stacked(path + ("mlp",), lambda: L.mlp_init(
+                gen, d, cfg.d_ff, cfg.glu, dtype, device))
     params: Params = {
         "embed": L._normal(gen, (cfg.padded_vocab, d), d ** -0.5, dtype,
                            device),
@@ -95,6 +127,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal(gen, (d, cfg.padded_vocab), d ** -0.5,
                                       dtype, device)
+        if prequant is not None:
+            params["lm_head"] = record(params["lm_head"],
+                                       prequant.bits_for("lm_head"))
     return params
 
 

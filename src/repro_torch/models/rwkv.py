@@ -8,7 +8,9 @@ r/k/v/g/o projections ride the quantized KMM path; the recurrence runs in
 fp32 in :func:`repro_torch.kernels.wkv_gemm.wkv_stateful` — the
 hand-written CUDA kernel on CUDA tensors, its plain version on the CPU —
 for every prefill (S >= 1 steps from the carried state) and every decode
-step (S = 1), where the reference scans in jnp.
+step (S = 1), where the reference scans in jnp.  The decay's LoRA products
+and the norms run on the row-invariant kernels (``kernels/rowinv.py``), so
+chunked prefill is bit-exact against a single shot on the card too.
 
 The carried state is ``{"shift": (B, 1, d) in the compute dtype, "wkv":
 (B, H, D, D) fp32}``; both are updated in place and returned, as the port's
@@ -22,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rowinv import rowinv_matmul
 from repro_torch.kernels.wkv_gemm import wkv_stateful
 from repro_torch.models import layers as L
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
@@ -66,9 +69,10 @@ def _shift_mix(x: torch.Tensor, prev: torch.Tensor, mix: torch.Tensor):
 
 def _decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
     """exp(-exp(w0 + lora(xw))) in fp32, in (0, 1); the LoRA products in
-    xw's dtype."""
-    lora = torch.tanh(xw @ p["w_lora_a"].to(xw.dtype))
-    lora = lora @ p["w_lora_b"].to(xw.dtype)
+    xw's dtype (fp32: the fp32 ``mix`` promotes it), on the card through
+    the row-invariant matmul kernel."""
+    lora = torch.tanh(rowinv_matmul(xw, p["w_lora_a"].to(xw.dtype)))
+    lora = rowinv_matmul(lora, p["w_lora_b"].to(xw.dtype))
     return torch.exp(-torch.exp(p["w0"] + lora.to(torch.float32)))
 
 

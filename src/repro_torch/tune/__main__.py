@@ -1,5 +1,9 @@
 """``python -m repro_torch.tune`` — sweep GEMM shapes, persist winner tables.
 
+Each key records the fastest candidate that serving runs as it is under a
+table, one per distinct launch, timed in device time on the card
+(``runner.served_candidates``, ``runner.device_time_us``).
+
 Shape sources:
 
   * ``--shapes smoke``    two tiny shapes;
@@ -144,18 +148,24 @@ def main(argv=None) -> int:
                 print(f"[{done}/{n_jobs}] cuda w={w} {shape}: NO correct "
                       f"candidate ({n_bad} rejected) — key skipped")
                 continue
+            best = next(r for r in res.measurements
+                        if r.ok and r.plan == res.winner)
             key = table.put(
                 "cuda", shape, w, res.winner,
                 us=round(res.winner_us, 2),
                 us_default=(round(res.default_us, 2)
                             if res.default_us == res.default_us else None),
-                n_candidates=len(res.measurements), n_rejected=n_bad)
+                n_candidates=n_ok, n_rejected=n_bad,
+                lead_ms=(round(best.lead_ms, 4)
+                         if best.lead_ms is not None else None))
+            lead = (f", lead {best.lead_ms:.3f} ms over {best.iters} calls"
+                    if best.lead_ms is not None else "")
             print(f"[{done}/{n_jobs}] {key}: {res.winner.variant} "
                   f"block_k={res.winner.block_k} "
                   f"int32={int(res.winner.combine_int32)} "
-                  f"depth={res.winner.depth} {res.winner_us:.1f}us "
-                  f"(x{res.speedup_vs_default:.2f} vs default "
-                  f"{res.default_us:.1f}us, {n_ok} ok / {n_bad} "
+                  f"depth={res.winner.depth} {res.winner_us:.2f}us "
+                  f"(x{res.speedup_vs_default:.3f} vs default "
+                  f"{res.default_us:.2f}us{lead}; {n_ok} timed / {n_bad} "
                   f"rejected)", flush=True)
     table.meta["sweep_s"] = f"{time.time() - t0:.1f}"
     table.save(args.out)

@@ -1,5 +1,6 @@
-"""Offline benchmark loop: time every pruned candidate, gate it for
-correctness, record the winner (port of ``repro.tune.runner``).
+"""Offline benchmark loop: time every candidate that serving would run as
+it is, gate it for correctness, record the winner (port of
+``repro.tune.runner``).
 
 Each candidate is gated through :func:`repro_torch.kernels.ops.run_plan`,
 the seam production uses.  Correctness is a gate, not a tolerance:
@@ -11,28 +12,52 @@ is rejected and counted; any other error — a failed CUDA launch among
 them — propagates, since every candidate that passes ``space.validate``
 must run and be exact.
 
+Which candidates are timed (:func:`served_candidates`; the search space
+itself is the reference's, ``space.pruned_space``): only those that
+``core.dispatch.select_plan`` serves as they are from a table — the
+analytic plan's numerics class and, for fp32 plans, its padded K — so the
+recorded winner is what a table makes serving run; and of those, one per
+distinct launch: on CUDA ``block_k`` only fixes the padded K, so plans of
+one variant, depth and combine that pad K alike launch the same kernel
+(and fused mm1 never reads the padded K at all).  The analytic default
+comes first, so where it ties with another plan's launch, it is the one
+timed.
+
 Each candidate is timed as serving runs it: on operands in the carrier
 dtype the quantized matmul stores w-bit codes in, followed by the dequant
-(:func:`repro_torch.quant.qmatmul.run_plan_dequant`), so the numbers are
-the ones dispatch will get.  On the card a candidate is timed with CUDA
-events; on the CPU, where every kernel runs its plain version, with the
-host clock.
+(:func:`repro_torch.quant.qmatmul.run_plan_dequant`).  On the card that is
+device time (:func:`device_time_us`): the calls are queued behind a device
+sleep longer than the host takes to enqueue them, so CUDA events measure
+the kernels, not the host, over enough calls to time at least
+``MIN_DEVICE_MS``.  On the CPU, where every kernel runs its plain version,
+it is the host clock.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import ExecPlan, analytic_plan
+from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_plan
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ref_int_gemm_i64
 from repro_torch.quant.quantize import carrier_dtype
 from repro_torch.tune import space as tune_space
 from repro_torch.tune.space import Shape
+
+
+# A device measurement covers at least this much device time; its lead
+# (the device sleep queued first) is this many times the host time of
+# enqueuing the timed calls, at least LEAD_FLOOR_MS, and lengthened up to
+# LEAD_TRIES times where the host outran it.
+MIN_DEVICE_MS = 0.1
+LEAD_MARGIN, LEAD_FLOOR_MS, LEAD_TRIES = 2.0, 1.0, 4
+# torch.cuda._sleep counts clock cycles: at most 2 GHz on the card.
+SLEEP_CYCLES_PER_MS = 2e6
 
 
 @dataclass
@@ -41,6 +66,9 @@ class Measurement:
     us: float = float("inf")
     ok: bool = False
     error: str = ""
+    # device timing only: the lead's ms and the calls timed behind it
+    lead_ms: Optional[float] = None
+    iters: Optional[int] = None
 
 
 @dataclass
@@ -111,11 +139,103 @@ def check_plan(plan: ExecPlan, a: torch.Tensor, b: torch.Tensor, *,
     return True, ""
 
 
+def launch_key(plan: ExecPlan, k: int) -> tuple:
+    """What a plan launches at K: its kernel and padded K (fused mm1, the
+    MM1 window, never reads the padded K)."""
+    if plan.variant == "fused" and plan.w <= plan.m:
+        return ("fused", 0, True)
+    return (plan.variant, plan.depth, plan.combine_int32,
+            -(-k // plan.block_k) * plan.block_k)
+
+
+def served_as_is(plan: ExecPlan, shape: Shape) -> bool:
+    """Whether ``select_plan`` serves ``plan`` unchanged from a table that
+    records it for ``shape`` (its rule, ``core/dispatch.py``: the analytic
+    plan's numerics class and, for fp32 plans, its padded K)."""
+    from repro_torch.tune.table import TuningTable
+    table = TuningTable()
+    table.put(plan.backend, shape, plan.w, plan)
+    got = select_plan(shape, plan.w, m=plan.m, backend=plan.backend,
+                      table=table)
+    return all(getattr(got, f) == getattr(plan, f)
+               for f in ("variant", "block_k", "combine_int32", "depth"))
+
+
+def served_candidates(shape: Shape, w: int, *, m: int = 8,
+                      backend: str = "cuda",
+                      tile_choices: Optional[Sequence[int]] = None
+                      ) -> List[ExecPlan]:
+    """The candidates worth timing for one problem: the analytic default
+    (where it is a valid table entry: not at K < 128, where its block_k of
+    256 is oversized), then the pruned space in prior order, keeping a
+    plan only if ``select_plan`` serves it as it is and no plan kept
+    before launches the same kernel on the same padded K
+    (:func:`launch_key`)."""
+    default = analytic_plan(w, m, backend=backend)
+    out, seen = [], set()
+    for plan in [default] + tune_space.pruned_space(
+            shape, w, m=m, backend=backend, tile_choices=tile_choices):
+        key = launch_key(plan, shape[1])
+        if key in seen or tune_space.validate(plan, shape) is not None \
+                or not served_as_is(plan, shape):
+            continue
+        seen.add(key)
+        out.append(plan)
+    return out
+
+
+def device_time_us(fn, iters: int = 3, *, cuda=None,
+                   clock=time.perf_counter) -> Tuple[float, Dict]:
+    """Mean device microseconds of ``fn`` on the card (already warm): the
+    host time of enqueuing a call is taken first, then the calls are timed
+    with CUDA events behind a device sleep (the lead) ``LEAD_MARGIN`` times
+    longer than enqueuing them takes, at least ``LEAD_FLOOR_MS``, over at
+    least ``iters`` calls and enough to cover ``MIN_DEVICE_MS``.  The host
+    time of the timed enqueue is checked against the lead: where the host
+    outran it (a slow call, a pause), the events timed the host, and the
+    measurement is taken again behind a longer lead.  Returns the mean and
+    what was chosen (``lead_ms``, ``iters``, ``host_us`` a call)."""
+    cuda = cuda or torch.cuda
+    cuda.synchronize()
+    n = max(iters, 1)
+    t0 = clock()
+    for _ in range(n):
+        fn()
+    host_ms = (clock() - t0) * 1e3 / n
+    cuda.synchronize()
+
+    def timed(calls: int) -> Tuple[float, float]:
+        lead = max(LEAD_FLOOR_MS, LEAD_MARGIN * calls * host_ms)
+        for _ in range(LEAD_TRIES):
+            cuda._sleep(int(lead * SLEEP_CYCLES_PER_MS))
+            start = cuda.Event(enable_timing=True)
+            end = cuda.Event(enable_timing=True)
+            start.record()
+            t0 = clock()
+            for _ in range(calls):
+                fn()
+            enqueue_ms = (clock() - t0) * 1e3
+            end.record()
+            end.synchronize()
+            if enqueue_ms < lead:
+                return start.elapsed_time(end) / calls, lead
+            lead = LEAD_MARGIN * enqueue_ms
+        raise RuntimeError(f"device_time_us: the host outran a {lead:.3f} ms "
+                           f"lead {LEAD_TRIES} times")
+
+    ms, lead = timed(n)
+    if ms * n < MIN_DEVICE_MS:
+        n = math.ceil(MIN_DEVICE_MS / max(ms, 1e-6))
+        ms, lead = timed(n)
+    return ms * 1e3, {"lead_ms": lead, "iters": n, "host_us": host_ms * 1e3}
+
+
 def bench_plan(plan: ExecPlan, a: torch.Tensor, b: torch.Tensor, *,
-               iters: int = 3) -> float:
-    """Steady-state microseconds a call, one warm-up call excluded: CUDA
-    events on the card, the host clock on the CPU.  The call is the one
-    serving makes, the plan with its dequant to bfloat16
+               iters: int = 3, detail: Optional[Dict] = None) -> float:
+    """Steady-state microseconds a call, one warm-up call excluded: device
+    time on the card (:func:`device_time_us`; its lead and call count go
+    into ``detail`` when one is given), the host clock on the CPU.  The
+    call is the one serving makes, the plan with its dequant to bfloat16
     (``qmatmul.run_plan_dequant``: in the fused kernel's epilogue, or after
     a staged plan's ``run_plan``), on per-row and per-column fp32 scales."""
     # qmatmul imports tune, so it is imported here, not with the module.
@@ -129,15 +249,11 @@ def bench_plan(plan: ExecPlan, a: torch.Tensor, b: torch.Tensor, *,
     iters = max(iters, 1)
     fn()
     if a.device.type == "cuda":
-        torch.cuda.synchronize(a.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters * 1e3
+        with torch.cuda.device(a.device):
+            us, info = device_time_us(fn, iters)
+        if detail is not None:
+            detail.update(info)
+        return us
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
@@ -150,18 +266,21 @@ def tune_shape(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
                max_candidates: Optional[int] = None,
                verbose: bool = False, context=None,
                device="cuda") -> TuneResult:
-    """Sweep the pruned space for one (shape, w) problem on ``device``.
+    """Sweep one (shape, w) problem on ``device``: every candidate of
+    :func:`served_candidates`, gated and timed as serving runs it
+    (:func:`bench_plan`).
 
-    Returns the fastest correct candidate and the time of the analytic
-    default plan (what runs with no table), each timed as serving runs it
-    (:func:`bench_plan`), so a table can report its speedup honestly.  ``max_candidates`` truncates the prior-ordered
-    space; the result's measurement count shows it.
+    Returns the fastest correct candidate, which a table makes serving run
+    as it is, and the time of the analytic default plan (what runs with no
+    table; the first candidate), so a table can report its speedup
+    honestly.  ``max_candidates`` truncates the candidates; the result's
+    measurement count shows it.
     """
     if context is not None:
         backend = context.backend
     a, b = make_operands(shape, w, seed=seed, device=device, m=m)
-    cands = tune_space.pruned_space(shape, w, m=m, backend=backend,
-                                    tile_choices=tile_choices)
+    cands = served_candidates(shape, w, m=m, backend=backend,
+                              tile_choices=tile_choices)
     if max_candidates is not None:
         cands = cands[:max_candidates]
     oracle = None
@@ -175,19 +294,28 @@ def tune_shape(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
         if not ok:
             measurements.append(Measurement(plan, ok=False, error=err))
             continue
-        us = bench_plan(plan, a, b, iters=iters)
-        measurements.append(Measurement(plan, us=us, ok=True))
+        detail: Dict = {}
+        us = bench_plan(plan, a, b, iters=iters, detail=detail)
+        measurements.append(Measurement(plan, us=us, ok=True,
+                                        lead_ms=detail.get("lead_ms"),
+                                        iters=detail.get("iters")))
         if us < winner_us:
             winner, winner_us = plan, us
         if verbose:
+            lead = (f" (lead {detail['lead_ms']:.3f} ms, "
+                    f"{detail['iters']} calls)" if detail else "")
             print(f"    {plan.variant:9s} block_k={plan.block_k:<3d} "
                   f"int32={int(plan.combine_int32)} depth={plan.depth}: "
-                  f"{us:9.1f} us")
+                  f"{us:9.1f} us{lead}")
     default = analytic_plan(w, m, backend=backend)
-    try:
-        default_us = bench_plan(default, a, b, iters=iters)
-    except NotImplementedError:    # w >= 27: the analytic plan is not ported
-        default_us = float("nan")
+    timed = [r for r in measurements if r.ok and r.plan == default]
+    if timed:
+        default_us = timed[0].us
+    else:
+        try:
+            default_us = bench_plan(default, a, b, iters=iters)
+        except NotImplementedError:  # w >= 27: the analytic plan is not ported
+            default_us = float("nan")
     return TuneResult(shape=shape, w=w, backend=backend, winner=winner,
                       winner_us=winner_us, default_us=default_us,
                       measurements=measurements)

@@ -12,7 +12,8 @@ reference's, with backend ``cuda``:
       "entries": {
         "cuda/m8/k2048/n8192/w12/mult8": {
           "variant": "kmm2", "block_k": 256, "combine_int32": false,
-          "depth": 1, "us": 61.2, "us_default": 70.3, "n_candidates": 24
+          "depth": 1, "us": 61.2, "us_default": 70.3, "n_candidates": 2,
+          "n_rejected": 0, "lead_ms": 0.44
         }
       }
     }

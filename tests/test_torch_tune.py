@@ -208,7 +208,11 @@ def test_tune_cli_smoke_writes_gated_winners(tmp_path, capsys):
     assert tune_main(["--shapes", "smoke", "--w", "8", "12", "--device",
                       "cpu", "--iters", "1", "--out", str(out)]) == 0
     table = TuningTable.load(out)
-    assert table.device == "cpu/plain" and len(table) == 4
+    # w=12 at K=64: no plan of the analytic class pads K as the analytic
+    # plan does (its block_k of 256 is oversized there), so select_plan
+    # would serve no entry and the key is skipped
+    assert table.device == "cpu/plain" and len(table) == 3
+    assert "cuda/m64/k64/n64/w12/mult8" not in table.entries
     for key, rec in table.entries.items():
         _, m, k, n, w, _ = key.split("/")
         shape = (int(m[1:]), int(k[1:]), int(n[1:]))
@@ -217,8 +221,9 @@ def test_tune_cli_smoke_writes_gated_winners(tmp_path, capsys):
         assert space.validate(plan, shape) is None
         a, b = runner.make_operands(shape, w, seed=0)
         assert runner.check_plan(plan, a, b) == (True, ""), key
-        assert rec["n_candidates"] >= 10 and rec["us"] > 0
-        assert rec["n_rejected"] == 0
+        assert rec["n_candidates"] == len(runner.served_candidates(shape, w))
+        assert rec["us"] > 0 and rec["n_rejected"] == 0
+        assert runner.served_as_is(plan, shape)
     assert "wrote" in capsys.readouterr().out
 
 
@@ -295,10 +300,130 @@ def test_bench_plan_times_the_serving_call(monkeypatch):
 
 
 def test_tune_shape_reports_default_and_winner():
-    res = runner.tune_shape((8, 64, 16), 12, iters=1, device="cpu",
-                            tile_choices=(32,))
+    """The sweep times the analytic default first and the staged kmm2 of
+    its class (w=12's fp32 kmm2 class, same padded K); mm2 is another
+    class, which select_plan would not serve, so it is not timed."""
+    shape = (8, 512, 16)
+    res = runner.tune_shape(shape, 12, iters=1, device="cpu")
     assert res.winner is not None and all(m.ok for m in res.measurements)
-    assert {m.plan.variant for m in res.measurements} >= {"fused", "kmm2",
-                                                          "mm2"}
+    assert [m.plan.variant for m in res.measurements] == ["fused", "kmm2"]
+    assert res.measurements[0].plan == analytic_plan(12)
+    assert res.default_us == res.measurements[0].us
     assert res.default_us > 0 and res.speedup_vs_default > 0
+    assert runner.served_as_is(res.winner, shape)
     assert runner.device_label("cpu") == "cpu/plain"
+
+
+@pytest.mark.parametrize("w", [8, 12, 16, 20])
+def test_served_candidates_one_per_distinct_launch(w):
+    """Candidates that launch the same kernel on the same padded K count
+    once (block_k only fixes the padded K on CUDA), fused mm1 once (it
+    never reads the padded K), and every one is served as it is: in the
+    analytic plan's numerics class with, for fp32 plans, its padded K."""
+    for shape in SHAPES:
+        got = runner.served_candidates(shape, w)
+        if shape[1] >= 128:
+            assert got[0] == analytic_plan(w)
+        keys = [runner.launch_key(p, shape[1]) for p in got]
+        assert len(keys) == len(set(keys))
+        base = numerics_fingerprint(analytic_plan(w))
+        pad = lambda p: -(-shape[1] // p.block_k) * p.block_k  # noqa: E731
+        for p in got:
+            assert space.validate(p, shape) is None
+            assert numerics_fingerprint(p) == base
+            if not p.is_exact_int:
+                assert pad(p) == pad(analytic_plan(w))
+            assert runner.served_as_is(p, shape)
+        # every served plan of the space launches like one kept
+        for p in space.pruned_space(shape, w):
+            if runner.served_as_is(p, shape):
+                assert runner.launch_key(p, shape[1]) in keys
+        if w <= 8:
+            assert sum(p.variant == "fused" for p in got) == 1
+
+
+def test_record_is_what_select_plan_serves(tmp_path):
+    """A swept table's winners come back from select_plan unchanged, and
+    a plan outside the served class is not served as it is."""
+    shape = (8, 512, 16)
+    out = tmp_path / "t.json"
+    assert tune_main(["--shapes", "8x512x16", "--w", "12", "16", "--device",
+                      "cpu", "--iters", "1", "--out", str(out)]) == 0
+    table = TuningTable.load(out)
+    for w in (12, 16):
+        plan = table.lookup("cuda", shape, w)
+        assert _proj(select_plan(shape, w, table=table)) == _proj(plan)
+    other = ExecPlan("fused_mm2", 12, block_k=256)    # the mm2 class
+    assert space.validate(other, shape) is None
+    assert not runner.served_as_is(other, shape)
+    short = ExecPlan("kmm2", 12, block_k=32)           # the analytic class,
+    assert not runner.served_as_is(short, (8, 300, 16))  # another padded K
+
+
+class _FakeCuda:
+    """A device timeline for ``runner.device_time_us``: a call takes
+    ``host_ms`` of host time to enqueue and ``dev_ms`` on the device, which
+    runs work in order once it is enqueued; ``_sleep`` queues a sleep of
+    cycles / 2e6 ms; an event completes when the device reaches it."""
+
+    def __init__(self, host_ms, dev_ms, pause_at=None, pause_ms=0.0):
+        self.now, self.free = 0.0, 0.0
+        self.host_ms, self.dev_ms = host_ms, dev_ms
+        self.sleeps = []
+        self.calls, self.pause_at, self.pause_ms = 0, pause_at, pause_ms
+        fake = self
+
+        class Event:
+            def __init__(self, enable_timing=True):
+                self.at = None
+
+            def record(self):
+                self.at = max(fake.free, fake.now)
+
+            def synchronize(self):
+                fake.now = max(fake.now, self.at)
+
+            def elapsed_time(self, other):
+                return other.at - self.at
+
+        self.Event = Event
+
+    def clock(self):
+        return self.now / 1e3
+
+    def synchronize(self):
+        self.now = max(self.now, self.free)
+
+    def _sleep(self, cycles):
+        self.sleeps.append(cycles / runner.SLEEP_CYCLES_PER_MS)
+        self.free = max(self.free, self.now) + cycles / 2e6
+
+    def call(self):
+        self.free = max(self.free, self.now) + self.dev_ms
+        self.now += self.host_ms
+        self.calls += 1
+        if self.calls == self.pause_at:      # a pause of the host
+            self.now += self.pause_ms
+
+
+@pytest.mark.parametrize("host_ms,dev_ms,pause_at", [
+    (0.05, 0.01, None), (0.05, 0.2, None), (0.3, 0.004, None),
+    (0.002, 0.5, None), (0.05, 0.01, 5), (0.3, 0.004, 5)])
+def test_bench_lead_covers_the_host_on_a_stubbed_clock(host_ms, dev_ms,
+                                                       pause_at):
+    """The lead outlasts enqueuing every timed call, so the events time the
+    device (even where the host takes 75x longer than the kernel), over
+    enough calls to cover MIN_DEVICE_MS; a host pause during the timed
+    calls (the 5th call: the first timed one) is seen and the measurement
+    taken again behind a longer lead.  Without a lead the same events
+    would time the host."""
+    fake = _FakeCuda(host_ms, dev_ms, pause_at, pause_ms=5.0)
+    us, info = runner.device_time_us(fake.call, 3, cuda=fake,
+                                     clock=fake.clock)
+    assert us == pytest.approx(dev_ms * 1e3)
+    assert info["lead_ms"] == pytest.approx(fake.sleeps[-1])
+    assert info["lead_ms"] > info["iters"] * host_ms
+    assert len(fake.sleeps) >= (2 if pause_at else 1)
+    assert info["iters"] * dev_ms >= runner.MIN_DEVICE_MS - 1e-12
+    assert info["iters"] >= 3 and info["host_us"] == pytest.approx(
+        host_ms * 1e3)
