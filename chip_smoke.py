@@ -191,6 +191,38 @@ add, within the phases above:
       decode graph replayed between CUDA events, six runs of each in
       turns, one step's logits equal under both.
 
+qwen3-moe-30b-a3b (128 experts top-8) and the ATen route add:
+
+  3.  the fused kernel at qwen3's shapes (mm1 at its attention
+      projections, kmm2 at its router, 2048 x 128, and its untied lm_head,
+      2048 x 152064, M 1-64) and the grouped kernel in mm1 at its expert
+      GEMMs (128 experts, 2048 x 768 and 768 x 2048, decode on 1 and 4
+      lanes, a 64-token prefill whose capacity of 8 drops, and the edge
+      case), torch.equal to their plain versions;
+  3k. the ATen route (backend "aten", the reference's "xla": the KMM digit
+      recursion of core/kmm.py on exact ATen leaf products, float64 on the
+      card): kmm_n and mm_n at llama's wi (2048 x 8192), M 4 and 64, at w
+      12, 16, 20, 24 and 28 with n from select_mode; quantized_matmul on
+      "aten" at w 8, 12 and 28; strassen and strassen+kmm2 at 64 x 2048 x
+      2048, w 8 and 12, equal to xla_ref (strassen+kmm2: exactly 7 fused
+      kmm2 launches a GEMM); the FFIP literal at 8 x 64 x 8 — each card
+      result torch.equal to the same call on the CPU (on 1024 of B's
+      columns), timed in device time beside the fused kernel at the same
+      width;
+  5n. qwen3-moe-30b-a3b under mixed on leaf-wise records only (init peak
+      gated like nemotron's): 192 fused mm1 + 49 fused kmm2 + 144 grouped
+      mm1 + 97 norm launches a prefill and a decode step, the same twice,
+      graphed, profiled at 4 lanes, its byte bound on every record and on
+      the experts the profiled steps routed (counted in an eager run of the
+      same steps);
+  5a. llama3.2-1b per call on the ATen route: under mixed on "aten" (113
+      GEMMs a call on the route, prefill logits within one bfloat16 ulp of
+      the "cuda" route's on the same weights) and with every site at w=28
+      on "cuda" (113 fallbacks to the route a call), 2 requests of 4 new
+      tokens, twice, graphed, with no integer-GEMM kernel in any count or
+      decode graph.  Every path before these takes no ATen route (every
+      counted run's routes are read).
+
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul and
 rowinv_norm); the last line is ``{"ok": true, "device": {...}}``.  The
@@ -200,6 +232,7 @@ details go to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import statistics
@@ -207,6 +240,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -221,6 +255,11 @@ KMM2_KN = [(2048, 128512)]                          # lm_head (tied embed.T)
 # tied lm_head (vocab 49155 padded to 49664) at w=12
 GRANITE_MM1_KN = [(1536, 1536), (1536, 512)]
 GRANITE_KMM2_KN = [(1536, 40), (1536, 49664)]
+# qwen3-moe-30b-a3b: attention at w=8 (wq 2048 x 4096, wk / wv 2048 x
+# 512, wo 4096 x 2048), the router (2048 x 128) and the untied lm_head
+# (vocab 151936 padded to 152064) at w=12
+QWEN_MM1_KN = [(2048, 4096), (2048, 512), (4096, 2048)]
+QWEN_KMM2_KN = [(2048, 128), (2048, 152064)]
 ROWS = [1, 4, 16, 64]                               # decode widths, prefill
 RAGGED = (5, 300, 130)
 # Under w16 (mm2), w20 and w24 (kmm4) every one of those GEMMs runs at that
@@ -248,6 +287,13 @@ EXPERT_ROWS = [8, 16, 32]
 GROUPED_CASES = [("decode W=1", 8, 8, 1, 1), ("decode W=2", 16, 8, 2, 1),
                  ("decode W=4", 32, 8, 4, 1), ("prefill S=32", 8, 8, 1, 32),
                  ("prefill S=64", 16, 16, 1, 64), ("edge", 32, 8, 4, 0)]
+# qwen3-moe-30b-a3b's expert GEMMs at w=8: (K, N) of wi/wg and of wo, 128
+# experts top-8; capacity 8 at decode and at every prompt bucket up to 64
+# tokens (64 x 8 x 1.25 / 128 = 5, floor 8), so a 64-token prompt drops.
+QWEN_GROUPED_KN = [(2048, 768), (768, 2048)]
+QWEN_EXPERTS, QWEN_TOP_K = 128, 8
+QWEN_GROUPED_CASES = [("decode W=1", 8, 8, 1, 1), ("decode W=4", 32, 8, 4, 1),
+                      ("prefill S=64", 8, 8, 1, 64), ("edge", 32, 8, 4, 0)]
 
 # rwkv6-3b (32 layers, d_model 2560, d_ff 8960, untied lm_head over vocab
 # 65536): mm1 at its w=8 projections — 5 time-mix (wr, wk, wv, wg, wo)
@@ -359,9 +405,17 @@ ROWINV_SOURCE = "src/repro_torch/kernels/csrc/rowinv.cu"
 # fp32) and nemotron (62.5 GB) only on records from the leaf-wise init.
 # Each serves 2 requests of 8 and 64 prompt tokens, 4 new tokens, twice
 # (the other two prompts feed the 4-lane checks and the profile).
-DENSE_PATHS = [("gemma-2b", {"mm1": 126, "kmm2": 1}, True),
-               ("stablelm-12b", {"mm1": 280, "kmm2": 1}, False),
-               ("nemotron-4-15b", {"mm1": 192, "kmm2": 1}, False)]
+# qwen3-moe-30b-a3b (MoE, 48 layers): 4 attention projections a layer at
+# w=8 (192 mm1), the w=12 router a layer and the untied lm_head (49 kmm2,
+# 2048 x 128 and 2048 x 152064), and the 3 expert GEMMs a layer as grouped
+# mm1 launches (144; 128 experts top-8, each expert C = lanes x 8 rows at
+# decode); only on leaf-wise records (122.1 GB in fp32).  The last item:
+# grouped launches a call.
+DENSE_PATHS = [("gemma-2b", {"mm1": 126, "kmm2": 1}, True, {}),
+               ("stablelm-12b", {"mm1": 280, "kmm2": 1}, False, {}),
+               ("nemotron-4-15b", {"mm1": 192, "kmm2": 1}, False, {}),
+               ("qwen3-moe-30b-a3b", {"mm1": 192, "kmm2": 49}, False,
+                {"mm1": 144})]
 DENSE_PROMPTS = (8, 64, 23, 41)
 DENSE_REQUESTS, DENSE_NEW = 2, 4
 # What the leaf-wise init may hold on the card beyond the records it makes.
@@ -449,6 +503,38 @@ STAGED_SOURCES = {
     "mm2_gemm_planes": "src/repro_torch/kernels/csrc/staged_pipe.cu"}
 
 
+# Phase 3k, the ATen route (the reference's "xla" backend: the KMM digit
+# recursion of core/kmm.py on exact ATen leaf products, float64 on the
+# card): kmm_n and mm_n at llama's wi at M 4 and 64, each width with
+# select_mode's digits; the quantized matmul on "aten"; Strassen's two
+# variants against xla_ref; the FFIP literal.  Each card result is held to
+# the same call on the CPU (int64 leaves), torch.equal, on ATEN_CPU_COLS of
+# B's columns (its first and last halves: an output column depends on its
+# own B column alone, and the CPU's int64 product takes ~1 s a leaf at
+# M=64 over all 8192).
+ATEN_KN = (2048, 8192)
+ATEN_ROWS = [4, 64]
+ATEN_WIDTHS = [12, 16, 20, 24, 28]
+ATEN_QMM_WIDTHS = [8, 12, 28]
+ATEN_CPU_COLS = 1024
+STRASSEN_SHAPE = (64, 2048, 2048)
+STRASSEN_WIDTHS = [8, 12]
+FFIP_SHAPE = (8, 64, 8)
+# Phase 5a, serving on the ATen route: (arch, policy, backend, the
+# quantized GEMM routes a prefill and a decode step).  llama under mixed on
+# "aten" (the reference's default backend): every GEMM on the route; llama
+# with every site at w=28 on "cuda": depth-3 digits, outside the fused
+# windows, every GEMM on the route as a fallback.  2 requests, 4 new
+# tokens, twice.
+ATEN_PATHS = [("llama3.2-1b", "mixed", "aten", {("aten", "aten"): 113}),
+              ("llama3.2-1b", "w28", "cuda",
+               {("cuda", "aten_fallback"): 113})]
+# "aten" against "cuda" on llama's mixed weights: each prefill logit within
+# one bfloat16 ulp of the other route's (the w=12 lm_head is the only fp32
+# combine; tests/test_torch_aten_route.py).
+ROUTES_RTOL = 2.0 ** -7
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -533,9 +619,9 @@ def kernel_checks(torch, fg):
     rows = []
     every_kn = MM1_KN + KMM2_KN + GRANITE_MM1_KN + GRANITE_KMM2_KN
     cases = ([("mm1", 8, m, k, n) for k, n in MM1_KN + GRANITE_MM1_KN
-              for m in ROWS]
+              + QWEN_MM1_KN for m in ROWS]
              + [("kmm2", 12, m, k, n) for k, n in KMM2_KN + GRANITE_KMM2_KN
-                for m in ROWS]
+                + QWEN_KMM2_KN for m in ROWS]
              + [("mm1", 8) + RAGGED, ("kmm2", 12) + RAGGED]
              + [("mm1", 8, m, k, n) for k, n in RWKV_MM1_KN
                 for m in RWKV_ROWS]
@@ -609,22 +695,23 @@ def kernel_checks(torch, fg):
     return rows
 
 
-def routed_counts(torch, gen, c: int, seg: int, n_seg: int, tokens: int):
+def routed_counts(torch, gen, c: int, seg: int, n_seg: int, tokens: int,
+                  n_experts: int = N_EXPERTS, top_k: int = TOP_K):
     """(E, n_seg) live rows per expert and segment, as the MoE dispatch
-    makes them: each of ``tokens`` tokens per segment picks TOP_K distinct
-    experts at random, and each expert keeps at most ``seg`` of them.
-    ``tokens`` 0 gives the edge case: experts 0-3 get no token, the others
-    cycle through seg, seg - 1, 1 and 0 live rows."""
-    counts = torch.zeros((N_EXPERTS, n_seg), dtype=torch.int64)
+    makes them: each of ``tokens`` tokens per segment picks ``top_k``
+    distinct experts at random, and each expert keeps at most ``seg`` of
+    them.  ``tokens`` 0 gives the edge case: experts 0-3 get no token, the
+    others cycle through seg, seg - 1, 1 and 0 live rows."""
+    counts = torch.zeros((n_experts, n_seg), dtype=torch.int64)
     for s in range(n_seg):
         if tokens == 0:
-            for e in range(4, N_EXPERTS):
+            for e in range(4, n_experts):
                 counts[e, s] = (seg, seg - 1, 1, 0)[(e + s) % 4]
             continue
-        picks = torch.stack([torch.randperm(N_EXPERTS, generator=gen)[:TOP_K]
+        picks = torch.stack([torch.randperm(n_experts, generator=gen)[:top_k]
                              for _ in range(tokens)])
         counts[:, s] = torch.bincount(picks.reshape(-1),
-                                      minlength=N_EXPERTS).clamp(max=seg)
+                                      minlength=n_experts).clamp(max=seg)
     return counts.to(torch.int32)
 
 
@@ -649,29 +736,34 @@ def grouped_bound_ms(mode: str, w: int, live, k: int, n: int,
 
 
 def grouped_checks(torch, fg):
-    """Phase 3 and the per-shape half of phase 6 for the grouped kernel."""
+    """Phase 3 and the per-shape half of phase 6 for the grouped kernel:
+    granite's expert GEMMs in every mode, qwen3's at 128 experts in mm1."""
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(2)
     rows = []
-    for mode, w in [("mm1", 8), ("kmm2", 12)] + WIDE_MODES:
+    models = [("granite", mode, w, GROUPED_KN, GROUPED_CASES, N_EXPERTS,
+               TOP_K) for mode, w in [("mm1", 8), ("kmm2", 12)] + WIDE_MODES]
+    models.append(("qwen3", "mm1", 8, QWEN_GROUPED_KN, QWEN_GROUPED_CASES,
+                   QWEN_EXPERTS, QWEN_TOP_K))
+    for model, mode, w, grouped_kn, cases, e, top_k in models:
         _, h, z, _ = fg.resolve(w, mode=mode)
-        for k, n in GROUPED_KN:
+        for k, n in grouped_kn:
             block_k = min(256, 1 << max(3, (k - 1).bit_length()))
             kp = fg.padded_k(k, block_k)
-            for label, c, seg, n_seg, tokens in GROUPED_CASES:
-                e = N_EXPERTS
+            for label, c, seg, n_seg, tokens in cases:
                 a, b = operands(torch, fg, gen, mode, w, (e, c, k), (e, k, n))
                 sx = torch.rand((e, c, 1), generator=gen, device=dev) * 1e-3 \
                     + 1e-4
                 sw = torch.rand((e, 1, n), generator=gen, device=dev) * 1e-3 \
                     + 1e-4
                 counts = routed_counts(torch, cpu_gen, c, seg, n_seg,
-                                       tokens).to(dev)
+                                       tokens, e, top_k).to(dev)
                 live = fg.ragged_row_mask(counts, seg, c)[..., 0]
-                row = {"mode": mode, "w": w, "case": label, "E": e, "C": c,
+                row = {"model": model, "mode": mode, "w": w, "case": label,
+                       "E": e, "C": c,
                        "K": k, "N": n, "seg": seg, "kp": kp,
                        "live_rows": int(live.sum()),
                        "live_experts": int(live.any(dim=1).sum())}
@@ -714,9 +806,10 @@ def grouped_checks(torch, fg):
                             mode, w, live, k, n, 2, True)
                 row["library_ms"] = None      # no single call computes it
                 rows.append(row)
-                log(f"  grouped {mode:4s} w={w} {label:<13s} C={c:<3d} "
-                    f"K={k:<5d} N={n:<5d} live rows {row['live_rows']:<4d} "
-                    f"experts {row['live_experts']:<3d} equal | kernel "
+                log(f"  grouped {mode:4s} w={w} E={e:<3d} {label:<13s} "
+                    f"C={c:<3d} K={k:<5d} N={n:<5d} live rows "
+                    f"{row['live_rows']:<4d} experts "
+                    f"{row['live_experts']:<3d} equal | kernel "
                     f"{row['ms_dequant_bf16']:.4f} ms (raw "
                     f"{row['ms_raw']:.4f}) | bound {row['bound_ms']:.4f} ms "
                     f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms")
@@ -945,10 +1038,14 @@ def staged_launches() -> dict:
 
 
 def reset_all(fg) -> None:
+    """Every kernel wrapper's launch count and the quantized GEMM's route
+    counts set to 0."""
     from repro_torch.kernels import rowinv, wkv_gemm
+    from repro_torch.quant import qmatmul
     fg.reset_launches()
     for mod in (wkv_gemm, rowinv) + staged_modules():
         mod.reset_launches()
+    qmatmul.reset_gemm_routes()
 
 
 def wkv_bound_ms(b: int, s: int, h: int, d: int, u_elems: int,
@@ -1823,10 +1920,11 @@ def path_per_call(arch: str, dense: dict, grouped: dict) -> dict:
 
 def serve_counted(torch, fg, eng, reqs, graphs: bool = True):
     """One ``generate`` with every launch count set to 0 just before and
-    read just after, decode graphed or eager; also the run's prefill calls
-    (the script wraps the executor's entry to count them) and graph
-    replays."""
+    read just after, decode graphed or eager; also the run's quantized GEMM
+    routes, its prefill calls (the script wraps the executor's entry to
+    count them) and graph replays."""
     from repro_torch.kernels import launch_counts
+    from repro_torch.quant import qmatmul
     ex = eng.executor
     n_prefill = [0]
     inner = ex.prefill
@@ -1847,26 +1945,39 @@ def serve_counted(torch, fg, eng, reqs, graphs: bool = True):
     ex.graphs = True
     replays = {w: n - replays0.get(w, 0) for w, n in ex.replays.items()}
     return {"stats": stats, "wall": wall, "host": nonzero(launch_counts()),
+            "routes": qmatmul.gemm_routes(),
             "replays": nonzero(replays), "prefills": n_prefill[0],
             "graphs": graphs, "tokens": [r.generated for r in reqs]}
 
 
-def check_counted(what: str, eng, run: dict, per_call: dict) -> dict:
+def check_counted(what: str, eng, run: dict, per_call: dict,
+                  routes: Optional[dict] = None) -> dict:
     """The exact launch gates of one counted run.  Graphed: the host
     counters hold prefills x per-call launches (a replay launches through
     no wrapper), replays equal decode steps and every width's graph
     captured exactly the per-call launches.  Eager: (prefills + decode
     steps) x per-call.  Graphed, every width's graph also holds exactly
-    those kernels as nodes (``check_graph_nodes``).  Returns the run's
-    wrapper launches by kind and, graphed, the kernels the replays
+    those kernels as nodes (``check_graph_nodes``).  The quantized GEMMs'
+    routes, counted the same way, must be ``routes`` a call where given;
+    elsewhere no GEMM may leave the kernels (no ATen route).  Returns the
+    run's wrapper launches by kind and, graphed, the kernels the replays
     launched by profile bucket (``replayed``)."""
     stats = run["stats"]
-    out = {"host": run["host"]}
+    out = {"host": run["host"], "routes": {
+        f"{b}/{r}": c for (b, r), c in run["routes"].items()}}
     calls = run["prefills"] + (0 if run["graphs"] else stats.decode_steps)
     want = {k: c * calls for k, c in per_call.items()}
     if run["host"] != want:
         fail(f"{what}: launches {run['host']} over {calls} calls, expected "
              f"{want}: a quantized GEMM bypassed the kernels")
+    if routes is not None:
+        want_routes = {k: c * calls for k, c in routes.items()}
+        if run["routes"] != want_routes:
+            fail(f"{what}: quantized GEMM routes {run['routes']} over "
+                 f"{calls} calls, expected {want_routes}")
+    elif set(run["routes"]) - {("cuda", "cuda")}:
+        fail(f"{what}: quantized GEMMs took the ATen route: "
+             f"{run['routes']}")
     if run["graphs"]:
         if sum(run["replays"].values()) != stats.decode_steps:
             fail(f"{what}: {run['replays']} graph replays for "
@@ -2168,8 +2279,10 @@ def leafwise_init(torch, cfg):
     return qparams, out
 
 
-def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool):
-    """Phase 5n: one dense config at full width and depth under mixed.
+def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
+                grouped: dict):
+    """Phase 5n: one dense or MoE config at full width and depth under
+    mixed.
     With ``per_call_too`` (gemma) its fp32 tree from a generator seeded 0
     serves per call, eager and graphed (one step graphed against eager),
     is prequantized, and is freed; then the leaf-wise init builds the
@@ -2185,7 +2298,7 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool):
 
     t_start = time.monotonic()
     pcfg = path_config(arch, "mixed")
-    per_call = path_per_call(arch, dense, {})
+    per_call = path_per_call(arch, dense, grouped)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, pcfg.vocab_size, n)]
                for n in DENSE_PROMPTS]
@@ -2225,11 +2338,13 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool):
         del want, got, ref
     out["parameters"] = param_count(qparams)
     rbytes = record_bytes(qparams)
+    # the per-call reads beside the records: a tied lm_head's embed, an
+    # MoE router (fp32, quantized every call)
     read = rbytes + (qparams["embed"].numel() * 4 if pcfg.tie_embeddings
-                     else 0)
+                     else 0) + router_bytes(qparams)
     rec = serve_mode(torch, fg, pcfg, qparams, requests, f"{arch} records",
                      per_call, True, 2, True, prompts, check_eager=True,
-                     uncopied=True)
+                     uncopied=True, moe=bool(grouped))
     first, logits = rec.pop("first"), rec.pop("logits")
     for r in first["tokens"]:
         if len(r) != DENSE_NEW or not all(0 <= t < pcfg.vocab_size
@@ -2240,9 +2355,25 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool):
         fail(f"{arch}: the leaf-wise records' tokens or full-width prefill "
              f"logits differ from the per-call run")
     prof = rec.pop("profile")
+    if grouped:
+        # the experts the profiled steps routed: their records, and every
+        # other record and router, read once a step
+        live = rec.pop("live_experts")
+        expert = expert_bytes(qparams)
+        routed = (read - expert["all"]
+                  + expert["one"] * sum(live) / rec["profiled_steps"])
+        rec.update({
+            "live_experts_per_layer_step": {
+                "mean": sum(live) / len(live), "max": max(live),
+                "min": min(live)},
+            "expert_record_bytes": expert["all"],
+            "bytes_read_a_step_routed": routed,
+            "bound_ms_routed": routed / PEAK_BYTES_PER_S * 1e3})
     rec.update({
         "record_bytes": rbytes, "bytes_read_a_step": read,
         "bound_ms": read / PEAK_BYTES_PER_S * 1e3,
+        "gemm_ms_a_step": nonzero(prof["gemm_ms_per_step"]),
+        "top_kernels": prof["by_kernel"][:12],
         "device_busy_ms": prof["device_busy_ms_per_step"],
         "kernels_a_step": prof["kernels_per_step"],
         "launches_per_profiled_step": prof["launches_per_step"],
@@ -2265,9 +2396,202 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool):
         f"step ({rec['decode_tokens_per_s']:.1f} tokens/s), device busy "
         f"{rec['device_busy_ms']:.2f} ms and {rec['kernels_a_step']:.0f} "
         f"kernels a step at 4 lanes, bound {rec['bound_ms']:.3f} ms "
-        f"({read / 1e9:.2f} GB read a step), peak serving "
+        f"({read / 1e9:.2f} GB read a step)"
+        + (f", {rec['bound_ms_routed']:.3f} ms on the routed experts "
+           f"({rec['bytes_read_a_step_routed'] / 1e9:.2f} GB; "
+           f"{rec['live_experts_per_layer_step']['mean']:.1f} live experts "
+           f"a layer)" if grouped else "")
+        + f", peak serving "
         f"{rec['peak_mem_gb']:.2f} GB; launches {per_call} a call "
         f"({out['seconds']:.1f} s)")
+    return out
+
+
+def aten_checks(torch, fg):
+    """Phase 3k: the ATen route on the card, each result torch.equal to the
+    same call on the CPU (which the test suite holds to JAX), and timed in
+    device time beside the fused kernel at the same width."""
+    from repro_torch.core.context import ExecContext
+    from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_mode
+    from repro_torch.core.kmm import kmm_n, mm_n
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffip import ffip_gemm_literal
+    from repro_torch.quant.qmatmul import quantized_matmul
+    from repro_torch.quant.quantize import carrier_dtype
+
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    k, n = ATEN_KN
+    half = ATEN_CPU_COLS // 2
+    cols = torch.cat([torch.arange(half), torch.arange(n - half, n)])
+
+    def codes(w, shape):
+        q = 2 ** (w - 1) - 1
+        return torch.randint(-q, q + 1, shape, generator=gen,
+                             dtype=torch.int32)
+
+    def same(got, want, what):
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            fail(f"ATen route {what}: card != CPU (max abs err "
+                 f"{(got.cpu().double() - want.double()).abs().max()})")
+
+    out = {"recursion": [], "quantized_matmul": [], "strassen": []}
+    for m in ATEN_ROWS:
+        for w in ATEN_WIDTHS:
+            a, b = codes(w, (m, k)), codes(w, (k, n))
+            ad, bd = a.cuda(), b.cuda()
+            digits = select_mode(w).digits
+            row = {"M": m, "K": k, "N": n, "w": w, "n": digits}
+            for name, fn in (("kmm_n", kmm_n), ("mm_n", mm_n)):
+                def call(x, y, fn=fn):
+                    return fn(x, y, w=w, n=digits,
+                              combine_dtype=torch.float32)
+                same(call(ad, bd)[:, cols.cuda()], call(a, b[:, cols]),
+                     f"{name} w={w} n={digits} M={m}")
+                row[f"{name}_ms"] = device_ms(torch, lambda: call(ad, bd))[0]
+            if w <= 26:      # the fused kernel on the same codes
+                plan = dataclasses.replace(analytic_plan(w), block_k=256)
+                ac, bc = ad.to(carrier_dtype(w)), bd.to(carrier_dtype(w))
+                row["fused_ms"] = device_ms(
+                    torch, lambda: ops.run_plan(ac, bc, plan=plan))[0]
+            out["recursion"].append(row)
+            log(f"  kmm_n / mm_n w={w} n={digits} M={m} K={k} N={n}: card "
+                f"== CPU | {row['kmm_n_ms']:.3f} / {row['mm_n_ms']:.3f} ms"
+                + (f" | fused {row['fused_ms']:.4f} ms" if w <= 26 else ""))
+        x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+        wm = torch.randn((k, n), generator=gen) * 0.02
+        xd, wd = x.cuda(), wm.cuda()
+        for w in ATEN_QMM_WIDTHS:
+            aten = ExecContext(backend="aten")
+            got = quantized_matmul(xd, wd, w, context=aten)
+            same(got[:, cols.cuda()], quantized_matmul(
+                x, wm[:, cols], w, context=aten), f"quantized_matmul w={w}")
+            row = {"M": m, "K": k, "N": n, "w": w, "ms": device_ms(
+                torch, lambda: quantized_matmul(xd, wd, w,
+                                                context=aten))[0]}
+            if w <= 26:
+                row["fused_ms"] = device_ms(
+                    torch, lambda: quantized_matmul(xd, wd, w))[0]
+            out["quantized_matmul"].append(row)
+            log(f"  quantized_matmul on aten w={w} M={m}: card == CPU | "
+                f"{row['ms']:.3f} ms"
+                + (f" | on the kernels {row['fused_ms']:.4f} ms"
+                   if w <= 26 else ""))
+    m, k2, n2 = STRASSEN_SHAPE
+    for w in STRASSEN_WIDTHS:
+        a, b = codes(w, (m, k2)), codes(w, (k2, n2))
+        ad, bd = a.cuda(), b.cuda()
+        plans = {"xla_ref": ExecPlan("xla_ref", w, backend="aten",
+                                     combine_int32=True, depth=0),
+                 "strassen": ExecPlan("strassen", w, backend="aten",
+                                      combine_int32=True),
+                 "strassen+kmm2": ExecPlan("strassen+kmm2", w,
+                                           combine_int32=True)}
+        want = ops.run_plan(a, b, plan=plans["xla_ref"])
+        row = {"M": m, "K": k2, "N": n2, "w": w}
+        for name, plan in plans.items():
+            before = dict(fg.launches)
+            got = ops.run_plan(ad, bd, plan=plan)
+            launched = {md: c - before[md] for md, c in fg.launches.items()
+                        if c != before[md]}
+            if launched != ({"kmm2": 7} if name == "strassen+kmm2" else {}):
+                fail(f"{name} w={w}: fused launches {launched}")
+            same(got, want, f"{name} w={w}")
+            row[f"{name}_ms"] = device_ms(
+                torch, lambda: ops.run_plan(ad, bd, plan=plan))[0]
+        out["strassen"].append(row)
+        log(f"  strassen w={w} {m}x{k2}x{n2}: card == CPU, == xla_ref "
+            f"(strassen+kmm2: 7 fused kmm2 launches) | xla_ref "
+            f"{row['xla_ref_ms']:.3f}, strassen {row['strassen_ms']:.3f}, "
+            f"strassen+kmm2 {row['strassen+kmm2_ms']:.3f} ms")
+    m, k3, n3 = FFIP_SHAPE
+    a, b = codes(8, (m, k3)), codes(8, (k3, n3))
+    same(ffip_gemm_literal(a.cuda(), b.cuda()), ffip_gemm_literal(a, b),
+         f"ffip {FFIP_SHAPE}")
+    log(f"  ffip_gemm_literal {m}x{k3}x{n3}: card == CPU")
+    return out
+
+
+def serve_aten(torch, np, fg):
+    """Phase 5a: llama3.2-1b per call (fp32 weights from a generator seeded
+    0) on the ATen route, each path on its own warmed engine (graphed
+    decode), 2 requests of 4 new tokens, twice: every quantized GEMM on the
+    route, counted per prefill through ``qmatmul.gemm_routes`` and in each
+    decode width's capture (its eager warm-up step and the capture, twice
+    the per-call routes), no integer-GEMM kernel in the wrappers' counts or
+    in any decode graph's kernel nodes, greedy streams repeating; on
+    "aten" the full-width prefill logits within ROUTES_RTOL of the
+    "cuda" route on the same weights."""
+    from repro_torch.models import lm
+    from repro_torch.quant import qmatmul
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.executor import Executor
+
+    out = {}
+    cfg, params, prompts = serve_inputs(torch, np, "llama3.2-1b")
+    inner = Executor._capture
+    for arch, policy, backend, routes in ATEN_PATHS:
+        pcfg = path_config(arch, policy)
+        pcfg = pcfg.with_quant(dataclasses.replace(pcfg.quant,
+                                                   backend=backend))
+        per_call = path_per_call(arch, {}, {})
+        label = f"{arch} {policy} on {backend}"
+        captured = {}
+
+        def spy(self, d):
+            before = qmatmul.gemm_routes()
+            inner(self, d)
+            after = qmatmul.gemm_routes()
+            captured[int(d.toks.shape[0])] = {
+                r: c - before.get(r, 0) for r, c in after.items()
+                if c != before.get(r, 0)}
+
+        def requests():
+            return [Request(prompt=p, max_new_tokens=DENSE_NEW)
+                    for p in prompts[:DENSE_REQUESTS]]
+
+        Executor._capture = spy
+        try:
+            run = serve_mode(torch, fg, pcfg, params, requests, label,
+                             per_call, True, 2, False, prompts,
+                             routes=routes)
+        finally:
+            Executor._capture = inner
+        want = {r: 2 * c for r, c in routes.items()}
+        if not captured or any(got != want for got in captured.values()):
+            fail(f"{label}: decode captures took the routes {captured}, "
+                 f"expected {want} each")
+        run.pop("first")
+        logits = run.pop("logits")
+        if backend == "aten":
+            with torch.inference_mode():
+                ref, _, _ = lm.prefill(params, cfg, torch.tensor(
+                    [prompts[0]], device="cuda"), lm.init_cache(
+                        cfg, 1, 256, device="cuda"))
+            a = logits[:, :cfg.vocab_size].float()
+            c = ref[:, :cfg.vocab_size].float()
+            diff = (a - c).abs()
+            if not (diff <= ROUTES_RTOL * torch.maximum(a.abs(),
+                                                        c.abs())).all():
+                fail(f"{label}: prefill logits differ from the cuda route "
+                     f"by up to {float(diff.max())}")
+            run["max_abs_logit_diff_vs_cuda"] = float(diff.max())
+            run["logits_equal_to_cuda"] = bool(torch.equal(a, c))
+        run["captured_routes"] = {w: {f"{b}/{r}": c for (b, r), c in
+                                      got.items()}
+                                  for w, got in captured.items()}
+        out[f"{policy} {backend}"] = run
+        log(f"  {label}: {routes} a call, captures {want} each, no GEMM "
+            f"kernel; {run['decode_step_ms']:.2f} ms a decode step "
+            f"({run['decode_tokens_per_s']:.1f} tokens/s), prefill "
+            f"{run['prefill_tokens_per_s']:.1f} tokens/s, peak "
+            f"{run['peak_mem_gb']:.2f} GB"
+            + (f"; prefill logits max |aten - cuda| "
+               f"{run['max_abs_logit_diff_vs_cuda']}"
+               if backend == "aten" else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
     return out
 
 
@@ -2289,14 +2613,18 @@ def tree_gb(tree) -> float:
 def serve_mode(torch, fg, pcfg, params, requests, what, per_call,
                graphs: bool, n_runs: int, profile: bool, prompts,
                check_eager: bool = False, witness: bool = False,
-               uncopied: bool = False):
+               uncopied: bool = False, routes: Optional[dict] = None,
+               moe: bool = False):
     """One path on one engine, decode graphed or eager: ``n_runs``
     identical counted runs (greedy streams repeat), each gated; timings
     from the last; peak device memory from the engine's construction on;
     with ``check_eager`` one step graphed against eager on the same pool
     state, with ``witness`` a profiler count of the kernels replayed, with
     ``uncopied`` the records' codes followed to the kernel, and with
-    ``profile`` a device-time profile."""
+    ``profile`` a device-time profile.  ``routes``: the quantized GEMM
+    routes a call (default: every GEMM on the kernels).  With ``moe`` and
+    ``profile``, the profiled steps run again eagerly to count the experts
+    each layer routed (``live_experts``)."""
     label = f"{what} {'graphed' if graphs else 'eager'}"
     t0 = time.monotonic()
     gc.collect()
@@ -2307,7 +2635,7 @@ def serve_mode(torch, fg, pcfg, params, requests, what, per_call,
     for _ in range(n_runs):
         reqs = requests()
         runs.append(serve_counted(torch, fg, eng, reqs, graphs))
-        launches = check_counted(label, eng, runs[-1], per_call)
+        launches = check_counted(label, eng, runs[-1], per_call, routes)
     for r1, r2, req in zip(runs[0]["tokens"], runs[-1]["tokens"], reqs):
         if req.temperature == 0.0 and r1 != r2:
             fail(f"{label}: greedy output changed on an identical run")
@@ -2344,8 +2672,73 @@ def serve_mode(torch, fg, pcfg, params, requests, what, per_call,
         out["profile"] = profile_decode(torch, eng, prompts,
                                         out["decode_step_ms"])
         eng.executor.graphs = True
+        if moe:
+            out["profiled_steps"] = out["profile"]["steps"]
+            out["live_experts"] = live_experts(torch, eng, prompts,
+                                               out["profiled_steps"])
     out["seconds"] = time.monotonic() - t0
     return out
+
+
+def live_experts(torch, eng, prompts, n: int):
+    """The experts each MoE layer routed in the ``n`` decode steps
+    ``profile_decode`` traces (the same four requests, greedy, after the
+    same first step), run again eagerly with ``moe.route`` spied on: one
+    count a layer and step, read from the dispatch's live counts on the
+    host, outside any graph."""
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import Request
+    route, seen, on = moe.route, [], [False]
+
+    def spy(*args, **kw):
+        r = route(*args, **kw)
+        if on[0]:
+            seen.append(int((r.counts.sum(dim=1) > 0).sum()))
+        return r
+
+    moe.route, eng.executor.graphs = spy, False
+    try:
+        for p in prompts[:4]:
+            eng.submit(Request(prompt=p, max_new_tokens=n + 2))
+        eng.step()
+        on[0] = True
+        for _ in range(n):
+            eng.step()
+        on[0] = False
+        while eng.num_active:
+            eng.step()
+    finally:
+        moe.route, eng.executor.graphs = route, True
+    return seen
+
+
+def router_bytes(tree) -> int:
+    """Bytes of the fp32 MoE router leaves (no record: quantized every
+    call, as in the reference)."""
+    return sum(t.numel() * t.element_size() for path, t in _paths(tree)
+               if path[-1] == "router")
+
+
+def expert_bytes(tree) -> dict:
+    """Record bytes of the MoE experts: all of them (``all``) and one
+    expert's wi, wg and wo in one layer (``one``)."""
+    from repro_torch.quant.prequant import is_prequantized
+    total = one = 0
+
+    def walk(node, key):
+        nonlocal total, one
+        if is_prequantized(node):
+            if key in ("wi", "wg", "wo") and node["q"].dim() == 4:
+                size = sum(t.numel() * t.element_size()
+                           for t in node.values())
+                total += size
+                one += size // (node["q"].shape[0] * node["q"].shape[1])
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+
+    walk(tree, None)
+    return {"all": total, "one": one}
 
 
 def records_uncopied(torch, fg, eng, prompts, label: str) -> int:
@@ -2995,6 +3388,7 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                     dec["library_ms_raw_padded32_b_col_major"]})
     for mode in pick:
         dec = [r for r in grouped_rows if r["mode"] == mode
+               and r["model"] == "granite"
                and r["case"] == "decode W=4" and r["K"] == 1536]
         row = dec[0]
         out.append(entry(
@@ -3005,6 +3399,18 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
             f"experts, dequant to bf16", None))
         if mode == "kmm4":
             w24(out[-1], next(r for r in dec if r["w"] == 24))
+        if mode == "mm1":
+            # qwen3's experts on 4 lanes beside granite's (E=128, wi/wg)
+            row = next(r for r in grouped_rows if r["model"] == "qwen3"
+                       and r["case"] == "decode W=4" and r["K"] == 2048)
+            out[-1].update({
+                "qwen3_ms": row["ms_dequant_bf16"],
+                "qwen3_plain_ms": row["plain_ms"],
+                "qwen3_bound_ms": row["bound_ms"],
+                "qwen3_bound_by": row["bound_by"],
+                "qwen3_shape": f"w=8 E={row['E']} C={row['C']} K={row['K']} "
+                               f"N={row['N']}, {row['live_rows']} live rows "
+                               f"in {row['live_experts']} experts"})
     # The staged kernels: launches summed over the serve paths under a
     # table; mm1 at the prefill shape of llama's wi (where torch._int_mm
     # runs), kmm2 (w=12) and mm2 (w=16) on int8 planes and kmm2's split
@@ -3206,6 +3612,11 @@ def main() -> int:
     wkv_rows = wkv_checks(torch)
     seconds["wkv_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
+    log("[3k] the ATen route (digit recursion on ATen leaf products): card "
+        "vs CPU, timed beside the fused kernel")
+    aten_rows = aten_checks(torch, fg)
+    seconds["aten_checks"] = time.monotonic() - t0
+    t0 = time.monotonic()
     log("[5r] row-invariant kernels: rows equal at every M, against their "
         "plain versions")
     rowinv_rows = rowinv_checks(torch)
@@ -3233,12 +3644,13 @@ def main() -> int:
         launches_by_path.update(by_path)
         torch.cuda.empty_cache()
 
-    for arch, dense, per_call_too in DENSE_PATHS:
+    for arch, dense, per_call_too, grouped in DENSE_PATHS:
         log(f"[5n] serve full-width {arch} under mixed"
             + (", per call and" if per_call_too else "")
             + " on records from the leaf-wise init")
         t0 = time.monotonic()
-        engines[arch] = serve_dense(torch, np, fg, arch, dense, per_call_too)
+        engines[arch] = serve_dense(torch, np, fg, arch, dense, per_call_too,
+                                    grouped)
         seconds[f"serve {arch}"] = time.monotonic() - t0
         launches_by_path[f"{arch} mixed records"] = \
             engines[arch]["records"]["launches"]
@@ -3246,6 +3658,15 @@ def main() -> int:
             for mode, run in engines[arch]["per_call"].items():
                 launches_by_path[f"{arch} mixed {mode}"] = run["launches"]
         torch.cuda.empty_cache()
+
+    log("[5a] serve full-width llama3.2-1b on the ATen route: mixed on "
+        "'aten', every site at w=28 on 'cuda'")
+    t0 = time.monotonic()
+    aten_serve = serve_aten(torch, np, fg)
+    seconds["serve aten"] = time.monotonic() - t0
+    for path, run in aten_serve.items():
+        launches_by_path[f"llama3.2-1b {path}"] = run["launches"]
+    torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
@@ -3258,7 +3679,8 @@ def main() -> int:
               "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
-              "rowinv": rowinv_rows,
+              "rowinv": rowinv_rows, "aten_route": aten_rows,
+              "aten_serve": aten_serve,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

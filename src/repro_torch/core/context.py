@@ -1,10 +1,13 @@
 """ExecContext: how GEMMs execute, and on which device entry points run.
 
 Port of ``repro.core.context`` with ``backend``, ``tuning_table`` and
-``force_mode``; the mesh waits for its ROADMAP item.  The port has one
-backend, ``"cuda"`` — the counterpart of the reference's ``"pallas"``: every
-quantized GEMM goes to the hand-written kernels (their plain PyTorch
-versions when the tensors lie on the CPU).  A tuning table (a
+``force_mode``; the mesh waits for its ROADMAP item.  Two backends:
+``"cuda"``, the counterpart of the reference's ``"pallas"``, sends every
+quantized GEMM to the hand-written kernels (their plain PyTorch versions
+when the tensors lie on the CPU), and a GEMM outside their windows or
+bounds to the ATen route; ``"aten"``, the counterpart of the reference's
+``"xla"``, runs every GEMM on the digit recursion of
+:mod:`repro_torch.core.kmm` over exact ATen leaf products.  A tuning table (a
 :class:`repro_torch.tune.table.TuningTable` or a path to one) is consulted
 by plan selection; tables are numerics-pinned, so it takes no part in the
 context's equality or hash.
@@ -17,13 +20,13 @@ from typing import Any, Optional
 
 import torch
 
-BACKENDS = ("cuda",)
+BACKENDS = ("cuda", "aten")
 FORCE_MODES = ("auto", "mm2")
 
 
 @dataclass(frozen=True)
 class ExecContext:
-    backend: str = "cuda"
+    backend: str = "cuda"           # "cuda" | "aten"
     tuning_table: Optional[Any] = field(default=None, compare=False)
     force_mode: str = "auto"        # "auto" | "mm2" (conventional baseline)
 

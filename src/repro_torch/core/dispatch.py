@@ -11,7 +11,9 @@ and multiplier bitwidth ``m``:
 and wider ``w`` recurses.  ``select_plan`` resolves the plan a GEMM runs:
 the analytic one, or an installed tuning table's winner (``repro_torch.tune``)
 pinned to the analytic plan's numerics, so a table changes speed, never a
-value.
+value.  Two backends: ``"cuda"`` (the reference's ``"pallas"``: the
+hand-written kernels) and ``"aten"`` (the reference's ``"xla"``: the digit
+recursion of :mod:`repro_torch.core.kmm` on exact ATen leaf products).
 """
 from __future__ import annotations
 
@@ -69,17 +71,24 @@ def select_mode(w: int, m: int = 8) -> Plan:
 
 
 # Kernel variants of the reference's registry.  "mm1"/"kmm2"/"mm2" are the
-# staged kernels on digit planes (kernels/ops.py's staged path), "fused" the
-# single-pass kernel (MM1 window at depth 0, KMM2 at depth 1, 4-digit KMM at
-# depth 2), "fused_mm2" its 4-pass conventional mode.  The port runs
-# PORTED_VARIANTS on its one backend, "cuda"; "xla_ref", "ffip" and the
-# strassen variants raise until their ROADMAP items land.
+# paper's modes: the staged kernels on digit planes on "cuda", the digit
+# recursion on "aten"; "fused" the single-pass kernel (MM1 window at depth
+# 0, KMM2 at depth 1, 4-digit KMM at depth 2), "fused_mm2" its 4-pass
+# conventional mode; "xla_ref" the exact int32 product; "ffip" the literal
+# free-pipeline inner product (tiny shapes only); "strassen" /
+# "strassen+kmm2" one tile-level Strassen split whose 7 sub-GEMMs re-enter
+# run_plan at w+1, on the ATen route's exact plan and on the fused kernel
+# (core/strassen.py).
 VARIANTS = ("mm1", "kmm2", "mm2", "fused", "fused_mm2", "xla_ref", "ffip",
             "strassen", "strassen+kmm2")
-PORTED_VARIANTS = ("mm1", "kmm2", "mm2", "fused", "fused_mm2")
 
 # Integer core, no fp32 combine anywhere.
 _EXACT_VARIANTS = ("mm1", "xla_ref", "ffip", "strassen", "strassen+kmm2")
+
+# The kernel variants: the ones the tuner sweeps, and whose recorded
+# block_k a table may lend an fp32 plan (the strassen variants' tiles were
+# chosen for the half-shape sub-GEMMs).
+KERNEL_VARIANTS = ("mm1", "kmm2", "mm2", "fused", "fused_mm2")
 
 
 @dataclass(frozen=True)
@@ -93,7 +102,7 @@ class ExecPlan:
     variant: str             # one of VARIANTS
     w: int
     m: int = 8
-    backend: str = "cuda"
+    backend: str = "cuda"        # "cuda" | "aten"
     block_k: int = 256
     combine_int32: bool = False  # int32 post-adder (exact) vs fp32
     depth: int = 1               # digit-recursion levels (digits = 2**depth)
@@ -154,7 +163,10 @@ def analytic_plan(w: int, m: int = 8, *, backend: str = "cuda",
     On ``backend="cuda"`` (the counterpart of the reference's "pallas") every
     window through depth-2 recursion routes to the fused single-pass kernel:
     MM1 and KMM2 as "fused", the (2m-2, 2m] boundary as "fused_mm2", and
-    4-digit recursion as "fused" at depth 2.
+    4-digit recursion as "fused" at depth 2; depth 3 and more keeps the
+    staged variant, which the ATen route runs.  On ``backend="aten"`` (the
+    reference's "xla") the plan is the mode's variant at ``select_mode``'s
+    depth.
     """
     plan = select_mode(w, m)
     variant = plan.mode.value
@@ -198,8 +210,9 @@ def select_plan(shape: Tuple[int, int, int], w: int, *, m: int = 8,
     reference's ``pin_numerics``, which every model-facing path sets): the
     winner is taken when its
     :func:`numerics_fingerprint` matches and, for fp32 plans, its padded K
-    equals the unclamped analytic plan's; otherwise only its ``block_k``,
-    under the same padding rule; otherwise the analytic plan.
+    equals the unclamped analytic plan's; otherwise only its ``block_k``
+    (a ``"cuda"`` entry of a kernel variant), under the same padding rule;
+    otherwise the analytic plan.
     """
     if context is not None:
         backend = context.backend
@@ -226,6 +239,8 @@ def select_plan(shape: Tuple[int, int, int], w: int, *, m: int = 8,
     if (numerics_fingerprint(entry) == numerics_fingerprint(base)
             and _k_padding_matches(shape, base, entry)):
         return entry
+    if entry.variant not in KERNEL_VARIANTS or entry.backend != "cuda":
+        return base          # no kernel tile measured: keep the analytic plan
     if not _k_padding_matches(shape, base,
                               replace(base, block_k=entry.block_k)):
         return base
@@ -250,8 +265,9 @@ def _k_padding_matches(shape, base: ExecPlan, entry: ExecPlan) -> bool:
     which cancel in real arithmetic but round in fp32.  Bit identity with
     the analytic plan therefore needs the same padded K (against the
     *unclamped* analytic ``block_k``, as the reference compares).  Exact-int
-    plans equal the true product for any padding."""
-    if entry.is_exact_int:
+    plans equal the true product for any padding, and the ATen route pads
+    nothing."""
+    if entry.is_exact_int or entry.backend != "cuda":
         return True
     k = shape[1]
     return _padded(k, base.block_k) == _padded(k, entry.block_k)

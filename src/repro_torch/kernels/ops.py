@@ -9,7 +9,8 @@ installed tuning table's winner — and :func:`run_plan` executes one
 
   * ``fused`` / ``fused_mm2``: the fused kernel (``fused_gemm``), raw
     int32 or fp32 output;
-  * ``mm1`` / ``kmm2`` / ``mm2``: the staged path :func:`_int_gemm_cuda`.
+  * ``mm1`` / ``kmm2`` / ``mm2`` on ``"cuda"``: the staged path
+    :func:`_int_gemm_cuda`.
     It pads K to the plan's ``block_k`` (``kp`` enters the fp32 numerics),
     splits the operands into centered s8 digit planes in device memory,
     launches one digit kernel (``mm1_gemm``, ``kmm2_gemm_planes``,
@@ -21,14 +22,24 @@ installed tuning table's winner — and :func:`run_plan` executes one
 
     with the int32 sums wrapping modulo 2^32, as the reference's do.
 
+The ATen route (backend ``"aten"``, the reference's ``"xla"``):
+
+  * ``mm1`` / ``kmm2`` / ``mm2`` on ``"aten"``: :func:`_int_gemm_aten`,
+    the digit recursion ``kmm_n`` / ``mm_n`` of :mod:`repro_torch.core.kmm`
+    on the raw (uncentered) digits of the unpadded operands, int32 or fp32
+    combine, at any depth;
+  * ``xla_ref``: the exact int32 product; ``ffip``: the literal FFIP
+    (:mod:`repro_torch.kernels.ffip`);
+  * ``strassen`` / ``strassen+kmm2`` (:mod:`repro_torch.core.strassen`):
+    seven sub-GEMMs that re-enter :func:`run_plan`, on the ATen route's
+    exact plan or the fused kernel.
+
 ``run_plan(..., use_ref_kernels=True)`` swaps each kernel for its plain
 version (:mod:`repro_torch.kernels.ref`) around the identical padding,
 split and correction: the bit-exact mirror the autotuner checks fp32
 candidates against.  For a fused plan the mirror is the staged path with
 the plan's mode and depth — the fused kernel runs the same fp32 operation
-sequence.  The reference's other variants (``xla_ref``, ``ffip``,
-``strassen``, ``strassen+kmm2``) and its ``"xla"`` backend are not ported
-and raise.
+sequence.  The mirror flag passes through Strassen's sub-GEMMs.
 """
 from __future__ import annotations
 
@@ -37,9 +48,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dispatch import (PORTED_VARIANTS, ExecPlan, Mode,
-                                       select_plan)
-from repro_torch.core.kmm import max_exact_k
+from repro_torch.core.context import BACKENDS
+from repro_torch.core.dispatch import ExecPlan, Mode, select_plan
+from repro_torch.core.kmm import (MATMUL_DIMS, default_mm1, kmm_n,
+                                  max_exact_k, mm_n)
+from repro_torch.core.strassen import STRASSEN_VARIANTS, strassen_matmul
+from repro_torch.kernels.ffip import ffip_gemm_literal
 from repro_torch.kernels.fused_gemm import _kmm2_f32, _wrap_int32, fused_gemm
 from repro_torch.kernels.kmm_gemm import kmm2_gemm_planes
 from repro_torch.kernels.mm1_gemm import mm1_gemm
@@ -47,10 +61,6 @@ from repro_torch.kernels.mm2_gemm import mm2_gemm_planes
 from repro_torch.kernels.ref import (ref_int_gemm, ref_kmm2_planes,
                                      ref_mm2_planes)
 from repro_torch.kernels.ref import split_planes as _planes
-
-_NOT_PORTED = ("is not ported yet (ROADMAP, modules to port: \"Integer "
-               "numerics core and the ATen route\": the XLA digit "
-               "recursion, kernels/ffip.py and core/strassen.py)")
 
 
 def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
@@ -78,8 +88,8 @@ def int_gemm(a: torch.Tensor, b: torch.Tensor, *, w: int, m: int = 8,
     """
     if context is not None:
         backend = context.backend
-    if backend != "cuda":
-        raise NotImplementedError(f"backend {backend!r} " + _NOT_PORTED)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choices {BACKENDS}")
     m_dim, k_dim = a.shape
     n_dim = b.shape[1]
     if exact and max_exact_k(w) < k_dim:
@@ -107,10 +117,16 @@ def run_plan(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
     the tuner's oracle.  CUDA operands launch the kernels; CPU operands run
     the plain versions whatever the flag.
     """
-    if plan.backend != "cuda":
-        raise NotImplementedError(f"backend {plan.backend!r} " + _NOT_PORTED)
-    if plan.variant not in PORTED_VARIANTS:
-        raise NotImplementedError(f"variant {plan.variant!r} " + _NOT_PORTED)
+    if plan.variant in STRASSEN_VARIANTS:
+        def run_sub(x, y, sub_plan):
+            return run_plan(x, y, plan=sub_plan,
+                            use_ref_kernels=use_ref_kernels)
+        return strassen_matmul(a, b, plan=plan, run_sub=run_sub)
+    if plan.variant == "xla_ref":
+        return default_mm1()(a.to(torch.int32), b.to(torch.int32),
+                             MATMUL_DIMS, bits=plan.w)
+    if plan.variant == "ffip":
+        return ffip_gemm_literal(a, b)
     if plan.variant in ("fused", "fused_mm2"):
         if use_ref_kernels:
             return _int_gemm_cuda(a, b, plan=plan, use_ref_kernels=True)
@@ -119,7 +135,22 @@ def run_plan(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
         return fused_gemm(a.contiguous(), b.contiguous(), w=plan.w,
                           m=plan.m, mode=mode, block_k=plan.block_k,
                           combine_int32=plan.combine_int32)
+    if plan.backend == "aten":
+        return _int_gemm_aten(a, b, plan=plan)
     return _int_gemm_cuda(a, b, plan=plan, use_ref_kernels=use_ref_kernels)
+
+
+def _int_gemm_aten(a: torch.Tensor, b: torch.Tensor, *,
+                   plan: ExecPlan) -> torch.Tensor:
+    """The ATen route (the reference's ``_int_gemm_xla``): the exact int32
+    product in the MM1 window, else ``kmm_n`` / ``mm_n`` at the plan's
+    digits on int32 operands, int32 or fp32 combine."""
+    ai, bi = a.to(torch.int32), b.to(torch.int32)
+    if plan.mode is Mode.MM1:
+        return default_mm1()(ai, bi, MATMUL_DIMS, bits=plan.w)
+    fn = kmm_n if plan.mode is Mode.KMM2 else mm_n
+    combine = torch.int32 if plan.combine_int32 else torch.float32
+    return fn(ai, bi, w=plan.w, n=plan.digits, combine_dtype=combine)
 
 
 def _int_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
@@ -162,8 +193,8 @@ def _int_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
     elif plan.depth > 1:
         raise NotImplementedError(
             "the staged path implements KMM recursion up to depth 2 (plus "
-            "single-level MM2), as the reference's Pallas path does; deeper "
-            "recursion is the XLA digit recursion, which " + _NOT_PORTED)
+            "single-level MM2), as the reference's Pallas path does; use "
+            "backend 'aten' for deeper recursion")
     else:
         a1, a0, _ = _planes(a, h)
         b1, b0, _ = _planes(b, h)

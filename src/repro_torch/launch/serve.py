@@ -5,7 +5,9 @@
 
 The reference launcher's flags, minus ``--mesh``, ``--metrics-out`` and
 ``--trace-out``, plus ``--device``.  Runs on the CUDA device; ``--device
-cpu`` runs the kernels' plain PyTorch versions on the CPU instead.  With
+cpu`` runs the kernels' plain PyTorch versions on the CPU instead.
+``--backend aten`` serves every GEMM on the KMM digit recursion over ATen
+matmuls, the reference's default ``"xla"`` route.  With
 ``--tuning-table PATH`` (a table written by ``python -m repro_torch.tune``)
 each GEMM runs the plan the table picks in the analytic plan's numerics
 class: the same tokens, possibly other kernels.  Weights come from a
@@ -51,9 +53,11 @@ def main() -> int:
     ap.add_argument("--full-size", action="store_true",
                     help="the published configuration (needs a GPU)")
     ap.add_argument("--backend", "--quant-backend", dest="backend",
-                    default="cuda", choices=["cuda"],
+                    default="cuda", choices=["cuda", "aten"],
                     help="quantized-GEMM backend: 'cuda' serves through the "
-                         "hand-written fused KMM kernel")
+                         "hand-written fused KMM kernel; 'aten' through the "
+                         "KMM digit recursion on ATen matmuls (the "
+                         "reference's 'xla')")
     ap.add_argument("--tuning-table", default=None,
                     help="tuning table (JSON) from python -m "
                          "repro_torch.tune, installed for every GEMM")

@@ -21,7 +21,10 @@ class QuantConfig:
     enabled: bool = False
     default_bits: int = 8
     m: int = 8                      # multiplier (tensor-core operand) bits
-    backend: str = "cuda"           # the port's one backend: the fused kernel
+    # "cuda": the hand-written kernels (the ATen route where they cannot
+    # take a GEMM); "aten": the reference's "xla", every GEMM on the
+    # digit recursion over ATen leaf products
+    backend: str = "cuda"
     force_mode: str = "auto"        # "auto" | "mm2"
     # fnmatch patterns on layer names -> bitwidth overrides
     overrides: Tuple[Tuple[str, int], ...] = ()

@@ -1,5 +1,5 @@
-"""Quantized matmul on the integer-GEMM kernels, forward only (port of
-``repro.quant.qmatmul``'s fused route and its staged redirect).
+"""Quantized matmul on the integer GEMM, forward only (port of
+``repro.quant.qmatmul``).
 
 Dynamic per-token activation quantization and per-channel weight
 quantization to ``w`` bits, then the integer GEMM and the dequant.  Two
@@ -8,52 +8,73 @@ entry points, as in the reference: ``quantized_matmul`` for (..., K) @
 (E, K, N) expert GEMMs (ragged with ``counts``/``seg``: dead rows exact
 zeros, see ``kernels.fused_gemm.ragged_row_mask``).
 
-The plan comes from :func:`repro_torch.core.dispatch.select_plan`.  With no
-tuning table installed it is the analytic one with its ``block_k`` clamped
-to the shape (``_shrink_tiles``: the clamped ``block_k`` fixes the padded K
-that the fp32 combine rounds with), and the GEMM is one launch of the fused
-kernel (MM1 for w <= 8, KMM2 for 9-14, MM2 for 15-16, depth-2 KMM for
-17-26) with the dequant epilogue in the kernel; batched GEMMs are one
-grouped launch.  Under a table the plan is the table's (or the cost prior's)
-within the analytic plan's numerics class, unclamped as the reference
-leaves it; a staged plan runs through ``kernels.ops.run_plan`` and the
+Routing follows the reference's ``_quant_gemm``.  On backend ``"cuda"``
+with ``force_mode="auto"`` the plan comes from
+:func:`repro_torch.core.dispatch.select_plan`.  With no tuning table
+installed it is the analytic one with its ``block_k`` clamped to the shape
+(``_shrink_tiles``: the clamped ``block_k`` fixes the padded K that the
+fp32 combine rounds with), and the GEMM is one launch of the fused kernel
+(MM1 for w <= 8, KMM2 for 9-14, MM2 for 15-16, depth-2 KMM for 17-26) with
+the dequant epilogue in the kernel; batched GEMMs are one grouped launch.
+Under a table the plan is the table's (or the cost prior's) within the
+analytic plan's numerics class, unclamped as the reference leaves it; a
+staged or Strassen plan runs through ``kernels.ops.run_plan`` and the
 dequant ``acc * (sx * sw)`` follows — one expert at a time for batched
 GEMMs — bit-identical to the fused epilogue, so a table never moves a
-token.
+token.  A GEMM the fused kernel cannot take (w >= 27, whose digits need
+three KMM levels; a shape past its int32 bounds) takes the ATen route, the
+reference's ``"xla_fallback"``.  On backend ``"aten"``, and under
+``force_mode="mm2"`` (the paper's MM2 baseline), every GEMM takes the ATen
+route: :func:`_int_dot`, the reference's ``_int_dot`` — ``kmm_n`` /
+``mm_n`` of :mod:`repro_torch.core.kmm` on the raw digits of the unpadded
+int32 codes, fp32 combine — then ``acc * (sx * sw)``.  The route does no
+host sync, so a decode graph captures it.  Every GEMM counts its route
+(:func:`gemm_routes`, the reference's ``_GEMM_ROUTES``).
 
 Pre-quantized weights (``{"q", "scale"}`` records from
 :func:`repro_torch.quant.prequant.prequantize`) take
 :func:`prequant_matmul`: only x is quantized, and the record's codes and
-scale go to the same GEMM uncopied (cast only where the kernel's carrier
-is wider than the storage: int16 -> int32 above w = 16).
+scale go to the same GEMM uncopied on the fused route (cast only where the
+kernel's carrier is wider than the storage: int16 -> int32 above w = 16).
 
-Not ported yet, and raising rather than changing route: the XLA
-digit-recursion GEMM (``_int_dot``) that the reference falls back to
-outside the fused windows (w >= 27, recursion deeper than 2 levels) or the
-kernel's bounds, ``force_mode="mm2"``, and the straight-through backward
-(training).
+Not ported yet: the straight-through backward (training).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import replace
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.context import ExecContext
 from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_plan
-from repro_torch.core.kmm import max_exact_k, plan_accum_k_bound
+from repro_torch.core.kmm import (default_mm1, kmm_n, max_exact_k, mm_n,
+                                  plan_accum_k_bound)
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_gemm import (fused_gemm, fused_gemm_grouped,
                                             ragged_row_mask)
 from repro_torch.quant.quantize import carrier_dtype, quantize_symmetric
 from repro_torch.tune.table import get_active_table
 
-_NO_FALLBACK = ("the reference runs this GEMM on its XLA digit recursion "
-                "(quant/qmatmul._int_dot, core/kmm.kmm_n), which the port "
-                "does not have yet (ROADMAP, modules to port: integer "
-                "numerics core and quantized matmul fallback)")
+# Quantized GEMMs by (backend, route): "cuda" (the kernels), "aten_fallback"
+# (a "cuda" GEMM the kernels cannot take) and "aten".  Host-side: a decode
+# graph's GEMMs count at its capture, never at a replay.
+_GEMM_ROUTES: Dict[Tuple[str, str], int] = {}
+
+
+def gemm_routes() -> Dict[Tuple[str, str], int]:
+    """Quantized GEMMs by (backend, route) since the last reset."""
+    return dict(_GEMM_ROUTES)
+
+
+def reset_gemm_routes() -> None:
+    _GEMM_ROUTES.clear()
+
+
+def _count_route(backend: str, route: str) -> None:
+    key = (backend, route)
+    _GEMM_ROUTES[key] = _GEMM_ROUTES.get(key, 0) + 1
 
 
 def _quantize(x: torch.Tensor, w: int, axis, carrier
@@ -78,6 +99,10 @@ def _shrink_tiles(plan: ExecPlan, shape) -> ExecPlan:
     return replace(plan, block_k=min(plan.block_k, _pow2_cover(shape[1])))
 
 
+def _table(context: Optional[ExecContext]):
+    return context.resolve_table() if context is not None else None
+
+
 def _fused_plan_for(shape, w: int, m: int,
                     context: Optional[ExecContext] = None
                     ) -> Optional[ExecPlan]:
@@ -86,7 +111,7 @@ def _fused_plan_for(shape, w: int, m: int,
     its K tile clamped.  Under the context's or the active table: the
     plan ``select_plan`` resolves, clamped only when it is the analytic one
     (as the reference does), memoized on the table per (M, K, N, w, m)."""
-    table = context.resolve_table() if context is not None else None
+    table = _table(context)
     if table is None:
         table = get_active_table()
     if table is None:
@@ -103,7 +128,7 @@ def _fused_plan_for(shape, w: int, m: int,
 
 def _checked(plan: ExecPlan, k_dim: int) -> Optional[ExecPlan]:
     """``plan``, or None outside its int32 headroom or digit-accumulator
-    bound (the reference's XLA route)."""
+    bound (then the ATen route takes the GEMM)."""
     if plan.is_exact_int and max_exact_k(plan.w) < k_dim:
         return None
     kp = -(-k_dim // plan.block_k) * plan.block_k
@@ -126,7 +151,8 @@ def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
                 ) -> Optional[torch.Tensor]:
     """The GEMM + dequant: dense (..., K) x (K, N), or batched (E, C, K) x
     (E, K, N), on the resolved plan (:func:`run_plan_dequant`).  Returns
-    None where the reference would take its XLA route."""
+    None where the reference takes its XLA route: w outside the fused
+    windows, or the shape past the kernel's bounds."""
     batched = qw.dim() == 3
     if batched:
         _, m_dim, k_dim = qx.shape
@@ -187,6 +213,67 @@ def _staged_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
     return out
 
 
+def _dot_shape(qx: torch.Tensor, qw: torch.Tensor, dims
+               ) -> Tuple[int, int, int]:
+    """Flattened (M, K, N) of a dot_general (batch dims folded into M)."""
+    (lc, rc), (lb, rb) = dims
+    k = math.prod(qx.shape[a] for a in lc)
+    mm = math.prod(qx.shape[a] for a in range(qx.dim()) if a not in lc)
+    n = math.prod(qw.shape[a] for a in range(qw.dim())
+                  if a not in rc and a not in rb)
+    return mm, k, n
+
+
+def _int_dot(qx: torch.Tensor, qw: torch.Tensor, w: int, m: int, dims,
+             force_mode: str = "auto", table=None) -> torch.Tensor:
+    """The ATen route's integer GEMM on quantized codes, fp32 out (the
+    reference's ``_int_dot``).  The plan is ``select_plan``'s on backend
+    ``"aten"``, numerics-pinned: a table cannot move a bit here.  Exact
+    class: the exact int32 product; fp32 class: the paper's KMM2 / MM2 digit
+    recursion at the plan's digits, fp32 combine; ``force_mode="mm2"``:
+    ``mm_n`` above the MM1 window."""
+    qx, qw = qx.to(torch.int32), qw.to(torch.int32)
+    eplan = select_plan(_dot_shape(qx, qw, dims), w, m=m, backend="aten",
+                        table=table)
+    f32 = torch.float32
+    if force_mode == "mm2" and w > m:
+        return mm_n(qx, qw, w=w, n=max(eplan.digits, 2),
+                    dimension_numbers=dims, combine_dtype=f32)
+    if eplan.is_exact_int:
+        return default_mm1()(qx, qw, dims, bits=w).to(f32)
+    fn = kmm_n if eplan.variant == "kmm2" else mm_n
+    return fn(qx, qw, w=w, n=max(eplan.digits, 2), dimension_numbers=dims,
+              combine_dtype=f32)
+
+
+def _quant_gemm(qx, qw, sx, sw, w: int, m: int, out_dtype,
+                context: Optional[ExecContext],
+                counts: Optional[torch.Tensor] = None,
+                seg: Optional[int] = None) -> torch.Tensor:
+    """Dequantized GEMM, routed as the reference routes it: the kernels on
+    ``"cuda"`` with ``force_mode="auto"`` where they can take the GEMM,
+    else the ATen route (:func:`_int_dot`), whose output takes the ragged
+    mask.  Every GEMM counts its route."""
+    ctx = context if context is not None else ExecContext()
+    if ctx.backend == "cuda" and ctx.force_mode == "auto":
+        out = _fused_cuda(qx, qw, sx, sw, w, m, out_dtype, counts, seg,
+                          context=ctx)
+        if out is not None:
+            _count_route("cuda", "cuda")
+            return out
+        _count_route("cuda", "aten_fallback")
+    else:
+        _count_route(ctx.backend, "aten")
+    dims = (((2,), (1,)), ((0,), (0,))) if qw.dim() == 3 \
+        else (((qx.dim() - 1,), (0,)), ((), ()))
+    acc = _int_dot(qx, qw, w, m, dims, ctx.force_mode, _table(ctx))
+    out = (acc * (sx * sw)).to(out_dtype)
+    if counts is not None:
+        out = torch.where(ragged_row_mask(counts, seg, out.shape[1]), out,
+                          torch.zeros_like(out))
+    return out
+
+
 def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
                      m: int = 8, *,
                      context: Optional[ExecContext] = None) -> torch.Tensor:
@@ -196,16 +283,10 @@ def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
     ``embed.T``): it is quantized as it is and made contiguous afterwards,
     in the narrow carrier, before the launch.
     """
-    _check_context(context)
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per token
     qw, sw = _quantize(wmat, w_bits, 0, carrier)      # per output channel
-    out = _fused_cuda(qx, qw, sx, sw, w_bits, m, x.dtype, context=context)
-    if out is None:
-        raise NotImplementedError(
-            f"w={w_bits} GEMM {tuple(x.shape)} x {tuple(wmat.shape)} is "
-            f"outside the fused kernel's window or bounds: " + _NO_FALLBACK)
-    return out
+    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context)
 
 
 def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
@@ -214,16 +295,15 @@ def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
                              counts: Optional[torch.Tensor] = None,
                              seg: Optional[int] = None) -> torch.Tensor:
     """(E, C, K) @ (E, K, N) expert GEMM quantized to ``w_bits``; returns
-    x.dtype.  All experts run as ONE grouped kernel launch.
+    x.dtype.  On the kernels all experts run as ONE grouped launch.
 
     x is quantized per (expert, row) and W per (expert, output channel).
     ``counts`` (E, S) integer with a static positive ``seg`` makes the
     launch ragged: expert ``e``'s C rows are S segments of ``seg`` rows, of
     which only the first ``counts[e, s]`` are live (the MoE dispatch passes
     S = batch, seg = capacity).  Live rows equal the dense call; dead rows
-    are exact zeros.
+    are exact zeros, on every route.
     """
-    _check_context(context)
     if x.dim() != 3 or wmat.dim() != 3:
         raise ValueError(f"need (E, C, K) x (E, K, N), got "
                          f"{tuple(x.shape)} x {tuple(wmat.shape)}")
@@ -232,21 +312,8 @@ def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
     qw, sw = _quantize(wmat, w_bits, 1, carrier)      # per (expert, channel)
-    out = _fused_cuda(qx, qw, sx, sw, w_bits, m, x.dtype, counts, seg,
-                      context=context)
-    if out is None:
-        raise NotImplementedError(
-            f"w={w_bits} expert GEMM {tuple(x.shape)} x "
-            f"{tuple(wmat.shape)} is outside the fused kernel's window or "
-            f"bounds: " + _NO_FALLBACK)
-    return out
-
-
-def _check_context(context: Optional[ExecContext]) -> None:
-    ctx = context if context is not None else ExecContext()
-    if ctx.force_mode != "auto":
-        raise NotImplementedError(f"force_mode={ctx.force_mode!r}: "
-                                  + _NO_FALLBACK)
+    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context, counts,
+                       seg)
 
 
 def _model_context(quant) -> ExecContext:
@@ -265,7 +332,6 @@ def prequant_matmul(x: torch.Tensor, wrec, w_bits: int, m: int = 8, *,
     per-channel scale go to the kernel as they are stored, converted only
     where the carrier is wider than the storage (w > 16: int16 -> int32).
     Inference only."""
-    _check_context(context)
     if batched and (x.dim() != 3 or wrec["q"].dim() != 3):
         raise ValueError(f"need (E, C, K) x (E, K, N), got "
                          f"{tuple(x.shape)} x {tuple(wrec['q'].shape)}")
@@ -276,13 +342,8 @@ def prequant_matmul(x: torch.Tensor, wrec, w_bits: int, m: int = 8, *,
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)
     qw = wrec["q"].to(carrier)      # no copy where storage == carrier
-    out = _fused_cuda(qx, qw, sx, wrec["scale"], w_bits, m, x.dtype,
-                      counts, seg, context=context)
-    if out is None:
-        raise NotImplementedError(
-            f"w={w_bits} GEMM {tuple(x.shape)} x {tuple(qw.shape)} is "
-            f"outside the fused kernel's window or bounds: " + _NO_FALLBACK)
-    return out
+    return _quant_gemm(qx, qw, sx, wrec["scale"], w_bits, m, x.dtype,
+                       context, counts, seg)
 
 
 def maybe_quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, quant,

@@ -1,15 +1,18 @@
 """Autotuning search space of the integer GEMM (port of
-``repro.tune.space`` for the port's one backend, ``"cuda"``, and its ported
-variants).
+``repro.tune.space``).
 
-A point is an :class:`~repro_torch.core.dispatch.ExecPlan`: kernel variant
-(``mm1``, ``kmm2``, ``mm2`` staged; ``fused``, ``fused_mm2``), ``block_k``,
-combine precision (int32 post-adder or fp32) and digit-recursion depth.
-``candidates`` enumerates the valid points for one (M, K, N, w) problem;
-``validate`` prunes with the provable bounds — the ``max_exact_k`` int32
-headroom, the s8 digit windows of the paper's Fig. 10 rule, the per-digit
-accumulator headroom and the ``block_k`` sanity rule — and ``cost_prior``
-ranks what survives with the op counts of :mod:`repro_torch.core.complexity`.
+A point is an :class:`~repro_torch.core.dispatch.ExecPlan`: kernel variant,
+``block_k``, combine precision (int32 post-adder or fp32) and
+digit-recursion depth.  ``validate`` holds every variant on both backends
+to the provable bounds — the ``max_exact_k`` int32 headroom, the s8 digit
+windows of the paper's Fig. 10 rule, the per-digit accumulator headroom,
+Strassen's composed bound (``strassen_k_bound``) and the ``block_k``
+sanity rule — so a table entry that fails them is never run.
+``candidates`` enumerates the valid points of the kernel variants
+(``dispatch.KERNEL_VARIANTS`` on ``"cuda"``: ``mm1``, ``kmm2``, ``mm2``
+staged; ``fused``, ``fused_mm2``) for one (M, K, N, w) problem — a table
+may hold any valid plan, but the tuner sweeps these — and ``cost_prior``
+ranks them with the op counts of :mod:`repro_torch.core.complexity`.
 
 Against the reference, the M/N tiles and the VMEM footprint go: the CUDA
 kernels pick their own M/N tiles and hold fixed shared-memory tiles
@@ -29,15 +32,20 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 from repro_torch.core.complexity import (ADD, MULT, SHIFT, kmm_complexity,
                                          mm_complexity)
-from repro_torch.core.dispatch import (PORTED_VARIANTS, VARIANTS, ExecPlan,
-                                       analytic_plan, kmm_levels_needed,
+from repro_torch.core.context import BACKENDS
+from repro_torch.core.dispatch import (VARIANTS, ExecPlan, analytic_plan,
+                                       kmm_levels_needed,
                                        numerics_fingerprint)
 from repro_torch.core.kmm import max_exact_k, plan_accum_k_bound
+from repro_torch.core.strassen import (STRASSEN_VARIANTS, strassen_sub_plan,
+                                       strassen_sub_shape)
 
 Shape = Tuple[int, int, int]   # (M, K, N)
 
 TILE_CHOICES: Tuple[int, ...] = (32, 64, 128, 256)   # block_k sweep
 MAX_DEPTH = 3
+# The FFIP literal materializes an (M, K/2, N) product tensor.
+FFIP_MAX_ELEMS = 1 << 20
 # The reference's default M/N tiles, at which cost_prior prices a plan.
 PRIOR_BLOCK_M = PRIOR_BLOCK_N = 128
 
@@ -61,6 +69,26 @@ def _tile_ok(block: int, dim: int) -> bool:
     return block <= 2 * max(dim, 1) or block == TILE_CHOICES[0]
 
 
+def strassen_k_bound(plan: ExecPlan) -> int:
+    """Largest full-problem K for which a strassen plan stays exact.
+
+    The tile pre-adds give (w+1)-bit sub-operands contracting over
+    ``Ks = ceil(K / 2)``, so every sub-plan bound applies at ``w + 1`` on
+    the half K: the sub-product must fit int32 (``K <= 2 * max_exact_k(w +
+    1) = 2**(30 - 2w)``, the binding term); a fused sub-plan's digit
+    accumulators must stay exact (``Ks <= plan_accum_k_bound(sub)``); and
+    the recombined output must fit int32 (``K <= max_exact_k(w)``, never
+    binding).
+    """
+    sub = strassen_sub_plan(plan)
+    bound = 2 * max_exact_k(sub.w)
+    if sub.backend == "cuda":
+        sub_accum = plan_accum_k_bound(sub)
+        if sub_accum is not None:
+            bound = min(bound, 2 * sub_accum)
+    return min(bound, max_exact_k(plan.w))
+
+
 def validate(plan: ExecPlan, shape: Shape) -> Optional[str]:
     """A rejection reason, or None if ``plan`` is valid for ``shape``.
 
@@ -71,14 +99,71 @@ def validate(plan: ExecPlan, shape: Shape) -> Optional[str]:
     w, m = plan.w, plan.m
     if plan.variant not in VARIANTS:
         return f"unknown variant {plan.variant!r}"
-    if plan.variant not in PORTED_VARIANTS:
-        return f"variant {plan.variant!r} is not ported"
-    if plan.backend != "cuda":
-        return f"unknown backend {plan.backend!r}"
     if m < 2:
         return f"m={m} < 2"
     if w < 1:
         return f"w={w} < 1"
+    if plan.backend not in BACKENDS:
+        return f"unknown backend {plan.backend!r}"
+
+    if plan.variant == "xla_ref":
+        # one exact int32 product: the full 2w-bit products accumulate
+        # directly, so the max_exact_k headroom binds
+        if max_exact_k(w) < K:
+            return (f"xla_ref overflows int32: K={K} > "
+                    f"max_exact_k={max_exact_k(w)}")
+        if not plan.combine_int32:
+            return "xla_ref is inherently exact; combine_int32 must be True"
+        return None
+    if plan.variant == "ffip":
+        if K % 2:
+            return "ffip needs even K"
+        if M * (K // 2) * N > FFIP_MAX_ELEMS:
+            return "ffip literal materializes (M, K/2, N); shape too large"
+        # (a_e + b_o)(a_o + b_e) are (w+1)-bit x (w+1)-bit products
+        if max_exact_k(w + 1) < K:
+            return f"ffip overflows int32 at K={K} for w={w}"
+        if not plan.combine_int32:
+            return "ffip is inherently exact; combine_int32 must be True"
+        return None
+    if plan.variant in STRASSEN_VARIANTS:
+        if plan.depth != 1:
+            return f"strassen is one tile-split level, got depth {plan.depth}"
+        if not plan.combine_int32:
+            return ("strassen combines are int32 ring arithmetic; "
+                    "combine_int32 must be True")
+        if plan.variant == "strassen+kmm2" and plan.backend != "cuda":
+            return "strassen+kmm2 runs fused sub-GEMMs; cuda only"
+        bound = strassen_k_bound(plan)
+        if K > bound:
+            return (f"strassen sub-products overflow int32: K={K} > "
+                    f"composed bound {bound} (= 2*max_exact_k({w + 1}) "
+                    f"after the one-bit pre-add growth)")
+        sub = strassen_sub_plan(plan)
+        reason = validate(sub, strassen_sub_shape(shape))
+        if reason is not None:
+            return f"strassen sub-GEMM (w={sub.w}) invalid: {reason}"
+        return None
+    if plan.variant in ("fused", "fused_mm2") and plan.backend != "cuda":
+        return f"{plan.variant} is the fused kernel: cuda only"
+    if plan.variant == "mm1" and plan.backend == "aten":
+        return "mm1 on aten is the xla_ref variant"
+    if plan.backend == "aten":      # the digit recursion on ATen leaves
+        if w < 2:
+            return "digit split needs w >= 2"
+        if plan.depth < 1 or plan.depth > MAX_DEPTH:
+            return f"depth {plan.depth} outside [1, {MAX_DEPTH}]"
+        if 2 ** plan.depth > w:
+            return f"depth {plan.depth} splits below 1-bit digits at w={w}"
+        r_min = kmm_levels_needed(w, m)
+        if r_min is None:
+            return f"w={w} too wide for m={m}"
+        if plan.depth < max(r_min, 1):
+            return f"depth {plan.depth} leaves digits wider than m={m}"
+        if plan.combine_int32 and max_exact_k(w) < K:
+            return (f"int32 combine fails headroom: K={K} > "
+                    f"max_exact_k({w})={max_exact_k(w)}")
+        return None
 
     if plan.variant == "fused":
         # In-kernel split, correction and epilogue: the MM1 window (w <= m,
@@ -184,9 +269,9 @@ def _accum_reason(plan: ExecPlan, K: int) -> Optional[str]:
 def candidates(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
                tile_choices: Optional[Sequence[int]] = None
                ) -> Iterator[ExecPlan]:
-    """Enumerate the valid candidates for one GEMM problem, in the
-    reference's order (per ``block_k``: mm1, fused, fused_mm2, then the
-    staged kmm2 at depths 1 and 2 and mm2)."""
+    """Enumerate the valid candidates of the kernel variants for one GEMM
+    problem, in the reference's order (per ``block_k``: mm1, fused,
+    fused_mm2, then the staged kmm2 at depths 1 and 2 and mm2)."""
     if backend != "cuda":
         raise ValueError(f"the port tunes backend 'cuda', not {backend!r}")
     tiles = tuple(tile_choices) if tile_choices else TILE_CHOICES
@@ -262,7 +347,11 @@ def prior_plan(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
                exact: bool = False) -> Optional[ExecPlan]:
     """Best candidate by the cost prior alone (no measurement) — the table
     fallback for a key never swept — among the candidates in the analytic
-    plan's numerics class, so untuned keys keep the analytic numerics."""
+    plan's numerics class, so untuned keys keep the analytic numerics.
+    None on ``"aten"``, which the tuner does not sweep: a GEMM there runs
+    its analytic plan, whose numerics every plan of its class shares."""
+    if backend != "cuda":
+        return None
     want = numerics_fingerprint(analytic_plan(w, m, backend=backend,
                                               exact=exact))
     best, best_cost = None, None

@@ -133,16 +133,30 @@ def test_quantized_matmul_batched_matches_jax(bits, dtype):
     assert fg.grouped_launches == NO_LAUNCH
 
 
-def test_batched_outside_fused_window_raises():
-    x = torch.randn(2, 4, 32)
-    wm = torch.randn(2, 32, 8)
-    with pytest.raises(NotImplementedError):
-        quantized_matmul_batched(x, wm, 27)
-    with pytest.raises(NotImplementedError):
-        quantized_matmul_batched(x, wm, 8,
-                                 context=ExecContext(force_mode="mm2"))
+def test_batched_outside_fused_window_takes_the_aten_route():
+    """w=27 and force_mode="mm2" on the grouped GEMM take the ATen route,
+    as the reference's take XLA: equal to JAX's "pallas" context, ragged
+    too; counts without a seg still raise."""
+    rng = np.random.default_rng(27)
+    x = rng.standard_normal((2, 4, 32)).astype(np.float32)
+    wm = rng.standard_normal((2, 32, 8)).astype(np.float32)
+    counts = np.array([[3], [0]], np.int32)
+    for bits, mode in ((27, "auto"), (8, "mm2"), (12, "mm2")):
+        for c in (None, counts):
+            kw = {} if c is None else {"seg": 4}
+            ref = jax_qbmm(jnp.asarray(x), jnp.asarray(wm), bits,
+                           context=JaxContext(backend="pallas",
+                                              force_mode=mode),
+                           counts=None if c is None else jnp.asarray(c),
+                           **kw)
+            got = quantized_matmul_batched(
+                torch.from_numpy(x), torch.from_numpy(wm), bits,
+                context=ExecContext(force_mode=mode),
+                counts=None if c is None else torch.from_numpy(c), **kw)
+            np.testing.assert_array_equal(_np(got), np.asarray(ref))
     with pytest.raises(ValueError):
-        quantized_matmul_batched(x, wm, 8, counts=torch.ones(2, 1))
+        quantized_matmul_batched(torch.from_numpy(x), torch.from_numpy(wm),
+                                 8, counts=torch.ones(2, 1))
 
 
 def _skewed_input(cfg, router, seed, b=2, s=16):

@@ -19,6 +19,7 @@ from repro_torch.bridge import array_to_numpy, array_to_torch  # noqa: E402
 from repro_torch.core.context import ExecContext  # noqa: E402
 from repro_torch.kernels import fused_gemm as fg  # noqa: E402
 from repro_torch.quant.policy import POLICY_MIXED  # noqa: E402
+from repro_torch.quant import qmatmul  # noqa: E402
 from repro_torch.quant.qmatmul import quantized_matmul  # noqa: E402
 from repro_torch.quant.quantize import quantize_symmetric  # noqa: E402
 
@@ -80,13 +81,19 @@ def test_mixed_policy_sites_match_reference():
         [JAX_MIXED.bits_for(s) for s in sites] == [12, 8, 8, 8, 8]
 
 
-def test_outside_fused_window_raises():
+def test_outside_fused_window_takes_the_aten_route():
     """No silent route change: w=27 (digit recursion of depth 3) and
-    force_mode="mm2" are the reference's XLA route, which the port does not
-    have yet."""
-    x = torch.randn(2, 32)
-    wm = torch.randn(32, 8)
-    with pytest.raises(NotImplementedError):
-        quantized_matmul(x, wm, 27)
-    with pytest.raises(NotImplementedError):
-        quantized_matmul(x, wm, 8, context=ExecContext(force_mode="mm2"))
+    force_mode="mm2" take the ATen route, as the reference's take its XLA
+    route — equal to JAX's "pallas" context, and counted."""
+    rng = np.random.default_rng(27)
+    x = rng.standard_normal((2, 32)).astype(np.float32)
+    wm = rng.standard_normal((32, 8)).astype(np.float32)
+    qmatmul.reset_gemm_routes()
+    for bits, mode in ((27, "auto"), (8, "mm2"), (12, "mm2")):
+        ref = jax_qmm(jnp.asarray(x), jnp.asarray(wm), bits,
+                      context=JaxContext(backend="pallas", force_mode=mode))
+        got = quantized_matmul(array_to_torch(x), array_to_torch(wm), bits,
+                               context=ExecContext(force_mode=mode))
+        np.testing.assert_array_equal(_np(got), np.asarray(ref))
+    assert qmatmul.gemm_routes() == {("cuda", "aten_fallback"): 1,
+                                     ("cuda", "aten"): 2}

@@ -25,6 +25,7 @@ from repro_torch.core.context import ExecContext  # noqa: E402
 from repro_torch.kernels import fused_gemm as fg  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.config import Block  # noqa: E402
+from repro_torch.quant import qmatmul  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 # (prompt length, max_new_tokens, temperature)
@@ -85,21 +86,34 @@ def test_continuous_matches_sequential_with_temperature(models):
     assert all(0 <= t < tcfg.vocab_size for g in batched for t in g)
 
 
-def test_engine_refuses_what_is_not_ported(models):
+def test_engine_refuses_mamba_and_serves_force_mode_mm2(models):
     """What the port still lacks raises rather than changing route: a mamba
-    block (jamba's pattern) in the engine and in the model, and the
-    reference's force_mode="mm2" baseline at the first quantized GEMM."""
-    _, _, tcfg, tparams = models
+    block (jamba's pattern) in the engine and in the model.  The
+    reference's force_mode="mm2" baseline is served on the ATen route: the
+    JAX engine's greedy tokens under the same context, every GEMM counted
+    there."""
+    jcfg, jparams, tcfg, tparams = models
     jamba_like = dataclasses.replace(
         tcfg, pattern=(Block("attn"), Block("mamba", moe=True)))
     with pytest.raises(NotImplementedError, match="mamba"):
         Engine(jamba_like, tparams, max_seq=32, device="cpu")
     with pytest.raises(NotImplementedError, match="mamba"):
         lm.init_cache(jamba_like, 1, 32, device="cpu")
-    eng = Engine(tcfg, tparams, max_seq=32, device="cpu",
-                 context=ExecContext(force_mode="mm2"))
-    with pytest.raises(NotImplementedError, match="force_mode"):
-        eng.generate([Request(prompt=[1, 2, 3], max_new_tokens=1)])
+    jeng = JaxEngine(jcfg, jparams, max_seq=32, batch_size=2, rng_seed=5,
+                     context=JaxContext(backend="pallas", force_mode="mm2"))
+    jreqs = [JaxRequest(prompt=p, max_new_tokens=m, temperature=t)
+             for p, (_, m, t) in zip(_prompts(GREEDY, jcfg.vocab_size),
+                                     GREEDY)]
+    jeng.generate(jreqs)
+    eng = Engine(tcfg, tparams, max_seq=32, batch_size=2, rng_seed=5,
+                 device="cpu", context=ExecContext(force_mode="mm2"))
+    reqs = [Request(prompt=p, max_new_tokens=m, temperature=t)
+            for p, (_, m, t) in zip(_prompts(GREEDY, tcfg.vocab_size),
+                                    GREEDY)]
+    qmatmul.reset_gemm_routes()
+    eng.generate(reqs)
+    assert [r.generated for r in reqs] == [r.generated for r in jreqs]
+    assert set(qmatmul.gemm_routes()) == {("cuda", "aten")}
 
 
 def test_engine_runs_on_cuda_unless_asked_for_cpu(models):

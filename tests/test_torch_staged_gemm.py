@@ -295,17 +295,30 @@ def test_run_plan_takes_strided_operands():
                                    for _ in range(2)), h=4)
 
 
-def test_int_gemm_exact_refuses_overflow_and_unported_routes():
-    a = torch.zeros((8, 4096), dtype=torch.int32)
-    b = torch.zeros((4096, 8), dtype=torch.int32)
+def test_int_gemm_exact_refuses_overflow_and_runs_the_aten_variants():
+    """Exact output past max_exact_k and an unknown backend still raise, and
+    so does depth 3 on "cuda", as the reference's Pallas backend does
+    (its message names "aten"); the ATen route and the variants that were
+    refused before run and equal JAX and the int64 oracle."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(_rand(8, (8, 4096), rng))
+    b = torch.from_numpy(_rand(8, (4096, 8), rng))
     with pytest.raises(ValueError, match="max exact K"):
         ops.int_gemm(a, b, w=14, exact=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown backend"):
         ops.int_gemm(a, b, w=8, backend="xla")
+    oracle = ref_int_gemm_i64(a.numpy(), b.numpy())
+    got = ops.int_gemm(a, b, w=8, backend="aten", exact=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_ops.int_gemm(
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), w=8, backend="xla",
+        exact=True)))
     for variant in ("xla_ref", "ffip", "strassen", "strassen+kmm2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.run_plan(a, b, plan=ExecPlan(variant, 8, combine_int32=True))
-    with pytest.raises(NotImplementedError, match="depth 2"):
+        plan = ExecPlan(variant, 8, combine_int32=True)
+        assert space.validate(plan, (8, 4096, 8)) is None
+        got = ops.run_plan(a, b, plan=plan)
+        np.testing.assert_array_equal(got.numpy().astype(np.int64), oracle,
+                                      err_msg=variant)
+    with pytest.raises(NotImplementedError, match="aten"):
         ops.run_plan(a, b, plan=ExecPlan("kmm2", 28, depth=3))
 
 

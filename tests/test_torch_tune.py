@@ -24,9 +24,9 @@ torch = pytest.importorskip("torch")
 from repro.core import dispatch as jax_dispatch  # noqa: E402
 from repro.tune import space as jax_space  # noqa: E402
 from repro.tune.table import TuningTable as JaxTable  # noqa: E402
-from repro_torch.core.dispatch import (PORTED_VARIANTS, ExecPlan,  # noqa: E402
-                                       analytic_plan, numerics_fingerprint,
-                                       select_plan)
+from repro_torch.core.dispatch import (KERNEL_VARIANTS,  # noqa: E402
+                                       ExecPlan, analytic_plan,
+                                       numerics_fingerprint, select_plan)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.tune import runner, space  # noqa: E402
 from repro_torch.tune.__main__ import main as tune_main  # noqa: E402
@@ -61,7 +61,7 @@ def _jax_prior_128(shape, w, m=8, backend="pallas", exact=False):
         jax_dispatch.analytic_plan(w, m, backend=backend, exact=exact))
     best, best_cost = None, None
     for c in jax_space.candidates(shape, w, m=m, backend=backend):
-        if c.variant not in PORTED_VARIANTS \
+        if c.variant not in KERNEL_VARIANTS \
                 or jax_dispatch.numerics_fingerprint(c) != want:
             continue
         cost = jax_space.cost_prior(
@@ -76,7 +76,7 @@ def test_pruned_space_matches_reference(w):
     for shape in SHAPES:
         ref = {_proj(p) for p in jax_space.candidates(shape, w,
                                                       backend="pallas")
-               if p.variant in PORTED_VARIANTS}
+               if p.variant in KERNEL_VARIANTS}
         got = space.pruned_space(shape, w)
         assert {_proj(p) for p in got} == ref, (shape, w)
         assert len(got) == len(ref)
@@ -104,8 +104,11 @@ def test_cost_prior_and_prior_plan_match_reference(w):
 
 def test_validate_rejects_what_the_port_cannot_run():
     shape = (16, 64, 16)
-    assert "not ported" in space.validate(
-        ExecPlan("strassen", 8, combine_int32=True), shape)
+    assert "unknown backend" in space.validate(
+        ExecPlan("strassen", 8, backend="xla", combine_int32=True), shape)
+    assert "cuda only" in space.validate(
+        ExecPlan("strassen+kmm2", 8, backend="aten", combine_int32=True),
+        shape)
     assert space.validate(ExecPlan("fused", 12, backend="pallas"),
                           shape) is not None
     assert "s8" in space.validate(ExecPlan("kmm2", 16), shape)
@@ -168,12 +171,18 @@ def test_select_plan_with_the_same_table_matches_reference(tmp_path,
             n_table += got.source.startswith("table")
             n_prior += got.source.startswith("prior")
     assert n_table >= 5 and n_prior >= 20
-    # A winner of a variant the port has not ported is an invalid entry:
-    # the analytic plan runs, as for any entry that fails validation.
+    # A strassen winner in the MM1 window's exact class is served as the
+    # reference serves it: the same integer, so the pin lets it in.
     table.entries[key_for("cuda", (8, 2048, 512), 8)] = {
         "variant": "strassen", "block_k": 256, "combine_int32": True,
         "depth": 1}
-    assert select_plan((8, 2048, 512), 8, table=table) == analytic_plan(8)
+    jtable.put("pallas", (8, 2048, 512), 8, jax_dispatch.ExecPlan(
+        "strassen", 8, backend="pallas", block_k=256, combine_int32=True,
+        depth=1), us=1.0)
+    got = select_plan((8, 2048, 512), 8, table=table)
+    ref = jax_dispatch.select_plan((8, 2048, 512), 8, backend="pallas",
+                                   table=jtable)
+    assert got.variant == "strassen" and _proj(got) == _proj(ref)
 
 
 def test_table_roundtrip_and_registry(tmp_path):
