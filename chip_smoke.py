@@ -223,9 +223,41 @@ qwen3-moe-30b-a3b (128 experts top-8) and the ATen route add:
       decode graph.  Every path before these takes no ATen route (every
       counted run's routes are read).
 
+jamba-v0.1-52b (mamba, attention and MoE: models/ssm.py and the port-only
+selective-scan kernel kernels/ssm_scan.py on csrc/ssm_scan.cu) adds:
+
+  3.  the fused kernel at jamba's shapes (mm1 at its mamba projections:
+      in_proj 4096 x 16384, x_proj 8192 x 288, dt_proj 256 x 8192, out_proj
+      8192 x 4096; at its attention projections and dense MLP; kmm2 at its
+      router, 4096 x 16, and its untied lm_head, 4096 x 65536; M 1-64) and
+      the grouped kernel in mm1 at its expert GEMMs (16 experts of 4096 x
+      14336 and 14336 x 4096, top-2: decode on 1 and 4 lanes, a 64-token
+      prefill at capacity 16, the edge case), torch.equal to their plain
+      versions;
+  3s. the selective-scan kernel against its plain version (``allclose``,
+      rtol = atol = SSM_TOL, on y and the final state): decode on 1, 2 and
+      4 lanes from a nonzero state, a 64-token prefill with a mask, bf16
+      and fp32 z, d_state 16 at d_inner 8192 and the smoke model's d_state
+      8; timed against its bound and plain version at decode on 4 lanes and
+      the 64-token prefill;
+  4.  the jamba smoke model in float32, card against CPU;
+  5n. jamba-v0.1-52b under mixed on leaf-wise records only (init peak
+      gated like nemotron's): 176 fused mm1 + 17 fused kmm2 + 48 grouped
+      mm1 + 28 selective scans + 65 norm launches a prefill and a decode
+      step, the same twice, graphed, profiled at 4 lanes, its byte bound
+      on every record and on the experts the profiled steps routed;
+  5m. one full-width mamba block on those records, 120 tokens from a
+      zero state in chunks of CHUNK against one shot: output, conv tail
+      and SSM state torch.equal (the gate); and the whole model's chunked
+      prefill against a single shot, reported (tokens, logits and the MoE
+      dispatch's dropped pairs in each), not gated, since the MoE capacity
+      of a chunk is taken from the chunk's length, by the reference's own
+      rule.
+
 The line before the last is a JSON object with one entry per kernel (the
-five TPU kernels' counterparts, and the port-only rowinv_matmul and
-rowinv_norm); the last line is ``{"ok": true, "device": {...}}``.  The
+five TPU kernels' counterparts, and the port-only rowinv_matmul,
+rowinv_norm and ssm_scan); the last line is ``{"ok": true, "device":
+{...}}``.  The
 details go to
 ``chiprun_out/chip_smoke.json`` beside this script.
 """
@@ -260,6 +292,14 @@ GRANITE_KMM2_KN = [(1536, 40), (1536, 49664)]
 # (vocab 151936 padded to 152064) at w=12
 QWEN_MM1_KN = [(2048, 4096), (2048, 512), (4096, 2048)]
 QWEN_KMM2_KN = [(2048, 128), (2048, 152064)]
+# jamba-v0.1-52b: the mamba projections at w=8 (in_proj 4096 x 16384,
+# x_proj 8192 x 288, dt_proj 256 x 8192, out_proj 8192 x 4096), attention
+# (wq / wo 4096 x 4096, wk / wv 4096 x 1024) and the dense MLP (4096 x
+# 14336, 14336 x 4096); the router (4096 x 16) and the untied lm_head
+# (4096 x 65536) at w=12
+JAMBA_MM1_KN = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+                (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+JAMBA_KMM2_KN = [(4096, 16), (4096, 65536)]
 ROWS = [1, 4, 16, 64]                               # decode widths, prefill
 RAGGED = (5, 300, 130)
 # Under w16 (mm2), w20 and w24 (kmm4) every one of those GEMMs runs at that
@@ -294,6 +334,15 @@ QWEN_GROUPED_KN = [(2048, 768), (768, 2048)]
 QWEN_EXPERTS, QWEN_TOP_K = 128, 8
 QWEN_GROUPED_CASES = [("decode W=1", 8, 8, 1, 1), ("decode W=4", 32, 8, 4, 1),
                       ("prefill S=64", 8, 8, 1, 64), ("edge", 32, 8, 4, 0)]
+# jamba-v0.1-52b's expert GEMMs at w=8: 16 experts of 4096 x 14336 (wi,
+# wg) and 14336 x 4096 (wo), top-2; capacity 8 a lane at decode and 16 at a
+# 64-token prompt (64 x 2 x 1.25 / 16 = 10, rounded up to 16).
+JAMBA_GROUPED_KN = [(4096, 14336), (14336, 4096)]
+JAMBA_EXPERTS, JAMBA_TOP_K = 16, 2
+JAMBA_GROUPED_CASES = [("decode W=1", 8, 8, 1, 1),
+                       ("decode W=4", 32, 8, 4, 1),
+                       ("prefill S=64", 16, 16, 1, 64),
+                       ("edge", 32, 8, 4, 0)]
 
 # rwkv6-3b (32 layers, d_model 2560, d_ff 8960, untied lm_head over vocab
 # 65536): mm1 at its w=8 projections — 5 time-mix (wr, wk, wv, wg, wo)
@@ -349,6 +398,33 @@ WKV_CASES = (
 WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv.cu"
 # Published fp32 peak of one H100 SXM outside the tensor cores.
 PEAK_FP32_OPS_PER_S = 67e12
+# The selective-scan kernel (port-only, csrc/ssm_scan.cu): tolerance
+# against its plain version (expf and SiLU's division are not ATen's),
+# jamba's widths, and its check cases: (label, B, S, d_inner, d_state,
+# nonzero initial state, mask, z dtype, timed).  The masked prefill's
+# rows end in pads, as a bucketed prompt's do.
+SSM_TOL = 1e-5
+SSM_DI, SSM_DS = 8192, 16
+SSM_CASES = (
+    [(f"decode W={w}", w, 1, SSM_DI, SSM_DS, True, False, "bfloat16",
+      w == 4) for w in (1, 2, 4)]
+    + [("prefill S=64 masked", 1, 64, SSM_DI, SSM_DS, False, True,
+        "bfloat16", True),
+       ("prefill S=64 x4 masked", 4, 64, SSM_DI, SSM_DS, True, True,
+        "bfloat16", False),
+       ("decode W=4 fp32 z", 4, 1, SSM_DI, SSM_DS, True, False, "float32",
+        False),
+       ("smoke d_state=8", 2, 16, 128, 8, True, True, "float32", False),
+       ("S=37 d_inner=200", 3, 37, 200, 16, True, True, "bfloat16",
+        False)])
+SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+# Selective-scan launches per prefill and per decode step: one a mamba
+# layer (jamba: 7 of every 8, 28 of 32).
+SSM_PER_CALL = {"jamba-v0.1-52b": 28}
+# Phase 5m: the tokens of the block-level chunked gate (chunks of CHUNK;
+# the last chunk and the single shot padded to a multiple of 8, as the
+# engine pads them).
+MAMBA_GATE_TOKENS = 120
 
 # The serve paths: (arch, policy, requests, new tokens, identical runs,
 # launches per prefill and per decode step: dense, grouped).  llama's 16
@@ -409,13 +485,22 @@ ROWINV_SOURCE = "src/repro_torch/kernels/csrc/rowinv.cu"
 # w=8 (192 mm1), the w=12 router a layer and the untied lm_head (49 kmm2,
 # 2048 x 128 and 2048 x 152064), and the 3 expert GEMMs a layer as grouped
 # mm1 launches (144; 128 experts top-8, each expert C = lanes x 8 rows at
-# decode); only on leaf-wise records (122.1 GB in fp32).  The last item:
-# grouped launches a call.
+# decode); only on leaf-wise records (122.1 GB in fp32).  jamba-v0.1-52b
+# (32 layers: 28 mamba, 4 attention; 16 MoE, 16 dense MLP): 4 mamba
+# projections a mamba layer, 4 attention projections an attention layer
+# and 3 dense MLP GEMMs a dense layer at w=8 (112 + 16 + 48 = 176 mm1), the
+# w=12 router of each MoE layer and the untied lm_head (17 kmm2, 4096 x 16
+# and 4096 x 65536), the 3 expert GEMMs of each MoE layer as grouped mm1
+# launches (48; 16 experts top-2) and a selective scan a mamba layer
+# (SSM_PER_CALL); only on leaf-wise records (206 GB in fp32).  The last
+# item: grouped launches a call.
 DENSE_PATHS = [("gemma-2b", {"mm1": 126, "kmm2": 1}, True, {}),
                ("stablelm-12b", {"mm1": 280, "kmm2": 1}, False, {}),
                ("nemotron-4-15b", {"mm1": 192, "kmm2": 1}, False, {}),
                ("qwen3-moe-30b-a3b", {"mm1": 192, "kmm2": 49}, False,
-                {"mm1": 144})]
+                {"mm1": 144}),
+               ("jamba-v0.1-52b", {"mm1": 176, "kmm2": 17}, False,
+                {"mm1": 48})]
 DENSE_PROMPTS = (8, 64, 23, 41)
 DENSE_REQUESTS, DENSE_NEW = 2, 4
 # What the leaf-wise init may hold on the card beyond the records it makes.
@@ -621,7 +706,8 @@ def kernel_checks(torch, fg):
     cases = ([("mm1", 8, m, k, n) for k, n in MM1_KN + GRANITE_MM1_KN
               + QWEN_MM1_KN for m in ROWS]
              + [("kmm2", 12, m, k, n) for k, n in KMM2_KN + GRANITE_KMM2_KN
-                + QWEN_KMM2_KN for m in ROWS]
+                + QWEN_KMM2_KN + JAMBA_KMM2_KN for m in ROWS]
+             + [("mm1", 8, m, k, n) for k, n in JAMBA_MM1_KN for m in ROWS]
              + [("mm1", 8) + RAGGED, ("kmm2", 12) + RAGGED]
              + [("mm1", 8, m, k, n) for k, n in RWKV_MM1_KN
                 for m in RWKV_ROWS]
@@ -737,7 +823,8 @@ def grouped_bound_ms(mode: str, w: int, live, k: int, n: int,
 
 def grouped_checks(torch, fg):
     """Phase 3 and the per-shape half of phase 6 for the grouped kernel:
-    granite's expert GEMMs in every mode, qwen3's at 128 experts in mm1."""
+    granite's expert GEMMs in every mode, qwen3's at 128 experts and
+    jamba's 16 experts of 4096 x 14336 in mm1."""
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -748,6 +835,8 @@ def grouped_checks(torch, fg):
                TOP_K) for mode, w in [("mm1", 8), ("kmm2", 12)] + WIDE_MODES]
     models.append(("qwen3", "mm1", 8, QWEN_GROUPED_KN, QWEN_GROUPED_CASES,
                    QWEN_EXPERTS, QWEN_TOP_K))
+    models.append(("jamba", "mm1", 8, JAMBA_GROUPED_KN, JAMBA_GROUPED_CASES,
+                   JAMBA_EXPERTS, JAMBA_TOP_K))
     for model, mode, w, grouped_kn, cases, e, top_k in models:
         _, h, z, _ = fg.resolve(w, mode=mode)
         for k, n in grouped_kn:
@@ -1040,10 +1129,10 @@ def staged_launches() -> dict:
 def reset_all(fg) -> None:
     """Every kernel wrapper's launch count and the quantized GEMM's route
     counts set to 0."""
-    from repro_torch.kernels import rowinv, wkv_gemm
+    from repro_torch.kernels import rowinv, ssm_scan, wkv_gemm
     from repro_torch.quant import qmatmul
     fg.reset_launches()
-    for mod in (wkv_gemm, rowinv) + staged_modules():
+    for mod in (wkv_gemm, rowinv, ssm_scan) + staged_modules():
         mod.reset_launches()
     qmatmul.reset_gemm_routes()
 
@@ -1133,6 +1222,96 @@ def wkv_checks(torch):
                f"{row['host_ms']:.4f}) | bound {row['bound_ms']:.5f} ms "
                f"({row['bound_by']}) | plain {row['plain_ms']:.3f} ms "
                f"({row['plain_host_ms']:.3f})" if timed else ""))
+    return rows
+
+
+def ssm_bound_ms(b: int, s: int, di: int, ds: int, z_bytes: int,
+                 mask: bool):
+    """Least time for one selective scan: x, delta, z, b, c, a, d_skip
+    and the mask read once, y written once, the state read and written
+    once, at the card's memory rate; or its fp32 operations at the fp32
+    peak outside the tensor cores: per (row, channel, step) 5 a state
+    (exp, the decay's two products, the input product, the sum) and 2 a
+    state for the read-out, and 7 more (delta x, the skip's product and
+    add, SiLU's exp, add and division, the gate)."""
+    nbytes = (b * s * di * (4 + 4 + z_bytes + 4) + 2 * 4 * b * s * ds
+              + 4 * di * (ds + 1) + 2 * 4 * b * di * ds
+              + (b * s if mask else 0))
+    ops = b * s * di * (7 * ds + 7)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssm_checks(torch):
+    """Phase 3s and the scan's half of phase 6: the selective-scan kernel
+    against its plain version (allclose within SSM_TOL on y and the final
+    state) at every SSM_CASES entry, timed where marked."""
+    from repro_torch.kernels import ssm_scan as K
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    rows = []
+    for label, b, s, di, ds, warm, masked, zdt, timed in SSM_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x, z = rnd(b, s, di), rnd(b, s, di).to(getattr(torch, zdt))
+        delta = torch.nn.functional.softplus(rnd(b, s, di) - 2.0)
+        bm, cm = rnd(b, s, ds), rnd(b, s, ds)
+        a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device="cuda").repeat(di, 1)
+        d_skip = torch.ones(di, device="cuda")
+        h0 = (rnd(b, di, ds) * 0.3 if warm
+              else torch.zeros((b, di, ds), device="cuda"))
+        mask = None
+        if masked:
+            lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                 device="cuda")
+            mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+        h = h0.clone()
+
+        def kernel():
+            # the state it leaves stays in h: timed calls carry it on
+            return K.ssm_scan(x, delta, bm, cm, z, a, d_skip, h, mask)
+
+        def plain():
+            return K.ssm_scan_reference(x, delta, bm, cm, z, a, d_skip, h0,
+                                        mask)
+
+        y = kernel()
+        y_ref, h_ref = plain()
+        torch.cuda.synchronize()
+        errs = [(y - y_ref).abs().max().item(),
+                (h - h_ref).abs().max().item()]
+        what = f"ssm_scan {label} B={b} S={s} di={di} ds={ds} z {zdt}"
+        for got, want in ((y, y_ref), (h, h_ref)):
+            if got.shape != want.shape or not torch.isfinite(got).all() or \
+                    not torch.allclose(got, want, rtol=SSM_TOL, atol=SSM_TOL):
+                fail(f"{what}: kernel != plain version (max abs err {errs}, "
+                     f"tolerance {SSM_TOL})")
+        row = {"case": label, "B": b, "S": s, "d_inner": di, "d_state": ds,
+               "state0": "random" if warm else "zero", "masked": masked,
+               "z_dtype": zdt, "max_abs_err_y": errs[0],
+               "max_abs_err_state": errs[1], "max_abs_err": max(errs)}
+        if timed:
+            # as the WKV kernel's: the host's enqueueing outlasts the
+            # kernel, so the device time is taken behind a sleep lead
+            row["host_ms"] = cuda_ms(torch, kernel)
+            row["ms"] = cuda_ms(torch, kernel,
+                                lead_ms=2 * 20 * row["host_ms"] + 1)
+            row["plain_host_ms"] = cuda_ms(torch, plain, iters=3, warmup=1)
+            row["plain_ms"] = cuda_ms(torch, plain, iters=3, warmup=1,
+                                      lead_ms=2 * 3 * row["plain_host_ms"]
+                                      + 1)
+            row["bound_ms"], row["bound_by"] = ssm_bound_ms(
+                b, s, di, ds, z.element_size(), masked)
+        rows.append(row)
+        log(f"  {what}: allclose ({SSM_TOL}), max abs err y {errs[0]:.3e}, "
+            f"state {errs[1]:.3e}"
+            + (f" | kernel {row['ms']:.4f} ms (host-bound back to back: "
+               f"{row['host_ms']:.4f}) | "
+               f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) | plain "
+               f"{row['plain_ms']:.3f} ms ({row['plain_host_ms']:.3f})"
+               if timed else ""))
     return rows
 
 
@@ -1910,11 +2089,14 @@ def rowinv_per_call(arch: str) -> dict:
 def path_per_call(arch: str, dense: dict, grouped: dict) -> dict:
     """A path's kernel launches per prefill and per decode step, by the
     executor's kernel keys (``repro_torch.kernels.launch_counts``): the
-    integer GEMMs', the WKV recurrence's and the row-invariant kernels'."""
+    integer GEMMs', the WKV recurrence's, the selective scan's and the
+    row-invariant kernels'."""
     out = {f"dense_{m}": c for m, c in dense.items()}
     out.update({f"grouped_{m}": c for m, c in grouped.items()})
     if WKV_PER_CALL.get(arch):
         out["wkv"] = WKV_PER_CALL[arch]
+    if SSM_PER_CALL.get(arch):
+        out["ssm_scan"] = SSM_PER_CALL[arch]
     return out | rowinv_per_call(arch)
 
 
@@ -2281,8 +2463,8 @@ def leafwise_init(torch, cfg):
 
 def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
                 grouped: dict):
-    """Phase 5n: one dense or MoE config at full width and depth under
-    mixed.
+    """Phase 5n: one dense, MoE or hybrid config at full width and depth
+    under mixed.
     With ``per_call_too`` (gemma) its fp32 tree from a generator seeded 0
     serves per call, eager and graphed (one step graphed against eager),
     is prequantized, and is freed; then the leaf-wise init builds the
@@ -2291,7 +2473,9 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
     per-call run's tokens and full-width prefill logits (torch.equal).
     Every run is counted under the exact launch gates (wrappers and decode
     graph nodes), twice, greedy streams repeating; the records path is
-    profiled over its decode steps (device busy ms, kernels a step)."""
+    profiled over its decode steps (device busy ms, kernels a step).  With
+    mamba blocks (jamba) phase 5m runs on the records too: the block-level
+    chunked gate and the model-level chunked report."""
     from repro_torch.models import lm
     from repro_torch.quant.prequant import prequantize
     from repro_torch.serve.engine import Request
@@ -2379,6 +2563,9 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
         "launches_per_profiled_step": prof["launches_per_step"],
         "idle_share": prof["idle_share"]})
     out["records"] = rec
+    if any(b.kind == "mamba" for b in pcfg.pattern):
+        out["mamba_chunk_gate"] = mamba_chunk_gate(torch, pcfg, qparams)
+        out["chunked_report"] = chunked_report(torch, np, pcfg, qparams)
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -2721,24 +2908,26 @@ def router_bytes(tree) -> int:
 
 def expert_bytes(tree) -> dict:
     """Record bytes of the MoE experts: all of them (``all``) and one
-    expert's wi, wg and wo in one layer (``one``)."""
+    expert's wi, wg and wo in one layer, averaged over the MoE layers
+    (``one``; a pattern may hold several MoE positions, each stacked over
+    the periods)."""
     from repro_torch.quant.prequant import is_prequantized
-    total = one = 0
+    total = experts = 0
 
     def walk(node, key):
-        nonlocal total, one
+        nonlocal total, experts
         if is_prequantized(node):
             if key in ("wi", "wg", "wo") and node["q"].dim() == 4:
-                size = sum(t.numel() * t.element_size()
-                           for t in node.values())
-                total += size
-                one += size // (node["q"].shape[0] * node["q"].shape[1])
+                total += sum(t.numel() * t.element_size()
+                             for t in node.values())
+                if key == "wi":         # one a layer: (periods, experts)
+                    experts += node["q"].shape[0] * node["q"].shape[1]
         elif isinstance(node, dict):
             for k, v in node.items():
                 walk(v, k)
 
     walk(tree, None)
-    return {"all": total, "one": one}
+    return {"all": total, "one": total // max(experts, 1)}
 
 
 def records_uncopied(torch, fg, eng, prompts, label: str) -> int:
@@ -2937,7 +3126,9 @@ def chunk_compare(torch, np, pcfg, qparams, runs: int = 1) -> dict:
     each stream it reports whether the tokens are equal, the first token
     that differs, the first step whose logits differ at all and the max
     |difference| there, and, with two runs, whether the second repeats the
-    first bit for bit."""
+    first bit for bit; and for each engine the (token, choice) pairs the
+    MoE dispatch dropped (0 without MoE)."""
+    from repro_torch.models import moe
     from repro_torch.serve.engine import Engine, Request
 
     engines = {}
@@ -2947,11 +3138,19 @@ def chunk_compare(torch, np, pcfg, qparams, runs: int = 1) -> dict:
                                       batch_size=2, device="cuda", **kw)
         eng.warm()
 
-    def serve(eng, prompts):
+    def serve(eng, prompts, label):
         """Greedy tokens by request, and the logits row each token was
-        sampled from, by (request, step)."""
+        sampled from, by (request, step); the (token, choice) pairs the
+        MoE dispatch dropped in the prefills (pads included) add to
+        ``drops[label]``."""
         rows, ex = {}, eng.executor
         inner = ex.sample
+        route = moe.route
+
+        def counted_route(*args, **kw):
+            r = route(*args, **kw)
+            drops[label] += int((~r.keep).sum())
+            return r
 
         def keep(seed, logits, temps, rids, steps):
             # a padding lane (request id 0, step 0) comes after the real
@@ -2961,12 +3160,13 @@ def chunk_compare(torch, np, pcfg, qparams, runs: int = 1) -> dict:
                                 logits[lane].float().cpu())
             return inner(seed, logits, temps, rids, steps)
 
-        ex.sample = keep
+        ex.sample, moe.route = keep, counted_route
         reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts]
         try:
             eng.generate(reqs)
         finally:
             del ex.sample
+            moe.route = route
         return [r.generated for r in reqs], {
             (i, j): rows[(r.stats.rid, j)] for i, r in enumerate(reqs)
             for j in range(len(r.generated))}
@@ -2974,7 +3174,8 @@ def chunk_compare(torch, np, pcfg, qparams, runs: int = 1) -> dict:
     out = {}
     for seed in (5, 6):
         prompts = shared_head_prompts(np, pcfg, seed)
-        done = [{label: serve(eng, prompts)
+        drops = {label: 0 for label in engines}
+        done = [{label: serve(eng, prompts, label)
                  for label, eng in engines.items()} for _ in range(runs)]
         streams = []
         for i in range(len(prompts)):
@@ -2995,7 +3196,8 @@ def chunk_compare(torch, np, pcfg, qparams, runs: int = 1) -> dict:
                 "first_logits_differ": first_logit,
                 "max_abs_logit_diff_there": max_abs,
                 "tokens": len(tc[i])})
-        out[f"seed {seed}"] = {"streams": streams}
+        out[f"seed {seed}"] = {"streams": streams,
+                               "moe_dropped_pairs": drops}
         if runs > 1:
             out[f"seed {seed}"]["second_run_repeats"] = all(
                 done[0][k][0] == done[1][k][0] and all(
@@ -3030,6 +3232,78 @@ def chunked_gate(torch, np, arch, pcfg, qparams) -> dict:
         f"every token and sampled logits row equal, "
         f"{sum(len(r['streams']) for r in out.values())} streams of 8 "
         f"greedy tokens, seeds 5 and 6 ({time.monotonic() - t0:.1f} s)")
+    return out
+
+
+def mamba_chunk_gate(torch, pcfg, qparams) -> dict:
+    """Phase 5m's gate: the first mamba block (period 0, position 0) of the
+    full-width records, MAMBA_GATE_TOKENS random bf16 inputs (a generator
+    seeded 11) from a zero state, run as the engine runs a prompt — in
+    chunks of CHUNK, the last one padded to a multiple of 8 with a mask
+    and ``last_idx`` — and as one padded shot: output rows, conv tail and
+    SSM state torch.equal, and one scan launch a call."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.models import lm, ssm
+    t0 = time.monotonic()
+    p = lm._period(qparams["blocks"], 0)["pos0"]["mamba"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    x = torch.randn((1, MAMBA_GATE_TOKENS, pcfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def run(step):
+        cache = ssm.mamba_cache_init(pcfg, 1, torch.bfloat16, device="cuda")
+        outs = []
+        for lo in range(0, MAMBA_GATE_TOKENS, step):
+            n = min(step, MAMBA_GATE_TOKENS - lo)
+            width = -(-n // 8) * 8
+            xc = torch.zeros((1, width, pcfg.d_model), dtype=x.dtype,
+                             device="cuda")
+            xc[:, :n] = x[:, lo:lo + n]
+            with torch.inference_mode():
+                out, _ = ssm.mamba_apply_stateful(
+                    p, xc, cache, pcfg, pcfg.quant, "blk0.mamba",
+                    mask=torch.arange(width, device="cuda")[None] < n,
+                    last_idx=torch.tensor([n - 1], device="cuda"))
+            outs.append(out[:, :n])
+        return torch.cat(outs, dim=1), cache
+
+    ssm_scan.reset_launches()
+    one, one_cache = run(MAMBA_GATE_TOKENS)
+    chunked, cache = run(CHUNK)
+    torch.cuda.synchronize()
+    calls = 1 + -(-MAMBA_GATE_TOKENS // CHUNK)
+    equal = {"output": torch.equal(chunked, one),
+             **{leaf: torch.equal(cache[leaf], one_cache[leaf])
+                for leaf in ("conv", "ssm")}}
+    if not all(equal.values()) or not torch.isfinite(one.float()).all():
+        fail(f"{pcfg.name}: a mamba block in chunks of {CHUNK} differs from "
+             f"one shot ({equal})")
+    if ssm_scan.launches["ssm_scan"] != calls:
+        fail(f"{pcfg.name}: {ssm_scan.launches} scan launches for {calls} "
+             f"block calls")
+    out = {"tokens": MAMBA_GATE_TOKENS, "chunk": CHUNK, "equal": equal,
+           "scan_launches": calls, "seconds": time.monotonic() - t0}
+    log(f"  {pcfg.name} mamba block (period 0, pos 0), {MAMBA_GATE_TOKENS} "
+        f"tokens in chunks of {CHUNK} against one shot: output, conv tail "
+        f"and SSM state equal, {calls} scan launches "
+        f"({out['seconds']:.1f} s)")
+    return out
+
+
+def chunked_report(torch, np, pcfg, qparams) -> dict:
+    """Phase 5m's report: the whole model's chunked prefill against a
+    single shot on the records (``chunk_compare``), with the MoE
+    dispatch's dropped pairs in each engine.  Not gated: a chunk's MoE
+    capacity comes from the chunk's length, by the reference's rule, so
+    a chunked prefill may drop what the single shot keeps."""
+    t0 = time.monotonic()
+    out = chunk_compare(torch, np, pcfg, qparams)
+    for seed, rec in out.items():
+        log(f"  {pcfg.name} chunked (chunk {CHUNK}) against single-shot "
+            f"prefill, {seed}: {describe_streams(rec['streams'])}; MoE "
+            f"dropped pairs {rec['moe_dropped_pairs']}")
+    out["seconds"] = time.monotonic() - t0
     return out
 
 
@@ -3198,7 +3472,7 @@ def kernel_bucket(name: str):
     staged_gemm_kernel<layout, ...>, and mm2 the untemplated
     staged_gemm_kernel); the WKV kernels wkv_kernel<D> and
     wkv_step_kernel<D>; rowinv_matmul_kernel<KW> and
-    rowinv_norm_kernel<T>."""
+    rowinv_norm_kernel<T>; ssm_scan_kernel<DS, Z>."""
     for mode, prefix in (("mm1", "fused_mm1_kernel<"),
                          ("kmm2", "fused_split_kernel<2,"),
                          ("mm2", "fused_split_kernel<3,"),
@@ -3214,6 +3488,8 @@ def kernel_bucket(name: str):
             return key
     if "wkv_kernel<" in name or "wkv_step_kernel<" in name:
         return "wkv"
+    if "ssm_scan_kernel<" in name:
+        return "ssm_scan"
     for key in ROWINV_KEYS:
         if f"{key}_kernel" in name:
             return key
@@ -3264,7 +3540,8 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
             for kind in ("", "grouped_")}
     gemm.update({f"staged_{k}": 0.0 for k in ("mm1", "kmm2_s8",
                                               "kmm2_split", "mm2")})
-    counts = {"wkv": 0, **{k: 0 for k in gemm}, **{k: 0 for k in ROWINV_KEYS}}
+    counts = {"wkv": 0, "ssm_scan": 0, **{k: 0 for k in gemm},
+              **{k: 0 for k in ROWINV_KEYS}}
     for r in rows:
         key = kernel_bucket(r["name"])
         if key is not None:
@@ -3280,7 +3557,8 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     if step_ms is None:
         return out
     log(f"  profile, {n} decode steps at 4 lanes: device busy {busy:.2f} "
-        f"ms/step (integer GEMM, WKV and row-invariant kernels " + ", ".join(
+        f"ms/step (integer GEMM, WKV, scan and row-invariant kernels "
+        + ", ".join(
             f"{k} {v:.3f}" for k, v in gemm.items() if v) + f"), "
         f"{out['kernels_per_step']:.0f} kernels/step; idle share "
         f"{out['idle_share']:.2f} of the {step_ms:.2f} ms step")
@@ -3306,7 +3584,7 @@ def _leaves(tree):
 
 def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    launches_by_path, staged_rows, sweep_staged, table_runs,
-                   wkv_rows, rowinv_rows):
+                   wkv_rows, rowinv_rows, ssm_rows):
     """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
     for the result line.  ``launches`` sums the wrapper's counts over the
     last counted run of every serve path (``launches_by_path`` has each):
@@ -3506,6 +3784,30 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
             "prefill_bound_ms": row["bound_ms_M64"],
             "shape": f"{case}, M=4 (M=64 as prefill_*)",
         })
+    # The selective scan, port-only (the reference's mamba scan is jnp), at
+    # jamba's decode on 4 lanes (d_inner 8192, d_state 16, bf16 z), the
+    # shape of each mamba layer's decode launch; its 64-token masked
+    # prefill beside it.  No single library call computes the recurrence.
+    row = next(r for r in ssm_rows if r["case"] == "decode W=4")
+    pre = next(r for r in ssm_rows if r["case"] == "prefill S=64 masked")
+    out.append({
+        "name": "ssm_scan", "route": "cuda", "source": SSM_SOURCE,
+        "replaces": "src/repro/models/ssm.py:139 (mamba_apply_stateful's "
+                    "associative scan and einsum in jnp; no TPU kernel)",
+        "launches": sum(c["host"].get("ssm_scan", 0)
+                        for c in launches_by_path.values()),
+        "launches_in_graph_replays": replayed("ssm_scan",
+                                              launches_by_path.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in ssm_rows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None,
+        "prefill_ms": pre["ms"], "prefill_plain_ms": pre["plain_ms"],
+        "prefill_bound_ms": pre["bound_ms"],
+        "shape": f"B={row['B']} S={row['S']} d_inner={row['d_inner']} "
+                 f"d_state={row['d_state']}, bf16 z, state in and out "
+                 f"(B=1 S=64 masked as prefill_*)",
+    })
     return out
 
 
@@ -3612,6 +3914,11 @@ def main() -> int:
     wkv_rows = wkv_checks(torch)
     seconds["wkv_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
+    log(f"[3s] selective-scan kernel vs plain version (allclose, rtol = "
+        f"atol = {SSM_TOL})")
+    ssm_rows = ssm_checks(torch)
+    seconds["ssm_checks"] = time.monotonic() - t0
+    t0 = time.monotonic()
     log("[3k] the ATen route (digit recursion on ATen leaf products): card "
         "vs CPU, timed beside the fused kernel")
     aten_rows = aten_checks(torch, fg)
@@ -3629,7 +3936,8 @@ def main() -> int:
     t0 = time.monotonic()
     archs = list(dict.fromkeys(p[0] for p in PATHS))
     log("[4] smoke-size models: card vs CPU")
-    smoke_diff = {arch: smoke_parity(torch, np, arch) for arch in archs}
+    smoke_diff = {arch: smoke_parity(torch, np, arch)
+                  for arch in archs + ["jamba-v0.1-52b"]}
     seconds["smoke"] = time.monotonic() - t0
 
     engines, launches_by_path = {}, {}
@@ -3676,6 +3984,7 @@ def main() -> int:
               "staged_sweep": sweep_staged,
               "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
               "kmm2_vs_mm2": kvm_rows, "wkv_shapes": wkv_rows,
+              "ssm_scan_shapes": ssm_rows,
               "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
@@ -3694,7 +4003,8 @@ def main() -> int:
                   if "table_paths" in eng}
     print(json.dumps({"kernels": kernel_entries(
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
-        staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows)}),
+        staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
+        ssm_rows)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 The port registers the architectures it can serve: the dense
 ``llama3.2-1b``, ``gemma-2b``, ``stablelm-12b`` and ``nemotron-4-15b``, the
-MoE ``granite-moe-3b-a800m`` and ``qwen3-moe-30b-a3b`` and the
-attention-free ``rwkv6-3b``.
+MoE ``granite-moe-3b-a800m`` and ``qwen3-moe-30b-a3b``, the hybrid
+``jamba-v0.1-52b`` (mamba, attention and MoE) and the attention-free
+``rwkv6-3b``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ _MODULES = {
     "stablelm-12b": "stablelm_12b",
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 QUANT_POLICIES = {

@@ -6,8 +6,8 @@ is split into build units (``-DSTAGED_PIPE_UNIT=u`` for
 ``staged_pipe.cu``: the entry point and one unit per layout, plane type and
 tile; ``-DFUSED_MM1_UNIT=u`` for ``fused_mm1.cu``: the entry points and one
 unit per tile; ``-DFUSED_SPLIT_UNIT=u`` for ``fused_split.cu``: the entry
-points and one unit per digit layout and tile; ``wkv.cu`` and
-``rowinv.cu`` are one unit each);
+points and one unit per digit layout and tile; ``wkv.cu``,
+``rowinv.cu`` and ``ssm_scan.cu`` are one unit each);
 each unit compiles to one object and the objects are linked into the
 library.
 Without the macro the same source compiles whole (``kernels.compare``
@@ -34,12 +34,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # name -> source file under csrc/
 SOURCES = {"fused_mm1": "fused_mm1.cu", "fused_split": "fused_split.cu",
            "staged_pipe": "staged_pipe.cu", "wkv": "wkv.cu",
-           "rowinv": "rowinv.cu"}
+           "rowinv": "rowinv.cu", "ssm_scan": "ssm_scan.cu"}
 # name -> (unit macro, number of units), one nvcc per unit
 UNITS = {"fused_mm1": ("FUSED_MM1_UNIT", 3),
          "fused_split": ("FUSED_SPLIT_UNIT", 7),
          "staged_pipe": ("STAGED_PIPE_UNIT", 11),
-         "wkv": ("WKV_UNIT", 1), "rowinv": ("ROWINV_UNIT", 1)}
+         "wkv": ("WKV_UNIT", 1), "rowinv": ("ROWINV_UNIT", 1),
+         "ssm_scan": ("SSM_SCAN_UNIT", 1)}
 
 # --fmad=false keeps every fp32 add and multiply separately rounded, so the
 # epilogue reproduces the reference's operation order bit for bit (the

@@ -1,10 +1,10 @@
-"""Model configuration (port of ``repro.models.config``, the dense, MoE
-and RWKV fields).
+"""Model configuration (port of ``repro.models.config``, the dense, MoE,
+mamba and RWKV fields).
 
 A model is ``n_periods`` repetitions of a ``pattern`` of blocks; parameters
-are stacked over periods.  The port serves attention and RWKV blocks, each
-with a dense or an MoE MLP; the fields of the other families (mamba,
-encoder-decoder, modality front ends) and of training wait for their
+are stacked over periods.  The port serves attention, mamba and RWKV
+blocks, each with a dense or an MoE MLP; the fields of the other families
+(encoder-decoder, modality front ends) and of training wait for their
 ROADMAP items.
 """
 from __future__ import annotations
@@ -17,7 +17,7 @@ from repro_torch.quant.policy import QuantConfig
 
 @dataclass(frozen=True)
 class Block:
-    kind: str = "attn"        # "attn" | "rwkv" (the port has no "mamba")
+    kind: str = "attn"        # "attn" | "mamba" | "rwkv"
     moe: bool = False         # MoE MLP instead of dense MLP
 
 
@@ -42,6 +42,10 @@ class ModelConfig:
     top_k: int = 0
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
+    # SSM (mamba)
+    d_state: int = 16
+    conv_width: int = 4
+    expand: int = 2
     # RWKV
     rwkv_head_dim: int = 64
     quant: QuantConfig = QuantConfig()

@@ -1,7 +1,7 @@
-"""Decoder assembly for serving (port of ``repro.models.lm``, attention and
-RWKV blocks with a dense or an MoE MLP): parameters, embeddings and head,
-the cache (K/V for attention, the carried state for RWKV), ``prefill`` and
-``decode_step``.
+"""Decoder assembly for serving (port of ``repro.models.lm``, attention,
+mamba and RWKV blocks with a dense or an MoE MLP): parameters, embeddings
+and head, the cache (K/V for attention, the carried state for mamba and
+RWKV), ``prefill`` and ``decode_step``.
 
 Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
 {"pos0": {...}}}`` with block parameters stacked over periods on axis 0
@@ -18,6 +18,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.prequant import is_weight_leaf, record
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
@@ -39,7 +40,7 @@ def _cdtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        if spec.kind not in ("attn", "rwkv"):
+        if spec.kind not in ("attn", "mamba", "rwkv"):
             raise NotImplementedError(
                 f"block {spec} is not ported yet (ROADMAP: recurrent and "
                 f"multimodal families)")
@@ -109,6 +110,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
         if spec.kind == "rwkv":
             blk["rwkv"] = stacked(path + ("rwkv",), lambda: R.rwkv_init(
                 gen, cfg, dtype, device))
+        elif spec.kind == "mamba":
+            blk["mamba"] = stacked(path + ("mamba",), lambda: S.mamba_init(
+                gen, cfg, dtype, device))
         else:
             blk["attn"] = stacked(path + ("attn",), lambda: L.attn_init(
                 gen, cfg, dtype, device))
@@ -172,18 +176,22 @@ def _mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device) -> Params:
     """Zeroed cache, every leaf stacked over periods: attention blocks
-    {"k", "v"} of (n_periods, B, Smax, K, D) in the compute dtype; RWKV
-    blocks {"shift": (n_periods, B, 1, d) in the compute dtype, "wkv":
+    {"k", "v"} of (n_periods, B, Smax, K, D) in the compute dtype; mamba
+    blocks {"conv": (n_periods, B, conv_width - 1, d_inner) in the compute
+    dtype, "ssm": (n_periods, B, d_inner, d_state) fp32}; RWKV blocks
+    {"shift": (n_periods, B, 1, d) in the compute dtype, "wkv":
     (n_periods, B, H, D, D) fp32}."""
     _check_ported(cfg)
     n = cfg.n_periods
     cache = {}
     for pos, spec in enumerate(cfg.pattern):
-        if spec.kind == "rwkv":
+        if spec.kind in ("mamba", "rwkv"):
+            init = (S.mamba_cache_init if spec.kind == "mamba"
+                    else R.rwkv_cache_init)
             cache[f"pos{pos}"] = {
                 name: leaf[None].repeat((n,) + (1,) * leaf.dim())
-                for name, leaf in R.rwkv_cache_init(
-                    cfg, batch, _cdtype(cfg), device=device).items()}
+                for name, leaf in init(cfg, batch, _cdtype(cfg),
+                                       device=device).items()}
             continue
         shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         cache[f"pos{pos}"] = {
@@ -217,8 +225,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     ``t`` is the KV-cache write index: a scalar, or a (B,) vector for
     continuous batching where every slot sits at its own depth.
     ``positions`` optionally gives distinct RoPE positions; ``kv_valid``
-    (B, Smax) masks pad cache slots.  RWKV blocks step their carried state
-    and ignore all three."""
+    (B, Smax) masks pad cache slots.  Mamba and RWKV blocks step their
+    carried state and ignore all three."""
     _check_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     for i in range(cfg.n_periods):
@@ -231,6 +239,9 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             if spec.kind == "rwkv":
                 y, _ = R.rwkv_decode(p["rwkv"], h, pc[f"pos{pos}"], cfg,
                                      cfg.quant, name)
+            elif spec.kind == "mamba":
+                y, _ = S.mamba_decode(p["mamba"], h, pc[f"pos{pos}"], cfg,
+                                      cfg.quant, name)
             else:
                 y, _ = L.attn_decode(p["attn"], h, pc[f"pos{pos}"], t, cfg,
                                      cfg.quant, name, positions=positions,
@@ -297,6 +308,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 if spec.kind == "rwkv":
                     y, _ = R.rwkv_apply_stateful(
                         p["rwkv"], h, pc[f"pos{pos}"], cfg, cfg.quant, name,
+                        mask=mask_c, last_idx=li)
+                elif spec.kind == "mamba":
+                    y, _ = S.mamba_apply_stateful(
+                        p["mamba"], h, pc[f"pos{pos}"], cfg, cfg.quant, name,
                         mask=mask_c, last_idx=li)
                 else:
                     y, _ = L.attn_prefill_chunk(

@@ -55,19 +55,30 @@ def is_weight_leaf(name: str, ndim: int) -> bool:
 
 # Output channels quantized at a time: every channel has its own scale, so
 # the record is the same, and the temporaries are a chunk's, not the leaf's
-# (an untied lm_head of 6144 x 256000 is 6.3 GB in fp32).
+# (an untied lm_head of 6144 x 256000 is 6.3 GB in fp32).  For the same
+# reason a leaf with a batch axis (experts, periods) of more than
+# RECORD_ELEMS elements is quantized one index of its first axis at a time
+# (jamba's 16 experts of 4096 x 14336 are 3.76 GB in fp32 a leaf).
 RECORD_COLUMNS = 16384
+RECORD_ELEMS = 2 ** 28
 
 
 def record(leaf: torch.Tensor, bits: int) -> dict:
     """The {"q", "scale"} record of one weight leaf, quantized
-    ``RECORD_COLUMNS`` output channels (last axis) at a time."""
+    ``RECORD_COLUMNS`` output channels (last axis), and for a large leaf
+    with batch axes one index of the first axis, at a time."""
     dtype = storage_dtype(bits)
     info = torch.iinfo(dtype)
-    if leaf.shape[-1] > RECORD_COLUMNS:
+    by_index = leaf.dim() > 2 and leaf.numel() > RECORD_ELEMS
+    if by_index or leaf.shape[-1] > RECORD_COLUMNS:
         q = torch.empty(leaf.shape, dtype=dtype, device=leaf.device)
         scale = torch.empty(leaf.shape[:-2] + (1, leaf.shape[-1]),
                             dtype=torch.float32, device=leaf.device)
+        if by_index:
+            for i in range(leaf.shape[0]):
+                part = record(leaf[i], bits)
+                q[i], scale[i] = part["q"], part["scale"]
+            return {"q": q, "scale": scale}
         for c in range(0, leaf.shape[-1], RECORD_COLUMNS):
             part = record(leaf[..., c:c + RECORD_COLUMNS], bits)
             q[..., c:c + RECORD_COLUMNS] = part["q"]

@@ -386,6 +386,10 @@ def gemm_kn(cfg) -> List[Tuple[int, int]]:
     if cfg.n_experts:
         fe = cfg.d_ff_expert or cfg.d_ff
         kns |= {(d, cfg.n_experts), (d, fe), (fe, d)}
-    else:
+    if not all(b.moe for b in cfg.pattern):
         kns |= {(d, cfg.d_ff), (cfg.d_ff, d)}
+    if any(b.kind == "mamba" for b in cfg.pattern):
+        di, dtr = cfg.expand * d, -(-d // 16)
+        kns |= {(d, 2 * di), (di, dtr + 2 * cfg.d_state), (dtr, di),
+                (di, d)}
     return sorted(kns)

@@ -87,18 +87,24 @@ def test_continuous_matches_sequential_with_temperature(models):
 
 
 def test_engine_refuses_mamba_and_serves_force_mode_mm2(models):
-    """What the port still lacks raises rather than changing route: a mamba
-    block (jamba's pattern) in the engine and in the model.  The
+    """What the port still lacks raises rather than changing route: a block
+    kind it has not ported, in the engine and in the model; a mamba block
+    (jamba's pattern), ported since, gets its state rows instead
+    (tests/test_torch_ssm.py, tests/test_torch_jamba.py).  The
     reference's force_mode="mm2" baseline is served on the ATen route: the
     JAX engine's greedy tokens under the same context, every GEMM counted
     there."""
     jcfg, jparams, tcfg, tparams = models
     jamba_like = dataclasses.replace(
         tcfg, pattern=(Block("attn"), Block("mamba", moe=True)))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        Engine(jamba_like, tparams, max_seq=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        lm.init_cache(jamba_like, 1, 32, device="cpu")
+    cache = lm.init_cache(jamba_like, 1, 32, device="cpu")
+    assert set(cache["pos1"]) == {"conv", "ssm"}
+    unported = dataclasses.replace(
+        tcfg, pattern=(Block("attn"), Block("xattn")))
+    with pytest.raises(NotImplementedError, match="xattn"):
+        Engine(unported, tparams, max_seq=32, device="cpu")
+    with pytest.raises(NotImplementedError, match="xattn"):
+        lm.init_cache(unported, 1, 32, device="cpu")
     jeng = JaxEngine(jcfg, jparams, max_seq=32, batch_size=2, rng_seed=5,
                      context=JaxContext(backend="pallas", force_mode="mm2"))
     jreqs = [JaxRequest(prompt=p, max_new_tokens=m, temperature=t)
