@@ -254,6 +254,39 @@ selective-scan kernel kernels/ssm_scan.py on csrc/ssm_scan.cu) adds:
       of a chunk is taken from the chunk's length, by the reference's own
       rule.
 
+llava-next-mistral-7b (a vision prefix of projected patch embeddings) and
+seamless-m4t-medium (an encoder-decoder on projected fbank frames) add:
+
+  3.  the fused kernel at their shapes: mm1 at llava's projector over 2 x
+      576 patch embeddings (1024 x 4096, 4096 x 4096) and Mistral's
+      attention and MLP at decode on 4 lanes (4096 x 4096, 4096 x 1024,
+      4096 x 14336, 14336 x 4096), at seamless's projector over 2 x 512
+      frames (160 x 1024) and its attention, memory and MLP GEMMs (1024 x
+      1024, 1024 x 4096, 4096 x 1024) at M 2 and 1024; kmm2 at llava's
+      untied lm_head (4096 x 32256) and seamless's tied one (1024 x
+      256512), M 1, 2 and 4; torch.equal to their plain versions;
+  4.  both smoke models in float32, card against CPU (llava with a vision
+      prefix; seamless through lm.prefill and SMOKE_STEPS decode steps on
+      its memory, which the engine refuses);
+  5n. llava under mixed on leaf-wise records, served text-only through the
+      engine: 224 fused mm1 + 1 fused kmm2 + 65 norm launches a prefill
+      and a decode step, with every gate of 5n;
+  5v. llava with its vision prefix on those records (2 streams of 576
+      patch embeddings and 16 tokens, 16 greedy decode steps, through
+      lm.prefill / lm.decode_step): a prefill launches the projector's 2
+      mm1 beside the text call's, a step the text call's; a second run's
+      tokens torch.equal; decode against a fresh prefill of the sequence
+      extended by one token, at the first and last step (tokens equal
+      where the prefill's top-2 gap exceeds CONTINUE_GAP, max |diff|
+      reported);
+  5e. seamless under mixed on leaf-wise records (2 streams of 512 frames
+      and 4 decoder tokens, 16 greedy decode steps on the memory): 194
+      mm1 + 1 kmm2 + 62 norm launches a prefill (the projector, the
+      encoder, the memory's projections, the decoder), 96 mm1 + 1 kmm2 +
+      37 norms a step; the repeat and continuation gates of 5v; four
+      decode steps profiled (device busy ms, kernels a step) beside the
+      step's byte bound.
+
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
 rowinv_norm and ssm_scan); the last line is ``{"ok": true, "device":
@@ -343,6 +376,27 @@ JAMBA_GROUPED_CASES = [("decode W=1", 8, 8, 1, 1),
                        ("decode W=4", 32, 8, 4, 1),
                        ("prefill S=64", 16, 16, 1, 64),
                        ("edge", 32, 8, 4, 0)]
+
+# llava-next-mistral-7b: the vision projector at w=8 over 2 streams of 576
+# patch embeddings (frontend.w1 1024 x 4096, w2 4096 x 4096), Mistral's
+# attention (wq / wo 4096 x 4096, wk / wv 4096 x 1024) and MLP (4096 x
+# 14336, 14336 x 4096) at decode on 4 lanes; its untied lm_head (vocab
+# 32000 padded to 32256) at w=12.  seamless-m4t-medium: the audio
+# projector's frontend.w1 (160 x 1024: K inside one padded block of 256)
+# over 2 streams of 512 frames, its 1024 x 1024 attention and memory
+# projections and its MLP (1024 x 4096, 4096 x 1024), at decode on 2 lanes
+# and over the encoder's 2 x 512 frames; the tied lm_head (embed.T, vocab
+# 256206 padded to 256512) at w=12 — quantized per call from the K-major
+# view and made contiguous before the launch, as qmatmul does.  Each
+# lm_head at M 1, 2 and 4.
+LLAVA_MM1 = [(2 * 576, 1024, 4096), (2 * 576, 4096, 4096)] + [
+    (4, k, n) for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                           (14336, 4096))]
+SEAMLESS_MM1 = [(2 * 512, 160, 1024)] + [
+    (m, k, n) for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))
+    for m in (2, 2 * 512)]
+ENCDEC_KMM2_KN = [(4096, 32256), (1024, 256512)]
+ENCDEC_KMM2_ROWS = [1, 2, 4]
 
 # rwkv6-3b (32 layers, d_model 2560, d_ff 8960, untied lm_head over vocab
 # 65536): mm1 at its w=8 projections — 5 time-mix (wr, wk, wv, wg, wo)
@@ -492,16 +546,50 @@ ROWINV_SOURCE = "src/repro_torch/kernels/csrc/rowinv.cu"
 # w=12 router of each MoE layer and the untied lm_head (17 kmm2, 4096 x 16
 # and 4096 x 65536), the 3 expert GEMMs of each MoE layer as grouped mm1
 # launches (48; 16 experts top-2) and a selective scan a mamba layer
-# (SSM_PER_CALL); only on leaf-wise records (206 GB in fp32).  The last
-# item: grouped launches a call.
+# (SSM_PER_CALL); only on leaf-wise records (206 GB in fp32).
+# llava-next-mistral-7b served text-only, as the reference's engine serves
+# it: Mistral's 32 layers with 7 w=8 projections each and the untied w=12
+# lm_head (4096 x 32256); only on leaf-wise records (29.1 GB in fp32),
+# then phase 5v on them.  The last item: grouped launches a call.
 DENSE_PATHS = [("gemma-2b", {"mm1": 126, "kmm2": 1}, True, {}),
                ("stablelm-12b", {"mm1": 280, "kmm2": 1}, False, {}),
                ("nemotron-4-15b", {"mm1": 192, "kmm2": 1}, False, {}),
                ("qwen3-moe-30b-a3b", {"mm1": 192, "kmm2": 49}, False,
                 {"mm1": 144}),
                ("jamba-v0.1-52b", {"mm1": 176, "kmm2": 17}, False,
-                {"mm1": 48})]
+                {"mm1": 48}),
+               ("llava-next-mistral-7b", {"mm1": 224, "kmm2": 1}, False,
+                {})]
 DENSE_PROMPTS = (8, 64, 23, 41)
+# Phase 4's decode steps on an encoder-decoder's memory.
+SMOKE_STEPS = 5
+# Phase 5v, llava with its vision prefix on the records of 5n: 2 streams,
+# each 576 seeded patch embeddings of dimension 1024 and 16 text tokens,
+# then 16 greedy decode steps; a prefill launches the projector's 2 mm1
+# beside a text call's 224 mm1 + 1 kmm2 and 65 norms, a decode step a text
+# call's.  Phase 5e, seamless-m4t-medium on leaf-wise records: 2 streams of
+# 512 seeded fbank frames of dimension 160 (about 10 s of speech at 50
+# frames a second), 4 decoder prompt tokens, 16 greedy decode steps; a
+# prefill launches the projector's 2 mm1, 12 encoder layers x 6 (wq, wk,
+# wv, wo, wi, wo), the memory's wk / wv in 12 decoder layers and the
+# decoder's 12 x 8 (4 self-attention, cross-attention wq / wo, 2 MLP):
+# 194 mm1, and the tied w=12 lm_head (1 kmm2); its norms are the
+# encoder's 12 x 2 + enc_ln_f and the decoder's 12 x 3 (ln1, lnx, ln2) +
+# ln_f; a decode step launches the decoder's.  Both repeat their run
+# (tokens torch.equal) and check decode against a fresh prefill of the
+# sequence extended by one token: tokens equal wherever the prefill's
+# top-2 gap exceeds CONTINUE_GAP (twice test_torch_dense_configs.py's bf16
+# tolerance), the largest |logit difference| reported.
+VISION_ARCH, ENCDEC_ARCH = "llava-next-mistral-7b", "seamless-m4t-medium"
+VISION_STREAMS, VISION_TEXT, VISION_NEW, VISION_MAX_SEQ = 2, 16, 16, 640
+VISION_PREFILL = {"dense_mm1": 226, "dense_kmm2": 1, "rowinv_norm": 65}
+VISION_STEP = {"dense_mm1": 224, "dense_kmm2": 1, "rowinv_norm": 65}
+ENCDEC_STREAMS, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 2, 512, 4, 16
+ENCDEC_MAX_SEQ = 32
+ENCDEC_PREFILL = {"dense_mm1": 194, "dense_kmm2": 1, "rowinv_norm": 62}
+ENCDEC_STEP = {"dense_mm1": 96, "dense_kmm2": 1, "rowinv_norm": 37}
+CONTINUE_GAP = 0.25
+ENCDEC_PROFILED_STEPS = 4
 DENSE_REQUESTS, DENSE_NEW = 2, 4
 # What the leaf-wise init may hold on the card beyond the records it makes.
 INIT_HEADROOM_GB = 16
@@ -716,7 +804,10 @@ def kernel_checks(torch, fg):
                 for m in RWKV_ROWS]
              + [(mode, w, m, k, n) for mode, w in WIDE_MODES
                 for k, n in every_kn for m in ROWS]
-             + [(mode, w) + RAGGED for mode, w in WIDE_MODES])
+             + [(mode, w) + RAGGED for mode, w in WIDE_MODES]
+             + [("mm1", 8) + shape for shape in LLAVA_MM1 + SEAMLESS_MM1]
+             + [("kmm2", 12, m, k, n) for k, n in ENCDEC_KMM2_KN
+                for m in ENCDEC_KMM2_ROWS])
     for mode, w, m, k, n in cases:
         _, h, z, _ = fg.resolve(w, mode=mode)
         a, b = operands(torch, fg, gen, mode, w, (m, k), (k, n))
@@ -1996,7 +2087,11 @@ def tuned_ab(torch, pcfg, qparams, prompts, table) -> dict:
 
 
 def smoke_parity(torch, np, arch: str):
-    """Phase 4: the smoke-size model on the card against the CPU."""
+    """Phase 4: the smoke-size model on the card against the CPU.  A
+    vision model's prefill also takes a prefix of patch embeddings, and
+    an encoder-decoder's prefill takes frames and its greedy tokens come
+    from ``SMOKE_STEPS`` decode steps on the returned memory (the engine
+    refuses it)."""
     from repro_torch.bridge import tree_map
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -2011,13 +2106,33 @@ def smoke_parity(torch, np, arch: str):
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16)))
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in (5, 9, 3)]
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["frontend_embeds"] = rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.frontend_dim))
+    elif cfg.is_encdec:
+        extra["enc_frames"] = rng.standard_normal((2, 16, cfg.frontend_dim))
+    extra = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in extra.items()}
+    t0 = toks.shape[1] + (cfg.frontend_tokens if cfg.frontend == "vision"
+                          else 0)
     logits, tokens = {}, {}
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda t: t.to(dev), params_cpu)
         cache = lm.init_cache(cfg, 2, 32, device=dev)
         with torch.inference_mode():
-            out, _, _ = lm.prefill(params, cfg, toks.to(dev), cache)
-        logits[dev] = out.float().cpu()
+            out, cache, mem = lm.prefill(
+                params, cfg, toks.to(dev), cache,
+                **{k: v.to(dev) for k, v in extra.items()})
+            logits[dev] = out.float().cpu()
+            if cfg.is_encdec:
+                picks = []
+                for i in range(SMOKE_STEPS):
+                    picks.append(torch.argmax(out, -1))
+                    out, cache = lm.decode_step(params, cfg, picks[-1],
+                                                cache, t0 + i, mem=mem)
+                tokens[dev] = torch.stack(picks, 1).cpu().tolist()
+                continue
         eng = Engine(cfg, params, max_seq=32, batch_size=2, device=dev)
         reqs = [Request(prompt=p, max_new_tokens=5) for p in prompts]
         eng.generate(reqs)
@@ -2027,8 +2142,11 @@ def smoke_parity(torch, np, arch: str):
         fail(f"{arch} smoke logits on the card differ from the CPU by {diff}")
     if tokens["cpu"] != tokens["cuda"]:
         fail(f"{arch} smoke greedy tokens differ: {tokens}")
-    log(f"  {arch} smoke float32: prefill logits max |cuda - cpu| = "
-        f"{float(diff)}; greedy tokens equal on 3 requests")
+    log(f"  {arch} smoke float32"
+        + "".join(f", {k} {tuple(v.shape)}" for k, v in extra.items())
+        + f": prefill logits max |cuda - cpu| = {float(diff)}; greedy "
+        + (f"tokens equal over {SMOKE_STEPS} decode steps on the memory"
+           if cfg.is_encdec else "tokens equal on 3 requests"))
     return float(diff)
 
 
@@ -2475,7 +2593,8 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
     graph nodes), twice, greedy streams repeating; the records path is
     profiled over its decode steps (device busy ms, kernels a step).  With
     mamba blocks (jamba) phase 5m runs on the records too: the block-level
-    chunked gate and the model-level chunked report."""
+    chunked gate and the model-level chunked report; with a vision front
+    end (llava) phase 5v."""
     from repro_torch.models import lm
     from repro_torch.quant.prequant import prequantize
     from repro_torch.serve.engine import Request
@@ -2523,9 +2642,11 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
     out["parameters"] = param_count(qparams)
     rbytes = record_bytes(qparams)
     # the per-call reads beside the records: a tied lm_head's embed, an
-    # MoE router (fp32, quantized every call)
-    read = rbytes + (qparams["embed"].numel() * 4 if pcfg.tie_embeddings
-                     else 0) + router_bytes(qparams)
+    # MoE router (fp32, quantized every call); a text decode step reads no
+    # front-end record
+    read = (rbytes - record_bytes(qparams.get("frontend", {}))
+            + (qparams["embed"].numel() * 4 if pcfg.tie_embeddings else 0)
+            + router_bytes(qparams))
     rec = serve_mode(torch, fg, pcfg, qparams, requests, f"{arch} records",
                      per_call, True, 2, True, prompts, check_eager=True,
                      uncopied=True, moe=bool(grouped))
@@ -2566,6 +2687,8 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
     if any(b.kind == "mamba" for b in pcfg.pattern):
         out["mamba_chunk_gate"] = mamba_chunk_gate(torch, pcfg, qparams)
         out["chunked_report"] = chunked_report(torch, np, pcfg, qparams)
+    if pcfg.frontend == "vision":
+        out["vision_prefix"] = vision_prefix(torch, fg, pcfg, qparams)
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -2591,6 +2714,222 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
         + f", peak serving "
         f"{rec['peak_mem_gb']:.2f} GB; launches {per_call} a call "
         f"({out['seconds']:.1f} s)")
+    return out
+
+
+def greedy_run(torch, fg, pcfg, params, toks, extra: dict, new: int,
+               max_seq: int, what: str, prefill_counts: dict,
+               step_counts: dict) -> dict:
+    """One prefill of ``toks`` (B, S) with ``extra`` (a vision prefix's
+    ``frontend_embeds`` or an encoder's ``enc_frames``) and ``new`` greedy
+    decode steps through ``lm.prefill`` / ``lm.decode_step`` (eager; the
+    engine takes neither input), the launch counts set to 0 before the
+    prefill and before the steps and read after each: exactly
+    ``prefill_counts``, then ``new`` x ``step_counts``, every GEMM on the
+    kernels.  Returns the tokens (B, new + 1: the prefill's pick and each
+    step's), each step's logits, the first decode position, the counted
+    launches and the timings."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import lm
+    from repro_torch.quant import qmatmul
+    b, s = toks.shape
+    t0 = s + (pcfg.frontend_tokens if "frontend_embeds" in extra else 0)
+    counts, routes = [], []
+    reset_all(fg)
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        cache = lm.init_cache(pcfg, b, max_seq, device="cuda")
+        tic = time.monotonic()
+        logits, cache, mem = lm.prefill(params, pcfg, toks, cache, **extra)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - tic
+        counts.append(nonzero(launch_counts()))
+        routes.append(qmatmul.gemm_routes())
+        reset_all(fg)
+        picks, steps = [torch.argmax(logits, -1)], []
+        tic = time.monotonic()
+        for i in range(new):
+            logits, cache = lm.decode_step(params, pcfg, picks[-1], cache,
+                                           t0 + i, mem=mem)
+            steps.append(logits)
+            picks.append(torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - tic
+    counts.append(nonzero(launch_counts()))
+    routes.append(qmatmul.gemm_routes())
+    wants = (prefill_counts, {k: c * new for k, c in step_counts.items()})
+    for label, got, want, route in zip(
+            ("the prefill", f"{new} decode steps"), counts, wants, routes):
+        if got != want:
+            fail(f"{what}: {label} launched {got}, expected {want}")
+        if set(route) - {("cuda", "cuda")}:
+            fail(f"{what}: {label}'s quantized GEMMs took the ATen route: "
+                 f"{route}")
+    host = {k: counts[0].get(k, 0) + counts[1].get(k, 0)
+            for k in counts[0].keys() | counts[1].keys()}
+    return {"tokens": torch.stack(picks, 1), "steps": steps, "t0": t0,
+            "launches": {"host": host},
+            "prefill_ms": prefill_s * 1e3,
+            "decode_step_ms": decode_s / new * 1e3,
+            "decode_tokens_per_s": b * new / decode_s}
+
+
+def continuation(torch, pcfg, params, toks, extra: dict, run: dict, at,
+                 max_seq: int, what: str) -> dict:
+    """Decode against prefill: for each step ``i`` in ``at``, its logits
+    against a fresh prefill of ``toks`` extended by the ``i`` tokens that
+    step had consumed.  The largest |logit difference|, and the greedy
+    tokens, which must be equal wherever the prefill's top-2 gap exceeds
+    CONTINUE_GAP."""
+    from repro_torch.models import lm
+    b, v = toks.shape[0], pcfg.vocab_size
+    out = {}
+    for i in at:
+        seq = torch.cat([toks, run["tokens"][:, :i]], dim=1)
+        with torch.inference_mode():
+            ref, _, _ = lm.prefill(
+                params, pcfg, seq,
+                lm.init_cache(pcfg, b, max_seq, device="cuda"), **extra)
+        r = ref[:, :v].float()
+        g = run["steps"][i - 1][:, :v].float()
+        top2 = r.topk(2, dim=-1).values
+        decided = top2[:, 0] - top2[:, 1] > CONTINUE_GAP
+        same = r.argmax(-1) == g.argmax(-1)
+        if not bool(same[decided].all()):
+            fail(f"{what}: decode step {i}'s token differs from a fresh "
+                 f"prefill's where its top-2 gap exceeds {CONTINUE_GAP}")
+        out[i] = {"max_abs_logit_diff": float((r - g).abs().max()),
+                  "rows_decided": int(decided.sum()),
+                  "tokens_equal": int(same.sum()), "rows": b}
+    return out
+
+
+def repeat_and_continue(torch, fg, pcfg, params, toks, extra, new,
+                        max_seq, what, prefill_counts, step_counts) -> dict:
+    """Phases 5v and 5e's gates: two counted greedy runs (``greedy_run``)
+    whose tokens must be torch.equal, and the continuation check at the
+    first and the last decode step.  Returns the last run's tokens,
+    launches and timings, and the check."""
+    runs = [greedy_run(torch, fg, pcfg, params, toks, extra, new, max_seq,
+                       what, prefill_counts, step_counts)
+            for _ in range(2)]
+    if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
+        fail(f"{what}: greedy tokens changed on an identical run")
+    run = runs[-1]
+    cont = continuation(torch, pcfg, params, toks, extra, run, (1, new),
+                        max_seq, what)
+    out = {k: run[k] for k in ("t0", "launches", "prefill_ms",
+                               "decode_step_ms", "decode_tokens_per_s")}
+    out.update({"tokens": run["tokens"].tolist(), "continuation": cont,
+                "prefill_launches": prefill_counts,
+                "step_launches": step_counts})
+    log(f"  {what}: {new} greedy steps from position {run['t0']}, twice, "
+        f"tokens equal; prefill {run['prefill_ms']:.1f} ms, decode "
+        f"{run['decode_step_ms']:.2f} ms a step (eager, "
+        f"{run['decode_tokens_per_s']:.1f} tokens/s); launches "
+        f"{prefill_counts} a prefill, {step_counts} a step; decode against "
+        f"a fresh prefill: "
+        + "; ".join(f"step {i} max |d| {c['max_abs_logit_diff']:.4f}, "
+                    f"{c['tokens_equal']}/{c['rows']} tokens equal"
+                    for i, c in cont.items()))
+    return out
+
+
+def vision_prefix(torch, fg, pcfg, qparams) -> dict:
+    """Phase 5v: llava on its leaf-wise records with a vision prefix
+    (VISION_STREAMS streams of frontend_tokens seeded patch embeddings and
+    VISION_TEXT text tokens, VISION_NEW greedy decode steps), under the
+    exact launch, repeat and continuation gates."""
+    tic = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    toks = torch.randint(1, pcfg.vocab_size, (VISION_STREAMS, VISION_TEXT),
+                         generator=gen, device="cuda")
+    extra = {"frontend_embeds": torch.randn(
+        (VISION_STREAMS, pcfg.frontend_tokens, pcfg.frontend_dim),
+        generator=gen, device="cuda")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = repeat_and_continue(
+        torch, fg, pcfg, qparams, toks, extra, VISION_NEW, VISION_MAX_SEQ,
+        f"{pcfg.name} vision prefix ({VISION_STREAMS} streams of "
+        f"{pcfg.frontend_tokens} patch embeddings + {VISION_TEXT} tokens)",
+        VISION_PREFILL, VISION_STEP)
+    out.update({"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "seconds": time.monotonic() - tic})
+    log(f"  peak {out['peak_mem_gb']:.2f} GB ({out['seconds']:.1f} s)")
+    return out
+
+
+def serve_encdec(torch, fg) -> dict:
+    """Phase 5e: seamless-m4t-medium under mixed on records from the
+    leaf-wise init (its peak memory gated): ENCDEC_STREAMS streams of
+    ENCDEC_FRAMES seeded fbank frames and ENCDEC_PROMPT decoder tokens,
+    ENCDEC_NEW greedy decode steps on the memory, under the exact launch,
+    repeat and continuation gates; then ENCDEC_PROFILED_STEPS decode steps
+    profiled (device busy ms, kernels a step), beside the step's byte
+    bound (the decoder's records, the tied lm_head's fp32 embed, which it
+    quantizes every call, and the memory)."""
+    from repro_torch.models import lm
+    tic = time.monotonic()
+    pcfg = path_config(ENCDEC_ARCH, "mixed")
+    qparams, init = leafwise_init(torch, pcfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    toks = torch.randint(1, pcfg.vocab_size, (ENCDEC_STREAMS, ENCDEC_PROMPT),
+                         generator=gen, device="cuda")
+    extra = {"enc_frames": torch.randn(
+        (ENCDEC_STREAMS, ENCDEC_FRAMES, pcfg.frontend_dim), generator=gen,
+        device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    out = repeat_and_continue(
+        torch, fg, pcfg, qparams, toks, extra, ENCDEC_NEW, ENCDEC_MAX_SEQ,
+        f"{ENCDEC_ARCH} records ({ENCDEC_STREAMS} streams of "
+        f"{ENCDEC_FRAMES} frames + {ENCDEC_PROMPT} tokens)",
+        ENCDEC_PREFILL, ENCDEC_STEP)
+    with torch.inference_mode():
+        cache = lm.init_cache(pcfg, ENCDEC_STREAMS, ENCDEC_MAX_SEQ,
+                              device="cuda")
+        logits, cache, mem = lm.prefill(qparams, pcfg, toks, cache, **extra)
+    mem_bytes = sum(t.numel() * t.element_size()
+                    for kv in mem.values() for t in kv)
+    read = (record_bytes(qparams["blocks"]) + mem_bytes
+            + qparams["embed"].numel() * qparams["embed"].element_size())
+    state = {"tok": torch.argmax(logits, -1), "t": out["t0"]}
+
+    def step():
+        with torch.inference_mode():
+            logits, _ = lm.decode_step(qparams, pcfg, state["tok"], cache,
+                                       state["t"], mem=mem)
+        state["tok"], state["t"] = torch.argmax(logits, -1), state["t"] + 1
+
+    prof = profile_steps(torch, step, ENCDEC_PROFILED_STEPS,
+                         out["decode_step_ms"], lanes=ENCDEC_STREAMS)
+    out.update({
+        "arch": ENCDEC_ARCH, "init": init,
+        "parameters": param_count(qparams), "memory_bytes": mem_bytes,
+        "bytes_read_a_step": read,
+        "bound_ms": read / PEAK_BYTES_PER_S * 1e3,
+        "device_busy_ms": prof["device_busy_ms_per_step"],
+        "kernels_a_step": prof["kernels_per_step"],
+        "gemm_ms_a_step": nonzero(prof["gemm_ms_per_step"]),
+        "launches_per_profiled_step": prof["launches_per_step"],
+        "idle_share": prof["idle_share"],
+        "top_kernels": prof["by_kernel"][:12],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del qparams, mem, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - tic
+    log(f"  {ENCDEC_ARCH} mixed: {out['parameters']} parameters; leaf-wise "
+        f"init {init['init_s']:.1f} s, peak {init['init_peak_gb']:.2f} GB "
+        f"for {init['records_gb']:.2f} GB of records; device busy "
+        f"{out['device_busy_ms']:.2f} ms and {out['kernels_a_step']:.0f} "
+        f"kernels a decode step at {ENCDEC_STREAMS} lanes, bound "
+        f"{out['bound_ms']:.3f} ms ({read / 1e9:.3f} GB read a step: "
+        f"decoder records, fp32 embed, memory {mem_bytes / 1e6:.1f} MB); "
+        f"peak {out['peak_mem_gb']:.2f} GB ({out['seconds']:.1f} s)")
     return out
 
 
@@ -2934,7 +3273,8 @@ def records_uncopied(torch, fg, eng, prompts, label: str) -> int:
     """Every record's codes reach the kernel as stored, with no
     weight-sized cast or copy: two short requests run eagerly with the
     fused kernel's launch spied on, and the storage of every record (each
-    period's slice of a stacked one) must be a B operand the kernel got.
+    period's slice of a stacked one) must be a B operand the kernel got;
+    but a vision front end's, which the engine (text only) never runs.
     Returns how many record slices were checked."""
     from repro_torch.quant.prequant import is_prequantized
     from repro_torch.serve.engine import Request
@@ -2947,7 +3287,8 @@ def records_uncopied(torch, fg, eng, prompts, label: str) -> int:
                 if stacked else want.add(q.data_ptr())
         elif isinstance(tree, dict):
             for k, v in tree.items():
-                walk(v, stacked or k == "blocks")
+                if k != "frontend":
+                    walk(v, stacked or k == "blocks")
 
     walk(eng.params, False)
     seen = set()
@@ -3506,13 +3847,23 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
     the first traced step.  The device's idle share is 1 - busy /
     ``step_ms``, the un-profiled decode step."""
     from repro_torch.serve.engine import Request
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for p in prompts[:4]:
         eng.submit(Request(prompt=p, max_new_tokens=n + 2))
     eng.step()                          # admit + prefill + first decode
     torch.cuda.synchronize()
+    out = profile_steps(torch, eng.step, n, step_ms, lanes=4)
+    while eng.num_active:
+        eng.step()
+    return out
+
+
+def profile_steps(torch, step, n: int, step_ms, lanes: int):
+    """``profile_decode``'s trace and table over ``n`` calls of ``step``
+    (one decode step each, on ``lanes`` lanes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # a kernel the profiler sees first (dropped from the rows below),
@@ -3521,11 +3872,9 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(n):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / n
-    while eng.num_active:
-        eng.step()
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.key:
@@ -3547,7 +3896,7 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
         if key is not None:
             gemm[key] = gemm.get(key, 0.0) + r["ms_per_step"]
             counts[key] += r["count"]
-    out = {"steps": n, "lanes": 4, "device_busy_ms_per_step": busy,
+    out = {"steps": n, "lanes": lanes, "device_busy_ms_per_step": busy,
            "gemm_ms_per_step": gemm,
            "launches_per_step": {k: c / n for k, c in counts.items()},
            "kernels_per_step": sum(r["per_step"] for r in rows),
@@ -3556,7 +3905,8 @@ def profile_decode(torch, eng, prompts, step_ms, n: int = 4):
            "by_kernel": rows[:30]}
     if step_ms is None:
         return out
-    log(f"  profile, {n} decode steps at 4 lanes: device busy {busy:.2f} "
+    log(f"  profile, {n} decode steps at {lanes} lanes: device busy "
+        f"{busy:.2f} "
         f"ms/step (integer GEMM, WKV, scan and row-invariant kernels "
         + ", ".join(
             f"{k} {v:.3f}" for k, v in gemm.items() if v) + f"), "
@@ -3937,7 +4287,8 @@ def main() -> int:
     archs = list(dict.fromkeys(p[0] for p in PATHS))
     log("[4] smoke-size models: card vs CPU")
     smoke_diff = {arch: smoke_parity(torch, np, arch)
-                  for arch in archs + ["jamba-v0.1-52b"]}
+                  for arch in archs + ["jamba-v0.1-52b", VISION_ARCH,
+                                       ENCDEC_ARCH]}
     seconds["smoke"] = time.monotonic() - t0
 
     engines, launches_by_path = {}, {}
@@ -3965,7 +4316,19 @@ def main() -> int:
         if per_call_too:
             for mode, run in engines[arch]["per_call"].items():
                 launches_by_path[f"{arch} mixed {mode}"] = run["launches"]
+        if "vision_prefix" in engines[arch]:
+            launches_by_path[f"{arch} vision prefix"] = \
+                engines[arch]["vision_prefix"]["launches"]
         torch.cuda.empty_cache()
+
+    log(f"[5e] {ENCDEC_ARCH} under mixed on records from the leaf-wise "
+        f"init: prefill on frames, decode on the memory")
+    t0 = time.monotonic()
+    engines[ENCDEC_ARCH] = serve_encdec(torch, fg)
+    seconds[f"serve {ENCDEC_ARCH}"] = time.monotonic() - t0
+    launches_by_path[f"{ENCDEC_ARCH} mixed records"] = \
+        engines[ENCDEC_ARCH]["launches"]
+    torch.cuda.empty_cache()
 
     log("[5a] serve full-width llama3.2-1b on the ATen route: mixed on "
         "'aten', every site at w=28 on 'cuda'")

@@ -3,8 +3,11 @@
 The port registers the architectures it can serve: the dense
 ``llama3.2-1b``, ``gemma-2b``, ``stablelm-12b`` and ``nemotron-4-15b``, the
 MoE ``granite-moe-3b-a800m`` and ``qwen3-moe-30b-a3b``, the hybrid
-``jamba-v0.1-52b`` (mamba, attention and MoE) and the attention-free
-``rwkv6-3b``.
+``jamba-v0.1-52b`` (mamba, attention and MoE), the attention-free
+``rwkv6-3b``, the vision-language ``llava-next-mistral-7b`` (a projected
+prefix of precomputed patch embeddings) and the encoder-decoder
+``seamless-m4t-medium`` (projected fbank frames) — all ten of the
+reference's architectures.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ _MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 QUANT_POLICIES = {
@@ -31,6 +36,10 @@ QUANT_POLICIES = {
     "w8": POLICY_W8,
     "w12": POLICY_W12,
     "mixed": POLICY_MIXED,
+    # conventional 4-product digit GEMM at the same width: the paper's
+    # baseline that KMM2's 3 products are measured against (every GEMM on
+    # the ATen route's mm_n, as the reference's force_mode="mm2" runs)
+    "w12-mm2": QuantConfig(enabled=True, default_bits=12, force_mode="mm2"),
 }
 
 

@@ -1,11 +1,13 @@
-"""Model configuration (port of ``repro.models.config``, the dense, MoE,
-mamba and RWKV fields).
+"""Model configuration (port of ``repro.models.config``: the dense, MoE,
+mamba, RWKV, encoder-decoder and front-end fields).
 
 A model is ``n_periods`` repetitions of a ``pattern`` of blocks; parameters
 are stacked over periods.  The port serves attention, mamba and RWKV
-blocks, each with a dense or an MoE MLP; the fields of the other families
-(encoder-decoder, modality front ends) and of training wait for their
-ROADMAP items.
+blocks, each with a dense or an MoE MLP, a vision front end's prefix
+(``frontend="vision"``) and an encoder-decoder (``encoder_periods`` > 0:
+an encoder of the same pattern, cross-attention in every decoder block,
+and, with ``frontend="audio"``, the frame projection in front of the
+encoder).  The training fields wait for their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,6 +50,12 @@ class ModelConfig:
     expand: int = 2
     # RWKV
     rwkv_head_dim: int = 64
+    # Encoder-decoder
+    encoder_periods: int = 0         # >0 => enc-dec; encoder uses `pattern`
+    # Modality front-end stub ("none" | "vision" | "audio")
+    frontend: str = "none"
+    frontend_dim: int = 0            # embedding dim provided by the stub
+    frontend_tokens: int = 0         # prefix tokens contributed at prefill
     quant: QuantConfig = QuantConfig()
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -73,6 +81,10 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_periods > 0
 
     @property
     def attn_free(self) -> bool:

@@ -1,6 +1,7 @@
 """Model building blocks (port of ``repro.models.layers``): RMSNorm and
 LayerNorm, RoPE, the MLP (gated or plain), GQA attention for prefill
-(chunked, against the KV cache) and one-token decode.
+(chunked, against the KV cache) and one-token decode, and the
+encoder-decoder's cross-attention over a precomputed memory.
 
 Plain functions on tensors and parameter dicts, in the reference's layouts:
 activations (B, S, d), heads (B, S, H, D), caches (B, Smax, K, D).  Every
@@ -269,3 +270,37 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos, cfg, quant,
     out = out.reshape(b, 1, cfg.q_dim)
     out = maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
     return out, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder).
+# ---------------------------------------------------------------------------
+
+
+def xattn_apply(p: Params, x: torch.Tensor, mem_k: torch.Tensor,
+                mem_v: torch.Tensor, cfg, quant, name: str) -> torch.Tensor:
+    """x: (B, S, d) queries; mem_k/mem_v: (B, T, K, D) projected from the
+    encoder output once a request (:func:`xattn_mem`).  Every frame is
+    attended (no mask); scores in fp32, probabilities in the query's
+    dtype."""
+    b, s, _ = x.shape
+    q = maybe_quantized_matmul(x, p["wq"], quant, f"{name}.wq")
+    kh, d = cfg.n_kv_heads, cfg.head_dim
+    qv = q.reshape(b, s, kh, cfg.n_heads // kh, d)
+    scores = torch.einsum("bskgd,btkd->bskgt", qv,
+                          mem_k.to(q.dtype)).to(torch.float32) * (d ** -0.5)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bskgt,btkd->bskgd", probs, mem_v.to(q.dtype))
+    out = out.reshape(b, s, cfg.q_dim)
+    return maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
+
+
+def xattn_mem(p: Params, enc_out: torch.Tensor, cfg, quant, name: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, T, d) projected to cross-attention K/V, each
+    (B, T, K, D)."""
+    b, t, _ = enc_out.shape
+    k = maybe_quantized_matmul(enc_out, p["wk"], quant, f"{name}.wk")
+    v = maybe_quantized_matmul(enc_out, p["wv"], quant, f"{name}.wv")
+    return (k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim))

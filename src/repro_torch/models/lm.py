@@ -1,13 +1,28 @@
-"""Decoder assembly for serving (port of ``repro.models.lm``, attention,
-mamba and RWKV blocks with a dense or an MoE MLP): parameters, embeddings
-and head, the cache (K/V for attention, the carried state for mamba and
-RWKV), ``prefill`` and ``decode_step``.
+"""Model assembly for serving (port of ``repro.models.lm``): attention,
+mamba and RWKV blocks with a dense or an MoE MLP, a vision front end's
+prefix and the encoder-decoder; parameters, embeddings and head, the cache
+(K/V for attention, the carried state for mamba and RWKV), ``prefill`` and
+``decode_step``.
 
 Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
 {"pos0": {...}}}`` with block parameters stacked over periods on axis 0
-(plus ``"lm_head"`` for untied models).  The reference's ``lax.scan`` over
-periods is a Python loop over that axis here.  Cache tensors are updated
-in place and returned.
+(plus ``"lm_head"`` for untied models, ``"frontend": {"w1", "w2"}`` for a
+model with a front end, and for an encoder-decoder an ``"encoder"`` stack
+of ``encoder_periods``, ``"enc_ln_f"``, and ``"lnx"`` / ``"xattn"`` in
+every decoder block).  The reference's ``lax.scan`` over periods is a
+Python loop over that axis here.  Cache tensors are updated in place and
+returned.
+
+The front ends are the reference's stubs: a vision model takes
+precomputed patch embeddings (``frontend_embeds``, (B, frontend_tokens,
+frontend_dim)), projected by a two-GEMM GELU projector into a prefix of
+the decoder's sequence; an encoder-decoder takes precomputed frames
+(``enc_frames``, (B, T, frontend_dim), projected the same way when
+``frontend == "audio"``), runs them through the bidirectional encoder and
+projects each decoder block's cross-attention K/V from the encoder output
+once a request (``mem``).  As in the reference the encoder has no pad
+mask: every frame is attended, so a batch is served on frames of one
+length.
 """
 from __future__ import annotations
 
@@ -42,8 +57,12 @@ def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
         if spec.kind not in ("attn", "mamba", "rwkv"):
             raise NotImplementedError(
-                f"block {spec} is not ported yet (ROADMAP: recurrent and "
-                f"multimodal families)")
+                f"block {spec} is not a kind the reference has (attn, "
+                f"mamba, rwkv)")
+    if cfg.frontend not in ("none", "vision", "audio"):
+        raise NotImplementedError(
+            f"front end {cfg.frontend!r} is not a kind the reference has "
+            f"(none, vision, audio)")
 
 
 # ---------------------------------------------------------------------------
@@ -66,62 +85,81 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
     stack of per-period records is the stacked leaf's record: the scale
     axis ``ndim - 2`` makes the period axis a batch axis), and an untied
     ``lm_head`` is drawn whole, as ``init_params`` draws it, and quantized
-    a chunk of columns at a time (``prequant.record``).  Other leaves are
-    as ``init_params`` makes them."""
+    a chunk of columns at a time (``prequant.record``); so are the front
+    end's ``w1`` and ``w2``.  Other leaves are as ``init_params`` makes
+    them."""
     _check_ported(cfg)
     dtype = _dtype(cfg)
-    n = cfg.n_periods
     d = cfg.d_model
 
-    def convert(tree, path):
-        """One period's tree with its weight leaves as records."""
+    def convert(tree, path, batch_axes: int = 1):
+        """A tree with its weight leaves as records; ``batch_axes``: the
+        axes a leaf of ``tree`` lacks against the stacked leaf."""
         if isinstance(tree, dict):
-            return {k: convert(v, path + (k,)) for k, v in tree.items()}
-        if prequant is None or not is_weight_leaf(path[-1], tree.dim() + 1):
+            return {k: convert(v, path + (k,), batch_axes)
+                    for k, v in tree.items()}
+        if prequant is None or not is_weight_leaf(
+                path[-1], tree.dim() + batch_axes):
             return tree
         return record(tree, prequant.bits_for(".".join(path)))
 
-    def put(dst, src, i):
+    def put(dst, src, i, n):
         """``src`` written into period ``i`` of ``dst`` (made at the first
         period)."""
         if isinstance(src, dict):
             dst = dst or {}
-            return {k: put(dst.get(k), v, i) for k, v in src.items()}
+            return {k: put(dst.get(k), v, i, n) for k, v in src.items()}
         if dst is None:
             dst = src.new_empty((n,) + tuple(src.shape))
         dst[i].copy_(src)
         return dst
 
-    def stacked(path, make):
+    def stacked(path, make, n):
         """``n`` periods of ``make()``, stacked on axis 0: each period's
         leaves (records) written into the stack as they are made."""
         out = None
         for i in range(n):
-            out = put(out, convert(make(), path), i)
+            out = put(out, convert(make(), path), i, n)
         return out
 
-    blocks = {}
-    for pos, spec in enumerate(cfg.pattern):
-        path = ("blocks", f"pos{pos}")
-        blk = blocks[f"pos{pos}"] = {
-            "ln1": stacked(path + ("ln1",), lambda: L.norm_init(d, device)),
-            "ln2": stacked(path + ("ln2",), lambda: L.norm_init(d, device)),
-        }
-        if spec.kind == "rwkv":
-            blk["rwkv"] = stacked(path + ("rwkv",), lambda: R.rwkv_init(
-                gen, cfg, dtype, device))
-        elif spec.kind == "mamba":
-            blk["mamba"] = stacked(path + ("mamba",), lambda: S.mamba_init(
-                gen, cfg, dtype, device))
-        else:
-            blk["attn"] = stacked(path + ("attn",), lambda: L.attn_init(
-                gen, cfg, dtype, device))
-        if spec.moe:
-            blk["moe"] = stacked(path + ("moe",), lambda: M.moe_init(
-                gen, cfg, dtype, device))
-        else:
-            blk["mlp"] = stacked(path + ("mlp",), lambda: L.mlp_init(
-                gen, d, cfg.d_ff, cfg.glu, dtype, device))
+    def block_stack(root, n, cross_attn):
+        """The reference's ``_stack_init``: {posN: blocks stacked over
+        ``n`` periods}, with cross-attention (``lnx``, ``xattn``) in the
+        decoder blocks of an encoder-decoder."""
+        out = {}
+        for pos, spec in enumerate(cfg.pattern):
+            path = (root, f"pos{pos}")
+            blk = out[f"pos{pos}"] = {
+                "ln1": stacked(path + ("ln1",),
+                               lambda: L.norm_init(d, device), n),
+                "ln2": stacked(path + ("ln2",),
+                               lambda: L.norm_init(d, device), n),
+            }
+            if spec.kind == "rwkv":
+                blk["rwkv"] = stacked(path + ("rwkv",), lambda: R.rwkv_init(
+                    gen, cfg, dtype, device), n)
+            elif spec.kind == "mamba":
+                blk["mamba"] = stacked(path + ("mamba",),
+                                       lambda: S.mamba_init(gen, cfg, dtype,
+                                                            device), n)
+            else:
+                blk["attn"] = stacked(path + ("attn",), lambda: L.attn_init(
+                    gen, cfg, dtype, device), n)
+            if cross_attn:
+                blk["lnx"] = stacked(path + ("lnx",),
+                                     lambda: L.norm_init(d, device), n)
+                blk["xattn"] = stacked(path + ("xattn",),
+                                       lambda: L.attn_init(gen, cfg, dtype,
+                                                           device), n)
+            if spec.moe:
+                blk["moe"] = stacked(path + ("moe",), lambda: M.moe_init(
+                    gen, cfg, dtype, device), n)
+            else:
+                blk["mlp"] = stacked(path + ("mlp",), lambda: L.mlp_init(
+                    gen, d, cfg.d_ff, cfg.glu, dtype, device), n)
+        return out
+
+    blocks = block_stack("blocks", cfg.n_periods, cfg.is_encdec)
     params: Params = {
         "embed": L._normal(gen, (cfg.padded_vocab, d), d ** -0.5, dtype,
                            device),
@@ -129,16 +167,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
         "ln_f": L.norm_init(d, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._normal(gen, (d, cfg.padded_vocab), d ** -0.5,
-                                      dtype, device)
-        if prequant is not None:
-            params["lm_head"] = record(params["lm_head"],
-                                       prequant.bits_for("lm_head"))
+        params["lm_head"] = convert(L._normal(
+            gen, (d, cfg.padded_vocab), d ** -0.5, dtype, device),
+            ("lm_head",), 0)
+    if cfg.is_encdec:
+        params["encoder"] = block_stack("encoder", cfg.encoder_periods,
+                                        False)
+        params["enc_ln_f"] = L.norm_init(d, device)
+    if cfg.frontend != "none":
+        fd = cfg.frontend_dim
+        params["frontend"] = convert({
+            "w1": L._normal(gen, (fd, d), fd ** -0.5, dtype, device),
+            "w2": L._normal(gen, (d, d), d ** -0.5, dtype, device)},
+            ("frontend",), 0)
     return params
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head.
+# Embedding / head / front end.
 # ---------------------------------------------------------------------------
 
 
@@ -149,6 +195,17 @@ def _embed(params: Params, cfg: ModelConfig,
     # the scale rounded to the compute dtype, filled on the device (no
     # host-to-device copy, so a CUDA graph can capture the step)
     return x * torch.full((), cfg.d_model ** 0.5, dtype=cd, device=x.device)
+
+
+def _frontend_project(params: Params, cfg: ModelConfig,
+                      embeds: torch.Tensor) -> torch.Tensor:
+    """The front end's projector: the embeddings cast to the compute dtype,
+    then ``w1``, GELU (tanh form) and ``w2``."""
+    f = params["frontend"]
+    h = maybe_quantized_matmul(embeds.to(_cdtype(cfg)), f["w1"], cfg.quant,
+                               "frontend.w1")
+    h = L._act(h, "gelu")
+    return maybe_quantized_matmul(h, f["w2"], cfg.quant, "frontend.w2")
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
@@ -207,8 +264,15 @@ def _period(tree, i: int):
     return tree[i]
 
 
-def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int
-         ) -> torch.Tensor:
+def _tail(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int,
+          mem=None) -> torch.Tensor:
+    """A block after its mixer's residual: the cross-attention residual
+    over ``mem`` ((k, v) of this period, enc-dec decoder blocks), then the
+    MLP's (dense or MoE)."""
+    if mem is not None:
+        h = L.norm_apply(p["lnx"], x)
+        x = x + L.xattn_apply(p["xattn"], h, mem[0], mem[1], cfg, cfg.quant,
+                              f"blk{pos}.xattn")
     h = L.norm_apply(p["ln2"], x)
     if cfg.pattern[pos].moe:
         return x + M.moe_apply(p["moe"], h, cfg, cfg.quant, f"blk{pos}.moe")
@@ -216,9 +280,98 @@ def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int
                            f"blk{pos}.mlp")
 
 
+def _period_mem(mem, i: int, pos: int):
+    """Period ``i``'s cross-attention (k, v) at pattern position ``pos``,
+    or None without a memory."""
+    if mem is None:
+        return None
+    k, v = mem[f"pos{pos}"]
+    return k[i], v[i]
+
+
+# ---------------------------------------------------------------------------
+# Encoder (full-sequence blocks) and cross-attention memory.
+# ---------------------------------------------------------------------------
+
+
+def _attn_bidir(p: Params, x: torch.Tensor, cfg: ModelConfig, quant,
+                name: str) -> torch.Tensor:
+    """Encoder (non-causal) attention over the whole sequence."""
+    b, s, _ = x.shape
+    q, k, v = L._qkv(p, x, cfg, quant, name)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    q = L.rope(q, pos, cfg.rope_theta)
+    k = L.rope(k, pos, cfg.rope_theta)
+    out = L.chunked_attention(q, k, v, causal=False)
+    out = out.reshape(b, s, cfg.q_dim)
+    return maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
+
+
+def _block_train(p: Params, x: torch.Tensor, spec, cfg: ModelConfig,
+                 pos: int, mem=None, causal: bool = True) -> torch.Tensor:
+    """One block over a whole sequence, as the encoder runs it: a
+    bidirectional attention block with a dense or MoE MLP.  The causal,
+    mamba and rwkv branches are the training forward's."""
+    if spec.kind != "attn" or causal:
+        raise NotImplementedError(
+            f"the full-sequence forward of a "
+            f"{'causal ' if spec.kind == 'attn' else ''}{spec.kind} block "
+            f"is training's, not ported yet (ROADMAP queue 1, item 3); "
+            f"serving runs only the encoder's bidirectional attention "
+            f"blocks this way")
+    h = L.norm_apply(p["ln1"], x)
+    y = _attn_bidir(p["attn"], h, cfg, cfg.quant, f"blk{pos}.{spec.kind}")
+    return _tail(p, x + y, cfg, pos, mem)
+
+
+def _scan_blocks(stack: Params, x: torch.Tensor, cfg: ModelConfig,
+                 mem=None, causal: bool = True) -> torch.Tensor:
+    """The period-stacked blocks of ``stack`` (its depth is its leading
+    axis) over the whole sequence ``x``; ``mem`` is period-stacked like
+    the blocks.  The reference also returns the MoE aux loss, which
+    serving does not use."""
+    for i in range(stack["pos0"]["ln1"]["scale"].shape[0]):
+        pp = _period(stack, i)
+        for pos, spec in enumerate(cfg.pattern):
+            x = _block_train(pp[f"pos{pos}"], x, spec, cfg, pos,
+                             mem=_period_mem(mem, i, pos), causal=causal)
+    return x
+
+
+def _encdec_memory(params: Params, cfg: ModelConfig, ex: torch.Tensor
+                   ) -> Params:
+    """Every decoder block's cross-attention K/V, projected from the
+    encoder output ``ex`` (B, T, d) once: {"posN": (k, v)}, each
+    (n_periods, B, T, K, D)."""
+    out = {}
+    for pos in range(len(cfg.pattern)):
+        stack = params["blocks"][f"pos{pos}"]["xattn"]
+        kv = [L.xattn_mem(_period(stack, i), ex, cfg, cfg.quant,
+                          f"blk{pos}.xattn") for i in range(cfg.n_periods)]
+        out[f"pos{pos}"] = (torch.stack([k for k, _ in kv]),
+                            torch.stack([v for _, v in kv]))
+    return out
+
+
+def _encode(params: Params, cfg: ModelConfig, enc_frames: torch.Tensor
+            ) -> Params:
+    """The encoder's frames (B, T, frontend_dim), projected when the front
+    end is audio (cast otherwise), through the encoder and its final norm,
+    to the decoder's cross-attention memory (:func:`_encdec_memory`)."""
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs "
+                         f"enc_frames")
+    ex = (_frontend_project(params, cfg, enc_frames)
+          if cfg.frontend == "audio" else enc_frames.to(_cdtype(cfg)))
+    ex = _scan_blocks(params["encoder"], ex, cfg, causal=False)
+    ex = L.norm_apply(params["enc_ln_f"], ex)
+    return _encdec_memory(params, cfg, ex)
+
+
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params, t, positions=None,
-                kv_valid: Optional[torch.Tensor] = None
+                kv_valid: Optional[torch.Tensor] = None,
+                mem: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. token: (B,) int; returns (logits (B, V), cache).
 
@@ -226,7 +379,9 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     continuous batching where every slot sits at its own depth.
     ``positions`` optionally gives distinct RoPE positions; ``kv_valid``
     (B, Smax) masks pad cache slots.  Mamba and RWKV blocks step their
-    carried state and ignore all three."""
+    carried state and ignore all three.  ``mem`` is an encoder-decoder's
+    cross-attention memory, as :func:`prefill` returns it; after a vision
+    prefix ``t`` counts the prefix's positions too."""
     _check_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     for i in range(cfg.n_periods):
@@ -246,7 +401,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 y, _ = L.attn_decode(p["attn"], h, pc[f"pos{pos}"], t, cfg,
                                      cfg.quant, name, positions=positions,
                                      kv_valid=kv_valid)
-            x = _mlp(p, x + y, cfg, pos)
+            x = _tail(p, x + y, cfg, pos, _period_mem(mem, i, pos))
     logits = _logits(params, cfg, x)
     return logits[:, 0, :], cache
 
@@ -264,9 +419,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             pad_mask: Optional[torch.Tensor] = None,
             last_idx: Optional[torch.Tensor] = None,
-            start: Optional[int] = None):
+            start: Optional[int] = None,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None):
     """Prefill ``tokens`` (B, S) into ``cache``; returns (logits at each
-    row's last real position (B, V), cache, None).
+    row's last real position (B, V), cache, mem).
 
     Ragged calls (``positions``, ``pad_mask``, ``last_idx`` or ``start``
     given) run as one chunk: ``pad_mask`` (B, S) marks real tokens, masks
@@ -276,13 +433,27 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (cache contents below it are valid earlier keys; the recurrent state
     sits at ``start``).  Plain calls run
     ``chunk_size`` tokens at a time and return the last position's logits.
-    The third element mirrors the reference's cross-attention memory, which
-    dense models do not have.
+
+    A vision model's ``frontend_embeds`` (B, frontend_tokens, frontend_dim)
+    are projected and put before the tokens (plain calls only; a ragged
+    call with them raises ``NotImplementedError``, as the reference's
+    does), so the cache must hold frontend_tokens + S positions.  An
+    encoder-decoder's ``enc_frames`` (B, T, frontend_dim) run through the
+    encoder (no pad mask: every frame is attended) to the cross-attention
+    memory, returned as ``mem`` ({"posN": (k, v)}, each (n_periods, B, T,
+    K, D); None for other models) for :func:`decode_step`.
     """
     _check_ported(cfg)
     ragged = (positions is not None or pad_mask is not None
               or last_idx is not None or start is not None)
+    if ragged and cfg.frontend == "vision" and frontend_embeds is not None:
+        raise NotImplementedError(
+            "ragged prefill does not support vision prefix tokens")
     x = _embed(params, cfg, tokens)
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        fx = _frontend_project(params, cfg, frontend_embeds)
+        x = torch.cat([fx.to(x.dtype), x], dim=1)
+    mem = _encode(params, cfg, enc_frames) if cfg.is_encdec else None
     b, s, _ = x.shape
     off = 0 if start is None else int(start)
     kv_valid = None
@@ -317,7 +488,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     y, _ = L.attn_prefill_chunk(
                         p["attn"], h, pc[f"pos{pos}"], offset, cfg,
                         cfg.quant, name, positions=pos_c, kv_valid=kv_valid)
-                xc = _mlp(p, xc + y, cfg, pos)
+                xc = _tail(p, xc + y, cfg, pos, _period_mem(mem, i, pos))
         return xc
 
     if ragged:
@@ -327,7 +498,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         xall = run_chunk(x, off, positions, pad_mask, li)
         last_h = torch.gather(xall, 1, li[:, None, None].expand(
             b, 1, xall.shape[-1]))
-        return _logits(params, cfg, last_h)[:, 0, :], cache, None
+        return _logits(params, cfg, last_h)[:, 0, :], cache, mem
 
     cs = min(chunk_size, s)
     while s % cs:
@@ -336,4 +507,4 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for ci in range(s // cs):
         last = run_chunk(x[:, ci * cs:(ci + 1) * cs], ci * cs, None, None,
                          None)[:, -1]
-    return _logits(params, cfg, last[:, None, :])[:, 0, :], cache, None
+    return _logits(params, cfg, last[:, None, :])[:, 0, :], cache, mem

@@ -28,6 +28,9 @@ Every quantized GEMM goes through the CUDA kernels (the context's
 does, before any graph is captured) the plan the table picks within the
 same numerics, so the tokens do not change.  Parameters may hold
 pre-quantized weight records (:func:`repro_torch.quant.prequant.prequantize`).
+As in the reference, an encoder-decoder model is refused
+(``NotImplementedError``) and a vision model is served text-only: a
+request carries no image, and the ragged prefill refuses a vision prefix.
 The engine runs on CUDA unless ``device="cpu"`` is passed; then each GEMM
 runs the kernels' plain PyTorch versions and decode runs its static
 buffers without a graph.  Meshes are not ported yet.
@@ -69,6 +72,9 @@ class Engine:
                  prefix_cache: bool = False,
                  prefix_snapshots: int = 4,
                  device: Optional[str | torch.device] = None):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "continuous batching does not support encoder-decoder models")
         self.device = resolve_device(device)
         ctx = context if context is not None else ExecContext(
             backend=cfg.quant.backend, force_mode=cfg.quant.force_mode)
