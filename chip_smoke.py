@@ -287,6 +287,28 @@ seamless-m4t-medium (an encoder-decoder on projected fbank frames) add:
       decode steps profiled (device busy ms, kernels a step) beside the
       step's byte bound.
 
+Observability (repro_torch/obs: the metrics registry, the span tracer,
+the analytic traffic model) adds:
+
+  5o. the launcher on the card at full width (llama3.2-1b, mixed, 4
+      requests) with --metrics-out / --trace-out: both files parse, the
+      snapshot holds every metric name of the reference the port registers
+      (OBS_METRICS) and the trace the engine_step, decode_step,
+      prefill_chunk, request and run_plan spans; llama on mixed records
+      from the leaf-wise init, warmed, graphed, with metrics and tracing
+      enabled before the build, then the same requests with them off:
+      greedy streams equal, the exact launch and graph-node gates of
+      5g/5p in both, the obs-off graphs' kernel nodes equal to 5p's and
+      the obs-on ones too, admitted = finished = TTFT count = requests,
+      decode-step count = lane-width count = decode steps, retraces =
+      n_traces(); decode-step ms on and off reported, not gated; granite on
+      records the same way, its ``repro_moe_tokens_per_expert`` count per
+      layer equal to what the host dispatched — (prefills + graph replays
+      x width) x experts x periods — which only the decode graphs' replays
+      can reach; and, beside the launcher, Nsight Compute asked for the
+      DRAM byte counters (reported, not gated: the measured traffic is not
+      ported while they cannot be read).
+
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
 rowinv_norm and ssm_scan); the last line is ``{"ok": true, "device":
@@ -300,6 +322,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4161,6 +4184,261 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
     return out
 
 
+# Phase 5o, observability on the card (repro_torch.obs): the metric names
+# of the reference that the port registers (all but the distribution
+# port's shard-GEMM fallback counter), the spans a served run must record,
+# the launcher's run (requests, new tokens), the llama records run (the
+# requests of DENSE_PROMPTS, new tokens) and the MoE run (granite on
+# records; requests, new tokens).
+OBS_METRICS = (
+    "repro_moe_dropped_tokens_total", "repro_moe_tokens_per_expert",
+    "repro_pallas_fallback_total", "repro_plans_selected_total",
+    "repro_quant_gemm_routes_total", "repro_serve_admitted_total",
+    "repro_serve_decode_lane_width_total", "repro_serve_decode_step_seconds",
+    "repro_serve_finished_total", "repro_serve_occupancy",
+    "repro_serve_prefix_cache_total", "repro_serve_queue_depth",
+    "repro_serve_retraces_total", "repro_serve_ttft_seconds")
+OBS_SPANS = {"engine_step", "decode_step", "prefill_chunk", "request",
+             "run_plan"}
+OBS_LAUNCHER = (4, 8)
+OBS_NEW = 16
+OBS_MOE = (4, 8)
+OBS_NCU_METRICS = "dram__bytes_read.sum,dram__bytes_write.sum"
+
+
+def ncu_probe():
+    """Start Nsight Compute on a one-matmul program, asking for the DRAM
+    byte counters the measured traffic needs; ``ncu_result`` reads it."""
+    import shutil
+    ncu = shutil.which("ncu") or "/usr/local/cuda/bin/ncu"
+    if not Path(ncu).exists():
+        return None
+    prog = ("import torch; a = torch.ones(1024, 1024, device='cuda'); "
+            "print(float((a @ a).sum()))")
+    return subprocess.Popen(
+        [ncu, "--metrics", OBS_NCU_METRICS, "--target-processes", "all",
+         sys.executable, "-c", prog], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def ncu_result(proc) -> dict:
+    """Whether ncu read the DRAM byte counters, and its errors."""
+    if proc is None:
+        return {"ncu": None, "counters": False,
+                "errors": ["ncu is not installed"]}
+    try:
+        out, _ = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    lines = out.splitlines()
+    return {"ncu": proc.args[0], "returncode": proc.returncode,
+            "counters": any("dram__bytes_read.sum" in ln for ln in lines)
+            and not any("==ERROR==" in ln for ln in lines),
+            "errors": [ln for ln in lines if "==ERROR==" in ln][:4]}
+
+
+def obs_launcher() -> dict:
+    """The launcher on the card with --metrics-out / --trace-out: its files
+    parse, the snapshot holds every OBS_METRICS name with the run's
+    admissions, finishes and TTFTs, and the trace every OBS_SPANS span."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    m_path, t_path = out_dir / "obs_metrics.json", out_dir / "obs_trace.json"
+    n_req, new = OBS_LAUNCHER
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "llama3.2-1b", "--quant", "mixed", "--full-size", "--requests",
+           str(n_req), "--max-new", str(new), "--metrics-out", str(m_path),
+           "--trace-out", str(t_path)]
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=ROOT, env={**os.environ,
+                                        "PYTHONPATH": str(ROOT / "src")})
+    if res.returncode != 0:
+        fail(f"the launcher with --metrics-out / --trace-out failed:\n"
+             f"{res.stderr[-3000:]}")
+    snap = json.loads(m_path.read_text())
+    events = json.loads(t_path.read_text())["traceEvents"]
+    missing = set(OBS_METRICS) - set(snap)
+    spans = {e["name"] for e in events}
+    if missing or not OBS_SPANS <= spans:
+        fail(f"launcher: metrics {sorted(missing)} or spans "
+             f"{sorted(OBS_SPANS - spans)} missing")
+    vals = {k: snap[k]["values"] for k in OBS_METRICS}
+    if (vals["repro_serve_admitted_total"].get("") != n_req
+            or sum(vals["repro_serve_finished_total"].values()) != n_req
+            or vals["repro_serve_ttft_seconds"][""]["count"] != n_req
+            or set(vals["repro_quant_gemm_routes_total"])
+            != {"backend=cuda,route=cuda"}):
+        fail(f"launcher: admitted / finished / ttft / routes off: {vals}")
+    return {"seconds": time.monotonic() - t0, "events": len(events),
+            "spans": sorted(spans), "metrics": len(snap),
+            "stdout_tail": res.stdout.splitlines()[-3:]}
+
+
+def obs_requests(cfg, n: int, new: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, size=DENSE_PROMPTS[i % len(DENSE_PROMPTS)])],
+        max_new_tokens=new) for i in range(n)]
+
+
+def obs_run(torch, fg, cfg, qparams, per_call, on: bool, what: str,
+            n: int, new: int):
+    """One warmed graphed engine on ``qparams`` with metrics and tracing
+    enabled before it is built (``on``) or disabled, one counted run under
+    the exact launch and graph-node gates; with ``on`` the registry is
+    reset after warm() (the MoE accumulators drained of the warm-up's
+    dispatches) and read after the run."""
+    from repro_torch.obs import disable_all, enable_all, metrics, trace
+    metrics.reset()
+    trace.clear()
+    (enable_all if on else disable_all)()
+    try:
+        eng = serve_engine(torch, cfg, qparams)
+        retraces = metrics.snapshot()["repro_serve_retraces_total"]["values"]
+        metrics.reset()
+        trace.clear()
+        run = serve_counted(torch, fg, eng, obs_requests(cfg, n, new))
+        snap, events = metrics.snapshot(), trace.events()
+    finally:
+        disable_all()
+        metrics.reset()
+        trace.clear()
+    gates = check_counted(f"{what} obs {'on' if on else 'off'}", eng, run,
+                          per_call)
+    stats = run["stats"]
+    out = {"tokens": run["tokens"], "replays": run["replays"],
+           "prefills": run["prefills"], "decode_steps": stats.decode_steps,
+           "decode_step_ms": stats.decode_s / stats.decode_steps * 1e3,
+           "graph_nodes": gates["graph_nodes"],
+           "n_traces": eng.executor.n_traces(), "retraces": retraces}
+    if on:
+        out.update(snapshot=snap, spans=sorted({e["name"] for e in events}),
+                   events=len(events))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_obs_counts(what: str, run: dict, n: int) -> None:
+    """The host-loop counters of an obs-on run against the run itself."""
+    v = {k: run["snapshot"][k]["values"] for k in OBS_METRICS}
+    want_retraces = {f"kind={k}": float(c) for k, c in run["n_traces"].items()}
+    if (v["repro_serve_admitted_total"].get("") != n
+            or sum(v["repro_serve_finished_total"].values()) != n
+            or v["repro_serve_ttft_seconds"][""]["count"] != n
+            or v["repro_serve_decode_step_seconds"][""]["count"]
+            != run["decode_steps"]
+            or sum(v["repro_serve_decode_lane_width_total"].values())
+            != run["decode_steps"]
+            or run["retraces"] != want_retraces):
+        fail(f"{what}: obs counters disagree with the run: admitted / "
+             f"finished / ttft / decode steps {run['decode_steps']} / "
+             f"retraces {run['retraces']} vs n_traces {run['n_traces']}: {v}")
+    if not OBS_SPANS <= set(run["spans"]):
+        fail(f"{what}: spans {run['spans']}, expected {sorted(OBS_SPANS)}")
+
+
+def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
+    """Phase 5o: the launcher with --metrics-out / --trace-out, llama on
+    mixed records with observability on and off (tokens torch.equal, the
+    exact launch and graph-node gates, the host-loop counters against the
+    run, decode-step ms beside each other), granite on records with the MoE
+    dispatch counted through the decode graphs' replays; the ncu probe runs
+    beside the launcher."""
+    t0 = time.monotonic()
+    probe = ncu_probe()
+    out = {"launcher": obs_launcher()}
+    out["ncu"] = ncu_result(probe)
+    log(f"  launcher: {out['launcher']['metrics']} metrics, "
+        f"{out['launcher']['events']} trace events, "
+        f"{out['launcher']['seconds']:.1f} s; ncu {out['ncu']['ncu']}: "
+        f"DRAM byte counters "
+        f"{'read' if out['ncu']['counters'] else 'not readable'} "
+        f"{out['ncu']['errors'][:2]}")
+
+    arch = "llama3.2-1b"
+    cfg = path_config(arch, "mixed")
+    qparams, _ = leafwise_init(torch, cfg)
+    per_call = path_per_call(arch, {"mm1": 112, "kmm2": 1}, {})
+    n = len(DENSE_PROMPTS)
+    on = obs_run(torch, fg, cfg, qparams, per_call, True, arch, n, OBS_NEW)
+    off = obs_run(torch, fg, cfg, qparams, per_call, False, arch, n,
+                  OBS_NEW)
+    del qparams
+    if on["tokens"] != off["tokens"]:
+        fail(f"{arch}: tokens differ with observability on and off")
+    check_obs_counts(arch, on, n)
+    if on["graph_nodes"] != off["graph_nodes"]:
+        fail(f"{arch}: decode graphs' kernel nodes with obs on "
+             f"{on['graph_nodes']} differ from off {off['graph_nodes']}")
+    base = launches_by_path.get(f"{arch} mixed prequantized", {})
+    if base and base["graph_nodes"] != off["graph_nodes"]:
+        fail(f"{arch}: obs-off decode graphs hold {off['graph_nodes']}, "
+             f"phase 5p's {base['graph_nodes']}")
+    out[arch] = {k: on[k] if k != "decode_step_ms" else
+                 {"on": on[k], "off": off[k]}
+                 for k in ("decode_steps", "decode_step_ms", "replays",
+                           "spans", "events", "graph_nodes")}
+    out[arch]["snapshot"] = {k: on["snapshot"][k]["values"]
+                             for k in OBS_METRICS}
+    log(f"  {arch} mixed records, graphed, {n} requests x {OBS_NEW} tokens: "
+        f"decode step {on['decode_step_ms']:.3f} ms with obs on, "
+        f"{off['decode_step_ms']:.3f} ms off ({card}); tokens equal, "
+        f"launch and graph-node gates as in 5g/5p"
+        + ("" if base else " (5p not run: its graphs not compared)"))
+
+    arch = "granite-moe-3b-a800m"
+    cfg = path_config(arch, "mixed")
+    qparams, _ = leafwise_init(torch, cfg)
+    per_call = path_per_call(arch, {"mm1": 128, "kmm2": 33}, {"mm1": 96})
+    n, new = OBS_MOE
+    on = obs_run(torch, fg, cfg, qparams, per_call, True, arch, n, new)
+    off = obs_run(torch, fg, cfg, qparams, per_call, False, arch, n, new)
+    del qparams
+    if on["tokens"] != off["tokens"]:
+        fail(f"{arch}: tokens differ with observability on and off")
+    check_obs_counts(arch, on, n)
+    base = launches_by_path.get(f"{arch} mixed prequantized", {})
+    if base and base["graph_nodes"] != off["graph_nodes"]:
+        fail(f"{arch}: obs-off decode graphs hold {off['graph_nodes']}, "
+             f"phase 5p's {base['graph_nodes']}")
+    # every dispatch observed once a layer: E observations a prefill (one
+    # sequence) and width x E a replayed decode step, over n_periods layers
+    # sharing the block's name
+    e = cfg.n_experts
+    dispatched = on["prefills"] + sum(w * c for w, c in
+                                      on["replays"].items())
+    hist = on["snapshot"]["repro_moe_tokens_per_expert"]["values"]
+    want = {f"layer=blk{i}.moe": cfg.n_periods * e * dispatched
+            for i, b in enumerate(cfg.pattern) if b.moe}
+    got = {k: v["count"] for k, v in hist.items()}
+    if got != want:
+        fail(f"{arch}: tokens_per_expert counted {got}, the host dispatched "
+             f"{want} (prefills {on['prefills']}, replays {on['replays']})")
+    extra = {w: on["graph_nodes"][w]["all"] - off["graph_nodes"][w]["all"]
+             for w in on["graph_nodes"]}
+    out[arch] = {"decode_steps": on["decode_steps"],
+                 "decode_step_ms": {"on": on["decode_step_ms"],
+                                    "off": off["decode_step_ms"]},
+                 "replays": on["replays"], "prefills": on["prefills"],
+                 "observations": got,
+                 "dropped": on["snapshot"]["repro_moe_dropped_tokens_total"]
+                 ["values"], "extra_graph_nodes_on": extra}
+    log(f"  {arch} mixed records, graphed: tokens_per_expert {got} = "
+        f"(prefills {on['prefills']} + replays x width "
+        f"{on['replays']}) x {e} experts x {cfg.n_periods} layers; tokens "
+        f"equal to obs off; decode step {on['decode_step_ms']:.3f} ms on, "
+        f"{off['decode_step_ms']:.3f} ms off; accumulator nodes a graph "
+        f"{extra}")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4339,6 +4617,13 @@ def main() -> int:
         launches_by_path[f"llama3.2-1b {path}"] = run["launches"]
     torch.cuda.empty_cache()
 
+    log("[5o] observability: the launcher with --metrics-out / --trace-out, "
+        "llama and granite on records with obs on and off")
+    t0 = time.monotonic()
+    obs = serve_obs(torch, fg, card, launches_by_path)
+    seconds["serve obs"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
@@ -4352,7 +4637,7 @@ def main() -> int:
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
               "rowinv": rowinv_rows, "aten_route": aten_rows,
-              "aten_serve": aten_serve,
+              "aten_serve": aten_serve, "obs": obs,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -14,13 +14,29 @@ pinned to the analytic plan's numerics, so a table changes speed, never a
 value.  Two backends: ``"cuda"`` (the reference's ``"pallas"``: the
 hand-written kernels) and ``"aten"`` (the reference's ``"xla"``: the digit
 recursion of :mod:`repro_torch.core.kmm` on exact ATen leaf products).
+The conventional-algebra counts (``conv_mults_per_product``,
+``conv_recursion``), ``efficiency_roof`` and ``schedule`` feed the paper's
+efficiency model (:mod:`repro_torch.core.efficiency`).
 """
 from __future__ import annotations
 
 import enum
 import functools
+import math
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
+
+from repro_torch.obs import metrics as obs_metrics
+
+# Plan resolutions by (variant, backend, bucketed shape, source).  Host
+# Python: one hit per select_plan call (the quantized matmul memoizes its
+# plans per table, so a GEMM counts once per table and shape, and a decode
+# graph's GEMMs count at capture, never at a replay); a flag test when
+# metrics are disabled.
+_PLANS_SELECTED = obs_metrics.counter(
+    "repro_plans_selected_total",
+    "select_plan resolutions by variant/backend/bucketed shape",
+    labels=("variant", "backend", "bucket", "source"))
 
 
 class Mode(enum.Enum):
@@ -37,6 +53,15 @@ class Plan:
     passes: int       # tile-read passes of the precision-scalable unit
     digits: int       # n: digits per operand at this level
     recursion: int    # r = ceil(log2 n) levels used
+
+    @property
+    def mults_per_product(self) -> int:
+        """m-bit multiplications per w-bit product (3^r for KMM, 4^r for
+        MM)."""
+        if self.mode is Mode.MM1:
+            return 1
+        base = 3 if self.mode is Mode.KMM2 else 4
+        return base ** self.recursion
 
 
 def kmm_levels_needed(w: int, m: int) -> int | None:
@@ -68,6 +93,29 @@ def select_mode(w: int, m: int = 8) -> Plan:
     if r is None:
         raise ValueError(f"w={w} too wide for m={m} multipliers at any depth")
     return Plan(Mode.KMM2, w, m, passes=3 ** r, digits=2 ** r, recursion=r)
+
+
+def conv_mults_per_product(w: int, m: int) -> int:
+    """m-bit mults a *conventional* algorithm (SM/MM) needs per w-bit
+    product: 4**r with r = ceil(log2(ceil(w/m)))  (paper Eq. 13)."""
+    return 4 ** conv_recursion(w, m)
+
+
+def conv_recursion(w: int, m: int) -> int:
+    n = -(-w // m)
+    return math.ceil(math.log2(n)) if n > 1 else 0
+
+
+def efficiency_roof(w: int, m: int) -> float:
+    """Multiplier-compute-efficiency roof of the precision-scalable KMM
+    architecture at width w (paper Eq. 15 + mode rule): conventional mult
+    count divided by the mode's mult count."""
+    return conv_mults_per_product(w, m) / select_mode(w, m).mults_per_product
+
+
+def schedule(widths: List[int], m: int = 8) -> List[Plan]:
+    """Plan a mixed-precision workload (one Plan per layer bitwidth)."""
+    return [select_mode(w, m) for w in widths]
 
 
 # Kernel variants of the reference's registry.  "mm1"/"kmm2"/"mm2" are the
@@ -192,8 +240,9 @@ def select_plan(shape: Tuple[int, int, int], w: int, *, m: int = 8,
                 backend: str = "cuda", exact: bool = False, table=None,
                 context=None) -> ExecPlan:
     """Table-backed execution-plan selection for an (M, K, N) integer GEMM
-    (the reference's ``select_plan``; its metrics counter waits for the
-    observability port).
+    (the reference's ``select_plan``).  Each call counts its resolution in
+    ``repro_plans_selected_total`` (variant, backend, bucketed shape,
+    source) when metrics are enabled.
 
     ``context`` supplies the backend and, when it carries one, the tuning
     table.  Resolution order:
@@ -214,6 +263,19 @@ def select_plan(shape: Tuple[int, int, int], w: int, *, m: int = 8,
     (a ``"cuda"`` entry of a kernel variant), under the same padding rule;
     otherwise the analytic plan.
     """
+    plan = _select_plan_impl(shape, w, m=m, backend=backend, exact=exact,
+                             table=table, context=context)
+    if obs_metrics.enabled():
+        from repro_torch.tune.space import bucket_shape   # lazy, as below
+        _PLANS_SELECTED.inc(plan.variant, plan.backend,
+                            "x".join(str(d) for d in bucket_shape(shape)),
+                            plan.source)
+    return plan
+
+
+def _select_plan_impl(shape: Tuple[int, int, int], w: int, *, m: int,
+                      backend: str, exact: bool, table,
+                      context) -> ExecPlan:
     if context is not None:
         backend = context.backend
         if table is None and context.tuning_table is not None:

@@ -61,6 +61,7 @@ from repro_torch.kernels.mm2_gemm import mm2_gemm_planes
 from repro_torch.kernels.ref import (ref_int_gemm, ref_kmm2_planes,
                                      ref_mm2_planes)
 from repro_torch.kernels.ref import split_planes as _planes
+from repro_torch.obs import trace as obs_trace
 
 
 def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
@@ -116,7 +117,23 @@ def run_plan(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
     versions inside the identical padding and correction — bit-identical,
     the tuner's oracle.  CUDA operands launch the kernels; CPU operands run
     the plain versions whatever the flag.
+
+    With tracing enabled the call records a ``run_plan`` span (variant, w,
+    backend, depth, shape), as the reference's does: host time, so on CUDA
+    the time to launch the plan's kernels, not their device time.
     """
+    if not obs_trace.enabled():
+        return _run_plan_impl(a, b, plan=plan,
+                              use_ref_kernels=use_ref_kernels)
+    with obs_trace.span("run_plan", variant=plan.variant, w=plan.w,
+                        backend=plan.backend, depth=plan.depth,
+                        shape=f"{a.shape[0]}x{a.shape[1]}x{b.shape[-1]}"):
+        return _run_plan_impl(a, b, plan=plan,
+                              use_ref_kernels=use_ref_kernels)
+
+
+def _run_plan_impl(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
+                   use_ref_kernels: bool) -> torch.Tensor:
     if plan.variant in STRASSEN_VARIANTS:
         def run_sub(x, y, sub_plan):
             return run_plan(x, y, plan=sub_plan,

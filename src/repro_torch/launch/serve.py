@@ -1,11 +1,15 @@
 """Serving launcher: continuous-batching generation on random weights.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --quant mixed \
-        --full-size
+        --full-size --metrics-out m.json --trace-out t.json
 
-The reference launcher's flags, minus ``--mesh``, ``--metrics-out`` and
-``--trace-out``, plus ``--device``.  Runs on the CUDA device; ``--device
-cpu`` runs the kernels' plain PyTorch versions on the CPU instead.
+The reference launcher's flags, minus ``--mesh``, plus ``--device``.  Runs
+on the CUDA device; ``--device cpu`` runs the kernels' plain PyTorch
+versions on the CPU instead.  ``--metrics-out PATH`` enables the metrics
+registry (:mod:`repro_torch.obs.metrics`) before the engine is built and
+writes its JSON snapshot there after generation; ``--trace-out PATH``
+enables the span tracer and writes a Chrome trace (``chrome://tracing`` /
+Perfetto) there.
 ``--backend aten`` serves every GEMM on the KMM digit recursion over ATen
 matmuls, the reference's default ``"xla"`` route.  With
 ``--tuning-table PATH`` (a table written by ``python -m repro_torch.tune``)
@@ -62,13 +66,28 @@ def main() -> int:
                     help="tuning table (JSON) from python -m "
                          "repro_torch.tune, installed for every GEMM")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="enable the metrics registry and write a JSON "
+                         "snapshot here after generation")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable the span tracer and write a Chrome-trace "
+                         "(chrome://tracing / Perfetto) JSON file here after "
+                         "generation")
     args = ap.parse_args()
 
     from repro_torch.configs import get_config
     from repro_torch.core.context import ExecContext, resolve_device
     from repro_torch.models import lm
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.serve.engine import Engine, Request
 
+    # Observability is opt-in: enabled before the engine is built, so plan
+    # selection and every decode graph's capture are counted too.
+    if args.metrics_out:
+        obs_metrics.enable()
+    if args.trace_out:
+        obs_trace.enable()
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full_size, quant=args.quant)
     gen = torch.Generator(device=device)
@@ -104,6 +123,12 @@ def main() -> int:
           f"traces={engine.n_traces()}; device={device}")
     if engine.prefix is not None:
         print(f"prefix cache: {engine.prefix.stats()}")
+    if args.metrics_out:
+        obs_metrics.write_snapshot(args.metrics_out)
+        print(f"metrics snapshot -> {args.metrics_out}")
+    if args.trace_out:
+        obs_trace.export_chrome(args.trace_out)
+        print(f"chrome trace -> {args.trace_out}")
     return 0
 
 

@@ -28,19 +28,120 @@ Numerics that follow the reference:
 
 The Switch load-balance loss is training-only and not on the serve path:
 :func:`load_balance_loss` computes it from :func:`route`'s outputs.
+
+Dispatch metrics.  The reference observes every dispatch's live tokens per
+expert and its capacity drops through ``jax.debug.callback``, which runs on
+every call of the compiled step.  Here a host read in the step would add a
+sync and break a decode graph's capture, so with metrics enabled each layer
+keeps persistent device accumulators (:class:`_DispatchAccum`: the
+histogram's bucket counts, sum and count, and the drops) that the step
+updates in place with capturable ops; a graph captured so replays them.
+The registry folds them into ``repro_moe_tokens_per_expert`` and
+``repro_moe_dropped_tokens_total`` only when it is read
+(``obs.metrics.snapshot`` / ``prometheus_text`` / ``collect``).  With
+metrics disabled the step allocates and launches nothing extra, and a
+graph captured then never counts.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.models.layers import _act, _normal
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.quant.qmatmul import (maybe_quantized_batched,
                                        maybe_quantized_matmul)
 
 Params = Dict[str, torch.Tensor]
+
+_DISPATCH_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                     512.0, 1024.0)
+_TOKENS_PER_EXPERT = obs_metrics.histogram(
+    "repro_moe_tokens_per_expert",
+    "live (post-capacity) tokens per expert per dispatch, by layer; "
+    "accumulated on the device and folded in when the registry is read, so "
+    "a decode graph's replays count (one observation per lane and expert "
+    "each replay) if the graph was captured with metrics enabled",
+    labels=("layer",), buckets=_DISPATCH_BUCKETS)
+_DROPPED_TOKENS = obs_metrics.counter(
+    "repro_moe_dropped_tokens_total",
+    "token->expert assignments dropped by the capacity bound, by layer; "
+    "accumulated on the device like repro_moe_tokens_per_expert",
+    labels=("layer",))
+
+
+class _DispatchAccum:
+    """One layer's dispatch observations on one device: ``state`` holds the
+    histogram's per-bucket counts (the ``+Inf`` overflow last), the sum of
+    the observed counts, their number and the drops, all int64 (the
+    observations are integers, so the sums are exact)."""
+
+    def __init__(self, device: torch.device):
+        nb = len(_DISPATCH_BUCKETS) + 1
+        with torch.inference_mode(False):      # updated in and out of it
+            self.bounds = torch.tensor(_DISPATCH_BUCKETS, device=device
+                                       ).to(torch.int64)
+            self.slots = torch.arange(nb, device=device)
+            self.state = torch.zeros(nb + 3, dtype=torch.int64,
+                                     device=device)
+
+    def update(self, live: torch.Tensor, assignments: int) -> None:
+        """Add one dispatch: ``live`` (B, E) tokens per sequence and expert
+        (one observation each), ``assignments`` = B * S * top_k."""
+        flat = live.reshape(-1).to(torch.int64)
+        idx = torch.bucketize(flat, self.bounds)   # first bound >= count
+        kept = flat.sum()
+        self.state += torch.cat([
+            (idx[:, None] == self.slots).sum(0),
+            torch.stack([kept, torch.full_like(kept, flat.numel()),
+                         assignments - kept])])
+
+
+_ACCUMS: Dict[Tuple[str, torch.device], _DispatchAccum] = {}
+
+
+def _observe_dispatch(name: str, live: torch.Tensor, assignments: int
+                      ) -> None:
+    key = (name, live.device)
+    acc = _ACCUMS.get(key)
+    if acc is None:         # setdefault: one accumulator if threads race
+        acc = _ACCUMS.setdefault(key, _DispatchAccum(live.device))
+    acc.update(live, assignments)
+
+
+def save_dispatch_metrics() -> Dict[Tuple[str, torch.device], torch.Tensor]:
+    """A copy of every layer's accumulators (on their devices), for
+    :func:`restore_dispatch_metrics`: the decode graph's eager warm-up step
+    is not a dispatch the reference would observe."""
+    return {k: a.state.clone() for k, a in _ACCUMS.items()}
+
+
+def restore_dispatch_metrics(saved) -> None:
+    """Put the accumulators back as :func:`save_dispatch_metrics` found
+    them; one created since starts again from zero."""
+    for k, a in _ACCUMS.items():
+        if k in saved:
+            a.state.copy_(saved[k])
+        else:
+            a.state.zero_()
+
+
+def _collect_dispatch() -> None:
+    """Fold every layer's accumulators into the host instruments and zero
+    them (a collector of :mod:`repro_torch.obs.metrics`)."""
+    nb = len(_DISPATCH_BUCKETS) + 1
+    for (name, _), acc in list(_ACCUMS.items()):
+        vals = acc.state.tolist()
+        if vals[nb + 1]:
+            _TOKENS_PER_EXPERT._merge((name,), vals[:nb], float(vals[nb]),
+                                      vals[nb + 1])
+            _DROPPED_TOKENS._add((name,), float(vals[nb + 2]))
+        acc.state.zero_()
+
+
+obs_metrics.add_collector(_collect_dispatch)
 
 
 def moe_init(gen: torch.Generator, cfg, dtype, device) -> Params:
@@ -118,6 +219,8 @@ def route(p: Params, x: torch.Tensor, cfg, quant, name: str) -> Routing:
     keep = torch.gather(keep_sorted, 1, inv).reshape(b, s, k)
     # each token's choices in ascending expert order (the combine's order)
     asc = torch.argsort(expert_ids, dim=-1)
+    if obs_metrics.enabled():
+        _observe_dispatch(name, live, b * s * k)
     return Routing(
         probs=probs,
         expert_ids=torch.gather(expert_ids, -1, asc),

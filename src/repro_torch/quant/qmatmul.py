@@ -54,13 +54,32 @@ from repro_torch.core.kmm import (default_mm1, kmm_n, max_exact_k, mm_n,
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_gemm import (fused_gemm, fused_gemm_grouped,
                                             ragged_row_mask)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.quant.quantize import carrier_dtype, quantize_symmetric
 from repro_torch.tune.table import get_active_table
 
 # Quantized GEMMs by (backend, route): "cuda" (the kernels), "aten_fallback"
 # (a "cuda" GEMM the kernels cannot take) and "aten".  Host-side: a decode
-# graph's GEMMs count at its capture, never at a replay.
+# graph's GEMMs count at its capture, never at a replay.  Counted whether
+# metrics are on or off (launch gates read it).
 _GEMM_ROUTES: Dict[Tuple[str, str], int] = {}
+# The same counts as the reference's registry instrument, under its name.
+_GEMM_ROUTES_TOTAL = obs_metrics.counter(
+    "repro_quant_gemm_routes_total",
+    "quantized-GEMM dispatch outcomes by backend and route (backend cuda | "
+    "aten; route cuda: the hand-written kernels, aten_fallback: a cuda GEMM "
+    "the kernels cannot take, aten: the ATen digit recursion); host-side, "
+    "so a decode graph's GEMMs count at capture, never at replay",
+    labels=("backend", "route"))
+# Reasons the kernels declined a "cuda" GEMM (it then took the ATen route).
+_PALLAS_FALLBACKS = obs_metrics.counter(
+    "repro_pallas_fallback_total",
+    "cuda-route declines by reason (outside_fused_window: w needs three KMM "
+    "levels; kernel_bounds: the shape exceeds the kernels' int32 bounds), "
+    "the GEMM fell back to the ATen route; counted at capture, never at a "
+    "decode graph's replay",
+    labels=("reason",))
 
 
 def gemm_routes() -> Dict[Tuple[str, str], int]:
@@ -75,6 +94,7 @@ def reset_gemm_routes() -> None:
 def _count_route(backend: str, route: str) -> None:
     key = (backend, route)
     _GEMM_ROUTES[key] = _GEMM_ROUTES.get(key, 0) + 1
+    _GEMM_ROUTES_TOTAL.inc(backend, route)
 
 
 def _quantize(x: torch.Tensor, w: int, axis, carrier
@@ -163,9 +183,11 @@ def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
         m_dim = math.prod(qx.shape[:-1])
     if analytic_plan(w, m, backend="cuda").variant \
             not in ("fused", "fused_mm2"):
+        _PALLAS_FALLBACKS.inc("outside_fused_window")
         return None                     # recursion deeper than 2 levels
     plan = _fused_plan_for((m_dim, k_dim, n_dim), w, m, context)
     if plan is None:
+        _PALLAS_FALLBACKS.inc("kernel_bounds")
         return None
     return run_plan_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
 
@@ -178,9 +200,30 @@ def run_plan_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
     fused plan is one launch (grouped for batched GEMMs) with the dequant
     epilogue in the kernel; a staged plan runs through ``ops.run_plan`` —
     per expert for batched GEMMs, dead rows then zeroed — and the dequant
-    ``acc * (sx * sw)`` follows in the fused epilogue's fp32 order."""
+    ``acc * (sx * sw)`` follows in the fused epilogue's fp32 order.
+
+    With tracing enabled a fused plan records the ``run_plan`` span the
+    staged plans record in ``ops.run_plan`` (the same attributes; ``shape``
+    per expert and ``experts`` for a grouped launch): a launch time on
+    CUDA, opened once at a decode graph's capture."""
     if plan.variant not in ("fused", "fused_mm2"):
         return _staged_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
+    if not obs_trace.enabled():
+        return _fused_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
+    grouped = qw.dim() == 3
+    m_dim = qx.shape[1] if grouped else math.prod(qx.shape[:-1])
+    attrs = dict(variant=plan.variant, w=plan.w, backend=plan.backend,
+                 depth=plan.depth,
+                 shape=f"{m_dim}x{qx.shape[-1]}x{qw.shape[-1]}")
+    if grouped:
+        attrs["experts"] = qw.shape[0]
+    with obs_trace.span("run_plan", **attrs):
+        return _fused_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
+
+
+def _fused_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
+                   counts: Optional[torch.Tensor], seg: Optional[int]
+                   ) -> torch.Tensor:
     kw = dict(w=plan.w, m=plan.m, mode=_fused_mode(plan),
               block_k=plan.block_k, combine_int32=plan.combine_int32,
               out_dtype=out_dtype)

@@ -42,6 +42,14 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
+from repro_torch.obs import metrics as obs_metrics
+
+# Prefix-cache traffic (host-side; PrefixCache also keeps its own hits /
+# misses ints for stats() — the counter is the scrapeable form).
+_PREFIX_EVENTS = obs_metrics.counter(
+    "repro_serve_prefix_cache_total",
+    "prompt-prefix cache events (hit/miss/store/evict)",
+    labels=("event",))
 
 # Cache leaves that carry a per-token Smax axis and therefore page.
 PAGED_LEAVES = ("k", "v")
@@ -202,9 +210,11 @@ class PrefixCache:
             if key in self._entries:
                 self._entries.move_to_end(key)
                 self.hits += 1
+                _PREFIX_EVENTS.inc("hit")
                 return n, True
             n -= self.align
         self.misses += 1
+        _PREFIX_EVENTS.inc("miss")
         return 0, False
 
     def restore(self, slot: int, prompt: Sequence[int], n: int) -> None:
@@ -222,13 +232,16 @@ class PrefixCache:
         while handle is None and self._entries:
             _, (old, _) = self._entries.popitem(last=False)   # LRU evict
             self.pool.release_snapshot(old)
+            _PREFIX_EVENTS.inc("evict")
             handle = self.pool.take_snapshot(slot, n_pages)
         if handle is None:
             return
         self._entries[key] = (handle, n)
+        _PREFIX_EVENTS.inc("store")
         while len(self._entries) > self.max_entries:
             _, (old, _) = self._entries.popitem(last=False)
             self.pool.release_snapshot(old)
+            _PREFIX_EVENTS.inc("evict")
 
     def __len__(self) -> int:
         return len(self._entries)

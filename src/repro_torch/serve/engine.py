@@ -34,6 +34,16 @@ request carries no image, and the ragged prefill refuses a vision prefix.
 The engine runs on CUDA unless ``device="cpu"`` is passed; then each GEMM
 runs the kernels' plain PyTorch versions and decode runs its static
 buffers without a graph.  Meshes are not ported yet.
+
+Observability (:mod:`repro_torch.obs`, enabled before the engine is built
+and warmed, as the launcher's ``--metrics-out`` / ``--trace-out`` do): the
+reference's serve instruments — ``repro_serve_ttft_seconds``,
+``repro_serve_decode_step_seconds`` (taken after the sampled tokens reach
+the host, so device-complete), ``repro_serve_occupancy`` and
+``repro_serve_finished_total`` — and spans ``request`` (async, submit to
+finish), ``prefill_chunk``, ``decode_step`` and ``engine_step``.  All are
+host-side around the executor's calls; disabled (the default), each site
+costs a flag test and no token changes either way.
 """
 from __future__ import annotations
 
@@ -47,6 +57,8 @@ import torch
 
 from repro_torch.bridge import tree_map
 from repro_torch.core.context import ExecContext, resolve_device
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.cache import (PagedCachePool, PrefixCache,
                                      default_page_size)
 from repro_torch.serve.executor import Executor
@@ -58,6 +70,16 @@ __all__ = ["Engine", "Request", "RequestStats", "ServeStats", "SlotState",
            "prompt_buckets_for", "MIN_BUCKET"]
 
 Params = Any
+
+_TTFT = obs_metrics.histogram(
+    "repro_serve_ttft_seconds", "arrival to first token, per request")
+_DECODE_STEP = obs_metrics.histogram(
+    "repro_serve_decode_step_seconds", "wall time of one bucketed decode step")
+_OCCUPANCY = obs_metrics.gauge(
+    "repro_serve_occupancy", "live slots / total slots at the last decode step")
+_FINISHED = obs_metrics.counter(
+    "repro_serve_finished_total", "finished requests by stop reason",
+    labels=("reason",))
 
 
 class Engine:
@@ -197,6 +219,8 @@ class Engine:
             rid=rid, prompt_len=len(req.prompt),
             arrival_s=self._now() if arrival_s is None else arrival_s)
         req.generated = []
+        obs_trace.begin_async("request", rid, prompt_len=len(req.prompt),
+                              max_new=req.max_new_tokens)
         self.scheduler.enqueue(req)
 
     @property
@@ -212,6 +236,9 @@ class Engine:
         req.stats.finish_s = self._now()
         req.stats.n_tokens = len(req.generated)
         req.stats.stop_reason = reason
+        _FINISHED.inc(reason)
+        obs_trace.end_async("request", req.stats.rid, reason=reason,
+                            n_tokens=req.stats.n_tokens)
         self._stats.requests.append(req.stats)
         self.scheduler.finish(idx)
 
@@ -259,24 +286,29 @@ class Engine:
         last = np.array([take - 1], np.int32)
         stats = self._stats
         t0 = time.monotonic()
-        logits = self.executor.prefill(idx, toks, ps.off, last)
+        with obs_trace.span("prefill_chunk", slot=idx, rid=req.stats.rid,
+                            off=ps.off, width=width):
+            logits = self.executor.prefill(idx, toks, ps.off, last)
+            done = ps.off + take >= plen
+            if done:
+                # prompt complete: the first token from the last chunk's
+                # logits at its last real position
+                tok = int(self.executor.sample(
+                    self.rng_seed, logits, [req.temperature],
+                    [req.stats.rid], [0])[0])
+            else:
+                self._sync()
+        stats.prefill_s += time.monotonic() - t0
         ps.off += take
-        if ps.off < plen:
-            self._sync()
-            stats.prefill_s += time.monotonic() - t0
+        if not done:
             # a snapshot boundary lies before the prompt's last token
             if self.prefix is not None and ps.off == ps.snap_at:
                 self.prefix.store(idx, req.prompt, ps.snap_at)
             return None
-        # prompt complete: the first token from the last chunk's logits at
-        # its last real position
-        tok = int(self.executor.sample(
-            self.rng_seed, logits, [req.temperature], [req.stats.rid],
-            [0])[0])
-        stats.prefill_s += time.monotonic() - t0
         self.scheduler.prefill_done(idx, tok)
         req.generated.append(tok)
         req.stats.first_token_s = self._now()
+        _TTFT.observe(req.stats.ttft_s)
         stats.generated_tokens += 1
         reason = self._check_done(slot, tok)
         if reason is not None:      # e.g. max_new_tokens=1 or instant EOS
@@ -316,11 +348,16 @@ class Engine:
         steps = [slots[j].n_tokens if j is not None else 0 for j in lanes]
         stats = self._stats
         t0 = time.monotonic()
-        logits = self.executor.decode(lanes, toks, pos)
-        nxt = self.executor.sample(self.rng_seed, logits, temps, rids, steps)
-        stats.decode_s += time.monotonic() - t0
+        with obs_trace.span("decode_step", n_live=n_live, width=len(lanes)):
+            logits = self.executor.decode(lanes, toks, pos)
+            nxt = self.executor.sample(self.rng_seed, logits, temps, rids,
+                                       steps)
+        dt = time.monotonic() - t0
+        stats.decode_s += dt
         stats.decode_steps += 1
         stats.occupancy_sum += n_live / self.batch
+        _DECODE_STEP.observe(dt)
+        _OCCUPANCY.set(n_live / self.batch)
         finished: List[Request] = []
         for lane, idx in enumerate(lanes[:n_live]):     # live lanes first
             slot = slots[idx]
@@ -345,12 +382,13 @@ class Engine:
         Returns the requests that finished, those that finished at
         admission included."""
         t0 = time.monotonic()
-        for idx, req in self.scheduler.admit(self._now()):
-            self._init_slot(idx, req)
-        self._prefill_step()
-        finished = self._admitted_done
-        self._admitted_done = []
-        finished += self._decode_step()
+        with obs_trace.span("engine_step"):
+            for idx, req in self.scheduler.admit(self._now()):
+                self._init_slot(idx, req)
+            self._prefill_step()
+            finished = self._admitted_done
+            self._admitted_done = []
+            finished += self._decode_step()
         self._stats.busy_s += time.monotonic() - t0
         return finished
 

@@ -31,6 +31,16 @@ never at a replay, so each width records the launches it captured
 (``captured``) and its replays (``replays``).  On the CPU, and with
 ``graphs`` set False, the same static buffers run eagerly.
 
+Metrics (:mod:`repro_torch.obs.metrics`, host-side):
+``repro_serve_retraces_total`` counts one ``decode`` per decode width set
+up (on CUDA, the width's graph capture) and one ``prefill`` per new
+prefill width — the reference's one jit trace each — so after
+``Engine.warm()`` its ``decode`` count equals ``n_traces()["decode"]``;
+``repro_serve_decode_lane_width_total`` counts every decode call by width,
+host code before the replay.  The MoE dispatch accumulators
+(:mod:`repro_torch.models.moe`) keep the capture's eager warm-up step out
+of their counts, as the reference observes each executed step once.
+
 Where the reference donates the pool to its jit so the cache never copies,
 the port updates the pool in place: the scatter writes the lanes straight
 back into the pool tensors, whose addresses never change.  Sampling cannot
@@ -44,12 +54,23 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import fused_gemm, launch_counts
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve.cache import PAGED_LEAVES, PagedCachePool
 
 Params = Any
 
 _SEED_MIX = 1_000_003
+
+_RETRACES = obs_metrics.counter(
+    "repro_serve_retraces_total",
+    "decode widths set up (on CUDA each one's graph capture) and new "
+    "prefill widths, by kind: the reference's jit (re)compiles",
+    labels=("kind",))
+_LANE_WIDTHS = obs_metrics.counter(
+    "repro_serve_decode_lane_width_total",
+    "decode calls by bucketed lane width",
+    labels=("width",))
 
 
 class _Decoder:
@@ -141,7 +162,11 @@ class Executor:
         d.park(self.pool)       # the warm-up step touches no slot's rows
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
+            saved = (moe.save_dispatch_metrics() if obs_metrics.enabled()
+                     else None)
             self._step(d)       # eager: kernel builds, workspace growth
+            if saved is not None:
+                moe.restore_dispatch_metrics(saved)
         dev = d.toks.device         # indexed, as the launches' devices
         before_ws = fused_gemm.workspace_tensors(dev, stream.cuda_stream)
         before = launch_counts()
@@ -170,10 +195,12 @@ class Executor:
         graphed path a static tensor, overwritten by the next decode of
         the same width."""
         width = len(lane_slots)
+        _LANE_WIDTHS.inc(width)
         d = self._decoders.get(width)
         if d is None:
             d = self._decoders[width] = _Decoder(width, self.pool,
                                                  self.device)
+            _RETRACES.inc("decode")
         if self.graphs and d.graph is None:
             self._capture(d)
         prows, srows = self.pool.lane_rows(lane_slots)
@@ -189,7 +216,9 @@ class Executor:
     @torch.inference_mode()
     def prefill(self, slot, toks: np.ndarray, start: int,
                 last: np.ndarray) -> torch.Tensor:
-        self._prefill_widths.add(int(toks.shape[1]))
+        if int(toks.shape[1]) not in self._prefill_widths:
+            self._prefill_widths.add(int(toks.shape[1]))
+            _RETRACES.inc("prefill")
         rows = self._rows([slot])
         lanes = self._gather(*rows)
         toks_t = torch.as_tensor(toks, device=self.device)

@@ -4,8 +4,10 @@ Pure host-side scheduling state: which request sits in which decode slot,
 which slots are mid-(chunked-)prefill, and how a decode step is batched.
 Port of ``repro.serve.scheduler``, near verbatim: pure host code.  The
 engine wires the scheduler's decisions into the executor, and tests drive
-scheduling through this API instead of poking engine internals.  (The
-reference's metrics gauges wait for the observability port.)
+scheduling through this API instead of poking engine internals.  Its
+signals go to the metrics registry as the reference's do: the
+``repro_serve_queue_depth`` gauge on every enqueue and admission, and
+``repro_serve_admitted_total``.
 
 Bucketed decode (the slot-scaling-cliff fix): decode runs on the smallest
 power-of-two *slot bucket* that covers the live slots — the same ladder
@@ -28,7 +30,14 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
+from repro_torch.obs import metrics as obs_metrics
+
 MIN_BUCKET = 8
+
+_QUEUE_DEPTH = obs_metrics.gauge(
+    "repro_serve_queue_depth", "pending requests awaiting a decode slot")
+_ADMITTED = obs_metrics.counter(
+    "repro_serve_admitted_total", "requests admitted into decode slots")
 
 
 def prompt_buckets_for(max_seq: int,
@@ -155,6 +164,7 @@ class Scheduler:
 
     def enqueue(self, req: Request):
         self._pending.append(req)
+        _QUEUE_DEPTH.set(len(self._pending))
 
     @property
     def num_active(self) -> int:
@@ -189,6 +199,9 @@ class Scheduler:
             slot.n_tokens = 0
             slot.prefill = _PrefillState()
             out.append((free, req))
+        if out:
+            _ADMITTED.inc(by=len(out))
+            _QUEUE_DEPTH.set(len(self._pending))
         return out
 
     # -- prefill ------------------------------------------------------------
