@@ -309,6 +309,33 @@ the analytic traffic model) adds:
       DRAM byte counters (reported, not gated: the measured traffic is not
       ported while they cannot be read).
 
+Training (launch/steps.py, train/{optim,loop,checkpoint}.py, the STE
+cores of quant/qmatmul.py and the norm's backward in kernels/rowinv.py)
+adds:
+
+  5t. the smoke llama and granite in float32 under mixed: loss and every
+      gradient leaf, card against CPU (TRAIN_SMOKE_LOSS_RTOL,
+      TRAIN_SMOKE_TOL); full-width
+      llama3.2-1b under mixed (seq 256, global batch 8, its 2
+      microbatches, fp32 params from a seeded generator, the bf16 compute
+      copy): step 1's loss and gradients with the kernels against the
+      same step with the kernels' plain versions on the card
+      (TRAIN_PLAIN_LOSS_RTOL, TRAIN_PLAIN_GRAD_RTOL), every leaf's
+      gradient finite and nonzero (every ln scale and embed too), then 4
+      AdamW steps through ``train.loop.run_training`` with exactly the
+      derived launches (``train_launches``: each period's GEMMs and norms
+      twice a microbatch under remat, the head's GEMM twice a loss
+      chunk) and every quantized GEMM on the kernels, step ms, tokens/s
+      and peak memory reported; 2 steps, the run's AsyncCheckpointer save,
+      a fresh run resuming for 2 more: params and optimizer state
+      torch.equal to the 4 straight steps (under
+      ``torch.use_deterministic_algorithms``, ``CUBLAS_WORKSPACE_CONFIG``
+      set before CUDA starts); granite-moe-3b-a800m at full width, 4 of
+      its 32 periods, 8 microbatches: the ragged STE at its expert shape
+      (dead rows get exactly zero dx), step 1 against the plain versions,
+      every leaf's gradient nonzero, 2 counted steps with the grouped
+      kernel carrying every expert GEMM.
+
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
 rowinv_norm and ssm_scan); the last line is ``{"ok": true, "device":
@@ -319,6 +346,7 @@ details go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3960,7 +3988,8 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    wkv_rows, rowinv_rows, ssm_rows):
     """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
     for the result line.  ``launches`` sums the wrapper's counts over the
-    last counted run of every serve path (``launches_by_path`` has each):
+    last counted run of every serve path and phase 5t's counted train
+    runs (``launches_by_path`` has each):
     prefills, as a decode graph's replay passes no wrapper;
     ``launches_in_graph_replays`` beside it is what the decode graphs'
     replays in those runs launched: each graph's kernel nodes, read from
@@ -4439,6 +4468,509 @@ def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
     return out
 
 
+# Phase 5t, training.  Full-width llama3.2-1b under mixed and
+# granite-moe-3b-a800m cut to TRAIN_GRANITE_PERIODS of its 32 periods (its
+# 3.30 B params would need 52.8 GB for fp32 params, grads and AdamW state
+# before activations), at the reference's train shape: seq 256, global
+# batch 8, each config's microbatches.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
+TRAIN_GRANITE_PERIODS, TRAIN_GRANITE_STEPS = 4, 2
+# The smoke models in float32, card against CPU: the loss within
+# TRAIN_SMOKE_LOSS_RTOL relative, every gradient leaf within
+# TRAIN_SMOKE_TOL of its largest entry.  The norm kernel and ATen's norm
+# round their sums apart and the backward's fp32 matmuls sum in other
+# orders (~1e-6 of a leaf; tests/test_torch_train.py holds the CPU to JAX
+# at 1e-5), and an ulp at a rounding boundary flips a w=8 activation code
+# (a step of amax/127).  On an NVIDIA H100 80GB HBM3 (700 W) granite's
+# expert input does, and its worst leaf, moe.wo, is 1.21e-3 of its
+# largest entry from the CPU (moe.wi 5.7e-4), the same with the kernels'
+# plain versions on the card: ATen's rounding on the card, not a kernel.
+# The card repeats itself: a second card run in one process gave
+# bit-identical gradients (the script prints that distance), and three
+# runs gave the same 1.21e-3.  The gate leaves 4x of room.
+# A gradient cut at a kernel is off by order 1.
+TRAIN_SMOKE_LOSS_RTOL = 1e-4
+TRAIN_SMOKE_TOL = 5e-3
+# Step 1 with the kernels against their plain versions at full width, bf16
+# compute: the fused kernels are torch.equal to theirs (phase 3), the norm
+# kernel within one bf16 ulp of its plain version (5r); a norm output one
+# ulp apart can flip a w=8 activation code (a step of amax/127), and the
+# flips feed the later layers, so the loss is held relative and each
+# gradient leaf by its relative L2 distance.  A card run (NVIDIA H100
+# 80GB HBM3, 700 W) measured 1.0e-4 / 3.6e-5 (loss) and 2.1e-2 / 3.0e-2 (worst leaf: llama's
+# blk mlp.wg, granite's router) for llama / granite; the gates leave 10x
+# and 3x of room.  A gradient cut at a kernel (zero, or missing a path) is
+# off by order 1.
+TRAIN_PLAIN_LOSS_RTOL = 1e-3
+TRAIN_PLAIN_GRAD_RTOL = 0.1
+
+
+def train_launches(cfg, steps: int, seq: int) -> dict:
+    """The kernel launches of ``steps`` train steps, by launch-count key:
+    per microbatch each period's quantized GEMMs and norms run twice under
+    remat (forward and the backward's recompute), the head's GEMM twice
+    a loss chunk (its checkpoint), ln_f once; the microbatches multiply."""
+    from repro_torch.kernels import fused_gemm as fg
+    from repro_torch.models import lm
+
+    def mode(name):
+        return fg.resolve(cfg.quant.bits_for(name), cfg.quant.m)[0]
+
+    out: dict = {}
+
+    def add(key, n):
+        out[key] = out.get(key, 0) + n
+
+    remat = 2 if cfg.remat else 1
+    for pos, spec in enumerate(cfg.pattern):
+        if spec.kind != "attn":
+            raise ValueError(f"no training launches for {spec.kind}")
+        names = [f"blk{pos}.attn.w{p}" for p in "qkvo"]
+        if spec.moe:
+            names.append(f"blk{pos}.moe.router")
+            for p in ("wi", "wg", "wo") if cfg.glu else ("wi", "wo"):
+                add(f"grouped_{mode(f'blk{pos}.moe.{p}')}",
+                    remat * cfg.n_periods)
+        else:
+            names += [f"blk{pos}.mlp.{p}" for p in (
+                ("wi", "wg", "wo") if cfg.glu else ("wi", "wo"))]
+        for name in names:
+            add(f"dense_{mode(name)}", remat * cfg.n_periods)
+    chunk = min(lm.LOSS_CHUNK, seq)
+    while seq % chunk:
+        chunk //= 2
+    add(f"dense_{mode('lm_head')}", 2 * (seq // chunk))
+    add("rowinv_norm", remat * 2 * cfg.n_layers + 1)
+    micro = max(cfg.n_microbatches, 1) * steps
+    return {k: n * micro for k, n in out.items()}
+
+
+def plain_launch(fg):
+    """The fused GEMM's plain version with ``fg._launch``'s signature."""
+    def launch(a, b, sx, sw, counts, *, seg, **kw):
+        if a.dim() == 3:
+            return fg.fused_gemm_grouped_reference(
+                a, b, sx, sw, counts, seg=seg if counts is not None
+                else None, **kw)
+        return fg.fused_gemm_reference(a, b, sx, sw, **kw)
+    return launch
+
+
+@contextlib.contextmanager
+def plain_kernels(fg):
+    """Every fused GEMM and norm launch replaced by the kernel's plain
+    version on the same CUDA tensors (counting nothing)."""
+    from repro_torch.kernels import rowinv
+    launch, norm = fg._launch, rowinv._norm_launch
+    fg._launch = plain_launch(fg)
+    rowinv._norm_launch = rowinv.rowinv_norm_reference
+    try:
+        yield
+    finally:
+        fg._launch, rowinv._norm_launch = launch, norm
+
+
+@contextlib.contextmanager
+def checked_kernels(torch, fg, what: str):
+    """Every fused GEMM and norm launch also runs the kernel's plain
+    version on the same operands and fails on a difference: a fused GEMM's
+    output must be torch.equal to its plain version's (phase 3's gate), a
+    norm's within ROWINV_TOL (fp32 rows) or one bf16 ulp (bf16 rows), 5r's
+    gate.  Yields {(kernel, shape): launches checked}; the plain versions
+    count nothing, the kernels count as they always do."""
+    from repro_torch.kernels import rowinv
+    launch, norm = fg._launch, rowinv._norm_launch
+    plain = plain_launch(fg)
+    seen: dict = {}
+
+    def checked_launch(a, b, sx, sw, counts, *, seg, **kw):
+        out = launch(a, b, sx, sw, counts, seg=seg, **kw)
+        ref = plain(a, b, sx, sw, counts, seg=seg, **kw)
+        kind = ("grouped_" if a.dim() == 3 else "dense_") + kw["mode"]
+        shape = tuple(a.shape) + (b.shape[-1],)
+        if not torch.equal(out, ref):
+            bad = int((out != ref).sum())
+            fail(f"{what}: {kind} at {shape} (ragged: {counts is not None})"
+                 f" differs from its plain version in {bad} of "
+                 f"{out.numel()} outputs")
+        seen[(kind, shape)] = seen.get((kind, shape), 0) + 1
+        return out
+
+    def checked_norm(x, scale, bias, kind, eps):
+        out = norm(x, scale, bias, kind, eps)
+        ref = rowinv.rowinv_norm_reference(x, scale, bias, kind, eps)
+        rtol, atol = ROWINV_TOL
+        if out.dtype == torch.bfloat16:
+            rtol = 2.0 ** -7
+        diff = (out.float() - ref.float()).abs()
+        n_out = int((diff > rtol * ref.float().abs() + atol).sum())
+        shape = tuple(x.shape)
+        if n_out:
+            fail(f"{what}: rowinv_norm ({kind}, {x.dtype}) at {shape}: "
+                 f"{n_out} outputs outside the tolerance of its plain "
+                 f"version (max |diff| {float(diff.max())})")
+        key = (f"rowinv_norm_{kind}", shape)
+        seen[key] = seen.get(key, 0) + 1
+        return out
+
+    fg._launch, rowinv._norm_launch = checked_launch, checked_norm
+    try:
+        yield seen
+    finally:
+        fg._launch, rowinv._norm_launch = launch, norm
+
+
+def train_batch(torch, cfg, step: int = 0, seq: int = TRAIN_SEQ,
+                batch: int = TRAIN_BATCH, device="cuda"):
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=0)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in DataIterator(dcfg).peek(step).items()}
+
+
+def grads_by_leaf(grads) -> dict:
+    return {".".join(path): g for path, g in _paths(grads)}
+
+
+def check_grads(what: str, torch, grads) -> dict:
+    """Every gradient leaf finite with a nonzero norm; their norms."""
+    norms = {}
+    for name, g in grads_by_leaf(grads).items():
+        n = float(torch.linalg.vector_norm(g.float()))
+        if not torch.isfinite(g).all() or n == 0.0:
+            fail(f"{what}: the gradient of {name} is not finite or zero "
+                 f"(norm {n}): a kernel cut the gradient")
+        norms[name] = n
+    return norms
+
+
+def train_smoke_parity(torch, fg, arch: str) -> dict:
+    """Phase 5t's smoke half: loss and gradients of the smoke model in
+    float32 under mixed, card against CPU."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True, quant="mixed").scaled_down(
+        compute_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(4), cfg,
+                            device="cpu")
+    batch = train_batch(torch, cfg, seq=32, batch=2, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda", "cuda again", "plain"):
+        on = "cpu" if dev == "cpu" else "cuda"
+        with (plain_kernels(fg) if dev == "plain"
+              else contextlib.nullcontext()):
+            out[dev] = steps.loss_and_grads(
+                cfg, tree_map(lambda t: t.to(on), params),
+                {k: v.to(on) for k, v in batch.items()})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    # the same on the card with the kernels' plain versions: what is left
+    # of the difference when the norm rounds as on the CPU
+    plain = grads_by_leaf(out["plain"][1])
+    check_grads(f"{arch} smoke train on the card", torch, gg)
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    cpu = grads_by_leaf(gc)
+    errs = {name: float((g.cpu() - cpu[name]).abs().max()
+                        / cpu[name].abs().max())
+            for name, g in grads_by_leaf(gg).items()}
+    worst = max(errs, key=errs.get)
+    plain_err = max(float((g.cpu() - cpu[name]).abs().max()
+                          / cpu[name].abs().max())
+                    for name, g in plain.items())
+    # the card against itself: the backwards of the embedding's gather and
+    # of the MoE combine's torch.gather add with atomics, in no fixed order
+    again = grads_by_leaf(out["cuda again"][1])
+    rerun = {name: float((g - again[name]).abs().max()
+                         / cpu[name].abs().max())
+             for name, g in grads_by_leaf(gg).items()}
+    rerun_worst = max(rerun, key=rerun.get)
+    log(f"  {arch} smoke float32 mixed: loss {float(lg):.6f} (|cuda - cpu| "
+        f"{loss_err:.2e} relative), {len(cpu)} gradient leaves within "
+        f"{errs[worst]:.2e} of their largest entry ({worst}); with the "
+        f"kernels' plain versions on the card {plain_err:.2e}; a second "
+        f"card run differs from the first by {rerun[rerun_worst]:.2e} "
+        f"({rerun_worst}), its loss by "
+        f"{abs(float(out['cuda again'][0]) - float(lg)):.2e}")
+    if errs[worst] > TRAIN_SMOKE_TOL:
+        fail(f"{arch} smoke train: the gradient of {worst} on the card "
+             f"differs from the CPU by {errs[worst]} of its largest entry")
+    if loss_err > TRAIN_SMOKE_LOSS_RTOL:
+        fail(f"{arch} smoke train: loss {float(lg)} on the card, "
+             f"{float(lc)} on the CPU")
+    return {"loss": float(lg), "loss_rel_err": loss_err,
+            "grad_max_rel_err": errs, "plain_on_card_max_rel_err": plain_err,
+            "card_rerun_max_rel_err": rerun}
+
+
+def train_vs_plain(torch, fg, what: str, cfg, params, batch) -> dict:
+    """Step 1 at the train shapes with every kernel launch held against its
+    plain version on the same operands (:func:`checked_kernels`), and its
+    loss and gradients against the same step run on the plain versions;
+    every kernel-run leaf finite and nonzero."""
+    from repro_torch.launch import steps
+    t0 = time.monotonic()
+    with checked_kernels(torch, fg, what) as seen:
+        loss_k, grads_k = steps.mean_loss_and_grads(cfg, params, batch)
+    norms = check_grads(what, torch, grads_k)
+    t_k = time.monotonic() - t0
+    if not seen:
+        fail(f"{what}: step 1 launched no kernel")
+    log(f"  {what} step 1: every kernel launch held against its plain "
+        f"version on the same operands (fused GEMMs torch.equal, norms "
+        f"within 5r's tolerance), {sum(seen.values())} launches at "
+        + ", ".join(f"{k} {'x'.join(map(str, sh))} ({n})"
+                    for (k, sh), n in sorted(seen.items())))
+    t0 = time.monotonic()
+    with plain_kernels(fg):
+        loss_p, grads_p = steps.mean_loss_and_grads(cfg, params, batch)
+    t_p = time.monotonic() - t0
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    plain = grads_by_leaf(grads_p)
+    errs = {}
+    for name, g in grads_by_leaf(grads_k).items():
+        ref = plain[name]
+        errs[name] = float(torch.linalg.vector_norm(g - ref)
+                           / torch.linalg.vector_norm(ref))
+    worst = max(errs, key=errs.get)
+    log(f"  {what} step 1, kernels vs plain versions on the card: loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f} ({loss_err:.2e} "
+        f"relative); gradients' relative L2 distance at most "
+        f"{errs[worst]:.2e} ({worst}); {len(errs)} leaves finite and "
+        f"nonzero (smallest norm {min(norms.values()):.3e}); "
+        f"{t_k:.1f} s with the kernels (each launch checked), {t_p:.1f} s "
+        f"plain")
+    if loss_err > TRAIN_PLAIN_LOSS_RTOL:
+        fail(f"{what}: step 1's loss with the kernels {float(loss_k)} vs "
+             f"{float(loss_p)} with their plain versions")
+    if errs[worst] > TRAIN_PLAIN_GRAD_RTOL:
+        fail(f"{what}: the gradient of {worst} with the kernels is "
+             f"{errs[worst]} (relative L2) from the plain versions'")
+    del grads_k, grads_p
+    return {"loss": float(loss_k), "plain_loss": float(loss_p),
+            "loss_rel_err": loss_err, "grad_rel_l2": errs,
+            "grad_norms": norms, "s_kernels_checked": t_k, "s_plain": t_p,
+            "checked_launches": {f"{k} {'x'.join(map(str, sh))}": n
+                                 for (k, sh), n in sorted(seen.items())}}
+
+
+def counted_training(torch, fg, what: str, cfg, tc, dcfg, expect: dict):
+    """One ``run_training`` with every launch count set to 0 just before
+    and read just after: exactly ``expect`` launches, every quantized GEMM
+    on the kernels.  Returns the result, the launches and the timing."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.quant import qmatmul
+    from repro_torch.train.loop import run_training
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(fg)
+    t0 = time.monotonic()
+    res = run_training(cfg, tc, dcfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    host = nonzero(launch_counts())
+    routes = qmatmul.gemm_routes()
+    gemms = sum(n for k, n in expect.items() if k != "rowinv_norm")
+    if host != expect:
+        fail(f"{what}: launches {host}, expected {expect}: a quantized "
+             f"GEMM or a norm bypassed its kernel")
+    if routes != {("cuda", "cuda"): gemms}:
+        fail(f"{what}: quantized GEMM routes {routes}, expected "
+             f"{gemms} on the kernels and none on the ATen route")
+    steady = res.step_seconds[1:] or res.step_seconds
+    step_s = statistics.mean(steady)
+    tokens = dcfg.seq_len * dcfg.global_batch
+    out = {"launches": {"host": host},
+           "routes": {f"{b}/{r}": c for (b, r), c in routes.items()},
+           "losses": res.losses, "wall_s": wall,
+           "step_ms": [1e3 * s for s in res.step_seconds],
+           "steady_step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {what}: {len(res.step_seconds)} steps, losses "
+        + ", ".join(f"{v:.4f}" for v in res.losses.values())
+        + f"; launches {host} (derived, exact), routes "
+        f"{out['routes']}; step {out['steady_step_ms']:.1f} ms after the "
+        f"first ({out['step_ms'][0]:.1f} ms), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {out['peak_gb']:.2f} GB")
+    return res, out
+
+
+def ragged_ste_check(torch, fg, cfg, seq: int) -> dict:
+    """The ragged STE core at the model's expert shape on the card (its
+    capacity at ``seq`` tokens, one sequence a microbatch): the forward
+    torch.equal to the plain version, dead rows' dx exactly zero, dw
+    torch.equal to x^T @ (g on live rows)."""
+    from repro_torch.models import moe
+    from repro_torch.quant import qmatmul
+    e, d = cfg.n_experts, cfg.d_model
+    fe = cfg.d_ff_expert or cfg.d_ff
+    cap = moe._capacity(seq, cfg.top_k, e, cfg.capacity_factor)
+    gen = torch.Generator("cuda").manual_seed(9)
+    x = torch.randn((e, cap, d), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    w = (0.05 * torch.randn((e, d, fe), generator=gen, device="cuda")).to(
+        torch.bfloat16).requires_grad_()
+    counts = torch.randint(0, cap + 1, (e, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    counts[:3] = torch.tensor([[0], [cap], [1]], dtype=torch.int32)
+    g = torch.randn((e, cap, fe), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bits = cfg.quant.bits_for("blk0.moe.wi")
+    out = qmatmul.quantized_matmul_batched(x, w, bits, counts=counts,
+                                           seg=cap)
+    out.backward(g)
+    with torch.no_grad(), plain_kernels(fg):
+        ref = qmatmul.quantized_matmul_batched(x, w, bits, counts=counts,
+                                               seg=cap)
+    live = (torch.arange(cap, device="cuda")[None, :, None]
+            < counts[:, :, None])
+    gl = torch.where(live, g.float(), torch.zeros((), device="cuda"))
+    dw = torch.bmm(x.detach().float().transpose(1, 2), gl).to(w.dtype)
+    dead = int((~live).sum())
+    if not torch.equal(out, ref):
+        fail("ragged STE: the grouped kernel's forward differs from its "
+             "plain version")
+    if bool(x.grad.masked_select(~live).any()):
+        fail("ragged STE: a dead row got a nonzero gradient")
+    if not torch.equal(w.grad, dw):
+        fail("ragged STE: dw differs from x^T @ (g on live rows)")
+    log(f"  ragged STE at E={e} C={cap} K={d} N={fe} (w={bits}): forward "
+        f"torch.equal to the plain version, {dead} dead rows with dx "
+        f"exactly 0, dw torch.equal to x^T g on the live rows")
+    return {"E": e, "C": cap, "K": d, "N": fe, "dead_rows": dead}
+
+
+def deterministic(torch):
+    """A context under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` that records the ops warning they have no
+    deterministic kernel."""
+    import warnings
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                yield seen
+            seen.extend(sorted({str(w.message).split(" does not have")[0]
+                                for w in caught
+                                if "deterministic" in str(w.message)}))
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    return ctx()
+
+
+def train_phase(torch, fg) -> dict:
+    """Phase 5t (see the module docstring)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.loop import TrainConfig, run_training
+
+    report: dict = {"smoke": {a: train_smoke_parity(torch, fg, a) for a in
+                              ("llama3.2-1b", "granite-moe-3b-a800m")}}
+    ocfg = optim.AdamWConfig(lr=1e-4, warmup_steps=1,
+                             total_steps=TRAIN_STEPS)
+    for arch, periods, n_steps in (
+            ("llama3.2-1b", None, TRAIN_STEPS),
+            ("granite-moe-3b-a800m", TRAIN_GRANITE_PERIODS,
+             TRAIN_GRANITE_STEPS)):
+        cfg = get_config(arch, quant="mixed")
+        what = f"{arch} train mixed"
+        if periods:
+            cfg = dataclasses.replace(cfg, n_periods=periods)
+            what += f", {periods} periods"
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+        rep = report[arch] = {"n_periods": cfg.n_periods,
+                              "microbatches": cfg.n_microbatches}
+        if cfg.n_experts:
+            rep["ragged_ste"] = ragged_ste_check(
+                torch, fg, cfg, TRAIN_SEQ)
+        params = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                device="cuda")
+        rep["params"] = param_count(params)
+        rep["step1"] = train_vs_plain(torch, fg, what, cfg, params,
+                                      train_batch(torch, cfg))
+        del params
+        torch.cuda.empty_cache()
+        expect = train_launches(cfg, n_steps, TRAIN_SEQ)
+        log(f"  {what}: derived launches for {n_steps} steps of "
+            f"{cfg.n_microbatches} microbatches: {expect}")
+        tc = TrainConfig(steps=n_steps, log_every=1, optimizer=ocfg)
+        # the counted, timed run as users run it: not deterministic (its
+        # params and state are dropped here, not held through the next
+        # config's run)
+        rep["counted"] = counted_training(
+            torch, fg, what, cfg, tc, dcfg, expect)[1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch != "llama3.2-1b":
+            continue
+        with deterministic(torch) as nondet:
+            # the restart gate, under deterministic algorithms: 4 straight
+            # steps; 2 steps and the run's checkpoint, then a fresh run
+            # resuming from it for the other 2
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            straight = run_training(cfg, tc, dcfg, device="cuda")
+            torch.cuda.synchronize()
+            det_s = time.monotonic() - t0
+            det_steady = straight.step_seconds[1:] or straight.step_seconds
+            rep["deterministic_step_ms"] = 1e3 * statistics.mean(det_steady)
+            log(f"  {what}: the same {n_steps} steps under deterministic "
+                f"algorithms (the restart gate's reference, not the "
+                f"user-facing time): step {rep['deterministic_step_ms']:.1f}"
+                f" ms after the first, {det_s:.1f} s in all")
+            ck = ROOT / "build" / "scratch" / "train_ckpt"
+            shutil.rmtree(ck, ignore_errors=True)
+            t0 = time.monotonic()
+            half = dataclasses.replace(tc, steps=n_steps // 2,
+                                       ckpt_dir=str(ck), ckpt_keep=1)
+            run_training(cfg, half, dcfg, device="cuda")
+            half_s = time.monotonic() - t0
+            resumed = run_training(cfg, dataclasses.replace(
+                half, steps=n_steps), dcfg, device="cuda")
+            restart_s = time.monotonic() - t0
+            shutil.rmtree(ck, ignore_errors=True)
+        if resumed.restored_from != n_steps // 2:
+            fail(f"{what}: the fresh run resumed from "
+                 f"{resumed.restored_from}, not step {n_steps // 2}")
+        mine = {"params": straight.params, "mu": straight.opt_state.mu,
+                "nu": straight.opt_state.nu,
+                "step": straight.opt_state.step}
+        theirs = {"params": resumed.params, "mu": resumed.opt_state.mu,
+                  "nu": resumed.opt_state.nu,
+                  "step": resumed.opt_state.step}
+        diff = [".".join(p) for (p, a), (_, b) in zip(_paths(mine),
+                                                      _paths(theirs))
+                if not torch.equal(a, b)]
+        if diff:
+            fail(f"{what}: after a restart at step {n_steps // 2}, "
+                 f"{len(diff)} leaves differ from {n_steps} straight "
+                 f"steps ({diff[:4]}); ops without a deterministic kernel: "
+                 f"{nondet or 'none'}")
+        rep["restart"] = {"bit_exact": True, "seconds": restart_s,
+                          "first_run_s": half_s,
+                          "nondeterministic_ops": nondet}
+        log(f"  {what}: 2 steps + checkpoint + a resumed run of 2: params, "
+            f"mu, nu and step torch.equal to {n_steps} straight steps "
+            f"(deterministic algorithms; ops without a deterministic "
+            f"kernel: {nondet or 'none'}); {restart_s:.1f} s, the first run "
+            f"and its save {half_s:.1f} s")
+        del straight, resumed, mine, theirs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4454,6 +4986,10 @@ def main() -> int:
                     "chiprun_out/profile_ARCH_POLICY[_forced].json)")
     args = ap.parse_args()
 
+    # Phase 5t's restart gate runs under torch.use_deterministic_algorithms,
+    # whose cuBLAS half needs this before CUDA starts (it sizes cuBLAS's
+    # workspace; it moves no value of a non-deterministic run).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -4624,6 +5160,16 @@ def main() -> int:
     seconds["serve obs"] = time.monotonic() - t0
     torch.cuda.empty_cache()
 
+    log("[5t] training: the smoke models card vs CPU, full-width llama "
+        "(4 steps, restart) and granite at 4 periods under mixed")
+    t0 = time.monotonic()
+    train = train_phase(torch, fg)
+    seconds["train"] = time.monotonic() - t0
+    for arch in ("llama3.2-1b", "granite-moe-3b-a800m"):
+        launches_by_path[f"{arch} train mixed"] = \
+            train[arch]["counted"]["launches"]
+    torch.cuda.empty_cache()
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
@@ -4637,7 +5183,7 @@ def main() -> int:
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
               "rowinv": rowinv_rows, "aten_route": aten_rows,
-              "aten_serve": aten_serve, "obs": obs,
+              "aten_serve": aten_serve, "obs": obs, "train": train,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"

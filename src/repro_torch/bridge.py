@@ -58,3 +58,24 @@ def tree_to_numpy(tree: Any) -> Any:
     """The reverse, for comparing caches: torch tensors -> numpy arrays
     (bfloat16 as ``ml_dtypes.bfloat16``)."""
     return tree_map(array_to_numpy, tree)
+
+
+def opt_state_from_jax(state: Any, device=None):
+    """The reference's AdamW state, converted with ``jax.tree.map(
+    np.asarray, state)`` (anything with ``step``, ``mu`` and ``nu``, or a
+    (step, mu, nu) tuple) -> the port's ``train.optim.OptState`` on
+    ``device``."""
+    from repro_torch.train.optim import OptState
+
+    step, mu, nu = ((state.step, state.mu, state.nu)
+                    if hasattr(state, "step") else state)
+    return OptState(step=array_to_torch(np.asarray(step, np.int32), device),
+                    mu=params_from_jax(mu, device),
+                    nu=params_from_jax(nu, device))
+
+
+def opt_state_to_numpy(state: Any):
+    """The port's ``OptState`` -> a (step, mu, nu) tuple of numpy arrays,
+    which the reference's ``OptState(*...)`` takes."""
+    return (array_to_numpy(state.step), tree_to_numpy(state.mu),
+            tree_to_numpy(state.nu))

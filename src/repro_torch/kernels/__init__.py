@@ -3,6 +3,23 @@ PyTorch versions, the execution seam (``ops``), the int64 oracle, and an
 A/B timing tool (``compare``)."""
 
 
+def records_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (``None`` entries,
+    an absent bias, say, are skipped)."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_grad_fn(out, what: str):
+    """On CUDA an output whose inputs require grad must carry a
+    ``grad_fn``: a kernel's output filled through ctypes has none, and
+    gradients would stop there without an error."""
+    if out.is_cuda and out.grad_fn is None:
+        raise RuntimeError(f"{what}: the output lost its grad_fn")
+    return out
+
+
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel: the fused GEMM per
     mode (``dense_<mode>``, ``grouped_<mode>``), the staged kernels, the

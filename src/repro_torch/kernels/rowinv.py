@@ -18,6 +18,13 @@ its plain version, which is exactly the ATen expression the models used
 before (so every CPU parity test against JAX is unchanged).  The kernels
 agree with the plain versions to fp32 rounding (their sums run in another
 order), not bit for bit.
+
+Training.  Where autograd records, :func:`rowinv_norm` runs as a
+``torch.autograd.Function``: the forward as above (the kernel's output,
+filled through ctypes, has no ``grad_fn`` of its own) and the backward the
+norm's VJP in fp32 ATen ops on the saved input, as XLA's autodiff of the
+reference's ``norm_apply`` is plain XLA ops.  :func:`rowinv_matmul` stays
+forward only: on CUDA it raises where its output would need a gradient.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_grad_fn, records_grad
 
 # Launches of the CUDA kernels; a wrapper adds one where it launches and
 # nowhere else (CPU calls run the plain version and count 0).
@@ -111,12 +118,16 @@ def rowinv_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x (..., K) and w (K, N): on CUDA, fp32 only, each
     output's K sum in one order fixed by K (``matmul_lanes(K)``
     interleaved lanes, a shuffle butterfly a warp, the warp sums in
-    order), whatever the number of rows."""
+    order), whatever the number of rows.  Forward only."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rowinv_matmul_reference(x, w)
     if x.device != w.device or x.device.type != "cuda":
         raise ValueError(f"rowinv_matmul: operands on one cpu or cuda "
                          f"device, got {x.device}, {w.device}")
+    if records_grad(x, w):
+        raise NotImplementedError(
+            "rowinv_matmul has no backward yet (its kernel's output would "
+            "carry no grad_fn): RWKV training is ROADMAP queue 1, item 3")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"rowinv_matmul: the kernel takes float32, got "
                         f"{x.dtype}, {w.dtype}")
@@ -141,23 +152,80 @@ def rowinv_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], n)
 
 
+def rowinv_norm_vjp(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                    bias: Optional[torch.Tensor], kind: str, eps: float):
+    """(dx, dscale, dbias) of the norm at ``x`` for the cotangent ``g``, in
+    fp32 ATen ops; dx in x's dtype, dbias None for RMSNorm."""
+    f32 = torch.float32
+    xf, gf = x.to(f32), g.to(f32)
+    if kind == "ln":
+        xc = xf - xf.mean(-1, keepdim=True)
+        r = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    else:
+        xc = xf
+        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    n = xc * r
+    gs = gf * scale
+    proj = (gs * n).mean(-1, keepdim=True)
+    if kind == "ln":
+        dx = r * (gs - gs.mean(-1, keepdim=True) - n * proj)
+    else:
+        dx = r * (gs - n * proj)
+    lead = tuple(range(x.dim() - 1))
+    dscale = (gf * n).sum(lead)
+    dbias = gf.sum(lead) if kind == "ln" else None
+    return dx.to(x.dtype), dscale, dbias
+
+
+class _NormFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, kind, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.kind, ctx.eps, ctx.has_bias = kind, eps, bias is not None
+        return _norm_forward(x, scale, bias, kind, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = rowinv_norm_vjp(g, x, scale, None, ctx.kind,
+                                            ctx.eps)
+        return (dx, dscale, dbias if ctx.has_bias else None, None, None)
+
+
 def rowinv_norm(x: torch.Tensor, scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *, kind: str = "rms",
                 eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm (``kind="rms"``) or LayerNorm with bias (``"ln"``) over the
     last axis in fp32, cast back to x's dtype (fp32 or bf16 on CUDA); on
     CUDA one block a row, its sums in one order fixed by the row's
-    length."""
+    length.  Differentiable in x, scale and bias (:func:`rowinv_norm_vjp`)."""
     if kind not in _KINDS:
         raise ValueError(f"rowinv_norm: unknown kind {kind!r}")
     if kind == "ln" and bias is None:
         raise ValueError("rowinv_norm: LayerNorm needs a bias")
+    if kind != "ln":
+        bias = None
+    if not records_grad(x, scale, bias):
+        return _norm_forward(x, scale, bias, kind, eps)
+    return check_grad_fn(_NormFunction.apply(x, scale, bias, kind, eps),
+                         "rowinv_norm")
+
+
+def _norm_forward(x, scale, bias, kind: str, eps: float) -> torch.Tensor:
+    """The norm's forward: the plain version on CPU tensors, the kernel on
+    CUDA ones."""
     tensors = [x, scale] + ([bias] if kind == "ln" else [])
     if all(t.device.type == "cpu" for t in tensors):
         return rowinv_norm_reference(x, scale, bias, kind, eps)
     if len({t.device for t in tensors}) != 1 or x.device.type != "cuda":
         raise ValueError(f"rowinv_norm: operands on one cpu or cuda device, "
                          f"got {[t.device for t in tensors]}")
+    return _norm_launch(x, scale, bias, kind, eps)
+
+
+def _norm_launch(x, scale, bias, kind: str, eps: float) -> torch.Tensor:
+    """One launch of the norm kernel on CUDA tensors."""
+    tensors = [x, scale] + ([bias] if kind == "ln" else [])
     if x.dtype not in _NORM_DTYPES:
         raise TypeError(f"rowinv_norm: the kernel takes float32 or bfloat16 "
                         f"rows, got {x.dtype}")

@@ -7,7 +7,9 @@ blocks, each with a dense or an MoE MLP, a vision front end's prefix
 (``frontend="vision"``) and an encoder-decoder (``encoder_periods`` > 0:
 an encoder of the same pattern, cross-attention in every decoder block,
 and, with ``frontend="audio"``, the frame projection in front of the
-encoder).  The training fields wait for their ROADMAP item.
+encoder), and the training fields (``remat``, ``n_microbatches``,
+``bf16_cast_params``) that ``models.lm.loss_fn`` and
+``launch.steps.make_train_step`` read.
 """
 from __future__ import annotations
 
@@ -59,10 +61,16 @@ class ModelConfig:
     quant: QuantConfig = QuantConfig()
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # Gradient-accumulation microbatches of the reference's full-size train
-    # shape; serving ignores it (the configs carry it as the reference's
-    # do, for the training item).
+    # Training: recompute each period's forward in the backward
+    # (torch.utils.checkpoint), the reference's jax.checkpoint
+    remat: bool = True
+    # Gradient-accumulation microbatches of the full-size train shape; the
+    # optimizer sees the mean gradient.  Serving ignores it.
     n_microbatches: int = 1
+    # Cast fp32 weight matrices to bf16 before use in the train step (the
+    # leaf rule is launch.steps.cast_params); fp32 master params stay in
+    # the optimizer and gradients accumulate in fp32.
+    bf16_cast_params: bool = True
 
     @property
     def n_layers(self) -> int:

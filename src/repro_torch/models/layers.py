@@ -1,7 +1,8 @@
 """Model building blocks (port of ``repro.models.layers``): RMSNorm and
-LayerNorm, RoPE, the MLP (gated or plain), GQA attention for prefill
-(chunked, against the KV cache) and one-token decode, and the
-encoder-decoder's cross-attention over a precomputed memory.
+LayerNorm, RoPE, the MLP (gated or plain), GQA attention for training
+(chunked causal over the whole sequence), prefill (chunked, against the KV
+cache) and one-token decode, and the encoder-decoder's cross-attention
+over a precomputed memory.
 
 Plain functions on tensors and parameter dicts, in the reference's layouts:
 activations (B, S, d), heads (B, S, H, D), caches (B, Smax, K, D).  Every
@@ -177,6 +178,32 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               device=q.device)
         outs.append(_attend(qr[:, ci], kt, vt, mask, d ** -0.5))
     return torch.stack(outs, dim=1).reshape(b, s, h, d)
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             chunk: int = 256) -> torch.Tensor:
+    """The reference's alias: :func:`chunked_attention`, causal."""
+    return chunked_attention(q, k, v, causal=True, chunk=chunk)
+
+
+def attn_train(p: Params, x: torch.Tensor, cfg, quant, name: str,
+               positions: Optional[torch.Tensor] = None,
+               chunk: int = 256) -> torch.Tensor:
+    """Causal self-attention over a whole training sequence x (B, S, d):
+    projections, RoPE at ``positions`` (default 0..S-1), chunked causal
+    attention, output projection.  The reference recomputes each query
+    chunk's scores in the backward (``jax.checkpoint``); here the period's
+    remat (``models.lm._scan_blocks``) already bounds them to one layer."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, quant, name)
+    pos = positions if positions is not None else torch.arange(
+        s, dtype=torch.int32, device=x.device)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    out = chunked_causal_attention(q, k, v, chunk=chunk)
+    out = out.reshape(b, s, cfg.q_dim)
+    return maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
 
 
 def cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

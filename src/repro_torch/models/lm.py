@@ -1,8 +1,12 @@
-"""Model assembly for serving (port of ``repro.models.lm``): attention,
-mamba and RWKV blocks with a dense or an MoE MLP, a vision front end's
-prefix and the encoder-decoder; parameters, embeddings and head, the cache
-(K/V for attention, the carried state for mamba and RWKV), ``prefill`` and
-``decode_step``.
+"""Model assembly (port of ``repro.models.lm``): attention, mamba and RWKV
+blocks with a dense or an MoE MLP, a vision front end's prefix and the
+encoder-decoder; parameters, embeddings and head, the cache (K/V for
+attention, the carried state for mamba and RWKV), ``prefill`` and
+``decode_step`` for serving, and the training forward: ``forward_hidden``,
+``forward_train`` (logits and the MoE aux loss) and ``loss_fn`` (next-token
+cross-entropy with a sequence-chunked, recomputing head).  Training runs
+attention blocks only (dense, MoE, the vision prefix, the
+encoder-decoder); a mamba or RWKV block raises ``NotImplementedError``.
 
 Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
 {"pos0": {...}}}`` with block parameters stacked over periods on axis 0
@@ -29,6 +33,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -41,6 +46,8 @@ from repro_torch.quant.qmatmul import maybe_quantized_matmul
 Params = Dict[str, Any]
 
 PREFILL_CHUNK = 2048
+AUX_COEF = 0.01
+LOSS_CHUNK = 512
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -265,19 +272,27 @@ def _period(tree, i: int):
 
 
 def _tail(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int,
-          mem=None) -> torch.Tensor:
+          mem=None, with_aux: bool = False):
     """A block after its mixer's residual: the cross-attention residual
     over ``mem`` ((k, v) of this period, enc-dec decoder blocks), then the
-    MLP's (dense or MoE)."""
+    MLP's (dense or MoE).  With ``with_aux`` (training) the pair (x, the
+    MoE aux loss, 0 for a dense MLP)."""
     if mem is not None:
         h = L.norm_apply(p["lnx"], x)
         x = x + L.xattn_apply(p["xattn"], h, mem[0], mem[1], cfg, cfg.quant,
                               f"blk{pos}.xattn")
     h = L.norm_apply(p["ln2"], x)
     if cfg.pattern[pos].moe:
-        return x + M.moe_apply(p["moe"], h, cfg, cfg.quant, f"blk{pos}.moe")
-    return x + L.mlp_apply(p["mlp"], h, cfg.act, cfg.glu, cfg.quant,
-                           f"blk{pos}.mlp")
+        y = M.moe_apply(p["moe"], h, cfg, cfg.quant, f"blk{pos}.moe",
+                        with_aux=with_aux)
+    else:
+        y = L.mlp_apply(p["mlp"], h, cfg.act, cfg.glu, cfg.quant,
+                        f"blk{pos}.mlp")
+        if with_aux:
+            y = (y, torch.zeros((), dtype=torch.float32, device=x.device))
+    if with_aux:
+        return x + y[0], y[1]
+    return x + y
 
 
 def _period_mem(mem, i: int, pos: int):
@@ -307,35 +322,58 @@ def _attn_bidir(p: Params, x: torch.Tensor, cfg: ModelConfig, quant,
     return maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
 
 
-def _block_train(p: Params, x: torch.Tensor, spec, cfg: ModelConfig,
-                 pos: int, mem=None, causal: bool = True) -> torch.Tensor:
-    """One block over a whole sequence, as the encoder runs it: a
-    bidirectional attention block with a dense or MoE MLP.  The causal,
-    mamba and rwkv branches are the training forward's."""
-    if spec.kind != "attn" or causal:
+def _check_trainable(cfg: ModelConfig) -> None:
+    kinds = sorted({spec.kind for spec in cfg.pattern} - {"attn"})
+    if kinds:
         raise NotImplementedError(
-            f"the full-sequence forward of a "
-            f"{'causal ' if spec.kind == 'attn' else ''}{spec.kind} block "
-            f"is training's, not ported yet (ROADMAP queue 1, item 3); "
-            f"serving runs only the encoder's bidirectional attention "
-            f"blocks this way")
+            f"training {cfg.name}: the full-sequence forward of "
+            f"{' and '.join(kinds)} blocks with a gradient through their "
+            f"scan kernels is not ported yet (ROADMAP queue 1, item 3)")
+
+
+def _block_train(p: Params, x: torch.Tensor, spec, cfg: ModelConfig,
+                 pos: int, mem=None, causal: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention block over a whole sequence: causal (training's
+    decoder) or bidirectional (the encoder), then :func:`_tail`.  Returns
+    (x, the block's MoE aux loss, 0 for a dense MLP)."""
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"the full-sequence forward of a {spec.kind} block with a "
+            f"gradient is not ported yet (ROADMAP queue 1, item 3)")
+    name = f"blk{pos}.{spec.kind}"
     h = L.norm_apply(p["ln1"], x)
-    y = _attn_bidir(p["attn"], h, cfg, cfg.quant, f"blk{pos}.{spec.kind}")
-    return _tail(p, x + y, cfg, pos, mem)
+    attn = L.attn_train if causal else _attn_bidir
+    y = attn(p["attn"], h, cfg, cfg.quant, name)
+    return _tail(p, x + y, cfg, pos, mem, with_aux=True)
 
 
 def _scan_blocks(stack: Params, x: torch.Tensor, cfg: ModelConfig,
-                 mem=None, causal: bool = True) -> torch.Tensor:
+                 mem=None, causal: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The period-stacked blocks of ``stack`` (its depth is its leading
     axis) over the whole sequence ``x``; ``mem`` is period-stacked like
-    the blocks.  The reference also returns the MoE aux loss, which
-    serving does not use."""
+    the blocks.  Returns (x, the MoE aux losses summed in block order).
+    Under ``cfg.remat``, where autograd records, each period runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, so its quantized GEMMs launch twice a
+    step."""
+    def period(x, aux, pp, i):
+        for pos, spec in enumerate(cfg.pattern):
+            x, a = _block_train(pp[f"pos{pos}"], x, spec, cfg, pos,
+                                mem=_period_mem(mem, i, pos), causal=causal)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(stack["pos0"]["ln1"]["scale"].shape[0]):
         pp = _period(stack, i)
-        for pos, spec in enumerate(cfg.pattern):
-            x = _block_train(pp[f"pos{pos}"], x, spec, cfg, pos,
-                             mem=_period_mem(mem, i, pos), causal=causal)
-    return x
+        if remat:
+            x, aux = checkpoint(period, x, aux, pp, i, use_reentrant=False)
+        else:
+            x, aux = period(x, aux, pp, i)
+    return x, aux
 
 
 def _encdec_memory(params: Params, cfg: ModelConfig, ex: torch.Tensor
@@ -363,9 +401,108 @@ def _encode(params: Params, cfg: ModelConfig, enc_frames: torch.Tensor
                          f"enc_frames")
     ex = (_frontend_project(params, cfg, enc_frames)
           if cfg.frontend == "audio" else enc_frames.to(_cdtype(cfg)))
-    ex = _scan_blocks(params["encoder"], ex, cfg, causal=False)
+    ex, _ = _scan_blocks(params["encoder"], ex, cfg, causal=False)
     ex = L.norm_apply(params["enc_ln_f"], ex)
     return _encdec_memory(params, cfg, ex)
+
+
+# ---------------------------------------------------------------------------
+# Train path.
+# ---------------------------------------------------------------------------
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   frontend_embeds: Optional[torch.Tensor] = None,
+                   enc_frames: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S_txt) -> (final hidden (B, S, d), aux loss): a vision
+    model's projected ``frontend_embeds`` go before the tokens (S =
+    frontend_tokens + S_txt); an encoder-decoder runs ``enc_frames``
+    through the encoder (its aux loss counted too) to every decoder
+    block's cross-attention memory."""
+    _check_ported(cfg)
+    _check_trainable(cfg)
+    x = _embed(params, cfg, tokens)
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        fx = _frontend_project(params, cfg, frontend_embeds)
+        x = torch.cat([fx.to(x.dtype), x], dim=1)
+    mem = None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: training "
+                             f"needs enc_frames")
+        ex = (_frontend_project(params, cfg, enc_frames)
+              if cfg.frontend == "audio" else enc_frames.to(_cdtype(cfg)))
+        ex, aux_e = _scan_blocks(params["encoder"], ex, cfg, causal=False)
+        ex = L.norm_apply(params["enc_ln_f"], ex)
+        aux_total = aux_total + aux_e
+        mem = _encdec_memory(params, cfg, ex)
+    x, aux = _scan_blocks(params["blocks"], x, cfg, mem=mem, causal=True)
+    return x, aux_total + aux
+
+
+def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor] = None,
+                  enc_frames: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S_txt) -> (logits (B, S, V), aux loss)."""
+    x, aux = forward_hidden(params, cfg, tokens,
+                            frontend_embeds=frontend_embeds,
+                            enc_frames=enc_frames)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy (mean over ``mask``) + ``AUX_COEF`` x the
+    MoE aux loss, with a sequence-chunked, recomputing head.
+
+    The (B, S, V) logits are never materialized: the head GEMM and the CE
+    reduce run per sequence chunk of at most ``LOSS_CHUNK`` under
+    ``torch.utils.checkpoint`` where autograd records, so the backward
+    recomputes each chunk's logits (the head's GEMM launches twice a
+    chunk).  The gold logit is an ``iota == label`` select, as the
+    reference's.  A vision prefix's positions are stripped before the
+    head."""
+    x, aux = forward_hidden(
+        params, cfg, batch["tokens"],
+        frontend_embeds=batch.get("frontend_embeds"),
+        enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:        # vision prefix tokens: strip
+        x = x[:, -labels.shape[1]:, :]
+    x = L.norm_apply(params["ln_f"], x)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    iota = torch.arange(cfg.padded_vocab, dtype=labels.dtype,
+                        device=labels.device)[None, None, :]
+
+    def chunk_ce(xc, lc, mc):
+        logits = maybe_quantized_matmul(xc, w, cfg.quant, "lm_head")
+        logits = _mask_padded_vocab(cfg, logits).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.where(iota == lc[..., None], logits,
+                           torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)).sum(-1)
+        return ((logz - gold) * mc).sum()
+
+    s = x.shape[1]
+    chunk = min(LOSS_CHUNK, s)
+    while s % chunk:
+        chunk //= 2
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ci in range(s // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        args = (x[:, sl], labels[:, sl], mask[:, sl])
+        total = total + (checkpoint(chunk_ce, *args, use_reentrant=False)
+                         if remat else chunk_ce(*args))
+    ce = total / mask.sum().clamp_min(1.0)
+    return ce + AUX_COEF * aux
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,

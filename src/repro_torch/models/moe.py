@@ -26,8 +26,9 @@ Numerics that follow the reference:
     fixed-order sum replace the scatter-add, so the result is the same on
     every run (``index_add_`` on CUDA adds with atomics in no fixed order).
 
-The Switch load-balance loss is training-only and not on the serve path:
-:func:`load_balance_loss` computes it from :func:`route`'s outputs.
+The Switch load-balance loss is training's: ``moe_apply(...,
+with_aux=True)`` returns it beside the output, as the reference's
+``moe_apply`` does, through :func:`load_balance_loss`; serving drops it.
 
 Dispatch metrics.  The reference observes every dispatch's live tokens per
 expert and its capacity drops through ``jax.debug.callback``, which runs on
@@ -36,6 +37,9 @@ sync and break a decode graph's capture, so with metrics enabled each layer
 keeps persistent device accumulators (:class:`_DispatchAccum`: the
 histogram's bucket counts, sum and count, and the drops) that the step
 updates in place with capturable ops; a graph captured so replays them.
+The updates are integer and outside autograd; a training step's backward
+that recomputes a period (remat) routes again, and that recomputed
+dispatch is not observed: each dispatch counts once, in the forward.
 The registry folds them into ``repro_moe_tokens_per_expert`` and
 ``repro_moe_dropped_tokens_total`` only when it is read
 (``obs.metrics.snapshot`` / ``prometheus_text`` / ``collect``).  With
@@ -219,7 +223,7 @@ def route(p: Params, x: torch.Tensor, cfg, quant, name: str) -> Routing:
     keep = torch.gather(keep_sorted, 1, inv).reshape(b, s, k)
     # each token's choices in ascending expert order (the combine's order)
     asc = torch.argsort(expert_ids, dim=-1)
-    if obs_metrics.enabled():
+    if obs_metrics.enabled() and not _in_backward():
         _observe_dispatch(name, live, b * s * k)
     return Routing(
         probs=probs,
@@ -231,9 +235,15 @@ def route(p: Params, x: torch.Tensor, cfg, quant, name: str) -> Routing:
         cap=cap)
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg, quant,
-              name: str) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+def _in_backward() -> bool:
+    """True while autograd runs a backward (a remat recompute)."""
+    return torch._C._current_graph_task_id() != -1
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg, quant, name: str, *,
+              with_aux: bool = False):
+    """x: (B, S, d) -> (B, S, d); with ``with_aux`` (training) the pair
+    (out, the Switch load-balance loss)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     r = route(p, x, cfg, quant, name)
@@ -272,6 +282,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, quant,
     out = torch.zeros((b, s, d), dtype=flat.dtype, device=x.device)
     for j in range(k):
         out = out + contrib[:, :, j]
+    if with_aux:
+        return out, load_balance_loss(r, e)
     return out
 
 

@@ -37,7 +37,18 @@ Pre-quantized weights (``{"q", "scale"}`` records from
 scale go to the same GEMM uncopied on the fused route (cast only where the
 kernel's carrier is wider than the storage: int16 -> int32 above w = 16).
 
-Not ported yet: the straight-through backward (training).
+Training (the reference's ``custom_vjp`` cores): where autograd records
+(grad enabled and x or W requiring grad), the two entry points run through
+three ``torch.autograd.Function`` classes — dense, batched and ragged — whose
+forward is the quantize-then-GEMM above, unchanged (on CUDA the kernels),
+and whose backward is the straight-through estimator: ``dx = g @ W^T`` and
+``dw = x^T @ g`` in fp32 ATen matmuls on the saved unquantized x and W,
+cast to their dtypes (the ragged core masks g to the live rows first and
+gives ``counts`` no gradient).  ``round`` has a zero derivative, so the
+quantizer must not be differentiated through: the Functions are the
+gradient on every device.  Elsewhere (serving, under ``no_grad`` or
+``inference_mode``) the GEMM runs without them.  :func:`prequant_matmul`
+stays inference only.
 """
 from __future__ import annotations
 
@@ -51,7 +62,7 @@ from repro_torch.core.context import ExecContext
 from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_plan
 from repro_torch.core.kmm import (default_mm1, kmm_n, max_exact_k, mm_n,
                                   plan_accum_k_bound)
-from repro_torch.kernels import ops
+from repro_torch.kernels import check_grad_fn, ops, records_grad
 from repro_torch.kernels.fused_gemm import (fused_gemm, fused_gemm_grouped,
                                             ragged_row_mask)
 from repro_torch.obs import metrics as obs_metrics
@@ -317,6 +328,95 @@ def _quant_gemm(qx, qw, sx, sw, w: int, m: int, out_dtype,
     return out
 
 
+def _qmm_forward(x, wmat, w_bits, m, context):
+    carrier = carrier_dtype(w_bits, m)
+    qx, sx = _quantize(x, w_bits, -1, carrier)        # per token
+    qw, sw = _quantize(wmat, w_bits, 0, carrier)      # per output channel
+    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context)
+
+
+def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None):
+    carrier = carrier_dtype(w_bits, m)
+    qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
+    qw, sw = _quantize(wmat, w_bits, 1, carrier)      # per (expert, channel)
+    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context, counts,
+                       seg)
+
+
+# ---------------------------------------------------------------------------
+# Straight-through backward: the reference's three custom_vjp cores.
+# ---------------------------------------------------------------------------
+
+
+class _QmmCore(torch.autograd.Function):
+    """Dense core: (..., K) @ (K, N); the reference's ``_qmm_core``."""
+
+    @staticmethod
+    def forward(ctx, x, wmat, w_bits, m, context):
+        ctx.save_for_backward(x, wmat)
+        return _qmm_forward(x, wmat, w_bits, m, context)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wmat = ctx.saved_tensors
+        f32 = torch.float32
+        gf = g.to(f32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(gf, wmat.to(f32).T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1]).to(f32)
+            dw = (x2.T @ gf.reshape(-1, gf.shape[-1])).to(wmat.dtype)
+        return dx, dw, None, None, None
+
+
+def _batched_ste(ctx, x, wmat, gf):
+    f32 = torch.float32
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = torch.bmm(gf, wmat.to(f32).transpose(1, 2)).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        dw = torch.bmm(x.to(f32).transpose(1, 2), gf).to(wmat.dtype)
+    return dx, dw
+
+
+class _QbmmCore(torch.autograd.Function):
+    """Batched core: (E, C, K) @ (E, K, N); the reference's
+    ``_qbmm_core``."""
+
+    @staticmethod
+    def forward(ctx, x, wmat, w_bits, m, context):
+        ctx.save_for_backward(x, wmat)
+        return _qbmm_forward(x, wmat, w_bits, m, context)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wmat = ctx.saved_tensors
+        return _batched_ste(ctx, x, wmat, g.to(torch.float32)) + (
+            None, None, None)
+
+
+class _QbmmRaggedCore(torch.autograd.Function):
+    """Ragged batched core, the reference's ``_qbmm_ragged_core``: dead
+    rows of the forward output are exact zeros, so their cotangents are
+    masked out before the STE products; ``counts`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wmat, counts, w_bits, m, seg, context):
+        ctx.save_for_backward(x, wmat, counts)
+        ctx.seg = seg
+        return _qbmm_forward(x, wmat, w_bits, m, context, counts, seg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wmat, counts = ctx.saved_tensors
+        live = ragged_row_mask(counts, ctx.seg, x.shape[1])
+        gf = torch.where(live, g.to(torch.float32),
+                         torch.zeros((), dtype=torch.float32,
+                                     device=g.device))
+        return _batched_ste(ctx, x, wmat, gf) + (None,) * 5
+
+
 def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
                      m: int = 8, *,
                      context: Optional[ExecContext] = None) -> torch.Tensor:
@@ -324,12 +424,13 @@ def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
 
     ``wmat`` may be a strided view (the tied ``lm_head`` passes
     ``embed.T``): it is quantized as it is and made contiguous afterwards,
-    in the narrow carrier, before the launch.
+    in the narrow carrier, before the launch; its STE gradient reaches the
+    tensor it views.
     """
-    carrier = carrier_dtype(w_bits, m)
-    qx, sx = _quantize(x, w_bits, -1, carrier)        # per token
-    qw, sw = _quantize(wmat, w_bits, 0, carrier)      # per output channel
-    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context)
+    if records_grad(x, wmat):
+        return check_grad_fn(
+            _QmmCore.apply(x, wmat, w_bits, m, context), "quantized_matmul")
+    return _qmm_forward(x, wmat, w_bits, m, context)
 
 
 def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
@@ -352,11 +453,14 @@ def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
                          f"{tuple(x.shape)} x {tuple(wmat.shape)}")
     if counts is not None and (seg is None or seg <= 0):
         raise ValueError("ragged counts need a positive static seg")
-    carrier = carrier_dtype(w_bits, m)
-    qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
-    qw, sw = _quantize(wmat, w_bits, 1, carrier)      # per (expert, channel)
-    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context, counts,
-                       seg)
+    if not records_grad(x, wmat):
+        return _qbmm_forward(x, wmat, w_bits, m, context, counts, seg)
+    if counts is None:
+        out = _QbmmCore.apply(x, wmat, w_bits, m, context)
+    else:
+        out = _QbmmRaggedCore.apply(x, wmat, counts, w_bits, m, seg,
+                                    context)
+    return check_grad_fn(out, "quantized_matmul_batched")
 
 
 def _model_context(quant) -> ExecContext:
@@ -374,7 +478,11 @@ def prequant_matmul(x: torch.Tensor, wrec, w_bits: int, m: int = 8, *,
     x is quantized per token (per (expert, row)); the record's codes and
     per-channel scale go to the kernel as they are stored, converted only
     where the carrier is wider than the storage (w > 16: int16 -> int32).
-    Inference only."""
+    Inference only: an ``x`` that autograd would differentiate raises."""
+    if records_grad(x):
+        raise RuntimeError("prequant_matmul is inference only: its record "
+                           "has no gradient and x's would be wrong; train "
+                           "on the fp32 leaves (quantized_matmul)")
     if batched and (x.dim() != 3 or wrec["q"].dim() != 3):
         raise ValueError(f"need (E, C, K) x (E, K, N), got "
                          f"{tuple(x.shape)} x {tuple(wrec['q'].shape)}")
