@@ -310,12 +310,26 @@ the analytic traffic model) adds:
       ported while they cannot be read).
 
 Training (launch/steps.py, train/{optim,loop,checkpoint}.py, the STE
-cores of quant/qmatmul.py and the norm's backward in kernels/rowinv.py)
-adds:
+cores of quant/qmatmul.py, the norm's and the LoRA matmul's backwards in
+kernels/rowinv.py and, since recurrent training, the backward kernels of
+csrc/wkv.cu and csrc/ssm_scan.cu) adds:
 
-  5t. the smoke llama and granite in float32 under mixed: loss and every
-      gradient leaf, card against CPU (TRAIN_SMOKE_LOSS_RTOL,
-      TRAIN_SMOKE_TOL); full-width
+  3w. (its backward half) the WKV backward kernel against its plain
+      reverse sweep (``allclose`` at rtol BWD_TOL, atol BWD_TOL x each
+      gradient's largest entry, on dr, dk, dv, dw and du) at rwkv6-3b's
+      train microbatch (2 x 256, 40 heads of 64) and D = 16, 8 and 4, a
+      second launch torch.equal to the first; timed beside its bound (the
+      function's own bytes and operations), this design's bound with its
+      state scratch written and read (``scratch_bound_ms``) and its plain
+      version;
+  3s. (its backward half) the scan's backward kernel the same way (dx,
+      d delta, db, dc, dz in bf16 within one ulp, da, d d_skip) at
+      jamba's train microbatch (1 x 256, d_inner 8192, d_state 16, bf16
+      z) and d_state 8 and 4;
+
+  5t. the smoke llama, granite, rwkv6-3b and jamba in float32 under
+      mixed: loss and every gradient leaf, card against CPU
+      (TRAIN_SMOKE_LOSS_RTOL, TRAIN_SMOKE_TOL); full-width
       llama3.2-1b under mixed (seq 256, global batch 8, its 2
       microbatches, fp32 params from a seeded generator, the bf16 compute
       copy): step 1's loss and gradients with the kernels against the
@@ -334,12 +348,29 @@ adds:
       its 32 periods, 8 microbatches: the ragged STE at its expert shape
       (dead rows get exactly zero dx), step 1 against the plain versions,
       every leaf's gradient nonzero, 2 counted steps with the grouped
-      kernel carrying every expert GEMM.
+      kernel carrying every expert GEMM; rwkv6-3b at full width, 24 of
+      its 32 periods (TRAIN_RWKV_PERIODS: the whole model would need ~85
+      GB), 4 microbatches: step 1 with every launch (the LoRA products,
+      the WKV forward and backward too) against its plain version and
+      against the step on the plain versions, every leaf's gradient (u,
+      w0, mix, the LoRA and ln_x too) finite and nonzero, the same step
+      under quant none, kernels against plain versions, in bf16 (the
+      TRAIN_PLAIN_* gates) and fp32 compute (TRAIN_FP32_*: no code flip and
+      no bf16 rounding carries a last bit there), and the kernels' step
+      with the WKV output one ulp off (reported), 2 counted steps
+      with exactly the derived launches (per rwkv layer and microbatch
+      under remat 7 GEMMs, 2 LoRA products, 3 norms and the WKV forward
+      twice, its backward once); one full-width jamba mamba layer's
+      ``mamba_apply`` forward and backward at seq 256 (no whole jamba step
+      trains on one card: one 8-layer period holds ~12.8 B params, ~400 GB
+      of training state), every launch against its plain version, the
+      gradients against the plain versions', exact launches, ms and peak
+      memory.
 
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
-rowinv_norm and ssm_scan); the last line is ``{"ok": true, "device":
-{...}}``.  The
+rowinv_norm, ssm_scan, wkv_bwd and ssm_scan_bwd); the last line is
+``{"ok": true, "device": {...}}``.  The
 details go to
 ``chiprun_out/chip_smoke.json`` beside this script.
 """
@@ -523,6 +554,23 @@ SSM_CASES = (
        ("S=37 d_inner=200", 3, 37, 200, 16, True, True, "bfloat16",
         False)])
 SSM_SOURCE = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+# The backward kernels (training, port-only: the TPU kernel has none, the
+# reference differentiates its jnp scans).  Their plain versions are
+# explicit reverse sweeps in ATen, the same fp32 products summed in other
+# orders, so each gradient is held allclose at rtol BWD_TOL with an atol of
+# BWD_TOL times its largest entry (dz in bf16: rtol 2^-7, one bf16 ulp);
+# written before the first card run.  WKV cases (label, B, S, H, D, timed):
+# rwkv6-3b's train microbatch (2 x 256, 40 heads of 64) and the smaller
+# head sizes; scan cases (label, B, S, d_inner, d_state, z dtype, timed):
+# jamba's train microbatch (1 x 256, d_inner 8192, d_state 16, bf16 z) and
+# the smaller state sizes.
+BWD_TOL = 1e-4
+WKV_BWD_CASES = [("rwkv6-3b train", 2, 256, WKV_HEADS, WKV_D, True),
+                 ("smoke D=16", 2, 32, 4, 16, False),
+                 ("D=8", 3, 20, 5, 8, False), ("D=4", 2, 37, 5, 4, False)]
+SSM_BWD_CASES = [("jamba train", 1, 256, SSM_DI, SSM_DS, "bfloat16", True),
+                 ("d_state=8", 2, 64, 512, 8, "bfloat16", False),
+                 ("d_state=4 fp32 z", 2, 37, 200, 4, "float32", False)]
 # Selective-scan launches per prefill and per decode step: one a mamba
 # layer (jamba: 7 of every 8, 28 of 32).
 SSM_PER_CALL = {"jamba-v0.1-52b": 28}
@@ -1454,6 +1502,144 @@ def ssm_checks(torch):
                f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}) | plain "
                f"{row['plain_ms']:.3f} ms ({row['plain_host_ms']:.3f})"
                if timed else ""))
+    return rows
+
+
+def bwd_close(torch, got, want) -> tuple:
+    """(within BWD_TOL, max abs err): allclose at rtol BWD_TOL (one bf16
+    ulp for bf16 outputs) and atol BWD_TOL x the largest entry, finite."""
+    g, w = got.float(), want.float()
+    rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else BWD_TOL
+    err = float((g - w).abs().max())
+    ok = (got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(g).all())
+          and bool(torch.allclose(g, w, rtol=rtol,
+                                  atol=BWD_TOL * float(w.abs().max()))))
+    return ok, err
+
+
+def wkv_bwd_bound_ms(b: int, s: int, h: int, d: int, scratch: bool = False):
+    """Least time for one WKV backward: r, k, v, w, dy read and dr, dk, dv,
+    dw written once (u and du beside them) at the card's memory rate, or its
+    ~20 fp32 operations a state element and step (the forward's update
+    again, then dr, dk, dv, dw, dS) at the fp32 peak.  With ``scratch``,
+    the bound of this design, whose state scratch (every S_{t-1}, B H S D^2
+    floats) is written and read once besides: not the function's."""
+    nbytes = 4 * (9 * b * s * h * d + 2 * h * d
+                  + (2 * b * h * s * d * d if scratch else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 20 * b * h * s * d * d / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssm_bwd_bound_ms(b: int, s: int, di: int, ds: int, z_bytes: int,
+                     scratch: bool = False):
+    """Least time for one scan backward: x, delta, z, dy, b, c, a and
+    d_skip read once and dx, d delta, dz, db, dc, da and d d_skip written
+    once at the card's memory rate, or its ~18 DS + 20 fp32 operations a
+    (row, channel, step) at the fp32 peak.  With ``scratch``, the bound of
+    this design, whose state scratch (every h_t, B S di DS floats) is
+    written and read once besides: not the function's."""
+    nbytes = (b * s * di * (5 * 4 + 2 * z_bytes) + 4 * 4 * b * s * ds
+              + 2 * 4 * di * (ds + 1)
+              + (2 * 4 * b * s * di * ds if scratch else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = b * s * di * (18 * ds + 20) / PEAK_FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bwd_case(torch, what: str, names, kernel, plain, timed: bool,
+             bound, scratch_bound) -> dict:
+    """One backward check: the kernel's gradients against the plain
+    version's (:func:`bwd_close`), a second launch torch.equal to the first
+    (no float atomics), timed where asked behind a sleep lead; ``bound`` is
+    the function's, ``scratch_bound`` this design's with its state
+    scratch."""
+    got, want = kernel(), plain()
+    again = kernel()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, p in zip(names, got, want):
+        ok, errs[name] = bwd_close(torch, g, p)
+        if not ok:
+            fail(f"{what}: {name} of the kernel differs from its plain "
+                 f"version (max abs err {errs[name]}, tolerance {BWD_TOL})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what}: a second launch differs from the first")
+    row = {"max_abs_err": errs, "repeats_bit_for_bit": True}
+    if timed:
+        row["host_ms"] = cuda_ms(torch, kernel, iters=10)
+        row["ms"] = cuda_ms(torch, kernel, iters=10,
+                            lead_ms=2 * 10 * row["host_ms"] + 1)
+        row["plain_host_ms"] = cuda_ms(torch, plain, iters=2, warmup=1)
+        row["plain_ms"] = cuda_ms(torch, plain, iters=2, warmup=1,
+                                  lead_ms=2 * 2 * row["plain_host_ms"] + 1)
+        row["bound_ms"], row["bound_by"] = bound
+        row["scratch_bound_ms"] = scratch_bound[0]
+    log(f"  {what}: allclose ({BWD_TOL}), max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; repeats bit for bit"
+        + (f" | kernel {row['ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+           f"({row['bound_by']}; {row['ms'] / row['bound_ms']:.1f}x), with "
+           f"this design's state scratch {row['scratch_bound_ms']:.4f} ms "
+           f"| plain {row['plain_ms']:.2f} ms" if timed else ""))
+    return row
+
+
+def wkv_bwd_checks(torch):
+    """Phase 3w's backward half: the WKV backward kernel against its plain
+    version (:func:`bwd_case`) at every WKV_BWD_CASES entry."""
+    from repro_torch.kernels import wkv_gemm as W
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = []
+    for label, b, s, h, d, timed in WKV_BWD_CASES:
+        shape = (b, s, h, d)
+        r, k, v = (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                   for _ in range(3))
+        w = torch.rand(shape, generator=gen, device="cuda") * 0.199 + 0.8
+        u = torch.randn((h, d), generator=gen, device="cuda") * 0.1
+        dy = torch.randn(shape, generator=gen, device="cuda")
+        row = bwd_case(
+            torch, f"wkv_bwd {label} B={b} S={s} H={h} D={d}",
+            ("dr", "dk", "dv", "dw", "du"),
+            lambda: W._bwd_launch(r, k, v, w, u, dy),
+            lambda: W.wkv_vjp_reference(r, k, v, w, u, dy), timed,
+            wkv_bwd_bound_ms(b, s, h, d),
+            wkv_bwd_bound_ms(b, s, h, d, scratch=True))
+        row.update({"case": label, "B": b, "S": s, "H": h, "D": d})
+        rows.append(row)
+    return rows
+
+
+def ssm_bwd_checks(torch):
+    """Phase 3s's backward half: the scan's backward kernel against its
+    plain version (:func:`bwd_case`) at every SSM_BWD_CASES entry."""
+    from repro_torch.kernels import ssm_scan as K
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    rows = []
+    for label, b, s, di, ds, zdt, timed in SSM_BWD_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x, z = rnd(b, s, di), rnd(b, s, di).to(getattr(torch, zdt))
+        delta = torch.nn.functional.softplus(rnd(b, s, di) - 2.0)
+        bm, cm, dy = rnd(b, s, ds), rnd(b, s, ds), rnd(b, s, di)
+        a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device="cuda").repeat(di, 1)
+        d_skip = torch.ones(di, device="cuda")
+        ops = (x, delta, bm, cm, z, a, d_skip, dy)
+        row = bwd_case(
+            torch,
+            f"ssm_scan_bwd {label} B={b} S={s} di={di} ds={ds} z {zdt}",
+            ("dx", "ddelta", "db", "dc", "dz", "da", "dd_skip"),
+            lambda: K._bwd_launch(*ops),
+            lambda: K.ssm_scan_vjp_reference(*ops), timed,
+            ssm_bwd_bound_ms(b, s, di, ds, z.element_size()),
+            ssm_bwd_bound_ms(b, s, di, ds, z.element_size(), scratch=True))
+        row.update({"case": label, "B": b, "S": s, "d_inner": di,
+                    "d_state": ds, "z_dtype": zdt})
+        rows.append(row)
     return rows
 
 
@@ -3985,7 +4171,8 @@ def _leaves(tree):
 
 def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                    launches_by_path, staged_rows, sweep_staged, table_runs,
-                   wkv_rows, rowinv_rows, ssm_rows):
+                   wkv_rows, rowinv_rows, ssm_rows, wkv_bwd_rows,
+                   ssm_bwd_rows):
     """One entry per kernel (dense and grouped; mm1, kmm2, mm2 and kmm4)
     for the result line.  ``launches`` sums the wrapper's counts over the
     last counted run of every serve path and phase 5t's counted train
@@ -4210,6 +4397,35 @@ def kernel_entries(rows, grouped_rows, sweep_rows, split_rows,
                  f"d_state={row['d_state']}, bf16 z, state in and out "
                  f"(B=1 S=64 masked as prefill_*)",
     })
+    # The backward kernels, port-only (the TPU kernel has no backward; the
+    # reference differentiates its jnp scans), at the train shapes:
+    # rwkv6-3b's microbatch (2 x 256, 40 heads of 64) and jamba's (1 x 256,
+    # d_inner 8192, d_state 16, bf16 z); launches over phase 5t's counted
+    # runs.  No library call computes either.
+    for name, rows, replaces, shape in (
+            ("wkv_bwd", wkv_bwd_rows,
+             "src/repro/models/rwkv.py:143 (XLA's autodiff of the jnp "
+             "scan; the TPU kernel wkv_gemm.py:33 has no backward)",
+             "B={B} S={S} H={H} D={D}, fp32, from a zero state"),
+            ("ssm_scan_bwd", ssm_bwd_rows,
+             "src/repro/models/ssm.py:136 (XLA's autodiff of the "
+             "associative scan; no TPU kernel)",
+             "B={B} S={S} d_inner={d_inner} d_state={d_state}, {z_dtype} "
+             "z, from a zero state")):
+        row = next(r for r in rows if "ms" in r)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": WKV_SOURCE if name == "wkv_bwd" else SSM_SOURCE,
+            "replaces": replaces,
+            "launches": sum(c["host"].get(name, 0)
+                            for c in launches_by_path.values()),
+            "max_abs_err": max(max(r["max_abs_err"].values())
+                               for r in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": shape.format(**row),
+            "scratch_bound_ms": row["scratch_bound_ms"],
+        })
     return out
 
 
@@ -4475,6 +4691,17 @@ def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
 # batch 8, each config's microbatches.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
 TRAIN_GRANITE_PERIODS, TRAIN_GRANITE_STEPS = 4, 2
+# rwkv6-3b cut to 24 of its 32 periods, as far as the card allows: a step
+# peaks at ~30 bytes a param (NVIDIA H100 80GB HBM3, 700 W: 47.26 GB at 16
+# periods, 1.600 B params; 67.14 GB at 24, 2.232 B), so its 2.86 B params
+# would need ~85 GB and 26 periods ~71 GB beside what earlier phases hold.
+# 2 counted steps, its 4 microbatches.
+TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 24, 2
+# jamba trains no whole step on one card (one 8-layer period alone holds
+# ~12.8 B params, ~400 GB of training state): one full-width mamba layer's
+# mamba_apply, forward and backward at seq 256 on one sequence (a
+# microbatch of jamba's 8), timed over JAMBA_BLOCK_RUNS runs.
+JAMBA_BLOCK_RUNS = 3
 # The smoke models in float32, card against CPU: the loss within
 # TRAIN_SMOKE_LOSS_RTOL relative, every gradient leaf within
 # TRAIN_SMOKE_TOL of its largest entry.  The norm kernel and ATen's norm
@@ -4499,17 +4726,40 @@ TRAIN_SMOKE_TOL = 5e-3
 # gradient leaf by its relative L2 distance.  A card run (NVIDIA H100
 # 80GB HBM3, 700 W) measured 1.0e-4 / 3.6e-5 (loss) and 2.1e-2 / 3.0e-2 (worst leaf: llama's
 # blk mlp.wg, granite's router) for llama / granite; the gates leave 10x
-# and 3x of room.  A gradient cut at a kernel (zero, or missing a path) is
-# off by order 1.
+# and 3x of room.  rwkv6-3b at 24 periods measured 1.0e-4 (loss) and
+# 7.08e-2 (blk w_lora_b; every leaf 3-7e-2, 5.68e-2 at 16 periods): 1.4x
+# of room.  That distance is the chain's, not a kernel's: w=8 codes and
+# bf16 roundings carry any last-bit difference this far at this depth.
+# The kernels' own step with only the WKV output moved, one ulp on half
+# its entries (wkv_output_jitter), lands 3.4e-2 (median leaf 2.9e-2)
+# from it, half the kernels' distance for a smaller change than theirs,
+# and in fp32 compute the kernels sit 5.0e-6 from their plain versions
+# (below).  The reading is a fixed function of
+# the seeds on deterministic kernels (two card runs gave 7.075e-2 to the
+# digit), so it does not wander across the gate; the gate is for faults of
+# order 1, and TRAIN_FP32_* below hold the recurrent kernels to 1e-4.  A
+# gradient cut at a kernel (zero, or missing a path) is off by order 1.
 TRAIN_PLAIN_LOSS_RTOL = 1e-3
 TRAIN_PLAIN_GRAD_RTOL = 0.1
+# rwkv6-3b's step 1 again under quant none (the same params and batch),
+# kernels against plain versions, where no code can flip.  In bf16 compute
+# it is held to the gates above: a bf16 rounding carries the kernels' last
+# bits as a code flip does, and the card (NVIDIA H100 80GB HBM3, 700 W)
+# read 7.9e-5 (loss) and 2.8e-2 at 24 periods (blk rwkv.mix), so the codes
+# add the rest of mixed's 7.08e-2.  In fp32 compute nothing carries them:
+# the card read 5.0e-6 (rwkv.u) and a loss equal to the bit, so
+# TRAIN_FP32_* hold the recurrent kernels to 20x that, far below a fault
+# of order 1.
+TRAIN_FP32_LOSS_RTOL = 1e-5
+TRAIN_FP32_GRAD_RTOL = 1e-4
 
 
 def train_launches(cfg, steps: int, seq: int) -> dict:
     """The kernel launches of ``steps`` train steps, by launch-count key:
-    per microbatch each period's quantized GEMMs and norms run twice under
-    remat (forward and the backward's recompute), the head's GEMM twice
-    a loss chunk (its checkpoint), ln_f once; the microbatches multiply."""
+    per microbatch each period's quantized GEMMs, norms, LoRA products and
+    scan forwards run twice under remat (forward and the backward's
+    recompute) and its scan backwards once, the head's GEMM twice a loss
+    chunk (its checkpoint), ln_f once; the microbatches multiply."""
     from repro_torch.kernels import fused_gemm as fg
     from repro_torch.models import lm
 
@@ -4522,25 +4772,38 @@ def train_launches(cfg, steps: int, seq: int) -> dict:
         out[key] = out.get(key, 0) + n
 
     remat = 2 if cfg.remat else 1
+    per = remat * cfg.n_periods
     for pos, spec in enumerate(cfg.pattern):
-        if spec.kind != "attn":
+        add("rowinv_norm", 2 * per)                  # ln1, ln2
+        if spec.kind == "attn":
+            names = [f"blk{pos}.attn.w{p}" for p in "qkvo"]
+        elif spec.kind == "rwkv":
+            names = [f"blk{pos}.rwkv.w{p}" for p in "rkvgo"]
+            add("rowinv_norm", per)                  # ln_x
+            add("rowinv_matmul", 2 * per)            # the decay's LoRA
+            add("wkv", per)
+            add("wkv_bwd", cfg.n_periods)
+        elif spec.kind == "mamba":
+            names = [f"blk{pos}.mamba.{p}" for p in
+                     ("in_proj", "x_proj", "dt_proj", "out_proj")]
+            add("ssm_scan", per)
+            add("ssm_scan_bwd", cfg.n_periods)
+        else:
             raise ValueError(f"no training launches for {spec.kind}")
-        names = [f"blk{pos}.attn.w{p}" for p in "qkvo"]
         if spec.moe:
             names.append(f"blk{pos}.moe.router")
             for p in ("wi", "wg", "wo") if cfg.glu else ("wi", "wo"):
-                add(f"grouped_{mode(f'blk{pos}.moe.{p}')}",
-                    remat * cfg.n_periods)
+                add(f"grouped_{mode(f'blk{pos}.moe.{p}')}", per)
         else:
             names += [f"blk{pos}.mlp.{p}" for p in (
                 ("wi", "wg", "wo") if cfg.glu else ("wi", "wo"))]
         for name in names:
-            add(f"dense_{mode(name)}", remat * cfg.n_periods)
+            add(f"dense_{mode(name)}", per)
     chunk = min(lm.LOSS_CHUNK, seq)
     while seq % chunk:
         chunk //= 2
     add(f"dense_{mode('lm_head')}", 2 * (seq // chunk))
-    add("rowinv_norm", remat * 2 * cfg.n_layers + 1)
+    add("rowinv_norm", 1)                            # ln_f
     micro = max(cfg.n_microbatches, 1) * steps
     return {k: n * micro for k, n in out.items()}
 
@@ -4556,68 +4819,131 @@ def plain_launch(fg):
     return launch
 
 
+def launch_seams(fg) -> list:
+    """Every kernel launch seam of the train path, (name, module,
+    attribute, the plain version with the seam's signature, its gate, the
+    indices of the states it writes in place): the fused GEMM (dense
+    and grouped; torch.equal), the norm and the LoRA matmul (5r's
+    tolerance), the WKV and scan forwards (3w's and 3s's) and backwards
+    (BWD_TOL)."""
+    from repro_torch.kernels import rowinv, ssm_scan, wkv_gemm
+
+    def wkv_plain(r, k, v, w, u, state0, state_out, kernel=None):
+        b, _, h, d = r.shape
+        st0 = state0 if state0 is not None else r.new_zeros((b, h, d, d))
+        y, st = wkv_gemm.wkv_stateful_reference(r, k, v, w, u, st0)
+        if state_out is not None:
+            state_out.copy_(st)
+        return y
+
+    def scan_plain(x, delta, b, c, z, a, d_skip, h, mask):
+        y, st = ssm_scan.ssm_scan_reference(x, delta, b, c, z, a, d_skip,
+                                            h, mask)
+        h.copy_(st)
+        return y
+
+    return [("fused", fg, "_launch", plain_launch(fg), "equal", ()),
+            ("rowinv_norm", rowinv, "_norm_launch",
+             rowinv.rowinv_norm_reference, "norm", ()),
+            ("rowinv_matmul", rowinv, "_matmul_launch",
+             rowinv.rowinv_matmul_reference, ROWINV_TOL, ()),
+            ("wkv", wkv_gemm, "_launch", wkv_plain, (WKV_TOL, WKV_TOL),
+             (6,)),
+            ("wkv_bwd", wkv_gemm, "_bwd_launch", wkv_gemm.wkv_vjp_reference,
+             "bwd", ()),
+            ("ssm_scan", ssm_scan, "_launch", scan_plain,
+             (SSM_TOL, SSM_TOL), (7,)),
+            ("ssm_scan_bwd", ssm_scan, "_bwd_launch",
+             ssm_scan.ssm_scan_vjp_reference, "bwd", ())]
+
+
 @contextlib.contextmanager
 def plain_kernels(fg):
-    """Every fused GEMM and norm launch replaced by the kernel's plain
+    """Every kernel launch of the train path replaced by the kernel's plain
     version on the same CUDA tensors (counting nothing)."""
-    from repro_torch.kernels import rowinv
-    launch, norm = fg._launch, rowinv._norm_launch
-    fg._launch = plain_launch(fg)
-    rowinv._norm_launch = rowinv.rowinv_norm_reference
+    seams = launch_seams(fg)
+    saved = [getattr(mod, attr) for _, mod, attr, *_ in seams]
+    for _, mod, attr, plain, *_ in seams:
+        setattr(mod, attr, plain)
     try:
         yield
     finally:
-        fg._launch, rowinv._norm_launch = launch, norm
+        for (_, mod, attr, *_), fn in zip(seams, saved):
+            setattr(mod, attr, fn)
 
 
 @contextlib.contextmanager
 def checked_kernels(torch, fg, what: str):
-    """Every fused GEMM and norm launch also runs the kernel's plain
-    version on the same operands and fails on a difference: a fused GEMM's
-    output must be torch.equal to its plain version's (phase 3's gate), a
-    norm's within ROWINV_TOL (fp32 rows) or one bf16 ulp (bf16 rows), 5r's
-    gate.  Yields {(kernel, shape): launches checked}; the plain versions
-    count nothing, the kernels count as they always do."""
-    from repro_torch.kernels import rowinv
-    launch, norm = fg._launch, rowinv._norm_launch
-    plain = plain_launch(fg)
+    """Every kernel launch of the train path also runs the kernel's plain
+    version on the same operands (a state written in place given to each
+    as it was) and fails on a difference: a fused GEMM's output must be
+    torch.equal to its plain version's (phase 3's gate), a norm's within
+    ROWINV_TOL (fp32 rows) or one bf16 ulp (bf16 rows), 5r's gate, the LoRA
+    matmul's within ROWINV_TOL, the WKV and scan forwards' (y and the
+    state) within WKV_TOL and SSM_TOL, their backwards' gradients within
+    BWD_TOL (:func:`bwd_close`); rtol with an atol of that fraction of the
+    output's largest entry.  Yields {(kernel, shape): launches checked};
+    the plain versions count nothing, the kernels count as they always
+    do."""
+    seams = launch_seams(fg)
+    saved = [getattr(mod, attr) for _, mod, attr, *_ in seams]
     seen: dict = {}
 
-    def checked_launch(a, b, sx, sw, counts, *, seg, **kw):
-        out = launch(a, b, sx, sw, counts, seg=seg, **kw)
-        ref = plain(a, b, sx, sw, counts, seg=seg, **kw)
-        kind = ("grouped_" if a.dim() == 3 else "dense_") + kw["mode"]
-        shape = tuple(a.shape) + (b.shape[-1],)
-        if not torch.equal(out, ref):
-            bad = int((out != ref).sum())
-            fail(f"{what}: {kind} at {shape} (ragged: {counts is not None})"
-                 f" differs from its plain version in {bad} of "
-                 f"{out.numel()} outputs")
-        seen[(kind, shape)] = seen.get((kind, shape), 0) + 1
-        return out
+    def close(out, ref, gate):
+        if gate == "equal":
+            return torch.equal(out, ref), int((out != ref).sum())
+        if gate == "bwd":
+            return bwd_close(torch, out, ref)
+        if gate == "norm":
+            rtol, atol = ROWINV_TOL
+            if out.dtype == torch.bfloat16:
+                rtol = 2.0 ** -7
+            diff = (out.float() - ref.float()).abs()
+            return (not int((diff > rtol * ref.float().abs() + atol).sum()),
+                    float(diff.max()))
+        rtol, atol = gate
+        ok = bool(torch.isfinite(out).all()) and torch.allclose(
+            out.float(), ref.float(), rtol=rtol,
+            atol=atol * float(ref.abs().max()))
+        return ok, float((out.float() - ref.float()).abs().max())
 
-    def checked_norm(x, scale, bias, kind, eps):
-        out = norm(x, scale, bias, kind, eps)
-        ref = rowinv.rowinv_norm_reference(x, scale, bias, kind, eps)
-        rtol, atol = ROWINV_TOL
-        if out.dtype == torch.bfloat16:
-            rtol = 2.0 ** -7
-        diff = (out.float() - ref.float()).abs()
-        n_out = int((diff > rtol * ref.float().abs() + atol).sum())
-        shape = tuple(x.shape)
-        if n_out:
-            fail(f"{what}: rowinv_norm ({kind}, {x.dtype}) at {shape}: "
-                 f"{n_out} outputs outside the tolerance of its plain "
-                 f"version (max |diff| {float(diff.max())})")
-        key = (f"rowinv_norm_{kind}", shape)
-        seen[key] = seen.get(key, 0) + 1
-        return out
+    def checked(name, kernel, plain, gate, written):
+        def run(*args, **kw):
+            # the states the kernel writes in place: the plain version gets
+            # copies (wherever it is passed them), and both are compared
+            copies = {id(args[i]): args[i].clone() for i in written
+                      if args[i] is not None}
+            mine = [copies.get(id(a), a) if isinstance(a, torch.Tensor)
+                    else a for a in args]
+            out = kernel(*args, **kw)
+            ref = plain(*mine, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            outs += tuple(args[i] for i in written if args[i] is not None)
+            refs += tuple(mine[i] for i in written if args[i] is not None)
+            kind, shape = name, tuple(args[0].shape)
+            if name == "fused":
+                kind = ("grouped_" if args[0].dim() == 3 else "dense_") + \
+                    kw["mode"]
+                shape += (args[1].shape[-1],)
+            elif name == "rowinv_norm":
+                kind = f"rowinv_norm_{args[3]}"
+            for o, r in zip(outs, refs):
+                ok, err = close(o, r, gate)
+                if not ok:
+                    fail(f"{what}: {kind} at {shape} differs from its "
+                         f"plain version ({err}; gate {gate})")
+            seen[(kind, shape)] = seen.get((kind, shape), 0) + 1
+            return out
+        return run
 
-    fg._launch, rowinv._norm_launch = checked_launch, checked_norm
+    for (name, mod, attr, plain, gate, written), fn in zip(seams, saved):
+        setattr(mod, attr, checked(name, fn, plain, gate, written))
     try:
         yield seen
     finally:
-        fg._launch, rowinv._norm_launch = launch, norm
+        for (_, mod, attr, *_), fn in zip(seams, saved):
+            setattr(mod, attr, fn)
 
 
 def train_batch(torch, cfg, step: int = 0, seq: int = TRAIN_SEQ,
@@ -4705,11 +5031,15 @@ def train_smoke_parity(torch, fg, arch: str) -> dict:
             "card_rerun_max_rel_err": rerun}
 
 
-def train_vs_plain(torch, fg, what: str, cfg, params, batch) -> dict:
+def train_vs_plain(torch, fg, what: str, cfg, params, batch,
+                   floor: bool = False) -> dict:
     """Step 1 at the train shapes with every kernel launch held against its
     plain version on the same operands (:func:`checked_kernels`), and its
     loss and gradients against the same step run on the plain versions;
-    every kernel-run leaf finite and nonzero."""
+    every kernel-run leaf finite and nonzero.  With ``floor``, the kernels'
+    step again under :func:`wkv_output_jitter`, its distance from the
+    kernels' step reported beside (the distance a last-bit difference
+    makes)."""
     from repro_torch.launch import steps
     t0 = time.monotonic()
     with checked_kernels(torch, fg, what) as seen:
@@ -4719,22 +5049,18 @@ def train_vs_plain(torch, fg, what: str, cfg, params, batch) -> dict:
     if not seen:
         fail(f"{what}: step 1 launched no kernel")
     log(f"  {what} step 1: every kernel launch held against its plain "
-        f"version on the same operands (fused GEMMs torch.equal, norms "
-        f"within 5r's tolerance), {sum(seen.values())} launches at "
+        f"version on the same operands (fused GEMMs torch.equal, norms and "
+        f"LoRA products within 5r's tolerance, the scans within 3w's and "
+        f"3s's, their backwards within BWD_TOL), {sum(seen.values())} "
+        f"launches at "
         + ", ".join(f"{k} {'x'.join(map(str, sh))} ({n})"
                     for (k, sh), n in sorted(seen.items())))
     t0 = time.monotonic()
     with plain_kernels(fg):
         loss_p, grads_p = steps.mean_loss_and_grads(cfg, params, batch)
     t_p = time.monotonic() - t0
-    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    plain = grads_by_leaf(grads_p)
-    errs = {}
-    for name, g in grads_by_leaf(grads_k).items():
-        ref = plain[name]
-        errs[name] = float(torch.linalg.vector_norm(g - ref)
-                           / torch.linalg.vector_norm(ref))
-    worst = max(errs, key=errs.get)
+    loss_err, errs, worst = step_distance(torch, loss_k, grads_k, loss_p,
+                                          grads_p)
     log(f"  {what} step 1, kernels vs plain versions on the card: loss "
         f"{float(loss_k):.6f} vs {float(loss_p):.6f} ({loss_err:.2e} "
         f"relative); gradients' relative L2 distance at most "
@@ -4748,12 +5074,110 @@ def train_vs_plain(torch, fg, what: str, cfg, params, batch) -> dict:
     if errs[worst] > TRAIN_PLAIN_GRAD_RTOL:
         fail(f"{what}: the gradient of {worst} with the kernels is "
              f"{errs[worst]} (relative L2) from the plain versions'")
+    del grads_p
+    out = {"loss": float(loss_k), "plain_loss": float(loss_p),
+           "loss_rel_err": loss_err, "grad_rel_l2": errs,
+           "grad_norms": norms, "s_kernels_checked": t_k, "s_plain": t_p,
+           "checked_launches": {f"{k} {'x'.join(map(str, sh))}": n
+                                for (k, sh), n in sorted(seen.items())}}
+    if floor:
+        with wkv_output_jitter(torch):
+            loss_j, grads_j = steps.mean_loss_and_grads(cfg, params, batch)
+        j_loss, j_errs, j_worst = step_distance(torch, loss_j, grads_j,
+                                                loss_k, grads_k)
+        log(f"  {what} step 1, the kernels' step with the WKV forward's "
+            f"output one fp32 ulp off on half its entries, against the "
+            f"kernels' step: loss {j_loss:.2e} relative; gradients' "
+            f"relative L2 distance at most {j_errs[j_worst]:.2e} "
+            f"({j_worst}), median "
+            f"{statistics.median(j_errs.values()):.2e} (kernels vs plain: "
+            f"median {statistics.median(errs.values()):.2e})")
+        out["jitter_floor"] = {"loss_rel_err": j_loss, "grad_rel_l2": j_errs}
+        del grads_j
+    del grads_k
+    return out
+
+
+def step_distance(torch, loss_k, grads_k, loss_p, grads_p):
+    """(the loss's relative error, {leaf: relative L2 distance}, the worst
+    leaf) of a step's loss and gradients against another run's."""
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    plain = grads_by_leaf(grads_p)
+    errs = {}
+    for name, g in grads_by_leaf(grads_k).items():
+        ref = plain[name]
+        errs[name] = float(torch.linalg.vector_norm(g - ref)
+                           / torch.linalg.vector_norm(ref))
+    return loss_err, errs, max(errs, key=errs.get)
+
+
+@contextlib.contextmanager
+def wkv_output_jitter(torch):
+    """The WKV forward kernel's output moved one fp32 ulp, up or down, on a
+    random half of its entries (the same entries at every call of a shape,
+    so remat's recompute sees what the forward saw): a change smaller than
+    the kernel's distance from its plain version (phase 3w), to read how
+    far the train step carries a last-bit difference."""
+    from repro_torch.kernels import wkv_gemm
+    launch = wkv_gemm._launch
+
+    def jittered(*args, **kw):
+        y = launch(*args, **kw)
+        gen = torch.Generator(device=y.device).manual_seed(1)
+        pick = torch.rand(y.shape, generator=gen, device=y.device) < 0.5
+        up = torch.rand(y.shape, generator=gen, device=y.device) < 0.5
+        inf = torch.full_like(y, float("inf"))
+        return torch.where(pick, torch.nextafter(
+            y, torch.where(up, inf, -inf)), y)
+
+    wkv_gemm._launch = jittered
+    try:
+        yield
+    finally:
+        wkv_gemm._launch = launch
+
+
+def train_none_vs_plain(torch, fg, what: str, cfg, params, batch,
+                        loss_rtol: float, grad_rtol: float) -> dict:
+    """Step 1 under quant none with the kernels (unchecked: the WKV forward
+    and backward, the LoRA products, the norms) against the same step on
+    their plain versions, the loss within ``loss_rtol`` relative and every
+    leaf within ``grad_rtol`` relative L2.  Nothing is quantized, so no
+    activation code can flip: what is left is the kernels' own fp32 orders,
+    carried through the config's compute dtype."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps
+    reset_all(fg)
+    t0 = time.monotonic()
+    loss_k, grads_k = steps.mean_loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    t_k = time.monotonic() - t0
+    ran = {k: n for k, n in launch_counts().items() if n}
+    if not all(ran.get(k) for k in ("wkv", "wkv_bwd", "rowinv_matmul",
+                                    "rowinv_norm")):
+        fail(f"{what}: step 1 did not launch every recurrent kernel: {ran}")
+    t0 = time.monotonic()
+    with plain_kernels(fg):
+        loss_p, grads_p = steps.mean_loss_and_grads(cfg, params, batch)
+    t_p = time.monotonic() - t0
+    loss_err, errs, worst = step_distance(torch, loss_k, grads_k, loss_p,
+                                          grads_p)
+    log(f"  {what} step 1, kernels vs plain versions on the card (no code "
+        f"can flip): loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+        f"({loss_err:.2e} relative); gradients' relative L2 distance at "
+        f"most {errs[worst]:.2e} ({worst}; gate {grad_rtol}); launches "
+        f"{ran}; {t_k:.1f} s with the kernels, {t_p:.1f} s plain")
+    if loss_err > loss_rtol:
+        fail(f"{what}: step 1's loss with the kernels {float(loss_k)} vs "
+             f"{float(loss_p)} with their plain versions")
+    if errs[worst] > grad_rtol:
+        fail(f"{what}: the gradient of {worst} with the kernels is "
+             f"{errs[worst]} (relative L2) from the plain versions'")
     del grads_k, grads_p
-    return {"loss": float(loss_k), "plain_loss": float(loss_p),
-            "loss_rel_err": loss_err, "grad_rel_l2": errs,
-            "grad_norms": norms, "s_kernels_checked": t_k, "s_plain": t_p,
-            "checked_launches": {f"{k} {'x'.join(map(str, sh))}": n
-                                 for (k, sh), n in sorted(seen.items())}}
+    return {"compute_dtype": cfg.compute_dtype, "loss": float(loss_k),
+            "plain_loss": float(loss_p), "loss_rel_err": loss_err,
+            "grad_rel_l2": errs, "launches": ran, "s_kernels": t_k,
+            "s_plain": t_p}
 
 
 def counted_training(torch, fg, what: str, cfg, tc, dcfg, expect: dict):
@@ -4772,7 +5196,8 @@ def counted_training(torch, fg, what: str, cfg, tc, dcfg, expect: dict):
     wall = time.monotonic() - t0
     host = nonzero(launch_counts())
     routes = qmatmul.gemm_routes()
-    gemms = sum(n for k, n in expect.items() if k != "rowinv_norm")
+    gemms = sum(n for k, n in expect.items()
+                if k.startswith(("dense_", "grouped_")))
     if host != expect:
         fail(f"{what}: launches {host}, expected {expect}: a quantized "
              f"GEMM or a norm bypassed its kernel")
@@ -4865,6 +5290,87 @@ def deterministic(torch):
     return ctx()
 
 
+def mamba_block_train(torch, fg) -> dict:
+    """Phase 5t, jamba: one full-width mamba layer (d 4096, d_inner 8192,
+    d_state 16, dt rank 256) under mixed, fp32 params from a seeded
+    generator and their bf16 compute copy, ``mamba_apply`` forward and
+    backward on one sequence of TRAIN_SEQ: every launch against its plain
+    version (:func:`checked_kernels`), the gradients against the same run
+    on the plain versions (TRAIN_PLAIN_GRAD_RTOL), every gradient finite
+    and nonzero, exactly one launch of each GEMM, the scan and its
+    backward a run; fwd + bwd ms and peak GB over JAMBA_BLOCK_RUNS runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import ssm as S
+
+    cfg = get_config("jamba-v0.1-52b", quant="mixed")
+    name = "blk0.mamba"
+    gen = torch.Generator("cuda").manual_seed(5)
+    params = S.mamba_init(gen, cfg, torch.float32, "cuda")
+    x0 = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    g = torch.randn(x0.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def run():
+        leaves = {k: t.detach().requires_grad_() for k, t in params.items()}
+        x = x0.clone().requires_grad_()
+        tree = steps.cast_params(cfg, {"mamba": leaves})["mamba"]
+        out = S.mamba_apply(tree, x, cfg, cfg.quant, name)
+        grads = torch.autograd.grad(out, [x] + list(leaves.values()), g)
+        return {"x": grads[0], **dict(zip(leaves, grads[1:]))}
+
+    def mode(p):
+        return fg.resolve(cfg.quant.bits_for(f"{name}.{p}"), cfg.quant.m)[0]
+
+    expect: dict = {"ssm_scan": 1, "ssm_scan_bwd": 1}
+    for p in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+        expect[f"dense_{mode(p)}"] = expect.get(f"dense_{mode(p)}", 0) + 1
+    what = "jamba mamba block train (full width, seq 256)"
+    with checked_kernels(torch, fg, what) as seen:
+        grads_k = run()
+    norms = check_grads(what, torch, grads_k)
+    with plain_kernels(fg):
+        grads_p = run()
+    errs = {k: float(torch.linalg.vector_norm(v.float() - p.float())
+                     / torch.linalg.vector_norm(p.float()))
+            for (k, v), p in zip(grads_k.items(), grads_p.values())}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > TRAIN_PLAIN_GRAD_RTOL:
+        fail(f"{what}: the gradient of {worst} with the kernels is "
+             f"{errs[worst]} (relative L2) from the plain versions'")
+    del grads_k, grads_p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(JAMBA_BLOCK_RUNS):
+        reset_all(fg)
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.monotonic() - t0))
+        host = nonzero(launch_counts())
+        if host != expect:
+            fail(f"{what}: launches {host}, expected {expect}")
+    out = {"launches": {"host": host}, "ms": times,
+           "steady_ms": statistics.mean(times[1:]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "grad_rel_l2": errs, "grad_norms": norms,
+           "checked_launches": {f"{k} {'x'.join(map(str, sh))}": n
+                                for (k, sh), n in sorted(seen.items())}}
+    log(f"  {what}: every launch held against its plain version ("
+        + ", ".join(f"{k} {'x'.join(map(str, sh))} ({n})"
+                    for (k, sh), n in sorted(seen.items()))
+        + f"); gradients vs the plain versions' at most {errs[worst]:.2e} "
+        f"relative L2 ({worst}), {len(norms)} finite and nonzero; launches "
+        f"{host} a run (exact); fwd + bwd {out['steady_ms']:.1f} ms after "
+        f"the first ({times[0]:.1f}), peak {out['peak_gb']:.2f} GB.  No "
+        f"whole jamba step trains on one card: one 8-layer period holds "
+        f"~12.8 B params, ~400 GB of training state")
+    return out
+
+
 def train_phase(torch, fg) -> dict:
     """Phase 5t (see the module docstring)."""
     import shutil
@@ -4875,13 +5381,15 @@ def train_phase(torch, fg) -> dict:
     from repro_torch.train.loop import TrainConfig, run_training
 
     report: dict = {"smoke": {a: train_smoke_parity(torch, fg, a) for a in
-                              ("llama3.2-1b", "granite-moe-3b-a800m")}}
+                              ("llama3.2-1b", "granite-moe-3b-a800m",
+                               "rwkv6-3b", "jamba-v0.1-52b")}}
     ocfg = optim.AdamWConfig(lr=1e-4, warmup_steps=1,
                              total_steps=TRAIN_STEPS)
     for arch, periods, n_steps in (
             ("llama3.2-1b", None, TRAIN_STEPS),
             ("granite-moe-3b-a800m", TRAIN_GRANITE_PERIODS,
-             TRAIN_GRANITE_STEPS)):
+             TRAIN_GRANITE_STEPS),
+            ("rwkv6-3b", TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS)):
         cfg = get_config(arch, quant="mixed")
         what = f"{arch} train mixed"
         if periods:
@@ -4898,7 +5406,23 @@ def train_phase(torch, fg) -> dict:
                                 device="cuda")
         rep["params"] = param_count(params)
         rep["step1"] = train_vs_plain(torch, fg, what, cfg, params,
-                                      train_batch(torch, cfg))
+                                      train_batch(torch, cfg),
+                                      floor=arch == "rwkv6-3b")
+        if arch == "rwkv6-3b":
+            # where step 1's distance comes from: quant none in bf16 (no
+            # code flips) and in fp32 (no bf16 rounding to carry it)
+            for dtype, gates in (("bfloat16", (TRAIN_PLAIN_LOSS_RTOL,
+                                               TRAIN_PLAIN_GRAD_RTOL)),
+                                 ("float32", (TRAIN_FP32_LOSS_RTOL,
+                                              TRAIN_FP32_GRAD_RTOL))):
+                ncfg = dataclasses.replace(
+                    get_config(arch, quant="none"), n_periods=cfg.n_periods,
+                    compute_dtype=dtype,
+                    bf16_cast_params=dtype == "bfloat16")
+                rep[f"step1_none_{dtype}"] = train_none_vs_plain(
+                    torch, fg, f"{arch} train none {dtype}, {periods} "
+                    f"periods", ncfg, params, train_batch(torch, ncfg),
+                    *gates)
         del params
         torch.cuda.empty_cache()
         expect = train_launches(cfg, n_steps, TRAIN_SEQ)
@@ -4968,6 +5492,7 @@ def train_phase(torch, fg) -> dict:
         del straight, resumed, mine, theirs
         gc.collect()
         torch.cuda.empty_cache()
+    report["jamba-v0.1-52b"] = {"mamba_block": mamba_block_train(torch, fg)}
     return report
 
 
@@ -5076,11 +5601,17 @@ def main() -> int:
     log(f"[3w] WKV kernel vs plain version (allclose, rtol = atol = "
         f"{WKV_TOL})")
     wkv_rows = wkv_checks(torch)
+    log(f"[3w] WKV backward kernel vs plain version (allclose, rtol "
+        f"{BWD_TOL}, atol {BWD_TOL} x the largest entry)")
+    wkv_bwd_rows = wkv_bwd_checks(torch)
     seconds["wkv_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
     log(f"[3s] selective-scan kernel vs plain version (allclose, rtol = "
         f"atol = {SSM_TOL})")
     ssm_rows = ssm_checks(torch)
+    log(f"[3s] selective-scan backward kernel vs plain version (allclose, "
+        f"rtol {BWD_TOL}, atol {BWD_TOL} x the largest entry)")
+    ssm_bwd_rows = ssm_bwd_checks(torch)
     seconds["ssm_checks"] = time.monotonic() - t0
     t0 = time.monotonic()
     log("[3k] the ATen route (digit recursion on ATen leaf products): card "
@@ -5161,13 +5692,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[5t] training: the smoke models card vs CPU, full-width llama "
-        "(4 steps, restart) and granite at 4 periods under mixed")
+        "(4 steps, restart), granite at 4 periods and rwkv6-3b at 24 under "
+        "mixed; one full-width jamba mamba block")
     t0 = time.monotonic()
     train = train_phase(torch, fg)
     seconds["train"] = time.monotonic() - t0
-    for arch in ("llama3.2-1b", "granite-moe-3b-a800m"):
+    for arch in ("llama3.2-1b", "granite-moe-3b-a800m", "rwkv6-3b"):
         launches_by_path[f"{arch} train mixed"] = \
             train[arch]["counted"]["launches"]
+    launches_by_path["jamba-v0.1-52b mamba block train"] = \
+        train["jamba-v0.1-52b"]["mamba_block"]["launches"]
     torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
@@ -5178,7 +5712,8 @@ def main() -> int:
               "staged_sweep": sweep_staged,
               "staged_depth2": depth2_rows, "run_plan_classes": class_rows,
               "kmm2_vs_mm2": kvm_rows, "wkv_shapes": wkv_rows,
-              "ssm_scan_shapes": ssm_rows,
+              "ssm_scan_shapes": ssm_rows, "wkv_bwd_shapes": wkv_bwd_rows,
+              "ssm_scan_bwd_shapes": ssm_bwd_rows,
               "tuner": tuner,
               "smoke_max_abs_logit_diff": smoke_diff, "engines": engines,
               "launches_by_path": launches_by_path,
@@ -5198,7 +5733,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
-        ssm_rows)}),
+        ssm_rows, wkv_bwd_rows, ssm_bwd_rows)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -154,3 +154,13 @@ def entry(name: str, fn: str, n_ptr: int, n_int: int):
     func.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                      + [ctypes.c_void_p])
     return func
+
+
+def ask(name: str, fn: str, *args: int) -> int:
+    """The int that C entry point ``fn`` of library ``name`` returns for the
+    int arguments ``args``: a layout query of the source (no launch), so a
+    wrapper sizes its buffers by what the kernel writes."""
+    func = getattr(load(name), fn)
+    func.restype = ctypes.c_int
+    func.argtypes = [ctypes.c_int] * len(args)
+    return func(*args)

@@ -64,6 +64,36 @@
 //
 // D is a template parameter (16 and 64, the configs' head sizes, and 4 and
 // 8, the reference tests' smaller ones); other D are refused.
+//
+// The backward (`wkv_bwd_launch`, training) is port-only: the TPU kernel
+// has none, and the reference's gradient is XLA's autodiff of its jnp scan
+// (src/repro/models/rwkv.py:135-146).  From a zero state, with dS_t the
+// gradient reaching S_t from later steps (zero after the last step):
+//
+//     dr_t[i] = sum_j dy_t[j] (S_{t-1}[i, j] + u[i] k_t[i] v_t[j])
+//     dk_t[i] = sum_j v_t[j] e_t[i, j],  dv_t[j] = sum_i k_t[i] e_t[i, j]
+//         where e_t[i, j] = dS_t[i, j] + r_t[i] u[i] dy_t[j]
+//     dw_t[i] = sum_j dS_t[i, j] S_{t-1}[i, j]
+//     du[i]   = sum_{b, t} r_t[i] k_t[i] sum_j dy_t[j] v_t[j]
+//     dS_{t-1}[i, j] = w_t[i] dS_t[i, j] + r_t[i] dy_t[j]
+//
+// A simple kernel that is right first.  A block owns CW columns of one
+// head's state (CW = 16 at D = 64, four blocks a head; the whole state
+// below), one thread a row i.  Pass 1 re-runs the forward over its columns
+// (the forward kernel's state update, so the same bits) and writes each
+// S_{t-1} to a scratch of B H S D^2 floats; pass 2 sweeps t backwards with
+// the thread's CW entries of dS in registers, reading S_{t-1} back.  The
+// sums over j (dr, dk, dw, and sum_j dy v for du) run in the thread in
+// order of j; dv's sum over i goes through shared memory, thread j < CW
+// adding the D rows in order (double buffered: one barrier a step).
+// Column blocks write dr, dk, dw and du as partial sums the wrapper adds
+// in a fixed order: no float atomics, so a run repeats itself bit for bit;
+// `wkv_bwd_parts` tells the wrapper how many.  The function's own bound on
+// this card is its ~20 fp32 operations a state element and step (the
+// streams r, k, v, w, dy read once and dr, dk, dv, dw written once move
+// 4 (9 B S H D + 2 H D) bytes, less time at D = 64).  This design adds the
+// state scratch, written and read once: 8 B H S D^2 bytes, which chunk
+// checkpoints would remove.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -390,6 +420,127 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward.
+
+template <int D_>
+struct BwdCfg {
+  static constexpr int D = D_;
+  static constexpr int CW = D < 16 ? D : 16;   // state columns a block
+  static constexpr int NCB = D / CW;           // column blocks a head
+  static_assert(CW % 4 == 0 && D % CW == 0, "columns");
+};
+
+struct BwdArgs {
+  const float* r;
+  const float* k;
+  const float* v;
+  const float* w;
+  const float* u;                        // (H, D) contiguous
+  const float* dy;                       // (B, S, H, D) contiguous
+  float* states;                         // (B, H, S, D, D) scratch
+  float* dr;                             // (NCB, B, S, H, D) partials
+  float* dk;
+  float* dv;                             // (B, S, H, D)
+  float* dw;                             // (NCB, B, S, H, D) partials
+  float* du;                             // (NCB, B, H, D) partials
+  int batch, seq, heads;
+  long long sb, ss, sh;
+};
+
+template <int D>
+__global__ void __launch_bounds__(D) wkv_bwd_kernel(const BwdArgs a) {
+  using C = BwdCfg<D>;
+  constexpr int CW = C::CW;
+  __shared__ float red[2][D][CW + 1];
+
+  const int i = threadIdx.x;                     // state row
+  const int cb = blockIdx.x % C::NCB;
+  const int n = blockIdx.x / C::NCB;             // b * heads + h
+  const int b = n / a.heads, h = n % a.heads;
+  const int j0 = cb * CW;
+  const long long off = b * a.sb + h * a.sh;
+  const float ui = a.u[h * D + i];
+  float* sp = a.states + (long long)n * a.seq * D * D + (long long)i * D + j0;
+
+  // Pass 1: the forward over this block's columns, S_{t-1} to scratch.
+  float st[CW];
+#pragma unroll
+  for (int c = 0; c < CW; ++c) st[c] = 0.0f;
+  for (int t = 0; t < a.seq; ++t) {
+    const long long o = off + t * a.ss;
+    const float kt = a.k[o + i], wt = a.w[o + i];
+    float* p = sp + (long long)t * D * D;
+#pragma unroll
+    for (int c = 0; c < CW; c += 4) {
+      *reinterpret_cast<float4*>(p + c) =
+          make_float4(st[c], st[c + 1], st[c + 2], st[c + 3]);
+    }
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const float kv = __fmul_rn(kt, a.v[o + j0 + c]);
+      st[c] = __fmaf_rn(wt, st[c], kv);
+    }
+  }
+
+  // Pass 2: backwards in t with dS in registers.
+  float ds[CW];
+#pragma unroll
+  for (int c = 0; c < CW; ++c) ds[c] = 0.0f;
+  float du = 0.0f;
+  const long long plane = (long long)a.batch * a.seq * a.heads * D;
+  for (int t = a.seq - 1; t >= 0; --t) {
+    const long long o = off + t * a.ss;
+    const long long oy = (((long long)b * a.seq + t) * a.heads + h) * D;
+    const float rt = a.r[o + i], kt = a.k[o + i], wt = a.w[o + i];
+    const float* p = sp + (long long)t * D * D;
+    float vv[CW], g[CW], prev[CW];
+#pragma unroll
+    for (int c = 0; c < CW; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c);
+      prev[c] = x.x; prev[c + 1] = x.y; prev[c + 2] = x.z; prev[c + 3] = x.w;
+    }
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      vv[c] = a.v[o + j0 + c];
+      g[c] = a.dy[oy + j0 + c];
+    }
+    const float ukv = __fmul_rn(ui, kt), ru = __fmul_rn(rt, ui);
+    float dr = 0.0f, dk = 0.0f, dw = 0.0f, gv = 0.0f;
+    float (&rw)[D][CW + 1] = red[t & 1];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      dr = __fmaf_rn(g[c], __fmaf_rn(ukv, vv[c], prev[c]), dr);
+      const float e = __fmaf_rn(ru, g[c], ds[c]);
+      dk = __fmaf_rn(vv[c], e, dk);
+      dw = __fmaf_rn(ds[c], prev[c], dw);
+      gv = __fmaf_rn(g[c], vv[c], gv);
+      rw[i][c] = __fmul_rn(kt, e);
+      ds[c] = __fmaf_rn(wt, ds[c], __fmul_rn(rt, g[c]));
+    }
+    du = __fmaf_rn(__fmul_rn(rt, kt), gv, du);
+    const long long op = cb * plane + oy + i;
+    a.dr[op] = dr;
+    a.dk[op] = dk;
+    a.dw[op] = dw;
+    __syncthreads();
+    if (i < CW) {
+      float s = rw[0][i];
+      for (int ii = 1; ii < D; ++ii) s = __fadd_rn(s, rw[ii][i]);
+      a.dv[oy + j0 + i] = s;
+    }
+  }
+  a.du[((long long)cb * a.batch * a.heads + n) * D + i] = du;
+}
+
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  const long long grid = (long long)a.batch * a.heads * BwdCfg<D>::NCB;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wkv_bwd_kernel<D><<<static_cast<unsigned>(grid), D, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The one C entry point: 0 on success, else a CUDA error code (the
@@ -438,6 +589,56 @@ extern "C" int wkv_launch(const float* r, const float* k, const float* v,
       return (int)launch<16>(a, stream);
     case 64:
       return (int)launch<64>(a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The partial sums the backward writes for dr, dk, dw and du at head size
+// d (its column blocks a head, BwdCfg<D>::NCB; 0 for a d it refuses): the
+// wrapper sizes its buffers by this, so the layout is decided here alone.
+extern "C" int wkv_bwd_parts(int d) {
+  switch (d) {
+    case 4:
+      return BwdCfg<4>::NCB;
+    case 8:
+      return BwdCfg<8>::NCB;
+    case 16:
+      return BwdCfg<16>::NCB;
+    case 64:
+      return BwdCfg<64>::NCB;
+    default:
+      return 0;
+  }
+}
+
+// The backward's C entry point: 0 on success, else a CUDA error code.
+// Streams as wkv_launch's (shared element strides sb, ss, sh, D
+// contiguous); u (H, D) and dy (B, S, H, D) contiguous; `states` a scratch
+// of B H S D^2 floats, 16-byte aligned; dr, dk, dw written as NCB partial
+// planes (NCB, B, S, H, D), du as (NCB, B, H, D), dv whole (B, S, H, D)
+// (NCB = wkv_bwd_parts(d)).
+extern "C" int wkv_bwd_launch(const float* r, const float* k, const float* v,
+                              const float* w, const float* u,
+                              const float* dy, float* states, float* dr,
+                              float* dk, float* dv, float* dw, float* du,
+                              int batch, int seq, int heads, int d, int sb,
+                              int ss, int sh, cudaStream_t stream) {
+  if (batch < 1 || seq < 1 || heads < 1
+      || reinterpret_cast<uintptr_t>(states) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  BwdArgs a{r, k, v, w, u, dy, states, dr, dk, dv, dw, du, batch, seq,
+            heads, sb, ss, sh};
+  switch (d) {
+    case 4:
+      return (int)launch_bwd<4>(a, stream);
+    case 8:
+      return (int)launch_bwd<8>(a, stream);
+    case 16:
+      return (int)launch_bwd<16>(a, stream);
+    case 64:
+      return (int)launch_bwd<64>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,12 +19,12 @@ before (so every CPU parity test against JAX is unchanged).  The kernels
 agree with the plain versions to fp32 rounding (their sums run in another
 order), not bit for bit.
 
-Training.  Where autograd records, :func:`rowinv_norm` runs as a
+Training.  Where autograd records, each runs as a
 ``torch.autograd.Function``: the forward as above (the kernel's output,
-filled through ctypes, has no ``grad_fn`` of its own) and the backward the
-norm's VJP in fp32 ATen ops on the saved input, as XLA's autodiff of the
-reference's ``norm_apply`` is plain XLA ops.  :func:`rowinv_matmul` stays
-forward only: on CUDA it raises where its output would need a gradient.
+filled through ctypes, has no ``grad_fn`` of its own) and the backward in
+fp32 ATen ops on the saved inputs, as XLA's autodiff of the reference's
+jnp ops is plain XLA ops: the norm's VJP (:func:`rowinv_norm_vjp`) and the
+matmul's two products (:func:`rowinv_matmul_vjp`).
 """
 from __future__ import annotations
 
@@ -114,20 +114,52 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def rowinv_matmul_vjp(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor):
+    """(dx, dw) of ``x @ w`` for the cotangent ``g``: ``g @ w^T`` and
+    ``x^T @ g`` over the flattened rows, fp32 ATen matmuls (the reference's
+    are plain jnp matmuls)."""
+    f32 = torch.float32
+    g2 = g.reshape(-1, g.shape[-1]).to(f32)
+    x2 = x.reshape(-1, x.shape[-1]).to(f32)
+    dx = (g2 @ w.to(f32).T).reshape(x.shape).to(x.dtype)
+    return dx, (x2.T @ g2).to(w.dtype)
+
+
+class _MatmulFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _matmul_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rowinv_matmul_vjp(g, *ctx.saved_tensors)
+
+
 def rowinv_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x (..., K) and w (K, N): on CUDA, fp32 only, each
     output's K sum in one order fixed by K (``matmul_lanes(K)``
     interleaved lanes, a shuffle butterfly a warp, the warp sums in
-    order), whatever the number of rows.  Forward only."""
+    order), whatever the number of rows.  Differentiable in x and w
+    (:func:`rowinv_matmul_vjp`)."""
+    if not records_grad(x, w):
+        return _matmul_forward(x, w)
+    return check_grad_fn(_MatmulFunction.apply(x, w), "rowinv_matmul")
+
+
+def _matmul_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The matmul's forward: the plain version on CPU tensors, the kernel
+    on CUDA ones."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rowinv_matmul_reference(x, w)
     if x.device != w.device or x.device.type != "cuda":
         raise ValueError(f"rowinv_matmul: operands on one cpu or cuda "
                          f"device, got {x.device}, {w.device}")
-    if records_grad(x, w):
-        raise NotImplementedError(
-            "rowinv_matmul has no backward yet (its kernel's output would "
-            "carry no grad_fn): RWKV training is ROADMAP queue 1, item 3")
+    return _matmul_launch(x, w)
+
+
+def _matmul_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the matmul kernel on CUDA tensors."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"rowinv_matmul: the kernel takes float32, got "
                         f"{x.dtype}, {w.dtype}")

@@ -5,8 +5,9 @@ attention, the carried state for mamba and RWKV), ``prefill`` and
 ``decode_step`` for serving, and the training forward: ``forward_hidden``,
 ``forward_train`` (logits and the MoE aux loss) and ``loss_fn`` (next-token
 cross-entropy with a sequence-chunked, recomputing head).  Training runs
-attention blocks only (dense, MoE, the vision prefix, the
-encoder-decoder); a mamba or RWKV block raises ``NotImplementedError``.
+every block kind: attention (dense, MoE, the vision prefix, the
+encoder-decoder), mamba and RWKV, the recurrent ones through their scan
+kernels' backward kernels.
 
 Parameters keep the reference's tree: ``{"embed", "ln_f", "blocks":
 {"pos0": {...}}}`` with block parameters stacked over periods on axis 0
@@ -322,29 +323,22 @@ def _attn_bidir(p: Params, x: torch.Tensor, cfg: ModelConfig, quant,
     return maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    kinds = sorted({spec.kind for spec in cfg.pattern} - {"attn"})
-    if kinds:
-        raise NotImplementedError(
-            f"training {cfg.name}: the full-sequence forward of "
-            f"{' and '.join(kinds)} blocks with a gradient through their "
-            f"scan kernels is not ported yet (ROADMAP queue 1, item 3)")
-
-
 def _block_train(p: Params, x: torch.Tensor, spec, cfg: ModelConfig,
                  pos: int, mem=None, causal: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One attention block over a whole sequence: causal (training's
-    decoder) or bidirectional (the encoder), then :func:`_tail`.  Returns
-    (x, the block's MoE aux loss, 0 for a dense MLP)."""
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"the full-sequence forward of a {spec.kind} block with a "
-            f"gradient is not ported yet (ROADMAP queue 1, item 3)")
+    """One block over a whole sequence: attention, causal (training's
+    decoder) or bidirectional (the encoder), mamba or RWKV, then
+    :func:`_tail`.  Returns (x, the block's MoE aux loss, 0 for a dense
+    MLP)."""
     name = f"blk{pos}.{spec.kind}"
     h = L.norm_apply(p["ln1"], x)
-    attn = L.attn_train if causal else _attn_bidir
-    y = attn(p["attn"], h, cfg, cfg.quant, name)
+    if spec.kind == "attn":
+        attn = L.attn_train if causal else _attn_bidir
+        y = attn(p["attn"], h, cfg, cfg.quant, name)
+    elif spec.kind == "mamba":
+        y = S.mamba_apply(p["mamba"], h, cfg, cfg.quant, name)
+    else:
+        y = R.rwkv_apply(p["rwkv"], h, cfg, cfg.quant, name)
     return _tail(p, x + y, cfg, pos, mem, with_aux=True)
 
 
@@ -421,7 +415,6 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     through the encoder (its aux loss counted too) to every decoder
     block's cross-attention memory."""
     _check_ported(cfg)
-    _check_trainable(cfg)
     x = _embed(params, cfg, tokens)
     if cfg.frontend == "vision" and frontend_embeds is not None:
         fx = _frontend_project(params, cfg, frontend_embeds)

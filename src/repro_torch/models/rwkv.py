@@ -1,4 +1,5 @@
-"""RWKV-6 ("Finch") block for serving (port of ``repro.models.rwkv``):
+"""RWKV-6 ("Finch") block for serving and training (port of
+``repro.models.rwkv``):
 attention-free linear recurrence with data-dependent per-channel decay.
 
 Per head (state S in R^{D x D}):  S_t = diag(w_t) S_{t-1} + k_t^T v_t,
@@ -14,8 +15,12 @@ chunked prefill is bit-exact against a single shot on the card too.
 
 The carried state is ``{"shift": (B, 1, d) in the compute dtype, "wkv":
 (B, H, D, D) fp32}``; both are updated in place and returned, as the port's
-attention writes its K/V cache.  ``rwkv_apply`` (training) waits for the
-training item.
+attention writes its K/V cache.  Training's :func:`rwkv_apply` runs the
+same projections and output from a zero shift and a zero state through
+:func:`repro_torch.kernels.wkv_gemm.wkv_train`, whose backward is a kernel
+too, and writes no state; the reference chunks time under
+``jax.checkpoint`` to save memory, which the kernel, holding the state on
+chip, does not need.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rowinv import rowinv_matmul
-from repro_torch.kernels.wkv_gemm import wkv_stateful
+from repro_torch.kernels.wkv_gemm import wkv_stateful, wkv_train
 from repro_torch.models import layers as L
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
@@ -141,6 +146,16 @@ def rwkv_apply_stateful(p: Params, x: torch.Tensor, cache: Params, cfg,
     out = _out(p, y, g, x, quant, name)
     cache["shift"].copy_(new_shift)
     return out, cache
+
+
+def rwkv_apply(p: Params, x: torch.Tensor, cfg, quant, name: str
+               ) -> torch.Tensor:
+    """Full-sequence forward (train): a zero shift and a zero wkv state,
+    differentiable through the WKV kernel's backward."""
+    b, _, d = x.shape
+    r, k, v, w, g, _ = _mix_and_project(p, x, x.new_zeros((b, 1, d)), cfg,
+                                        quant, name)
+    return _out(p, wkv_train(r, k, v, w, p["u"]), g, x, quant, name)
 
 
 def rwkv_cache_init(cfg, batch: int, dtype, *, device) -> Params:

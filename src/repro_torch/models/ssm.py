@@ -1,5 +1,5 @@
-"""Mamba (selective SSM) block for serving (port of ``repro.models.ssm``):
-jamba's recurrent layer.
+"""Mamba (selective SSM) block for serving and training (port of
+``repro.models.ssm``): jamba's recurrent layer.
 
 The in / x / dt / out projections ride the quantized KMM path; the causal
 depthwise conv, SiLU and softplus are elementwise ATen ops in the
@@ -13,8 +13,10 @@ prefill, a single shot and decode compute the same state bit for bit.
 
 The carried state is ``{"conv": (B, conv_width - 1, d_inner) in the compute
 dtype, "ssm": (B, d_inner, d_state) fp32}``; both are updated in place and
-returned, as the port's attention writes its K/V cache.  ``mamba_apply``
-(training) waits for the training item.
+returned, as the port's attention writes its K/V cache.  Training's
+:func:`mamba_apply` runs the same inputs from a zero conv tail through
+:func:`repro_torch.kernels.ssm_scan.ssm_scan_train` (zero state, no mask,
+a backward kernel) and writes no state.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_train
 from repro_torch.models.layers import _normal
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
@@ -58,8 +60,12 @@ def mamba_init(gen: torch.Generator, cfg, dtype, device) -> Params:
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0)`` as jnp computes it."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` as jnp computes it.  The
+    ``maximum`` (not ``clamp_min``) gives autograd jnp's slope at x = 0,
+    1/2 (a tie splits the gradient; ``abs`` adds 0 there): a w=8
+    ``dt_proj`` over dt_rank inputs can return exactly 0."""
+    return torch.maximum(x, x.new_zeros(())) + torch.log1p(
+        torch.exp(-x.abs()))
 
 
 def _causal_conv(x_padded: torch.Tensor, w: torch.Tensor,
@@ -139,6 +145,20 @@ def mamba_apply_stateful(p: Params, x: torch.Tensor, cache: Params, cfg,
             b, cw - 1, full.shape[2]))
     cache["conv"].copy_(tail)
     return out, cache
+
+
+def mamba_apply(p: Params, x: torch.Tensor, cfg, quant, name: str
+                ) -> torch.Tensor:
+    """Full-sequence forward (train): a zero conv tail and a zero state,
+    differentiable through the scan kernel's backward."""
+    b = x.shape[0]
+    tail = x.new_zeros((b, cfg.conv_width - 1, cfg.expand * cfg.d_model))
+    x_conv, z, delta, b_mat, c_mat, _ = _ssm_inputs(p, x, cfg, quant, name,
+                                                    tail)
+    y = ssm_scan_train(x_conv.to(torch.float32), delta, b_mat, c_mat, z,
+                       -torch.exp(p["a_log"]), p["d_skip"])
+    return maybe_quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
+                                  f"{name}.out_proj")
 
 
 def mamba_cache_init(cfg, batch: int, dtype, *, device) -> Params:

@@ -311,7 +311,7 @@ def test_scan_reference_matches_kernel_order(ds, masked):
     ssm_scan.reset_launches()
     y2 = ssm_scan.ssm_scan(*tt, h_io, tmask)
     assert torch.equal(y2, y) and torch.equal(h_io, h)
-    assert ssm_scan.launches == {"ssm_scan": 0}
+    assert ssm_scan.launches == {"ssm_scan": 0, "ssm_scan_bwd": 0}
 
 
 def test_scan_wrapper_refuses_bad_operands():

@@ -342,16 +342,6 @@ def test_remat_and_chunking_leave_values_unchanged():
     assert c1.count("mm1") == 2 * per_forward and c1.count("kmm2") == 2 * 4
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
-def test_recurrent_training_is_not_ported(arch):
-    cfg = get_config(arch, smoke=True)
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        lm.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
-
-
 # ---------------------------------------------------------------------------
 # AdamW, the train step, data and checkpoints.
 # ---------------------------------------------------------------------------
