@@ -246,7 +246,7 @@ selective-scan kernel kernels/ssm_scan.py on csrc/ssm_scan.cu) adds:
       mm1 + 28 selective scans + 65 norm launches a prefill and a decode
       step, the same twice, graphed, profiled at 4 lanes, its byte bound
       on every record and on the experts the profiled steps routed;
-  5m. one full-width mamba block on those records, 120 tokens from a
+  5b. one full-width mamba block on those records, 120 tokens from a
       zero state in chunks of CHUNK against one shot: output, conv tail
       and SSM state torch.equal (the gate); and the whole model's chunked
       prefill against a single shot, reported (tokens, logits and the MoE
@@ -340,17 +340,18 @@ csrc/wkv.cu and csrc/ssm_scan.cu) adds:
       derived launches (``train_launches``: each period's GEMMs and norms
       twice a microbatch under remat, the head's GEMM twice a loss
       chunk) and every quantized GEMM on the kernels, step ms, tokens/s
-      and peak memory reported; 2 steps, the run's AsyncCheckpointer save,
-      a fresh run resuming for 2 more: params and optimizer state
-      torch.equal to the 4 straight steps (under
+      and peak memory reported; at TRAIN_RESTART_PERIODS of its periods,
+      2 steps, the run's AsyncCheckpointer save, a fresh run resuming for
+      2 more: params and optimizer state torch.equal to 4 straight steps
+      (under
       ``torch.use_deterministic_algorithms``, ``CUBLAS_WORKSPACE_CONFIG``
       set before CUDA starts); granite-moe-3b-a800m at full width, 4 of
       its 32 periods, 8 microbatches: the ragged STE at its expert shape
       (dead rows get exactly zero dx), step 1 against the plain versions,
       every leaf's gradient nonzero, 2 counted steps with the grouped
-      kernel carrying every expert GEMM; rwkv6-3b at full width, 24 of
+      kernel carrying every expert GEMM; rwkv6-3b at full width, 16 of
       its 32 periods (TRAIN_RWKV_PERIODS: the whole model would need ~85
-      GB), 4 microbatches: step 1 with every launch (the LoRA products,
+      GB, and 24 took the script past its time limit), 4 microbatches: step 1 with every launch (the LoRA products,
       the WKV forward and backward too) against its plain version and
       against the step on the plain versions, every leaf's gradient (u,
       w0, mix, the LoRA and ln_x too) finite and nonzero, the same step
@@ -366,6 +367,40 @@ csrc/wkv.cu and csrc/ssm_scan.cu) adds:
       of training state), every launch against its plain version, the
       gradients against the plain versions', exact launches, ms and peak
       memory.
+
+Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
+``mesh=``; the machine holds one H100, so no run spans cards) adds:
+
+  5m. (a) a world of one on NCCL (``single_device_mesh()``): full-width
+      llama3.2-1b on mixed records from the leaf-wise init, 4 requests
+      (8, 64, 23 and 41 tokens, MESH_NEW new), the engine without a mesh
+      and with ``mesh=``, each warmed and graphed under the exact launch
+      and graph-node gates: tokens and every sampled logits row
+      torch.equal; and an NCCL all-gather and all-reduce captured in a
+      CUDA graph and replayed (no rule shards anything on 1x1, so the
+      engine's graphs hold no collective);
+      (b) MESH_RANKS ranks on gloo sharing cuda:0 (a MESH_SHAPE mesh),
+      started by this script (``--mesh-rank``) after the build, each
+      loading the built libraries (a rank that finds one missing fails: no
+      rank builds): which gloo collectives run on CUDA tensors (the
+      point-to-point ops, which abort a process on CUDA tensors, probed by
+      two processes of their own, ``--gloo-p2p-probe``); the sharded fused
+      kernel at llama's wi (mm1, w=8) and tied lm_head (kmm2, w=12) at M=4
+      on records torch.equal to the unsharded kernel on the same rank, one
+      launch a rank; the K-sharded staged mm1 at wi equal to the int64
+      oracle; granite's grouped experts (E=40, 1536 x 512, ragged counts)
+      torch.equal to unsharded; the ring all-gather matmul (its hops through
+      the host) at w=8 equal to the unsharded integer product; then the
+      full-width llama3.2-1b engine on mixed records with ``mesh=`` (eager:
+      gloo cannot be captured), built from (a)'s records, which the parent
+      saves to the host (MESH_PARAMS) and each rank maps from there, so the
+      card receives a rank's blocks alone; each rank holding exactly its
+      ``leaf_spec`` block of every record (compared with the whole), exactly
+      112 mm1 + 1 kmm2 + 33 norm launches a model call on each rank, tokens
+      torch.equal to (a)'s unsharded engine; per-rank resident bytes, the
+      rank's peak device memory at load and over serving, launches and
+      host-clock step ms reported (a transport check on one card, not a
+      multi-card number), and the logits' distance from (a)'s.
 
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
@@ -574,7 +609,7 @@ SSM_BWD_CASES = [("jamba train", 1, 256, SSM_DI, SSM_DS, "bfloat16", True),
 # Selective-scan launches per prefill and per decode step: one a mamba
 # layer (jamba: 7 of every 8, 28 of 32).
 SSM_PER_CALL = {"jamba-v0.1-52b": 28}
-# Phase 5m: the tokens of the block-level chunked gate (chunks of CHUNK;
+# Phase 5b: the tokens of the block-level chunked gate (chunks of CHUNK;
 # the last chunk and the single shot padded to a multiple of 8, as the
 # engine pads them).
 MAMBA_GATE_TOKENS = 120
@@ -805,6 +840,24 @@ ATEN_PATHS = [("llama3.2-1b", "mixed", "aten", {("aten", "aten"): 113}),
 # one bfloat16 ulp of the other route's (the w=12 lm_head is the only fp32
 # combine; tests/test_torch_aten_route.py).
 ROUTES_RTOL = 2.0 ** -7
+# Phase 5m: distributed serving on the card.  (b)'s mesh, its ranks (all on
+# cuda:0, gloo), the requests' new tokens, the kernel-level checks' rows,
+# llama's wi and its tied lm_head (N = the padded vocab) with their widths,
+# granite's experts (E, K, N, capacity, segments), and the seconds the
+# parent waits for the ranks.
+MESH_ARCH = "llama3.2-1b"
+MESH_SHAPE = (2, 2)
+MESH_RANKS = 4
+MESH_NEW = 4
+MESH_ROWS = 4
+MESH_DENSE = [("wi", 2048, 8192, 8, "mm1"), ("lm_head", 2048, None, 12,
+                                             "kmm2")]
+MESH_GROUPED = (40, 1536, 512, 32, 4)
+MESH_TIMEOUT = 600
+# (a)'s records on the host, for (b)'s ranks to map (removed after).
+MESH_PARAMS = ROOT / "build" / "scratch" / "mesh_params.pt"
+# llama's launches a model call: 7 w=8 projections a layer, the w=12 head.
+MESH_PER_CALL = {"mm1": 112, "kmm2": 1}
 
 
 def log(msg: str) -> None:
@@ -2829,7 +2882,7 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
     Every run is counted under the exact launch gates (wrappers and decode
     graph nodes), twice, greedy streams repeating; the records path is
     profiled over its decode steps (device busy ms, kernels a step).  With
-    mamba blocks (jamba) phase 5m runs on the records too: the block-level
+    mamba blocks (jamba) phase 5b runs on the records too: the block-level
     chunked gate and the model-level chunked report; with a vision front
     end (llava) phase 5v."""
     from repro_torch.models import lm
@@ -3814,7 +3867,7 @@ def chunked_gate(torch, np, arch, pcfg, qparams) -> dict:
 
 
 def mamba_chunk_gate(torch, pcfg, qparams) -> dict:
-    """Phase 5m's gate: the first mamba block (period 0, position 0) of the
+    """Phase 5b's gate: the first mamba block (period 0, position 0) of the
     full-width records, MAMBA_GATE_TOKENS random bf16 inputs (a generator
     seeded 11) from a zero state, run as the engine runs a prompt — in
     chunks of CHUNK, the last one padded to a multiple of 8 with a mask
@@ -3870,7 +3923,7 @@ def mamba_chunk_gate(torch, pcfg, qparams) -> dict:
 
 
 def chunked_report(torch, np, pcfg, qparams) -> dict:
-    """Phase 5m's report: the whole model's chunked prefill against a
+    """Phase 5b's report: the whole model's chunked prefill against a
     single shot on the records (``chunk_compare``), with the MoE
     dispatch's dropped pairs in each engine.  Not gated: a chunk's MoE
     capacity comes from the chunk's length, by the reference's rule, so
@@ -4691,12 +4744,18 @@ def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
 # batch 8, each config's microbatches.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
 TRAIN_GRANITE_PERIODS, TRAIN_GRANITE_STEPS = 4, 2
-# rwkv6-3b cut to 24 of its 32 periods, as far as the card allows: a step
-# peaks at ~30 bytes a param (NVIDIA H100 80GB HBM3, 700 W: 47.26 GB at 16
-# periods, 1.600 B params; 67.14 GB at 24, 2.232 B), so its 2.86 B params
-# would need ~85 GB and 26 periods ~71 GB beside what earlier phases hold.
-# 2 counted steps, its 4 microbatches.
-TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 24, 2
+# rwkv6-3b cut to 16 of its 32 periods: a step peaks at ~30 bytes a param
+# (NVIDIA H100 80GB HBM3, 700 W: 47.26 GB at 16 periods, 1.600 B params;
+# 67.14 GB at 24, 2.232 B), so its 2.86 B params would need ~85 GB; 24
+# periods fit, but their checks took the whole script past its time limit
+# on a slower machine (the step at 24 takes 2.1x the step at 16).  2
+# counted steps, its 4 microbatches.
+TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 16, 2
+# llama's restart gate (a checkpoint and a resumed run bit-exact to the
+# straight run) on TRAIN_RESTART_PERIODS of its 16 periods: the property
+# does not depend on depth, and at full depth the 14.8 GB checkpoint's
+# write and read took ~100 s.
+TRAIN_RESTART_PERIODS = 2
 # jamba trains no whole step on one card (one 8-layer period alone holds
 # ~12.8 B params, ~400 GB of training state): one full-width mamba layer's
 # mamba_apply, forward and backward at seq 256 on one sequence (a
@@ -5438,6 +5497,8 @@ def train_phase(torch, fg) -> dict:
         torch.cuda.empty_cache()
         if arch != "llama3.2-1b":
             continue
+        cfg = dataclasses.replace(cfg, n_periods=TRAIN_RESTART_PERIODS)
+        what += f", {TRAIN_RESTART_PERIODS} periods"
         with deterministic(torch) as nondet:
             # the restart gate, under deterministic algorithms: 4 straight
             # steps; 2 steps and the run's checkpoint, then a fresh run
@@ -5496,7 +5557,523 @@ def train_phase(torch, fg) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5m: distributed serving.
+# ---------------------------------------------------------------------------
+
+
+def mesh_requests(np, cfg):
+    """Phase 5m's 4 requests: DENSE_PROMPTS' lengths, MESH_NEW new tokens;
+    admitted into slots 0-3, two to each data rank of a 2 x 2 mesh."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                                         n)],
+                    max_new_tokens=MESH_NEW)
+            for n in DENSE_PROMPTS]
+
+
+@contextlib.contextmanager
+def sampled_rows(rows: dict):
+    """Record the logits row every sample draws from, by (request id,
+    step), the first one only (a padding lane samples as request 0, step
+    0, after request 0's own first sample)."""
+    from repro_torch.serve import executor as ex
+    inner = ex.Executor.sample
+
+    def recording(self, seed, logits, temps, rids, steps):
+        for lane, (rid, step) in enumerate(zip(rids, steps)):
+            rows.setdefault((int(rid), int(step)), logits[lane].clone())
+        return inner(self, seed, logits, temps, rids, steps)
+
+    ex.Executor.sample = recording
+    try:
+        yield rows
+    finally:
+        ex.Executor.sample = inner
+
+
+def mesh_world_of_one(torch, np, fg) -> dict:
+    """Phase 5m (a): the engine on a world of one (NCCL) against the engine
+    without a mesh, both warmed and graphed; and an NCCL collective
+    captured in a CUDA graph."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_backend, single_device_mesh
+    from repro_torch.serve.engine import Engine
+
+    pcfg = path_config(MESH_ARCH, "mixed")
+    per_call = path_per_call(MESH_ARCH, MESH_PER_CALL, {})
+    qparams, init = leafwise_init(torch, pcfg)
+    mesh = single_device_mesh(device="cuda")
+    if mesh_backend(mesh) != "nccl":
+        fail(f"the world of one runs {mesh_backend(mesh)!r}, not NCCL")
+    out = {"init": init, "backend": "nccl"}
+    runs = {}
+    for label, m in (("no mesh", None), ("mesh 1x1", mesh)):
+        eng = Engine(pcfg, qparams, max_seq=256, batch_size=4,
+                     device="cuda", mesh=m)
+        if not eng.executor.graphs:
+            fail(f"5m (a) {label}: decode is not graphed")
+        eng.warm()
+        reqs = mesh_requests(np, pcfg)
+        with sampled_rows({}) as rows:
+            run = serve_counted(torch, fg, eng, reqs)
+        run["launches"] = check_counted(f"5m (a) {label}", eng, run,
+                                        per_call)
+        run["rows"] = rows
+        runs[label] = run
+        out[label] = {"launches": run["launches"],
+                      "decode_s": run["stats"].decode_s,
+                      "decode_steps": run["stats"].decode_steps,
+                      "tokens": run["tokens"]}
+        del eng
+    base, got = runs["no mesh"], runs["mesh 1x1"]
+    if got["tokens"] != base["tokens"] or base["rows"].keys() != \
+            got["rows"].keys() or not all(
+                torch.equal(got["rows"][k], base["rows"][k])
+                for k in base["rows"]):
+        fail("5m (a): the engine on the world of one differs from the "
+             "engine without a mesh (tokens or logits)")
+    # an NCCL all-gather and all-reduce captured and replayed
+    group = mesh.get_group("data")
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    gathered = torch.empty(8, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        dist.all_gather_into_tensor(gathered, x, group=group)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dist.all_gather_into_tensor(gathered, x * 2, group=group)
+        reduced = x.clone()
+        dist.all_reduce(reduced, group=group)
+    x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(gathered, 2 * x) and torch.equal(reduced, x)):
+        fail("5m (a): an NCCL collective captured in a CUDA graph replayed "
+             "wrong values")
+    out["nccl_in_graph"] = True
+    out["rows"] = {f"{k[0]}/{k[1]}": v.cpu() for k, v in
+                   base["rows"].items()}
+    MESH_PARAMS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"/".join(path): leaf.cpu() for path, leaf in
+                _paths(qparams)}, MESH_PARAMS)
+    log(f"  (a) world of one on NCCL: graphed, {len(base['rows'])} logits "
+        f"rows and every token torch.equal to the engine without a mesh; "
+        f"launches exact; an NCCL all-gather and all-reduce replay in a "
+        f"CUDA graph")
+    dist.destroy_process_group()
+    del qparams, runs, base, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def gloo_p2p_probe(rank: int, port: int) -> int:
+    """``--gloo-p2p-probe``: one of two gloo ranks on cuda:0 sending a CUDA
+    tensor to the other with ``batch_isend_irecv``; exits 0 where gloo
+    moves it.  Run by phase 5m in processes of its own: gloo aborts the
+    process on a CUDA tensor it cannot send."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    got = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t, 1 - rank),
+           dist.P2POp(dist.irecv, got, 1 - rank)]
+    try:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:     # a probe: the error is the answer
+        print(f"{type(exc).__name__}: {str(exc).splitlines()[0][:300]}",
+              flush=True)
+        return 1
+    return 0 if float(got[0]) == float(2 - rank) else 1
+
+
+def gloo_cuda_ops(torch, world: int) -> dict:
+    """Which gloo collectives run on CUDA tensors, each tried once on
+    every rank: "ok" (values right), or the error it raised."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    want_sum = float(sum(range(1, world + 1)))
+
+    def gather():
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return [float(p[0]) for p in parts] == [float(r + 1)
+                                                 for r in range(world)]
+
+    def gather_into(dtype):
+        def run():
+            o = torch.empty(world * 4, dtype=dtype, device="cuda")
+            dist.all_gather_into_tensor(o, t.to(dtype))
+            return float(o[4 * (world - 1)]) == float(world)
+        return run
+
+    def reduce(dtype, op, want):
+        def run():
+            x = t.to(dtype).clone()
+            dist.all_reduce(x, op=op)
+            return float(x[0]) == want
+        return run
+
+    def bcast():
+        x = t.clone()
+        dist.broadcast(x, src=0)
+        return float(x[0]) == 1.0
+
+    probes = {"all_gather": gather,
+              "all_gather_into_tensor": gather_into(torch.float32),
+              # the records' int8 codes; int16 codes travel as uint8
+              "all_gather_into_tensor_i8": gather_into(torch.int8),
+              "all_gather_into_tensor_u8": gather_into(torch.uint8),
+              "all_reduce_sum_f32": reduce(torch.float32,
+                                           dist.ReduceOp.SUM, want_sum),
+              "all_reduce_sum_i32": reduce(torch.int32, dist.ReduceOp.SUM,
+                                           want_sum),
+              "all_reduce_sum_i64": reduce(torch.int64, dist.ReduceOp.SUM,
+                                           want_sum),
+              "all_reduce_max_f64": reduce(torch.float64,
+                                           dist.ReduceOp.MAX, float(world)),
+              "all_reduce_sum_bf16": reduce(torch.bfloat16,
+                                            dist.ReduceOp.SUM, want_sum),
+              "broadcast": bcast}
+    out = {}
+    for name, fn in probes.items():
+        try:
+            ok = fn()
+            torch.cuda.synchronize()
+            out[name] = "ok" if ok else "wrong values"
+        except RuntimeError as exc:       # a probe: the error is the answer
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+        dist.barrier()
+    return out
+
+
+def held_blocks(torch, whole, sharded, mesh) -> int:
+    """Every leaf of ``sharded`` (an engine's parameters) is this rank's
+    ``leaf_spec`` block of ``whole``, bit for bit, and nothing more.
+    Returns the bytes the blocks hold."""
+    from repro_torch.dist import sharding as S
+    total = 0
+    for path, leaf in _paths(whole):
+        node = sharded
+        for k in path:
+            node = node[k]
+        spec = S.leaf_spec(path, leaf, mesh)
+        local = node.to_local() if S.is_dtensor(node) else node
+        if local.device.type != "cuda":
+            fail(f"5m (b): {'/'.join(path)} lies on {local.device}")
+        local = local.cpu()
+        want = S.local_block(leaf, spec, mesh)
+        if S.is_dtensor(node) != S.is_sharded(spec) or \
+                local.shape != want.shape or not torch.equal(local, want):
+            fail(f"5m (b) rank {torch.distributed.get_rank()}: "
+                 f"{'/'.join(path)} holds {tuple(local.shape)}, not its "
+                 f"leaf_spec {spec} block {tuple(want.shape)}")
+        total += local.numel() * local.element_size()
+    return total
+
+
+def mesh_kernel_checks(torch, mesh) -> dict:
+    """Phase 5m (b)'s kernel level on one rank: every rank holds the same
+    global operands (generators seeded alike); the sharded call must equal
+    the unsharded one on this rank, each launching once here."""
+    from repro_torch.core.context import ExecContext
+    from repro_torch.core.dispatch import ExecPlan, GemmShardSpec
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import shard_gemm as sg
+    from repro_torch.kernels import launch_counts, ops
+    from repro_torch.quant.prequant import record
+    from repro_torch.quant.qmatmul import prequant_matmul
+    from repro_torch.quant.quantize import quantize_symmetric
+    rank = torch.distributed.get_rank()
+    ctx = ExecContext(mesh=mesh)
+    pcfg = path_config(MESH_ARCH, "mixed")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    out = {}
+
+    def launched(fn):
+        """``fn()`` run once to warm up (a group's first collective sets
+        up its connections), then once counted and timed."""
+        fn()
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        y = fn()
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        after = launch_counts()
+        return y, ms, {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+
+    for name, k, n, w, mode in MESH_DENSE:
+        n = n or pcfg.padded_vocab
+        x = torch.randn((MESH_ROWS, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        rec = record(torch.randn((k, n), generator=gen, device="cuda") *
+                     k ** -0.5, w)
+        want, plain_ms, _ = launched(lambda: prequant_matmul(x, rec, w))
+        got, ms, counts = launched(
+            lambda: prequant_matmul(x, rec, w, context=ctx))
+        if not torch.equal(got, want) or counts != {f"dense_{mode}": 1}:
+            fail(f"5m (b) rank {rank}: sharded {name} ({k}x{n}, w={w}) "
+                 f"differs from unsharded or launched {counts}")
+        out[name] = {"K": k, "N": n, "w": w, "equal": True,
+                     "launches": counts, "host_ms": ms,
+                     "unsharded_host_ms": plain_ms}
+        del rec
+    # K-sharded staged mm1 at wi: int32 partials all-reduced over model
+    k, n = MESH_DENSE[0][1:3]
+    a = rand_bits(torch, gen, 8, (MESH_ROWS, k))
+    b = rand_bits(torch, gen, 8, (k, n))
+    plan = ExecPlan("mm1", 8, block_k=256, combine_int32=True, depth=0,
+                    shard=GemmShardSpec(m_axes=("data",),
+                                        k_axes=("model",)))
+    got, ms, counts = launched(
+        lambda: sg.sharded_run_plan(a, b, plan=plan, mesh=mesh))
+    oracle = (a.cpu().to(torch.int64) @ b.cpu().to(torch.int64))
+    if not torch.equal(got.cpu().to(torch.int64), oracle) or \
+            counts != {"mm1_gemm": 1}:
+        fail(f"5m (b) rank {rank}: the K-sharded staged mm1 differs from "
+             f"the int64 oracle or launched {counts}")
+    out["k_sharded_mm1"] = {"K": k, "N": n, "equal": True,
+                            "launches": counts, "host_ms": ms}
+    # granite's experts, ragged, the expert dim over model
+    e, k, n, cap, segs = MESH_GROUPED
+    x = torch.randn((e, cap, k), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    rec = record(torch.randn((e, k, n), generator=gen, device="cuda") *
+                 k ** -0.5, 8)
+    counts_e = torch.randint(0, cap // segs + 1, (e, segs), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    kw = dict(batched=True, counts=counts_e, seg=cap // segs)
+    want, plain_ms, _ = launched(lambda: prequant_matmul(x, rec, 8, **kw))
+    got, ms, counts = launched(
+        lambda: prequant_matmul(x, rec, 8, context=ctx, **kw))
+    if not torch.equal(got, want) or counts != {"grouped_mm1": 1}:
+        fail(f"5m (b) rank {rank}: sharded grouped experts differ from "
+             f"unsharded or launched {counts}")
+    out["grouped_experts"] = {"E": e, "K": k, "N": n, "equal": True,
+                              "launches": counts, "host_ms": ms,
+                              "unsharded_host_ms": plain_ms}
+    # the ring all-gather matmul at w=8, its hops through the host
+    group = mesh.get_group("model")
+    me, size = C.rank_of(group), C.group_size(group)
+    k, n = MESH_DENSE[0][1:3]
+    xs = torch.randn((size * MESH_ROWS, k), generator=gen, device="cuda")
+    wr = torch.randn((k, n), generator=gen, device="cuda")
+    got, ms, counts = launched(lambda: C.ring_ag_matmul(
+        xs[me * MESH_ROWS:(me + 1) * MESH_ROWS], wr, group, w_bits=8,
+        context=ctx))
+    qb, sb = quantize_symmetric(wr, 8)
+    want = []
+    for i in range(size):       # each chunk's product, as the ring forms it
+        qa, sa = quantize_symmetric(xs[i * MESH_ROWS:(i + 1) * MESH_ROWS], 8)
+        want.append(ops.int_gemm(qa, qb, w=8) * sa * sb)
+    want = torch.cat(want)
+    if not torch.equal(got, want):
+        fail(f"5m (b) rank {rank}: ring_ag_matmul at w=8 differs from the "
+             f"unsharded chunk products")
+    out["ring_ag_matmul_w8"] = {"rows": size * MESH_ROWS, "K": k, "N": n,
+                                "equal": True, "launches": counts,
+                                "host_ms": ms}
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
+    """``--mesh-rank``: one rank of phase 5m (b), on cuda:0 over gloo.
+    Writes ``mesh_rank{rank}.json`` (and its logits rows) to ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import sharding as S
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_gemm as fg
+    from repro_torch.launch.mesh import make_mesh, mesh_backend
+    from repro_torch.serve.engine import Engine
+
+    torch.cuda.set_device(0)
+    missing = [n for n in build.SOURCES if not build.library_path(n).exists()]
+    if missing:
+        fail(f"5m (b) rank {rank}: the libraries {missing} are not built; "
+             f"the parent builds them before it starts the ranks")
+    t_start = time.monotonic()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "gloo_cuda_ops": gloo_cuda_ops(torch, world)}
+    mesh = make_mesh(MESH_SHAPE, device="cuda")
+    if mesh_backend(mesh) != "gloo":
+        fail(f"5m (b): the mesh runs {mesh_backend(mesh)!r}, not gloo")
+    out["coord"] = S.coordinate(mesh)
+    t0 = time.monotonic()
+    out["kernels"] = mesh_kernel_checks(torch, mesh)
+    out["kernel_s"] = time.monotonic() - t0
+    pcfg = path_config(MESH_ARCH, "mixed")
+    per_call = path_per_call(MESH_ARCH, MESH_PER_CALL, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    flat = torch.load(MESH_PARAMS, mmap=True, weights_only=True)
+    qparams = {}
+    for key, leaf in flat.items():      # the whole records, on the host
+        node = qparams
+        *parents, last = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    eng = Engine(pcfg, qparams, max_seq=256, batch_size=4, device="cuda",
+                 mesh=mesh)
+    torch.cuda.synchronize()
+    out["load_s"] = time.monotonic() - t0
+    out["load_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out["whole_bytes"] = S.resident_bytes(qparams)
+    out["resident_bytes"] = S.resident_bytes(eng.params)
+    if held_blocks(torch, qparams, eng.params, mesh) != \
+            out["resident_bytes"]:
+        fail(f"5m (b) rank {rank}: resident bytes are not its blocks'")
+    del qparams, flat
+    gc.collect()
+    if eng.executor.graphs:
+        fail("5m (b): decode is graphed under a gloo mesh")
+    reqs = mesh_requests(np, pcfg)
+    with sampled_rows({}) as rows:
+        run = serve_counted(torch, fg, eng, reqs, graphs=False)
+    out["launches"] = check_counted(f"5m (b) rank {rank}", eng, run,
+                                    per_call)
+    st = run["stats"]
+    out.update({"tokens": run["tokens"], "prefill_calls": run["prefills"],
+                "decode_steps": st.decode_steps, "decode_s": st.decode_s,
+                "prefill_s": st.prefill_s, "wall_s": run["wall"],
+                "step_ms": 1e3 * st.decode_s / max(st.decode_steps, 1),
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "seconds": time.monotonic() - t_start})
+    # this data rank's requests' rows (request i sits in slot i)
+    d = S.coordinate(mesh)["data"]
+    mine = {f"{rid}/{step}": v.cpu() for (rid, step), v in rows.items()
+            if rid * S.data_size(mesh) // 4 == d
+            and step < len(run["tokens"][rid])}
+    torch.save(mine, os.path.join(out_dir, f"mesh_rows{rank}.pt"))
+    with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, np, fg) -> dict:
+    """Phase 5m: (a) in this process, then the gloo point-to-point probe
+    and (b)'s ranks as child processes (all stopped before it returns)."""
+    t0 = time.monotonic()
+    out = {"world_of_one": mesh_world_of_one(torch, np, fg)}
+    base_rows = out["world_of_one"].pop("rows")
+    base_tokens = out["world_of_one"]["no mesh"]["tokens"]
+    out["world_of_one_s"] = time.monotonic() - t0
+    out_dir = ROOT / "chiprun_out" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    script = str(ROOT / "chip_smoke.py")
+
+    def start(args):
+        return subprocess.Popen([sys.executable, script, *args],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def finish(procs, timeout):
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return [p.returncode for p in procs], logs
+
+    port = free_port()
+    codes, logs = finish([start(["--gloo-p2p-probe", str(r), str(port)])
+                          for r in (0, 1)], 60)
+    out["gloo_p2p_cuda"] = {"exit_codes": codes, "last_line": [
+        (log_.strip().splitlines() or [""])[-1][:200] for log_ in logs]}
+    log(f"  gloo batch_isend_irecv on CUDA tensors: exit codes {codes}")
+    t0 = time.monotonic()
+    port = free_port()
+    codes, logs = finish([start(["--mesh-rank", str(r), str(MESH_RANKS),
+                                 str(port), str(out_dir)])
+                          for r in range(MESH_RANKS)], MESH_TIMEOUT)
+    out["ranks_s"] = time.monotonic() - t0
+    MESH_PARAMS.unlink()
+    for r, (code, text) in enumerate(zip(codes, logs)):
+        if code != 0:
+            print(text[-6000:], file=sys.stderr)
+            fail(f"5m (b): rank {r} exited with {code}")
+    ranks = [json.loads((out_dir / f"mesh_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    ops = ranks[0]["gloo_cuda_ops"]
+    from repro_torch.dist.collectives import GLOO_CUDA_OPS
+    used = {"all_gather_into_tensor": ("all_gather_into_tensor",
+                                       "all_gather_into_tensor_i8",
+                                       "all_gather_into_tensor_u8"),
+            "all_reduce": ("all_reduce_sum_f32",), "broadcast": ("broadcast",)}
+    if any(ops[p] != "ok" for op in GLOO_CUDA_OPS for p in used[op]) or any(
+            r["gloo_cuda_ops"] != ops for r in ranks):
+        fail(f"5m (b): gloo does not run {sorted(GLOO_CUDA_OPS)} on CUDA "
+             f"tensors on every rank: {[r['gloo_cuda_ops'] for r in ranks]}")
+    diffs = []
+    for r, rank in enumerate(ranks):
+        if [list(t) for t in rank["tokens"]] != \
+                [list(t) for t in base_tokens]:
+            fail(f"5m (b) rank {r}: tokens {rank['tokens']} differ from the "
+                 f"unsharded engine's {base_tokens}")
+        rows = torch.load(out_dir / f"mesh_rows{r}.pt")
+        for key, row in rows.items():
+            diffs.append(float((row.float() - base_rows[key].float())
+                               .abs().max()))
+    out["ranks"] = ranks
+    out["logits_rows_compared"] = len(diffs)
+    out["logits_max_abs_diff"] = max(diffs) if diffs else None
+    out["logits_rows_equal"] = sum(d == 0.0 for d in diffs)
+    for rank in ranks:
+        log(f"  (b) rank {rank['rank']} {rank['coord']}: resident "
+            f"{rank['resident_bytes'] / 1e9:.3f} GB of "
+            f"{rank['whole_bytes'] / 1e9:.3f} GB, device peak "
+            f"{rank['load_peak_gb']:.3f} GB at load and "
+            f"{rank['peak_gb']:.3f} GB serving; launches "
+            f"{rank['launches']['host']} over {rank['prefill_calls']} "
+            f"prefill calls and {rank['decode_steps']} decode steps; step "
+            f"{rank['step_ms']:.1f} ms (host clock, gloo on one card)")
+    log(f"  (b) gloo on CUDA tensors: {ops}; tokens torch.equal to the "
+        f"unsharded engine on every rank; logits rows equal "
+        f"{out['logits_rows_equal']} of {len(diffs)}, max |diff| "
+        f"{out['logits_max_abs_diff']}")
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        return mesh_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo-p2p-probe":
+        return gloo_p2p_probe(int(sys.argv[2]), int(sys.argv[3]))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a short serve run with torch.profiler")
@@ -5692,7 +6269,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[5t] training: the smoke models card vs CPU, full-width llama "
-        "(4 steps, restart), granite at 4 periods and rwkv6-3b at 24 under "
+        f"(4 steps; restart at {TRAIN_RESTART_PERIODS} periods), granite at "
+        f"4 periods and rwkv6-3b at {TRAIN_RWKV_PERIODS} under "
         "mixed; one full-width jamba mamba block")
     t0 = time.monotonic()
     train = train_phase(torch, fg)
@@ -5702,6 +6280,20 @@ def main() -> int:
             train[arch]["counted"]["launches"]
     launches_by_path["jamba-v0.1-52b mamba block train"] = \
         train["jamba-v0.1-52b"]["mamba_block"]["launches"]
+    torch.cuda.empty_cache()
+
+    log("[5m] distributed serving: a world of one on NCCL, graphed, then "
+        f"{MESH_RANKS} gloo ranks on this card ({MESH_SHAPE[0]}x"
+        f"{MESH_SHAPE[1]}): sharded kernels and the full-width engine")
+    t0 = time.monotonic()
+    mesh = mesh_phase(torch, np, fg)
+    seconds["mesh"] = time.monotonic() - t0
+    for label in ("no mesh", "mesh 1x1"):
+        launches_by_path[f"{MESH_ARCH} mixed records {label}"] = \
+            mesh["world_of_one"][label]["launches"]
+    for rank in mesh["ranks"]:
+        launches_by_path[f"{MESH_ARCH} mesh 2x2 rank {rank['rank']}"] = \
+            rank["launches"]
     torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
@@ -5719,6 +6311,7 @@ def main() -> int:
               "launches_by_path": launches_by_path,
               "rowinv": rowinv_rows, "aten_route": aten_rows,
               "aten_serve": aten_serve, "obs": obs, "train": train,
+              "mesh": mesh,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"
@@ -5730,11 +6323,20 @@ def main() -> int:
     print(card, flush=True)
     table_runs = {arch: eng["table_paths"] for arch, eng in engines.items()
                   if "table_paths" in eng}
-    print(json.dumps({"kernels": kernel_entries(
+    entries = kernel_entries(
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
-        ssm_rows, wkv_bwd_rows, ssm_bwd_rows)}),
-        flush=True)
+        ssm_rows, wkv_bwd_rows, ssm_bwd_rows)
+    # each rank's own launches in phase 5m (b)'s engine run (in the
+    # launches above too): the kernels ran on every rank's block
+    keys = {"fused_gemm_mm1": "dense_mm1", "fused_gemm_kmm2": "dense_kmm2",
+            "rowinv_norm": "rowinv_norm"}
+    for e in entries:
+        if e["name"] in keys:
+            e["mesh_launches_per_rank"] = [
+                r["launches"]["host"].get(keys[e["name"]], 0)
+                for r in mesh["ranks"]]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -140,6 +140,25 @@ KERNEL_VARIANTS = ("mm1", "kmm2", "mm2", "fused", "fused_mm2")
 
 
 @dataclass(frozen=True)
+class GemmShardSpec:
+    """How one GEMM's (M, K, N) dims map onto mesh axes.
+
+    ``m_axes``/``n_axes`` shard the output tile grid: each rank runs the
+    kernel on its local block with no arithmetic across ranks, so values
+    equal the unsharded kernel's bit for bit.  ``k_axes`` splits the
+    contraction into partial products summed by an all-reduce: exact for
+    exact-int plans, a different fp32 rounding for fp32-combine plans,
+    which is why ``k_axes`` enters :func:`numerics_fingerprint` and the
+    model-facing negotiation (:mod:`repro_torch.dist.shard_gemm`) never
+    proposes it.  ``e_axes``: the expert dim of a grouped GEMM."""
+
+    m_axes: Tuple[str, ...] = ()
+    n_axes: Tuple[str, ...] = ()
+    k_axes: Tuple[str, ...] = ()
+    e_axes: Tuple[str, ...] = ()
+
+
+@dataclass(frozen=True)
 class ExecPlan:
     """A resolved way to run one integer GEMM: kernel variant, backend,
     K tile, combine precision and digit-recursion depth.  Of the
@@ -158,6 +177,10 @@ class ExecPlan:
     # "none" (raw accumulator out) or "dequant": a call-site property that
     # enters the numerics fingerprint, never stored in tuning tables.
     epilogue: str = "none"
+    # Mesh layout of a sharded run (repro_torch.dist.shard_gemm); None runs
+    # unsharded.  A call-site property like ``epilogue``, never stored in
+    # tuning tables.
+    shard: Optional[GemmShardSpec] = None
 
     @property
     def digits(self) -> int:
@@ -193,12 +216,19 @@ def numerics_fingerprint(plan: ExecPlan):
     fp32-combine plans are keyed by what changes rounding — variant, depth,
     backend and epilogue.  The fused kernel runs the staged kernels' fp32
     operation sequence, so "fused" shares the "kmm2" class and "fused_mm2"
-    the "mm2" one."""
+    the "mm2" one.
+
+    Sharding: M/N sharding replicates K, so every output element sees the
+    unsharded kernel's full-K arithmetic and the spec is not part of the
+    fingerprint; K sharding splits the fp32 accumulation, so
+    ``shard.k_axes`` is part of an fp32 plan's fingerprint (exact-int plans
+    sum int32 partials exactly and stay in the "exact" class)."""
     if plan.is_exact_int:
         return ("exact", plan.epilogue)
     variant = {"fused": "kmm2", "fused_mm2": "mm2"}.get(plan.variant,
                                                         plan.variant)
-    return ("fp32", variant, plan.depth, plan.backend, plan.epilogue)
+    k_axes = plan.shard.k_axes if plan.shard is not None else ()
+    return ("fp32", variant, plan.depth, plan.backend, plan.epilogue, k_axes)
 
 
 DEFAULT_BLOCK_K = 256
@@ -245,7 +275,9 @@ def select_plan(shape: Tuple[int, int, int], w: int, *, m: int = 8,
     source) when metrics are enabled.
 
     ``context`` supplies the backend and, when it carries one, the tuning
-    table.  Resolution order:
+    table; under its mesh on ``"cuda"`` the table key and the bounds are
+    the per-rank local shape (``tune.space.local_shape``), which the
+    sharded kernel runs.  Resolution order:
 
       1. no table (none passed, none in the context, none installed with
          ``tune.table.set_active_table``) -> the analytic plan;
@@ -280,6 +312,10 @@ def _select_plan_impl(shape: Tuple[int, int, int], w: int, *, m: int,
         backend = context.backend
         if table is None and context.tuning_table is not None:
             table = context.resolve_table()
+        if context.mesh is not None and backend == "cuda":
+            # the sharded kernel runs on the local block: key the table
+            # and check the bounds on the per-rank shape
+            shape = context.local_gemm_shape(shape)
     base = analytic_plan(w, m, backend=backend, exact=exact)
     if table is None:
         from repro_torch.tune import table as tune_table   # lazy: core must

@@ -86,6 +86,9 @@ def int_gemm(a: torch.Tensor, b: torch.Tensor, *, w: int, m: int = 8,
     (backend, M/K/N bucket, w) key, else the analytic plan (the fused
     kernel, ``block_k`` 256); an explicit ``block_k`` wins.  ``plan``
     bypasses selection and runs the given plan (the autotuner's entry).
+    Under ``context.mesh`` a ``"cuda"`` plan runs sharded
+    (:func:`run_plan`); the mesh is never taken from the ambient one here,
+    so the collectives' chunk GEMMs stay on their own rank.
     """
     if context is not None:
         backend = context.backend
@@ -102,14 +105,15 @@ def int_gemm(a: torch.Tensor, b: torch.Tensor, *, w: int, m: int = 8,
                            exact=exact, context=context)
         if block_k is not None:
             plan = replace(plan, block_k=block_k)
-    out = run_plan(a, b, plan=plan)
+    out = run_plan(a, b, plan=plan,
+                   mesh=context.mesh if context is not None else None)
     if exact or out.dtype == torch.float32:
         return out
     return out.to(torch.float32)
 
 
 def run_plan(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
-             use_ref_kernels: bool = False) -> torch.Tensor:
+             use_ref_kernels: bool = False, mesh=None) -> torch.Tensor:
     """Execute one :class:`ExecPlan` on (M, K) x (K, N) integer operands.
 
     Output dtype follows the plan: int32 for exact-int plans, float32 for
@@ -121,7 +125,18 @@ def run_plan(a: torch.Tensor, b: torch.Tensor, *, plan: ExecPlan,
     With tracing enabled the call records a ``run_plan`` span (variant, w,
     backend, depth, shape), as the reference's does: host time, so on CUDA
     the time to launch the plan's kernels, not their device time.
+
+    With ``mesh`` and a ``"cuda"`` plan the plan runs
+    sharded (:func:`repro_torch.dist.shard_gemm.sharded_run_plan`): each
+    rank runs the same kernel — fused or staged — on its block, on the
+    axes ``plan.shard`` names (negotiated where unset).
     """
+    if mesh is not None and plan.backend == "cuda":
+        from repro_torch.dist.shard_gemm import sharded_run_plan
+        return sharded_run_plan(a, b, plan=plan, mesh=mesh,
+                                use_ref_kernels=use_ref_kernels)
+    if plan.shard is not None:
+        plan = replace(plan, shard=None)
     if not obs_trace.enabled():
         return _run_plan_impl(a, b, plan=plan,
                               use_ref_kernels=use_ref_kernels)

@@ -3,9 +3,20 @@
     python -m repro_torch.launch.serve --arch llama3.2-1b --quant mixed \
         --full-size --metrics-out m.json --trace-out t.json
 
-The reference launcher's flags, minus ``--mesh``, plus ``--device``.  Runs
-on the CUDA device; ``--device cpu`` runs the kernels' plain PyTorch
-versions on the CPU instead.  ``--metrics-out PATH`` enables the metrics
+The reference launcher's flags plus ``--device``.  Runs on the CUDA device;
+``--device cpu`` runs the kernels' plain PyTorch versions on the CPU
+instead.  ``--mesh DxM`` serves sharded on a (data, model) mesh
+(:mod:`repro_torch.launch.mesh`), one process a rank under ``torchrun``::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2
+
+Every rank draws the same weights from the seed on the host, so no card
+holds them whole, copies only its shards to its device and runs its data
+rank's lanes (``Engine(mesh=)``); rank 0 prints the tokens.  The host's
+generator draws other values than the card's, so on the card ``--mesh``
+serves other random weights than a run without it.  The
+ranks run NCCL with a card each, gloo on the CPU or where they share a
+card (``launch.mesh.default_backend``).  ``--metrics-out PATH`` enables the metrics
 registry (:mod:`repro_torch.obs.metrics`) before the engine is built and
 writes its JSON snapshot there after generation; ``--trace-out PATH``
 enables the span tracer and writes a Chrome trace (``chrome://tracing`` /
@@ -66,6 +77,10 @@ def main() -> int:
                     help="tuning table (JSON) from python -m "
                          "repro_torch.tune, installed for every GEMM")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve sharded on a (data, model) mesh, e.g. 2x2, "
+                         "one process a rank (torchrun --nproc-per-node "
+                         "D*M)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="enable the metrics registry and write a JSON "
                          "snapshot here after generation")
@@ -89,15 +104,25 @@ def main() -> int:
     if args.trace_out:
         obs_trace.enable()
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_mesh, parse_mesh
+        mesh = make_mesh(parse_mesh(args.mesh), device=device.type)
+        rank = dist.get_rank()
     cfg = get_config(args.arch, smoke=not args.full_size, quant=args.quant)
-    gen = torch.Generator(device=device)
+    # under a mesh the whole tree stays on the host; the engine moves the
+    # shards
+    init_device = torch.device("cpu") if mesh is not None else device
+    gen = torch.Generator(device=init_device)
     gen.manual_seed(0)
-    params = lm.init_params(gen, cfg, device=device)
+    params = lm.init_params(gen, cfg, device=init_device)
     engine = Engine(cfg, params, max_seq=args.max_seq, batch_size=args.batch,
                     context=ExecContext(backend=args.backend,
                                         tuning_table=args.tuning_table),
                     prefill_chunk=args.prefill_chunk or None,
-                    prefix_cache=args.prefix_cache, device=device)
+                    prefix_cache=args.prefix_cache, device=device,
+                    mesh=mesh)
     rng = np.random.default_rng(0)
     stop = (args.eos,) if args.eos >= 0 else ()
     reqs = [Request(prompt=[int(t) for t in rng.integers(
@@ -111,6 +136,11 @@ def main() -> int:
         arrivals = np.cumsum(rng.exponential(1.0 / args.poisson,
                                              size=len(reqs))).tolist()
     stats = engine.generate(reqs, arrival_s=arrivals)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    if rank != 0:
+        return 0
     for i, r in enumerate(reqs):
         rs = r.stats
         print(f"req{i}: prompt[{len(r.prompt)}] -> {r.generated} "
@@ -120,7 +150,8 @@ def main() -> int:
           f"in {stats.decode_steps} decode steps / {stats.decode_s:.2f}s "
           f"({stats.tokens_per_s:.1f} tok/s, occupancy "
           f"{stats.occupancy_pct:.0f}%, quant={args.quant}); "
-          f"traces={engine.n_traces()}; device={device}")
+          f"traces={engine.n_traces()}; device={device}"
+          + (f"; mesh={args.mesh}" if mesh is not None else ""))
     if engine.prefix is not None:
         print(f"prefix cache: {engine.prefix.stats()}")
     if args.metrics_out:

@@ -8,7 +8,8 @@
 The reference launcher's flags plus ``--device``: the published
 configuration on the CUDA device by default (``--smoke``: the reduced one;
 ``--device cpu``: the kernels' plain versions on the CPU).  ``--mesh``
-takes only ``1x1``: distribution is ROADMAP queue 1, item 4.
+takes only ``1x1``: training under a mesh is ROADMAP queue 1, item 4
+(serving under one is ported: ``launch/serve.py --mesh``).
 ``--max-restarts N`` supervises the training call: on an exception the
 launcher runs it again, which resumes from the latest checkpoint under
 ``--ckpt-dir``.  ``--tuning-table PATH`` serves each quantized GEMM the
@@ -45,7 +46,7 @@ def main(argv=None) -> int:
     if args.mesh != "1x1":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the port trains on one device; "
-            f"distribution is ROADMAP queue 1, item 4")
+            f"training under a mesh is ROADMAP queue 1, item 4")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")

@@ -10,6 +10,15 @@ weight matmul goes through :func:`maybe_quantized_matmul`, every norm
 through the row-invariant norm kernel.  Attention is plain PyTorch, as the
 reference's is plain jnp.
 
+Where the K/V cache a layer is given holds fewer kv heads than the model
+has (the pool's block under a mesh whose ``model`` axis divides them,
+:func:`repro_torch.dist.sharding.page_pool_sharding`), prefill and decode
+attention run head-parallel, the port's counterpart of the reference's
+GSPMD partitioning of attention: each model rank slices its kv-head
+groups (and their query heads) from the replicated q/k/v with no
+communication, attends against its block of the K/V pool, and the heads
+are all-gathered over the ambient mesh's ``model`` axis before ``wo``.
+
 Cache writes happen in place: where the reference returns an updated copy
 of the cache (``dynamic_update_slice``), the port writes into the cache
 tensors it is given and returns them.
@@ -21,6 +30,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as dist_coll
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.kernels.rowinv import rowinv_norm
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
@@ -142,6 +153,29 @@ def _qkv(p: Params, x: torch.Tensor, cfg, quant, name: str):
     return q, k, v
 
 
+def _local_heads(qkv, cfg, kh: int):
+    """This model rank's ``kh`` kv heads (and their query heads) of the
+    (B, S, H, D) projections ``qkv`` where the cache holds ``kh`` of the
+    model's kv heads (the pool's ``model`` block), else all of them; with
+    whether the heads were cut."""
+    q, k, v = qkv
+    if kh == cfg.n_kv_heads:
+        return q, k, v, False
+    h0 = dist_sharding.coordinate(dist_sharding.current_mesh())["model"] * kh
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (q[:, :, h0 * g:(h0 + kh) * g], k[:, :, h0:h0 + kh],
+            v[:, :, h0:h0 + kh], True)
+
+
+def _all_heads(out: torch.Tensor, cut: bool) -> torch.Tensor:
+    """(B, S, local heads * D) -> every head, all-gathered over ``model``
+    in head order, where :func:`_local_heads` cut them."""
+    if not cut:
+        return out
+    return dist_coll.all_gather(out, dist_sharding.current_mesh(),
+                                ("model",), out.dim() - 1)
+
+
 def _attend(qc: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
             mask: torch.Tensor, scale: float) -> torch.Tensor:
     """qc (B, c, K, G, D) against kt/vt (B, T, K, D) under mask
@@ -240,18 +274,19 @@ def attn_prefill_chunk(p: Params, x: torch.Tensor, cache: Params,
     """One prefill chunk: project, write K/V into the cache at ``offset``
     (in place), attend against everything cached so far."""
     b, c, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, quant, name)
+    ck, cv = cache["k"], cache["v"]
+    q, k, v, cut = _local_heads(_qkv(p, x, cfg, quant, name), cfg,
+                                ck.shape[2])
     pos = positions if positions is not None else offset + torch.arange(
         c, dtype=torch.int32, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
     # dynamic_update_slice clamps the start so the update fits
     start = min(max(int(offset), 0), ck.shape[1] - c)
     ck[:, start:start + c] = k.to(ck.dtype)
     cv[:, start:start + c] = v.to(cv.dtype)
     out = cached_attention(q, ck, cv, offset, kv_valid=kv_valid)
-    out = out.reshape(b, c, cfg.q_dim)
+    out = _all_heads(out.reshape(b, c, -1), cut)
     out = maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
     return out, {"k": ck, "v": cv}
 
@@ -269,19 +304,20 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos, cfg, quant,
     place at ``pos`` — a scalar or a (B,) vector (each slot at its own
     depth).  ``positions`` optionally gives distinct RoPE positions."""
     b = x.shape[0]
-    q, k, v = _qkv(p, x, cfg, quant, name)
+    ck, cv = cache["k"], cache["v"]
+    q, k, v, cut = _local_heads(_qkv(p, x, cfg, quant, name), cfg,
+                                ck.shape[2])
     pos_b = _as_batch_vec(pos, b, x.device)
     rpos = pos_b if positions is None else _as_batch_vec(positions, b,
                                                          x.device)
     q = rope(q, rpos[:, None], cfg.rope_theta)
     k = rope(k, rpos[:, None], cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
     rows = torch.arange(b, device=x.device)
     at = pos_b.clamp(0, ck.shape[1] - 1).long()
     ck[rows, at] = k[:, 0].to(ck.dtype)
     cv[rows, at] = v[:, 0].to(cv.dtype)
-    kh, d = cfg.n_kv_heads, cfg.head_dim
-    g = cfg.n_heads // kh
+    kh, d = ck.shape[2], cfg.head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
     qv = q.reshape(b, kh, g, d)
     scores = torch.einsum("bkgd,bskd->bkgs", qv,
                           ck.to(q.dtype)).to(torch.float32)
@@ -294,7 +330,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos, cfg, quant,
                          torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs, cv.to(q.dtype))
-    out = out.reshape(b, 1, cfg.q_dim)
+    out = _all_heads(out.reshape(b, 1, -1), cut)
     out = maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
     return out, {"k": ck, "v": cv}
 

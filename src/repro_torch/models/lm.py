@@ -18,6 +18,15 @@ every decoder block).  The reference's ``lax.scan`` over periods is a
 Python loop over that axis here.  Cache tensors are updated in place and
 returned.
 
+Parameters may be one rank's shards (``dist.sharding.shard_params``, the
+serve engine under a mesh): the embedding is looked up vocab-parallel
+(``dist.sharding.embed_lookup``) and the tied head quantizes only this
+rank's vocab columns, the table's FSDP columns gathered once a serve call
+(``dist.sharding.vocab_block``), the GEMMs gather their weights' FSDP rows
+(``quant.qmatmul``), and attention runs head-parallel on the pool's kv-head
+block (``models.layers``).  ``constrain_batch_dim`` stands where the
+reference constrains an activation's batch dim; it moves no value.
+
 The front ends are the reference's stubs: a vision model takes
 precomputed patch embeddings (``frontend_embeds``, (B, frontend_tokens,
 frontend_dim)), projected by a two-GEMM GELU projector into a prefix of
@@ -36,6 +45,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import (constrain_batch_dim, embed_lookup,
+                                      select, transpose, vocab_block)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
@@ -199,10 +210,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
 def _embed(params: Params, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
     cd = _cdtype(cfg)
-    x = params["embed"][tokens.long()].to(cd)
+    x = embed_lookup(params["embed"], tokens.long()).to(cd)
     # the scale rounded to the compute dtype, filled on the device (no
     # host-to-device copy, so a CUDA graph can capture the step)
     return x * torch.full((), cfg.d_model ** 0.5, dtype=cd, device=x.device)
+
+
+def _call_params(params: Params) -> Params:
+    """``params`` with the embedding as one serve call uses it: a sharded
+    table's FSDP columns gathered once, for the lookup and the tied head
+    (``dist.sharding.vocab_block``)."""
+    return {**params, "embed": vocab_block(params["embed"])}
 
 
 def _frontend_project(params: Params, cfg: ModelConfig,
@@ -219,7 +237,8 @@ def _frontend_project(params: Params, cfg: ModelConfig,
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
     x = L.norm_apply(params["ln_f"], x)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = transpose(params["embed"]) if cfg.tie_embeddings \
+        else params["lm_head"]
     out = maybe_quantized_matmul(x, w, cfg.quant, "lm_head")
     return _mask_padded_vocab(cfg, out)
 
@@ -269,7 +288,7 @@ def _period(tree, i: int):
     """Period ``i``'s slice of a period-stacked tree (views, not copies)."""
     if isinstance(tree, dict):
         return {k: _period(v, i) for k, v in tree.items()}
-    return tree[i]
+    return select(tree, i)
 
 
 def _tail(p: Params, x: torch.Tensor, cfg: ModelConfig, pos: int,
@@ -353,6 +372,7 @@ def _scan_blocks(stack: Params, x: torch.Tensor, cfg: ModelConfig,
     recomputed in the backward, so its quantized GEMMs launch twice a
     step."""
     def period(x, aux, pp, i):
+        x = constrain_batch_dim(x)
         for pos, spec in enumerate(cfg.pattern):
             x, a = _block_train(pp[f"pos{pos}"], x, spec, cfg, pos,
                                 mem=_period_mem(mem, i, pos), causal=causal)
@@ -415,10 +435,10 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     through the encoder (its aux loss counted too) to every decoder
     block's cross-attention memory."""
     _check_ported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = constrain_batch_dim(_embed(params, cfg, tokens))
     if cfg.frontend == "vision" and frontend_embeds is not None:
         fx = _frontend_project(params, cfg, frontend_embeds)
-        x = torch.cat([fx.to(x.dtype), x], dim=1)
+        x = constrain_batch_dim(torch.cat([fx.to(x.dtype), x], dim=1))
     mem = None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.is_encdec:
@@ -513,6 +533,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     cross-attention memory, as :func:`prefill` returns it; after a vision
     prefix ``t`` counts the prefix's positions too."""
     _check_ported(cfg)
+    params = _call_params(params)
     x = _embed(params, cfg, token[:, None])
     for i in range(cfg.n_periods):
         pp = _period(params["blocks"], i)
@@ -579,10 +600,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if ragged and cfg.frontend == "vision" and frontend_embeds is not None:
         raise NotImplementedError(
             "ragged prefill does not support vision prefix tokens")
-    x = _embed(params, cfg, tokens)
+    params = _call_params(params)
+    x = constrain_batch_dim(_embed(params, cfg, tokens))
     if cfg.frontend == "vision" and frontend_embeds is not None:
         fx = _frontend_project(params, cfg, frontend_embeds)
-        x = torch.cat([fx.to(x.dtype), x], dim=1)
+        x = constrain_batch_dim(torch.cat([fx.to(x.dtype), x], dim=1))
     mem = _encode(params, cfg, enc_frames) if cfg.is_encdec else None
     b, s, _ = x.shape
     off = 0 if start is None else int(start)

@@ -31,6 +31,18 @@ int32 codes, fp32 combine — then ``acc * (sx * sw)``.  The route does no
 host sync, so a decode graph captures it.  Every GEMM counts its route
 (:func:`gemm_routes`, the reference's ``_GEMM_ROUTES``).
 
+Under a mesh (the context's, or for model GEMMs the ambient one,
+:func:`repro_torch.dist.sharding.use_mesh`) a ``"cuda"`` GEMM runs
+shard-mapped (:func:`_sharded_cuda`, the reference's ``_sharded_pallas``):
+M over the data axes, N over ``model``, K replicated, the unchanged kernel
+on each rank's block, bit-identical to the unsharded GEMM; a GEMM the mesh
+cannot tile, or whose local shape fails the bounds, takes the ATen route,
+logged once and counted (``dist.shard_gemm.fallback_counts``).  A weight
+held as a DTensor shard (``dist.sharding.shard_params``) is gathered only
+as far as it is needed: its FSDP rows for the sharded GEMM and for the
+per-call quantizer, which then quantizes this rank's output channels
+alone; whole for the ATen route.
+
 Pre-quantized weights (``{"q", "scale"}`` records from
 :func:`repro_torch.quant.prequant.prequantize`) take
 :func:`prequant_matmul`: only x is quantized, and the record's codes and
@@ -62,6 +74,8 @@ from repro_torch.core.context import ExecContext
 from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_plan
 from repro_torch.core.kmm import (default_mm1, kmm_n, max_exact_k, mm_n,
                                   plan_accum_k_bound)
+from repro_torch.dist import shard_gemm
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.kernels import check_grad_fn, ops, records_grad
 from repro_torch.kernels.fused_gemm import (fused_gemm, fused_gemm_grouped,
                                             ragged_row_mask)
@@ -196,11 +210,66 @@ def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
             not in ("fused", "fused_mm2"):
         _PALLAS_FALLBACKS.inc("outside_fused_window")
         return None                     # recursion deeper than 2 levels
+    if context is not None and context.mesh is not None:
+        return _sharded_cuda(qx, qw, sx, sw, w, m, out_dtype, counts, seg,
+                             context, (m_dim, k_dim, n_dim))
     plan = _fused_plan_for((m_dim, k_dim, n_dim), w, m, context)
     if plan is None:
         _PALLAS_FALLBACKS.inc("kernel_bounds")
         return None
     return run_plan_dequant(qx, qw, sx, sw, plan, out_dtype, counts, seg)
+
+
+def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
+                  counts: Optional[torch.Tensor], seg: Optional[int],
+                  context: ExecContext, dims) -> Optional[torch.Tensor]:
+    """The GEMM + dequant shard-mapped over ``context.mesh`` (the
+    reference's ``_sharded_pallas``): each rank runs the unchanged kernel on
+    its block (:mod:`repro_torch.dist.shard_gemm`), the plan resolved and
+    its bounds checked on the local shape.  With K replicated no collective
+    touches the accumulators, so the output equals the unsharded one bit
+    for bit.  Returns None — the ATen route, logged and counted — where the
+    mesh tiles no dim of the GEMM or the local shape fails the bounds.
+    Under a batch-local ambient mesh (the engine) x holds this data rank's
+    rows, and the global M is D times its rows."""
+    mesh = context.mesh
+    batched = qw.dim() == 3
+    m_dim, k_dim, n_dim = dims
+    rows_local = not batched and dist_sharding.batch_is_local(mesh)
+    if rows_local:
+        m_dim *= dist_sharding.data_size(mesh)
+    shape = (m_dim, k_dim, n_dim)
+    spec, reason = shard_gemm.negotiate(
+        shape, mesh, n_experts=qx.shape[0] if batched else None)
+    if spec is None:
+        shard_gemm.log_fallback(shape, w, reason)
+        return None
+    lshape = shard_gemm.local_shape(shape, spec, mesh)
+    plan = _fused_plan_for(lshape, w, m, context)
+    if plan is None:
+        shard_gemm.log_fallback(shape, w, "local-K kernel bounds failed")
+        return None
+    ok, reason = shard_gemm.plan_local_bounds_ok(plan, lshape, w, m)
+    if not ok:
+        shard_gemm.log_fallback(shape, w, reason)
+        return None
+    if batched:
+        def local_grouped(qxl, qwl, sxl, swl, *cnt):
+            return run_plan_dequant(qxl, qwl, sxl, swl, plan, out_dtype,
+                                    cnt[0] if cnt else None, seg)
+        return shard_gemm.shard_grouped_gemm(local_grouped, mesh, spec,
+                                             counts)(qx, qw, sx, sw)
+
+    def local_dense(qxl, qwl, sxl, swl):
+        return run_plan_dequant(qxl, qwl, sxl, swl, plan, out_dtype)
+
+    rows = qx.reshape(-1, k_dim)
+    if not dist_sharding.is_dtensor(sw):
+        sw = sw.reshape(1, n_dim)
+    out = shard_gemm.shard_dense_gemm(local_dense, mesh, spec,
+                                      rows_local=rows_local)(
+        rows, qw, sx.reshape(rows.shape[0], 1), sw)
+    return out.reshape(qx.shape[:-1] + (n_dim,))
 
 
 def run_plan_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
@@ -318,6 +387,8 @@ def _quant_gemm(qx, qw, sx, sw, w: int, m: int, out_dtype,
         _count_route("cuda", "aten_fallback")
     else:
         _count_route(ctx.backend, "aten")
+    # the ATen route takes W whole
+    qw, sw = dist_sharding.full_leaf(qw), dist_sharding.full_leaf(sw)
     dims = (((2,), (1,)), ((0,), (0,))) if qw.dim() == 3 \
         else (((qx.dim() - 1,), (0,)), ((), ()))
     acc = _int_dot(qx, qw, w, m, dims, ctx.force_mode, _table(ctx))
@@ -331,11 +402,15 @@ def _quant_gemm(qx, qw, sx, sw, w: int, m: int, out_dtype,
 def _qmm_forward(x, wmat, w_bits, m, context):
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per token
-    qw, sw = _quantize(wmat, w_bits, 0, carrier)      # per output channel
+    # per output channel; a weight sharded at rest on its K rows gathered,
+    # on this rank's channels alone
+    qw, sw = dist_sharding.map_columns(
+        wmat, lambda wl: _quantize(wl, w_bits, 0, carrier))
     return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context)
 
 
 def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None):
+    wmat = dist_sharding.full_leaf(wmat)
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
     qw, sw = _quantize(wmat, w_bits, 1, carrier)      # per (expert, channel)
@@ -464,7 +539,13 @@ def quantized_matmul_batched(x: torch.Tensor, wmat: torch.Tensor,
 
 
 def _model_context(quant) -> ExecContext:
-    return ExecContext(backend=quant.backend, force_mode=quant.force_mode)
+    """A model GEMM's context, from the model's QuantConfig: the mesh is
+    the ambient one (``dist.sharding.use_mesh``; model code has no mesh
+    argument), on the ``"cuda"`` backend, whose kernels run sharded; the
+    ATen route takes each GEMM whole."""
+    mesh = dist_sharding.current_mesh() if quant.backend == "cuda" else None
+    return ExecContext(backend=quant.backend, force_mode=quant.force_mode,
+                       mesh=mesh)
 
 
 def prequant_matmul(x: torch.Tensor, wrec, w_bits: int, m: int = 8, *,
@@ -492,7 +573,8 @@ def prequant_matmul(x: torch.Tensor, wrec, w_bits: int, m: int = 8, *,
         raise ValueError("ragged counts need a positive static seg")
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)
-    qw = wrec["q"].to(carrier)      # no copy where storage == carrier
+    # no copy where storage == carrier
+    qw = dist_sharding.to_dtype(wrec["q"], carrier)
     return _quant_gemm(qx, qw, sx, wrec["scale"], w_bits, m, x.dtype,
                        context, counts, seg)
 
@@ -508,7 +590,7 @@ def maybe_quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, quant,
     if quant is not None and quant.enabled:
         return quantized_matmul(x, wmat, quant.bits_for(name), quant.m,
                                 context=_model_context(quant))
-    return torch.matmul(x, wmat.to(x.dtype))
+    return torch.matmul(x, dist_sharding.full_leaf(wmat).to(x.dtype))
 
 
 def maybe_quantized_batched(x: torch.Tensor, wmat: torch.Tensor, quant,

@@ -27,6 +27,20 @@ there.  Every operation updates the pool tensors in place: their addresses
 never change, which is what lets the executor's CUDA graphs read and write
 them.
 
+Under a mesh (``mesh=``, a ``DeviceMesh``) the pool follows the
+reference's ``page_pool_sharding``: the page and state-row axis is split
+over the data axes and attention K/V's kv-head axis over ``model`` where
+it divides (``dist.sharding.CACHE_MODEL_AXES``), and each rank allocates
+only its block.  Slots split over the data ranks (slot ``s`` belongs to
+data rank ``s * D // n_slots``), and each data shard holds its own slots'
+pages and state rows and its own parking set, so every page a rank's
+lanes gather lies in its own block: ``n_pages = D * (n_slots / D +
+snapshot_slots + 1) * pages_per_slot`` (the reference rounds ``(n_slots +
+snapshot_slots + 1) * pages_per_slot`` up to a multiple of D and shares
+one parking set, which its cross-shard gathers can read and a rank's
+local gather cannot).  Page and state tables hold global row numbers;
+:meth:`PagedCachePool.lane_rows` returns the rank's local ones.
+
 Prefix sharing is copy-on-reference: a snapshot stores a copy of the slot's
 first ``L / page_size`` pages plus its recurrent state row captured exactly
 at position ``L`` (a chunk boundary, so the state is exact), and a hit
@@ -41,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 
@@ -69,7 +84,7 @@ class PagedCachePool:
     """Fixed-size page and state-row pools, slot tables and free lists."""
 
     def __init__(self, cfg, n_slots: int, max_seq: int, page_size: int, *,
-                 snapshot_slots: int = 0, device=None):
+                 snapshot_slots: int = 0, device=None, mesh=None):
         if max_seq % page_size:
             raise ValueError(f"page_size={page_size} must divide "
                              f"max_seq={max_seq}")
@@ -78,13 +93,27 @@ class PagedCachePool:
         self.max_seq = max_seq
         self.page_size = page_size
         self.pages_per_slot = pps = max_seq // page_size
-        # +1 slot's worth of parking rows (padded decode lanes land there)
-        self.n_pages = (n_slots + snapshot_slots + 1) * pps
-        self.n_states = n_slots + snapshot_slots + 1
+        self.mesh = mesh
+        n_data, me = 1, 0
+        if mesh is not None:
+            n_data = dist_sharding.data_size(mesh)
+            me = dist_sharding.axes_index(
+                mesh, dist_sharding.data_axes(mesh))[0]
+            if n_slots % n_data:
+                raise ValueError(f"{n_slots} slots do not split over "
+                                 f"{n_data} data ranks")
+        self.n_data, self.data_rank = n_data, me
+        self.slots_per_rank = per = n_slots // n_data
+        # each data shard: its slots' rows, its snapshot region and one
+        # slot's worth of parking rows (padded decode lanes land there)
+        self.shard_pages = (per + snapshot_slots + 1) * pps
+        self.shard_states = per + snapshot_slots + 1
+        self.n_pages = n_data * self.shard_pages
+        self.n_states = n_data * self.shard_states
         shapes = lm.init_cache(cfg, 1, max_seq, device="meta")
-        self.pools: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.global_shapes: Dict[str, Dict[str, Tuple[int, ...]]] = {}
         for pos, leaves in shapes.items():
-            self.pools[pos] = {}
+            self.global_shapes[pos] = {}
             for name, leaf in leaves.items():
                 if name in PAGED_LEAVES:
                     shape = ((leaf.shape[0], self.n_pages, page_size)
@@ -92,20 +121,53 @@ class PagedCachePool:
                 else:
                     shape = (leaf.shape[0], self.n_states) + tuple(
                         leaf.shape[2:])
+                self.global_shapes[pos][name] = shape
+        self.sharding = None
+        if mesh is not None:
+            self.sharding = dist_sharding.page_pool_sharding(
+                {pos: {n: torch.empty(sh, device="meta")
+                       for n, sh in leaves.items()}
+                 for pos, leaves in self.global_shapes.items()}, mesh)
+        self.pools: Dict[str, Dict[str, torch.Tensor]] = {}
+        for pos, leaves in shapes.items():
+            self.pools[pos] = {}
+            for name, leaf in leaves.items():
+                shape = self.global_shapes[pos][name]
+                if mesh is not None:
+                    shape = dist_sharding.local_block(
+                        torch.empty(shape, device="meta"),
+                        self.sharding[pos][name], mesh).shape
                 self.pools[pos][name] = torch.zeros(shape, dtype=leaf.dtype,
                                                     device=device)
         # Slot rows are fixed for the engine's lifetime; the snapshot
         # region cycles through the free lists.
-        pages = list(range(self.n_pages))
-        self.page_table = np.array(pages[:n_slots * pps],
-                                   np.int64).reshape(n_slots, pps)
-        self.parking_pages = np.array(pages[n_slots * pps:(n_slots + 1)
-                                            * pps], np.int64)
-        self._free_pages: List[int] = pages[(n_slots + 1) * pps:]
-        self.state_table = np.arange(n_slots, dtype=np.int64)
-        self.parking_state = n_slots
-        self._free_states: List[int] = list(range(n_slots + 1,
-                                                  self.n_states))
+        self.page_table = np.stack([
+            self._page_base(s // per)
+            + np.arange((s % per) * pps, (s % per + 1) * pps)
+            for s in range(n_slots)]).astype(np.int64).reshape(n_slots, pps)
+        base = self._page_base(me)
+        self.parking_pages = np.arange(base + per * pps,
+                                       base + (per + 1) * pps,
+                                       dtype=np.int64)
+        self._free_pages: List[int] = list(range(
+            base + (per + 1) * pps, base + self.shard_pages))
+        self.state_table = np.array(
+            [(s // per) * self.shard_states + s % per
+             for s in range(n_slots)], np.int64)
+        sbase = me * self.shard_states
+        self.parking_state = sbase + per
+        self._free_states: List[int] = list(range(
+            sbase + per + 1, sbase + self.shard_states))
+
+    def _page_base(self, data_rank: int) -> int:
+        return data_rank * self.shard_pages
+
+    def owner(self, slot: int) -> int:
+        """The data rank whose shard holds ``slot``'s rows."""
+        return slot // self.slots_per_rank
+
+    def owns(self, slot: int) -> bool:
+        return self.owner(slot) == self.data_rank
 
     def _leaves(self):
         for leaves in self.pools.values():
@@ -114,7 +176,9 @@ class PagedCachePool:
     def zero_slot_state(self, slot: int) -> None:
         """Zero the slot's state row in every recurrent pool (slot
         (re)init); K/V pages are left as they are."""
-        row = int(self.state_table[slot])
+        if not self.owns(slot):
+            return
+        row = int(self.state_table[slot]) - self.data_rank * self.shard_states
         for name, pool in self._leaves():
             if name not in PAGED_LEAVES:
                 pool[:, row].zero_()
@@ -166,13 +230,20 @@ class PagedCachePool:
     def lane_rows(self, lane_slots: Sequence[Optional[int]]
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """(page rows (W, pps), state rows (W,)) for a decode/prefill lane
-        list; ``None`` entries map to the parking rows."""
+        list; ``None`` entries map to the parking rows.  Rows are this
+        rank's local ones: under a mesh every lane slot must be one of
+        this data rank's."""
+        foreign = [i for i in lane_slots if i is not None and not self.owns(i)]
+        if foreign:
+            raise ValueError(f"slots {foreign} belong to other data ranks "
+                             f"than {self.data_rank}")
         prows = np.stack([self.page_table[i] if i is not None
                           else self.parking_pages for i in lane_slots])
         srows = np.array([self.state_table[i] if i is not None
                           else self.parking_state for i in lane_slots],
                          np.int64)
-        return prows, srows
+        return (prows - self._page_base(self.data_rank),
+                srows - self.data_rank * self.shard_states)
 
 
 class PrefixCache:

@@ -33,7 +33,30 @@ As in the reference, an encoder-decoder model is refused
 request carries no image, and the ragged prefill refuses a vision prefix.
 The engine runs on CUDA unless ``device="cpu"`` is passed; then each GEMM
 runs the kernels' plain PyTorch versions and decode runs its static
-buffers without a graph.  Meshes are not ported yet.
+buffers without a graph.
+
+Under a mesh (``mesh=``, or ``context.mesh``; a ``DeviceMesh`` from
+:mod:`repro_torch.launch.mesh`, one process a rank, every rank running the
+same engine on the same requests): each rank holds exactly its
+``dist.sharding.leaf_spec`` block of every parameter
+(``dist.sharding.shard_params``: ``params`` may lie on the host, and only
+each block is copied to the device) and its ``page_pool_sharding`` block of
+the pool; every rank keeps the whole scheduler, so all agree on every
+slot's state.  Slot ``s`` belongs to data rank ``s * D // batch_size`` (D:
+the product of the data axes' sizes), and each data rank prefills and
+decodes only its slots' lanes, on a decode width common to the data ranks
+(the bucket covering the most lanes any of them has) and in prefill rounds
+where a data rank with no prompt left runs a parking-row prefill, so every
+rank makes the same collectives.  The model runs under the ambient mesh:
+its GEMMs shard-mapped (M over data, N over ``model``), attention
+head-parallel over ``model`` where the kv heads divide.  Sampled tokens
+are all-gathered over the data axes in slot order, so every scheduler
+advances identically; sampling draws from one generator per (request,
+step), so the lane grouping moves no draw.  Admission reads a clock the
+ranks agree on (the latest of theirs).  Under a mesh ``batch_size`` must
+split over the data ranks (``ValueError``), and MoE, mamba and RWKV models
+and ``prefix_cache`` raise ``NotImplementedError`` (ROADMAP queue 1,
+item 4).
 
 Observability (:mod:`repro_torch.obs`, enabled before the engine is built
 and warmed, as the launcher's ``--metrics-out`` / ``--trace-out`` do): the
@@ -50,13 +73,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.bridge import tree_map
-from repro_torch.core.context import ExecContext, resolve_device
+from repro_torch.core.context import (ExecContext, resolve_context,
+                                      resolve_device)
+from repro_torch.dist import collectives as dist_coll
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.cache import (PagedCachePool, PrefixCache,
@@ -82,6 +108,32 @@ _FINISHED = obs_metrics.counter(
     labels=("reason",))
 
 
+def _check_mesh(cfg, mesh, batch_size: int, prefix_cache: bool,
+                device: torch.device) -> None:
+    """What the engine serves under a mesh (module docstring)."""
+    if any(spec.moe for spec in cfg.pattern):
+        raise NotImplementedError(
+            "an MoE model under a mesh (expert parallelism through "
+            "shard_grouped_gemm) is not ported yet: ROADMAP queue 1 item 4")
+    kinds = {spec.kind for spec in cfg.pattern} - {"attn"}
+    if kinds:
+        raise NotImplementedError(
+            f"{sorted(kinds)} blocks under a mesh (their state over "
+            f"'model', CACHE_MODEL_AXES) are not ported yet: ROADMAP queue "
+            f"1 item 4")
+    if prefix_cache:
+        raise NotImplementedError(
+            "the prefix cache under a mesh is not ported yet: ROADMAP "
+            "queue 1 item 4")
+    d = dist_sharding.data_size(mesh)
+    if batch_size % d:
+        raise ValueError(f"batch_size={batch_size} does not split over the "
+                         f"mesh's {d} data ranks")
+    if torch.device(mesh.device_type).type != device.type:
+        raise ValueError(f"the mesh computes on {mesh.device_type!r}, the "
+                         f"engine on {device.type!r}")
+
+
 class Engine:
     """Continuous-batching engine over ``batch_size`` decode slots."""
 
@@ -93,13 +145,19 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
                  prefix_snapshots: int = 4,
-                 device: Optional[str | torch.device] = None):
+                 device: Optional[str | torch.device] = None,
+                 mesh=None):
         if cfg.is_encdec:
             raise NotImplementedError(
                 "continuous batching does not support encoder-decoder models")
         self.device = resolve_device(device)
-        ctx = context if context is not None else ExecContext(
-            backend=cfg.quant.backend, force_mode=cfg.quant.force_mode)
+        ctx = resolve_context(context, what="Engine", mesh=mesh,
+                              _defaults=ExecContext(
+                                  backend=cfg.quant.backend,
+                                  force_mode=cfg.quant.force_mode))
+        self.mesh = mesh = ctx.mesh
+        if mesh is not None:
+            _check_mesh(cfg, mesh, batch_size, prefix_cache, self.device)
         if (ctx.backend != cfg.quant.backend
                 or ctx.force_mode != cfg.quant.force_mode):
             cfg = cfg.with_quant(dataclasses.replace(
@@ -113,7 +171,11 @@ class Engine:
             set_active_table(ctx.tuning_table)
         self.context = ctx
         self.cfg = cfg
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        if mesh is None:
+            self.params = tree_map(lambda t: t.to(self.device), params)
+        else:
+            self.params = dist_sharding.shard_params(params, mesh,
+                                                     self.device)
         self.max_seq = max_seq
         self.batch = batch_size
         self.rng_seed = rng_seed
@@ -145,8 +207,9 @@ class Engine:
         self.pool = PagedCachePool(
             cfg, batch_size, max_seq, page_size,
             snapshot_slots=prefix_snapshots if prefix_cache else 0,
-            device=self.device)
-        self.executor = Executor(cfg, self.params, self.pool, self.device)
+            device=self.device, mesh=mesh)
+        self.executor = Executor(cfg, self.params, self.pool, self.device,
+                                 mesh=mesh)
         self.prefix: Optional[PrefixCache] = None
         if prefix_cache:
             self.prefix = PrefixCache(
@@ -161,6 +224,25 @@ class Engine:
 
     def _now(self) -> float:
         return time.monotonic() - self._clock0
+
+    def _agreed_now(self) -> float:
+        """The admission clock: under a mesh the latest of every rank's, so
+        all ranks admit the same requests at the same step."""
+        now = self._now()
+        if self.mesh is None:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        axes = dist_sharding.axis_names(self.mesh)
+        return float(dist_coll.all_reduce(t, self.mesh, axes,
+                                          torch.distributed.ReduceOp.MAX)[0])
+
+    def _gather_data(self, vals: np.ndarray) -> np.ndarray:
+        """Every data rank's int64 ``vals`` (one length on all),
+        concatenated in data-rank order."""
+        t = torch.as_tensor(vals, dtype=torch.int64).to(self.device)
+        out = dist_coll.all_gather(t, self.mesh,
+                                   dist_sharding.data_axes(self.mesh), 0)
+        return out.cpu().numpy()
 
     def _sync(self) -> None:
         """Wait for the device, so host timers measure finished work."""
@@ -268,37 +350,54 @@ class Engine:
                 slot.prefill.off = hit_len
                 slot.prefill.from_prefix = True
 
-    def _run_prefill_chunk(self, idx: int) -> Optional[Request]:
-        """Advance one slot's prefill by one chunk (the whole remaining
-        prompt when chunking is off).  Returns the request if it finished
-        at admission (a 1-token budget or an instant stop token)."""
+    def _chunk_take(self, idx: int) -> Tuple[int, int]:
+        """(tokens, bucket width) of slot ``idx``'s next prefill chunk (the
+        whole remaining prompt when chunking is off)."""
+        slot = self.scheduler.slots[idx]
+        left = len(slot.req.prompt) - slot.prefill.off
+        if self.prefill_chunk is None:
+            return left, self._bucket(left, self.prompt_buckets)
+        take = min(self.prefill_chunk, left)
+        return take, self._bucket(take, self._chunk_buckets)
+
+    def _prefill_compute(self, idx: int) -> int:
+        """Run slot ``idx``'s next prefill chunk; its first sampled token
+        when the chunk completes the prompt, else -1."""
         slot = self.scheduler.slots[idx]
         req, ps = slot.req, slot.prefill
-        plen = len(req.prompt)
-        if self.prefill_chunk is None:
-            take = plen - ps.off
-            width = self._bucket(take, self.prompt_buckets)
-        else:
-            take = min(self.prefill_chunk, plen - ps.off)
-            width = self._bucket(take, self._chunk_buckets)
+        take, width = self._chunk_take(idx)
         toks = np.zeros((1, width), np.int32)
         toks[0, :take] = req.prompt[ps.off:ps.off + take]   # right-pad
         last = np.array([take - 1], np.int32)
-        stats = self._stats
-        t0 = time.monotonic()
         with obs_trace.span("prefill_chunk", slot=idx, rid=req.stats.rid,
                             off=ps.off, width=width):
             logits = self.executor.prefill(idx, toks, ps.off, last)
-            done = ps.off + take >= plen
-            if done:
+            if ps.off + take >= len(req.prompt):
                 # prompt complete: the first token from the last chunk's
                 # logits at its last real position
-                tok = int(self.executor.sample(
+                return int(self.executor.sample(
                     self.rng_seed, logits, [req.temperature],
                     [req.stats.rid], [0])[0])
-            else:
-                self._sync()
-        stats.prefill_s += time.monotonic() - t0
+            self._sync()
+        return -1
+
+    def _run_prefill_chunk(self, idx: int) -> Optional[Request]:
+        """Advance one slot's prefill by one chunk.  Returns the request if
+        it finished at admission (a 1-token budget or an instant stop
+        token)."""
+        t0 = time.monotonic()
+        tok = self._prefill_compute(idx)
+        self._stats.prefill_s += time.monotonic() - t0
+        return self._prefill_advance(idx, tok)
+
+    def _prefill_advance(self, idx: int, tok: int) -> Optional[Request]:
+        """The bookkeeping of one prefill chunk of slot ``idx``, ``tok``
+        its first token if the chunk completed the prompt."""
+        slot = self.scheduler.slots[idx]
+        req, ps = slot.req, slot.prefill
+        stats = self._stats
+        take, _ = self._chunk_take(idx)
+        done = ps.off + take >= len(req.prompt)
         ps.off += take
         if not done:
             # a snapshot boundary lies before the prompt's last token
@@ -323,10 +422,41 @@ class Engine:
         idxs = self.scheduler.prefilling()
         if self.prefill_chunk is not None:
             idxs = idxs[:1]
+        if self.mesh is not None:
+            toks = self._prefill_rounds(idxs)
+            for idx in idxs:
+                req = self._prefill_advance(idx, toks[idx])
+                if req is not None:
+                    self._admitted_done.append(req)
+            return
         for idx in idxs:
             req = self._run_prefill_chunk(idx)
             if req is not None:
                 self._admitted_done.append(req)
+
+    def _prefill_rounds(self, idxs: List[int]) -> Dict[int, int]:
+        """Under a mesh: every data rank prefills its own slots of ``idxs``
+        one a round (a parking-row prefill where it has none left), and
+        the (slot, first token) pairs of each round are all-gathered.
+        Returns slot -> first token (-1: prompt not complete)."""
+        pool = self.pool
+        mine = [i for i in idxs if pool.owns(i)]
+        n_rounds = max(sum(1 for i in idxs if pool.owner(i) == d)
+                       for d in range(pool.n_data))
+        out: Dict[int, int] = {}
+        t0 = time.monotonic()
+        for r in range(n_rounds):
+            if r < len(mine):
+                pair = np.array([mine[r], self._prefill_compute(mine[r])])
+            else:
+                w = self.prompt_buckets[0]
+                self.executor.prefill(None, np.zeros((1, w), np.int32), 0,
+                                      np.array([w - 1], np.int32))
+                pair = np.array([-1, -1])
+            got = self._gather_data(pair).reshape(-1, 2)
+            out.update((int(s), int(t)) for s, t in got if s >= 0)
+        self._stats.prefill_s += time.monotonic() - t0
+        return out
 
     # -- decode -------------------------------------------------------------
 
@@ -334,6 +464,9 @@ class Engine:
         n_live, lanes = self.scheduler.decode_lanes()
         if not n_live:
             return []
+        live = lanes[:n_live]
+        if self.mesh is not None:
+            lanes = self._mesh_lanes(live)
         slots = self.scheduler.slots
         toks = np.array([slots[j].last_tok if j is not None else 0
                          for j in lanes], np.int32)
@@ -352,6 +485,10 @@ class Engine:
             logits = self.executor.decode(lanes, toks, pos)
             nxt = self.executor.sample(self.rng_seed, logits, temps, rids,
                                        steps)
+            if self.mesh is None:
+                tok_of = dict(zip(live, nxt))
+            else:
+                tok_of = self._gather_tokens(lanes, nxt, live)
         dt = time.monotonic() - t0
         stats.decode_s += dt
         stats.decode_steps += 1
@@ -359,9 +496,9 @@ class Engine:
         _DECODE_STEP.observe(dt)
         _OCCUPANCY.set(n_live / self.batch)
         finished: List[Request] = []
-        for lane, idx in enumerate(lanes[:n_live]):     # live lanes first
+        for idx in live:                    # in slot order
             slot = slots[idx]
-            tok = int(nxt[lane])
+            tok = int(tok_of[idx])
             slot.pos += 1
             slot.last_tok = tok
             slot.n_tokens += 1
@@ -374,6 +511,33 @@ class Engine:
                 finished.append(req)
         return finished
 
+    def _mesh_lanes(self, live: List[int]) -> List[Optional[int]]:
+        """This data rank's decode lanes: its live slots, padded to the
+        width covering the most live slots any data rank has, with its own
+        free slots first and its parking rows after."""
+        pool, slots = self.pool, self.scheduler.slots
+        most = max(sum(1 for i in live if pool.owner(i) == d)
+                   for d in range(pool.n_data))
+        width = next(w for w in self.scheduler.decode_widths if w >= most)
+        lanes: List[Optional[int]] = [i for i in live if pool.owns(i)]
+        free = [i for i, s in enumerate(slots)
+                if not s.active and pool.owns(i)]
+        lanes += free[:width - len(lanes)]
+        return lanes + [None] * (width - len(lanes))
+
+    def _gather_tokens(self, lanes, nxt: np.ndarray,
+                       live: List[int]) -> Dict[int, int]:
+        """Every data rank's sampled tokens, all-gathered over the data
+        axes in slot order; slot -> token for the live slots."""
+        pool = self.pool
+        base = pool.data_rank * pool.slots_per_rank
+        mine = np.full((pool.slots_per_rank,), -1, np.int64)
+        for lane, idx in enumerate(lanes):
+            if idx is not None and idx in live:
+                mine[idx - base] = nxt[lane]
+        every = self._gather_data(mine)
+        return {idx: int(every[idx]) for idx in live}
+
     # -- step / driver ------------------------------------------------------
 
     def step(self) -> List[Request]:
@@ -383,7 +547,7 @@ class Engine:
         admission included."""
         t0 = time.monotonic()
         with obs_trace.span("engine_step"):
-            for idx, req in self.scheduler.admit(self._now()):
+            for idx, req in self.scheduler.admit(self._agreed_now()):
                 self._init_slot(idx, req)
             self._prefill_step()
             finished = self._admitted_done

@@ -41,6 +41,17 @@ host code before the replay.  The MoE dispatch accumulators
 (:mod:`repro_torch.models.moe`) keep the capture's eager warm-up step out
 of their counts, as the reference observes each executed step once.
 
+Under a mesh (``mesh=``) each rank runs its own data rank's lanes over its
+block of the pool, the model under the ambient mesh
+(``dist.sharding.use_mesh``), whose activations are this data rank's rows,
+so its GEMMs run sharded and its attention head-parallel.  A CUDA graph
+cannot capture a gloo collective, so under a gloo mesh (ranks sharing one
+card, or the CPU) ``graphs`` is False and decode runs the static buffers
+eagerly: a property of the mesh's backend, set here, not a fallback on
+failure.  Under NCCL decode is captured with its collectives; a world of
+one has none (every group is one rank), and no run has yet captured an
+engine step with NCCL collectives of several ranks.
+
 Where the reference donates the pool to its jit so the cache never copies,
 the port updates the pool in place: the scatter writes the lanes straight
 back into the pool tensors, whose addresses never change.  Sampling cannot
@@ -48,12 +59,15 @@ reproduce the reference's PRNG bits; greedy decoding is exact.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.kernels import fused_gemm, launch_counts
+from repro_torch.launch.mesh import mesh_backend
 from repro_torch.models import lm, moe
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve.cache import PAGED_LEAVES, PagedCachePool
@@ -101,14 +115,17 @@ class Executor:
     """Gather/compute/scatter over a :class:`PagedCachePool`."""
 
     def __init__(self, cfg, params: Params, pool: PagedCachePool,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.cfg = cfg
         self.params = params
         self.pool = pool
         self.device = device
+        self.mesh = mesh
         # Decode through one CUDA graph per width; False runs the static
-        # buffers eagerly (the CPU's path), for A/B checks on the card.
-        self.graphs = device.type == "cuda"
+        # buffers eagerly (the CPU's path, and a gloo mesh's: gloo cannot
+        # be captured), and for A/B checks on the card.
+        self.graphs = device.type == "cuda" and (
+            mesh is None or mesh_backend(mesh) != "gloo")
         self._decoders: Dict[int, _Decoder] = {}
         self._prefill_widths: set = set()
         self._stream = None
@@ -146,11 +163,18 @@ class Executor:
                     (pool.shape[0], w, pps, page)
                     + tuple(pool.shape[3:])).to(pool.dtype)
 
+    def _mesh(self):
+        """The ambient mesh of a model call, or none."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return dist_sharding.use_mesh(self.mesh)
+
     def _step(self, d: _Decoder) -> torch.Tensor:
         """One decode step on ``d``'s buffers: what a graph captures."""
         lanes = self._gather(d.prows, d.srows)
-        logits, lanes = lm.decode_step(self.params, self.cfg, d.toks, lanes,
-                                       d.pos)
+        with self._mesh():
+            logits, lanes = lm.decode_step(self.params, self.cfg, d.toks,
+                                           lanes, d.pos)
         self._scatter(lanes, d.prows, d.srows)
         return logits
 
@@ -225,9 +249,10 @@ class Executor:
         last_t = torch.as_tensor(last, device=self.device)
         iota = torch.arange(toks_t.shape[1], device=self.device)[None, :]
         mask = iota <= last_t[:, None]
-        logits, lanes, _ = lm.prefill(self.params, self.cfg, toks_t, lanes,
-                                      pad_mask=mask, last_idx=last_t,
-                                      start=start)
+        with self._mesh():
+            logits, lanes, _ = lm.prefill(self.params, self.cfg, toks_t,
+                                          lanes, pad_mask=mask,
+                                          last_idx=last_t, start=start)
         self._scatter(lanes, *rows)
         return logits
 

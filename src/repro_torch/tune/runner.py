@@ -274,10 +274,14 @@ def tune_shape(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
     as it is, and the time of the analytic default plan (what runs with no
     table; the first candidate), so a table can report its speedup
     honestly.  ``max_candidates`` truncates the candidates; the result's
-    measurement count shows it.
+    measurement count shows it.  Under ``context.mesh`` on ``"cuda"`` the
+    sweep runs the per-rank local shape: the sharded kernel runs it, and
+    ``select_plan`` looks it up.
     """
     if context is not None:
         backend = context.backend
+        if context.mesh is not None and backend == "cuda":
+            shape = context.local_gemm_shape(shape)
     a, b = make_operands(shape, w, seed=seed, device=device, m=m)
     cands = served_candidates(shape, w, m=m, backend=backend,
                               tile_choices=tile_choices)

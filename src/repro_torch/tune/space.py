@@ -378,6 +378,20 @@ def bucket_shape(shape: Shape) -> Shape:
     return tuple(_round_pow2(int(d)) for d in shape)  # type: ignore
 
 
+def local_shape(shape: Shape, mesh) -> Shape:
+    """Per-rank (M, K, N) of a GEMM under ``mesh``'s sharded layout (M over
+    the data axes, N over ``model``, K replicated; see
+    :mod:`repro_torch.dist.shard_gemm`), or the shape itself where the mesh
+    cannot tile the GEMM (its ATen fallback runs the whole GEMM).  Tables
+    are keyed, and bounds checked, on this shape under a mesh."""
+    from repro_torch.dist.shard_gemm import local_shape as _local
+    from repro_torch.dist.shard_gemm import negotiate
+    spec, _ = negotiate(shape, mesh)
+    if spec is None:
+        return shape
+    return _local(shape, spec, mesh)
+
+
 def gemm_kn(cfg) -> List[Tuple[int, int]]:
     """The (K, N) of every quantized GEMM of a model config, sorted."""
     d = cfg.d_model

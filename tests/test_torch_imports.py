@@ -65,3 +65,16 @@ def test_every_port_module_imports_without_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_distribution_modules_are_covered():
+    """The distribution modules are among those imported without jax."""
+    names = _module_names()
+    for name in ("repro_torch.dist", "repro_torch.dist.sharding",
+                 "repro_torch.dist.shard_gemm",
+                 "repro_torch.dist.collectives", "repro_torch.launch.mesh"):
+        assert name in names
+        path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
+        if not path.exists():
+            path = PORT.parent.joinpath(*name.split("."), "__init__.py")
+        assert not [r for r, _ in _imported_roots(path) if r in FORBIDDEN]
