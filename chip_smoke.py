@@ -382,9 +382,12 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       (b) MESH_RANKS ranks on gloo sharing cuda:0 (a MESH_SHAPE mesh),
       started by this script (``--mesh-rank``) after the build, each
       loading the built libraries (a rank that finds one missing fails: no
-      rank builds): which gloo collectives run on CUDA tensors (the
-      point-to-point ops, which abort a process on CUDA tensors, probed by
-      two processes of their own, ``--gloo-p2p-probe``); the sharded fused
+      rank builds): which gloo collectives run on CUDA tensors, failing
+      where one of ``GLOO_CUDA_OPS`` does not in a dtype the port sends it
+      (bf16 weight gathers and the fp32 reduce-scatter of training among
+      them; the point-to-point ops, which abort a process on CUDA tensors,
+      probed by two processes of their own, ``--gloo-p2p-probe``); the
+      sharded fused
       kernel at llama's wi (mm1, w=8) and tied lm_head (kmm2, w=12) at M=4
       on records torch.equal to the unsharded kernel on the same rank, one
       launch a rank; the K-sharded staged mm1 at wi equal to the int64
@@ -401,6 +404,34 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       rank's peak device memory at load and over serving, launches and
       host-clock step ms reported (a transport check on one card, not a
       multi-card number), and the logits' distance from (a)'s.
+
+Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
+
+  5d. (a) a world of one on NCCL: full-width, full-depth llama3.2-1b under
+      mixed (5t's seq 256, global batch 8, 2 microbatches),
+      TRAIN_MESH_STEPS AdamW steps through ``run_training`` with no mesh
+      and with ``mesh=``, under deterministic algorithms: losses and every
+      leaf of params, mu, nu and step torch.equal, launches exact
+      (``train_launches``) and equal;
+      (b) MESH_RANKS gloo ranks sharing cuda:0 (``--train-mesh-rank``,
+      started first: they join their mesh while (a) runs) on a MESH_SHAPE
+      mesh, llama at TRAIN_MESH_PERIODS periods, the same batch: the
+      unsharded step 1 and its update at that depth here (saved for the
+      ranks, which it releases); on each rank what ``run_training``'s loop
+      runs a step — the seeded init's blocks, step 1 and its AdamW update
+      (each rank's blocks of the gradients, params, mu and nu, and its grad
+      norm, held to the unsharded step's, gates below), the
+      AsyncCheckpointer's save of step 1 (each leaf gathered to rank 0),
+      step 2 through ``make_train_step`` — each step's launches exactly the
+      unsharded step's (every rank runs every GEMM on its block), every
+      rank's losses equal, step 1's within TRAIN_MESH_LOSS_RTOL of the
+      unsharded, resident params + mu + nu at most TRAIN_MESH_RESIDENT of
+      the unsharded and equal to what the abstract specs place; the
+      checkpoint loaded here with no mesh, each rank's block of every leaf
+      equal (SHA-256) to what the rank held; step ms (host clock: a
+      transport check) and each rank's device peak reported.  No run
+      spans cards: no gradient collective ran across cards, or under NCCL
+      with more than one rank.
 
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
@@ -858,6 +889,42 @@ MESH_TIMEOUT = 600
 MESH_PARAMS = ROOT / "build" / "scratch" / "mesh_params.pt"
 # llama's launches a model call: 7 w=8 projections a layer, the w=12 head.
 MESH_PER_CALL = {"mm1": 112, "kmm2": 1}
+# Phase 5d: training under a mesh.  (a) full-depth llama, TRAIN_MESH_STEPS
+# steps on a world of one (NCCL) against no mesh; (b) MESH_RANKS gloo ranks
+# sharing cuda:0 on MESH_SHAPE, llama at TRAIN_MESH_PERIODS of its periods
+# (5t's restart-gate depth), TRAIN_MESH_STEPS steps, against the unsharded
+# step at that depth.  (b)'s gates, on step 1 against the unsharded step 1
+# and its AdamW update: the loss within TRAIN_MESH_LOSS_RTOL, the grad norm
+# within TRAIN_MESH_NORM_RTOL (a replicated leaf counted on every rank moves
+# it by far more), every gradient leaf within TRAIN_MESH_GRAD_TOL of its
+# largest entry; mu (the clipped gradient scaled) and nu (its square) within
+# the gates that follow from those two; each param within
+# TRAIN_MESH_PARAM_TOL lr (tests/test_torch_train.py's step bound) where the
+# unsharded gradient passes 2 TRAIN_MESH_GRAD_TOL of its leaf's largest, so
+# that the gradient gate leaves the sign of Adam's first update as it was,
+# and within 2 lr (a sign flipped) plus that elsewhere; each rank's params
+# + mu + nu at most TRAIN_MESH_RESIDENT of the unsharded.  The bf16 copy's
+# gradients round to bf16 in another order than unsharded: a weight's after
+# its fp32 sum over the data ranks (one ulp is at most 2^-7 = 7.8e-3 of the
+# leaf's largest entry), but also between layers and in the embedding's
+# per-rank bf16 scatter-add, roundings that compound, so the gates are
+# measured.  On an NVIDIA H100 80GB HBM3 (700 W), init seeds 0, 1, 2 at 2
+# periods and seed 0 at 3: gradients 6.07e-3, 6.83e-3, 6.20e-3 and 8.33e-3
+# of a leaf's largest entry (gate 1e-2), the grad norm 4.0e-6, 1.2e-6,
+# 5.7e-7 and 8.0e-8 relative (gate 1e-5), params 1.19e-3 lr at most (the
+# fp32 ulp of a norm scale at 1.0), the loss equal to the bit.
+# The unsharded step 1 (step1.pt) and the ranks' checkpoint lie in
+# TRAIN_MESH_DIR (removed after).
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_PERIODS = 2
+TRAIN_MESH_SEED = 0
+TRAIN_MESH_LOSS_RTOL = 1e-5
+TRAIN_MESH_GRAD_TOL = 1e-2
+TRAIN_MESH_NORM_RTOL = 1e-5
+TRAIN_MESH_PARAM_TOL = 1e-2
+TRAIN_MESH_RESIDENT = 0.3
+TRAIN_MESH_TIMEOUT = 600
+TRAIN_MESH_DIR = ROOT / "build" / "scratch" / "train_mesh"
 
 
 def log(msg: str) -> None:
@@ -5239,22 +5306,25 @@ def train_none_vs_plain(torch, fg, what: str, cfg, params, batch,
             "s_plain": t_p}
 
 
-def counted_training(torch, fg, what: str, cfg, tc, dcfg, expect: dict):
-    """One ``run_training`` with every launch count set to 0 just before
-    and read just after: exactly ``expect`` launches, every quantized GEMM
-    on the kernels.  Returns the result, the launches and the timing."""
+def counted(torch, fg, fn, device="cuda"):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (its result, launches, routes, seconds)."""
     from repro_torch.kernels import launch_counts
     from repro_torch.quant import qmatmul
-    from repro_torch.train.loop import run_training
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    if device == "cuda":
+        torch.cuda.synchronize()
     reset_all(fg)
     t0 = time.monotonic()
-    res = run_training(cfg, tc, dcfg, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    host = nonzero(launch_counts())
-    routes = qmatmul.gemm_routes()
+    res = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (res, nonzero(launch_counts()), qmatmul.gemm_routes(),
+            time.monotonic() - t0)
+
+
+def check_train_counts(what: str, host: dict, routes: dict,
+                       expect: dict) -> None:
+    """Exactly ``expect`` launches, every quantized GEMM on the kernels."""
     gemms = sum(n for k, n in expect.items()
                 if k.startswith(("dense_", "grouped_")))
     if host != expect:
@@ -5263,6 +5333,17 @@ def counted_training(torch, fg, what: str, cfg, tc, dcfg, expect: dict):
     if routes != {("cuda", "cuda"): gemms}:
         fail(f"{what}: quantized GEMM routes {routes}, expected "
              f"{gemms} on the kernels and none on the ATen route")
+
+
+def counted_training(torch, fg, what: str, cfg, tc, dcfg, expect: dict):
+    """One ``run_training`` with every launch count set to 0 just before
+    and read just after: exactly ``expect`` launches, every quantized GEMM
+    on the kernels.  Returns the result, the launches and the timing."""
+    from repro_torch.train.loop import run_training
+    torch.cuda.reset_peak_memory_stats()
+    res, host, routes, wall = counted(
+        torch, fg, lambda: run_training(cfg, tc, dcfg, device="cuda"))
+    check_train_counts(what, host, routes, expect)
     steady = res.step_seconds[1:] or res.step_seconds
     step_s = statistics.mean(steady)
     tokens = dcfg.seq_len * dcfg.global_batch
@@ -5730,6 +5811,14 @@ def gloo_cuda_ops(torch, world: int) -> dict:
             return float(x[0]) == want
         return run
 
+    def reduce_scatter():
+        x = torch.arange(4 * world, dtype=torch.float32, device="cuda") + rank
+        o = torch.empty(4, device="cuda")
+        dist.reduce_scatter_tensor(o, x)
+        want = world * torch.arange(4 * world, dtype=torch.float32) \
+            + world * (world - 1) / 2
+        return torch.equal(o.cpu(), want[4 * rank:4 * rank + 4])
+
     def bcast():
         x = t.clone()
         dist.broadcast(x, src=0)
@@ -5740,6 +5829,8 @@ def gloo_cuda_ops(torch, world: int) -> dict:
               # the records' int8 codes; int16 codes travel as uint8
               "all_gather_into_tensor_i8": gather_into(torch.int8),
               "all_gather_into_tensor_u8": gather_into(torch.uint8),
+              # the bf16 compute copy's weight gathers in training
+              "all_gather_into_tensor_bf16": gather_into(torch.bfloat16),
               "all_reduce_sum_f32": reduce(torch.float32,
                                            dist.ReduceOp.SUM, want_sum),
               "all_reduce_sum_i32": reduce(torch.int32, dist.ReduceOp.SUM,
@@ -5750,7 +5841,9 @@ def gloo_cuda_ops(torch, world: int) -> dict:
                                            dist.ReduceOp.MAX, float(world)),
               "all_reduce_sum_bf16": reduce(torch.bfloat16,
                                             dist.ReduceOp.SUM, want_sum),
-              "broadcast": bcast}
+              "broadcast": bcast,
+              # the gradients' reduce-scatter over the data axes
+              "reduce_scatter_tensor": reduce_scatter}
     out = {}
     for name, fn in probes.items():
         try:
@@ -6033,8 +6126,10 @@ def mesh_phase(torch, np, fg) -> dict:
     from repro_torch.dist.collectives import GLOO_CUDA_OPS
     used = {"all_gather_into_tensor": ("all_gather_into_tensor",
                                        "all_gather_into_tensor_i8",
-                                       "all_gather_into_tensor_u8"),
-            "all_reduce": ("all_reduce_sum_f32",), "broadcast": ("broadcast",)}
+                                       "all_gather_into_tensor_u8",
+                                       "all_gather_into_tensor_bf16"),
+            "all_reduce": ("all_reduce_sum_f32",), "broadcast": ("broadcast",),
+            "reduce_scatter_tensor": ("reduce_scatter_tensor",)}
     if any(ops[p] != "ok" for op in GLOO_CUDA_OPS for p in used[op]) or any(
             r["gloo_cuda_ops"] != ops for r in ranks):
         fail(f"5m (b): gloo does not run {sorted(GLOO_CUDA_OPS)} on CUDA "
@@ -6069,7 +6164,459 @@ def mesh_phase(torch, np, fg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: training under a mesh.
+# ---------------------------------------------------------------------------
+
+
+def train_mesh_setup(periods: Optional[int] = None):
+    """(config, data config, optimizer config) of phase 5d: llama3.2-1b
+    under mixed (``periods`` of its periods), 5t's batch and optimizer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import optim
+    cfg = get_config(MESH_ARCH, quant="mixed")
+    if periods:
+        cfg = dataclasses.replace(cfg, n_periods=periods)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    return cfg, dcfg, optim.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                        total_steps=TRAIN_MESH_STEPS)
+
+
+def state_tree(res_params, state) -> dict:
+    return {"params": res_params, "mu": state.mu, "nu": state.nu,
+            "step": state.step}
+
+
+def train_world_of_one(torch, fg, device="cuda") -> dict:
+    """Phase 5d (a): full-depth llama for TRAIN_MESH_STEPS steps through
+    ``run_training`` with no mesh and with ``mesh=`` a world of one (NCCL
+    on the card), under deterministic algorithms: losses and every leaf of
+    params, mu, nu and step torch.equal, launches exact and equal."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_backend, single_device_mesh
+    from repro_torch.train.loop import TrainConfig, run_training
+
+    cfg, dcfg, ocfg = train_mesh_setup()
+    tc = TrainConfig(steps=TRAIN_MESH_STEPS, log_every=1, optimizer=ocfg)
+    expect = train_launches(cfg, TRAIN_MESH_STEPS, TRAIN_SEQ)
+    mesh = single_device_mesh(device=device)
+    if device == "cuda" and mesh_backend(mesh) != "nccl":
+        fail(f"5d (a): the world of one runs {mesh_backend(mesh)!r}, not "
+             f"NCCL")
+    out, runs = {"backend": mesh_backend(mesh)}, {}
+    with deterministic(torch) as nondet:
+        for label, m in (("no mesh", None), ("mesh 1x1", mesh)):
+            res, host, routes, wall = counted(
+                torch, fg, lambda: run_training(cfg, tc, dcfg, device=device,
+                                                mesh=m), device)
+            check_train_counts(f"5d (a) {label}", host, routes, expect)
+            runs[label] = res
+            out[label] = {"launches": {"host": host}, "losses": res.losses,
+                          "wall_s": wall,
+                          "step_ms": [1e3 * t for t in res.step_seconds]}
+    base = state_tree(runs["no mesh"].params, runs["no mesh"].opt_state)
+    got = runs["mesh 1x1"]
+    diff = [".".join(p) for (p, a), (_, b) in zip(
+        _paths(base), _paths(state_tree(got.params, got.opt_state)))
+        if not torch.equal(a, b)]
+    if got.losses != out["no mesh"]["losses"] or diff:
+        fail(f"5d (a): the world of one differs from no mesh: losses "
+             f"{got.losses} vs {out['no mesh']['losses']}, leaves {diff[:4]}")
+    out["nondeterministic_ops"] = nondet
+    log(f"  (a) world of one on {out['backend']}: {TRAIN_MESH_STEPS} steps of "
+        f"full-depth {MESH_ARCH}, losses "
+        + ", ".join(f"{v:.6f}" for v in got.losses.values())
+        + f" and every leaf of params, mu, nu torch.equal to no mesh; "
+        f"launches {out['mesh 1x1']['launches']['host']} (exact, equal)")
+    del runs, got, base
+    dist.destroy_process_group()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_reference(torch, device="cuda") -> dict:
+    """Phase 5d (b)'s reference on the card: the unsharded step 1 at
+    TRAIN_MESH_PERIODS periods from the seeded init — its loss, its
+    gradients and the AdamW update's params, mu, nu and grad norm, saved
+    whole for the ranks (``step1.pt``) — each gradient leaf's largest
+    |entry|, the unsharded params' bytes."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    cfg, _, ocfg = train_mesh_setup(TRAIN_MESH_PERIODS)
+    params = lm.init_params(
+        torch.Generator(device).manual_seed(TRAIN_MESH_SEED), cfg,
+        device=device)
+    loss, grads = steps.mean_loss_and_grads(cfg, params,
+                                            train_batch(torch, cfg,
+                                                        device=device))
+    state_bytes = 3 * sum(t.numel() * t.element_size()
+                          for t in _leaves(params))
+    n_params = param_count(params)
+    params, state, metrics = optim.update(ocfg, grads, optim.init(params),
+                                          params)
+    flat = {}
+    for part, tree in (("grads", grads), ("params", params),
+                       ("mu", state.mu), ("nu", state.nu)):
+        for p, t in _paths(tree):
+            flat[f"{part}/{'/'.join(p)}"] = t.cpu()
+            flat[f"max/{part}/{'/'.join(p)}"] = t.abs().max().cpu()
+    flat["grad_norm"] = metrics["grad_norm"].cpu()
+    TRAIN_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(flat, TRAIN_MESH_DIR / "step1.pt")
+    out = {"loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
+           "params": n_params, "state_bytes": state_bytes,
+           "grad_max": {k[len("max/grads/"):]: float(g)
+                        for k, g in flat.items()
+                        if k.startswith("max/grads/")}}
+    del params, grads, state, flat
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sha256_all(blocks: dict) -> dict:
+    """SHA-256 of every host tensor of ``blocks`` (by key), eight at a time
+    (hashlib lets go of the GIL on large buffers)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(t):
+        return hashlib.sha256(t.contiguous().numpy().data).hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(blocks, pool.map(one, blocks.values())))
+
+
+def block_digests(tree) -> dict:
+    """SHA-256 of every leaf's local block, by path."""
+    from repro_torch.dist import sharding as S
+    return sha256_all({"/".join(p): S.local(t).detach().cpu()
+                       for p, t in _paths(tree)})
+
+
+def step1_distances(torch, S, mesh, grads, params, state, lr) -> dict:
+    """A rank's step 1 against the unsharded one (``step1.pt``), on the
+    rank's block of every leaf: each gradient's, mu's and nu's largest
+    distance over the leaf's largest unsharded |entry|; each param's in
+    units of lr, over the entries whose unsharded gradient exceeds
+    2 TRAIN_MESH_GRAD_TOL of the leaf's largest (``param_safe``: there the
+    gradient gate leaves the sign of the gradient, hence of Adam's first
+    update, as unsharded) and over all (``param_all``)."""
+    whole = torch.load(TRAIN_MESH_DIR / "step1.pt", mmap=True,
+                       weights_only=True)
+
+    def block(key, like):
+        """The rank's block of the unsharded leaf, on the rank's device."""
+        return S.local_block(whole[key], S.dtensor_spec(like), mesh).to(
+            S.local(like).device)
+
+    out = {"ref_grad_norm": float(whole["grad_norm"]),
+           **{k: {} for k in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
+                             "param_all")}}
+    for part, tree in (("grad", grads), ("mu", state.mu), ("nu", state.nu)):
+        for path, t in _paths(tree):
+            key = "/".join(path)
+            src = "grads" if part == "grad" else part
+            err = (S.local(t) - block(f"{src}/{key}", t)).abs().max()
+            out[f"{part}_rel"][key] = float(err) / max(
+                float(whole[f"max/{src}/{key}"]), 1e-30)
+    for path, p in _paths(params):
+        key = "/".join(path)
+        g = block(f"grads/{key}", p)
+        gmax = float(whole[f"max/grads/{key}"])
+        diff = (S.local(p) - block(f"params/{key}", p)).abs() / lr
+        safe = g.abs() > 2 * TRAIN_MESH_GRAD_TOL * gmax
+        out["param_all"][key] = float(diff.max())
+        out["param_safe"][key] = float(diff[safe].max()) if bool(
+            safe.any()) else 0.0
+    return out
+
+
+def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
+                    device: str = "cuda") -> int:
+    """``--train-mesh-rank``: one rank of phase 5d (b) on cuda:0 over gloo.
+    It joins the mesh while the parent runs (a), waits for the parent's
+    unsharded gradients (``TRAIN_MESH_DIR/ready``), then runs what
+    ``run_training``'s loop runs a step: step 1 (``mean_loss_and_grads``,
+    its gradients' blocks held to the unsharded ones, and the AdamW update),
+    the AsyncCheckpointer's save of its state, and step 2 through
+    ``make_train_step``, each step counted.  Writes
+    ``train_mesh_rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import sharding as S
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_gemm as fg
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh, mesh_backend
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+
+    parent = os.getppid()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        missing = [n for n in build.SOURCES
+                   if not build.library_path(n).exists()]
+        if missing:
+            fail(f"5d (b) rank {rank}: the libraries {missing} are not "
+                 f"built; the parent builds them before it starts the ranks")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    mesh = make_mesh(MESH_SHAPE, device=device)
+    if mesh_backend(mesh) != "gloo":
+        fail(f"5d (b): the mesh runs {mesh_backend(mesh)!r}, not gloo")
+    ready = TRAIN_MESH_DIR / "ready"
+    deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
+    while not ready.exists():
+        if os.getppid() != parent or time.monotonic() > deadline:
+            fail(f"5d (b) rank {rank}: no unsharded step from the parent")
+        time.sleep(0.2)
+    t_start = time.monotonic()
+    cfg, _, ocfg = train_mesh_setup(TRAIN_MESH_PERIODS)
+    out = {"rank": rank, "coord": S.coordinate(mesh)}
+    with S.use_mesh(mesh):
+        # the seeded init, each rank's blocks (as run_training draws it)
+        params = lm.init_params(
+            torch.Generator(device).manual_seed(TRAIN_MESH_SEED), cfg,
+            device=device, mesh=mesh)
+        state = optim.init(params)
+        abs_p = steps.abstract_params(cfg, mesh)
+        abs_s = steps.abstract_opt_state(abs_p, mesh)
+        out["resident_bytes"] = S.resident_bytes(
+            {"p": params, "mu": state.mu, "nu": state.nu})
+        out["planned_bytes"] = steps.local_bytes((abs_p, abs_s.mu, abs_s.nu),
+                                                 mesh)
+        batch0 = train_batch(torch, cfg, device=device)
+
+        def first():
+            loss, grads = steps.mean_loss_and_grads(cfg, params, batch0)
+            return (loss, grads) + optim.update(ocfg, grads, state, params)
+
+        (loss, grads, params, state, metrics), host, routes, wall = counted(
+            torch, fg, first, device)
+    out["step1"] = {"launches": host, "routes": {
+        f"{b}/{r}": c for (b, r), c in routes.items()},
+        "loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
+        "step_ms": 1e3 * wall}
+    out.update(step1_distances(torch, S, mesh, grads, params, state,
+                               ocfg.lr))
+    del grads
+    # the loop's checkpoint of step 1: leaves gathered on every rank, rank
+    # 0 writes
+    t0 = time.monotonic()
+    saver = ckpt.AsyncCheckpointer(str(TRAIN_MESH_DIR / "ckpt"), keep=1,
+                                   mesh=mesh)
+    saver.save(1, (params, state), meta={"arch": cfg.name})
+    saver.wait()
+    dist.barrier()
+    out["checkpoint_s"] = time.monotonic() - t0
+    out["digests"] = block_digests(state_tree(params, state))
+    step = steps.make_train_step(cfg, ocfg)
+    batch1 = train_batch(torch, cfg, step=1, device=device)
+
+    def second():
+        with S.use_mesh(mesh):
+            _, _, metrics = step(params, state, batch1)
+        return float(metrics["loss"])
+
+    loss2, host2, routes2, wall2 = counted(torch, fg, second, device)
+    out["step2"] = {"launches": host2, "routes": {
+        f"{b}/{r}": c for (b, r), c in routes2.items()},
+        "loss": loss2, "step_ms": 1e3 * wall2}
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if device == "cuda" else 0.0)
+    out["seconds"] = time.monotonic() - t_start
+    with open(os.path.join(out_dir, f"train_mesh_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+class _RankCoord:
+    """A ``MESH_SHAPE`` mesh's names and sizes at one rank's coordinate,
+    enough for ``dist.sharding``'s rules and ``local_block``."""
+    axis_names = ("data", "model")
+
+    def __init__(self, coord: dict):
+        self.shape = dict(zip(self.axis_names, MESH_SHAPE))
+        self.coord = [coord[a] for a in self.axis_names]
+
+    def get_coordinate(self):
+        return self.coord
+
+
+def checkpoint_digests(torch, ranks) -> int:
+    """The ranks' step-1 checkpoint loaded here with no mesh: each rank's
+    ``leaf_spec`` block of every leaf hashed, against the rank's own
+    digests of what it held.  Returns the leaves compared."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+    cfg, _, _ = train_mesh_setup(TRAIN_MESH_PERIODS)
+    shapes = lm.init_params(torch.Generator(), cfg, device="meta")
+    like = optim.tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
+                          shapes)
+    mu = optim.tree_map(lambda a: torch.empty(a.shape), shapes)
+    like_state = optim.OptState(step=torch.zeros((), dtype=torch.int32),
+                                mu=mu, nu=optim.tree_map(torch.empty_like,
+                                                         mu))
+    step, (params, state), _ = ckpt.load(str(TRAIN_MESH_DIR / "ckpt"),
+                                         (like, like_state))
+    if step != 1:
+        fail(f"5d (b): the ranks' checkpoint holds step {step}, not 1")
+    tree = state_tree(params, state)
+    n = 0
+    for rank in ranks:
+        mesh = _RankCoord(rank["coord"])
+        got = sha256_all({"/".join(path): S.local_block(
+            leaf, S.leaf_spec(path[1:] or path, leaf, mesh), mesh)
+            for path, leaf in _paths(tree)})
+        diff = [k for k, d in got.items() if d != rank["digests"][k]]
+        if diff or got.keys() != rank["digests"].keys():
+            fail(f"5d (b): rank {rank['rank']}'s {diff[:4]} differ from its "
+                 f"blocks of the checkpoint loaded with no mesh")
+        n += len(got)
+    return n
+
+
+def train_mesh_phase(torch, fg, device="cuda") -> dict:
+    """Phase 5d: (b)'s ranks started first (they join their mesh and wait
+    while (a) runs in this process), then (b)'s unsharded step here, which
+    releases the ranks; every process stopped before it returns."""
+    import shutil
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    TRAIN_MESH_DIR.mkdir(parents=True)
+    out_dir = ROOT / "chiprun_out" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    t_ranks = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-mesh-rank",
+         str(r), str(MESH_RANKS), str(port), str(out_dir), device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        t0 = time.monotonic()
+        out = {"world_of_one": train_world_of_one(torch, fg, device)}
+        out["world_of_one_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        ref = train_mesh_reference(torch, device)
+        (TRAIN_MESH_DIR / "ready").touch()
+        out["unsharded"] = {k: v for k, v in ref.items() if k != "grad_max"}
+        out["unsharded_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        for p in procs:
+            logs.append(p.communicate(timeout=TRAIN_MESH_TIMEOUT)[0])
+        out["ranks_s"] = time.monotonic() - t0
+        out["ranks_started_s"] = time.monotonic() - t_ranks
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            print((logs[r] if r < len(logs) else "")[-6000:],
+                  file=sys.stderr)
+            fail(f"5d (b): rank {r} exited with {p.returncode}")
+    ranks = [json.loads((out_dir / f"train_mesh_rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    cfg, _, _ = train_mesh_setup(TRAIN_MESH_PERIODS)
+    expect = train_launches(cfg, 1, TRAIN_SEQ)
+    worst = {k: {} for k in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
+                             "param_all")}
+    norm_rel = 0.0
+    for rank in ranks:
+        r = rank["rank"]
+        for part in ("step1", "step2"):
+            check_train_counts(
+                f"5d (b) rank {r} {part}", rank[part]["launches"],
+                {tuple(k.split("/")): c for k, c in
+                 rank[part]["routes"].items()}, expect)
+        if rank["resident_bytes"] != rank["planned_bytes"] or \
+                rank["resident_bytes"] > TRAIN_MESH_RESIDENT * \
+                ref["state_bytes"]:
+            fail(f"5d (b) rank {r}: resident {rank['resident_bytes']} bytes "
+                 f"(the specs place {rank['planned_bytes']}) of "
+                 f"{ref['state_bytes']} unsharded")
+        for part, by_leaf in worst.items():
+            for key, v in rank[part].items():
+                by_leaf[key] = max(by_leaf.get(key, 0.0), v)
+        norm_rel = max(norm_rel, abs(rank["step1"]["grad_norm"]
+                                     - ref["grad_norm"]) / ref["grad_norm"])
+    for part in ("step1", "step2"):
+        if len({rank[part]["loss"] for rank in ranks}) != 1:
+            fail(f"5d (b): the ranks' {part} losses differ: "
+                 f"{[rank[part]['loss'] for rank in ranks]}")
+    loss1 = ranks[0]["step1"]["loss"]
+    rel_loss = abs(loss1 - ref["loss"]) / abs(ref["loss"])
+    if rel_loss > TRAIN_MESH_LOSS_RTOL:
+        fail(f"5d (b): step 1's loss {loss1} is {rel_loss:.3g} from the "
+             f"unsharded {ref['loss']} (gate {TRAIN_MESH_LOSS_RTOL})")
+    if not norm_rel <= TRAIN_MESH_NORM_RTOL:
+        fail(f"5d (b): step 1's grad norm is {norm_rel:.3g} from the "
+             f"unsharded {ref['grad_norm']} (gate {TRAIN_MESH_NORM_RTOL})")
+    # mu = (1 - b1) clip g and nu = (1 - b2) (clip g)^2 at step 1: their
+    # gates follow from the gradient's and the norm's (the clip factor)
+    mu_tol = TRAIN_MESH_GRAD_TOL * (1 + TRAIN_MESH_NORM_RTOL) \
+        + TRAIN_MESH_NORM_RTOL
+    gates = {"grad_rel": TRAIN_MESH_GRAD_TOL, "mu_rel": mu_tol,
+             "nu_rel": (1 + mu_tol) ** 2 - 1,
+             "param_safe": TRAIN_MESH_PARAM_TOL,
+             "param_all": 2 + TRAIN_MESH_PARAM_TOL}
+    for part, gate in gates.items():
+        bad = {k: v for k, v in worst[part].items() if not v <= gate}
+        if bad or len(worst[part]) != len(ref["grad_max"]):
+            fail(f"5d (b): step 1's {part} past its gate {gate:.3g}: {bad}")
+    t0 = time.monotonic()
+    compared = checkpoint_digests(torch, ranks)
+    out["checkpoint_compare_s"] = time.monotonic() - t0
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    out.update({"ranks": ranks, "loss_rel": rel_loss, "norm_rel": norm_rel,
+                "step1_rel": worst, "step1_gates": gates,
+                "step1_rel_max": {k: max(v.values())
+                                  for k, v in worst.items()},
+                "checkpoint_leaves_compared": compared,
+                "expect_per_step": expect})
+    for rank in ranks:
+        rank.pop("digests")
+        log(f"  (b) rank {rank['rank']} {rank['coord']}: resident "
+            f"{rank['resident_bytes'] / 1e9:.3f} GB of "
+            f"{ref['state_bytes'] / 1e9:.3f} GB unsharded; step ms "
+            f"{rank['step1']['step_ms']:.0f} and "
+            f"{rank['step2']['step_ms']:.0f} (host clock, four gloo ranks on "
+            f"one card), the checkpoint {rank['checkpoint_s']:.1f} s; device "
+            f"peak {rank['peak_gb']:.2f} GB; launches a step "
+            f"{rank['step2']['launches']} (exact)")
+    log(f"  (b) losses {loss1:.6f} / {ranks[0]['step2']['loss']:.6f} on every "
+        f"rank; step 1 {rel_loss:.3g} from the unsharded step, its grad "
+        f"norm {norm_rel:.3g} (gate {TRAIN_MESH_NORM_RTOL}); largest "
+        "distances (gate): " + ", ".join(
+            f"{k} {max(worst[k].values()):.3g} ({g:.3g})"
+            for k, g in gates.items())
+        + f"; the step-1 checkpoint loaded with no mesh equals every "
+        f"rank's blocks ({compared} leaf blocks)")
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--train-mesh-rank":
+        return train_mesh_rank(*(int(a) for a in sys.argv[2:5]),
+                               sys.argv[5], *sys.argv[6:7])
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return mesh_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-p2p-probe":
@@ -6296,6 +6843,24 @@ def main() -> int:
             rank["launches"]
     torch.cuda.empty_cache()
 
+    log(f"[5d] training under a mesh: full-depth {MESH_ARCH} on a world of "
+        f"one (NCCL) against no mesh, then {MESH_RANKS} gloo ranks on this "
+        f"card ({MESH_SHAPE[0]}x{MESH_SHAPE[1]}) at {TRAIN_MESH_PERIODS} "
+        f"periods against the unsharded step")
+    t0 = time.monotonic()
+    train_mesh = train_mesh_phase(torch, fg)
+    seconds["train mesh"] = time.monotonic() - t0
+    for label in ("no mesh", "mesh 1x1"):
+        launches_by_path[f"{MESH_ARCH} train mixed {label}"] = \
+            train_mesh["world_of_one"][label]["launches"]
+    for rank in train_mesh["ranks"]:
+        launches_by_path[f"{MESH_ARCH} train mesh 2x2 rank {rank['rank']}"] \
+            = {"host": {k: rank["step1"]["launches"].get(k, 0)
+                        + rank["step2"]["launches"].get(k, 0)
+                        for k in set(rank["step1"]["launches"])
+                        | set(rank["step2"]["launches"])}}
+    torch.cuda.empty_cache()
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernel_shapes": rows,
               "grouped_shapes": grouped_rows, "kmm4_sweep": sweep_rows,
@@ -6311,7 +6876,7 @@ def main() -> int:
               "launches_by_path": launches_by_path,
               "rowinv": rowinv_rows, "aten_route": aten_rows,
               "aten_serve": aten_serve, "obs": obs, "train": train,
-              "mesh": mesh,
+              "mesh": mesh, "train_mesh": train_mesh,
               "phase_seconds": seconds,
               "seconds": time.monotonic() - t_start}
     out_dir = ROOT / "chiprun_out"
@@ -6327,15 +6892,19 @@ def main() -> int:
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
         ssm_rows, wkv_bwd_rows, ssm_bwd_rows)
-    # each rank's own launches in phase 5m (b)'s engine run (in the
-    # launches above too): the kernels ran on every rank's block
+    # each rank's own launches in phase 5m (b)'s engine run and phase 5d
+    # (b)'s two train steps (in the launches above too): the kernels ran
+    # on every rank's block
     keys = {"fused_gemm_mm1": "dense_mm1", "fused_gemm_kmm2": "dense_kmm2",
             "rowinv_norm": "rowinv_norm"}
     for e in entries:
         if e["name"] in keys:
+            key = keys[e["name"]]
             e["mesh_launches_per_rank"] = [
-                r["launches"]["host"].get(keys[e["name"]], 0)
-                for r in mesh["ranks"]]
+                r["launches"]["host"].get(key, 0)
+                + sum(t[part]["launches"].get(key, 0)
+                      for part in ("step1", "step2"))
+                for r, t in zip(mesh["ranks"], train_mesh["ranks"])]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,14 @@ compute the same function: the caller turns the reference's arrays into
 numpy (``jax.tree.map(np.asarray, params)``) and this module turns numpy
 into torch.  It takes and returns numpy only, so it needs no JAX.
 
+Under a mesh the trees cross in the logical layout: ``params_from_jax``
+and ``opt_state_from_jax`` with ``mesh`` keep each rank's block of every
+leaf under ``dist.sharding.leaf_spec`` (``shard_params``: only the blocks
+reach the device), and ``tree_to_numpy`` / ``opt_state_to_numpy`` gather
+a sharded tree whole (a collective on every rank), so a test can feed
+the reference's params and AdamW state to a sharded run and compare what
+comes back.
+
 bfloat16 goes through its bits: numpy holds it as ``ml_dtypes.bfloat16``,
 which torch cannot read, so the array is viewed as ``uint16`` (as int16 for
 torch), copied, and viewed back as ``torch.bfloat16``.
@@ -32,7 +40,9 @@ def array_to_torch(arr, device=None) -> torch.Tensor:
 
 
 def array_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A tensor as numpy, whole (a DTensor is gathered: a collective)."""
+    from repro_torch.dist.sharding import full_leaf
+    t = full_leaf(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes     # numpy's bfloat16 type, shipped with JAX's deps
         return t.view(torch.int16).numpy().view(np.uint16).view(
@@ -48,10 +58,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(tree: Any, device=None) -> Any:
+def params_from_jax(tree: Any, device=None, mesh=None) -> Any:
     """A tree of numpy arrays (the reference's params or cache, converted
-    with ``np.asarray``) -> the same tree of torch tensors on ``device``."""
-    return tree_map(lambda a: array_to_torch(a, device), tree)
+    with ``np.asarray``) -> the same tree of torch tensors on ``device``;
+    with ``mesh``, each rank's blocks of a parameter tree."""
+    if mesh is None:
+        return tree_map(lambda a: array_to_torch(a, device), tree)
+    from repro_torch.dist.sharding import shard_params
+    return shard_params(tree_map(array_to_torch, tree), mesh,
+                        device if device is not None else "cpu")
 
 
 def tree_to_numpy(tree: Any) -> Any:
@@ -60,18 +75,18 @@ def tree_to_numpy(tree: Any) -> Any:
     return tree_map(array_to_numpy, tree)
 
 
-def opt_state_from_jax(state: Any, device=None):
+def opt_state_from_jax(state: Any, device=None, mesh=None):
     """The reference's AdamW state, converted with ``jax.tree.map(
     np.asarray, state)`` (anything with ``step``, ``mu`` and ``nu``, or a
     (step, mu, nu) tuple) -> the port's ``train.optim.OptState`` on
-    ``device``."""
+    ``device``; with ``mesh`` mu and nu held as their parameters' blocks."""
     from repro_torch.train.optim import OptState
 
     step, mu, nu = ((state.step, state.mu, state.nu)
                     if hasattr(state, "step") else state)
     return OptState(step=array_to_torch(np.asarray(step, np.int32), device),
-                    mu=params_from_jax(mu, device),
-                    nu=params_from_jax(nu, device))
+                    mu=params_from_jax(mu, device, mesh),
+                    nu=params_from_jax(nu, device, mesh))
 
 
 def opt_state_to_numpy(state: Any):

@@ -12,7 +12,8 @@ reference's architectures.
 from __future__ import annotations
 
 import importlib
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.policy import (POLICY_MIXED, POLICY_W12, POLICY_W8,
@@ -41,6 +42,32 @@ QUANT_POLICIES = {
     # the ATen route's mm_n, as the reference's force_mode="mm2" runs)
     "w12-mm2": QuantConfig(enabled=True, default_bits=12, force_mode="mm2"),
 }
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """A step's shape: ``kind`` is "train", "prefill" or "decode"."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: str) -> bool:
+    """The reference's skip rule: the 500k-token decode cell only for
+    sub-quadratic models."""
+    cell = SHAPES[shape]
+    if cell.name == "long_500k":
+        return cfg.sub_quadratic
+    return True
 
 
 def list_archs():

@@ -15,10 +15,29 @@ reference takes an ``axis_name``:
     all-reduces.
 
 Below them, the axis helpers (:func:`all_gather`, :func:`all_reduce`,
-:func:`gather_dtensor`) run a collective over one or more mesh axes, the
-innermost first, so a gather over ("pod", "data") concatenates pod-major.
-A group of one rank is the identity.  Where the group's backend cannot run
-a collective on CUDA tensors (gloo, for the ops outside
+:func:`reduce_scatter`, :func:`gather_dtensor`) run a collective over one
+or more mesh axes, the innermost first, so a gather over ("pod", "data")
+concatenates pod-major.  A group of one rank is the identity.
+
+Training differentiates through them.  Where autograd records, each
+collective a train step runs in its forward has the backward its use
+needs, which GSPMD derives for the reference:
+
+  * :func:`gather_dtensor` (a weight's shards gathered): over the data
+    axes the gradient is reduce-scattered (each data rank's gradient is
+    its own rows' part), over ``model`` this rank's block is taken back
+    (every model rank computed the same whole);
+  * :func:`all_gather_grad_take` (heads gathered over ``model``): this
+    rank's block of the replicated downstream gradient, no sum;
+  * :func:`all_reduce_grad_pass` (a sum of partials, replicated after):
+    the gradient passes unchanged;
+  * :func:`replicate_grad_sum` (a replicated tensor each rank then uses
+    apart, as head-parallel attention uses q/k/v): identity forward, the
+    gradient all-reduced.
+
+Gradients are reduced in fp32 (the STE backward's products are fp32);
+the bf16 compute copy's weight gathers move bf16.  Where the group's
+backend cannot run a collective on CUDA tensors (gloo, for the ops outside
 :data:`GLOO_CUDA_OPS`), :func:`_run` moves the operands through host
 memory and back; it decides by the group's backend name, never by catching
 an error.  Several ranks sharing one card run gloo (NCCL refuses two ranks
@@ -31,12 +50,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import records_grad
+
 # Collectives gloo runs on CUDA tensors itself (torch 2.11+cu128 on an
-# H100; chip_smoke.py phase 5m probes them on every run and fails where
-# one does not work).  The others, point-to-point among them, move their
-# operands through the host.
+# H100; chip_smoke.py phase 5m probes them on every run, in the dtypes the
+# port sends, and fails where one does not work).  The others, gather and
+# point-to-point among them, move their operands through the host.
 GLOO_CUDA_OPS = frozenset({"all_gather_into_tensor", "all_reduce",
-                           "broadcast"})
+                           "broadcast", "reduce_scatter_tensor"})
 
 
 def _through_host(group, op: str, tensors: Sequence[torch.Tensor]) -> bool:
@@ -114,12 +135,158 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
     return x
 
 
+def _take_one(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``group`` (a copy)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    size = x.shape[dim] // n
+    return x.narrow(dim, rank_of(group) * size, size).clone()
+
+
+def _reduce_scatter_one(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` summed, this rank's block of the sum
+    along ``dim`` (one ``reduce_scatter_tensor`` along dim 0)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((xm.shape[0] // n,) + tuple(xm.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _run(group, "reduce_scatter_tensor",
+         lambda o, i: dist.reduce_scatter_tensor(o[0], i[0], group=group),
+         [out], [xm])
+    return out.movedim(0, dim).contiguous()
+
+
+def gather_to_first(x: torch.Tensor) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``x`` (one shape everywhere) on world rank 0, in rank
+    order; None on the other ranks.  One ``gather``, through the host on
+    gloo."""
+    x = x.contiguous()
+    first = dist.get_rank() == 0
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())] \
+        if first else []
+    _run(None, "gather",
+         lambda o, i: dist.gather(i[0], o if first else None, dst=0),
+         parts, [x])
+    return parts if first else None
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: Sequence[str],
+                   dim: int) -> torch.Tensor:
+    """Every rank's ``x`` summed over the mesh ``axes``, and this rank's
+    block of the sum along ``dim`` (blocks major first, as
+    :func:`all_gather` concatenates them: the outermost axis scatters
+    first)."""
+    for a in tuple(axes):
+        x = _reduce_scatter_one(x, mesh.get_group(a), dim)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The same collectives, differentiable (training under a mesh).
+# ---------------------------------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over one group; the backward sums (reduce-scatter) or
+    takes this rank's block back."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, grad_sum):
+        ctx.group, ctx.dim, ctx.grad_sum = group, dim, grad_sum
+        return _gather_one(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.float32) if ctx.grad_sum else g
+        fn = _reduce_scatter_one if ctx.grad_sum else _take_one
+        return fn(g.contiguous(), ctx.group, ctx.dim), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum) over one group; the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_group(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicate(torch.autograd.Function):
+    """Identity; the gradient all-reduced (sum) over one group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_group(g.to(torch.float32), ctx.group).to(g.dtype), \
+            None
+
+
+def _gather_ad(x, group, dim: int, grad_sum: bool) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    if not records_grad(x):
+        return _gather_one(x, group, dim)
+    return _Gather.apply(x, group, dim, grad_sum)
+
+
+def all_gather_grad_take(x: torch.Tensor, mesh, axes: Sequence[str],
+                         dim: int) -> torch.Tensor:
+    """:func:`all_gather` whose gradient is this rank's block of the
+    downstream one, which every rank of ``axes`` holds whole (the heads
+    gathered over ``model`` before ``wo``): no sum."""
+    for a in reversed(tuple(axes)):
+        x = _gather_ad(x, mesh.get_group(a), dim, False)
+    return x
+
+
+def all_reduce_grad_pass(x: torch.Tensor, mesh,
+                         axes: Sequence[str]) -> torch.Tensor:
+    """:func:`all_reduce` (sum) of partials whose sum every rank then uses
+    alike (the vocab-parallel lookup, the loss's token sum): the gradient
+    passes to every rank's partial unchanged."""
+    for a in reversed(tuple(axes)):
+        group = mesh.get_group(a)
+        if group_size(group) == 1:
+            continue
+        x = _Reduce.apply(x, group) if records_grad(x) else \
+            all_reduce_group(x, group)
+    return x
+
+
+def replicate_grad_sum(x: torch.Tensor, mesh,
+                       axes: Sequence[str]) -> torch.Tensor:
+    """``x`` unchanged, its gradient summed over ``axes``: where every rank
+    holds the same ``x`` and each uses its own part of it (head-parallel
+    attention's q/k/v), the pieces' gradients are put back together."""
+    for a in tuple(axes):
+        group = mesh.get_group(a)
+        if group_size(group) > 1 and records_grad(x):
+            x = _Replicate.apply(x, group)
+    return x
+
+
 def gather_dtensor(x, keep: Dict[int, Tuple[str, ...]]) -> torch.Tensor:
     """A DTensor's local block with every mesh-dim shard gathered except
     those ``keep`` names (tensor dim -> the mesh axes it stays sharded
     over, as at rest), as a plain tensor.  ``keep={}``: the whole
-    tensor."""
+    tensor.
+
+    Where autograd records it is a weight's gather: its gradient is summed
+    over the data axes (each data rank's part comes from its own rows) and
+    cut back over the others (every rank there computed the same)."""
     from torch.distributed.tensor import Shard
+
+    from repro_torch.dist.sharding import BATCH_AXES
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     local = x.to_local()
@@ -130,7 +297,8 @@ def gather_dtensor(x, keep: Dict[int, Tuple[str, ...]]) -> torch.Tensor:
             continue
         if names[i] in keep.get(pl.dim, ()):
             continue
-        local = _gather_one(local, mesh.get_group(names[i]), pl.dim)
+        local = _gather_ad(local, mesh.get_group(names[i]), pl.dim,
+                           names[i] in BATCH_AXES)
     return local
 
 

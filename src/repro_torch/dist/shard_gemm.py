@@ -19,7 +19,7 @@ assembles its operands itself: its rows of x (or all of them, when the
 engine's activations are already this data rank's rows:
 ``sharding.batch_is_local``), and the weight's and its scales' ``(K, N /
 T)`` blocks — from a DTensor at rest, its data-axis (FSDP) rows
-all-gathered and its column block kept or cut (:func:`_weight_block`),
+all-gathered and its column block kept or cut (:func:`weight_block`),
 from a whole tensor its column block cut.  The kernel's output is all-gathered over the spec's axes, so
 the next op sees global values (over ``model`` only for batch-local rows).
 
@@ -27,6 +27,11 @@ An explicit K-sharded spec (``GemmShardSpec(k_axes=...)``) runs in
 :func:`sharded_run_plan` for exact-int plans only, the int32 partials
 summed by an all-reduce; fp32-combine plans are refused, as the reference
 refuses them.  :func:`negotiate` never proposes it.
+
+Training's backward (``quant.qmatmul._mesh_ste``) runs on the same spec
+as its forward: the same N block of the weight, gathered again from the
+shard by :func:`weight_block`, and :func:`weight_grad` turns the block's
+gradient into the gradient of the shard held at rest.
 
 Fallback contract: where no mesh axis tiles the GEMM (or the *local* shape
 fails the kernel's bounds), the caller sends that GEMM to the ATen route.
@@ -143,7 +148,7 @@ def _block(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
     return x.narrow(dim, idx * size, size)
 
 
-def _weight_block(w, want: Dict[int, Tuple[str, ...]], mesh
+def weight_block(w, want: Dict[int, Tuple[str, ...]], mesh
                   ) -> torch.Tensor:
     """This rank's block of a weight under ``want`` (tensor dim -> mesh
     axes).  A DTensor at rest is all-gathered over every mesh dim that
@@ -161,6 +166,44 @@ def _weight_block(w, want: Dict[int, Tuple[str, ...]], mesh
     for d, axes in want.items():
         w = _block(w, d, axes, mesh)
     return w
+
+
+def weight_grad(dw: torch.Tensor, w, want: Dict[int, Tuple[str, ...]],
+                mesh):
+    """The gradient of ``w`` from ``dw``, the gradient of its block
+    :func:`weight_block` ``(w, want)`` that this rank formed from its own
+    rows (the STE backward's ``x^T @ g`` on its rows and its columns):
+    ``dw`` is gathered over the ``want`` axes ``w`` is not held over at
+    rest (each model rank formed its own columns), then cut to the block
+    ``w`` holds at rest — summed over the data axes it is held over
+    (a reduce-scatter: each data rank's part comes from its own rows), cut
+    over the others.  Over data axes ``w`` is not held over, the result
+    stays this rank's part, summed by the train step once per leaf (or by
+    the gather's backward of a weight gathered there, as the tied head's
+    table is).  A plain ``w`` is its own block at rest: ``dw`` whole.
+    Returns a plain tensor: this rank's block."""
+    rest = C.dtensor_axes(w) if S.is_dtensor(w) else {}
+    for d, axes in want.items():
+        if axes and rest.get(d) != axes:
+            dw = C.all_gather(dw, mesh, axes, d)
+    daxes = S.data_axes(mesh)
+    for d, axes in rest.items():
+        if want.get(d) == axes:
+            continue
+        summed = tuple(a for a in axes if a in daxes)
+        if summed == axes:
+            dw = C.reduce_scatter(dw, mesh, axes, d)
+            continue
+        if summed:
+            dw = C.all_reduce(dw, mesh, summed)
+        dw = _block(dw, d, axes, mesh)
+    return dw
+
+
+def column_block(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """This rank's block of the last dim of ``x`` over ``axes`` (a GEMM's
+    N block under its spec's ``n_axes``)."""
+    return _block(x, x.dim() - 1, axes, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +227,8 @@ def shard_dense_gemm(fn: Callable, mesh, spec: GemmShardSpec, *,
     def run(qx, qw, sx, sw):
         qxl = _block(qx, 0, m_cut, mesh)
         sxl = _block(sx, 0, m_cut, mesh)
-        qwl = _weight_block(qw, {1: spec.n_axes}, mesh)
-        swl = _weight_block(sw, {1: spec.n_axes}, mesh)
+        qwl = weight_block(qw, {1: spec.n_axes}, mesh)
+        swl = weight_block(sw, {1: spec.n_axes}, mesh)
         out = fn(qxl.contiguous(), qwl.contiguous(), sxl.contiguous(),
                  swl.contiguous())
         out = C.all_gather(out, mesh, spec.n_axes, 1)
@@ -206,7 +249,7 @@ def shard_grouped_gemm(fn: Callable, mesh, spec: GemmShardSpec,
     es = spec.e_axes
 
     def run(qx, qw, sx, sw):
-        args = [_block(qx, 0, es, mesh), _weight_block(qw, {0: es}, mesh),
+        args = [_block(qx, 0, es, mesh), weight_block(qw, {0: es}, mesh),
                 _block(sx, 0, es, mesh), _block(sw, 0, es, mesh)]
         if counts is not None:
             args.append(_block(counts, 0, es, mesh))
@@ -238,7 +281,7 @@ def sharded_run_plan(a: torch.Tensor, b, *, plan: ExecPlan, mesh,
             "K-sharded execution is exact-int only (fp32 partial sums "
             f"change rounding); plan {local_plan.variant!r} is fp32-combine")
     al = _block(_block(a, 0, spec.m_axes, mesh), 1, spec.k_axes, mesh)
-    bl = _weight_block(b, {0: spec.k_axes, 1: spec.n_axes}, mesh)
+    bl = weight_block(b, {0: spec.k_axes, 1: spec.n_axes}, mesh)
     out = ops.run_plan(al.contiguous(), bl.contiguous(), plan=local_plan,
                        use_ref_kernels=use_ref_kernels)
     if spec.k_axes:

@@ -29,8 +29,16 @@ The ambient mesh (:func:`use_mesh`, :func:`current_mesh`) is the analogue
 of the reference's ``with mesh:``: model code has no mesh argument, and the
 quantized matmul reads the ambient mesh to run its GEMMs shard-mapped.
 Under it each data rank's activations are its own rows of the global batch
-(the engine's lanes of its slots), the layout the reference's
-batch-sharded activations have on each shard.
+(the engine's lanes of its slots; in training its share of each
+microbatch), the layout the reference's batch-sharded activations have on
+each shard.
+
+Training (``lm.init_params(mesh=...)``, ``train.loop.run_training``) holds
+its parameters and AdamW state the same way and differentiates through
+these helpers: ``select``, ``transpose``, ``to_dtype``, :func:`local` and
+:func:`like` pass gradients between a DTensor and its block, and the
+gathers in :func:`vocab_block` and :func:`full_leaf` cut theirs back to
+the block (``dist.collectives.gather_dtensor``).
 """
 from __future__ import annotations
 
@@ -306,23 +314,34 @@ def coordinate(mesh) -> Dict[str, int]:
     return dict(zip(axis_names(mesh), coord))
 
 
-def axes_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
-    """(index, count) of this rank's block along a dim over ``axes``
-    (mixed radix, the first axis major)."""
-    coord = coordinate(mesh)
+def rank_coordinate(mesh, rank: int) -> Dict[str, int]:
+    """World rank ``rank``'s index along every axis of ``mesh``."""
+    where = (mesh.mesh == rank).nonzero()
+    if where.shape[0] != 1:
+        raise RuntimeError(f"rank {rank} is not in the mesh")
+    return dict(zip(axis_names(mesh), (int(i) for i in where[0])))
+
+
+def axes_index(mesh, axes: Sequence[str],
+               coord: Optional[Dict[str, int]] = None) -> Tuple[int, int]:
+    """(index, count) of this rank's block (the rank at ``coord``'s) along
+    a dim over ``axes`` (mixed radix, the first axis major)."""
+    coord = coordinate(mesh) if coord is None else coord
     idx = 0
     for a in axes:
         idx = idx * mesh_axis_size(mesh, a) + coord[a]
     return idx, axes_size(mesh, axes)
 
 
-def local_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's block of a whole tensor under ``spec`` (a view)."""
+def local_block(x: torch.Tensor, spec: Spec, mesh,
+                coord: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """This rank's block (the rank at ``coord``'s) of a whole tensor under
+    ``spec`` (a view)."""
     for d, e in enumerate(spec):
         axes = entry_axes(e)
         if not axes:
             continue
-        idx, n = axes_index(mesh, axes)
+        idx, n = axes_index(mesh, axes, coord)
         size = x.shape[d] // n
         x = x.narrow(d, idx * size, size)
     return x
@@ -339,11 +358,8 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh, device):
     axis."""
     if not is_sharded(spec):
         return x.to(device)
-    from torch.distributed.tensor import DTensor
-    local = local_block(x, spec, mesh).to(device, copy=True)
-    return DTensor.from_local(local, mesh, spec_placements(spec, mesh),
-                              run_check=False, shape=x.shape,
-                              stride=_contiguous_stride(x.shape))
+    return wrap_block(local_block(x, spec, mesh).to(device, copy=True), spec,
+                      mesh, x.shape)
 
 
 def shard_params(params: Params, mesh, device) -> Params:
@@ -458,7 +474,7 @@ def embed_lookup(table, ids: torch.Tensor) -> torch.Tensor:
     x = local[rel.clamp(0, rows - 1)]
     x = torch.where(hit[..., None], x,
                     torch.zeros((), dtype=x.dtype, device=x.device))
-    return C.all_reduce(x, mesh, rows_axes)
+    return C.all_reduce_grad_pass(x, mesh, rows_axes)
 
 
 def to_dtype(x, dtype: torch.dtype):
@@ -470,6 +486,52 @@ def to_dtype(x, dtype: torch.dtype):
         return x.to(dtype)
     return _rewrap(x, x.to_local().to(dtype), list(x.placements),
                    tuple(x.shape))
+
+
+def local(x):
+    """A DTensor's local block (differentiably); anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like(ref, block: torch.Tensor):
+    """``block`` held as ``ref`` holds its own: a DTensor with ``ref``'s
+    placements and global shape where ``ref`` is one (differentiably),
+    else ``block`` itself."""
+    if not is_dtensor(ref):
+        return block
+    return _rewrap(ref, block, list(ref.placements), tuple(ref.shape))
+
+
+def wrap_block(block: torch.Tensor, spec: Spec, mesh, shape):
+    """This rank's ``block`` of a tensor of global ``shape`` under
+    ``spec``, held as :func:`shard_leaf` holds it: a DTensor where the
+    spec names an axis, else the block (then the whole) itself."""
+    if not is_sharded(spec):
+        return block
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block, mesh, spec_placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def dtensor_spec(x) -> Spec:
+    """The spec a DTensor is held under (one entry a dim); a plain
+    tensor's is all None."""
+    if not is_dtensor(x):
+        return (None,) * x.dim()
+    from repro_torch.dist.collectives import dtensor_axes
+    axes = dtensor_axes(x)
+    return tuple(_entry(axes.get(d, ())) for d in range(x.dim()))
+
+
+def sharded_axes(x) -> Tuple[str, ...]:
+    """The mesh axes a leaf's blocks differ over, in mesh order: those its
+    DTensor shards some dim over; none for a plain tensor."""
+    if not is_dtensor(x):
+        return ()
+    from repro_torch.dist.collectives import dtensor_axes
+    held = {a for axes in dtensor_axes(x).values() for a in axes}
+    return tuple(a for a in axis_names(x.device_mesh) if a in held)
 
 
 def full_leaf(x):

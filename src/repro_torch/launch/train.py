@@ -5,15 +5,26 @@
     python -m repro_torch.launch.train --arch llama3.2-1b --smoke \
         --device cpu --steps 20 --ckpt-dir ckpt --max-restarts 2
 
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-1b --quant mixed --mesh 2x2 --steps 4
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --smoke --device cpu --mesh 2x2
+
 The reference launcher's flags plus ``--device``: the published
 configuration on the CUDA device by default (``--smoke``: the reduced one;
-``--device cpu``: the kernels' plain versions on the CPU).  ``--mesh``
-takes only ``1x1``: training under a mesh is ROADMAP queue 1, item 4
-(serving under one is ported: ``launch/serve.py --mesh``).
-``--max-restarts N`` supervises the training call: on an exception the
-launcher runs it again, which resumes from the latest checkpoint under
-``--ckpt-dir``.  ``--tuning-table PATH`` serves each quantized GEMM the
-plan a ``python -m repro_torch.tune`` table picks (the same values).
+``--device cpu``: the kernels' plain versions on the CPU).  ``--mesh DxM``
+(other than ``1x1``, one device without a mesh) trains one rank of a
+``data`` x ``model`` mesh (``launch.mesh.make_mesh``) in each process
+``torchrun`` starts: NCCL with a card a rank, gloo on the CPU (``--device
+cpu``) or with ranks sharing a card; outside ``torchrun`` it raises at
+once.  Dense attention decoders only (MoE, mamba, rwkv, vision and
+enc-dec under a mesh are ROADMAP.md queue 1 item 4.2).  ``--max-restarts
+N`` supervises the training call: on an exception the launcher runs it
+again, which resumes from the latest checkpoint under ``--ckpt-dir``;
+under a mesh a fault on any rank raises on every rank (the loop agrees on
+it), so every rank restarts and resumes at the same step.
+``--tuning-table PATH`` serves each quantized GEMM the plan a ``python -m
+repro_torch.tune`` table picks (the same values).
 """
 from __future__ import annotations
 
@@ -43,13 +54,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; "
-            f"training under a mesh is ROADMAP queue 1, item 4")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+    mesh = None
+    if args.mesh != "1x1":
+        mesh = make_mesh(parse_mesh(args.mesh), device=args.device)
     from repro_torch.configs import get_config
     from repro_torch.core.context import ExecContext
     from repro_torch.data.pipeline import DataConfig
@@ -73,7 +84,8 @@ def main(argv=None) -> int:
     attempts = 0
     while True:
         try:
-            result = run_training(cfg, tc, data_cfg, device=args.device)
+            result = run_training(cfg, tc, data_cfg, device=args.device,
+                                  mesh=mesh)
             break
         except Exception as e:  # supervised restart
             attempts += 1
@@ -82,9 +94,20 @@ def main(argv=None) -> int:
             if attempts > args.max_restarts:
                 raise
     final_loss = list(result.losses.values())[-1] if result.losses else None
-    print(f"done: step={result.final_step} loss={final_loss} "
-          f"resumed_from={result.restored_from} "
-          f"stragglers={result.straggler_events}")
+    rank = ""
+    if mesh is not None:
+        import torch.distributed as dist
+        rank = (f" rank={dist.get_rank()} mesh={args.mesh} "
+                f"resident_bytes={result.resident_bytes}")
+    # one write with its newline: ranks sharing a stdout pipe cannot
+    # interleave within the line
+    sys.stdout.write(f"done: step={result.final_step} loss={final_loss} "
+                     f"resumed_from={result.restored_from} "
+                     f"stragglers={result.straggler_events}{rank}\n")
+    sys.stdout.flush()
+    if mesh is not None:
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 

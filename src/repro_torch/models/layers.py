@@ -18,6 +18,10 @@ GSPMD partitioning of attention: each model rank slices its kv-head
 groups (and their query heads) from the replicated q/k/v with no
 communication, attends against its block of the K/V pool, and the heads
 are all-gathered over the ambient mesh's ``model`` axis before ``wo``.
+Training's attention runs head-parallel the same way under a mesh whose
+``model`` axis divides the kv heads; the gather's backward takes each
+rank's heads back, and the slices' backward sums the heads' gradients
+over ``model``.
 
 Cache writes happen in place: where the reference returns an updated copy
 of the cache (``dynamic_update_slice``), the port writes into the cache
@@ -161,8 +165,13 @@ def _local_heads(qkv, cfg, kh: int):
     q, k, v = qkv
     if kh == cfg.n_kv_heads:
         return q, k, v, False
-    h0 = dist_sharding.coordinate(dist_sharding.current_mesh())["model"] * kh
+    mesh = dist_sharding.current_mesh()
+    h0 = dist_sharding.coordinate(mesh)["model"] * kh
     g = cfg.n_heads // cfg.n_kv_heads
+    # each model rank uses its heads of the replicated projections: in the
+    # backward their gradients are put back together over ``model``
+    q, k, v = (dist_coll.replicate_grad_sum(t, mesh, ("model",))
+               for t in (q, k, v))
     return (q[:, :, h0 * g:(h0 + kh) * g], k[:, :, h0:h0 + kh],
             v[:, :, h0:h0 + kh], True)
 
@@ -172,8 +181,23 @@ def _all_heads(out: torch.Tensor, cut: bool) -> torch.Tensor:
     in head order, where :func:`_local_heads` cut them."""
     if not cut:
         return out
-    return dist_coll.all_gather(out, dist_sharding.current_mesh(),
-                                ("model",), out.dim() - 1)
+    # the backward takes this rank's heads back (``wo``'s dx is the same
+    # on every model rank): no sum
+    return dist_coll.all_gather_grad_take(out, dist_sharding.current_mesh(),
+                                          ("model",), out.dim() - 1)
+
+
+def _train_kv_heads(cfg) -> int:
+    """The kv heads one model rank attends to in training: its block of
+    them where the ambient mesh's ``model`` axis divides their number (as
+    it divides the pool's in serving), else all of them."""
+    mesh = dist_sharding.current_mesh()
+    if mesh is None:
+        return cfg.n_kv_heads
+    size = dist_sharding.mesh_axis_size(mesh, "model")
+    if size > 1 and cfg.n_kv_heads % size == 0:
+        return cfg.n_kv_heads // size
+    return cfg.n_kv_heads
 
 
 def _attend(qc: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
@@ -228,15 +252,19 @@ def attn_train(p: Params, x: torch.Tensor, cfg, quant, name: str,
     projections, RoPE at ``positions`` (default 0..S-1), chunked causal
     attention, output projection.  The reference recomputes each query
     chunk's scores in the backward (``jax.checkpoint``); here the period's
-    remat (``models.lm._scan_blocks``) already bounds them to one layer."""
+    remat (``models.lm._scan_blocks``) already bounds them to one layer.
+    Under a mesh whose ``model`` axis divides the kv heads it runs
+    head-parallel, as serving does: each model rank attends with its heads
+    (:func:`_train_kv_heads`), gathered before ``wo``."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, quant, name)
+    q, k, v, cut = _local_heads(_qkv(p, x, cfg, quant, name), cfg,
+                                _train_kv_heads(cfg))
     pos = positions if positions is not None else torch.arange(
         s, dtype=torch.int32, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     out = chunked_causal_attention(q, k, v, chunk=chunk)
-    out = out.reshape(b, s, cfg.q_dim)
+    out = _all_heads(out.reshape(b, s, -1), cut)
     return maybe_quantized_matmul(out, p["wo"], quant, f"{name}.wo")
 
 

@@ -19,13 +19,19 @@ Python loop over that axis here.  Cache tensors are updated in place and
 returned.
 
 Parameters may be one rank's shards (``dist.sharding.shard_params``, the
-serve engine under a mesh): the embedding is looked up vocab-parallel
+serve engine under a mesh; ``init_params(mesh=...)``, training under one):
+the embedding is looked up vocab-parallel
 (``dist.sharding.embed_lookup``) and the tied head quantizes only this
 rank's vocab columns, the table's FSDP columns gathered once a serve call
 (``dist.sharding.vocab_block``), the GEMMs gather their weights' FSDP rows
 (``quant.qmatmul``), and attention runs head-parallel on the pool's kv-head
-block (``models.layers``).  ``constrain_batch_dim`` stands where the
-reference constrains an activation's batch dim; it moves no value.
+block, or in training on the ``model`` axis's block of the kv heads
+(``models.layers``).  Training differentiates through all of it: the
+collectives' backwards (``dist.collectives``) and the quantized GEMMs'
+(``quant.qmatmul._mesh_ste``) reduce each gradient to its shard, and
+``loss_fn`` takes the global token mean.  ``constrain_batch_dim`` stands
+where the reference constrains an activation's batch dim; it moves no
+value.
 
 The front ends are the reference's stubs: a vision model takes
 precomputed patch embeddings (``frontend_embeds``, (B, frontend_tokens,
@@ -45,8 +51,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import (constrain_batch_dim, embed_lookup,
-                                      select, transpose, vocab_block)
+from repro_torch.dist import collectives as C
+from repro_torch.dist.sharding import (constrain_batch_dim, current_mesh,
+                                      data_axes, embed_lookup, leaf_spec,
+                                      local_block, select, transpose,
+                                      vocab_block, wrap_block)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
@@ -90,7 +99,7 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
-                prequant=None) -> Params:
+                prequant=None, mesh=None) -> Params:
     """Random parameters from ``gen`` (a seeded ``torch.Generator`` on
     ``device``).  They do not reproduce the reference's ``jax.random``
     values; tests carry the reference's parameters over with
@@ -106,10 +115,51 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
     ``lm_head`` is drawn whole, as ``init_params`` draws it, and quantized
     a chunk of columns at a time (``prequant.record``); so are the front
     end's ``w1`` and ``w2``.  Other leaves are as ``init_params`` makes
-    them."""
+    them.
+
+    With ``mesh`` (training under a mesh) every leaf is drawn as above, in
+    the same order, and cut at once to this rank's block under
+    ``dist.sharding.leaf_spec`` (a period's leaf to its block of the
+    stacked leaf's spec): a leaf is whole only while it is drawn, and the
+    tree holds each rank's blocks as ``dist.sharding.shard_params`` lays
+    them out — the same logical values as without ``mesh``, from the same
+    generator."""
     _check_ported(cfg)
     dtype = _dtype(cfg)
     d = cfg.d_model
+    metas = None
+    if mesh is not None:
+        # the global shapes, which place the blocks (no memory)
+        metas = init_params(torch.Generator(), cfg, device="meta",
+                            prequant=prequant)
+
+    def meta_at(path):
+        node = metas
+        for k in path:
+            node = node[k]
+        return node
+
+    def place(tree, path, stacked: bool):
+        """With a mesh, each leaf of ``tree`` (a period's when
+        ``stacked``) cut to this rank's block of its leaf."""
+        if mesh is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: place(v, path + (k,), stacked)
+                    for k, v in tree.items()}
+        spec = leaf_spec(path, meta_at(path), mesh)
+        block = local_block(tree, spec[1:] if stacked else spec, mesh)
+        return block if stacked else block.clone()
+
+    def wrap(tree, path):
+        """With a mesh, each leaf of ``tree`` held as its DTensor."""
+        if mesh is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: wrap(v, path + (k,)) for k, v in tree.items()}
+        meta = meta_at(path)
+        return wrap_block(tree, leaf_spec(path, meta, mesh), mesh,
+                          meta.shape)
 
     def convert(tree, path, batch_axes: int = 1):
         """A tree with its weight leaves as records; ``batch_axes``: the
@@ -138,8 +188,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
         leaves (records) written into the stack as they are made."""
         out = None
         for i in range(n):
-            out = put(out, convert(make(), path), i, n)
-        return out
+            out = put(out, place(convert(make(), path), path, True), i, n)
+        return wrap(out, path)
 
     def block_stack(root, n, cross_attn):
         """The reference's ``_stack_init``: {posN: blocks stacked over
@@ -178,27 +228,31 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
                     gen, d, cfg.d_ff, cfg.glu, dtype, device), n)
         return out
 
+    def whole(path, tree):
+        """An unstacked leaf (or tree) drawn whole, cut to its blocks."""
+        return wrap(place(tree, path, False), path)
+
     blocks = block_stack("blocks", cfg.n_periods, cfg.is_encdec)
     params: Params = {
-        "embed": L._normal(gen, (cfg.padded_vocab, d), d ** -0.5, dtype,
-                           device),
+        "embed": whole(("embed",), L._normal(
+            gen, (cfg.padded_vocab, d), d ** -0.5, dtype, device)),
         "blocks": blocks,
-        "ln_f": L.norm_init(d, device),
+        "ln_f": whole(("ln_f",), L.norm_init(d, device)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = convert(L._normal(
+        params["lm_head"] = whole(("lm_head",), convert(L._normal(
             gen, (d, cfg.padded_vocab), d ** -0.5, dtype, device),
-            ("lm_head",), 0)
+            ("lm_head",), 0))
     if cfg.is_encdec:
         params["encoder"] = block_stack("encoder", cfg.encoder_periods,
                                         False)
-        params["enc_ln_f"] = L.norm_init(d, device)
+        params["enc_ln_f"] = whole(("enc_ln_f",), L.norm_init(d, device))
     if cfg.frontend != "none":
         fd = cfg.frontend_dim
-        params["frontend"] = convert({
+        params["frontend"] = whole(("frontend",), convert({
             "w1": L._normal(gen, (fd, d), fd ** -0.5, dtype, device),
             "w2": L._normal(gen, (d, d), d ** -0.5, dtype, device)},
-            ("frontend",), 0)
+            ("frontend",), 0))
     return params
 
 
@@ -477,7 +531,15 @@ def loss_fn(params: Params, cfg: ModelConfig,
     recomputes each chunk's logits (the head's GEMM launches twice a
     chunk).  The gold logit is an ``iota == label`` select, as the
     reference's.  A vision prefix's positions are stripped before the
-    head."""
+    head.
+
+    Under a mesh (the ambient one: ``batch`` holds this data rank's rows)
+    the mean is the global one: every data rank's token sum over every
+    data rank's mask count, the sum all-reduced with its gradient passed
+    to each rank's own rows.  The tied head and the lookup share the
+    table's vocab block (``dist.sharding.vocab_block``), so both
+    gradients land in the one shard of ``embed``."""
+    params = _call_params(params)
     x, aux = forward_hidden(
         params, cfg, batch["tokens"],
         frontend_embeds=batch.get("frontend_embeds"),
@@ -486,7 +548,8 @@ def loss_fn(params: Params, cfg: ModelConfig,
     if x.shape[1] != labels.shape[1]:        # vision prefix tokens: strip
         x = x[:, -labels.shape[1]:, :]
     x = L.norm_apply(params["ln_f"], x)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = transpose(params["embed"]) if cfg.tie_embeddings \
+        else params["lm_head"]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
@@ -514,7 +577,12 @@ def loss_fn(params: Params, cfg: ModelConfig,
         args = (x[:, sl], labels[:, sl], mask[:, sl])
         total = total + (checkpoint(chunk_ce, *args, use_reentrant=False)
                          if remat else chunk_ce(*args))
-    ce = total / mask.sum().clamp_min(1.0)
+    count = mask.sum()
+    mesh = current_mesh()
+    if mesh is not None:
+        total = C.all_reduce_grad_pass(total, mesh, data_axes(mesh))
+        count = C.all_reduce(count, mesh, data_axes(mesh))
+    ce = total / count.clamp_min(1.0)
     return ce + AUX_COEF * aux
 
 

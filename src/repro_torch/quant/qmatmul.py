@@ -60,7 +60,14 @@ gives ``counts`` no gradient).  ``round`` has a zero derivative, so the
 quantizer must not be differentiated through: the Functions are the
 gradient on every device.  Elsewhere (serving, under ``no_grad`` or
 ``inference_mode``) the GEMM runs without them.  :func:`prequant_matmul`
-stays inference only.
+stays inference only.  Under a training mesh the dense core's backward
+runs on blocks (:func:`_mesh_ste`): ``dx`` from this rank's N block of W,
+all-reduced over ``model``; ``dW`` of that block from this rank's rows,
+reduce-scattered over the data axes to W's FSDP rows; the batched cores
+(MoE) are not trained under a mesh (ROADMAP.md queue 1 item 4.2).  The
+unquantized matmul takes W whole through
+:func:`repro_torch.dist.sharding.full_leaf`, whose gather is
+differentiable.
 """
 from __future__ import annotations
 
@@ -74,6 +81,7 @@ from repro_torch.core.context import ExecContext
 from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_plan
 from repro_torch.core.kmm import (default_mm1, kmm_n, max_exact_k, mm_n,
                                   plan_accum_k_bound)
+from repro_torch.dist import collectives as dist_coll
 from repro_torch.dist import shard_gemm
 from repro_torch.dist import sharding as dist_sharding
 from repro_torch.kernels import check_grad_fn, ops, records_grad
@@ -192,12 +200,13 @@ def _fused_mode(plan: ExecPlan) -> str:
 def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
                 counts: Optional[torch.Tensor] = None,
                 seg: Optional[int] = None,
-                context: Optional[ExecContext] = None
-                ) -> Optional[torch.Tensor]:
+                context: Optional[ExecContext] = None,
+                want: Optional[dict] = None) -> Optional[torch.Tensor]:
     """The GEMM + dequant: dense (..., K) x (K, N), or batched (E, C, K) x
     (E, K, N), on the resolved plan (:func:`run_plan_dequant`).  Returns
     None where the reference takes its XLA route: w outside the fused
-    windows, or the shape past the kernel's bounds."""
+    windows, or the shape past the kernel's bounds.  ``want``: see
+    :func:`_sharded_cuda`."""
     batched = qw.dim() == 3
     if batched:
         _, m_dim, k_dim = qx.shape
@@ -212,7 +221,7 @@ def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
         return None                     # recursion deeper than 2 levels
     if context is not None and context.mesh is not None:
         return _sharded_cuda(qx, qw, sx, sw, w, m, out_dtype, counts, seg,
-                             context, (m_dim, k_dim, n_dim))
+                             context, (m_dim, k_dim, n_dim), want)
     plan = _fused_plan_for((m_dim, k_dim, n_dim), w, m, context)
     if plan is None:
         _PALLAS_FALLBACKS.inc("kernel_bounds")
@@ -222,7 +231,8 @@ def _fused_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
 
 def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
                   counts: Optional[torch.Tensor], seg: Optional[int],
-                  context: ExecContext, dims) -> Optional[torch.Tensor]:
+                  context: ExecContext, dims,
+                  want: Optional[dict] = None) -> Optional[torch.Tensor]:
     """The GEMM + dequant shard-mapped over ``context.mesh`` (the
     reference's ``_sharded_pallas``): each rank runs the unchanged kernel on
     its block (:mod:`repro_torch.dist.shard_gemm`), the plan resolved and
@@ -231,26 +241,17 @@ def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
     for bit.  Returns None — the ATen route, logged and counted — where the
     mesh tiles no dim of the GEMM or the local shape fails the bounds.
     Under a batch-local ambient mesh (the engine) x holds this data rank's
-    rows, and the global M is D times its rows."""
+    rows, and the global M is D times its rows.  A dense GEMM that runs
+    shard-mapped writes the block of W it multiplied into ``want`` (``{1:
+    n_axes}``, as ``shard_gemm.weight_block`` reads it): the STE backward
+    gathers that block again."""
     mesh = context.mesh
     batched = qw.dim() == 3
-    m_dim, k_dim, n_dim = dims
+    _, k_dim, n_dim = dims
     rows_local = not batched and dist_sharding.batch_is_local(mesh)
-    if rows_local:
-        m_dim *= dist_sharding.data_size(mesh)
-    shape = (m_dim, k_dim, n_dim)
-    spec, reason = shard_gemm.negotiate(
-        shape, mesh, n_experts=qx.shape[0] if batched else None)
+    shape, spec, plan, reason = _shard_spec(
+        dims, w, m, context, qx.shape[0] if batched else None)
     if spec is None:
-        shard_gemm.log_fallback(shape, w, reason)
-        return None
-    lshape = shard_gemm.local_shape(shape, spec, mesh)
-    plan = _fused_plan_for(lshape, w, m, context)
-    if plan is None:
-        shard_gemm.log_fallback(shape, w, "local-K kernel bounds failed")
-        return None
-    ok, reason = shard_gemm.plan_local_bounds_ok(plan, lshape, w, m)
-    if not ok:
         shard_gemm.log_fallback(shape, w, reason)
         return None
     if batched:
@@ -263,6 +264,9 @@ def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
     def local_dense(qxl, qwl, sxl, swl):
         return run_plan_dequant(qxl, qwl, sxl, swl, plan, out_dtype)
 
+    if want is not None:
+        want[1] = spec.n_axes
+
     rows = qx.reshape(-1, k_dim)
     if not dist_sharding.is_dtensor(sw):
         sw = sw.reshape(1, n_dim)
@@ -270,6 +274,31 @@ def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
                                       rows_local=rows_local)(
         rows, qw, sx.reshape(rows.shape[0], 1), sw)
     return out.reshape(qx.shape[:-1] + (n_dim,))
+
+
+def _shard_spec(dims, w: int, m: int, context: ExecContext,
+                n_experts: Optional[int] = None):
+    """How :func:`_sharded_cuda` runs an (M, K, N) GEMM on
+    ``context.mesh``: (global shape, spec, the plan on the local shape,
+    "") where it runs shard-mapped, (global shape, None, None, why not)
+    where it takes the ATen route.  Under a batch-local ambient mesh the
+    global M is D times the rows given."""
+    mesh = context.mesh
+    m_dim, k_dim, n_dim = dims
+    if n_experts is None and dist_sharding.batch_is_local(mesh):
+        m_dim *= dist_sharding.data_size(mesh)
+    shape = (m_dim, k_dim, n_dim)
+    spec, reason = shard_gemm.negotiate(shape, mesh, n_experts=n_experts)
+    if spec is None:
+        return shape, None, None, reason
+    lshape = shard_gemm.local_shape(shape, spec, mesh)
+    plan = _fused_plan_for(lshape, w, m, context)
+    if plan is None:
+        return shape, None, None, "local-K kernel bounds failed"
+    ok, reason = shard_gemm.plan_local_bounds_ok(plan, lshape, w, m)
+    if not ok:
+        return shape, None, None, reason
+    return shape, spec, plan, ""
 
 
 def run_plan_dequant(qx, qw, sx, sw, plan: ExecPlan, out_dtype,
@@ -372,15 +401,17 @@ def _int_dot(qx: torch.Tensor, qw: torch.Tensor, w: int, m: int, dims,
 def _quant_gemm(qx, qw, sx, sw, w: int, m: int, out_dtype,
                 context: Optional[ExecContext],
                 counts: Optional[torch.Tensor] = None,
-                seg: Optional[int] = None) -> torch.Tensor:
+                seg: Optional[int] = None,
+                want: Optional[dict] = None) -> torch.Tensor:
     """Dequantized GEMM, routed as the reference routes it: the kernels on
     ``"cuda"`` with ``force_mode="auto"`` where they can take the GEMM,
     else the ATen route (:func:`_int_dot`), whose output takes the ragged
-    mask.  Every GEMM counts its route."""
+    mask.  Every GEMM counts its route.  ``want``: see
+    :func:`_sharded_cuda` (left empty where the GEMM takes W whole)."""
     ctx = context if context is not None else ExecContext()
     if ctx.backend == "cuda" and ctx.force_mode == "auto":
         out = _fused_cuda(qx, qw, sx, sw, w, m, out_dtype, counts, seg,
-                          context=ctx)
+                          context=ctx, want=want)
         if out is not None:
             _count_route("cuda", "cuda")
             return out
@@ -399,14 +430,15 @@ def _quant_gemm(qx, qw, sx, sw, w: int, m: int, out_dtype,
     return out
 
 
-def _qmm_forward(x, wmat, w_bits, m, context):
+def _qmm_forward(x, wmat, w_bits, m, context, want=None):
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per token
     # per output channel; a weight sharded at rest on its K rows gathered,
     # on this rank's channels alone
     qw, sw = dist_sharding.map_columns(
         wmat, lambda wl: _quantize(wl, w_bits, 0, carrier))
-    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context)
+    return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context,
+                       want=want)
 
 
 def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None):
@@ -423,17 +455,50 @@ def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None):
 # ---------------------------------------------------------------------------
 
 
+def _mesh_ste(ctx, g, x, wmat, mesh):
+    """The dense STE backward on blocks (the reference's ``_qmm_bwd``, which
+    GSPMD partitions): with ``n`` the N block the forward ran (``ctx.want``,
+    written by the forward's routing) and W's block gathered again from the
+    saved shard, ``dx = g[:, n] @ W[:, n]^T`` all-reduced over the block's
+    axes, and ``dW[:, n] = x^T @ g[:, n]`` on this rank's rows, cut to W's
+    block at rest by
+    ``shard_gemm.weight_grad``.  ``g`` is the whole gradient of the
+    gathered output, the same on every model rank.  Products in fp32, as
+    unsharded (on a mesh of one it is the unsharded backward, op for op)."""
+    f32 = torch.float32
+    cols = ctx.want.get(1, ())
+    gc = shard_gemm.column_block(g.to(f32), cols, mesh)
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        wblk = shard_gemm.weight_block(wmat, ctx.want, mesh)
+        dx = torch.matmul(gc, wblk.to(f32).T)
+        dx = dist_coll.all_reduce(dx, mesh, cols).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        x2 = x.reshape(-1, x.shape[-1]).to(f32)
+        dw = x2.T @ gc.reshape(-1, gc.shape[-1])
+        dw = shard_gemm.weight_grad(dw, wmat, ctx.want, mesh)
+        dw = dist_sharding.like(wmat, dw.to(wmat.dtype))
+    return dx, dw
+
+
 class _QmmCore(torch.autograd.Function):
-    """Dense core: (..., K) @ (K, N); the reference's ``_qmm_core``."""
+    """Dense core: (..., K) @ (K, N); the reference's ``_qmm_core``.  Under
+    a mesh (the ambient one, as training runs it) its backward runs on
+    blocks (:func:`_mesh_ste`); it saves W's shard, never the gathered
+    weight."""
 
     @staticmethod
     def forward(ctx, x, wmat, w_bits, m, context):
         ctx.save_for_backward(x, wmat)
-        return _qmm_forward(x, wmat, w_bits, m, context)
+        ctx.mesh = dist_sharding.current_mesh()
+        ctx.want = {}
+        return _qmm_forward(x, wmat, w_bits, m, context, ctx.want)
 
     @staticmethod
     def backward(ctx, g):
         x, wmat = ctx.saved_tensors
+        if ctx.mesh is not None:
+            return _mesh_ste(ctx, g, x, wmat, ctx.mesh) + (None,) * 3
         f32 = torch.float32
         gf = g.to(f32)
         dx = dw = None

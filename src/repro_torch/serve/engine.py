@@ -55,8 +55,10 @@ advances identically; sampling draws from one generator per (request,
 step), so the lane grouping moves no draw.  Admission reads a clock the
 ranks agree on (the latest of theirs).  Under a mesh ``batch_size`` must
 split over the data ranks (``ValueError``), and MoE, mamba and RWKV models
-and ``prefix_cache`` raise ``NotImplementedError`` (ROADMAP queue 1,
-item 4).
+(ROADMAP.md queue 1 item 4.2) and ``prefix_cache`` (item 4.3) raise
+``NotImplementedError``.  Training under a mesh is
+``train.loop.run_training(mesh=...)``: the same rules and GEMMs, the
+backward through them.
 
 Observability (:mod:`repro_torch.obs`, enabled before the engine is built
 and warmed, as the launcher's ``--metrics-out`` / ``--trace-out`` do): the
@@ -114,17 +116,18 @@ def _check_mesh(cfg, mesh, batch_size: int, prefix_cache: bool,
     if any(spec.moe for spec in cfg.pattern):
         raise NotImplementedError(
             "an MoE model under a mesh (expert parallelism through "
-            "shard_grouped_gemm) is not ported yet: ROADMAP queue 1 item 4")
+            "shard_grouped_gemm) is not ported yet: ROADMAP.md queue 1 item "
+            "4.2")
     kinds = {spec.kind for spec in cfg.pattern} - {"attn"}
     if kinds:
         raise NotImplementedError(
             f"{sorted(kinds)} blocks under a mesh (their state over "
-            f"'model', CACHE_MODEL_AXES) are not ported yet: ROADMAP queue "
-            f"1 item 4")
+            f"'model', CACHE_MODEL_AXES) are not ported yet: ROADMAP.md "
+            f"queue 1 item 4.2")
     if prefix_cache:
         raise NotImplementedError(
-            "the prefix cache under a mesh is not ported yet: ROADMAP "
-            "queue 1 item 4")
+            "the prefix cache under a mesh is not ported yet: ROADMAP.md "
+            "queue 1 item 4.3")
     d = dist_sharding.data_size(mesh)
     if batch_size % d:
         raise ValueError(f"batch_size={batch_size} does not split over the "

@@ -14,6 +14,14 @@ Python scalar multiplies by its reciprocal, which the reference does not.
 
 Trees are nested dicts of tensors; the global norm sums the leaves in
 sorted-key order, the order in which JAX flattens a dict.
+
+Under a mesh a leaf may be a DTensor holding this rank's block
+(``lm.init_params(mesh=...)``): its state is held as it is, and the
+update runs on the local blocks alone, the reference's "mu and nu follow
+their parameter's block".  The global norm is the logical gradient's: a
+leaf's squares are summed over the mesh axes its blocks differ over, so
+a block replicated over an axis counts once; the clip, lr and step then
+agree on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.dist import collectives as C
+from repro_torch.dist import sharding as S
 
 Params = Any
 
@@ -77,18 +88,36 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return _f32(cfg.lr, dev) * warm * frac
 
 
+def _zeros_like(p) -> torch.Tensor:
+    block = S.local(p)
+    return S.like(p, torch.zeros(block.shape, dtype=torch.float32,
+                                 device=block.device))
+
+
 def init(params: Params) -> OptState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
-    device = tree_leaves(params)[0].device
+    device = S.local(tree_leaves(params)[0]).device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
-                    mu=zeros, nu=tree_map(torch.clone, zeros))
+                    mu=tree_map(_zeros_like, params),
+                    nu=tree_map(_zeros_like, params))
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    total = None
+    """The L2 norm over every leaf.  Each leaf's local squares add to the
+    partial sum of the mesh axes its blocks differ over (none for a plain
+    tensor); each partial is all-reduced over its axes once, in first-seen
+    order, so a tree of plain tensors sums exactly as unsharded."""
+    partial: Dict[Tuple[str, ...], list] = {}
     for x in tree_leaves(tree):
-        sq = torch.sum(torch.square(x.to(torch.float32)))
+        sq = torch.sum(torch.square(S.local(x).to(torch.float32)))
+        axes = S.sharded_axes(x)
+        if axes in partial:
+            partial[axes][1] = partial[axes][1] + sq
+        else:
+            partial[axes] = [x.device_mesh if axes else None, sq]
+    total = None
+    for axes, (mesh, sq) in partial.items():
+        if axes:
+            sq = C.all_reduce(sq, mesh, axes)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -110,13 +139,15 @@ def update(cfg: AdamWConfig, grads: Params, state: OptState, params: Params
     new_p, new_mu, new_nu = {}, {}, {}
 
     def leaf(p, g, mu, nu):
-        g = g.to(torch.float32) * clip
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * g * g
-        upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+        pl, ml, nl = S.local(p), S.local(mu), S.local(nu)
+        g = S.local(g).to(torch.float32) * clip
+        ml = b1 * ml + (1 - b1) * g
+        nl = b2 * nl + (1 - b2) * g * g
+        upd = (ml / c1) / (torch.sqrt(nl / c2) + cfg.eps)
         if p.dim() >= 2:    # decay matrices only (standard practice)
-            upd = upd + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * upd).to(p.dtype), mu, nu
+            upd = upd + cfg.weight_decay * pl.to(torch.float32)
+        new = (pl.to(torch.float32) - lr * upd).to(pl.dtype)
+        return S.like(p, new), S.like(mu, ml), S.like(nu, nl)
 
     flat = tree_map(leaf, params, grads, state.mu, state.nu)
     is_triple = lambda t: isinstance(t, tuple)   # noqa: E731

@@ -78,3 +78,29 @@ def test_distribution_modules_are_covered():
         if not path.exists():
             path = PORT.parent.joinpath(*name.split("."), "__init__.py")
         assert not [r for r, _ in _imported_roots(path) if r in FORBIDDEN]
+
+
+def test_training_modules_are_covered():
+    """The training modules (under a mesh since the mesh slice) are among
+    those imported without jax."""
+    names = _module_names()
+    for name in ("repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.train.loop", "repro_torch.train.optim",
+                 "repro_torch.train.checkpoint", "repro_torch.bridge",
+                 "repro_torch.configs"):
+        assert name in names
+        path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
+        if not path.exists():
+            path = PORT.parent.joinpath(*name.split("."), "__init__.py")
+        assert not [r for r, _ in _imported_roots(path) if r in FORBIDDEN]
+
+
+@pytest.mark.parametrize("body", ["_torch_dist_ranks.py",
+                                  "_torch_train_mesh_ranks.py"])
+def test_rank_bodies_import_no_jax_or_reference(body):
+    """The ranks of the mesh tests run the port alone: their bodies import
+    nothing of jax or the reference."""
+    path = ROOT / "tests" / body
+    roots = [r for r, _ in _imported_roots(path)]
+    assert "repro_torch" in roots
+    assert not [r for r in roots if r in FORBIDDEN], body
