@@ -349,9 +349,10 @@ csrc/wkv.cu and csrc/ssm_scan.cu) adds:
       its 32 periods, 8 microbatches: the ragged STE at its expert shape
       (dead rows get exactly zero dx), step 1 against the plain versions,
       every leaf's gradient nonzero, 2 counted steps with the grouped
-      kernel carrying every expert GEMM; rwkv6-3b at full width, 16 of
+      kernel carrying every expert GEMM; rwkv6-3b at full width, 8 of
       its 32 periods (TRAIN_RWKV_PERIODS: the whole model would need ~85
-      GB, and 24 took the script past its time limit), 4 microbatches: step 1 with every launch (the LoRA products,
+      GB, and 24, later 16, took the script past its time limit), 4
+      microbatches: step 1 with every launch (the LoRA products,
       the WKV forward and backward too) against its plain version and
       against the step on the plain versions, every leaf's gradient (u,
       w0, mix, the LoRA and ln_x too) finite and nonzero, the same step
@@ -380,7 +381,7 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       CUDA graph and replayed (no rule shards anything on 1x1, so the
       engine's graphs hold no collective);
       (b) MESH_RANKS ranks on gloo sharing cuda:0 (a MESH_SHAPE mesh),
-      started by this script (``--mesh-rank``) after the build, each
+      started by this script (``--mesh-rank``) before (a), each
       loading the built libraries (a rank that finds one missing fails: no
       rank builds): which gloo collectives run on CUDA tensors, failing
       where one of ``GLOO_CUDA_OPS`` does not in a dtype the port sends it
@@ -394,16 +395,30 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       oracle; granite's grouped experts (E=40, 1536 x 512, ragged counts)
       torch.equal to unsharded; the ring all-gather matmul (its hops through
       the host) at w=8 equal to the unsharded integer product; then the
-      full-width llama3.2-1b engine on mixed records with ``mesh=`` (eager:
-      gloo cannot be captured), built from (a)'s records, which the parent
-      saves to the host (MESH_PARAMS) and each rank maps from there, so the
-      card receives a rank's blocks alone; each rank holding exactly its
-      ``leaf_spec`` block of every record (compared with the whole), exactly
-      112 mm1 + 1 kmm2 + 33 norm launches a model call on each rank, tokens
-      torch.equal to (a)'s unsharded engine; per-rank resident bytes, the
-      rank's peak device memory at load and over serving, launches and
-      host-clock step ms reported (a transport check on one card, not a
-      multi-card number), and the logits' distance from (a)'s.
+      full-width llama3.2-1b engine at MESH_PERIODS of its 16 periods on
+      mixed records with ``mesh=`` (eager: gloo cannot be captured), built
+      from the records of the unsharded engine the parent serves at that
+      depth (graphed, exact launches), which it saves to the host
+      (MESH_PARAMS; a ready file releases the ranks) and each rank maps
+      from there, so the card receives a rank's blocks alone; each rank
+      holding exactly its ``leaf_spec`` block of every record (compared
+      with the whole), exactly 28 mm1 + 1 kmm2 + 9 norm launches a model
+      call on each rank, tokens torch.equal to that unsharded engine;
+      per-rank resident bytes, the rank's peak device memory at load and
+      over serving, launches and host-clock step ms reported (a transport
+      check on one card, not a multi-card number), and the logits' distance
+      from the unsharded engine's.
+      MoE (granite-moe-3b-a800m, expert-parallel): (a) also full-width,
+      full-depth granite on mixed records the same way (128 mm1 + 33 kmm2
+      + 96 grouped mm1 + 65 norms a model call, exact, graph nodes too),
+      tokens and every sampled logits row torch.equal with and without
+      ``mesh=``; (b) the same rank processes, after llama, full-depth
+      granite from (a)'s records (MESH_MOE_PARAMS) on the 2x2 mesh, 20 of
+      the 40 experts a model rank: each rank holding exactly its
+      ``leaf_spec`` block of every record, exact launches a model call,
+      every grouped launch over 20 experts, tokens torch.equal to (a)'s
+      unsharded engine; per-rank resident bytes, the ranks' peak and
+      host-clock step ms reported.
 
 Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
 
@@ -414,10 +429,11 @@ Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
       leaf of params, mu, nu and step torch.equal, launches exact
       (``train_launches``) and equal;
       (b) MESH_RANKS gloo ranks sharing cuda:0 (``--train-mesh-rank``,
-      started first: they join their mesh while (a) runs) on a MESH_SHAPE
-      mesh, llama at TRAIN_MESH_PERIODS periods, the same batch: the
-      unsharded step 1 and its update at that depth here (saved for the
-      ranks, which it releases); on each rank what ``run_training``'s loop
+      started first: they join their mesh, and run while (a) runs) on a
+      MESH_SHAPE mesh, llama at TRAIN_MESH_PERIODS periods, the same batch:
+      the unsharded step 1 and its update at that depth here, before (a)
+      (saved for the ranks, which it releases); on each rank what
+      ``run_training``'s loop
       runs a step — the seeded init's blocks, step 1 and its AdamW update
       (each rank's blocks of the gradients, params, mu and nu, and its grad
       norm, held to the unsharded step's, gates below), the
@@ -432,6 +448,19 @@ Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
       transport check) and each rank's device peak reported.  No run
       spans cards: no gradient collective ran across cards, or under NCCL
       with more than one rank.
+      MoE: (a) also granite at TRAIN_GRANITE_PERIODS periods (5t's depth),
+      TRAIN_MESH_STEPS steps, no mesh against the world of one under
+      deterministic algorithms, every leaf torch.equal, launches exact;
+      (b) the same rank processes, after llama, granite at
+      TRAIN_MESH_MOE_PERIODS periods with TRAIN_MESH_MOE_MICRO
+      microbatches of 2 sequences (its 8 microbatches of one sequence do
+      not split over 2 data ranks; the unsharded step runs the same),
+      against the unsharded step 1 (``step1_moe.pt``): the gates above,
+      the expert leaves' gradients within TRAIN_MESH_MOE_GRAD_TOL, every
+      layer's load-balance loss a microbatch within TRAIN_MESH_MOE_AUX_RTOL
+      (its means over the global microbatch), every grouped launch over 20
+      experts, the checkpoint equal to every rank's blocks; each model's
+      gates as soon as its ranks are done (llama's while granite trains).
 
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
@@ -889,6 +918,12 @@ MESH_TIMEOUT = 600
 MESH_PARAMS = ROOT / "build" / "scratch" / "mesh_params.pt"
 # llama's launches a model call: 7 w=8 projections a layer, the w=12 head.
 MESH_PER_CALL = {"mm1": 112, "kmm2": 1}
+# (b) serves llama at MESH_PERIODS of its 16 periods (one layer a period,
+# so every layer kind), against the unsharded engine the parent serves at
+# that depth: at 16 the whole script took 1257.3 s on an NVIDIA H100 80GB
+# HBM3 (700 W) whose host ran every other phase 10-40 % slower than
+# before (1200 s is its limit), llama's (b) ~24 s of it.
+MESH_PERIODS = 4
 # Phase 5d: training under a mesh.  (a) full-depth llama, TRAIN_MESH_STEPS
 # steps on a world of one (NCCL) against no mesh; (b) MESH_RANKS gloo ranks
 # sharing cuda:0 on MESH_SHAPE, llama at TRAIN_MESH_PERIODS of its periods
@@ -925,6 +960,30 @@ TRAIN_MESH_PARAM_TOL = 1e-2
 TRAIN_MESH_RESIDENT = 0.3
 TRAIN_MESH_TIMEOUT = 600
 TRAIN_MESH_DIR = ROOT / "build" / "scratch" / "train_mesh"
+# MoE under a mesh (5m and 5d): granite, expert-parallel (its 40 experts
+# over the model axis).  5m serves it at full width and depth, (a)'s
+# records saved to MESH_MOE_PARAMS for (b); 5d (b) trains it at
+# TRAIN_MESH_MOE_PERIODS periods with TRAIN_MESH_MOE_MICRO microbatches of 2
+# sequences.  Its step-1 gates are llama's, and besides: every layer's aux
+# loss a microbatch within TRAIN_MESH_MOE_AUX_RTOL of the unsharded (the
+# global means reorder fp32 sums); the expert leaves' gradients (router,
+# wi, wg, wo) within TRAIN_MESH_MOE_GRAD_TOL of their largest entry.  On an
+# NVIDIA H100 80GB HBM3 (700 W), init seeds 0, 1, 2: the aux losses equal
+# to the bit, the loss 0 to 1.07e-7 relative, the grad norm 6.1e-7 to
+# 6.0e-6 (gate 1e-5), the expert leaves 1.8e-3 to 2.9e-3 (their bf16
+# copy's ulp after the reordered fp32 sums; gate 5e-3), params 4.1e-4 lr
+# at most.  The worst leaf is embed, not an expert: 5.74e-3 at seed 0 but
+# 1.013e-2 and 1.015e-2 at seeds 1 and 2, past llama's 1e-2, which caps
+# the gate: at 4 microbatches the tied table's bf16 gradients round twice
+# a microbatch (its lookup's per-rank scatter-add, then the sum over the
+# data ranks) where llama's 2 gave 6.1-6.8e-3.  The script runs seed 0,
+# TRAIN_MESH_SEED, which llama's gates were read at before these.
+MESH_MOE_ARCH = "granite-moe-3b-a800m"
+MESH_MOE_PARAMS = ROOT / "build" / "scratch" / "mesh_moe_params.pt"
+TRAIN_MESH_MOE_PERIODS = 2
+TRAIN_MESH_MOE_MICRO = 4
+TRAIN_MESH_MOE_AUX_RTOL = 1e-6
+TRAIN_MESH_MOE_GRAD_TOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -4811,13 +4870,16 @@ def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
 # batch 8, each config's microbatches.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
 TRAIN_GRANITE_PERIODS, TRAIN_GRANITE_STEPS = 4, 2
-# rwkv6-3b cut to 16 of its 32 periods: a step peaks at ~30 bytes a param
+# rwkv6-3b cut to 8 of its 32 periods: a step peaks at ~30 bytes a param
 # (NVIDIA H100 80GB HBM3, 700 W: 47.26 GB at 16 periods, 1.600 B params;
 # 67.14 GB at 24, 2.232 B), so its 2.86 B params would need ~85 GB; 24
 # periods fit, but their checks took the whole script past its time limit
-# on a slower machine (the step at 24 takes 2.1x the step at 16).  2
-# counted steps, its 4 microbatches.
-TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 16, 2
+# on a slower machine (the step at 24 takes 2.1x the step at 16), and at
+# 16 its three plain-version steps took 81 s of a whole run of 1257.3 s on
+# a slower host (the limit is 1200 s).  The gates below
+# were measured at 16 and 24, where the chain carries more: deeper is
+# harder.  2 counted steps, its 4 microbatches.
+TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 8, 2
 # llama's restart gate (a checkpoint and a resumed run bit-exact to the
 # straight run) on TRAIN_RESTART_PERIODS of its 16 periods: the property
 # does not depend on depth, and at full depth the 14.8 GB checkpoint's
@@ -5674,32 +5736,52 @@ def sampled_rows(rows: dict):
         ex.Executor.sample = inner
 
 
-def mesh_world_of_one(torch, np, fg) -> dict:
-    """Phase 5m (a): the engine on a world of one (NCCL) against the engine
-    without a mesh, both warmed and graphed; and an NCCL collective
-    captured in a CUDA graph."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import mesh_backend, single_device_mesh
-    from repro_torch.serve.engine import Engine
+def moe_mesh_config():
+    """granite under mixed at full width and depth, and its launches a
+    model call (PATHS')."""
+    dense, grouped = next(p[5:] for p in PATHS
+                          if p[:2] == (MESH_MOE_ARCH, "mixed"))
+    return path_config(MESH_MOE_ARCH, "mixed"), path_per_call(
+        MESH_MOE_ARCH, dense, grouped)
 
-    pcfg = path_config(MESH_ARCH, "mixed")
-    per_call = path_per_call(MESH_ARCH, MESH_PER_CALL, {})
-    qparams, init = leafwise_init(torch, pcfg)
-    mesh = single_device_mesh(device="cuda")
-    if mesh_backend(mesh) != "nccl":
-        fail(f"the world of one runs {mesh_backend(mesh)!r}, not NCCL")
-    out = {"init": init, "backend": "nccl"}
-    runs = {}
+
+@contextlib.contextmanager
+def grouped_experts(fg):
+    """The expert count of every grouped kernel launch while entered (the
+    launch seam ``fg._launch``; its B operand is (E, K, N))."""
+    seen = []
+    inner = fg._launch
+
+    def spy(a, b, *args, **kw):
+        if a.dim() == 3:
+            seen.append(int(b.shape[0]))
+        return inner(a, b, *args, **kw)
+
+    fg._launch = spy
+    try:
+        yield seen
+    finally:
+        fg._launch = inner
+
+
+def world_of_one_pair(torch, np, fg, what: str, pcfg, qparams, mesh,
+                      per_call) -> tuple:
+    """The engine without a mesh and with ``mesh`` (a world of one), each
+    warmed and graphed, under the exact launch and graph-node gates:
+    tokens and every sampled logits row torch.equal.  Returns the report
+    and the unsharded run's rows."""
+    from repro_torch.serve.engine import Engine
+    out, runs = {}, {}
     for label, m in (("no mesh", None), ("mesh 1x1", mesh)):
         eng = Engine(pcfg, qparams, max_seq=256, batch_size=4,
                      device="cuda", mesh=m)
         if not eng.executor.graphs:
-            fail(f"5m (a) {label}: decode is not graphed")
+            fail(f"5m (a) {what} {label}: decode is not graphed")
         eng.warm()
         reqs = mesh_requests(np, pcfg)
         with sampled_rows({}) as rows:
             run = serve_counted(torch, fg, eng, reqs)
-        run["launches"] = check_counted(f"5m (a) {label}", eng, run,
+        run["launches"] = check_counted(f"5m (a) {what} {label}", eng, run,
                                         per_call)
         run["rows"] = rows
         runs[label] = run
@@ -5713,8 +5795,41 @@ def mesh_world_of_one(torch, np, fg) -> dict:
             got["rows"].keys() or not all(
                 torch.equal(got["rows"][k], base["rows"][k])
                 for k in base["rows"]):
-        fail("5m (a): the engine on the world of one differs from the "
-             "engine without a mesh (tokens or logits)")
+        fail(f"5m (a) {what}: the engine on the world of one differs from "
+             f"the engine without a mesh (tokens or logits)")
+    log(f"  (a) {what} on a world of one (NCCL): graphed, "
+        f"{len(base['rows'])} logits rows and every token torch.equal to "
+        f"the engine without a mesh; launches exact "
+        f"({nonzero(per_call)} a call)")
+    return out, base["rows"]
+
+
+def save_records(torch, qparams, path: Path) -> None:
+    """Records to the host file (b)'s ranks map, key paths joined by /;
+    then its ready file, which releases the ranks."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"/".join(p): leaf.cpu() for p, leaf in _paths(qparams)},
+               path)
+    ready_file(path).touch()
+
+
+def mesh_world_of_one(torch, np, fg) -> dict:
+    """Phase 5m (a): the engine on a world of one (NCCL) against the engine
+    without a mesh, both warmed and graphed, llama then granite; and an
+    NCCL collective captured in a CUDA graph.  Saves (b)'s records."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_backend, single_device_mesh
+
+    pcfg = path_config(MESH_ARCH, "mixed")
+    per_call = path_per_call(MESH_ARCH, MESH_PER_CALL, {})
+    qparams, init = leafwise_init(torch, pcfg)
+    mesh = single_device_mesh(device="cuda")
+    if mesh_backend(mesh) != "nccl":
+        fail(f"the world of one runs {mesh_backend(mesh)!r}, not NCCL")
+    out = {"init": init, "backend": "nccl"}
+    pair, base_rows = world_of_one_pair(torch, np, fg, MESH_ARCH, pcfg,
+                                        qparams, mesh, per_call)
+    out.update(pair)
     # an NCCL all-gather and all-reduce captured and replayed
     group = mesh.get_group("data")
     x = torch.arange(8, dtype=torch.float32, device="cuda")
@@ -5736,19 +5851,23 @@ def mesh_world_of_one(torch, np, fg) -> dict:
         fail("5m (a): an NCCL collective captured in a CUDA graph replayed "
              "wrong values")
     out["nccl_in_graph"] = True
-    out["rows"] = {f"{k[0]}/{k[1]}": v.cpu() for k, v in
-                   base["rows"].items()}
-    MESH_PARAMS.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"/".join(path): leaf.cpu() for path, leaf in
-                _paths(qparams)}, MESH_PARAMS)
-    log(f"  (a) world of one on NCCL: graphed, {len(base['rows'])} logits "
-        f"rows and every token torch.equal to the engine without a mesh; "
-        f"launches exact; an NCCL all-gather and all-reduce replay in a "
-        f"CUDA graph")
-    dist.destroy_process_group()
-    del qparams, runs, base, got
+    log("  (a) an NCCL all-gather and all-reduce replay in a CUDA graph")
+    del qparams, base_rows
     gc.collect()
     torch.cuda.empty_cache()
+    out["cut"] = mesh_cut_reference(torch, np, fg)
+    # granite, full width and depth
+    mcfg, m_call = moe_mesh_config()
+    qparams, minit = leafwise_init(torch, mcfg)
+    pair, mrows = world_of_one_pair(torch, np, fg, MESH_MOE_ARCH, mcfg,
+                                    qparams, mesh, m_call)
+    out["moe"] = {"init": minit, **pair}
+    out["moe_rows"] = {f"{k[0]}/{k[1]}": v.cpu() for k, v in mrows.items()}
+    save_records(torch, qparams, MESH_MOE_PARAMS)
+    del qparams, mrows
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
     return out
 
 
@@ -5999,7 +6118,6 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_gemm as fg
     from repro_torch.launch.mesh import make_mesh, mesh_backend
-    from repro_torch.serve.engine import Engine
 
     torch.cuda.set_device(0)
     missing = [n for n in build.SOURCES if not build.library_path(n).exists()]
@@ -6017,15 +6135,46 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     t0 = time.monotonic()
     out["kernels"] = mesh_kernel_checks(torch, mesh)
     out["kernel_s"] = time.monotonic() - t0
-    pcfg = path_config(MESH_ARCH, "mixed")
-    per_call = path_per_call(MESH_ARCH, MESH_PER_CALL, {})
+    out.update(rank_engine(torch, np, fg, mesh, *mesh_cut_config(),
+                           MESH_PARAMS,
+                           os.path.join(out_dir, f"mesh_rows{rank}.pt")))
+    out["moe"] = rank_engine(
+        torch, np, fg, mesh, *moe_mesh_config(), MESH_MOE_PARAMS,
+        os.path.join(out_dir, f"mesh_moe_rows{rank}.pt"))
+    out["seconds"] = time.monotonic() - t_start
+    with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_engine(torch, np, fg, mesh, pcfg, per_call, records: Path,
+                rows_path: str) -> dict:
+    """One 5m (b) engine on this rank: once the parent has written them,
+    the records mapped from the host file, each rank's blocks alone copied
+    to the card (held to its
+    ``leaf_spec`` blocks of the whole), then the requests served eagerly
+    (gloo), counted: exact launches a model call, every grouped launch's
+    experts reported.  Writes this data rank's logits rows to
+    ``rows_path``."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.serve.engine import Engine
+    rank = torch.distributed.get_rank()
+    parent = os.getppid()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    while not ready_file(records).exists():
+        if os.getppid() != parent or time.monotonic() > deadline:
+            fail(f"5m (b) rank {rank}: no {pcfg.name} records from the "
+                 f"parent")
+        time.sleep(0.2)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    flat = torch.load(MESH_PARAMS, mmap=True, weights_only=True)
+    flat = torch.load(records, mmap=True, weights_only=True)
     qparams = {}
     for key, leaf in flat.items():      # the whole records, on the host
         node = qparams
@@ -6036,10 +6185,10 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     eng = Engine(pcfg, qparams, max_seq=256, batch_size=4, device="cuda",
                  mesh=mesh)
     torch.cuda.synchronize()
-    out["load_s"] = time.monotonic() - t0
-    out["load_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    out["whole_bytes"] = S.resident_bytes(qparams)
-    out["resident_bytes"] = S.resident_bytes(eng.params)
+    out = {"load_s": time.monotonic() - t0,
+           "load_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "whole_bytes": S.resident_bytes(qparams),
+           "resident_bytes": S.resident_bytes(eng.params)}
     if held_blocks(torch, qparams, eng.params, mesh) != \
             out["resident_bytes"]:
         fail(f"5m (b) rank {rank}: resident bytes are not its blocks'")
@@ -6048,40 +6197,79 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     if eng.executor.graphs:
         fail("5m (b): decode is graphed under a gloo mesh")
     reqs = mesh_requests(np, pcfg)
-    with sampled_rows({}) as rows:
+    with sampled_rows({}) as rows, grouped_experts(fg) as experts:
         run = serve_counted(torch, fg, eng, reqs, graphs=False)
-    out["launches"] = check_counted(f"5m (b) rank {rank}", eng, run,
-                                    per_call)
+    out["launches"] = check_counted(f"5m (b) {pcfg.name} rank {rank}", eng,
+                                    run, per_call)
     st = run["stats"]
     out.update({"tokens": run["tokens"], "prefill_calls": run["prefills"],
                 "decode_steps": st.decode_steps, "decode_s": st.decode_s,
                 "prefill_s": st.prefill_s, "wall_s": run["wall"],
                 "step_ms": 1e3 * st.decode_s / max(st.decode_steps, 1),
                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-                "seconds": time.monotonic() - t_start})
+                "grouped_experts": sorted(set(experts))})
     # this data rank's requests' rows (request i sits in slot i)
     d = S.coordinate(mesh)["data"]
     mine = {f"{rid}/{step}": v.cpu() for (rid, step), v in rows.items()
             if rid * S.data_size(mesh) // 4 == d
             and step < len(run["tokens"][rid])}
-    torch.save(mine, os.path.join(out_dir, f"mesh_rows{rank}.pt"))
-    with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
-        json.dump(out, f, indent=1)
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
+    torch.save(mine, rows_path)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cut_config():
+    """llama at MESH_PERIODS, and its launches a model call: 7 w=8
+    projections and 2 norms a layer, the w=12 head and ln_f."""
+    cfg = dataclasses.replace(path_config(MESH_ARCH, "mixed"),
+                              n_periods=MESH_PERIODS)
+    per_layer = MESH_PER_CALL["mm1"] // path_config(MESH_ARCH,
+                                                    "mixed").n_layers
+    return cfg, {"dense_mm1": per_layer * cfg.n_layers,
+                 "dense_kmm2": MESH_PER_CALL["kmm2"],
+                 "rowinv_norm": 2 * cfg.n_layers + 1}
+
+
+def mesh_cut_reference(torch, np, fg) -> dict:
+    """5m (b)'s llama reference: the unsharded engine at MESH_PERIODS on
+    mixed records from the leaf-wise init, warmed and graphed, exact
+    launches; its tokens and sampled rows; its records saved for the
+    ranks."""
+    from repro_torch.serve.engine import Engine
+    cfg, per_call = mesh_cut_config()
+    qparams, init = leafwise_init(torch, cfg)
+    eng = Engine(cfg, qparams, max_seq=256, batch_size=4, device="cuda")
+    eng.warm()
+    with sampled_rows({}) as rows:
+        run = serve_counted(torch, fg, eng, mesh_requests(np, cfg))
+    launches = check_counted(f"5m (b) {MESH_ARCH} at {MESH_PERIODS} "
+                             f"periods, no mesh", eng, run, per_call)
+    save_records(torch, qparams, MESH_PARAMS)
+    del eng, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"init": init, "launches": launches, "tokens": run["tokens"],
+            "rows": {f"{k[0]}/{k[1]}": v.cpu() for k, v in rows.items()}}
+
+
+def ready_file(records: Path) -> Path:
+    """The file the parent writes once ``records`` is whole on disk."""
+    return records.with_suffix(".ready")
 
 
 def mesh_phase(torch, np, fg) -> dict:
-    """Phase 5m: (a) in this process, then the gloo point-to-point probe
-    and (b)'s ranks as child processes (all stopped before it returns)."""
-    t0 = time.monotonic()
-    out = {"world_of_one": mesh_world_of_one(torch, np, fg)}
-    base_rows = out["world_of_one"].pop("rows")
-    base_tokens = out["world_of_one"]["no mesh"]["tokens"]
-    out["world_of_one_s"] = time.monotonic() - t0
+    """Phase 5m: the gloo point-to-point probe and (b)'s ranks started as
+    child processes first (the ranks run their collective and kernel checks
+    and then wait for each model's records, MESH_PARAMS and
+    MESH_MOE_PARAMS, which (a) writes), (a) in this process meanwhile;
+    every process stopped before it returns."""
     out_dir = ROOT / "chiprun_out" / "mesh"
     out_dir.mkdir(parents=True, exist_ok=True)
+    for path in (MESH_PARAMS, MESH_MOE_PARAMS):
+        path.unlink(missing_ok=True)
+        ready_file(path).unlink(missing_ok=True)
     script = str(ROOT / "chip_smoke.py")
 
     def start(args):
@@ -6103,19 +6291,34 @@ def mesh_phase(torch, np, fg) -> dict:
                     p.wait()
         return [p.returncode for p in procs], logs
 
+    t_ranks = time.monotonic()
     port = free_port()
-    codes, logs = finish([start(["--gloo-p2p-probe", str(r), str(port)])
-                          for r in (0, 1)], 60)
+    probes = [start(["--gloo-p2p-probe", str(r), str(port)]) for r in (0, 1)]
+    port = free_port()
+    procs = [start(["--mesh-rank", str(r), str(MESH_RANKS), str(port),
+                    str(out_dir)]) for r in range(MESH_RANKS)]
+    try:
+        t0 = time.monotonic()
+        out = {"world_of_one": mesh_world_of_one(torch, np, fg)}
+        out["world_of_one_s"] = time.monotonic() - t0
+    except BaseException:           # (a) failed: stop the children first
+        finish(probes + procs, 0)
+        raise
+    base_rows = out["world_of_one"]["cut"].pop("rows")
+    base_tokens = out["world_of_one"]["cut"]["tokens"]
+    moe_rows = out["world_of_one"].pop("moe_rows")
+    moe_tokens = out["world_of_one"]["moe"]["no mesh"]["tokens"]
+    codes, logs = finish(probes, 60)
     out["gloo_p2p_cuda"] = {"exit_codes": codes, "last_line": [
         (log_.strip().splitlines() or [""])[-1][:200] for log_ in logs]}
     log(f"  gloo batch_isend_irecv on CUDA tensors: exit codes {codes}")
     t0 = time.monotonic()
-    port = free_port()
-    codes, logs = finish([start(["--mesh-rank", str(r), str(MESH_RANKS),
-                                 str(port), str(out_dir)])
-                          for r in range(MESH_RANKS)], MESH_TIMEOUT)
+    codes, logs = finish(procs, MESH_TIMEOUT)
     out["ranks_s"] = time.monotonic() - t0
-    MESH_PARAMS.unlink()
+    out["ranks_started_s"] = time.monotonic() - t_ranks
+    for path in (MESH_PARAMS, MESH_MOE_PARAMS):
+        path.unlink()
+        ready_file(path).unlink()
     for r, (code, text) in enumerate(zip(codes, logs)):
         if code != 0:
             print(text[-6000:], file=sys.stderr)
@@ -6157,10 +6360,50 @@ def mesh_phase(torch, np, fg) -> dict:
             f"{rank['launches']['host']} over {rank['prefill_calls']} "
             f"prefill calls and {rank['decode_steps']} decode steps; step "
             f"{rank['step_ms']:.1f} ms (host clock, gloo on one card)")
-    log(f"  (b) gloo on CUDA tensors: {ops}; tokens torch.equal to the "
-        f"unsharded engine on every rank; logits rows equal "
+    log(f"  (b) gloo on CUDA tensors: {ops}; {MESH_ARCH} at {MESH_PERIODS} "
+        f"periods: tokens torch.equal to the unsharded engine on every "
+        f"rank; logits rows equal "
         f"{out['logits_rows_equal']} of {len(diffs)}, max |diff| "
         f"{out['logits_max_abs_diff']}")
+    # granite, expert-parallel: its experts over the model axis
+    experts = moe_mesh_config()[0].n_experts // MESH_SHAPE[1]
+    diffs = []
+    for r, rank in enumerate(ranks):
+        moe = rank["moe"]
+        if [list(t) for t in moe["tokens"]] != \
+                [list(t) for t in moe_tokens]:
+            fail(f"5m (b) {MESH_MOE_ARCH} rank {r}: tokens {moe['tokens']} "
+                 f"differ from the unsharded engine's {moe_tokens}")
+        if moe["grouped_experts"] != [experts]:
+            fail(f"5m (b) {MESH_MOE_ARCH} rank {r}: grouped launches over "
+                 f"{moe['grouped_experts']} experts, not {experts}")
+        rows = torch.load(out_dir / f"mesh_moe_rows{r}.pt")
+        for key, row in rows.items():
+            diffs.append(float((row.float() - moe_rows[key].float())
+                               .abs().max()))
+    moe = out["moe"] = {
+        "logits_rows_compared": len(diffs),
+        "logits_max_abs_diff": max(diffs) if diffs else None,
+        "logits_rows_equal": sum(d == 0.0 for d in diffs),
+        "peak_gb": max(r["moe"]["peak_gb"] for r in ranks),
+        "step_ms": [r["moe"]["step_ms"] for r in ranks],
+        "resident_bytes": [r["moe"]["resident_bytes"] for r in ranks],
+        "whole_bytes": ranks[0]["moe"]["whole_bytes"]}
+    for rank in ranks:
+        m = rank["moe"]
+        log(f"  (b) {MESH_MOE_ARCH} rank "
+            f"{rank['rank']} {rank['coord']}: resident "
+            f"{m['resident_bytes'] / 1e9:.3f} GB of "
+            f"{m['whole_bytes'] / 1e9:.3f} GB, device peak "
+            f"{m['load_peak_gb']:.3f} GB at load and {m['peak_gb']:.3f} GB "
+            f"serving; launches {m['launches']['host']} over "
+            f"{m['prefill_calls']} prefill calls and {m['decode_steps']} "
+            f"decode steps, every grouped launch over {experts} experts; "
+            f"step {m['step_ms']:.1f} ms (host clock, gloo on one card)")
+    log(f"  (b) {MESH_MOE_ARCH}: tokens torch.equal to the unsharded engine "
+        f"on every rank; logits rows equal "
+        f"{moe['logits_rows_equal']} of {len(diffs)}, max |diff| "
+        f"{moe['logits_max_abs_diff']}; ranks' peak {moe['peak_gb']:.3f} GB")
     return out
 
 
@@ -6169,19 +6412,41 @@ def mesh_phase(torch, np, fg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_mesh_setup(periods: Optional[int] = None):
-    """(config, data config, optimizer config) of phase 5d: llama3.2-1b
-    under mixed (``periods`` of its periods), 5t's batch and optimizer."""
+def train_mesh_setup(periods: Optional[int] = None, arch: str = MESH_ARCH,
+                     micro: Optional[int] = None):
+    """(config, data config, optimizer config) of phase 5d: ``arch`` under
+    mixed (``periods`` of its periods, ``micro`` microbatches where given),
+    5t's batch and optimizer."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.train import optim
-    cfg = get_config(MESH_ARCH, quant="mixed")
+    cfg = get_config(arch, quant="mixed")
     if periods:
         cfg = dataclasses.replace(cfg, n_periods=periods)
+    if micro:
+        cfg = dataclasses.replace(cfg, n_microbatches=micro)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH, seed=0)
     return cfg, dcfg, optim.AdamWConfig(lr=1e-4, warmup_steps=1,
                                         total_steps=TRAIN_MESH_STEPS)
+
+
+def moe_train_setup():
+    """5d (b)'s granite: TRAIN_MESH_MOE_PERIODS periods, TRAIN_MESH_MOE_MICRO
+    microbatches of the global batch (each of 2 sequences, one a data
+    rank on 2x2)."""
+    return train_mesh_setup(TRAIN_MESH_MOE_PERIODS, MESH_MOE_ARCH,
+                            TRAIN_MESH_MOE_MICRO)
+
+
+# (what, setup, the unsharded step-1 file, the ranks' checkpoint, the
+# parent's release file) of 5d (b)'s models, in the order the ranks run them
+def train_mesh_models():
+    return (("llama", train_mesh_setup(TRAIN_MESH_PERIODS),
+             TRAIN_MESH_DIR / "step1.pt", TRAIN_MESH_DIR / "ckpt",
+             TRAIN_MESH_DIR / "ready"),
+            ("moe", moe_train_setup(), TRAIN_MESH_DIR / "step1_moe.pt",
+             TRAIN_MESH_DIR / "ckpt_moe", TRAIN_MESH_DIR / "ready_moe"))
 
 
 def state_tree(res_params, state) -> dict:
@@ -6189,71 +6454,110 @@ def state_tree(res_params, state) -> dict:
             "step": state.step}
 
 
-def train_world_of_one(torch, fg, device="cuda") -> dict:
-    """Phase 5d (a): full-depth llama for TRAIN_MESH_STEPS steps through
-    ``run_training`` with no mesh and with ``mesh=`` a world of one (NCCL
-    on the card), under deterministic algorithms: losses and every leaf of
-    params, mu, nu and step torch.equal, launches exact and equal."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import mesh_backend, single_device_mesh
-    from repro_torch.train.loop import TrainConfig, run_training
+@contextlib.contextmanager
+def aux_losses():
+    """Every MoE layer's load-balance loss a forward computes while
+    entered (not a remat recompute's), as floats."""
+    from repro_torch.models import moe
+    vals = []
+    inner = moe.load_balance_loss
 
-    cfg, dcfg, ocfg = train_mesh_setup()
+    def spy(r, n):
+        v = inner(r, n)
+        if not moe._in_backward():
+            vals.append(float(v.detach()))
+        return v
+
+    moe.load_balance_loss = spy
+    try:
+        yield vals
+    finally:
+        moe.load_balance_loss = inner
+
+
+def world_of_one_training(torch, fg, what: str, setup, mesh,
+                          device="cuda") -> dict:
+    """TRAIN_MESH_STEPS steps through ``run_training`` with no mesh and
+    with ``mesh`` (a world of one): losses and every leaf of params, mu,
+    nu and step torch.equal, launches exact and equal."""
+    from repro_torch.train.loop import TrainConfig, run_training
+    cfg, dcfg, ocfg = setup
     tc = TrainConfig(steps=TRAIN_MESH_STEPS, log_every=1, optimizer=ocfg)
     expect = train_launches(cfg, TRAIN_MESH_STEPS, TRAIN_SEQ)
-    mesh = single_device_mesh(device=device)
-    if device == "cuda" and mesh_backend(mesh) != "nccl":
-        fail(f"5d (a): the world of one runs {mesh_backend(mesh)!r}, not "
-             f"NCCL")
-    out, runs = {"backend": mesh_backend(mesh)}, {}
-    with deterministic(torch) as nondet:
-        for label, m in (("no mesh", None), ("mesh 1x1", mesh)):
-            res, host, routes, wall = counted(
-                torch, fg, lambda: run_training(cfg, tc, dcfg, device=device,
-                                                mesh=m), device)
-            check_train_counts(f"5d (a) {label}", host, routes, expect)
-            runs[label] = res
-            out[label] = {"launches": {"host": host}, "losses": res.losses,
-                          "wall_s": wall,
-                          "step_ms": [1e3 * t for t in res.step_seconds]}
+    out, runs = {"n_periods": cfg.n_periods}, {}
+    for label, m in (("no mesh", None), ("mesh 1x1", mesh)):
+        res, host, routes, wall = counted(
+            torch, fg, lambda: run_training(cfg, tc, dcfg, device=device,
+                                            mesh=m), device)
+        check_train_counts(f"5d (a) {what} {label}", host, routes, expect)
+        runs[label] = res
+        out[label] = {"launches": {"host": host}, "losses": res.losses,
+                      "wall_s": wall,
+                      "step_ms": [1e3 * t for t in res.step_seconds]}
     base = state_tree(runs["no mesh"].params, runs["no mesh"].opt_state)
     got = runs["mesh 1x1"]
     diff = [".".join(p) for (p, a), (_, b) in zip(
         _paths(base), _paths(state_tree(got.params, got.opt_state)))
         if not torch.equal(a, b)]
     if got.losses != out["no mesh"]["losses"] or diff:
-        fail(f"5d (a): the world of one differs from no mesh: losses "
-             f"{got.losses} vs {out['no mesh']['losses']}, leaves {diff[:4]}")
-    out["nondeterministic_ops"] = nondet
-    log(f"  (a) world of one on {out['backend']}: {TRAIN_MESH_STEPS} steps of "
-        f"full-depth {MESH_ARCH}, losses "
-        + ", ".join(f"{v:.6f}" for v in got.losses.values())
+        fail(f"5d (a) {what}: the world of one differs from no mesh: "
+             f"losses {got.losses} vs {out['no mesh']['losses']}, leaves "
+             f"{diff[:4]}")
+    log(f"  (a) {what} at {cfg.n_periods} periods: {TRAIN_MESH_STEPS} steps,"
+        f" losses " + ", ".join(f"{v:.6f}" for v in got.losses.values())
         + f" and every leaf of params, mu, nu torch.equal to no mesh; "
         f"launches {out['mesh 1x1']['launches']['host']} (exact, equal)")
     del runs, got, base
-    dist.destroy_process_group()
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def train_mesh_reference(torch, device="cuda") -> dict:
-    """Phase 5d (b)'s reference on the card: the unsharded step 1 at
-    TRAIN_MESH_PERIODS periods from the seeded init — its loss, its
+def train_world_of_one(torch, fg, device="cuda") -> dict:
+    """Phase 5d (a): full-depth llama, then granite at
+    TRAIN_GRANITE_PERIODS, each for TRAIN_MESH_STEPS steps through
+    ``run_training`` with no mesh and with ``mesh=`` a world of one (NCCL
+    on the card), under deterministic algorithms
+    (:func:`world_of_one_training`)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_backend, single_device_mesh
+
+    mesh = single_device_mesh(device=device)
+    if device == "cuda" and mesh_backend(mesh) != "nccl":
+        fail(f"5d (a): the world of one runs {mesh_backend(mesh)!r}, not "
+             f"NCCL")
+    out = {"backend": mesh_backend(mesh)}
+    with deterministic(torch) as nondet:
+        out.update(world_of_one_training(torch, fg, MESH_ARCH,
+                                         train_mesh_setup(), mesh, device))
+        out["moe"] = world_of_one_training(
+            torch, fg, MESH_MOE_ARCH, train_mesh_setup(
+                TRAIN_GRANITE_PERIODS, MESH_MOE_ARCH), mesh, device)
+    out["nondeterministic_ops"] = nondet
+    log(f"  (a) on {out['backend']}, deterministic algorithms; ops without a "
+        f"deterministic kernel: {nondet or 'none'}")
+    dist.destroy_process_group()
+    return out
+
+
+def train_mesh_reference(torch, setup, path: Path, device="cuda") -> dict:
+    """Phase 5d (b)'s reference on the card: the unsharded step 1 of
+    ``setup`` from the seeded init — its loss, its MoE aux losses, its
     gradients and the AdamW update's params, mu, nu and grad norm, saved
-    whole for the ranks (``step1.pt``) — each gradient leaf's largest
-    |entry|, the unsharded params' bytes."""
+    whole for the ranks (``path``) — each gradient leaf's largest |entry|,
+    the unsharded params' bytes."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.train import optim
-    cfg, _, ocfg = train_mesh_setup(TRAIN_MESH_PERIODS)
+    cfg, _, ocfg = setup
     params = lm.init_params(
         torch.Generator(device).manual_seed(TRAIN_MESH_SEED), cfg,
         device=device)
-    loss, grads = steps.mean_loss_and_grads(cfg, params,
-                                            train_batch(torch, cfg,
-                                                        device=device))
+    with aux_losses() as aux:
+        loss, grads = steps.mean_loss_and_grads(cfg, params,
+                                                train_batch(torch, cfg,
+                                                            device=device))
     state_bytes = 3 * sum(t.numel() * t.element_size()
                           for t in _leaves(params))
     n_params = param_count(params)
@@ -6266,10 +6570,11 @@ def train_mesh_reference(torch, device="cuda") -> dict:
             flat[f"{part}/{'/'.join(p)}"] = t.cpu()
             flat[f"max/{part}/{'/'.join(p)}"] = t.abs().max().cpu()
     flat["grad_norm"] = metrics["grad_norm"].cpu()
-    TRAIN_MESH_DIR.mkdir(parents=True, exist_ok=True)
-    torch.save(flat, TRAIN_MESH_DIR / "step1.pt")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(flat, path)
     out = {"loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
-           "params": n_params, "state_bytes": state_bytes,
+           "aux": aux, "params": n_params, "state_bytes": state_bytes,
+           "n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches,
            "grad_max": {k[len("max/grads/"):]: float(g)
                         for k, g in flat.items()
                         if k.startswith("max/grads/")}}
@@ -6300,16 +6605,16 @@ def block_digests(tree) -> dict:
                        for p, t in _paths(tree)})
 
 
-def step1_distances(torch, S, mesh, grads, params, state, lr) -> dict:
-    """A rank's step 1 against the unsharded one (``step1.pt``), on the
+def step1_distances(torch, S, mesh, grads, params, state, lr,
+                    step1: Path) -> dict:
+    """A rank's step 1 against the unsharded one (``step1``), on the
     rank's block of every leaf: each gradient's, mu's and nu's largest
     distance over the leaf's largest unsharded |entry|; each param's in
     units of lr, over the entries whose unsharded gradient exceeds
     2 TRAIN_MESH_GRAD_TOL of the leaf's largest (``param_safe``: there the
     gradient gate leaves the sign of the gradient, hence of Adam's first
     update, as unsharded) and over all (``param_all``)."""
-    whole = torch.load(TRAIN_MESH_DIR / "step1.pt", mmap=True,
-                       weights_only=True)
+    whole = torch.load(step1, mmap=True, weights_only=True)
 
     def block(key, like):
         """The rank's block of the unsharded leaf, on the rank's device."""
@@ -6338,50 +6643,21 @@ def step1_distances(torch, S, mesh, grads, params, state, lr) -> dict:
     return out
 
 
-def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
-                    device: str = "cuda") -> int:
-    """``--train-mesh-rank``: one rank of phase 5d (b) on cuda:0 over gloo.
-    It joins the mesh while the parent runs (a), waits for the parent's
-    unsharded gradients (``TRAIN_MESH_DIR/ready``), then runs what
-    ``run_training``'s loop runs a step: step 1 (``mean_loss_and_grads``,
-    its gradients' blocks held to the unsharded ones, and the AdamW update),
-    the AsyncCheckpointer's save of its state, and step 2 through
-    ``make_train_step``, each step counted.  Writes
-    ``train_mesh_rank{rank}.json``."""
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.dist import sharding as S
-    from repro_torch.kernels import build
-    from repro_torch.kernels import fused_gemm as fg
+def rank_train_steps(torch, fg, S, mesh, setup, step1: Path,
+                     ckpt_dir: Path, device: str) -> dict:
+    """One model of 5d (b) on this rank: what ``run_training``'s loop runs
+    a step — step 1 (``mean_loss_and_grads``, its gradients' blocks held
+    to the unsharded ones, its MoE aux losses, and the AdamW update), the
+    AsyncCheckpointer's save of its state, and step 2 through
+    ``make_train_step``, each step counted, every grouped launch's experts
+    reported."""
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_mesh, mesh_backend
     from repro_torch.models import lm
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optim
-
-    parent = os.getppid()
-    if device == "cuda":
-        torch.cuda.set_device(0)
-        missing = [n for n in build.SOURCES
-                   if not build.library_path(n).exists()]
-        if missing:
-            fail(f"5d (b) rank {rank}: the libraries {missing} are not "
-                 f"built; the parent builds them before it starts the ranks")
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    mesh = make_mesh(MESH_SHAPE, device=device)
-    if mesh_backend(mesh) != "gloo":
-        fail(f"5d (b): the mesh runs {mesh_backend(mesh)!r}, not gloo")
-    ready = TRAIN_MESH_DIR / "ready"
-    deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
-    while not ready.exists():
-        if os.getppid() != parent or time.monotonic() > deadline:
-            fail(f"5d (b) rank {rank}: no unsharded step from the parent")
-        time.sleep(0.2)
     t_start = time.monotonic()
-    cfg, _, ocfg = train_mesh_setup(TRAIN_MESH_PERIODS)
-    out = {"rank": rank, "coord": S.coordinate(mesh)}
+    cfg, _, ocfg = setup
+    out = {"n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches}
     with S.use_mesh(mesh):
         # the seeded init, each rank's blocks (as run_training draws it)
         params = lm.init_params(
@@ -6397,26 +6673,29 @@ def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
         batch0 = train_batch(torch, cfg, device=device)
 
         def first():
-            loss, grads = steps.mean_loss_and_grads(cfg, params, batch0)
-            return (loss, grads) + optim.update(ocfg, grads, state, params)
+            with aux_losses() as aux:
+                loss, grads = steps.mean_loss_and_grads(cfg, params, batch0)
+            return (loss, grads, aux) + optim.update(ocfg, grads, state,
+                                                     params)
 
-        (loss, grads, params, state, metrics), host, routes, wall = counted(
-            torch, fg, first, device)
+        with grouped_experts(fg) as experts:
+            (loss, grads, aux, params, state, metrics), host, routes, wall = \
+                counted(torch, fg, first, device)
     out["step1"] = {"launches": host, "routes": {
         f"{b}/{r}": c for (b, r), c in routes.items()},
         "loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
-        "step_ms": 1e3 * wall}
+        "aux": aux, "step_ms": 1e3 * wall,
+        "grouped_experts": sorted(set(experts))}
     out.update(step1_distances(torch, S, mesh, grads, params, state,
-                               ocfg.lr))
+                               ocfg.lr, step1))
     del grads
     # the loop's checkpoint of step 1: leaves gathered on every rank, rank
     # 0 writes
     t0 = time.monotonic()
-    saver = ckpt.AsyncCheckpointer(str(TRAIN_MESH_DIR / "ckpt"), keep=1,
-                                   mesh=mesh)
+    saver = ckpt.AsyncCheckpointer(str(ckpt_dir), keep=1, mesh=mesh)
     saver.save(1, (params, state), meta={"arch": cfg.name})
     saver.wait()
-    dist.barrier()
+    torch.distributed.barrier()
     out["checkpoint_s"] = time.monotonic() - t0
     out["digests"] = block_digests(state_tree(params, state))
     step = steps.make_train_step(cfg, ocfg)
@@ -6434,9 +6713,56 @@ def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
     out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                       if device == "cuda" else 0.0)
     out["seconds"] = time.monotonic() - t_start
-    with open(os.path.join(out_dir, f"train_mesh_rank{rank}.json"),
-              "w") as f:
-        json.dump(out, f, indent=1)
+    del params, state
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
+                    device: str = "cuda") -> int:
+    """``--train-mesh-rank``: one rank of phase 5d (b) on cuda:0 over gloo.
+    It joins the mesh while the parent runs (a), then for llama and then
+    granite waits for the parent's unsharded step (its release file) and
+    runs :func:`rank_train_steps`, then writes its results
+    (``train_mesh_{llama|moe}{rank}.json``)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import sharding as S
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_gemm as fg
+    from repro_torch.launch.mesh import make_mesh, mesh_backend
+
+    parent = os.getppid()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        missing = [n for n in build.SOURCES
+                   if not build.library_path(n).exists()]
+        if missing:
+            fail(f"5d (b) rank {rank}: the libraries {missing} are not "
+                 f"built; the parent builds them before it starts the ranks")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    mesh = make_mesh(MESH_SHAPE, device=device)
+    if mesh_backend(mesh) != "gloo":
+        fail(f"5d (b): the mesh runs {mesh_backend(mesh)!r}, not gloo")
+    out = {"rank": rank, "coord": S.coordinate(mesh)}
+    for what, setup, step1, ckpt_dir, ready in train_mesh_models():
+        deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
+        while not ready.exists():
+            if os.getppid() != parent or time.monotonic() > deadline:
+                fail(f"5d (b) rank {rank}: no unsharded {what} step from "
+                     f"the parent")
+            time.sleep(0.2)
+        res = rank_train_steps(torch, fg, S, mesh, setup, step1, ckpt_dir,
+                               device)
+        path = Path(out_dir) / f"train_mesh_{what}{rank}.json"
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(dict(out, **res), indent=1))
+        tmp.rename(path)                # whole when the parent sees it
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -6455,15 +6781,14 @@ class _RankCoord:
         return self.coord
 
 
-def checkpoint_digests(torch, ranks) -> int:
-    """The ranks' step-1 checkpoint loaded here with no mesh: each rank's
-    ``leaf_spec`` block of every leaf hashed, against the rank's own
-    digests of what it held.  Returns the leaves compared."""
+def checkpoint_digests(torch, ranks, cfg, ckpt_dir: Path) -> int:
+    """The ranks' step-1 checkpoint of ``cfg`` loaded here with no mesh:
+    each rank's ``leaf_spec`` block of every leaf hashed, against the
+    rank's own digests of what it held.  Returns the leaves compared."""
     from repro_torch.dist import sharding as S
     from repro_torch.models import lm
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optim
-    cfg, _, _ = train_mesh_setup(TRAIN_MESH_PERIODS)
     shapes = lm.init_params(torch.Generator(), cfg, device="meta")
     like = optim.tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype),
                           shapes)
@@ -6471,8 +6796,7 @@ def checkpoint_digests(torch, ranks) -> int:
     like_state = optim.OptState(step=torch.zeros((), dtype=torch.int32),
                                 mu=mu, nu=optim.tree_map(torch.empty_like,
                                                          mu))
-    step, (params, state), _ = ckpt.load(str(TRAIN_MESH_DIR / "ckpt"),
-                                         (like, like_state))
+    step, (params, state), _ = ckpt.load(str(ckpt_dir), (like, like_state))
     if step != 1:
         fail(f"5d (b): the ranks' checkpoint holds step {step}, not 1")
     tree = state_tree(params, state)
@@ -6490,15 +6814,143 @@ def checkpoint_digests(torch, ranks) -> int:
     return n
 
 
+def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
+                     ckpt_dir: Path) -> dict:
+    """5d (b)'s gates on one model's rank results ``parts`` (one a rank)
+    against the unsharded step ``ref``: exact launches both steps, resident
+    bytes the specs' and at most TRAIN_MESH_RESIDENT of the unsharded,
+    every rank's losses equal and step 1's near the unsharded, the grad
+    norm, every leaf's gradient, mu, nu and param within their gates, the
+    MoE aux losses, expert gradients and grouped launches, the
+    checkpoint's blocks."""
+    grad_tol, norm_rtol = TRAIN_MESH_GRAD_TOL, TRAIN_MESH_NORM_RTOL
+    cfg = setup[0]
+    expect = train_launches(cfg, 1, TRAIN_SEQ)
+    worst = {k: {} for k in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
+                             "param_all")}
+    norm_rel = 0.0
+    aux_rel = 0.0
+    experts = cfg.n_experts // MESH_SHAPE[1] if cfg.n_experts else None
+    for part_ in parts:
+        r = part_["rank"]
+        for part in ("step1", "step2"):
+            check_train_counts(
+                f"5d (b) {what} rank {r} {part}", part_[part]["launches"],
+                {tuple(k.split("/")): c for k, c in
+                 part_[part]["routes"].items()}, expect)
+        if part_["resident_bytes"] != part_["planned_bytes"] or \
+                part_["resident_bytes"] > TRAIN_MESH_RESIDENT * \
+                ref["state_bytes"]:
+            fail(f"5d (b) {what} rank {r}: resident "
+                 f"{part_['resident_bytes']} bytes (the specs place "
+                 f"{part_['planned_bytes']}) of {ref['state_bytes']} "
+                 f"unsharded")
+        for p, by_leaf in worst.items():
+            for key, v in part_[p].items():
+                by_leaf[key] = max(by_leaf.get(key, 0.0), v)
+        norm_rel = max(norm_rel, abs(part_["step1"]["grad_norm"]
+                                     - ref["grad_norm"]) / ref["grad_norm"])
+        aux = part_["step1"]["aux"]
+        if len(aux) != len(ref["aux"]):
+            fail(f"5d (b) {what} rank {r}: {len(aux)} aux losses, the "
+                 f"unsharded step {len(ref['aux'])}")
+        for a, b in zip(aux, ref["aux"]):
+            aux_rel = max(aux_rel, abs(a - b) / abs(b))
+        if part_["step1"]["grouped_experts"] != ([experts] if experts
+                                                 else []):
+            fail(f"5d (b) {what} rank {r}: grouped launches over "
+                 f"{part_['step1']['grouped_experts']} experts, not "
+                 f"{experts}")
+    if aux_rel > TRAIN_MESH_MOE_AUX_RTOL:
+        fail(f"5d (b) {what}: step 1's aux losses are {aux_rel:.3g} from the "
+             f"unsharded (gate {TRAIN_MESH_MOE_AUX_RTOL})")
+    for part in ("step1", "step2"):
+        if len({p[part]["loss"] for p in parts}) != 1:
+            fail(f"5d (b) {what}: the ranks' {part} losses differ: "
+                 f"{[p[part]['loss'] for p in parts]}")
+    loss1 = parts[0]["step1"]["loss"]
+    rel_loss = abs(loss1 - ref["loss"]) / abs(ref["loss"])
+    if rel_loss > TRAIN_MESH_LOSS_RTOL:
+        fail(f"5d (b) {what}: step 1's loss {loss1} is {rel_loss:.3g} from "
+             f"the unsharded {ref['loss']} (gate {TRAIN_MESH_LOSS_RTOL})")
+    if not norm_rel <= norm_rtol:
+        fail(f"5d (b) {what}: step 1's grad norm is {norm_rel:.3g} from the "
+             f"unsharded {ref['grad_norm']} (gate {norm_rtol})")
+    # mu = (1 - b1) clip g and nu = (1 - b2) (clip g)^2 at step 1: their
+    # gates follow from the gradient's and the norm's (the clip factor)
+    mu_tol = grad_tol * (1 + norm_rtol) + norm_rtol
+    gates = {"grad_rel": grad_tol, "mu_rel": mu_tol,
+             "nu_rel": (1 + mu_tol) ** 2 - 1,
+             "param_safe": TRAIN_MESH_PARAM_TOL,
+             "param_all": 2 + TRAIN_MESH_PARAM_TOL}
+    for part, gate in gates.items():
+        bad = {k: v for k, v in worst[part].items() if not v <= gate}
+        if bad or len(worst[part]) != len(ref["grad_max"]):
+            fail(f"5d (b) {what}: step 1's {part} past its gate {gate:.3g}: "
+                 f"{bad}")
+    experts = {k: v for k, v in worst["grad_rel"].items() if "/moe/" in k}
+    bad = {k: v for k, v in experts.items()
+           if not v <= TRAIN_MESH_MOE_GRAD_TOL}
+    if bad:
+        fail(f"5d (b) {what}: step 1's expert gradients past their gate "
+             f"{TRAIN_MESH_MOE_GRAD_TOL}: {bad}")
+    t0 = time.monotonic()
+    compared = checkpoint_digests(torch, parts, cfg, ckpt_dir)
+    out = {"checkpoint_compare_s": time.monotonic() - t0,
+           "loss_rel": rel_loss, "norm_rel": norm_rel, "aux_rel": aux_rel,
+           "step1_rel": worst, "step1_gates": gates,
+           "step1_rel_max": {k: max(v.values()) for k, v in worst.items()},
+           "checkpoint_leaves_compared": compared, "expect_per_step": expect,
+           "n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches}
+    for part_ in parts:
+        part_.pop("digests")
+        log(f"  (b) {what} rank {part_['rank']}: resident "
+            f"{part_['resident_bytes'] / 1e9:.3f} GB of "
+            f"{ref['state_bytes'] / 1e9:.3f} GB unsharded; step ms "
+            f"{part_['step1']['step_ms']:.0f} and "
+            f"{part_['step2']['step_ms']:.0f} (host clock, four gloo ranks "
+            f"on one card), the checkpoint {part_['checkpoint_s']:.1f} s; "
+            f"device peak {part_['peak_gb']:.2f} GB; launches a step "
+            f"{part_['step2']['launches']} (exact)")
+    log(f"  (b) {what} at {cfg.n_periods} periods, {cfg.n_microbatches} "
+        f"microbatches: losses {loss1:.6f} / {parts[0]['step2']['loss']:.6f}"
+        f" on every rank; step 1 {rel_loss:.3g} from the unsharded step, its "
+        f"grad norm {norm_rel:.3g} (gate {norm_rtol}), aux losses "
+        f"{aux_rel:.3g} (gate {TRAIN_MESH_MOE_AUX_RTOL}); largest distances "
+        "(gate): " + ", ".join(f"{k} {max(worst[k].values()):.3g} ({g:.3g})"
+                               for k, g in gates.items())
+        + f"; the step-1 checkpoint loaded with no mesh equals every rank's "
+        f"blocks ({compared} leaf blocks)")
+    return out
+
+
+def rank_results(path: Path, procs, deadline: float) -> dict:
+    """A rank's results file once it is written; fails where a rank exited
+    with an error or the deadline passed first."""
+    while not path.exists():
+        for r, p in enumerate(procs):
+            if p.poll() not in (None, 0):
+                print(p.communicate()[0][-6000:], file=sys.stderr)
+                fail(f"5d (b): rank {r} exited with {p.returncode}")
+        if time.monotonic() > deadline:
+            fail(f"5d (b): no {path.name} from the ranks")
+        time.sleep(0.2)
+    return json.loads(path.read_text())
+
+
 def train_mesh_phase(torch, fg, device="cuda") -> dict:
-    """Phase 5d: (b)'s ranks started first (they join their mesh and wait
-    while (a) runs in this process), then (b)'s unsharded step here, which
-    releases the ranks; every process stopped before it returns."""
+    """Phase 5d: (b)'s ranks started first (they join their mesh and
+    wait), then (b)'s unsharded steps here, each releasing the ranks for
+    its model, then (a) in this process while the ranks run; then each
+    model's gates as soon as every rank wrote its results (llama's while
+    the ranks train granite); every process stopped before it returns."""
     import shutil
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
     TRAIN_MESH_DIR.mkdir(parents=True)
     out_dir = ROOT / "chiprun_out" / "mesh"
     out_dir.mkdir(parents=True, exist_ok=True)
+    for path in out_dir.glob("train_mesh_*.json"):
+        path.unlink()
     port = free_port()
     t_ranks = time.monotonic()
     procs = [subprocess.Popen(
@@ -6506,110 +6958,45 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
          str(r), str(MESH_RANKS), str(port), str(out_dir), device],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(MESH_RANKS)]
-    logs = []
+    refs, out = {}, {}
     try:
+        for what, setup, step1, _, ready in train_mesh_models():
+            t0 = time.monotonic()
+            refs[what] = train_mesh_reference(torch, setup, step1, device)
+            ready.touch()
+            out[f"unsharded_{what}"] = {k: v for k, v in refs[what].items()
+                                        if k != "grad_max"}
+            out[f"unsharded_{what}_s"] = time.monotonic() - t0
         t0 = time.monotonic()
-        out = {"world_of_one": train_world_of_one(torch, fg, device)}
+        out["world_of_one"] = train_world_of_one(torch, fg, device)
         out["world_of_one_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        ref = train_mesh_reference(torch, device)
-        (TRAIN_MESH_DIR / "ready").touch()
-        out["unsharded"] = {k: v for k, v in ref.items() if k != "grad_max"}
-        out["unsharded_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        for p in procs:
-            logs.append(p.communicate(timeout=TRAIN_MESH_TIMEOUT)[0])
-        out["ranks_s"] = time.monotonic() - t0
+        deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
+        for what, setup, _, ckpt_dir, _ in train_mesh_models():
+            t0 = time.monotonic()
+            parts = [rank_results(out_dir / f"train_mesh_{what}{r}.json",
+                                  procs, deadline)
+                     for r in range(MESH_RANKS)]
+            out[f"ranks_{what}_s"] = time.monotonic() - t_ranks
+            res = out[what] = check_train_mesh(
+                torch, MESH_MOE_ARCH if what == "moe" else MESH_ARCH, parts,
+                refs[what], setup, ckpt_dir)
+            res["ranks"] = parts
+            res["check_s"] = time.monotonic() - t0
+        for r, p in enumerate(procs):
+            text = p.communicate(timeout=max(deadline - time.monotonic(),
+                                             1))[0]
+            if p.returncode != 0:
+                print(text[-6000:], file=sys.stderr)
+                fail(f"5d (b): rank {r} exited with {p.returncode}")
         out["ranks_started_s"] = time.monotonic() - t_ranks
-    except subprocess.TimeoutExpired:
-        pass
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            print((logs[r] if r < len(logs) else "")[-6000:],
-                  file=sys.stderr)
-            fail(f"5d (b): rank {r} exited with {p.returncode}")
-    ranks = [json.loads((out_dir / f"train_mesh_rank{r}.json").read_text())
-             for r in range(MESH_RANKS)]
-    cfg, _, _ = train_mesh_setup(TRAIN_MESH_PERIODS)
-    expect = train_launches(cfg, 1, TRAIN_SEQ)
-    worst = {k: {} for k in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
-                             "param_all")}
-    norm_rel = 0.0
-    for rank in ranks:
-        r = rank["rank"]
-        for part in ("step1", "step2"):
-            check_train_counts(
-                f"5d (b) rank {r} {part}", rank[part]["launches"],
-                {tuple(k.split("/")): c for k, c in
-                 rank[part]["routes"].items()}, expect)
-        if rank["resident_bytes"] != rank["planned_bytes"] or \
-                rank["resident_bytes"] > TRAIN_MESH_RESIDENT * \
-                ref["state_bytes"]:
-            fail(f"5d (b) rank {r}: resident {rank['resident_bytes']} bytes "
-                 f"(the specs place {rank['planned_bytes']}) of "
-                 f"{ref['state_bytes']} unsharded")
-        for part, by_leaf in worst.items():
-            for key, v in rank[part].items():
-                by_leaf[key] = max(by_leaf.get(key, 0.0), v)
-        norm_rel = max(norm_rel, abs(rank["step1"]["grad_norm"]
-                                     - ref["grad_norm"]) / ref["grad_norm"])
-    for part in ("step1", "step2"):
-        if len({rank[part]["loss"] for rank in ranks}) != 1:
-            fail(f"5d (b): the ranks' {part} losses differ: "
-                 f"{[rank[part]['loss'] for rank in ranks]}")
-    loss1 = ranks[0]["step1"]["loss"]
-    rel_loss = abs(loss1 - ref["loss"]) / abs(ref["loss"])
-    if rel_loss > TRAIN_MESH_LOSS_RTOL:
-        fail(f"5d (b): step 1's loss {loss1} is {rel_loss:.3g} from the "
-             f"unsharded {ref['loss']} (gate {TRAIN_MESH_LOSS_RTOL})")
-    if not norm_rel <= TRAIN_MESH_NORM_RTOL:
-        fail(f"5d (b): step 1's grad norm is {norm_rel:.3g} from the "
-             f"unsharded {ref['grad_norm']} (gate {TRAIN_MESH_NORM_RTOL})")
-    # mu = (1 - b1) clip g and nu = (1 - b2) (clip g)^2 at step 1: their
-    # gates follow from the gradient's and the norm's (the clip factor)
-    mu_tol = TRAIN_MESH_GRAD_TOL * (1 + TRAIN_MESH_NORM_RTOL) \
-        + TRAIN_MESH_NORM_RTOL
-    gates = {"grad_rel": TRAIN_MESH_GRAD_TOL, "mu_rel": mu_tol,
-             "nu_rel": (1 + mu_tol) ** 2 - 1,
-             "param_safe": TRAIN_MESH_PARAM_TOL,
-             "param_all": 2 + TRAIN_MESH_PARAM_TOL}
-    for part, gate in gates.items():
-        bad = {k: v for k, v in worst[part].items() if not v <= gate}
-        if bad or len(worst[part]) != len(ref["grad_max"]):
-            fail(f"5d (b): step 1's {part} past its gate {gate:.3g}: {bad}")
-    t0 = time.monotonic()
-    compared = checkpoint_digests(torch, ranks)
-    out["checkpoint_compare_s"] = time.monotonic() - t0
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
-    out.update({"ranks": ranks, "loss_rel": rel_loss, "norm_rel": norm_rel,
-                "step1_rel": worst, "step1_gates": gates,
-                "step1_rel_max": {k: max(v.values())
-                                  for k, v in worst.items()},
-                "checkpoint_leaves_compared": compared,
-                "expect_per_step": expect})
-    for rank in ranks:
-        rank.pop("digests")
-        log(f"  (b) rank {rank['rank']} {rank['coord']}: resident "
-            f"{rank['resident_bytes'] / 1e9:.3f} GB of "
-            f"{ref['state_bytes'] / 1e9:.3f} GB unsharded; step ms "
-            f"{rank['step1']['step_ms']:.0f} and "
-            f"{rank['step2']['step_ms']:.0f} (host clock, four gloo ranks on "
-            f"one card), the checkpoint {rank['checkpoint_s']:.1f} s; device "
-            f"peak {rank['peak_gb']:.2f} GB; launches a step "
-            f"{rank['step2']['launches']} (exact)")
-    log(f"  (b) losses {loss1:.6f} / {ranks[0]['step2']['loss']:.6f} on every "
-        f"rank; step 1 {rel_loss:.3g} from the unsharded step, its grad "
-        f"norm {norm_rel:.3g} (gate {TRAIN_MESH_NORM_RTOL}); largest "
-        "distances (gate): " + ", ".join(
-            f"{k} {max(worst[k].values()):.3g} ({g:.3g})"
-            for k, g in gates.items())
-        + f"; the step-1 checkpoint loaded with no mesh equals every "
-        f"rank's blocks ({compared} leaf blocks)")
+    llama = out.pop("llama")
+    out.update(llama)
     return out
 
 
@@ -6831,34 +7218,51 @@ def main() -> int:
 
     log("[5m] distributed serving: a world of one on NCCL, graphed, then "
         f"{MESH_RANKS} gloo ranks on this card ({MESH_SHAPE[0]}x"
-        f"{MESH_SHAPE[1]}): sharded kernels and the full-width engine")
+        f"{MESH_SHAPE[1]}): sharded kernels and the full-width engines "
+        f"({MESH_ARCH}, then {MESH_MOE_ARCH} expert-parallel)")
     t0 = time.monotonic()
     mesh = mesh_phase(torch, np, fg)
     seconds["mesh"] = time.monotonic() - t0
-    for label in ("no mesh", "mesh 1x1"):
-        launches_by_path[f"{MESH_ARCH} mixed records {label}"] = \
-            mesh["world_of_one"][label]["launches"]
+    woo = mesh["world_of_one"]
+    for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"])):
+        for label in ("no mesh", "mesh 1x1"):
+            launches_by_path[f"{arch} mixed records {label}"] = \
+                runs[label]["launches"]
+    launches_by_path[f"{MESH_ARCH} mixed records, {MESH_PERIODS} periods"] = \
+        woo["cut"]["launches"]
     for rank in mesh["ranks"]:
         launches_by_path[f"{MESH_ARCH} mesh 2x2 rank {rank['rank']}"] = \
             rank["launches"]
+        launches_by_path[f"{MESH_MOE_ARCH} mesh 2x2 rank {rank['rank']}"] = \
+            rank["moe"]["launches"]
     torch.cuda.empty_cache()
 
-    log(f"[5d] training under a mesh: full-depth {MESH_ARCH} on a world of "
+    log(f"[5d] training under a mesh: full-depth {MESH_ARCH} and "
+        f"{MESH_MOE_ARCH} at {TRAIN_GRANITE_PERIODS} periods on a world of "
         f"one (NCCL) against no mesh, then {MESH_RANKS} gloo ranks on this "
-        f"card ({MESH_SHAPE[0]}x{MESH_SHAPE[1]}) at {TRAIN_MESH_PERIODS} "
-        f"periods against the unsharded step")
+        f"card ({MESH_SHAPE[0]}x{MESH_SHAPE[1]}), {MESH_ARCH} at "
+        f"{TRAIN_MESH_PERIODS} periods and {MESH_MOE_ARCH} at "
+        f"{TRAIN_MESH_MOE_PERIODS}, against the unsharded steps")
     t0 = time.monotonic()
     train_mesh = train_mesh_phase(torch, fg)
     seconds["train mesh"] = time.monotonic() - t0
-    for label in ("no mesh", "mesh 1x1"):
-        launches_by_path[f"{MESH_ARCH} train mixed {label}"] = \
-            train_mesh["world_of_one"][label]["launches"]
-    for rank in train_mesh["ranks"]:
+    woo = train_mesh["world_of_one"]
+    for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"])):
+        for label in ("no mesh", "mesh 1x1"):
+            launches_by_path[f"{arch} train mixed {label}"] = \
+                runs[label]["launches"]
+
+    def both_steps(part):
+        return {"host": {k: part["step1"]["launches"].get(k, 0)
+                         + part["step2"]["launches"].get(k, 0)
+                         for k in set(part["step1"]["launches"])
+                         | set(part["step2"]["launches"])}}
+
+    for rank, moe in zip(train_mesh["ranks"], train_mesh["moe"]["ranks"]):
         launches_by_path[f"{MESH_ARCH} train mesh 2x2 rank {rank['rank']}"] \
-            = {"host": {k: rank["step1"]["launches"].get(k, 0)
-                        + rank["step2"]["launches"].get(k, 0)
-                        for k in set(rank["step1"]["launches"])
-                        | set(rank["step2"]["launches"])}}
+            = both_steps(rank)
+        launches_by_path[f"{MESH_MOE_ARCH} train mesh 2x2 rank "
+                         f"{moe['rank']}"] = both_steps(moe)
     torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
@@ -6892,19 +7296,23 @@ def main() -> int:
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
         ssm_rows, wkv_bwd_rows, ssm_bwd_rows)
-    # each rank's own launches in phase 5m (b)'s engine run and phase 5d
-    # (b)'s two train steps (in the launches above too): the kernels ran
-    # on every rank's block
+    # each rank's own launches in phase 5m (b)'s engine runs and phase 5d
+    # (b)'s two train steps a model (in the launches above too): the
+    # kernels ran on every rank's block, the grouped one on its experts
     keys = {"fused_gemm_mm1": "dense_mm1", "fused_gemm_kmm2": "dense_kmm2",
+            "fused_gemm_grouped_mm1": "grouped_mm1",
             "rowinv_norm": "rowinv_norm"}
     for e in entries:
         if e["name"] in keys:
             key = keys[e["name"]]
             e["mesh_launches_per_rank"] = [
                 r["launches"]["host"].get(key, 0)
+                + r["moe"]["launches"]["host"].get(key, 0)
                 + sum(t[part]["launches"].get(key, 0)
+                      + m[part]["launches"].get(key, 0)
                       for part in ("step1", "step2"))
-                for r, t in zip(mesh["ranks"], train_mesh["ranks"])]
+                for r, t, m in zip(mesh["ranks"], train_mesh["ranks"],
+                                   train_mesh["moe"]["ranks"])]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,10 +28,13 @@ An explicit K-sharded spec (``GemmShardSpec(k_axes=...)``) runs in
 summed by an all-reduce; fp32-combine plans are refused, as the reference
 refuses them.  :func:`negotiate` never proposes it.
 
-Training's backward (``quant.qmatmul._mesh_ste``) runs on the same spec
-as its forward: the same N block of the weight, gathered again from the
+Training's backward (``quant.qmatmul._mesh_ste``, and for the grouped
+expert GEMMs ``_mesh_bste``) runs on the same spec as its forward: the
+same N block (the same experts) of the weight, gathered again from the
 shard by :func:`weight_block`, and :func:`weight_grad` turns the block's
-gradient into the gradient of the shard held at rest.
+gradient into the gradient of the shard held at rest.  A grouped GEMM's
+weight is quantized on this rank's experts alone and passed on as
+:func:`held_experts`, so no rank gathers another model rank's experts.
 
 Fallback contract: where no mesh axis tiles the GEMM (or the *local* shape
 fails the kernel's bounds), the caller sends that GEMM to the ATen route.
@@ -206,6 +209,22 @@ def column_block(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     return _block(x, x.dim() - 1, axes, mesh)
 
 
+def expert_block(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """This rank's experts of a whole expert-major ``x`` over ``axes`` (a
+    grouped GEMM's block under its spec's ``e_axes``)."""
+    return _block(x, 0, axes, mesh)
+
+
+def held_experts(block: torch.Tensor, axes, mesh):
+    """This rank's experts ``block`` of an expert-major tensor, held as a
+    DTensor sharded on dim 0 over ``axes`` (:func:`weight_block` then takes
+    it as it is); the block itself where ``axes`` is empty."""
+    n = S.axes_size(mesh, axes)
+    spec = (S._entry(tuple(axes)),) + (None,) * (block.dim() - 1)
+    return S.wrap_block(block, spec, mesh,
+                        (n * block.shape[0],) + tuple(block.shape[1:]))
+
+
 # ---------------------------------------------------------------------------
 # Shard-mapped wrappers.
 # ---------------------------------------------------------------------------
@@ -238,19 +257,26 @@ def shard_dense_gemm(fn: Callable, mesh, spec: GemmShardSpec, *,
 
 
 def shard_grouped_gemm(fn: Callable, mesh, spec: GemmShardSpec,
-                       counts: Optional[torch.Tensor] = None) -> Callable:
+                       counts: Optional[torch.Tensor] = None,
+                       want: Optional[dict] = None) -> Callable:
     """``fn(qx, qw, sx, sw[, counts]) -> out`` on (E, C, K) x (E, K, N)
     with (E, C, 1) / (E, 1, N) scales, each rank launching the grouped
     kernel over its local experts (``spec.e_axes``).  ``counts`` (E, S),
     the ragged live rows, is cut over the same experts and passed as a
     fifth operand, so each rank sees exactly its experts' counts.  The
-    returned callable takes the global ``(qx, qw, sx, sw)`` and returns the
-    global (E, C, N) output."""
+    returned callable takes the global ``(qx, qw, sx, sw)`` — the weight's
+    codes and scales whole, or DTensors at rest (a record's FSDP rows
+    gathered) or held as this rank's experts (:func:`held_experts`, taken
+    as they are) — and returns the global (E, C, N) output.  It writes the
+    block of W it multiplied into ``want`` (``{0: e_axes}``), for the STE
+    backward to gather again."""
     es = spec.e_axes
+    if want is not None:
+        want[0] = es
 
     def run(qx, qw, sx, sw):
         args = [_block(qx, 0, es, mesh), weight_block(qw, {0: es}, mesh),
-                _block(sx, 0, es, mesh), _block(sw, 0, es, mesh)]
+                _block(sx, 0, es, mesh), weight_block(sw, {0: es}, mesh)]
         if counts is not None:
             args.append(_block(counts, 0, es, mesh))
         out = fn(*[a.contiguous() for a in args])

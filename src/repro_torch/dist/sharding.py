@@ -388,20 +388,31 @@ def _rewrap(x, local: torch.Tensor, placements, shape):
 
 
 def select(x, i: int):
-    """``x[i]`` along a replicated leading dim (a period of a stacked
-    leaf); a DTensor stays one, its local block indexed without DTensor's
-    op dispatch (which refuses views under ``inference_mode``)."""
+    """``x[i]`` along the leading dim (a period of a stacked leaf); a
+    DTensor stays one, its local block indexed without DTensor's op
+    dispatch (which refuses views under ``inference_mode``).  Where the
+    leading dim is sharded (a stacked MoE router: the expert rule puts its
+    period dim on ``model``), the rank holding period ``i`` hands it to
+    the others: every rank gathers its own period at ``i``'s offset in its
+    block and keeps the holder's (a gradient goes back to the holder
+    alone; the others computed the same)."""
     if not is_dtensor(x):
         return x[i]
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist import collectives as C
+    local = x.to_local()
+    lead = C.dtensor_axes(x).get(0, ())
+    if lead:
+        per = local.shape[0]
+        local = C.all_gather_grad_take(local[i % per][None], x.device_mesh,
+                                       lead, 0)
+        i = i // per
     pls = []
     for pl in x.placements:
         if isinstance(pl, Shard):
-            if pl.dim == 0:
-                raise ValueError("cannot index a sharded dim")
-            pl = Shard(pl.dim - 1)
+            pl = Replicate() if pl.dim == 0 else Shard(pl.dim - 1)
         pls.append(pl)
-    return _rewrap(x, x.to_local()[i], pls, tuple(x.shape[1:]))
+    return _rewrap(x, local[i], pls, tuple(x.shape[1:]))
 
 
 def transpose(x):

@@ -9,6 +9,11 @@ instead.  ``--mesh DxM`` serves sharded on a (data, model) mesh
 (:mod:`repro_torch.launch.mesh`), one process a rank under ``torchrun``::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2 \
+        --arch granite-moe-3b-a800m --quant mixed
+
+An MoE model's expert GEMMs run expert-parallel (each ``model`` rank over
+its own experts).
 
 Every rank draws the same weights from the seed on the host, so no card
 holds them whole, copies only its shards to its device and runs its data

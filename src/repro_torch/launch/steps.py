@@ -19,9 +19,14 @@ per-microbatch means are the reference's.  The compute copy casts each
 rank's shard, so the weights' FSDP gathers move bf16.  Each gradient
 comes out of the backward cut to its leaf's block (``dist.collectives``,
 ``quant.qmatmul._mesh_ste``); a leaf whose blocks do not differ over a
-data axis is then summed over it here, once a microbatch.  Dense
-attention decoders only: MoE, mamba, rwkv, a vision prefix and the
-encoder-decoder raise ``NotImplementedError`` under a mesh.
+data axis is then summed over it here, once a microbatch.  An MoE
+layer's expert GEMMs run expert-parallel (``quant.qmatmul._mesh_bste``:
+an expert leaf, dim 0 over ``model`` and its K rows over the data axes,
+gets its gradient reduce-scattered there), and its load-balance loss
+enters the loss as without a mesh, its means over the global microbatch
+(``models.moe.load_balance_loss``).  Attention decoders only: mamba,
+rwkv, a vision prefix and the encoder-decoder raise
+``NotImplementedError`` under a mesh.
 
 The abstract helpers (:func:`abstract_params`, :func:`abstract_opt_state`,
 :func:`train_batch_specs`, :func:`abstract_cache`, :func:`abstract_mem`,
@@ -74,12 +79,8 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
 
 
 def check_mesh(cfg: ModelConfig) -> None:
-    """What trains under a mesh: the dense attention decoders."""
+    """What trains under a mesh: the attention decoders, dense or MoE."""
     where = "ROADMAP.md queue 1 item 4.2"
-    if any(spec.moe for spec in cfg.pattern):
-        raise NotImplementedError(
-            f"training an MoE model under a mesh (expert parallelism in the "
-            f"backward) is not ported yet: {where}")
     kinds = {spec.kind for spec in cfg.pattern} - {"attn"}
     if kinds:
         raise NotImplementedError(

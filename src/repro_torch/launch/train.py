@@ -7,6 +7,9 @@
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch llama3.2-1b --quant mixed --mesh 2x2 --steps 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --quant mixed --mesh 2x2 --steps 4 \
+        --global-batch 16
     python -m torch.distributed.run --nproc-per-node 4 \
         -m repro_torch.launch.train --smoke --device cpu --mesh 2x2
 
@@ -17,8 +20,9 @@ configuration on the CUDA device by default (``--smoke``: the reduced one;
 ``data`` x ``model`` mesh (``launch.mesh.make_mesh``) in each process
 ``torchrun`` starts: NCCL with a card a rank, gloo on the CPU (``--device
 cpu``) or with ranks sharing a card; outside ``torchrun`` it raises at
-once.  Dense attention decoders only (MoE, mamba, rwkv, vision and
-enc-dec under a mesh are ROADMAP.md queue 1 item 4.2).  ``--max-restarts
+once.  Dense attention decoders and MoE (expert-parallel: granite and
+qwen3; mamba, rwkv, vision and enc-dec under a mesh are ROADMAP.md queue
+1 item 4.2).  ``--max-restarts
 N`` supervises the training call: on an exception the launcher runs it
 again, which resumes from the latest checkpoint under ``--ckpt-dir``;
 under a mesh a fault on any rank raises on every rank (the loop agrees on

@@ -158,8 +158,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
         if isinstance(tree, dict):
             return {k: wrap(v, path + (k,)) for k, v in tree.items()}
         meta = meta_at(path)
-        return wrap_block(tree, leaf_spec(path, meta, mesh), mesh,
-                          meta.shape)
+        spec = leaf_spec(path, meta, mesh)
+        if spec and spec[0] is not None and tree.shape[0] == meta.shape[0]:
+            # a stacked leaf sharded on its period dim (an MoE router):
+            # this rank's periods alone
+            tree = local_block(tree, spec[:1], mesh).clone()
+        return wrap_block(tree, spec, mesh, meta.shape)
 
     def convert(tree, path, batch_axes: int = 1):
         """A tree with its weight leaves as records; ``batch_axes``: the

@@ -44,7 +44,18 @@ The registry folds them into ``repro_moe_tokens_per_expert`` and
 ``repro_moe_dropped_tokens_total`` only when it is read
 (``obs.metrics.snapshot`` / ``prometheus_text`` / ``collect``).  With
 metrics disabled the step allocates and launches nothing extra, and a
-graph captured then never counts.
+graph captured then never counts.  Under a mesh each rank's registry counts
+its own data rank's rows (the model ranks of one data rank route the same
+rows, so they count the same); the engine's parking-row prefill, which
+serves no request, is kept out of them as a capture's warm-up step is
+(:func:`save_dispatch_metrics`).
+
+Under a mesh (the ambient one) each data rank routes its own rows, the
+router's GEMM runs N-sharded, and the three expert GEMMs run
+expert-parallel: each ``model`` rank launches the grouped kernel over its
+E / model experts (``quant.qmatmul``), the capacity still per sequence.
+Training's aux loss takes its means over the global microbatch
+(:func:`load_balance_loss`).
 """
 from __future__ import annotations
 
@@ -53,6 +64,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.dist import collectives as C
+from repro_torch.dist.sharding import current_mesh, data_axes, data_size
 from repro_torch.models.layers import _act, _normal
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.quant.qmatmul import (maybe_quantized_batched,
@@ -118,7 +131,8 @@ def _observe_dispatch(name: str, live: torch.Tensor, assignments: int
 def save_dispatch_metrics() -> Dict[Tuple[str, torch.device], torch.Tensor]:
     """A copy of every layer's accumulators (on their devices), for
     :func:`restore_dispatch_metrics`: the decode graph's eager warm-up step
-    is not a dispatch the reference would observe."""
+    and the engine's parking-row prefill under a mesh are not dispatches
+    the reference would observe."""
     return {k: a.state.clone() for k, a in _ACCUMS.items()}
 
 
@@ -290,8 +304,29 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, quant, name: str, *,
 def load_balance_loss(r: Routing, n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss (batch mean), for training: E times
     the dot of the mean router probability and the mean top-k assignment
-    share per expert."""
-    me = r.probs.mean(dim=(0, 1))                                  # (E,)
+    share per expert.
+
+    Under a mesh with data ranks (the ambient one: ``r`` routed this data
+    rank's rows) both means are the global microbatch's, as the
+    reference's GSPMD means are: each per-expert sum and the row count
+    summed over the data axes before the division and the product — the
+    probabilities' sum with its gradient passed to each rank's own rows
+    (``all_reduce_grad_pass``), the assignments' (no gradient) plainly.
+    Per-rank aux values are never averaged: E * sum(me * ce) is not linear
+    in the rows."""
     onehot = torch.nn.functional.one_hot(r.expert_ids, n_experts)
-    ce = onehot.to(torch.float32).mean(dim=(0, 1, 2))
+    mesh = current_mesh()
+    if mesh is None or data_size(mesh) == 1:
+        me = r.probs.mean(dim=(0, 1))                              # (E,)
+        ce = onehot.to(torch.float32).mean(dim=(0, 1, 2))
+        return n_experts * torch.sum(me * ce)
+    daxes = data_axes(mesh)
+    b, s, k = r.expert_ids.shape
+    psum = C.all_reduce_grad_pass(r.probs.sum(dim=(0, 1)), mesh, daxes)
+    csum = C.all_reduce(onehot.to(torch.float32).sum(dim=(0, 1, 2)), mesh,
+                        daxes)
+    rows = C.all_reduce(torch.full((), b * s, dtype=torch.float32,
+                                   device=psum.device), mesh, daxes)
+    me = psum / rows
+    ce = csum / (rows * k)
     return n_experts * torch.sum(me * ce)

@@ -63,9 +63,14 @@ gradient on every device.  Elsewhere (serving, under ``no_grad`` or
 stays inference only.  Under a training mesh the dense core's backward
 runs on blocks (:func:`_mesh_ste`): ``dx`` from this rank's N block of W,
 all-reduced over ``model``; ``dW`` of that block from this rank's rows,
-reduce-scattered over the data axes to W's FSDP rows; the batched cores
-(MoE) are not trained under a mesh (ROADMAP.md queue 1 item 4.2).  The
-unquantized matmul takes W whole through
+reduce-scattered over the data axes to W's FSDP rows.  The batched cores
+(MoE) run expert-parallel (:func:`_mesh_bste`): where the grouped GEMM's
+experts ride ``model``, each rank quantizes, multiplies and
+differentiates its own experts' block alone — ``dx`` of its experts
+all-gathered over ``model``, ``dW`` of its experts from its rows
+reduce-scattered over the data axes to the FSDP rows held at rest; no
+rank gathers another model rank's experts, forward or backward.  The
+unquantized matmuls take W whole through
 :func:`repro_torch.dist.sharding.full_leaf`, whose gather is
 differentiable.
 """
@@ -241,10 +246,10 @@ def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
     for bit.  Returns None — the ATen route, logged and counted — where the
     mesh tiles no dim of the GEMM or the local shape fails the bounds.
     Under a batch-local ambient mesh (the engine) x holds this data rank's
-    rows, and the global M is D times its rows.  A dense GEMM that runs
-    shard-mapped writes the block of W it multiplied into ``want`` (``{1:
-    n_axes}``, as ``shard_gemm.weight_block`` reads it): the STE backward
-    gathers that block again."""
+    rows, and the global M is D times its rows.  A GEMM that runs
+    shard-mapped writes the block of W it multiplied into ``want``, as
+    ``shard_gemm.weight_block`` reads it (dense ``{1: n_axes}``, grouped
+    ``{0: e_axes}``): the STE backward gathers that block again."""
     mesh = context.mesh
     batched = qw.dim() == 3
     _, k_dim, n_dim = dims
@@ -259,7 +264,7 @@ def _sharded_cuda(qx, qw, sx, sw, w: int, m: int, out_dtype,
             return run_plan_dequant(qxl, qwl, sxl, swl, plan, out_dtype,
                                     cnt[0] if cnt else None, seg)
         return shard_gemm.shard_grouped_gemm(local_grouped, mesh, spec,
-                                             counts)(qx, qw, sx, sw)
+                                             counts, want)(qx, qw, sx, sw)
 
     def local_dense(qxl, qwl, sxl, swl):
         return run_plan_dequant(qxl, qwl, sxl, swl, plan, out_dtype)
@@ -441,13 +446,42 @@ def _qmm_forward(x, wmat, w_bits, m, context, want=None):
                        want=want)
 
 
-def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None):
-    wmat = dist_sharding.full_leaf(wmat)
+def _expert_axes(x, wmat, w_bits: int, m: int,
+                 context: Optional[ExecContext]):
+    """The mesh axes an (E, C, K) x (E, K, N) GEMM's experts run over
+    shard-mapped (``()`` on a mesh of one), or None where it runs without
+    a mesh or takes the ATen route: :func:`_fused_cuda`'s routing, asked
+    before W is quantized."""
+    ctx = context if context is not None else ExecContext()
+    if ctx.mesh is None or ctx.backend != "cuda" \
+            or ctx.force_mode != "auto" or analytic_plan(
+                w_bits, m, backend="cuda").variant not in ("fused",
+                                                           "fused_mm2"):
+        return None
+    dims = (x.shape[1], x.shape[2], wmat.shape[2])
+    _, spec, _, _ = _shard_spec(dims, w_bits, m, ctx, x.shape[0])
+    return None if spec is None else spec.e_axes
+
+
+def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None,
+                  want=None):
+    """The grouped GEMM's quantize-then-GEMM.  W is quantized per (expert,
+    output channel), so where the GEMM runs expert-parallel each rank
+    quantizes its own experts' block alone (their FSDP rows gathered,
+    never another model rank's experts): its codes and scales are the
+    whole tensor's, bit for bit.  ``want``: see :func:`_sharded_cuda`."""
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
-    qw, sw = _quantize(wmat, w_bits, 1, carrier)      # per (expert, channel)
+    es = _expert_axes(x, wmat, w_bits, m, context)
+    if es is None:
+        qw, sw = _quantize(dist_sharding.full_leaf(wmat), w_bits, 1, carrier)
+    else:
+        mesh = (context or ExecContext()).mesh
+        blk = shard_gemm.weight_block(wmat, {0: es}, mesh)
+        qw, sw = (shard_gemm.held_experts(t, es, mesh)
+                  for t in _quantize(blk, w_bits, 1, carrier))
     return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context, counts,
-                       seg)
+                       seg, want)
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +544,16 @@ class _QmmCore(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
+def _live_rows(g, counts, seg: int) -> torch.Tensor:
+    """``g`` in fp32 with the ragged dead rows zeroed (``counts`` None:
+    every row live)."""
+    gf = g.to(torch.float32)
+    if counts is None:
+        return gf
+    return torch.where(ragged_row_mask(counts, seg, g.shape[1]), gf,
+                       torch.zeros((), dtype=torch.float32, device=g.device))
+
+
 def _batched_ste(ctx, x, wmat, gf):
     f32 = torch.float32
     dx = dw = None
@@ -520,18 +564,56 @@ def _batched_ste(ctx, x, wmat, gf):
     return dx, dw
 
 
+def _mesh_bste(ctx, g, x, wmat, mesh, counts=None):
+    """The grouped STE backward on blocks (the reference's ``_qbmm_bwd``,
+    which GSPMD partitions), :func:`_mesh_ste`'s counterpart: with ``e``
+    the experts the forward ran on this rank (``ctx.want``, written by the
+    forward's routing; none where the GEMM took W whole) and W's block
+    gathered again from the saved shard, ``dx[e] = g[e] @ W[e]^T``
+    all-gathered over the expert axes (each model rank owns whole
+    experts), and ``dW[e] = x[e]^T @ g[e]`` on this rank's rows, cut to
+    W's block at rest by ``shard_gemm.weight_grad`` (a reduce-scatter over
+    the data axes the experts' rows are held over).  ``g`` is the whole
+    gradient of the gathered output, the same on every model rank; the
+    ragged mask takes the block's ``counts`` first.  Products in fp32, as
+    unsharded (on a mesh of one it is the unsharded backward, op for
+    op)."""
+    f32 = torch.float32
+    es = ctx.want.get(0, ())
+    if counts is not None:
+        counts = shard_gemm.expert_block(counts, es, mesh)
+    gf = _live_rows(shard_gemm.expert_block(g, es, mesh), counts, ctx.seg)
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        wblk = shard_gemm.weight_block(wmat, {0: es}, mesh)
+        dx = torch.bmm(gf, wblk.to(f32).transpose(1, 2)).to(x.dtype)
+        dx = dist_coll.all_gather(dx, mesh, es, 0)
+    if ctx.needs_input_grad[1]:
+        xb = shard_gemm.expert_block(x, es, mesh)
+        dw = torch.bmm(xb.to(f32).transpose(1, 2), gf)
+        dw = shard_gemm.weight_grad(dw, wmat, {0: es}, mesh)
+        dw = dist_sharding.like(wmat, dw.to(wmat.dtype))
+    return dx, dw
+
+
 class _QbmmCore(torch.autograd.Function):
     """Batched core: (E, C, K) @ (E, K, N); the reference's
-    ``_qbmm_core``."""
+    ``_qbmm_core``.  Under a mesh its backward runs on blocks
+    (:func:`_mesh_bste`); it saves W's shard, never the gathered
+    experts."""
 
     @staticmethod
     def forward(ctx, x, wmat, w_bits, m, context):
         ctx.save_for_backward(x, wmat)
-        return _qbmm_forward(x, wmat, w_bits, m, context)
+        ctx.mesh = dist_sharding.current_mesh()
+        ctx.want, ctx.seg = {}, None
+        return _qbmm_forward(x, wmat, w_bits, m, context, want=ctx.want)
 
     @staticmethod
     def backward(ctx, g):
         x, wmat = ctx.saved_tensors
+        if ctx.mesh is not None:
+            return _mesh_bste(ctx, g, x, wmat, ctx.mesh) + (None,) * 3
         return _batched_ste(ctx, x, wmat, g.to(torch.float32)) + (
             None, None, None)
 
@@ -539,22 +621,26 @@ class _QbmmCore(torch.autograd.Function):
 class _QbmmRaggedCore(torch.autograd.Function):
     """Ragged batched core, the reference's ``_qbmm_ragged_core``: dead
     rows of the forward output are exact zeros, so their cotangents are
-    masked out before the STE products; ``counts`` gets no gradient."""
+    masked out before the STE products; ``counts`` gets no gradient.  Under
+    a mesh as :class:`_QbmmCore`."""
 
     @staticmethod
     def forward(ctx, x, wmat, counts, w_bits, m, seg, context):
         ctx.save_for_backward(x, wmat, counts)
         ctx.seg = seg
-        return _qbmm_forward(x, wmat, w_bits, m, context, counts, seg)
+        ctx.mesh = dist_sharding.current_mesh()
+        ctx.want = {}
+        return _qbmm_forward(x, wmat, w_bits, m, context, counts, seg,
+                             ctx.want)
 
     @staticmethod
     def backward(ctx, g):
         x, wmat, counts = ctx.saved_tensors
-        live = ragged_row_mask(counts, ctx.seg, x.shape[1])
-        gf = torch.where(live, g.to(torch.float32),
-                         torch.zeros((), dtype=torch.float32,
-                                     device=g.device))
-        return _batched_ste(ctx, x, wmat, gf) + (None,) * 5
+        if ctx.mesh is not None:
+            return _mesh_bste(ctx, g, x, wmat, ctx.mesh, counts) + \
+                (None,) * 5
+        return _batched_ste(ctx, x, wmat,
+                            _live_rows(g, counts, ctx.seg)) + (None,) * 5
 
 
 def quantized_matmul(x: torch.Tensor, wmat: torch.Tensor, w_bits: int,
@@ -675,4 +761,4 @@ def maybe_quantized_batched(x: torch.Tensor, wmat: torch.Tensor, quant,
                                         quant.m,
                                         context=_model_context(quant),
                                         counts=counts, seg=seg)
-    return torch.matmul(x, wmat.to(x.dtype))
+    return torch.matmul(x, dist_sharding.full_leaf(wmat).to(x.dtype))

@@ -49,14 +49,21 @@ decodes only its slots' lanes, on a decode width common to the data ranks
 where a data rank with no prompt left runs a parking-row prefill, so every
 rank makes the same collectives.  The model runs under the ambient mesh:
 its GEMMs shard-mapped (M over data, N over ``model``), attention
-head-parallel over ``model`` where the kv heads divide.  Sampled tokens
+head-parallel over ``model`` where the kv heads divide, and an MoE layer's
+expert GEMMs expert-parallel (each ``model`` rank launches the grouped
+kernel over its own experts; E % model != 0 sends them to the ATen route,
+counted).  An MoE layer's capacity is per sequence and every prefill is
+one slot at its own bucket, so a data rank's routing of a row is the
+unsharded engine's and the tokens equal its tokens.  Sampled tokens
 are all-gathered over the data axes in slot order, so every scheduler
 advances identically; sampling draws from one generator per (request,
 step), so the lane grouping moves no draw.  Admission reads a clock the
 ranks agree on (the latest of theirs).  Under a mesh ``batch_size`` must
-split over the data ranks (``ValueError``), and MoE, mamba and RWKV models
-(ROADMAP.md queue 1 item 4.2) and ``prefix_cache`` (item 4.3) raise
-``NotImplementedError``.  Training under a mesh is
+split over the data ranks (``ValueError``), and mamba and RWKV blocks
+(jamba too, for its mamba blocks; ROADMAP.md queue 1 item 4.2) and
+``prefix_cache`` (item 4.3) raise ``NotImplementedError``.  A data rank's
+parking-row prefill routes no request, so the MoE dispatch metrics do
+not observe it.  Training under a mesh is
 ``train.loop.run_training(mesh=...)``: the same rules and GEMMs, the
 backward through them.
 
@@ -85,6 +92,7 @@ from repro_torch.core.context import (ExecContext, resolve_context,
                                       resolve_device)
 from repro_torch.dist import collectives as dist_coll
 from repro_torch.dist import sharding as dist_sharding
+from repro_torch.models import moe
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.cache import (PagedCachePool, PrefixCache,
@@ -113,11 +121,6 @@ _FINISHED = obs_metrics.counter(
 def _check_mesh(cfg, mesh, batch_size: int, prefix_cache: bool,
                 device: torch.device) -> None:
     """What the engine serves under a mesh (module docstring)."""
-    if any(spec.moe for spec in cfg.pattern):
-        raise NotImplementedError(
-            "an MoE model under a mesh (expert parallelism through "
-            "shard_grouped_gemm) is not ported yet: ROADMAP.md queue 1 item "
-            "4.2")
     kinds = {spec.kind for spec in cfg.pattern} - {"attn"}
     if kinds:
         raise NotImplementedError(
@@ -453,8 +456,13 @@ class Engine:
                 pair = np.array([mine[r], self._prefill_compute(mine[r])])
             else:
                 w = self.prompt_buckets[0]
+                # it serves no request: kept out of the dispatch metrics
+                saved = (moe.save_dispatch_metrics()
+                         if obs_metrics.enabled() else None)
                 self.executor.prefill(None, np.zeros((1, w), np.int32), 0,
                                       np.array([w - 1], np.int32))
+                if saved is not None:
+                    moe.restore_dispatch_metrics(saved)
                 pair = np.array([-1, -1])
             got = self._gather_data(pair).reshape(-1, 2)
             out.update((int(s), int(t)) for s, t in got if s >= 0)

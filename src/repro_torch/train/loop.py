@@ -27,7 +27,7 @@ takes every decision alike, since a rank that raised alone would leave
 the others waiting in a collective: the resume step is rank 0's, and the
 fault hook's outcome, the non-finite check and the watchdog's step time
 (the slowest rank's) are agreed by an all-reduce before any rank acts.
-Dense attention decoders only (``launch.steps.check_mesh``).
+Dense attention decoders and MoE models (``launch.steps.check_mesh``).
 """
 from __future__ import annotations
 

@@ -156,6 +156,7 @@ def main(argv=None) -> int:
                 us_default=(round(res.default_us, 2)
                             if res.default_us == res.default_us else None),
                 n_candidates=n_ok, n_rejected=n_bad,
+                retimed=res.retimed or None,
                 lead_ms=(round(best.lead_ms, 4)
                          if best.lead_ms is not None else None))
             lead = (f", lead {best.lead_ms:.3f} ms over {best.iters} calls"

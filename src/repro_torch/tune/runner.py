@@ -35,6 +35,7 @@ it is the host clock.
 from __future__ import annotations
 
 import math
+import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -58,6 +59,12 @@ MIN_DEVICE_MS = 0.1
 LEAD_MARGIN, LEAD_FLOOR_MS, LEAD_TRIES = 2.0, 1.0, 4
 # torch.cuda._sleep counts clock cycles: at most 2 GHz on the card.
 SLEEP_CYCLES_PER_MS = 2e6
+# A winner that beats the analytic default by more than RETIME_MARGIN in
+# the sweep (chip_smoke.py's TUNE_SLOWER) is timed again, RETIME_ROUNDS
+# times each in turns with the default, before it is recorded, and the
+# medians are recorded: one outlying time of the default must not make a
+# slower plan the winner.
+RETIME_MARGIN, RETIME_ROUNDS = 0.03, 3
 
 
 @dataclass
@@ -80,6 +87,8 @@ class TuneResult:
     winner_us: float
     default_us: float
     measurements: List[Measurement] = field(default_factory=list)
+    # winner_us and default_us are re-timed medians (RETIME_MARGIN)
+    retimed: bool = False
 
     @property
     def speedup_vs_default(self) -> float:
@@ -273,10 +282,13 @@ def tune_shape(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
     Returns the fastest correct candidate, which a table makes serving run
     as it is, and the time of the analytic default plan (what runs with no
     table; the first candidate), so a table can report its speedup
-    honestly.  ``max_candidates`` truncates the candidates; the result's
-    measurement count shows it.  Under ``context.mesh`` on ``"cuda"`` the
-    sweep runs the per-rank local shape: the sharded kernel runs it, and
-    ``select_plan`` looks it up.
+    honestly.  A winner that beats the default by more than
+    ``RETIME_MARGIN`` is re-timed in turns with it (:func:`_retime`) first:
+    the medians are the times returned, and where the default is not the
+    slower one then, the default is the winner.  ``max_candidates``
+    truncates the candidates; the result's measurement count shows it.
+    Under ``context.mesh`` on ``"cuda"`` the sweep runs the per-rank local
+    shape: the sharded kernel runs it, and ``select_plan`` looks it up.
     """
     if context is not None:
         backend = context.backend
@@ -320,9 +332,27 @@ def tune_shape(shape: Shape, w: int, *, m: int = 8, backend: str = "cuda",
             default_us = bench_plan(default, a, b, iters=iters)
         except NotImplementedError:  # w >= 27: the analytic plan is not ported
             default_us = float("nan")
+    retimed = bool(timed) and winner is not None and winner != default \
+        and winner_us * (1 + RETIME_MARGIN) < default_us
+    if retimed:
+        winner_us, default_us = _retime(winner, default, a, b, iters)
+        if default_us <= winner_us:
+            winner, winner_us = default, default_us
     return TuneResult(shape=shape, w=w, backend=backend, winner=winner,
                       winner_us=winner_us, default_us=default_us,
-                      measurements=measurements)
+                      measurements=measurements, retimed=retimed)
+
+
+def _retime(winner: ExecPlan, default: ExecPlan, a, b,
+            iters: int) -> Tuple[float, float]:
+    """(winner us, default us): the medians of RETIME_ROUNDS timings each,
+    the default and the winner in turns."""
+    times: Dict[str, List[float]] = {"winner": [], "default": []}
+    for _ in range(RETIME_ROUNDS):
+        for label, plan in (("default", default), ("winner", winner)):
+            times[label].append(bench_plan(plan, a, b, iters=iters))
+    return statistics.median(times["winner"]), \
+        statistics.median(times["default"])
 
 
 def device_label(device) -> str:

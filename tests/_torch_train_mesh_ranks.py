@@ -237,6 +237,36 @@ def refusals(mesh, out):
         out["refusal/batch"] = str(e)
 
 
+def moe_checks(meshes, out):
+    """Smoke granite trains under ``run_training(mesh=)`` on 2x2 (its
+    experts over ``model``); with 6 experts on 1x4 (4 does not divide them)
+    its grouped GEMMs take the ATen route, counted, and step 1's loss is
+    the meshless one's."""
+    from repro_torch.dist import shard_gemm as sg
+    from repro_torch.quant import qmatmul
+    cfg = get_config("granite-moe-3b-a800m", smoke=True,
+                     quant="mixed").scaled_down(compute_dtype="float32")
+    res = run_training(cfg, TrainConfig(steps=2, log_every=1), data_config(
+        cfg, seed=0), device="cpu", mesh=meshes["2x2"])
+    out["moe/losses"] = res.losses
+    out["moe/resident"] = (res.resident_bytes, res.planned_bytes)
+    odd = cfg.scaled_down(n_experts=6)
+    params = lm.init_params(torch.Generator().manual_seed(0), odd,
+                            device="cpu")
+    batch = train_batch(odd)
+    loss0, _ = steps.mean_loss_and_grads(odd, params, batch)
+    mesh = meshes["1x4"]
+    sharded = bridge.params_from_jax(bridge.tree_to_numpy(params), "cpu",
+                                     mesh)
+    qmatmul.reset_gemm_routes()
+    sg.reset_fallbacks()
+    with S.use_mesh(mesh):
+        loss, _ = steps.mean_loss_and_grads(odd, sharded, batch)
+    out["moe/odd"] = {"loss": float(loss), "loss0": float(loss0),
+                      "routes": qmatmul.gemm_routes(),
+                      "fallbacks": sg.fallback_counts()}
+
+
 def main(rank, world, port, workdir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
@@ -256,8 +286,10 @@ def main(rank, world, port, workdir):
         elastic_load(meshes[tag], out, tag, out["ckpt_dir"])
     fault_checks(meshes["2x2"], out, workdir)
     refusals(meshes["2x2"], out)
+    moe_checks(meshes, out)
     keep = out if rank == 0 else {k: v for k, v in out.items()
-                                  if not isinstance(v, dict) or k == "coord"}
+                                  if not isinstance(v, dict) or k == "coord"
+                                  or k.startswith("moe/")}
     torch.save(keep, os.path.join(workdir, f"out_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

@@ -228,13 +228,28 @@ class _CpuMesh:
         self.shape = dict(shape)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-3b",
-                                  "jamba-v0.1-52b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
 def test_engine_refuses_unported_models_under_a_mesh(arch):
+    """Recurrent blocks under a mesh (jamba for its mamba blocks, though
+    its MoE layers would run expert-parallel)."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.2"):
         Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu",
                mesh=_CpuMesh({"data": 2, "model": 2}))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-30b-a3b"])
+def test_engine_admits_moe_under_a_mesh(arch):
+    """MoE models pass the engine's mesh check (their expert GEMMs run
+    expert-parallel: tests/test_torch_moe_mesh.py); the prefix cache under
+    a mesh is still refused."""
+    from repro_torch.serve.engine import _check_mesh
+    cfg = get_config(arch, smoke=True)
+    mesh = _CpuMesh({"data": 2, "model": 2})
+    assert _check_mesh(cfg, mesh, 4, False, torch.device("cpu")) is None
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
+        _check_mesh(cfg, mesh, 4, True, torch.device("cpu"))
 
 
 def test_engine_mesh_refusals():

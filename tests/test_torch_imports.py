@@ -68,11 +68,16 @@ def test_every_port_module_imports_without_jax():
 
 
 def test_distribution_modules_are_covered():
-    """The distribution modules are among those imported without jax."""
+    """The distribution modules, and those MoE under a mesh runs through,
+    are among those imported without jax."""
     names = _module_names()
     for name in ("repro_torch.dist", "repro_torch.dist.sharding",
                  "repro_torch.dist.shard_gemm",
-                 "repro_torch.dist.collectives", "repro_torch.launch.mesh"):
+                 "repro_torch.dist.collectives", "repro_torch.launch.mesh",
+                 "repro_torch.quant.qmatmul", "repro_torch.models.moe",
+                 "repro_torch.models.lm", "repro_torch.serve.engine",
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.launch.serve", "repro_torch.tune.runner"):
         assert name in names
         path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
         if not path.exists():

@@ -26,8 +26,12 @@ its meshless ``make_train_step``, computed here while the ranks run.
     raising on every rank;
   * ``launch.train --mesh 2x2 --device cpu --smoke`` under
     ``torch.distributed.run``;
-  * refusals: MoE, mamba, rwkv, vision and the encoder-decoder under a
-    mesh, and a batch that does not split over microbatches x data ranks.
+  * smoke granite (MoE) trains under ``run_training(mesh=)`` on 2x2; with 6
+    experts on 1x4 its grouped GEMMs take the ATen route, counted
+    (``tests/test_torch_moe_mesh.py`` holds MoE under a mesh to the
+    unsharded port);
+  * refusals: mamba, rwkv, vision and the encoder-decoder under a mesh,
+    and a batch that does not split over microbatches x data ranks.
 """
 import os
 import socket
@@ -376,8 +380,34 @@ class _Mesh:
     device_type = "cpu"
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "jamba-v0.1-52b",
-                                  "rwkv6-3b", "llava-next-mistral-7b",
+def test_granite_trains_under_a_mesh(ranks):
+    outs, _, _, _ = ranks
+    losses = outs[0]["moe/losses"]
+    assert sorted(losses) == [0, 1]
+    assert all(np.isfinite(v) for v in losses.values())
+    for o in outs:
+        assert o["moe/losses"] == losses            # every rank alike
+        assert o["moe/resident"][0] == o["moe/resident"][1]
+
+
+def test_indivisible_experts_train_on_aten_route_counted(ranks):
+    outs, _, _, _ = ranks
+    for o in outs:
+        odd = o["moe/odd"]
+        np.testing.assert_allclose(odd["loss"], odd["loss0"], rtol=LOSS_RTOL)
+        grouped = sum(n for key, n in odd["fallbacks"].items()
+                      if key[2] == "expert dim 6 not divisible by model "
+                      "axis (4)")
+        # 3 expert GEMMs a layer, 2 layers, each twice under remat (the
+        # forward and the backward's recompute), one microbatch
+        assert grouped == 3 * 2 * 2
+        assert odd["routes"][("cuda", "aten_fallback")] == \
+            sum(odd["fallbacks"].values())
+        assert odd["routes"][("cuda", "cuda")] > 0
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b",
+                                  "llava-next-mistral-7b",
                                   "seamless-m4t-medium"])
 def test_other_models_under_a_mesh_are_refused(arch):
     cfg = get_config(arch, smoke=True)

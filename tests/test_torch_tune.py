@@ -317,10 +317,49 @@ def test_tune_shape_reports_default_and_winner():
     assert res.winner is not None and all(m.ok for m in res.measurements)
     assert [m.plan.variant for m in res.measurements] == ["fused", "kmm2"]
     assert res.measurements[0].plan == analytic_plan(12)
-    assert res.default_us == res.measurements[0].us
+    # the sweep's time, or where the winner beat it by more than the
+    # margin, the median of their re-times in turns
+    assert res.default_us == res.measurements[0].us or res.retimed
     assert res.default_us > 0 and res.speedup_vs_default > 0
     assert runner.served_as_is(res.winner, shape)
     assert runner.device_label("cpu") == "cpu/plain"
+
+
+def test_outlying_default_time_does_not_pick_a_slower_winner(monkeypatch):
+    """The sweep's one time of the default is an outlier (10x its true
+    time), so the staged kmm2 beats it by more than RETIME_MARGIN; re-timed
+    in turns with the default, kmm2 is the slower one, and the recorded
+    winner is the default with the re-timed medians."""
+    shape = (8, 512, 16)
+    true_us = {"fused": 10.0, "kmm2": 12.0}
+    seen, outlier = [], [True]
+
+    def bench(plan, a, b, iters=3, detail=None):
+        seen.append(plan.variant)
+        if plan.variant == "fused" and outlier[0]:
+            outlier[0] = False
+            return 10 * true_us["fused"]
+        return true_us[plan.variant]
+
+    monkeypatch.setattr(runner, "bench_plan", bench)
+    res = runner.tune_shape(shape, 12, iters=1, device="cpu")
+    assert res.retimed
+    assert res.winner == analytic_plan(12)
+    assert (res.winner_us, res.default_us) == (10.0, 10.0)
+    assert res.measurements[0].us == 100.0      # the sweep's outlier, kept
+    assert seen == ["fused", "kmm2"] + ["fused", "kmm2"] * \
+        runner.RETIME_ROUNDS
+    # a true winner survives its re-time, with its re-timed numbers
+    true_us["kmm2"] = 5.0
+    seen.clear()
+    res = runner.tune_shape(shape, 12, iters=1, device="cpu")
+    assert res.retimed and res.winner.variant == "kmm2"
+    assert (res.winner_us, res.default_us) == (5.0, 10.0)
+    # within the margin no re-time
+    true_us["kmm2"] = 9.9
+    seen.clear()
+    res = runner.tune_shape(shape, 12, iters=1, device="cpu")
+    assert not res.retimed and seen == ["fused", "kmm2"]
 
 
 @pytest.mark.parametrize("w", [8, 12, 16, 20])
