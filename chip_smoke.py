@@ -349,9 +349,9 @@ csrc/wkv.cu and csrc/ssm_scan.cu) adds:
       its 32 periods, 8 microbatches: the ragged STE at its expert shape
       (dead rows get exactly zero dx), step 1 against the plain versions,
       every leaf's gradient nonzero, 2 counted steps with the grouped
-      kernel carrying every expert GEMM; rwkv6-3b at full width, 8 of
+      kernel carrying every expert GEMM; rwkv6-3b at full width, 16 of
       its 32 periods (TRAIN_RWKV_PERIODS: the whole model would need ~85
-      GB, and 24, later 16, took the script past its time limit), 4
+      GB, and 24 took the script past its time limit), 4
       microbatches: step 1 with every launch (the LoRA products,
       the WKV forward and backward too) against its plain version and
       against the step on the plain versions, every leaf's gradient (u,
@@ -412,13 +412,15 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       full-depth granite on mixed records the same way (128 mm1 + 33 kmm2
       + 96 grouped mm1 + 65 norms a model call, exact, graph nodes too),
       tokens and every sampled logits row torch.equal with and without
-      ``mesh=``; (b) the same rank processes, after llama, full-depth
-      granite from (a)'s records (MESH_MOE_PARAMS) on the 2x2 mesh, 20 of
-      the 40 experts a model rank: each rank holding exactly its
-      ``leaf_spec`` block of every record, exact launches a model call,
-      every grouped launch over 20 experts, tokens torch.equal to (a)'s
-      unsharded engine; per-rank resident bytes, the ranks' peak and
-      host-clock step ms reported.
+      ``mesh=``; (b) the same rank processes, after llama, granite at
+      MESH_MOE_PERIODS of its 32 periods on the 2x2 mesh, 20 of the 40
+      experts a model rank, from the records of the unsharded engine the
+      parent serves at that depth (graphed, exact launches; saved to
+      MESH_MOE_PARAMS): each rank holding exactly its ``leaf_spec`` block
+      of every record, exact launches a model call, every grouped launch
+      over 20 experts, tokens torch.equal to that unsharded engine;
+      per-rank resident bytes, the ranks' peak and host-clock step ms
+      reported.
 
 Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
 
@@ -961,8 +963,17 @@ TRAIN_MESH_RESIDENT = 0.3
 TRAIN_MESH_TIMEOUT = 600
 TRAIN_MESH_DIR = ROOT / "build" / "scratch" / "train_mesh"
 # MoE under a mesh (5m and 5d): granite, expert-parallel (its 40 experts
-# over the model axis).  5m serves it at full width and depth, (a)'s
-# records saved to MESH_MOE_PARAMS for (b); 5d (b) trains it at
+# over the model axis).  5m (a) serves it at full width and depth; (b)
+# serves it at MESH_MOE_PERIODS of its 32 periods against the unsharded
+# engine the parent serves at that depth, whose records it saves to
+# MESH_MOE_PARAMS.  Every period is one layer of one kind (attention and
+# MoE), so one period holds every layer kind; 2 is the fewest that also
+# shard the stacked routers' period dim over model (the expert rule puts
+# it there where model divides it, as at full depth), which the model call
+# gathers once (``dist.sharding.periods_whole``).  The cut is the time
+# limit's: at full depth the whole script took 1119.8 s on an NVIDIA H100
+# 80GB HBM3 (700 W) whose host ran the untouched phases 10-40 % slower
+# than before, with rwkv6-3b's 5t at 8 periods.  5d (b) trains it at
 # TRAIN_MESH_MOE_PERIODS periods with TRAIN_MESH_MOE_MICRO microbatches of 2
 # sequences.  Its step-1 gates are llama's, and besides: every layer's aux
 # loss a microbatch within TRAIN_MESH_MOE_AUX_RTOL of the unsharded (the
@@ -973,17 +984,23 @@ TRAIN_MESH_DIR = ROOT / "build" / "scratch" / "train_mesh"
 # 6.0e-6 (gate 1e-5), the expert leaves 1.8e-3 to 2.9e-3 (their bf16
 # copy's ulp after the reordered fp32 sums; gate 5e-3), params 4.1e-4 lr
 # at most.  The worst leaf is embed, not an expert: 5.74e-3 at seed 0 but
-# 1.013e-2 and 1.015e-2 at seeds 1 and 2, past llama's 1e-2, which caps
-# the gate: at 4 microbatches the tied table's bf16 gradients round twice
-# a microbatch (its lookup's per-rank scatter-add, then the sum over the
-# data ranks) where llama's 2 gave 6.1-6.8e-3.  The script runs seed 0,
+# 1.013e-2 and 1.015e-2 at seeds 1 and 2, so the 1e-2 gate (llama's, which
+# caps it) fails at 2 of 3 seeds.  The gap is the bf16 compute copy's
+# rounding, not the mesh's embed or lm_head gradient: --train-mesh-study
+# (the same step, the same card) reads every leaf within 9.2e-7 (embed
+# 3.9e-7 to 4.7e-7) in fp32 compute without the copy at seeds 0-2, and
+# embed 6.4e-3 to 7.6e-3 with the copy at 2 microbatches, where the tied
+# table's bf16 gradients round half as often.  The script runs seed 0,
 # TRAIN_MESH_SEED, which llama's gates were read at before these.
 MESH_MOE_ARCH = "granite-moe-3b-a800m"
 MESH_MOE_PARAMS = ROOT / "build" / "scratch" / "mesh_moe_params.pt"
+MESH_MOE_PERIODS = 2
 TRAIN_MESH_MOE_PERIODS = 2
 TRAIN_MESH_MOE_MICRO = 4
 TRAIN_MESH_MOE_AUX_RTOL = 1e-6
 TRAIN_MESH_MOE_GRAD_TOL = 5e-3
+# --train-mesh-study's init seeds (train_mesh_study_models)
+TRAIN_MESH_STUDY_SEEDS = (0, 1, 2)
 
 
 def log(msg: str) -> None:
@@ -4870,16 +4887,13 @@ def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
 # batch 8, each config's microbatches.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
 TRAIN_GRANITE_PERIODS, TRAIN_GRANITE_STEPS = 4, 2
-# rwkv6-3b cut to 8 of its 32 periods: a step peaks at ~30 bytes a param
+# rwkv6-3b cut to 16 of its 32 periods: a step peaks at ~30 bytes a param
 # (NVIDIA H100 80GB HBM3, 700 W: 47.26 GB at 16 periods, 1.600 B params;
 # 67.14 GB at 24, 2.232 B), so its 2.86 B params would need ~85 GB; 24
 # periods fit, but their checks took the whole script past its time limit
-# on a slower machine (the step at 24 takes 2.1x the step at 16), and at
-# 16 its three plain-version steps took 81 s of a whole run of 1257.3 s on
-# a slower host (the limit is 1200 s).  The gates below
-# were measured at 16 and 24, where the chain carries more: deeper is
-# harder.  2 counted steps, its 4 microbatches.
-TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 8, 2
+# on a slower machine (the step at 24 takes 2.1x the step at 16).  2
+# counted steps, its 4 microbatches.
+TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 16, 2
 # llama's restart gate (a checkpoint and a resumed run bit-exact to the
 # straight run) on TRAIN_RESTART_PERIODS of its 16 periods: the property
 # does not depend on depth, and at full depth the 14.8 GB checkpoint's
@@ -5855,18 +5869,19 @@ def mesh_world_of_one(torch, np, fg) -> dict:
     del qparams, base_rows
     gc.collect()
     torch.cuda.empty_cache()
-    out["cut"] = mesh_cut_reference(torch, np, fg)
+    out["cut"] = mesh_cut_reference(torch, np, fg, *mesh_cut_config(),
+                                    MESH_PARAMS)
     # granite, full width and depth
     mcfg, m_call = moe_mesh_config()
     qparams, minit = leafwise_init(torch, mcfg)
-    pair, mrows = world_of_one_pair(torch, np, fg, MESH_MOE_ARCH, mcfg,
-                                    qparams, mesh, m_call)
+    pair, _ = world_of_one_pair(torch, np, fg, MESH_MOE_ARCH, mcfg,
+                                qparams, mesh, m_call)
     out["moe"] = {"init": minit, **pair}
-    out["moe_rows"] = {f"{k[0]}/{k[1]}": v.cpu() for k, v in mrows.items()}
-    save_records(torch, qparams, MESH_MOE_PARAMS)
-    del qparams, mrows
+    del qparams
     gc.collect()
     torch.cuda.empty_cache()
+    out["moe_cut"] = mesh_cut_reference(torch, np, fg, *moe_cut_config(),
+                                        MESH_MOE_PARAMS)
     dist.destroy_process_group()
     return out
 
@@ -6139,7 +6154,7 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
                            MESH_PARAMS,
                            os.path.join(out_dir, f"mesh_rows{rank}.pt")))
     out["moe"] = rank_engine(
-        torch, np, fg, mesh, *moe_mesh_config(), MESH_MOE_PARAMS,
+        torch, np, fg, mesh, *moe_cut_config(), MESH_MOE_PARAMS,
         os.path.join(out_dir, f"mesh_moe_rows{rank}.pt"))
     out["seconds"] = time.monotonic() - t_start
     with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
@@ -6232,21 +6247,31 @@ def mesh_cut_config():
                  "rowinv_norm": 2 * cfg.n_layers + 1}
 
 
-def mesh_cut_reference(torch, np, fg) -> dict:
-    """5m (b)'s llama reference: the unsharded engine at MESH_PERIODS on
-    mixed records from the leaf-wise init, warmed and graphed, exact
-    launches; its tokens and sampled rows; its records saved for the
-    ranks."""
+def moe_cut_config():
+    """granite at MESH_MOE_PERIODS, and its launches a model call: a layer's
+    4 w=8 projections, w=12 router, 3 grouped GEMMs and 2 norms, the w=12
+    head and ln_f."""
+    full, per_call = moe_mesh_config()
+    cfg = dataclasses.replace(full, n_periods=MESH_MOE_PERIODS)
+    once = {"dense_kmm2": 1, "rowinv_norm": 1}         # the head, ln_f
+    return cfg, {k: (n - once.get(k, 0)) // full.n_layers * cfg.n_layers
+                 + once.get(k, 0) if n else 0 for k, n in per_call.items()}
+
+
+def mesh_cut_reference(torch, np, fg, cfg, per_call, records: Path) -> dict:
+    """A 5m (b) engine's reference: the unsharded engine of ``cfg`` (cut in
+    depth) on mixed records from the leaf-wise init, warmed and graphed,
+    exact launches; its tokens and sampled rows; its records saved for the
+    ranks (``records``)."""
     from repro_torch.serve.engine import Engine
-    cfg, per_call = mesh_cut_config()
     qparams, init = leafwise_init(torch, cfg)
     eng = Engine(cfg, qparams, max_seq=256, batch_size=4, device="cuda")
     eng.warm()
     with sampled_rows({}) as rows:
         run = serve_counted(torch, fg, eng, mesh_requests(np, cfg))
-    launches = check_counted(f"5m (b) {MESH_ARCH} at {MESH_PERIODS} "
+    launches = check_counted(f"5m (b) {cfg.name} at {cfg.n_periods} "
                              f"periods, no mesh", eng, run, per_call)
-    save_records(torch, qparams, MESH_PARAMS)
+    save_records(torch, qparams, records)
     del eng, qparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -6306,8 +6331,8 @@ def mesh_phase(torch, np, fg) -> dict:
         raise
     base_rows = out["world_of_one"]["cut"].pop("rows")
     base_tokens = out["world_of_one"]["cut"]["tokens"]
-    moe_rows = out["world_of_one"].pop("moe_rows")
-    moe_tokens = out["world_of_one"]["moe"]["no mesh"]["tokens"]
+    moe_rows = out["world_of_one"]["moe_cut"].pop("rows")
+    moe_tokens = out["world_of_one"]["moe_cut"]["tokens"]
     codes, logs = finish(probes, 60)
     out["gloo_p2p_cuda"] = {"exit_codes": codes, "last_line": [
         (log_.strip().splitlines() or [""])[-1][:200] for log_ in logs]}
@@ -6400,8 +6425,9 @@ def mesh_phase(torch, np, fg) -> dict:
             f"{m['prefill_calls']} prefill calls and {m['decode_steps']} "
             f"decode steps, every grouped launch over {experts} experts; "
             f"step {m['step_ms']:.1f} ms (host clock, gloo on one card)")
-    log(f"  (b) {MESH_MOE_ARCH}: tokens torch.equal to the unsharded engine "
-        f"on every rank; logits rows equal "
+    log(f"  (b) {MESH_MOE_ARCH} at {MESH_MOE_PERIODS} periods: tokens "
+        f"torch.equal to the unsharded engine on every rank; logits rows "
+        f"equal "
         f"{moe['logits_rows_equal']} of {len(diffs)}, max |diff| "
         f"{moe['logits_max_abs_diff']}; ranks' peak {moe['peak_gb']:.3f} GB")
     return out
@@ -6439,14 +6465,40 @@ def moe_train_setup():
                             TRAIN_MESH_MOE_MICRO)
 
 
-# (what, setup, the unsharded step-1 file, the ranks' checkpoint, the
-# parent's release file) of 5d (b)'s models, in the order the ranks run them
-def train_mesh_models():
-    return (("llama", train_mesh_setup(TRAIN_MESH_PERIODS),
+# (what, setup, init seed, the unsharded step-1 file, the ranks'
+# checkpoint, the parent's release file) of 5d (b)'s models, in the order
+# the ranks run them; with ``study``, those of --train-mesh-study
+def train_mesh_models(study: bool = False):
+    if study:
+        return tuple(
+            (what, setup, seed, TRAIN_MESH_DIR / f"step1_{what}.pt",
+             TRAIN_MESH_DIR / f"ckpt_{what}", TRAIN_MESH_DIR / f"ready_{what}")
+            for what, setup, seed in train_mesh_study_models())
+    return (("llama", train_mesh_setup(TRAIN_MESH_PERIODS), TRAIN_MESH_SEED,
              TRAIN_MESH_DIR / "step1.pt", TRAIN_MESH_DIR / "ckpt",
              TRAIN_MESH_DIR / "ready"),
-            ("moe", moe_train_setup(), TRAIN_MESH_DIR / "step1_moe.pt",
-             TRAIN_MESH_DIR / "ckpt_moe", TRAIN_MESH_DIR / "ready_moe"))
+            ("moe", moe_train_setup(), TRAIN_MESH_SEED,
+             TRAIN_MESH_DIR / "step1_moe.pt", TRAIN_MESH_DIR / "ckpt_moe",
+             TRAIN_MESH_DIR / "ready_moe"))
+
+
+def train_mesh_study_models():
+    """--train-mesh-study's runs of 5d (b)'s granite, (tag, setup, init
+    seed): at each of TRAIN_MESH_STUDY_SEEDS, the step as 5d (b) runs it
+    (the bf16 compute copy, TRAIN_MESH_MOE_MICRO microbatches), with 2
+    microbatches, and in fp32 compute without the bf16 copy."""
+    out = []
+    for seed in TRAIN_MESH_STUDY_SEEDS:
+        cfg, dcfg, ocfg = moe_train_setup()
+        two = train_mesh_setup(TRAIN_MESH_MOE_PERIODS, MESH_MOE_ARCH, 2)
+        fp32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                   bf16_cast_params=False)
+        out += [(f"seed{seed}_micro{cfg.n_microbatches}_bf16",
+                 (cfg, dcfg, ocfg), seed),
+                (f"seed{seed}_micro2_bf16", two, seed),
+                (f"seed{seed}_micro{cfg.n_microbatches}_fp32",
+                 (fp32, dcfg, ocfg), seed)]
+    return out
 
 
 def state_tree(res_params, state) -> dict:
@@ -6541,9 +6593,10 @@ def train_world_of_one(torch, fg, device="cuda") -> dict:
     return out
 
 
-def train_mesh_reference(torch, setup, path: Path, device="cuda") -> dict:
+def train_mesh_reference(torch, setup, seed: int, path: Path,
+                         device="cuda") -> dict:
     """Phase 5d (b)'s reference on the card: the unsharded step 1 of
-    ``setup`` from the seeded init — its loss, its MoE aux losses, its
+    ``setup`` from the init at ``seed`` — its loss, its MoE aux losses, its
     gradients and the AdamW update's params, mu, nu and grad norm, saved
     whole for the ranks (``path``) — each gradient leaf's largest |entry|,
     the unsharded params' bytes."""
@@ -6551,9 +6604,8 @@ def train_mesh_reference(torch, setup, path: Path, device="cuda") -> dict:
     from repro_torch.models import lm
     from repro_torch.train import optim
     cfg, _, ocfg = setup
-    params = lm.init_params(
-        torch.Generator(device).manual_seed(TRAIN_MESH_SEED), cfg,
-        device=device)
+    params = lm.init_params(torch.Generator(device).manual_seed(seed), cfg,
+                            device=device)
     with aux_losses() as aux:
         loss, grads = steps.mean_loss_and_grads(cfg, params,
                                                 train_batch(torch, cfg,
@@ -6643,14 +6695,15 @@ def step1_distances(torch, S, mesh, grads, params, state, lr,
     return out
 
 
-def rank_train_steps(torch, fg, S, mesh, setup, step1: Path,
-                     ckpt_dir: Path, device: str) -> dict:
+def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
+                     ckpt_dir: Path, device: str,
+                     step1_only: bool = False) -> dict:
     """One model of 5d (b) on this rank: what ``run_training``'s loop runs
-    a step — step 1 (``mean_loss_and_grads``, its gradients' blocks held
-    to the unsharded ones, its MoE aux losses, and the AdamW update), the
-    AsyncCheckpointer's save of its state, and step 2 through
-    ``make_train_step``, each step counted, every grouped launch's experts
-    reported."""
+    a step — step 1 from the init at ``seed`` (``mean_loss_and_grads``,
+    its gradients' blocks held to the unsharded ones, its MoE aux losses,
+    and the AdamW update), the AsyncCheckpointer's save of its state, and
+    step 2 through ``make_train_step`` (not with ``step1_only``), each
+    step counted, every grouped launch's experts reported."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.train import checkpoint as ckpt
@@ -6660,9 +6713,8 @@ def rank_train_steps(torch, fg, S, mesh, setup, step1: Path,
     out = {"n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches}
     with S.use_mesh(mesh):
         # the seeded init, each rank's blocks (as run_training draws it)
-        params = lm.init_params(
-            torch.Generator(device).manual_seed(TRAIN_MESH_SEED), cfg,
-            device=device, mesh=mesh)
+        params = lm.init_params(torch.Generator(device).manual_seed(seed),
+                                cfg, device=device, mesh=mesh)
         state = optim.init(params)
         abs_p = steps.abstract_params(cfg, mesh)
         abs_s = steps.abstract_opt_state(abs_p, mesh)
@@ -6689,6 +6741,12 @@ def rank_train_steps(torch, fg, S, mesh, setup, step1: Path,
     out.update(step1_distances(torch, S, mesh, grads, params, state,
                                ocfg.lr, step1))
     del grads
+    if step1_only:
+        del params, state
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
     # the loop's checkpoint of step 1: leaves gathered on every rank, rank
     # 0 writes
     t0 = time.monotonic()
@@ -6722,12 +6780,13 @@ def rank_train_steps(torch, fg, S, mesh, setup, step1: Path,
 
 
 def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
-                    device: str = "cuda") -> int:
+                    device: str = "cuda", study: str = "") -> int:
     """``--train-mesh-rank``: one rank of phase 5d (b) on cuda:0 over gloo.
     It joins the mesh while the parent runs (a), then for llama and then
     granite waits for the parent's unsharded step (its release file) and
     runs :func:`rank_train_steps`, then writes its results
-    (``train_mesh_{llama|moe}{rank}.json``)."""
+    (``train_mesh_{llama|moe}{rank}.json``).  With ``study`` ("study"),
+    --train-mesh-study's runs instead, step 1 alone."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -6750,15 +6809,16 @@ def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
     if mesh_backend(mesh) != "gloo":
         fail(f"5d (b): the mesh runs {mesh_backend(mesh)!r}, not gloo")
     out = {"rank": rank, "coord": S.coordinate(mesh)}
-    for what, setup, step1, ckpt_dir, ready in train_mesh_models():
+    for what, setup, seed, step1, ckpt_dir, ready in \
+            train_mesh_models(bool(study)):
         deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
         while not ready.exists():
             if os.getppid() != parent or time.monotonic() > deadline:
                 fail(f"5d (b) rank {rank}: no unsharded {what} step from "
                      f"the parent")
             time.sleep(0.2)
-        res = rank_train_steps(torch, fg, S, mesh, setup, step1, ckpt_dir,
-                               device)
+        res = rank_train_steps(torch, fg, S, mesh, setup, seed, step1,
+                               ckpt_dir, device, bool(study))
         path = Path(out_dir) / f"train_mesh_{what}{rank}.json"
         tmp = path.with_suffix(".tmp")
         tmp.write_text(json.dumps(dict(out, **res), indent=1))
@@ -6924,6 +6984,85 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
     return out
 
 
+def train_mesh_study(torch, fg) -> dict:
+    """--train-mesh-study: 5d (b)'s granite step 1 on the MESH_RANKS gloo
+    ranks against the unsharded step, for each of
+    :func:`train_mesh_study_models` — the distances 5d (b)'s gates are
+    read from, reported with no gate applied.  Every process stopped
+    before it returns."""
+    import shutil
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    TRAIN_MESH_DIR.mkdir(parents=True)
+    out_dir = ROOT / "chiprun_out" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for path in out_dir.glob("train_mesh_*.json"):
+        path.unlink()
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-mesh-rank",
+         str(r), str(MESH_RANKS), str(port), str(out_dir), "cuda", "study"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    models = train_mesh_models(study=True)
+    refs, out = {}, {}
+    try:
+        for what, setup, seed, step1, _, ready in models:
+            refs[what] = train_mesh_reference(torch, setup, seed, step1)
+            ready.touch()
+        deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
+        for what, setup, seed, _, _, _ in models:
+            parts = [rank_results(out_dir / f"train_mesh_{what}{r}.json",
+                                  procs, deadline)
+                     for r in range(MESH_RANKS)]
+            ref = refs[what]
+            worst = {}
+            for part in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
+                         "param_all"):
+                worst[part] = {}
+                for p_ in parts:
+                    for key, v in p_[part].items():
+                        worst[part][key] = max(worst[part].get(key, 0.0), v)
+            grad = worst["grad_rel"]
+            top = max(grad, key=grad.get)
+            cfg = setup[0]
+            res = out[what] = {
+                "seed": seed, "microbatches": cfg.n_microbatches,
+                "compute_dtype": cfg.compute_dtype,
+                "bf16_cast_params": cfg.bf16_cast_params,
+                "loss_rel": abs(parts[0]["step1"]["loss"] - ref["loss"])
+                / abs(ref["loss"]),
+                "norm_rel": max(abs(p_["step1"]["grad_norm"]
+                                    - ref["grad_norm"]) / ref["grad_norm"]
+                                for p_ in parts),
+                "aux_rel": max((abs(a - b) / abs(b) for p_ in parts
+                                for a, b in zip(p_["step1"]["aux"],
+                                                ref["aux"])), default=0.0),
+                "worst_leaf": top, "expert_grad_rel": max(
+                    v for key, v in grad.items() if "/moe/" in key),
+                "step1_rel": worst,
+                "step1_rel_max": {k: max(v.values())
+                                  for k, v in worst.items()}}
+            log(f"  {what}: gradients at most {grad[top]:.4g} of a leaf's "
+                f"largest entry ({top}), embed {grad['embed']:.4g}, expert "
+                f"leaves {res['expert_grad_rel']:.4g}; grad norm "
+                f"{res['norm_rel']:.3g}, loss {res['loss_rel']:.3g}, aux "
+                f"{res['aux_rel']:.3g} relative")
+        for r, p in enumerate(procs):
+            text = p.communicate(timeout=max(deadline - time.monotonic(),
+                                             1))[0]
+            if p.returncode != 0:
+                print(text[-6000:], file=sys.stderr)
+                fail(f"--train-mesh-study: rank {r} exited with "
+                     f"{p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    return out
+
+
 def rank_results(path: Path, procs, deadline: float) -> dict:
     """A rank's results file once it is written; fails where a rank exited
     with an error or the deadline passed first."""
@@ -6960,9 +7099,10 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
         for r in range(MESH_RANKS)]
     refs, out = {}, {}
     try:
-        for what, setup, step1, _, ready in train_mesh_models():
+        for what, setup, seed, step1, _, ready in train_mesh_models():
             t0 = time.monotonic()
-            refs[what] = train_mesh_reference(torch, setup, step1, device)
+            refs[what] = train_mesh_reference(torch, setup, seed, step1,
+                                              device)
             ready.touch()
             out[f"unsharded_{what}"] = {k: v for k, v in refs[what].items()
                                         if k != "grad_max"}
@@ -6971,7 +7111,7 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
         out["world_of_one"] = train_world_of_one(torch, fg, device)
         out["world_of_one_s"] = time.monotonic() - t0
         deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
-        for what, setup, _, ckpt_dir, _ in train_mesh_models():
+        for what, setup, _, _, ckpt_dir, _ in train_mesh_models():
             t0 = time.monotonic()
             parts = [rank_results(out_dir / f"train_mesh_{what}{r}.json",
                                   procs, deadline)
@@ -7003,7 +7143,7 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--train-mesh-rank":
         return train_mesh_rank(*(int(a) for a in sys.argv[2:5]),
-                               sys.argv[5], *sys.argv[6:7])
+                               sys.argv[5], *sys.argv[6:8])
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         return mesh_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--gloo-p2p-probe":
@@ -7015,6 +7155,11 @@ def main() -> int:
                     help="only build and compare chunked with single-shot "
                     "prefill at full width, two prompt sets, two runs "
                     "(writes chiprun_out/chunk_study.json)")
+    ap.add_argument("--train-mesh-study", action="store_true",
+                    help="only build and run phase 5d (b)'s granite step 1 "
+                    "on the 2x2 gloo ranks against the unsharded step over "
+                    "init seeds, microbatches and compute dtypes, no gate "
+                    "applied (writes chiprun_out/train_mesh_study.json)")
     ap.add_argument("--profile-path", metavar="ARCH:POLICY[:forced]",
                     help="only build, serve this one path of PATHS (with "
                     ":forced, of TABLE_PATHS under its forcing table) once "
@@ -7082,6 +7227,20 @@ def main() -> int:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chunk_study.json").write_text(json.dumps(
             {"card": card, "chunk": CHUNK, "study": study}, indent=1))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.train_mesh_study:
+        log("[5d] study: granite's step 1 on the 2x2 gloo ranks against the "
+            "unsharded step")
+        study = train_mesh_study(torch, fg)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "train_mesh_study.json").write_text(json.dumps(
+            {"card": card, "study": study}, indent=1))
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7230,6 +7389,8 @@ def main() -> int:
                 runs[label]["launches"]
     launches_by_path[f"{MESH_ARCH} mixed records, {MESH_PERIODS} periods"] = \
         woo["cut"]["launches"]
+    launches_by_path[f"{MESH_MOE_ARCH} mixed records, {MESH_MOE_PERIODS} "
+                     f"periods"] = woo["moe_cut"]["launches"]
     for rank in mesh["ranks"]:
         launches_by_path[f"{MESH_ARCH} mesh 2x2 rank {rank['rank']}"] = \
             rank["launches"]

@@ -33,8 +33,9 @@ expert GEMMs ``_mesh_bste``) runs on the same spec as its forward: the
 same N block (the same experts) of the weight, gathered again from the
 shard by :func:`weight_block`, and :func:`weight_grad` turns the block's
 gradient into the gradient of the shard held at rest.  A grouped GEMM's
-weight is quantized on this rank's experts alone and passed on as
-:func:`held_experts`, so no rank gathers another model rank's experts.
+weight is quantized on this rank's experts alone
+(``sharding.map_columns(dim=0)``), so no rank gathers another model
+rank's experts.
 
 Fallback contract: where no mesh axis tiles the GEMM (or the *local* shape
 fails the kernel's bounds), the caller sends that GEMM to the ATen route.
@@ -215,16 +216,6 @@ def expert_block(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     return _block(x, 0, axes, mesh)
 
 
-def held_experts(block: torch.Tensor, axes, mesh):
-    """This rank's experts ``block`` of an expert-major tensor, held as a
-    DTensor sharded on dim 0 over ``axes`` (:func:`weight_block` then takes
-    it as it is); the block itself where ``axes`` is empty."""
-    n = S.axes_size(mesh, axes)
-    spec = (S._entry(tuple(axes)),) + (None,) * (block.dim() - 1)
-    return S.wrap_block(block, spec, mesh,
-                        (n * block.shape[0],) + tuple(block.shape[1:]))
-
-
 # ---------------------------------------------------------------------------
 # Shard-mapped wrappers.
 # ---------------------------------------------------------------------------
@@ -266,10 +257,11 @@ def shard_grouped_gemm(fn: Callable, mesh, spec: GemmShardSpec,
     fifth operand, so each rank sees exactly its experts' counts.  The
     returned callable takes the global ``(qx, qw, sx, sw)`` — the weight's
     codes and scales whole, or DTensors at rest (a record's FSDP rows
-    gathered) or held as this rank's experts (:func:`held_experts`, taken
-    as they are) — and returns the global (E, C, N) output.  It writes the
-    block of W it multiplied into ``want`` (``{0: e_axes}``), for the STE
-    backward to gather again."""
+    gathered) or quantized on this rank's experts
+    (``sharding.map_columns(dim=0)``, taken as they are) — and returns
+    the global (E, C, N) output.  It writes the block of W it multiplied
+    into ``want`` (``{0: e_axes}``), for the STE backward to gather
+    again."""
     es = spec.e_axes
     if want is not None:
         want[0] = es

@@ -388,31 +388,40 @@ def _rewrap(x, local: torch.Tensor, placements, shape):
 
 
 def select(x, i: int):
-    """``x[i]`` along the leading dim (a period of a stacked leaf); a
-    DTensor stays one, its local block indexed without DTensor's op
-    dispatch (which refuses views under ``inference_mode``).  Where the
-    leading dim is sharded (a stacked MoE router: the expert rule puts its
-    period dim on ``model``), the rank holding period ``i`` hands it to
-    the others: every rank gathers its own period at ``i``'s offset in its
-    block and keeps the holder's (a gradient goes back to the holder
-    alone; the others computed the same)."""
+    """``x[i]`` along a replicated leading dim (a period of a stacked
+    leaf); a DTensor stays one, its local block indexed without DTensor's
+    op dispatch (which refuses views under ``inference_mode``)."""
     if not is_dtensor(x):
         return x[i]
-    from torch.distributed.tensor import Replicate, Shard
-    from repro_torch.dist import collectives as C
-    local = x.to_local()
-    lead = C.dtensor_axes(x).get(0, ())
-    if lead:
-        per = local.shape[0]
-        local = C.all_gather_grad_take(local[i % per][None], x.device_mesh,
-                                       lead, 0)
-        i = i // per
+    from torch.distributed.tensor import Shard
     pls = []
     for pl in x.placements:
         if isinstance(pl, Shard):
-            pl = Replicate() if pl.dim == 0 else Shard(pl.dim - 1)
+            if pl.dim == 0:
+                raise ValueError("cannot index a sharded dim")
+            pl = Shard(pl.dim - 1)
         pls.append(pl)
-    return _rewrap(x, local[i], pls, tuple(x.shape[1:]))
+    return _rewrap(x, x.to_local()[i], pls, tuple(x.shape[1:]))
+
+
+def periods_whole(x):
+    """A stacked leaf as one model call uses it: where its leading (period)
+    dim is sharded — a stacked MoE router, whose period dim the expert
+    rule puts on ``model`` — that dim gathered once, its other shards
+    kept, so that :func:`select` indexes a local block; anything else as
+    it is.  The gather's gradient goes back to the holder's periods alone
+    (every model rank computed the same)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist.collectives import dtensor_axes, gather_dtensor
+    axes = dtensor_axes(x)
+    if 0 not in axes:
+        return x
+    local = gather_dtensor(x, {d: ax for d, ax in axes.items() if d != 0})
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == 0 else pl
+           for pl in x.placements]
+    return _rewrap(x, local, pls, tuple(x.shape))
 
 
 def transpose(x):
@@ -426,24 +435,26 @@ def transpose(x):
     return _rewrap(x, x.to_local().T, pls, tuple(reversed(x.shape)))
 
 
-def map_columns(x, fn):
-    """``fn(block)`` on a 2-D weight whose columns are output channels:
-    for a DTensor, its block with every shard gathered but its column
-    shard over ``model`` (where a sharded GEMM keeps N), each output of
-    ``fn`` returned as a DTensor sharded so (a per-channel quantizer then
-    sees every K of its channels and runs on this rank's channels alone);
-    for anything else, ``fn(x)``."""
+def map_columns(x, fn, dim: int = 1):
+    """``fn(block)`` on a weight whose ``dim`` a sharded GEMM keeps over
+    ``model``: a 2-D weight's columns (its output channels, ``dim`` 1) or
+    an expert weight's experts (``dim`` 0).  For a DTensor, its block with
+    every shard gathered but that dim's shard over ``model``, each output
+    of ``fn`` returned as a DTensor sharded so (a per-channel quantizer
+    then sees every K of its channels and runs on this rank's channels or
+    experts alone); for anything else, ``fn(x)``."""
     if not is_dtensor(x):
         return fn(x)
     from torch.distributed.tensor import Replicate, Shard
     from repro_torch.dist.collectives import dtensor_axes, gather_dtensor
-    cols = tuple(a for a in dtensor_axes(x).get(1, ()) if a == "model")
-    outs = fn(gather_dtensor(x, {1: cols}))
-    if not cols:
+    kept = tuple(a for a in dtensor_axes(x).get(dim, ()) if a == "model")
+    outs = fn(gather_dtensor(x, {dim: kept}))
+    if not kept:
         return outs
-    pls = [Shard(1) if name in cols else Replicate()
+    pls = [Shard(dim) if name in kept else Replicate()
            for name in axis_names(x.device_mesh)]
-    return tuple(_rewrap(x, o, pls, (o.shape[0], x.shape[1])) for o in outs)
+    return tuple(_rewrap(x, o, pls, tuple(o.shape[:dim]) + (x.shape[dim],)
+                         + tuple(o.shape[dim + 1:])) for o in outs)
 
 
 def vocab_block(table):

@@ -54,8 +54,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.dist import collectives as C
 from repro_torch.dist.sharding import (constrain_batch_dim, current_mesh,
                                       data_axes, embed_lookup, leaf_spec,
-                                      local_block, select, transpose,
-                                      vocab_block, wrap_block)
+                                      local_block, periods_whole, select,
+                                      transpose, vocab_block, wrap_block)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
@@ -151,17 +151,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
         block = local_block(tree, spec[1:] if stacked else spec, mesh)
         return block if stacked else block.clone()
 
-    def wrap(tree, path):
-        """With a mesh, each leaf of ``tree`` held as its DTensor."""
+    def wrap(tree, path, stacked: bool = False):
+        """With a mesh, each leaf of ``tree`` held as its DTensor; a
+        ``stacked`` leaf, whose periods :func:`place` left whole, cut to
+        this rank's periods where its spec shards them (an MoE router)."""
         if mesh is None:
             return tree
         if isinstance(tree, dict):
-            return {k: wrap(v, path + (k,)) for k, v in tree.items()}
+            return {k: wrap(v, path + (k,), stacked)
+                    for k, v in tree.items()}
         meta = meta_at(path)
         spec = leaf_spec(path, meta, mesh)
-        if spec and spec[0] is not None and tree.shape[0] == meta.shape[0]:
-            # a stacked leaf sharded on its period dim (an MoE router):
-            # this rank's periods alone
+        if stacked and spec and spec[0] is not None:
             tree = local_block(tree, spec[:1], mesh).clone()
         return wrap_block(tree, spec, mesh, meta.shape)
 
@@ -193,7 +194,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device,
         out = None
         for i in range(n):
             out = put(out, place(convert(make(), path), path, True), i, n)
-        return wrap(out, path)
+        return wrap(out, path, True)
 
     def block_stack(root, n, cross_attn):
         """The reference's ``_stack_init``: {posN: blocks stacked over
@@ -275,10 +276,20 @@ def _embed(params: Params, cfg: ModelConfig,
 
 
 def _call_params(params: Params) -> Params:
-    """``params`` with the embedding as one serve call uses it: a sharded
-    table's FSDP columns gathered once, for the lookup and the tied head
-    (``dist.sharding.vocab_block``)."""
-    return {**params, "embed": vocab_block(params["embed"])}
+    """``params`` as one model call uses them: a sharded embedding table's
+    FSDP columns gathered once, for the lookup and the tied head
+    (``dist.sharding.vocab_block``), and a stacked leaf sharded on its
+    period dim (an MoE router) gathered once over its periods
+    (``dist.sharding.periods_whole``), so that each period indexes a local
+    block."""
+    return {**params, "embed": vocab_block(params["embed"]),
+            "blocks": _periods_whole(params["blocks"])}
+
+
+def _periods_whole(tree):
+    if isinstance(tree, dict):
+        return {k: _periods_whole(v) for k, v in tree.items()}
+    return periods_whole(tree)
 
 
 def _frontend_project(params: Params, cfg: ModelConfig,
@@ -518,6 +529,7 @@ def forward_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   enc_frames: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S_txt) -> (logits (B, S, V), aux loss)."""
+    params = _call_params(params)
     x, aux = forward_hidden(params, cfg, tokens,
                             frontend_embeds=frontend_embeds,
                             enc_frames=enc_frames)

@@ -446,40 +446,18 @@ def _qmm_forward(x, wmat, w_bits, m, context, want=None):
                        want=want)
 
 
-def _expert_axes(x, wmat, w_bits: int, m: int,
-                 context: Optional[ExecContext]):
-    """The mesh axes an (E, C, K) x (E, K, N) GEMM's experts run over
-    shard-mapped (``()`` on a mesh of one), or None where it runs without
-    a mesh or takes the ATen route: :func:`_fused_cuda`'s routing, asked
-    before W is quantized."""
-    ctx = context if context is not None else ExecContext()
-    if ctx.mesh is None or ctx.backend != "cuda" \
-            or ctx.force_mode != "auto" or analytic_plan(
-                w_bits, m, backend="cuda").variant not in ("fused",
-                                                           "fused_mm2"):
-        return None
-    dims = (x.shape[1], x.shape[2], wmat.shape[2])
-    _, spec, _, _ = _shard_spec(dims, w_bits, m, ctx, x.shape[0])
-    return None if spec is None else spec.e_axes
-
-
 def _qbmm_forward(x, wmat, w_bits, m, context, counts=None, seg=None,
                   want=None):
     """The grouped GEMM's quantize-then-GEMM.  W is quantized per (expert,
-    output channel), so where the GEMM runs expert-parallel each rank
-    quantizes its own experts' block alone (their FSDP rows gathered,
-    never another model rank's experts): its codes and scales are the
-    whole tensor's, bit for bit.  ``want``: see :func:`_sharded_cuda`."""
+    output channel), so where its experts are held over ``model`` each
+    rank quantizes its own experts' block alone (their FSDP rows gathered,
+    never another model rank's experts), which the expert-parallel GEMM
+    takes as it is: its codes and scales are the whole tensor's, bit for
+    bit.  ``want``: see :func:`_sharded_cuda`."""
     carrier = carrier_dtype(w_bits, m)
     qx, sx = _quantize(x, w_bits, -1, carrier)        # per (expert, row)
-    es = _expert_axes(x, wmat, w_bits, m, context)
-    if es is None:
-        qw, sw = _quantize(dist_sharding.full_leaf(wmat), w_bits, 1, carrier)
-    else:
-        mesh = (context or ExecContext()).mesh
-        blk = shard_gemm.weight_block(wmat, {0: es}, mesh)
-        qw, sw = (shard_gemm.held_experts(t, es, mesh)
-                  for t in _quantize(blk, w_bits, 1, carrier))
+    qw, sw = dist_sharding.map_columns(
+        wmat, lambda wl: _quantize(wl, w_bits, 1, carrier), dim=0)
     return _quant_gemm(qx, qw, sx, sw, w_bits, m, x.dtype, context, counts,
                        seg, want)
 

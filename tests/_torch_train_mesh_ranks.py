@@ -240,8 +240,9 @@ def refusals(mesh, out):
 def moe_checks(meshes, out):
     """Smoke granite trains under ``run_training(mesh=)`` on 2x2 (its
     experts over ``model``); with 6 experts on 1x4 (4 does not divide them)
-    its grouped GEMMs take the ATen route, counted, and step 1's loss is
-    the meshless one's."""
+    its grouped GEMMs take the ATen route, counted, and step 1's loss and
+    every gradient leaf (the expert leaves' dW, and dx through the loss in
+    the leaves upstream) are held to the meshless one's."""
     from repro_torch.dist import shard_gemm as sg
     from repro_torch.quant import qmatmul
     cfg = get_config("granite-moe-3b-a800m", smoke=True,
@@ -250,21 +251,28 @@ def moe_checks(meshes, out):
         cfg, seed=0), device="cpu", mesh=meshes["2x2"])
     out["moe/losses"] = res.losses
     out["moe/resident"] = (res.resident_bytes, res.planned_bytes)
-    odd = cfg.scaled_down(n_experts=6)
+    # without the bf16 compute copy, whose gradients round to bf16 (one ulp
+    # is up to 2^-8 of an entry): the gradients are compared at fp32's
+    # tolerance
+    odd = cfg.scaled_down(n_experts=6, bf16_cast_params=False)
     params = lm.init_params(torch.Generator().manual_seed(0), odd,
                             device="cpu")
     batch = train_batch(odd)
-    loss0, _ = steps.mean_loss_and_grads(odd, params, batch)
+    loss0, grads0 = steps.mean_loss_and_grads(odd, params, batch)
     mesh = meshes["1x4"]
     sharded = bridge.params_from_jax(bridge.tree_to_numpy(params), "cpu",
                                      mesh)
     qmatmul.reset_gemm_routes()
     sg.reset_fallbacks()
     with S.use_mesh(mesh):
-        loss, _ = steps.mean_loss_and_grads(odd, sharded, batch)
+        loss, grads = steps.mean_loss_and_grads(odd, sharded, batch)
+    routes, fallbacks = qmatmul.gemm_routes(), sg.fallback_counts()
+    grad_dist = {name: float((g - g0).abs().max() / g0.abs().max())
+                 for (name, g), (_, g0) in zip(_named(whole(grads)),
+                                               _named(grads0))}
     out["moe/odd"] = {"loss": float(loss), "loss0": float(loss0),
-                      "routes": qmatmul.gemm_routes(),
-                      "fallbacks": sg.fallback_counts()}
+                      "routes": routes, "fallbacks": fallbacks,
+                      "grad_dist": grad_dist}
 
 
 def main(rank, world, port, workdir):

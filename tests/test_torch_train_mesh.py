@@ -404,6 +404,16 @@ def test_indivisible_experts_train_on_aten_route_counted(ranks):
         assert odd["routes"][("cuda", "aten_fallback")] == \
             sum(odd["fallbacks"].values())
         assert odd["routes"][("cuda", "cuda")] > 0
+        # the backward with the experts whole on every model rank (each
+        # forms every expert's dW, cut to its block at rest): each gradient
+        # leaf, dx through the loss in the leaves upstream of the expert
+        # GEMMs, against the meshless step's in fp32 (6.0e-7 of a leaf's
+        # largest entry at worst, moe.wo, measured here)
+        experts = [k for k in odd["grad_dist"] if "moe" in k]
+        assert {k.rsplit(".", 1)[-1] for k in experts} >= {"wi", "wo",
+                                                           "router"}
+        for name, d in odd["grad_dist"].items():
+            assert d <= GRAD_TOL_Q, (name, d)
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b",
