@@ -13,6 +13,10 @@
                                       # only report phase 5r and compare
                                       # chunked with single-shot prefill
                                       # (5c's gate, each run twice)
+    python3 chip_smoke.py --train-mesh-study [rwkv6-3b]
+                                      # only run phase 5d (b)'s granite (or
+                                      # 5d (c)'s rwkv6-3b) step 1 over init
+                                      # seeds, no gate applied
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -349,9 +353,9 @@ csrc/wkv.cu and csrc/ssm_scan.cu) adds:
       its 32 periods, 8 microbatches: the ragged STE at its expert shape
       (dead rows get exactly zero dx), step 1 against the plain versions,
       every leaf's gradient nonzero, 2 counted steps with the grouped
-      kernel carrying every expert GEMM; rwkv6-3b at full width, 16 of
+      kernel carrying every expert GEMM; rwkv6-3b at full width, 4 of
       its 32 periods (TRAIN_RWKV_PERIODS: the whole model would need ~85
-      GB, and 24 took the script past its time limit), 4
+      GB, and 24, then 16 and 8, took the script past its time limit), 4
       microbatches: step 1 with every launch (the LoRA products,
       the WKV forward and backward too) against its plain version and
       against the step on the plain versions, every leaf's gradient (u,
@@ -421,6 +425,21 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       over 20 experts, tokens torch.equal to that unsharded engine;
       per-rank resident bytes, the ranks' peak and host-clock step ms
       reported.
+      The recurrent blocks (c): (a) also full-width, full-depth rwkv6-3b
+      and jamba-v0.1-52b at MESH_JAMBA_PERIODS of its 4 periods on mixed
+      records, 2 requests of 8 and 64 tokens, with and without ``mesh=``
+      the same way (exact launches and graph nodes, WKV and the scan
+      among them; tokens and every sampled row torch.equal); (b) the same
+      rank processes, after granite, rwkv6-3b at MESH_RWKV_PERIODS periods
+      and jamba at MESH_JAMBA_PERIODS on the 2x2 mesh, each rank drawing
+      its blocks of the records leaf by leaf (``lm.init_params(mesh=)``,
+      the ranks in turn; resident bytes those the abstract specs place),
+      against the unsharded engine at that depth (rwkv's served here after
+      (a), jamba's (a)'s own): exact launches a model call, every WKV launch
+      over 20 of the 40 heads, every scan over 4096 of the 8192 channels,
+      every grouped launch over 8 of the 16 experts, tokens and every
+      logits row torch.equal; per-rank resident bytes, peak and step ms
+      reported.
 
 Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
 
@@ -463,6 +482,17 @@ Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
       (its means over the global microbatch), every grouped launch over 20
       experts, the checkpoint equal to every rank's blocks; each model's
       gates as soon as its ranks are done (llama's while granite trains).
+      The recurrent blocks (c): (a) also rwkv6-3b at
+      TRAIN_MESH_RWKV_PERIODS periods, no mesh against the world of one,
+      every leaf torch.equal; (b) after granite, rwkv6-3b at that depth
+      (its 4 microbatches of 2 sequences, one a data rank) against the
+      unsharded step 1 (``step1_rwkv.pt``): the gates above, every WKV and
+      WKV backward launch over 20 of the 40 heads; then one full-width
+      jamba mamba layer, forward and backward in fp32 on 2 sequences of
+      TRAIN_SEQ (one a data rank), against the unsharded layer on the same
+      rank: y and every gradient leaf within BWD_TOL of its largest entry,
+      4 mm1, one ``ssm_scan`` and one ``ssm_scan_bwd`` over 4096 of the
+      8192 channels a rank.
 
 The line before the last is a JSON object with one entry per kernel (the
 five TPU kernels' counterparts, and the port-only rowinv_matmul,
@@ -918,8 +948,6 @@ MESH_GROUPED = (40, 1536, 512, 32, 4)
 MESH_TIMEOUT = 600
 # (a)'s records on the host, for (b)'s ranks to map (removed after).
 MESH_PARAMS = ROOT / "build" / "scratch" / "mesh_params.pt"
-# llama's launches a model call: 7 w=8 projections a layer, the w=12 head.
-MESH_PER_CALL = {"mm1": 112, "kmm2": 1}
 # (b) serves llama at MESH_PERIODS of its 16 periods (one layer a period,
 # so every layer kind), against the unsharded engine the parent serves at
 # that depth: at 16 the whole script took 1257.3 s on an NVIDIA H100 80GB
@@ -1001,6 +1029,39 @@ TRAIN_MESH_MOE_AUX_RTOL = 1e-6
 TRAIN_MESH_MOE_GRAD_TOL = 5e-3
 # --train-mesh-study's init seeds (train_mesh_study_models)
 TRAIN_MESH_STUDY_SEEDS = (0, 1, 2)
+# The recurrent blocks under a mesh (5m (c), 5d (c)): rwkv6-3b's WKV
+# recurrence head-parallel (its 40 heads over the model axis, 20 a rank)
+# and jamba's mamba conv and scan channel-parallel (d_inner 8192, 4096 a
+# rank; its 16 experts expert-parallel, 8 a rank).  5m (a) serves rwkv6-3b
+# at full depth and jamba at MESH_JAMBA_PERIODS of its 4 periods (one
+# period holds every layer kind: 7 mamba, 1 attention, 4 MoE; ~13 GB of
+# the model's 52.7 GB of records) on the world of one, with and without
+# mesh=, 2 requests of MESH_RECURRENT_PROMPTS tokens; (b) serves rwkv6-3b
+# at MESH_RWKV_PERIODS of its 32 periods (every layer kind) and jamba at
+# MESH_JAMBA_PERIODS on the 2x2 gloo ranks against the unsharded engine at
+# that depth (jamba's is (a)'s), tokens and every logits row torch.equal.
+# No records file: each rank draws its blocks of the records leaf by leaf
+# from the generator seeded 0 (lm.init_params(mesh=)), as the parent's
+# leaf-wise init draws the whole, the ranks in turn (a leaf is whole on
+# the card only while it is drawn).
+MESH_RWKV_ARCH = "rwkv6-3b"
+MESH_JAMBA_ARCH = "jamba-v0.1-52b"
+MESH_RWKV_PERIODS = 2
+MESH_JAMBA_PERIODS = 1
+MESH_RECURRENT_PROMPTS = (8, 64)
+MESH_RECURRENT = (("rwkv", MESH_RWKV_ARCH, MESH_RWKV_PERIODS),
+                  ("jamba", MESH_JAMBA_ARCH, MESH_JAMBA_PERIODS))
+# 5d (c): (a) rwkv6-3b at TRAIN_MESH_RWKV_PERIODS, TRAIN_MESH_STEPS steps,
+# no mesh against the world of one, deterministic; (b) the same depth on
+# the 2x2 gloo ranks, its 4 microbatches of 2 sequences (one a data rank),
+# against the unsharded step 1 under llama's gates, every WKV and WKV
+# backward launch over 20 heads; and one full-width jamba mamba layer (5t's
+# block) fwd + bwd on 2x2, 2 sequences of TRAIN_SEQ (one a data rank),
+# against the unsharded block on the same rank: y and every gradient within
+# BWD_TOL of the largest entry.  The block runs in fp32 compute without
+# the bf16 copy: the mesh reorders the fp32 sums of dW and dx, and a bf16
+# gradient would round those reorderings to whole ulps (2^-8 of an entry).
+TRAIN_MESH_RWKV_PERIODS = 2
 
 
 def log(msg: str) -> None:
@@ -4887,13 +4948,18 @@ def serve_obs(torch, fg, card: str, launches_by_path: dict) -> dict:
 # batch 8, each config's microbatches.
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4
 TRAIN_GRANITE_PERIODS, TRAIN_GRANITE_STEPS = 4, 2
-# rwkv6-3b cut to 16 of its 32 periods: a step peaks at ~30 bytes a param
+# rwkv6-3b cut to 4 of its 32 periods: a step peaks at ~30 bytes a param
 # (NVIDIA H100 80GB HBM3, 700 W: 47.26 GB at 16 periods, 1.600 B params;
 # 67.14 GB at 24, 2.232 B), so its 2.86 B params would need ~85 GB; 24
 # periods fit, but their checks took the whole script past its time limit
-# on a slower machine (the step at 24 takes 2.1x the step at 16).  2
-# counted steps, its 4 microbatches.
-TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 16, 2
+# on a slower machine (the step at 24 takes 2.1x the step at 16), and so
+# did 16 and then 8 once the recurrent blocks under a mesh joined 5m and
+# 5d (1372.3 s at 16 and 1220.1 s at 8 on a machine that ran the other
+# phases ~1.3x slower than one that took 1044.9 s at 16; 5t took 174.2 s
+# at 16 and 118.5 s at 8 there).  The step-1 gates hold at any depth (the
+# distance grows with it: 4.16e-2 of TRAIN_PLAIN_GRAD_RTOL's 0.1 at 8).
+# 2 counted steps, its 4 microbatches.
+TRAIN_RWKV_PERIODS, TRAIN_RWKV_STEPS = 4, 2
 # llama's restart gate (a checkpoint and a resumed run bit-exact to the
 # straight run) on TRAIN_RESTART_PERIODS of its 16 periods: the property
 # does not depend on depth, and at full depth the 14.8 GB checkpoint's
@@ -5719,15 +5785,16 @@ def train_phase(torch, fg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def mesh_requests(np, cfg):
-    """Phase 5m's 4 requests: DENSE_PROMPTS' lengths, MESH_NEW new tokens;
-    admitted into slots 0-3, two to each data rank of a 2 x 2 mesh."""
+def mesh_requests(np, cfg, prompts=DENSE_PROMPTS):
+    """Phase 5m's requests: ``prompts``' lengths (DENSE_PROMPTS': 4
+    requests, two to each data rank of a 2 x 2 mesh), MESH_NEW new tokens;
+    admitted into slots 0, 1, ... in order."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     return [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size,
                                                          n)],
                     max_new_tokens=MESH_NEW)
-            for n in DENSE_PROMPTS]
+            for n in prompts]
 
 
 @contextlib.contextmanager
@@ -5750,15 +5817,6 @@ def sampled_rows(rows: dict):
         ex.Executor.sample = inner
 
 
-def moe_mesh_config():
-    """granite under mixed at full width and depth, and its launches a
-    model call (PATHS')."""
-    dense, grouped = next(p[5:] for p in PATHS
-                          if p[:2] == (MESH_MOE_ARCH, "mixed"))
-    return path_config(MESH_MOE_ARCH, "mixed"), path_per_call(
-        MESH_MOE_ARCH, dense, grouped)
-
-
 @contextlib.contextmanager
 def grouped_experts(fg):
     """The expert count of every grouped kernel launch while entered (the
@@ -5778,8 +5836,64 @@ def grouped_experts(fg):
         fg._launch = inner
 
 
+# The launch seams of the recurrent kernels (kernels.wkv_gemm,
+# kernels.ssm_scan) and the operand dim holding a launch's heads or
+# channels: a stream's (B, S, H, D) dim 2, x's (B, S, d_inner) dim 2.
+RECURRENT_SEAMS = (("wkv_gemm", "_launch", "wkv"),
+                   ("wkv_gemm", "_bwd_launch", "wkv_bwd"),
+                   ("ssm_scan", "_launch", "ssm_scan"),
+                   ("ssm_scan", "_bwd_launch", "ssm_scan_bwd"))
+
+
+@contextlib.contextmanager
+def recurrent_widths():
+    """The heads (WKV) or channels (the scan) of every launch of the
+    recurrent kernels and their backwards while entered, by launch key."""
+    import importlib
+    seen: dict = {key: set() for _, _, key in RECURRENT_SEAMS}
+    saved = []
+    for mod_name, attr, key in RECURRENT_SEAMS:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        inner = getattr(mod, attr)
+        saved.append((mod, attr, inner))
+
+        def spy(x, *args, _inner=inner, _key=key, **kw):
+            seen[_key].add(int(x.shape[2]))
+            return _inner(x, *args, **kw)
+
+        setattr(mod, attr, spy)
+    try:
+        yield seen
+    finally:
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+
+
+def mesh_widths(cfg, model: int, train: bool) -> dict:
+    """The heads or channels every launch of each recurrent kernel runs
+    over on a rank of a ``model``-way mesh (its block where ``model``
+    divides them), by launch key; none for a model without the block, and
+    none for the backwards where not ``train``."""
+    def block(n):
+        return n // model if n % model == 0 else n
+
+    kinds = {spec.kind for spec in cfg.pattern}
+    out = {key: [] for _, _, key in RECURRENT_SEAMS}
+    for kind, key, n in (("rwkv", "wkv", cfg.d_model // cfg.rwkv_head_dim),
+                         ("mamba", "ssm_scan", cfg.expand * cfg.d_model)):
+        if kind in kinds:
+            out[key] = [block(n)]
+            if train:
+                out[f"{key}_bwd"] = [block(n)]
+    return out
+
+
+def widths_of(seen: dict) -> dict:
+    return {k: sorted(v) for k, v in seen.items()}
+
+
 def world_of_one_pair(torch, np, fg, what: str, pcfg, qparams, mesh,
-                      per_call) -> tuple:
+                      per_call, prompts=DENSE_PROMPTS) -> tuple:
     """The engine without a mesh and with ``mesh`` (a world of one), each
     warmed and graphed, under the exact launch and graph-node gates:
     tokens and every sampled logits row torch.equal.  Returns the report
@@ -5792,7 +5906,7 @@ def world_of_one_pair(torch, np, fg, what: str, pcfg, qparams, mesh,
         if not eng.executor.graphs:
             fail(f"5m (a) {what} {label}: decode is not graphed")
         eng.warm()
-        reqs = mesh_requests(np, pcfg)
+        reqs = mesh_requests(np, pcfg, prompts)
         with sampled_rows({}) as rows:
             run = serve_counted(torch, fg, eng, reqs)
         run["launches"] = check_counted(f"5m (a) {what} {label}", eng, run,
@@ -5835,7 +5949,7 @@ def mesh_world_of_one(torch, np, fg) -> dict:
     from repro_torch.launch.mesh import mesh_backend, single_device_mesh
 
     pcfg = path_config(MESH_ARCH, "mixed")
-    per_call = path_per_call(MESH_ARCH, MESH_PER_CALL, {})
+    per_call = full_per_call(MESH_ARCH)
     qparams, init = leafwise_init(torch, pcfg)
     mesh = single_device_mesh(device="cuda")
     if mesh_backend(mesh) != "nccl":
@@ -5869,10 +5983,12 @@ def mesh_world_of_one(torch, np, fg) -> dict:
     del qparams, base_rows
     gc.collect()
     torch.cuda.empty_cache()
-    out["cut"] = mesh_cut_reference(torch, np, fg, *mesh_cut_config(),
+    out["cut"] = mesh_cut_reference(torch, np, fg,
+                                    *cut_config(MESH_ARCH, MESH_PERIODS),
                                     MESH_PARAMS)
     # granite, full width and depth
-    mcfg, m_call = moe_mesh_config()
+    mcfg, m_call = (path_config(MESH_MOE_ARCH, "mixed"),
+                    full_per_call(MESH_MOE_ARCH))
     qparams, minit = leafwise_init(torch, mcfg)
     pair, _ = world_of_one_pair(torch, np, fg, MESH_MOE_ARCH, mcfg,
                                 qparams, mesh, m_call)
@@ -5880,9 +5996,48 @@ def mesh_world_of_one(torch, np, fg) -> dict:
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
-    out["moe_cut"] = mesh_cut_reference(torch, np, fg, *moe_cut_config(),
+    out["moe_cut"] = mesh_cut_reference(torch, np, fg, *cut_config(
+        MESH_MOE_ARCH, MESH_MOE_PERIODS),
                                         MESH_MOE_PARAMS)
+    t0 = time.monotonic()
+    out.update(recurrent_world_of_one(torch, np, fg, mesh))
+    out["recurrent_s"] = time.monotonic() - t0
     dist.destroy_process_group()
+    return out
+
+
+def recurrent_world_of_one(torch, np, fg, mesh) -> dict:
+    """Phase 5m (a) (c): rwkv6-3b at full depth on the world of one against
+    the engine without a mesh, then (b)'s unsharded rwkv engine at
+    MESH_RWKV_PERIODS; jamba at MESH_JAMBA_PERIODS the same way, whose
+    engine without a mesh is (b)'s reference.  Requests of
+    MESH_RECURRENT_PROMPTS tokens."""
+    out = {}
+    rcfg = path_config(MESH_RWKV_ARCH, "mixed")
+    qparams, init = leafwise_init(torch, rcfg)
+    pair, _ = world_of_one_pair(torch, np, fg, MESH_RWKV_ARCH, rcfg, qparams,
+                                mesh, full_per_call(MESH_RWKV_ARCH),
+                                MESH_RECURRENT_PROMPTS)
+    out["rwkv"] = {"init": init, **pair}
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["rwkv_cut"] = mesh_cut_reference(
+        torch, np, fg, *cut_config(MESH_RWKV_ARCH, MESH_RWKV_PERIODS), None,
+        MESH_RECURRENT_PROMPTS)
+    jcfg, j_call = cut_config(MESH_JAMBA_ARCH, MESH_JAMBA_PERIODS)
+    qparams, init = leafwise_init(torch, jcfg)
+    pair, rows = world_of_one_pair(torch, np, fg, MESH_JAMBA_ARCH, jcfg,
+                                   qparams, mesh, j_call,
+                                   MESH_RECURRENT_PROMPTS)
+    out["jamba"] = {"init": init, **pair}
+    out["jamba_cut"] = {"init": init, "launches": pair["no mesh"]["launches"],
+                        "tokens": pair["no mesh"]["tokens"],
+                        "rows": {f"{k[0]}/{k[1]}": v.cpu()
+                                 for k, v in rows.items()}}
+    del qparams, rows
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6150,12 +6305,21 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     t0 = time.monotonic()
     out["kernels"] = mesh_kernel_checks(torch, mesh)
     out["kernel_s"] = time.monotonic() - t0
-    out.update(rank_engine(torch, np, fg, mesh, *mesh_cut_config(),
+    out.update(rank_engine(torch, np, fg, mesh,
+                           *cut_config(MESH_ARCH, MESH_PERIODS),
                            MESH_PARAMS,
                            os.path.join(out_dir, f"mesh_rows{rank}.pt")))
     out["moe"] = rank_engine(
-        torch, np, fg, mesh, *moe_cut_config(), MESH_MOE_PARAMS,
+        torch, np, fg, mesh, *cut_config(MESH_MOE_ARCH, MESH_MOE_PERIODS),
+        MESH_MOE_PARAMS,
         os.path.join(out_dir, f"mesh_moe_rows{rank}.pt"))
+    for what, arch, periods in MESH_RECURRENT:
+        t0 = time.monotonic()
+        out[what] = rank_engine(
+            torch, np, fg, mesh, *cut_config(arch, periods), None,
+            os.path.join(out_dir, f"mesh_{what}_rows{rank}.pt"),
+            MESH_RECURRENT_PROMPTS)
+        out[what]["seconds"] = time.monotonic() - t0
     out["seconds"] = time.monotonic() - t_start
     with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
         json.dump(out, f, indent=1)
@@ -6164,55 +6328,100 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     return 0
 
 
-def rank_engine(torch, np, fg, mesh, pcfg, per_call, records: Path,
-                rows_path: str) -> dict:
+def drawn_blocks(torch, mesh, cfg):
+    """This rank's blocks of ``cfg``'s mixed records, drawn leaf by leaf
+    from a generator seeded 0 as :func:`leafwise_init` draws the whole
+    (``lm.init_params(mesh=...)``: a leaf is whole only while it is drawn),
+    the ranks in turn, so that one rank's whole leaf is on the card at a
+    time beside the others' blocks."""
+    from repro_torch.models import lm
+    dist = torch.distributed
+    params = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            params = lm.init_params(gen, cfg, device="cuda",
+                                    prequant=cfg.quant, mesh=mesh)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def rank_engine(torch, np, fg, mesh, pcfg, per_call,
+                records: Optional[Path], rows_path: str,
+                prompts=DENSE_PROMPTS) -> dict:
     """One 5m (b) engine on this rank: once the parent has written them,
     the records mapped from the host file, each rank's blocks alone copied
-    to the card (held to its
-    ``leaf_spec`` blocks of the whole), then the requests served eagerly
-    (gloo), counted: exact launches a model call, every grouped launch's
-    experts reported.  Writes this data rank's logits rows to
-    ``rows_path``."""
+    to the card (held to its ``leaf_spec`` blocks of the whole); or, with
+    no ``records``, the rank's blocks drawn on the card
+    (:func:`drawn_blocks`; resident bytes those the abstract specs place,
+    every block on the card); then the requests served eagerly (gloo),
+    counted: exact launches a model call, every grouped launch's experts
+    and every recurrent launch's heads or channels reported.  Writes this
+    data rank's logits rows to ``rows_path``."""
     from repro_torch.dist import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
     from repro_torch.serve.engine import Engine
     rank = torch.distributed.get_rank()
-    parent = os.getppid()
-    deadline = time.monotonic() + MESH_TIMEOUT
-    while not ready_file(records).exists():
-        if os.getppid() != parent or time.monotonic() > deadline:
-            fail(f"5m (b) rank {rank}: no {pcfg.name} records from the "
-                 f"parent")
-        time.sleep(0.2)
+    if records is not None:
+        parent = os.getppid()
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while not ready_file(records).exists():
+            if os.getppid() != parent or time.monotonic() > deadline:
+                fail(f"5m (b) rank {rank}: no {pcfg.name} records from the "
+                     f"parent")
+            time.sleep(0.2)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    flat = torch.load(records, mmap=True, weights_only=True)
-    qparams = {}
-    for key, leaf in flat.items():      # the whole records, on the host
-        node = qparams
-        *parents, last = key.split("/")
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[last] = leaf
+    if records is None:
+        qparams = drawn_blocks(torch, mesh, pcfg)
+        whole = S.resident_bytes(lm.init_params(
+            torch.Generator(), pcfg, device="meta", prequant=pcfg.quant))
+        planned = steps.local_bytes(steps.abstract_params(
+            pcfg, mesh, prequant=True), mesh)
+        off = [p for p, t in _paths(qparams)
+               if S.local(t).device.type != "cuda"]
+        if S.resident_bytes(qparams) != planned or off:
+            fail(f"5m (b) rank {rank}: {pcfg.name}'s drawn blocks hold "
+                 f"{S.resident_bytes(qparams)} bytes (the specs place "
+                 f"{planned}), {off[:4]} off the card")
+    else:
+        flat = torch.load(records, mmap=True, weights_only=True)
+        qparams = {}
+        for key, leaf in flat.items():      # the whole records, on the host
+            node = qparams
+            *parents, last = key.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[last] = leaf
+        whole = S.resident_bytes(qparams)
+        del flat
     eng = Engine(pcfg, qparams, max_seq=256, batch_size=4, device="cuda",
                  mesh=mesh)
     torch.cuda.synchronize()
     out = {"load_s": time.monotonic() - t0,
            "load_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-           "whole_bytes": S.resident_bytes(qparams),
-           "resident_bytes": S.resident_bytes(eng.params)}
-    if held_blocks(torch, qparams, eng.params, mesh) != \
-            out["resident_bytes"]:
+           "whole_bytes": whole,
+           "resident_bytes": S.resident_bytes(eng.params),
+           "drawn": records is None}
+    if records is not None and held_blocks(
+            torch, qparams, eng.params, mesh) != out["resident_bytes"]:
         fail(f"5m (b) rank {rank}: resident bytes are not its blocks'")
-    del qparams, flat
+    del qparams
     gc.collect()
     if eng.executor.graphs:
         fail("5m (b): decode is graphed under a gloo mesh")
-    reqs = mesh_requests(np, pcfg)
-    with sampled_rows({}) as rows, grouped_experts(fg) as experts:
+    reqs = mesh_requests(np, pcfg, prompts)
+    with sampled_rows({}) as rows, grouped_experts(fg) as experts, \
+            recurrent_widths() as widths:
         run = serve_counted(torch, fg, eng, reqs, graphs=False)
     out["launches"] = check_counted(f"5m (b) {pcfg.name} rank {rank}", eng,
                                     run, per_call)
@@ -6222,7 +6431,8 @@ def rank_engine(torch, np, fg, mesh, pcfg, per_call, records: Path,
                 "prefill_s": st.prefill_s, "wall_s": run["wall"],
                 "step_ms": 1e3 * st.decode_s / max(st.decode_steps, 1),
                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-                "grouped_experts": sorted(set(experts))})
+                "grouped_experts": sorted(set(experts)),
+                "widths": widths_of(widths)})
     # this data rank's requests' rows (request i sits in slot i)
     d = S.coordinate(mesh)["data"]
     mine = {f"{rid}/{step}": v.cpu() for (rid, step), v in rows.items()
@@ -6235,43 +6445,43 @@ def rank_engine(torch, np, fg, mesh, pcfg, per_call, records: Path,
     return out
 
 
-def mesh_cut_config():
-    """llama at MESH_PERIODS, and its launches a model call: 7 w=8
-    projections and 2 norms a layer, the w=12 head and ln_f."""
-    cfg = dataclasses.replace(path_config(MESH_ARCH, "mixed"),
-                              n_periods=MESH_PERIODS)
-    per_layer = MESH_PER_CALL["mm1"] // path_config(MESH_ARCH,
-                                                    "mixed").n_layers
-    return cfg, {"dense_mm1": per_layer * cfg.n_layers,
-                 "dense_kmm2": MESH_PER_CALL["kmm2"],
-                 "rowinv_norm": 2 * cfg.n_layers + 1}
+def full_per_call(arch: str) -> dict:
+    """``arch``'s launches a model call under mixed at full depth (its
+    mixed path of PATHS, else of DENSE_PATHS)."""
+    path = next((p[5:] for p in PATHS if p[:2] == (arch, "mixed")), None)
+    if path is None:
+        path = next((p[1], p[3]) for p in DENSE_PATHS if p[0] == arch)
+    return path_per_call(arch, *path)
 
 
-def moe_cut_config():
-    """granite at MESH_MOE_PERIODS, and its launches a model call: a layer's
-    4 w=8 projections, w=12 router, 3 grouped GEMMs and 2 norms, the w=12
-    head and ln_f."""
-    full, per_call = moe_mesh_config()
-    cfg = dataclasses.replace(full, n_periods=MESH_MOE_PERIODS)
+def cut_config(arch: str, periods: int):
+    """``arch`` under mixed at ``periods`` of its periods, and its launches
+    a model call: each period's as at full depth, the w=12 head and ln_f
+    once."""
+    full = path_config(arch, "mixed")
+    cfg = dataclasses.replace(full, n_periods=periods)
     once = {"dense_kmm2": 1, "rowinv_norm": 1}         # the head, ln_f
-    return cfg, {k: (n - once.get(k, 0)) // full.n_layers * cfg.n_layers
-                 + once.get(k, 0) if n else 0 for k, n in per_call.items()}
+    return cfg, {k: (n - once.get(k, 0)) // full.n_periods * periods
+                 + once.get(k, 0) if n else 0
+                 for k, n in full_per_call(arch).items()}
 
 
-def mesh_cut_reference(torch, np, fg, cfg, per_call, records: Path) -> dict:
+def mesh_cut_reference(torch, np, fg, cfg, per_call, records: Optional[Path],
+                       prompts=DENSE_PROMPTS) -> dict:
     """A 5m (b) engine's reference: the unsharded engine of ``cfg`` (cut in
     depth) on mixed records from the leaf-wise init, warmed and graphed,
     exact launches; its tokens and sampled rows; its records saved for the
-    ranks (``records``)."""
+    ranks (``records``, where given: else the ranks draw their own)."""
     from repro_torch.serve.engine import Engine
     qparams, init = leafwise_init(torch, cfg)
     eng = Engine(cfg, qparams, max_seq=256, batch_size=4, device="cuda")
     eng.warm()
     with sampled_rows({}) as rows:
-        run = serve_counted(torch, fg, eng, mesh_requests(np, cfg))
+        run = serve_counted(torch, fg, eng, mesh_requests(np, cfg, prompts))
     launches = check_counted(f"5m (b) {cfg.name} at {cfg.n_periods} "
                              f"periods, no mesh", eng, run, per_call)
-    save_records(torch, qparams, records)
+    if records is not None:
+        save_records(torch, qparams, records)
     del eng, qparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -6333,6 +6543,8 @@ def mesh_phase(torch, np, fg) -> dict:
     base_tokens = out["world_of_one"]["cut"]["tokens"]
     moe_rows = out["world_of_one"]["moe_cut"].pop("rows")
     moe_tokens = out["world_of_one"]["moe_cut"]["tokens"]
+    recurrent_refs = {what: out["world_of_one"][f"{what}_cut"].pop("rows")
+                      for what, _, _ in MESH_RECURRENT}
     codes, logs = finish(probes, 60)
     out["gloo_p2p_cuda"] = {"exit_codes": codes, "last_line": [
         (log_.strip().splitlines() or [""])[-1][:200] for log_ in logs]}
@@ -6391,7 +6603,7 @@ def mesh_phase(torch, np, fg) -> dict:
         f"{out['logits_rows_equal']} of {len(diffs)}, max |diff| "
         f"{out['logits_max_abs_diff']}")
     # granite, expert-parallel: its experts over the model axis
-    experts = moe_mesh_config()[0].n_experts // MESH_SHAPE[1]
+    experts = path_config(MESH_MOE_ARCH, "mixed").n_experts // MESH_SHAPE[1]
     diffs = []
     for r, rank in enumerate(ranks):
         moe = rank["moe"]
@@ -6430,7 +6642,68 @@ def mesh_phase(torch, np, fg) -> dict:
         f"equal "
         f"{moe['logits_rows_equal']} of {len(diffs)}, max |diff| "
         f"{moe['logits_max_abs_diff']}; ranks' peak {moe['peak_gb']:.3f} GB")
+    for what, arch, periods in MESH_RECURRENT:
+        out[what] = check_recurrent_ranks(
+            torch, what, arch, periods, ranks, out_dir, recurrent_refs[what],
+            out["world_of_one"][f"{what}_cut"]["tokens"])
     return out
+
+
+def check_recurrent_ranks(torch, what: str, arch: str, periods: int, ranks,
+                          out_dir: Path, ref_rows: dict, ref_tokens) -> dict:
+    """5m (b) (c)'s gates on one recurrent model's rank results: tokens and
+    every logits row of the data rank owning the requests torch.equal to
+    the unsharded engine's, every WKV launch over its block of the heads,
+    every scan over its block of the channels, every grouped launch over
+    its block of the experts."""
+    cfg = cut_config(arch, periods)[0]
+    model = MESH_SHAPE[1]
+    widths = mesh_widths(cfg, model, train=False)
+    experts = [cfg.n_experts // model] if cfg.n_experts else []
+    n_rows = 0
+    for r, rank in enumerate(ranks):
+        res = rank[what]
+        if [list(t) for t in res["tokens"]] != [list(t) for t in ref_tokens]:
+            fail(f"5m (b) {arch} rank {r}: tokens {res['tokens']} differ "
+                 f"from the unsharded engine's {ref_tokens}")
+        if res["widths"] != widths or res["grouped_experts"] != experts:
+            fail(f"5m (b) {arch} rank {r}: recurrent launches over "
+                 f"{res['widths']} heads or channels (expected {widths}), "
+                 f"grouped launches over {res['grouped_experts']} experts "
+                 f"(expected {experts})")
+        rows = torch.load(out_dir / f"mesh_{what}_rows{r}.pt")
+        for key, row in rows.items():
+            if not torch.equal(row, ref_rows[key]):
+                fail(f"5m (b) {arch} rank {r}: the logits row {key} differs "
+                     f"from the unsharded engine's by "
+                     f"{float((row.float() - ref_rows[key].float()).abs().max())}")
+        n_rows += len(rows)
+    if not n_rows:
+        fail(f"5m (b) {arch}: no logits rows compared")
+    res = {"logits_rows_equal": n_rows,
+           "peak_gb": max(r[what]["peak_gb"] for r in ranks),
+           "load_peak_gb": max(r[what]["load_peak_gb"] for r in ranks),
+           "step_ms": [r[what]["step_ms"] for r in ranks],
+           "seconds": [r[what]["seconds"] for r in ranks],
+           "resident_bytes": [r[what]["resident_bytes"] for r in ranks],
+           "whole_bytes": ranks[0][what]["whole_bytes"], "widths": widths,
+           "grouped_experts": experts}
+    for rank in ranks:
+        m = rank[what]
+        log(f"  (b) {arch} rank {rank['rank']} {rank['coord']}: its blocks "
+            f"drawn leaf by leaf, resident {m['resident_bytes'] / 1e9:.3f} "
+            f"GB of {m['whole_bytes'] / 1e9:.3f} GB, device peak "
+            f"{m['load_peak_gb']:.3f} GB drawing and {m['peak_gb']:.3f} GB "
+            f"serving; launches {m['launches']['host']} over "
+            f"{m['prefill_calls']} prefill calls and {m['decode_steps']} "
+            f"decode steps; step {m['step_ms']:.1f} ms (host clock, gloo on "
+            f"one card); {m['seconds']:.1f} s")
+    log(f"  (b) {arch} at {periods} of its "
+        f"{path_config(arch, 'mixed').n_periods} periods: tokens and "
+        f"{n_rows} logits rows "
+        f"torch.equal to the unsharded engine on every rank; recurrent "
+        f"launches over {nonzero(widths)}, grouped over {experts} experts")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -6465,28 +6738,54 @@ def moe_train_setup():
                             TRAIN_MESH_MOE_MICRO)
 
 
+def rwkv_train_setup():
+    """5d (c)'s rwkv6-3b: TRAIN_MESH_RWKV_PERIODS periods, its 4
+    microbatches of the global batch (each of 2 sequences, one a data rank
+    on 2x2)."""
+    return train_mesh_setup(TRAIN_MESH_RWKV_PERIODS, MESH_RWKV_ARCH)
+
+
+# 5d (b)'s models by tag: their arch
+TRAIN_MESH_ARCHS = {"llama": MESH_ARCH, "moe": MESH_MOE_ARCH,
+                    "rwkv": MESH_RWKV_ARCH}
+
+
 # (what, setup, init seed, the unsharded step-1 file, the ranks'
 # checkpoint, the parent's release file) of 5d (b)'s models, in the order
-# the ranks run them; with ``study``, those of --train-mesh-study
-def train_mesh_models(study: bool = False):
+# the ranks run them; with ``study`` (an arch), those of
+# --train-mesh-study.  rwkv6-3b writes no checkpoint: the script runs
+# under a 45 GiB budget of disk writes, and rwkv's step-1 file (7.9 GB:
+# its untied 65536-row embed and lm_head in fp32, with their gradients, mu
+# and nu) and checkpoint (5.9 GB) brought its writes near that; the
+# checkpoint's code is the one llama's and granite's runs gate.
+def train_mesh_models(study: str = ""):
     if study:
         return tuple(
             (what, setup, seed, TRAIN_MESH_DIR / f"step1_{what}.pt",
              TRAIN_MESH_DIR / f"ckpt_{what}", TRAIN_MESH_DIR / f"ready_{what}")
-            for what, setup, seed in train_mesh_study_models())
+            for what, setup, seed in train_mesh_study_models(study))
     return (("llama", train_mesh_setup(TRAIN_MESH_PERIODS), TRAIN_MESH_SEED,
              TRAIN_MESH_DIR / "step1.pt", TRAIN_MESH_DIR / "ckpt",
              TRAIN_MESH_DIR / "ready"),
             ("moe", moe_train_setup(), TRAIN_MESH_SEED,
              TRAIN_MESH_DIR / "step1_moe.pt", TRAIN_MESH_DIR / "ckpt_moe",
-             TRAIN_MESH_DIR / "ready_moe"))
+             TRAIN_MESH_DIR / "ready_moe"),
+            ("rwkv", rwkv_train_setup(), TRAIN_MESH_SEED,
+             TRAIN_MESH_DIR / "step1_rwkv.pt", None,
+             TRAIN_MESH_DIR / "ready_rwkv"))
 
 
-def train_mesh_study_models():
-    """--train-mesh-study's runs of 5d (b)'s granite, (tag, setup, init
-    seed): at each of TRAIN_MESH_STUDY_SEEDS, the step as 5d (b) runs it
+def train_mesh_study_models(arch: str):
+    """--train-mesh-study's runs, (tag, setup, init seed): for 5d (b)'s
+    granite, at each of TRAIN_MESH_STUDY_SEEDS, the step as 5d (b) runs it
     (the bf16 compute copy, TRAIN_MESH_MOE_MICRO microbatches), with 2
-    microbatches, and in fp32 compute without the bf16 copy."""
+    microbatches, and in fp32 compute without the bf16 copy; for 5d (c)'s
+    rwkv6-3b, the step as it runs there at each seed.  One arch a call:
+    each run's step-1 file is 4.4 GB (granite) or 7.9 GB (rwkv), and the
+    script's runs have a 45 GiB budget of disk writes."""
+    if arch == MESH_RWKV_ARCH:
+        return [(f"rwkv_seed{seed}", rwkv_train_setup(), seed)
+                for seed in TRAIN_MESH_STUDY_SEEDS]
     out = []
     for seed in TRAIN_MESH_STUDY_SEEDS:
         cfg, dcfg, ocfg = moe_train_setup()
@@ -6568,7 +6867,8 @@ def world_of_one_training(torch, fg, what: str, setup, mesh,
 
 def train_world_of_one(torch, fg, device="cuda") -> dict:
     """Phase 5d (a): full-depth llama, then granite at
-    TRAIN_GRANITE_PERIODS, each for TRAIN_MESH_STEPS steps through
+    TRAIN_GRANITE_PERIODS and rwkv6-3b at TRAIN_MESH_RWKV_PERIODS, each
+    for TRAIN_MESH_STEPS steps through
     ``run_training`` with no mesh and with ``mesh=`` a world of one (NCCL
     on the card), under deterministic algorithms
     (:func:`world_of_one_training`)."""
@@ -6586,6 +6886,10 @@ def train_world_of_one(torch, fg, device="cuda") -> dict:
         out["moe"] = world_of_one_training(
             torch, fg, MESH_MOE_ARCH, train_mesh_setup(
                 TRAIN_GRANITE_PERIODS, MESH_MOE_ARCH), mesh, device)
+        t0 = time.monotonic()
+        out["rwkv"] = world_of_one_training(
+            torch, fg, MESH_RWKV_ARCH, rwkv_train_setup(), mesh, device)
+        out["rwkv"]["seconds"] = time.monotonic() - t0
     out["nondeterministic_ops"] = nondet
     log(f"  (a) on {out['backend']}, deterministic algorithms; ops without a "
         f"deterministic kernel: {nondet or 'none'}")
@@ -6696,14 +7000,16 @@ def step1_distances(torch, S, mesh, grads, params, state, lr,
 
 
 def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
-                     ckpt_dir: Path, device: str,
+                     ckpt_dir: Optional[Path], device: str,
                      step1_only: bool = False) -> dict:
     """One model of 5d (b) on this rank: what ``run_training``'s loop runs
     a step — step 1 from the init at ``seed`` (``mean_loss_and_grads``,
     its gradients' blocks held to the unsharded ones, its MoE aux losses,
     and the AdamW update), the AsyncCheckpointer's save of its state, and
     step 2 through ``make_train_step`` (not with ``step1_only``), each
-    step counted, every grouped launch's experts reported."""
+    step counted, every grouped launch's experts and every recurrent
+    launch's heads or channels reported; no checkpoint where ``ckpt_dir``
+    is None."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.train import checkpoint as ckpt
@@ -6730,14 +7036,15 @@ def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
             return (loss, grads, aux) + optim.update(ocfg, grads, state,
                                                      params)
 
-        with grouped_experts(fg) as experts:
+        with grouped_experts(fg) as experts, recurrent_widths() as widths:
             (loss, grads, aux, params, state, metrics), host, routes, wall = \
                 counted(torch, fg, first, device)
     out["step1"] = {"launches": host, "routes": {
         f"{b}/{r}": c for (b, r), c in routes.items()},
         "loss": float(loss), "grad_norm": float(metrics["grad_norm"]),
         "aux": aux, "step_ms": 1e3 * wall,
-        "grouped_experts": sorted(set(experts))}
+        "grouped_experts": sorted(set(experts)),
+        "widths": widths_of(widths)}
     out.update(step1_distances(torch, S, mesh, grads, params, state,
                                ocfg.lr, step1))
     del grads
@@ -6747,15 +7054,16 @@ def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
         if device == "cuda":
             torch.cuda.empty_cache()
         return out
-    # the loop's checkpoint of step 1: leaves gathered on every rank, rank
-    # 0 writes
-    t0 = time.monotonic()
-    saver = ckpt.AsyncCheckpointer(str(ckpt_dir), keep=1, mesh=mesh)
-    saver.save(1, (params, state), meta={"arch": cfg.name})
-    saver.wait()
-    torch.distributed.barrier()
-    out["checkpoint_s"] = time.monotonic() - t0
-    out["digests"] = block_digests(state_tree(params, state))
+    if ckpt_dir is not None:
+        # the loop's checkpoint of step 1: leaves gathered on every rank,
+        # rank 0 writes
+        t0 = time.monotonic()
+        saver = ckpt.AsyncCheckpointer(str(ckpt_dir), keep=1, mesh=mesh)
+        saver.save(1, (params, state), meta={"arch": cfg.name})
+        saver.wait()
+        torch.distributed.barrier()
+        out["checkpoint_s"] = time.monotonic() - t0
+        out["digests"] = block_digests(state_tree(params, state))
     step = steps.make_train_step(cfg, ocfg)
     batch1 = train_batch(torch, cfg, step=1, device=device)
 
@@ -6764,10 +7072,11 @@ def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
             _, _, metrics = step(params, state, batch1)
         return float(metrics["loss"])
 
-    loss2, host2, routes2, wall2 = counted(torch, fg, second, device)
+    with recurrent_widths() as widths:
+        loss2, host2, routes2, wall2 = counted(torch, fg, second, device)
     out["step2"] = {"launches": host2, "routes": {
         f"{b}/{r}": c for (b, r), c in routes2.items()},
-        "loss": loss2, "step_ms": 1e3 * wall2}
+        "loss": loss2, "step_ms": 1e3 * wall2, "widths": widths_of(widths)}
     out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                       if device == "cuda" else 0.0)
     out["seconds"] = time.monotonic() - t_start
@@ -6779,14 +7088,121 @@ def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
     return out
 
 
+def mamba_block_mesh(torch, fg, S, mesh, device: str) -> dict:
+    """5d (c)'s jamba mamba layer on this rank: 5t's block (full width,
+    mixed, a seeded generator) in fp32 compute, forward and backward of 2
+    sequences of TRAIN_SEQ against a seeded cotangent, first unsharded on
+    this rank, then under ``mesh`` on the rank's blocks of the parameters
+    and its data rank's sequence (counted: its launches and the scan's
+    channels); the gradients summed over the data axes as the train step
+    sums them.  Returns the distances of y, dx and every gradient leaf's
+    block from the unsharded run's, each over that tensor's largest
+    |entry|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import ssm as SSM
+    cfg = dataclasses.replace(get_config(MESH_JAMBA_ARCH, quant="mixed"),
+                              compute_dtype="float32",
+                              bf16_cast_params=False)
+    name = "blk0.mamba"
+    gen = torch.Generator(device).manual_seed(5)
+    whole = SSM.mamba_init(gen, cfg, torch.float32, device)
+    x0 = torch.randn((2, TRAIN_SEQ, cfg.d_model), generator=gen,
+                     device=device)
+    g = torch.randn(x0.shape, generator=gen, device=device)
+
+    def run(params, x, cot, mesh_):
+        leaves = {k: S.local(t).detach().requires_grad_()
+                  for k, t in params.items()}
+        tree = {k: S.like(params[k], leaves[k]) for k in params}
+        xl = x.clone().requires_grad_()
+        with (S.use_mesh(mesh_) if mesh_ is not None
+              else contextlib.nullcontext()):
+            y = SSM.mamba_apply(tree, xl, cfg, cfg.quant, name)
+            grads = torch.autograd.grad(y, [xl] + list(leaves.values()), cot)
+        return y.detach(), grads[0], dict(zip(leaves, grads[1:]))
+
+    y0, dx0, dw0 = run(whole, x0, g, None)
+    held = {k: S.shard_leaf(t, S.leaf_spec(("blocks", "pos0", "mamba", k),
+                                           t, mesh), mesh, device)
+            for k, t in whole.items()}
+    d, _ = S.axes_index(mesh, S.data_axes(mesh))
+    rows = slice(d, d + 1)
+    with recurrent_widths() as widths:
+        (y, dx, dw), host, routes, wall = counted(
+            torch, fg, lambda: run(held, x0[rows], g[rows], mesh), device)
+    steps._sum_over_data(dw, held, mesh)
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+
+    out = {"launches": host, "routes": {f"{b}/{r}": c
+                                        for (b, r), c in routes.items()},
+           "widths": widths_of(widths), "ms": 1e3 * wall,
+           "y_equal": bool(torch.equal(y, y0[rows])),
+           "rel": {"y": rel(y, y0[rows]), "x": rel(dx, dx0[rows]),
+                   **{k: rel(dw[k], S.local_block(
+                       dw0[k], S.dtensor_spec(held[k]), mesh))
+                      for k in dw}},
+           "blocks": {k: list(S.local(t).shape) for k, t in held.items()}}
+    del whole, held, dw, dw0
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_mamba_block_mesh(parts: list) -> dict:
+    """5d (c)'s gates on the ranks' mamba layers: y and every gradient
+    within BWD_TOL of the unsharded layer's largest entry, 4 w=8 GEMM
+    launches on the kernels, one scan and one scan backward over the
+    rank's block of the channels."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_JAMBA_ARCH, quant="mixed")
+    widths = mesh_widths(cfg, MESH_SHAPE[1], train=True)
+    expect = {"dense_mm1": 4, "ssm_scan": 1, "ssm_scan_bwd": 1}
+    worst: dict = {}
+    for p_ in parts:
+        r = p_["rank"]
+        block = p_["mamba_block"]
+        check_train_counts(f"5d (c) jamba mamba layer rank {r}",
+                           block["launches"],
+                           {tuple(k.split("/")): c
+                            for k, c in block["routes"].items()}, expect)
+        if block["widths"] != widths:
+            fail(f"5d (c) jamba mamba layer rank {r}: scans over "
+                 f"{block['widths']} channels, expected {widths}")
+        for k, v in block["rel"].items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    bad = {k: v for k, v in worst.items() if not v <= BWD_TOL}
+    if bad:
+        fail(f"5d (c) jamba mamba layer on the mesh: past {BWD_TOL} of the "
+             f"unsharded layer's largest entry: {bad}")
+    top = max(worst, key=worst.get)
+    log(f"  (c) jamba's mamba layer (d_inner 8192) fwd + bwd on the 2x2 "
+        f"ranks, fp32: y torch.equal on "
+        f"{sum(p_['mamba_block']['y_equal'] for p_ in parts)} of "
+        f"{len(parts)} ranks; y, dx and every gradient leaf within "
+        f"{worst[top]:.3g} ({top}) of the unsharded layer's largest entry "
+        f"(gate {BWD_TOL}); launches {expect} a rank (exact), the scans "
+        f"over {widths['ssm_scan']} channels; "
+        + ", ".join(f"{p_['mamba_block']['ms']:.0f}" for p_ in parts)
+        + " ms a rank (host clock)")
+    return {"rel_max": worst, "gate": BWD_TOL, "expect": expect,
+            "widths": widths, "ranks": parts}
+
+
 def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
                     device: str = "cuda", study: str = "") -> int:
     """``--train-mesh-rank``: one rank of phase 5d (b) on cuda:0 over gloo.
-    It joins the mesh while the parent runs (a), then for llama and then
-    granite waits for the parent's unsharded step (its release file) and
-    runs :func:`rank_train_steps`, then writes its results
-    (``train_mesh_{llama|moe}{rank}.json``).  With ``study`` ("study"),
-    --train-mesh-study's runs instead, step 1 alone."""
+    It joins the mesh while the parent runs (a), then for llama, granite
+    and rwkv6-3b waits for the parent's unsharded step (its release file)
+    and runs :func:`rank_train_steps`, then writes its results
+    (``train_mesh_{llama|moe|rwkv}{rank}.json``); then jamba's mamba layer
+    (:func:`mamba_block_mesh`, ``train_mesh_mamba{rank}.json``).  With
+    ``study`` (an arch), --train-mesh-study's runs of it instead, step 1
+    alone."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -6810,7 +7226,7 @@ def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
         fail(f"5d (b): the mesh runs {mesh_backend(mesh)!r}, not gloo")
     out = {"rank": rank, "coord": S.coordinate(mesh)}
     for what, setup, seed, step1, ckpt_dir, ready in \
-            train_mesh_models(bool(study)):
+            train_mesh_models(study):
         deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
         while not ready.exists():
             if os.getppid() != parent or time.monotonic() > deadline:
@@ -6823,6 +7239,14 @@ def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
         tmp = path.with_suffix(".tmp")
         tmp.write_text(json.dumps(dict(out, **res), indent=1))
         tmp.rename(path)                # whole when the parent sees it
+    if not study:
+        t0 = time.monotonic()
+        res = mamba_block_mesh(torch, fg, S, mesh, device)
+        res["seconds"] = time.monotonic() - t0
+        path = Path(out_dir) / f"train_mesh_mamba{rank}.json"
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(dict(out, mamba_block=res), indent=1))
+        tmp.rename(path)
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -6875,14 +7299,15 @@ def checkpoint_digests(torch, ranks, cfg, ckpt_dir: Path) -> int:
 
 
 def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
-                     ckpt_dir: Path) -> dict:
+                     ckpt_dir: Optional[Path]) -> dict:
     """5d (b)'s gates on one model's rank results ``parts`` (one a rank)
     against the unsharded step ``ref``: exact launches both steps, resident
     bytes the specs' and at most TRAIN_MESH_RESIDENT of the unsharded,
     every rank's losses equal and step 1's near the unsharded, the grad
     norm, every leaf's gradient, mu, nu and param within their gates, the
-    MoE aux losses, expert gradients and grouped launches, the
-    checkpoint's blocks."""
+    MoE aux losses, expert gradients and grouped launches, every
+    recurrent launch's heads or channels, the checkpoint's blocks (where
+    the ranks wrote one)."""
     grad_tol, norm_rtol = TRAIN_MESH_GRAD_TOL, TRAIN_MESH_NORM_RTOL
     cfg = setup[0]
     expect = train_launches(cfg, 1, TRAIN_SEQ)
@@ -6891,6 +7316,7 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
     norm_rel = 0.0
     aux_rel = 0.0
     experts = cfg.n_experts // MESH_SHAPE[1] if cfg.n_experts else None
+    widths = mesh_widths(cfg, MESH_SHAPE[1], train=True)
     for part_ in parts:
         r = part_["rank"]
         for part in ("step1", "step2"):
@@ -6898,6 +7324,10 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
                 f"5d (b) {what} rank {r} {part}", part_[part]["launches"],
                 {tuple(k.split("/")): c for k, c in
                  part_[part]["routes"].items()}, expect)
+            if part_[part]["widths"] != widths:
+                fail(f"5d (b) {what} rank {r} {part}: recurrent launches "
+                     f"over {part_[part]['widths']} heads or channels, "
+                     f"expected {widths}")
         if part_["resident_bytes"] != part_["planned_bytes"] or \
                 part_["resident_bytes"] > TRAIN_MESH_RESIDENT * \
                 ref["state_bytes"]:
@@ -6955,21 +7385,25 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
         fail(f"5d (b) {what}: step 1's expert gradients past their gate "
              f"{TRAIN_MESH_MOE_GRAD_TOL}: {bad}")
     t0 = time.monotonic()
-    compared = checkpoint_digests(torch, parts, cfg, ckpt_dir)
+    compared = (checkpoint_digests(torch, parts, cfg, ckpt_dir)
+                if ckpt_dir is not None else 0)
     out = {"checkpoint_compare_s": time.monotonic() - t0,
            "loss_rel": rel_loss, "norm_rel": norm_rel, "aux_rel": aux_rel,
            "step1_rel": worst, "step1_gates": gates,
            "step1_rel_max": {k: max(v.values()) for k, v in worst.items()},
            "checkpoint_leaves_compared": compared, "expect_per_step": expect,
-           "n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches}
+           "n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches,
+           "widths": widths}
     for part_ in parts:
-        part_.pop("digests")
+        part_.pop("digests", None)
         log(f"  (b) {what} rank {part_['rank']}: resident "
             f"{part_['resident_bytes'] / 1e9:.3f} GB of "
             f"{ref['state_bytes'] / 1e9:.3f} GB unsharded; step ms "
             f"{part_['step1']['step_ms']:.0f} and "
             f"{part_['step2']['step_ms']:.0f} (host clock, four gloo ranks "
-            f"on one card), the checkpoint {part_['checkpoint_s']:.1f} s; "
+            f"on one card)"
+            + (f", the checkpoint {part_['checkpoint_s']:.1f} s"
+               if "checkpoint_s" in part_ else "") + "; "
             f"device peak {part_['peak_gb']:.2f} GB; launches a step "
             f"{part_['step2']['launches']} (exact)")
     log(f"  (b) {what} at {cfg.n_periods} periods, {cfg.n_microbatches} "
@@ -6979,16 +7413,19 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
         f"{aux_rel:.3g} (gate {TRAIN_MESH_MOE_AUX_RTOL}); largest distances "
         "(gate): " + ", ".join(f"{k} {max(worst[k].values()):.3g} ({g:.3g})"
                                for k, g in gates.items())
-        + f"; the step-1 checkpoint loaded with no mesh equals every rank's "
-        f"blocks ({compared} leaf blocks)")
+        + (f"; the step-1 checkpoint loaded with no mesh equals every "
+           f"rank's blocks ({compared} leaf blocks)" if compared else "")
+        + (f"; recurrent launches over {nonzero(widths)}"
+           if nonzero(widths) else ""))
     return out
 
 
-def train_mesh_study(torch, fg) -> dict:
-    """--train-mesh-study: 5d (b)'s granite step 1 on the MESH_RANKS gloo
-    ranks against the unsharded step, for each of
+def train_mesh_study(torch, fg, arch: str) -> dict:
+    """--train-mesh-study ARCH: 5d (b)'s granite or 5d (c)'s rwkv6-3b step 1
+    on the MESH_RANKS gloo ranks against the unsharded step, for each of
     :func:`train_mesh_study_models` — the distances 5d (b)'s gates are
-    read from, reported with no gate applied.  Every process stopped
+    read from, with each leaf's largest unsharded gradient entry (the
+    gates' scale), reported with no gate applied.  Every process stopped
     before it returns."""
     import shutil
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
@@ -7000,10 +7437,10 @@ def train_mesh_study(torch, fg) -> dict:
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--train-mesh-rank",
-         str(r), str(MESH_RANKS), str(port), str(out_dir), "cuda", "study"],
+         str(r), str(MESH_RANKS), str(port), str(out_dir), "cuda", arch],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(MESH_RANKS)]
-    models = train_mesh_models(study=True)
+    models = train_mesh_models(study=arch)
     refs, out = {}, {}
     try:
         for what, setup, seed, step1, _, ready in models:
@@ -7038,15 +7475,21 @@ def train_mesh_study(torch, fg) -> dict:
                                 for a, b in zip(p_["step1"]["aux"],
                                                 ref["aux"])), default=0.0),
                 "worst_leaf": top, "expert_grad_rel": max(
-                    v for key, v in grad.items() if "/moe/" in key),
+                    (v for key, v in grad.items() if "/moe/" in key),
+                    default=None),
+                "grad_max": ref["grad_max"],
                 "step1_rel": worst,
                 "step1_rel_max": {k: max(v.values())
                                   for k, v in worst.items()}}
+            small = min(ref["grad_max"], key=ref["grad_max"].get)
             log(f"  {what}: gradients at most {grad[top]:.4g} of a leaf's "
-                f"largest entry ({top}), embed {grad['embed']:.4g}, expert "
-                f"leaves {res['expert_grad_rel']:.4g}; grad norm "
+                f"largest entry ({top}, whose largest is "
+                f"{ref['grad_max'][top]:.4g}), embed {grad['embed']:.4g}, "
+                f"expert leaves {res['expert_grad_rel']}; grad norm "
                 f"{res['norm_rel']:.3g}, loss {res['loss_rel']:.3g}, aux "
-                f"{res['aux_rel']:.3g} relative")
+                f"{res['aux_rel']:.3g} relative; the smallest leaf's "
+                f"largest gradient entry {ref['grad_max'][small]:.4g} "
+                f"({small})")
         for r, p in enumerate(procs):
             text = p.communicate(timeout=max(deadline - time.monotonic(),
                                              1))[0]
@@ -7118,10 +7561,14 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
                      for r in range(MESH_RANKS)]
             out[f"ranks_{what}_s"] = time.monotonic() - t_ranks
             res = out[what] = check_train_mesh(
-                torch, MESH_MOE_ARCH if what == "moe" else MESH_ARCH, parts,
-                refs[what], setup, ckpt_dir)
+                torch, TRAIN_MESH_ARCHS[what], parts, refs[what], setup,
+                ckpt_dir)
             res["ranks"] = parts
             res["check_s"] = time.monotonic() - t0
+        parts = [rank_results(out_dir / f"train_mesh_mamba{r}.json", procs,
+                              deadline) for r in range(MESH_RANKS)]
+        out["ranks_mamba_s"] = time.monotonic() - t_ranks
+        out["mamba_block"] = check_mamba_block_mesh(parts)
         for r, p in enumerate(procs):
             text = p.communicate(timeout=max(deadline - time.monotonic(),
                                              1))[0]
@@ -7155,11 +7602,14 @@ def main() -> int:
                     help="only build and compare chunked with single-shot "
                     "prefill at full width, two prompt sets, two runs "
                     "(writes chiprun_out/chunk_study.json)")
-    ap.add_argument("--train-mesh-study", action="store_true",
-                    help="only build and run phase 5d (b)'s granite step 1 "
-                    "on the 2x2 gloo ranks against the unsharded step over "
-                    "init seeds, microbatches and compute dtypes, no gate "
-                    "applied (writes chiprun_out/train_mesh_study.json)")
+    ap.add_argument("--train-mesh-study", nargs="?", const=MESH_MOE_ARCH,
+                    choices=(MESH_MOE_ARCH, MESH_RWKV_ARCH), metavar="ARCH",
+                    help="only build and run phase 5d (b)'s step 1 of ARCH "
+                    f"({MESH_MOE_ARCH}, the default: over init seeds, "
+                    f"microbatches and compute dtypes; {MESH_RWKV_ARCH}: "
+                    "5d (c)'s, over init seeds) on the 2x2 gloo ranks "
+                    "against the unsharded step, no gate applied (writes "
+                    "chiprun_out/train_mesh_study_ARCH.json)")
     ap.add_argument("--profile-path", metavar="ARCH:POLICY[:forced]",
                     help="only build, serve this one path of PATHS (with "
                     ":forced, of TABLE_PATHS under its forcing table) once "
@@ -7234,13 +7684,14 @@ def main() -> int:
         return 0
 
     if args.train_mesh_study:
-        log("[5d] study: granite's step 1 on the 2x2 gloo ranks against the "
+        arch = args.train_mesh_study
+        log(f"[5d] study: {arch}'s step 1 on the 2x2 gloo ranks against the "
             "unsharded step")
-        study = train_mesh_study(torch, fg)
+        study = train_mesh_study(torch, fg, arch)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "train_mesh_study.json").write_text(json.dumps(
-            {"card": card, "study": study}, indent=1))
+        (out_dir / f"train_mesh_study_{arch}.json").write_text(json.dumps(
+            {"card": card, "arch": arch, "study": study}, indent=1))
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7378,12 +7829,22 @@ def main() -> int:
     log("[5m] distributed serving: a world of one on NCCL, graphed, then "
         f"{MESH_RANKS} gloo ranks on this card ({MESH_SHAPE[0]}x"
         f"{MESH_SHAPE[1]}): sharded kernels and the full-width engines "
-        f"({MESH_ARCH}, then {MESH_MOE_ARCH} expert-parallel)")
+        f"({MESH_ARCH}, then {MESH_MOE_ARCH} expert-parallel, then "
+        f"{MESH_RWKV_ARCH} head-parallel and {MESH_JAMBA_ARCH} "
+        f"channel-parallel)")
     t0 = time.monotonic()
     mesh = mesh_phase(torch, np, fg)
     seconds["mesh"] = time.monotonic() - t0
     woo = mesh["world_of_one"]
-    for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"])):
+    # parts of "mesh": (c)'s (a) in this process, (c)'s (b) on the ranks
+    # (which ran beside (a))
+    seconds["mesh: recurrent (a)"] = woo["recurrent_s"]
+    seconds["mesh: recurrent (b), ranks"] = max(
+        sum(r[what]["seconds"] for what, _, _ in MESH_RECURRENT)
+        for r in mesh["ranks"])
+    for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"]),
+                       (MESH_RWKV_ARCH, woo["rwkv"]),
+                       (MESH_JAMBA_ARCH, woo["jamba"])):
         for label in ("no mesh", "mesh 1x1"):
             launches_by_path[f"{arch} mixed records {label}"] = \
                 runs[label]["launches"]
@@ -7391,24 +7852,41 @@ def main() -> int:
         woo["cut"]["launches"]
     launches_by_path[f"{MESH_MOE_ARCH} mixed records, {MESH_MOE_PERIODS} "
                      f"periods"] = woo["moe_cut"]["launches"]
+    launches_by_path[f"{MESH_RWKV_ARCH} mixed records, {MESH_RWKV_PERIODS} "
+                     f"periods"] = woo["rwkv_cut"]["launches"]
     for rank in mesh["ranks"]:
-        launches_by_path[f"{MESH_ARCH} mesh 2x2 rank {rank['rank']}"] = \
-            rank["launches"]
-        launches_by_path[f"{MESH_MOE_ARCH} mesh 2x2 rank {rank['rank']}"] = \
-            rank["moe"]["launches"]
+        for what, arch in (("", MESH_ARCH), ("moe", MESH_MOE_ARCH),
+                           ("rwkv", MESH_RWKV_ARCH),
+                           ("jamba", MESH_JAMBA_ARCH)):
+            launches_by_path[f"{arch} mesh 2x2 rank {rank['rank']}"] = \
+                (rank[what] if what else rank)["launches"]
     torch.cuda.empty_cache()
 
-    log(f"[5d] training under a mesh: full-depth {MESH_ARCH} and "
-        f"{MESH_MOE_ARCH} at {TRAIN_GRANITE_PERIODS} periods on a world of "
+    log(f"[5d] training under a mesh: full-depth {MESH_ARCH}, "
+        f"{MESH_MOE_ARCH} at {TRAIN_GRANITE_PERIODS} periods and "
+        f"{MESH_RWKV_ARCH} at {TRAIN_MESH_RWKV_PERIODS} on a world of "
         f"one (NCCL) against no mesh, then {MESH_RANKS} gloo ranks on this "
         f"card ({MESH_SHAPE[0]}x{MESH_SHAPE[1]}), {MESH_ARCH} at "
-        f"{TRAIN_MESH_PERIODS} periods and {MESH_MOE_ARCH} at "
-        f"{TRAIN_MESH_MOE_PERIODS}, against the unsharded steps")
+        f"{TRAIN_MESH_PERIODS} periods, {MESH_MOE_ARCH} at "
+        f"{TRAIN_MESH_MOE_PERIODS} and {MESH_RWKV_ARCH} at "
+        f"{TRAIN_MESH_RWKV_PERIODS}, against the unsharded steps, and "
+        f"{MESH_JAMBA_ARCH}'s mamba layer against the unsharded layer")
     t0 = time.monotonic()
     train_mesh = train_mesh_phase(torch, fg)
     seconds["train mesh"] = time.monotonic() - t0
     woo = train_mesh["world_of_one"]
-    for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"])):
+    # parts of "train mesh": (c)'s unsharded step and (a) in this process,
+    # (c)'s (b) and the mamba layer on the ranks (beside (a))
+    seconds["train mesh: rwkv unsharded step"] = \
+        train_mesh["unsharded_rwkv_s"]
+    seconds["train mesh: rwkv (a)"] = woo["rwkv"]["seconds"]
+    seconds["train mesh: rwkv (b), ranks"] = max(
+        r["seconds"] for r in train_mesh["rwkv"]["ranks"])
+    seconds["train mesh: mamba layer, ranks"] = max(
+        r["mamba_block"]["seconds"]
+        for r in train_mesh["mamba_block"]["ranks"])
+    for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"]),
+                       (MESH_RWKV_ARCH, woo["rwkv"])):
         for label in ("no mesh", "mesh 1x1"):
             launches_by_path[f"{arch} train mixed {label}"] = \
                 runs[label]["launches"]
@@ -7419,11 +7897,17 @@ def main() -> int:
                          for k in set(part["step1"]["launches"])
                          | set(part["step2"]["launches"])}}
 
-    for rank, moe in zip(train_mesh["ranks"], train_mesh["moe"]["ranks"]):
-        launches_by_path[f"{MESH_ARCH} train mesh 2x2 rank {rank['rank']}"] \
-            = both_steps(rank)
-        launches_by_path[f"{MESH_MOE_ARCH} train mesh 2x2 rank "
-                         f"{moe['rank']}"] = both_steps(moe)
+    train_ranks = list(zip(train_mesh["ranks"], train_mesh["moe"]["ranks"],
+                           train_mesh["rwkv"]["ranks"],
+                           train_mesh["mamba_block"]["ranks"]))
+    for llama, moe, rwkv, mamba in train_ranks:
+        for arch, part in ((MESH_ARCH, llama), (MESH_MOE_ARCH, moe),
+                           (MESH_RWKV_ARCH, rwkv)):
+            launches_by_path[f"{arch} train mesh 2x2 rank {part['rank']}"] \
+                = both_steps(part)
+        launches_by_path[f"{MESH_JAMBA_ARCH} mamba layer train mesh 2x2 "
+                         f"rank {mamba['rank']}"] = {
+            "host": mamba["mamba_block"]["launches"]}
     torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
@@ -7457,23 +7941,31 @@ def main() -> int:
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
         ssm_rows, wkv_bwd_rows, ssm_bwd_rows)
-    # each rank's own launches in phase 5m (b)'s engine runs and phase 5d
-    # (b)'s two train steps a model (in the launches above too): the
-    # kernels ran on every rank's block, the grouped one on its experts
+    # each rank's own launches in phase 5m (b)'s engine runs, phase 5d
+    # (b)'s two train steps a model and 5d (c)'s mamba layer (in the
+    # launches above too): the kernels ran on every rank's block, the
+    # grouped one on its experts, WKV on its heads, the scan on its
+    # channels
     keys = {"fused_gemm_mm1": "dense_mm1", "fused_gemm_kmm2": "dense_kmm2",
             "fused_gemm_grouped_mm1": "grouped_mm1",
-            "rowinv_norm": "rowinv_norm"}
+            "rowinv_norm": "rowinv_norm", "rowinv_matmul": "rowinv_matmul",
+            "wkv": "wkv", "wkv_bwd": "wkv_bwd", "ssm_scan": "ssm_scan",
+            "ssm_scan_bwd": "ssm_scan_bwd"}
+
+    def rank_launches(serve, train):
+        runs = [serve["launches"]["host"]] + [
+            serve[what]["launches"]["host"]
+            for what in ("moe",) + tuple(w for w, _, _ in MESH_RECURRENT)]
+        for part in train[:3]:
+            runs += [part[step]["launches"] for step in ("step1", "step2")]
+        return runs + [train[3]["mamba_block"]["launches"]]
+
     for e in entries:
         if e["name"] in keys:
             key = keys[e["name"]]
             e["mesh_launches_per_rank"] = [
-                r["launches"]["host"].get(key, 0)
-                + r["moe"]["launches"]["host"].get(key, 0)
-                + sum(t[part]["launches"].get(key, 0)
-                      + m[part]["launches"].get(key, 0)
-                      for part in ("step1", "step2"))
-                for r, t, m in zip(mesh["ranks"], train_mesh["ranks"],
-                                   train_mesh["moe"]["ranks"])]
+                sum(run.get(key, 0) for run in rank_launches(r, t))
+                for r, t in zip(mesh["ranks"], train_ranks)]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

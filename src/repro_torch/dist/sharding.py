@@ -355,7 +355,14 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh, device):
     """``x`` (whole, wherever it lies: the host, for a model one card
     cannot hold) -> this rank's block on ``device`` as a DTensor, a copy of
     the block alone; ``x`` itself on ``device`` where the spec names no
-    axis."""
+    axis.  A DTensor already held under ``spec`` (a leaf of
+    ``lm.init_params(mesh=...)``, drawn block by block) is kept as it
+    is."""
+    if is_dtensor(x):
+        if dtensor_spec(x) != tuple(spec) or x.device_mesh != mesh:
+            raise ValueError(f"a leaf held under {dtensor_spec(x)} is not "
+                             f"its {tuple(spec)} block on this mesh")
+        return x
     if not is_sharded(spec):
         return x.to(device)
     return wrap_block(local_block(x, spec, mesh).to(device, copy=True), spec,
@@ -365,7 +372,7 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh, device):
 def shard_params(params: Params, mesh, device) -> Params:
     """Every leaf of a whole parameter tree -> this rank's block under
     :func:`leaf_spec` on ``device`` (:func:`shard_leaf`): only the blocks
-    reach the device."""
+    reach the device.  Leaves already held as their blocks are kept."""
     return _map_with_path(
         lambda p, leaf: shard_leaf(leaf, leaf_spec(p, leaf, mesh), mesh,
                                    device), params)

@@ -13,7 +13,12 @@ instead.  ``--mesh DxM`` serves sharded on a (data, model) mesh
         --arch granite-moe-3b-a800m --quant mixed
 
 An MoE model's expert GEMMs run expert-parallel (each ``model`` rank over
-its own experts).
+its own experts), rwkv6-3b's WKV recurrence head-parallel and jamba's
+mamba conv and scan channel-parallel (each ``model`` rank on its block of
+the pool's recurrent state)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2 \
+        --arch rwkv6-3b --quant mixed
 
 Every rank draws the same weights from the seed on the host, so no card
 holds them whole, copies only its shards to its device and runs its data

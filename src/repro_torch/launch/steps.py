@@ -24,8 +24,11 @@ layer's expert GEMMs run expert-parallel (``quant.qmatmul._mesh_bste``:
 an expert leaf, dim 0 over ``model`` and its K rows over the data axes,
 gets its gradient reduce-scattered there), and its load-balance loss
 enters the loss as without a mesh, its means over the global microbatch
-(``models.moe.load_balance_loss``).  Attention decoders only: mamba,
-rwkv, a vision prefix and the encoder-decoder raise
+(``models.moe.load_balance_loss``).  RWKV's recurrence runs
+head-parallel and mamba's conv and scan channel-parallel over ``model``
+where it divides their heads or channels (``models.rwkv``,
+``models.ssm``), their replicated leaves' gradients summed over ``model``
+in the backward.  A vision prefix and the encoder-decoder raise
 ``NotImplementedError`` under a mesh.
 
 The abstract helpers (:func:`abstract_params`, :func:`abstract_opt_state`,
@@ -79,13 +82,9 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
 
 
 def check_mesh(cfg: ModelConfig) -> None:
-    """What trains under a mesh: the attention decoders, dense or MoE."""
-    where = "ROADMAP.md queue 1 item 4.2"
-    kinds = {spec.kind for spec in cfg.pattern} - {"attn"}
-    if kinds:
-        raise NotImplementedError(
-            f"training {sorted(kinds)} blocks under a mesh is not ported "
-            f"yet: {where}")
+    """What trains under a mesh: the decoders of attention, mamba and RWKV
+    blocks, dense or MoE."""
+    where = "ROADMAP.md queue 1 item 4.2(c)"
     if cfg.frontend != "none" or cfg.is_encdec:
         raise NotImplementedError(
             f"training a {cfg.frontend!r} front end"

@@ -20,9 +20,10 @@ configuration on the CUDA device by default (``--smoke``: the reduced one;
 ``data`` x ``model`` mesh (``launch.mesh.make_mesh``) in each process
 ``torchrun`` starts: NCCL with a card a rank, gloo on the CPU (``--device
 cpu``) or with ranks sharing a card; outside ``torchrun`` it raises at
-once.  Dense attention decoders and MoE (expert-parallel: granite and
-qwen3; mamba, rwkv, vision and enc-dec under a mesh are ROADMAP.md queue
-1 item 4.2).  ``--max-restarts
+once.  Dense attention decoders, MoE (expert-parallel: granite and
+qwen3), rwkv6-3b (head-parallel WKV) and jamba (channel-parallel mamba);
+vision and enc-dec under a mesh are ROADMAP.md queue 1 item 4.2(c).
+``--max-restarts
 N`` supervises the training call: on an exception the launcher runs it
 again, which resumes from the latest checkpoint under ``--ckpt-dir``;
 under a mesh a fault on any rank raises on every rank (the loop agrees on

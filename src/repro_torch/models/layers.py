@@ -21,7 +21,9 @@ are all-gathered over the ambient mesh's ``model`` axis before ``wo``.
 Training's attention runs head-parallel the same way under a mesh whose
 ``model`` axis divides the kv heads; the gather's backward takes each
 rank's heads back, and the slices' backward sums the heads' gradients
-over ``model``.
+over ``model``.  The recurrent blocks (``models.rwkv``, ``models.ssm``)
+cut their heads and channels with the same helpers (:func:`train_block`,
+:func:`block_start`, :func:`replicated`, :func:`_all_heads`).
 
 Cache writes happen in place: where the reference returns an updated copy
 of the cache (``dynamic_update_slice``), the port writes into the cache
@@ -165,20 +167,19 @@ def _local_heads(qkv, cfg, kh: int):
     q, k, v = qkv
     if kh == cfg.n_kv_heads:
         return q, k, v, False
-    mesh = dist_sharding.current_mesh()
-    h0 = dist_sharding.coordinate(mesh)["model"] * kh
+    h0 = block_start(kh)
     g = cfg.n_heads // cfg.n_kv_heads
     # each model rank uses its heads of the replicated projections: in the
     # backward their gradients are put back together over ``model``
-    q, k, v = (dist_coll.replicate_grad_sum(t, mesh, ("model",))
-               for t in (q, k, v))
+    q, k, v = (replicated(t) for t in (q, k, v))
     return (q[:, :, h0 * g:(h0 + kh) * g], k[:, :, h0:h0 + kh],
             v[:, :, h0:h0 + kh], True)
 
 
 def _all_heads(out: torch.Tensor, cut: bool) -> torch.Tensor:
     """(B, S, local heads * D) -> every head, all-gathered over ``model``
-    in head order, where :func:`_local_heads` cut them."""
+    in head order, where :func:`_local_heads` cut them (and the recurrent
+    blocks' heads or channels likewise)."""
     if not cut:
         return out
     # the backward takes this rank's heads back (``wo``'s dx is the same
@@ -187,17 +188,33 @@ def _all_heads(out: torch.Tensor, cut: bool) -> torch.Tensor:
                                           ("model",), out.dim() - 1)
 
 
-def _train_kv_heads(cfg) -> int:
-    """The kv heads one model rank attends to in training: its block of
-    them where the ambient mesh's ``model`` axis divides their number (as
-    it divides the pool's in serving), else all of them."""
+def train_block(n: int) -> int:
+    """How many of ``n`` heads (or channels) one model rank runs in
+    training: its block of them where the ambient mesh's ``model`` axis
+    divides ``n`` (as it divides the pool's in serving), else all of
+    them."""
     mesh = dist_sharding.current_mesh()
     if mesh is None:
-        return cfg.n_kv_heads
+        return n
     size = dist_sharding.mesh_axis_size(mesh, "model")
-    if size > 1 and cfg.n_kv_heads % size == 0:
-        return cfg.n_kv_heads // size
-    return cfg.n_kv_heads
+    if size > 1 and n % size == 0:
+        return n // size
+    return n
+
+
+def block_start(n_local: int) -> int:
+    """Where this model rank's block of ``n_local`` heads (or channels)
+    starts: its ``model`` coordinate on the ambient mesh times the block."""
+    mesh = dist_sharding.current_mesh()
+    return dist_sharding.coordinate(mesh)["model"] * n_local
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """``x``, which every model rank holds whole and cuts its own block
+    from, with its gradient summed over the ambient mesh's ``model`` axis
+    (each rank's backward forms only its block's part)."""
+    return dist_coll.replicate_grad_sum(x, dist_sharding.current_mesh(),
+                                        ("model",))
 
 
 def _attend(qc: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
@@ -255,10 +272,10 @@ def attn_train(p: Params, x: torch.Tensor, cfg, quant, name: str,
     remat (``models.lm._scan_blocks``) already bounds them to one layer.
     Under a mesh whose ``model`` axis divides the kv heads it runs
     head-parallel, as serving does: each model rank attends with its heads
-    (:func:`_train_kv_heads`), gathered before ``wo``."""
+    (:func:`train_block` of the kv heads), gathered before ``wo``."""
     b, s, _ = x.shape
     q, k, v, cut = _local_heads(_qkv(p, x, cfg, quant, name), cfg,
-                                _train_kv_heads(cfg))
+                                train_block(cfg.n_kv_heads))
     pos = positions if positions is not None else torch.arange(
         s, dtype=torch.int32, device=x.device)
     q = rope(q, pos, cfg.rope_theta)

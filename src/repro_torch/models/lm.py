@@ -26,7 +26,10 @@ rank's vocab columns, the table's FSDP columns gathered once a serve call
 (``dist.sharding.vocab_block``), the GEMMs gather their weights' FSDP rows
 (``quant.qmatmul``), and attention runs head-parallel on the pool's kv-head
 block, or in training on the ``model`` axis's block of the kv heads
-(``models.layers``).  Training differentiates through all of it: the
+(``models.layers``); RWKV's recurrence likewise on its block of the heads
+and mamba's conv and scan on its block of ``d_inner`` (``models.rwkv``,
+``models.ssm``), each layer handed its blocks of the state by the cache
+it is given.  Training differentiates through all of it: the
 collectives' backwards (``dist.collectives``) and the quantized GEMMs'
 (``quant.qmatmul._mesh_ste``) reduce each gradient to its shard, and
 ``loss_fn`` takes the global token mean.  ``constrain_batch_dim`` stands

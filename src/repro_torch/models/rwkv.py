@@ -21,6 +21,22 @@ same projections and output from a zero shift and a zero state through
 too, and writes no state; the reference chunks time under
 ``jax.checkpoint`` to save memory, which the kernel, holding the state on
 chip, does not need.
+
+Under a mesh the time mix runs head-parallel, as attention does
+(``models.layers._local_heads``): the projections and the decay come out
+whole on every rank (the GEMMs gather their N over ``model``), and where
+the ``wkv`` state handed in holds a block of the heads (the pool's
+``model`` block, ``dist.sharding.CACHE_MODEL_AXES``) each model rank runs
+the recurrence on its heads of r, k, v, w and ``u`` — copied once, as the
+kernel wants its streams — and the heads' outputs are all-gathered over
+``model`` in head order before ``ln_x``, which normalizes all of
+``d_model``.  The token shift stays whole on every rank.  Training does the
+same on the ambient mesh's block of the heads where ``model`` divides
+them (``models.layers.train_block``); the cut tensors' gradients are
+summed over ``model`` (``models.layers.replicated``), so the replicated
+leaves (``u``, ``w0``, ``mix``, the LoRA) get whole gradients on every
+rank.  Where ``model`` does not divide the heads every rank runs them
+all.
 """
 from __future__ import annotations
 
@@ -107,6 +123,27 @@ def _mix_and_project(p: Params, x: torch.Tensor, prev: torch.Tensor, cfg,
             _heads(v.to(f32), nh, hd), _heads(w, nh, hd), g, new_shift)
 
 
+def _recurrence(p: Params, r, k, v, w, cfg,
+                state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The WKV recurrence on this model rank's heads — the ``state``'s (B,
+    H_local, D, D) block, updated in place, or in training (no state, a
+    zero one) :func:`repro_torch.models.layers.train_block`'s — returning
+    every head's y (B, S, d), gathered over ``model`` where cut."""
+    b, s, nh, _ = r.shape
+    kh = L.train_block(nh) if state is None else state.shape[1]
+    u, cut = p["u"], kh != nh
+    if cut:
+        h0 = L.block_start(kh)
+        r, k, v, w = (L.replicated(t)[:, :, h0:h0 + kh].contiguous()
+                      for t in (r, k, v, w))
+        u = L.replicated(u)[h0:h0 + kh]
+    if state is None:
+        y = wkv_train(r, k, v, w, u)
+    else:
+        y, _ = wkv_stateful(r, k, v, w, u, state, inplace=True)
+    return L._all_heads(y.reshape(b, s, -1), cut)
+
+
 def _out(p: Params, y: torch.Tensor, g: torch.Tensor, x: torch.Tensor,
          quant, name: str) -> torch.Tensor:
     """ln_x over all of d_model, the SiLU gate, the output projection."""
@@ -142,7 +179,7 @@ def rwkv_apply_stateful(p: Params, x: torch.Tensor, cache: Params, cfg,
     if last_idx is not None:
         idx = last_idx.to(torch.int64)[:, None, None].expand(b, 1, x.shape[2])
         new_shift = torch.gather(x, 1, idx)
-    y, _ = wkv_stateful(r, k, v, w, p["u"], cache["wkv"], inplace=True)
+    y = _recurrence(p, r, k, v, w, cfg, cache["wkv"])
     out = _out(p, y, g, x, quant, name)
     cache["shift"].copy_(new_shift)
     return out, cache
@@ -155,7 +192,7 @@ def rwkv_apply(p: Params, x: torch.Tensor, cfg, quant, name: str
     b, _, d = x.shape
     r, k, v, w, g, _ = _mix_and_project(p, x, x.new_zeros((b, 1, d)), cfg,
                                         quant, name)
-    return _out(p, wkv_train(r, k, v, w, p["u"]), g, x, quant, name)
+    return _out(p, _recurrence(p, r, k, v, w, cfg), g, x, quant, name)
 
 
 def rwkv_cache_init(cfg, batch: int, dtype, *, device) -> Params:
@@ -175,7 +212,7 @@ def rwkv_decode(p: Params, x: torch.Tensor, cache: Params, cfg, quant,
     place."""
     r, k, v, w, g, new_shift = _mix_and_project(p, x, cache["shift"], cfg,
                                                 quant, name)
-    y, _ = wkv_stateful(r, k, v, w, p["u"], cache["wkv"], inplace=True)
+    y = _recurrence(p, r, k, v, w, cfg, cache["wkv"])
     out = _out(p, y, g, x, quant, name)
     cache["shift"].copy_(new_shift)
     return out, cache

@@ -17,6 +17,22 @@ returned, as the port's attention writes its K/V cache.  Training's
 :func:`mamba_apply` runs the same inputs from a zero conv tail through
 :func:`repro_torch.kernels.ssm_scan.ssm_scan_train` (zero state, no mask,
 a backward kernel) and writes no state.
+
+Under a mesh the block runs channel-parallel over ``model``: ``in_proj``
+returns the whole ``xz`` on every rank (the GEMM gathers its N), and where
+the ``conv`` / ``ssm`` state handed in holds a block of ``d_inner`` (the
+pool's ``model`` block, ``dist.sharding.CACHE_MODEL_AXES``) each model rank
+runs the depthwise conv on its channels, with its columns of ``conv_w`` /
+``conv_b`` and its own conv tail.  ``x_proj`` contracts over the whole
+``d_inner`` and quantizes its activation per row over all of K, so the
+conv's output is all-gathered over ``model`` first and the codes are the
+unsharded ones.  The rank then scans its channels of ``delta``, ``z``,
+``a_log``, ``d_skip`` on its ``ssm`` block (B and C whole), and the
+outputs are all-gathered before ``out_proj``.  Training does the same on
+the ambient mesh's block where ``model`` divides ``d_inner``
+(``models.layers.train_block``); the cut tensors' gradients are summed
+over ``model`` (``models.layers.replicated``), so the replicated leaves get
+whole gradients on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_train
+from repro_torch.models import layers as L
 from repro_torch.models.layers import _normal
 from repro_torch.quant.qmatmul import maybe_quantized_matmul
 
@@ -84,29 +101,49 @@ def _causal_conv(x_padded: torch.Tensor, w: torch.Tensor,
 def _ssm_inputs(p: Params, x: torch.Tensor, cfg, quant, name: str,
                 conv_tail: torch.Tensor,
                 mask: Optional[torch.Tensor] = None):
-    """Projections and the causal conv from the carried conv tail; returns
-    (x_conv, z, delta, b, c, x_in) in the reference's dtypes: x_conv, delta,
-    b, c fp32, z and x_in in x's dtype (``x_in`` is the masked pre-conv
-    projection the next conv tail is cut from)."""
+    """Projections and the causal conv from the carried conv tail, on the
+    tail's channels (this model rank's block of ``d_inner`` under a mesh,
+    else all of them); returns (x_conv, z, delta, b, c, a, d_skip, x_in)
+    in the reference's dtypes: x_conv, delta, b, c fp32, z and x_in in x's
+    dtype (``x_in`` is the masked pre-conv projection the next conv tail
+    is cut from), each of x_conv, z, delta, a, d_skip, x_in on the
+    channels, b and c whole."""
     di = cfg.expand * cfg.d_model
     ds = cfg.d_state
     dtr = _dt_rank(cfg.d_model)
-    xz = maybe_quantized_matmul(x, p["in_proj"], quant, f"{name}.in_proj")
-    x_in, z = xz[..., :di], xz[..., di:]
+    dl = conv_tail.shape[-1]
+    cut = dl != di
+    c0 = L.block_start(dl) if cut else 0
+    rep = L.replicated if cut else (lambda t: t)
+    xz = rep(maybe_quantized_matmul(x, p["in_proj"], quant,
+                                    f"{name}.in_proj"))
+    x_in, z = xz[..., c0:c0 + dl], xz[..., di + c0:di + c0 + dl]
     if mask is not None:
         x_in = torch.where(mask.bool()[:, :, None], x_in,
                            torch.zeros_like(x_in))
     x_pad = torch.cat([conv_tail.to(x_in.dtype), x_in], dim=1)
-    x_conv = F.silu(_causal_conv(x_pad, p["conv_w"], p["conv_b"]))
-    x_dbl = maybe_quantized_matmul(x_conv, p["x_proj"], quant,
-                                   f"{name}.x_proj")
+    x_conv = F.silu(_causal_conv(x_pad, rep(p["conv_w"])[:, c0:c0 + dl],
+                                 rep(p["conv_b"])[c0:c0 + dl]))
+    x_dbl = maybe_quantized_matmul(L._all_heads(x_conv, cut), p["x_proj"],
+                                   quant, f"{name}.x_proj")
     dt_r = x_dbl[..., :dtr]
-    b_mat = x_dbl[..., dtr:dtr + ds].to(torch.float32)
-    c_mat = x_dbl[..., dtr + ds:].to(torch.float32)
+    b_mat = rep(x_dbl[..., dtr:dtr + ds].to(torch.float32))
+    c_mat = rep(x_dbl[..., dtr + ds:].to(torch.float32))
     delta = maybe_quantized_matmul(dt_r, p["dt_proj"], quant,
                                    f"{name}.dt_proj")
-    delta = _softplus(delta.to(torch.float32) + p["dt_bias"])
-    return x_conv, z, delta, b_mat, c_mat, x_in
+    delta = rep(_softplus(delta.to(torch.float32) + p["dt_bias"]))
+    a = -torch.exp(rep(p["a_log"])[c0:c0 + dl])
+    return (x_conv, z, delta[..., c0:c0 + dl], b_mat, c_mat, a,
+            rep(p["d_skip"])[c0:c0 + dl], x_in)
+
+
+def _out(p: Params, y: torch.Tensor, x: torch.Tensor, cfg, quant,
+         name: str) -> torch.Tensor:
+    """The scan's output on this rank's channels, all-gathered over
+    ``model`` where they are a block, through ``out_proj``."""
+    y = L._all_heads(y, y.shape[-1] != cfg.expand * cfg.d_model)
+    return maybe_quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
+                                  f"{name}.out_proj")
 
 
 def mamba_apply_stateful(p: Params, x: torch.Tensor, cache: Params, cfg,
@@ -126,14 +163,12 @@ def mamba_apply_stateful(p: Params, x: torch.Tensor, cache: Params, cfg,
     (zeros at sequence start): chunk boundaries anywhere stay exact."""
     b, s, _ = x.shape
     cw = cfg.conv_width
-    x_conv, z, delta, b_mat, c_mat, x_in = _ssm_inputs(
+    x_conv, z, delta, b_mat, c_mat, a, d_skip, x_in = _ssm_inputs(
         p, x, cfg, quant, name, cache["conv"], mask=mask)
-    a = -torch.exp(p["a_log"])
     y = ssm_scan(x_conv.to(torch.float32), delta, b_mat, c_mat, z, a,
-                 p["d_skip"], cache["ssm"],
+                 d_skip, cache["ssm"],
                  mask=None if mask is None else mask.bool())
-    out = maybe_quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
-                                 f"{name}.out_proj")
+    out = _out(p, y, x, cfg, quant, name)
     full = torch.cat([cache["conv"].to(x_in.dtype), x_in], dim=1)
     if last_idx is None:
         tail = full[:, s:, :]
@@ -150,15 +185,16 @@ def mamba_apply_stateful(p: Params, x: torch.Tensor, cache: Params, cfg,
 def mamba_apply(p: Params, x: torch.Tensor, cfg, quant, name: str
                 ) -> torch.Tensor:
     """Full-sequence forward (train): a zero conv tail and a zero state,
-    differentiable through the scan kernel's backward."""
+    differentiable through the scan kernel's backward; under a mesh on the
+    ``model`` axis's block of ``d_inner`` where it divides."""
     b = x.shape[0]
-    tail = x.new_zeros((b, cfg.conv_width - 1, cfg.expand * cfg.d_model))
-    x_conv, z, delta, b_mat, c_mat, _ = _ssm_inputs(p, x, cfg, quant, name,
-                                                    tail)
-    y = ssm_scan_train(x_conv.to(torch.float32), delta, b_mat, c_mat, z,
-                       -torch.exp(p["a_log"]), p["d_skip"])
-    return maybe_quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
-                                  f"{name}.out_proj")
+    tail = x.new_zeros((b, cfg.conv_width - 1,
+                        L.train_block(cfg.expand * cfg.d_model)))
+    x_conv, z, delta, b_mat, c_mat, a, d_skip, _ = _ssm_inputs(
+        p, x, cfg, quant, name, tail)
+    y = ssm_scan_train(x_conv.to(torch.float32), delta, b_mat, c_mat, z, a,
+                       d_skip)
+    return _out(p, y, x, cfg, quant, name)
 
 
 def mamba_cache_init(cfg, batch: int, dtype, *, device) -> Params:

@@ -40,7 +40,9 @@ Under a mesh (``mesh=``, or ``context.mesh``; a ``DeviceMesh`` from
 same engine on the same requests): each rank holds exactly its
 ``dist.sharding.leaf_spec`` block of every parameter
 (``dist.sharding.shard_params``: ``params`` may lie on the host, and only
-each block is copied to the device) and its ``page_pool_sharding`` block of
+each block is copied to the device; or they are already each rank's blocks,
+drawn leaf by leaf by ``lm.init_params(mesh=...)``, so that no process
+holds the whole model) and its ``page_pool_sharding`` block of
 the pool; every rank keeps the whole scheduler, so all agree on every
 slot's state.  Slot ``s`` belongs to data rank ``s * D // batch_size`` (D:
 the product of the data axes' sizes), and each data rank prefills and
@@ -49,7 +51,11 @@ decodes only its slots' lanes, on a decode width common to the data ranks
 where a data rank with no prompt left runs a parking-row prefill, so every
 rank makes the same collectives.  The model runs under the ambient mesh:
 its GEMMs shard-mapped (M over data, N over ``model``), attention
-head-parallel over ``model`` where the kv heads divide, and an MoE layer's
+head-parallel over ``model`` where the kv heads divide, an RWKV layer's
+recurrence head-parallel and a mamba layer's conv and scan
+channel-parallel on the pool's ``model`` block of their state (the
+``wkv`` heads, the ``conv`` / ``ssm`` inner channels; all of them where
+``model`` does not divide), and an MoE layer's
 expert GEMMs expert-parallel (each ``model`` rank launches the grouped
 kernel over its own experts; E % model != 0 sends them to the ATen route,
 counted).  An MoE layer's capacity is per sequence and every prefill is
@@ -57,11 +63,12 @@ one slot at its own bucket, so a data rank's routing of a row is the
 unsharded engine's and the tokens equal its tokens.  Sampled tokens
 are all-gathered over the data axes in slot order, so every scheduler
 advances identically; sampling draws from one generator per (request,
-step), so the lane grouping moves no draw.  Admission reads a clock the
+step), so the lane grouping moves no draw.  The recurrent blocks' heads
+and channels are independent, so a rank's block of the state holds the
+unsharded engine's bits.  Admission reads a clock the
 ranks agree on (the latest of theirs).  Under a mesh ``batch_size`` must
-split over the data ranks (``ValueError``), and mamba and RWKV blocks
-(jamba too, for its mamba blocks; ROADMAP.md queue 1 item 4.2) and
-``prefix_cache`` (item 4.3) raise ``NotImplementedError``.  A data rank's
+split over the data ranks (``ValueError``), and ``prefix_cache``
+(ROADMAP.md queue 1 item 4.3) raises ``NotImplementedError``.  A data rank's
 parking-row prefill routes no request, so the MoE dispatch metrics do
 not observe it.  Training under a mesh is
 ``train.loop.run_training(mesh=...)``: the same rules and GEMMs, the
@@ -121,12 +128,6 @@ _FINISHED = obs_metrics.counter(
 def _check_mesh(cfg, mesh, batch_size: int, prefix_cache: bool,
                 device: torch.device) -> None:
     """What the engine serves under a mesh (module docstring)."""
-    kinds = {spec.kind for spec in cfg.pattern} - {"attn"}
-    if kinds:
-        raise NotImplementedError(
-            f"{sorted(kinds)} blocks under a mesh (their state over "
-            f"'model', CACHE_MODEL_AXES) are not ported yet: ROADMAP.md "
-            f"queue 1 item 4.2")
     if prefix_cache:
         raise NotImplementedError(
             "the prefix cache under a mesh is not ported yet: ROADMAP.md "

@@ -230,12 +230,20 @@ class _CpuMesh:
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
 def test_engine_refuses_unported_models_under_a_mesh(arch):
-    """Recurrent blocks under a mesh (jamba for its mamba blocks, though
-    its MoE layers would run expert-parallel)."""
+    """Recurrent blocks pass the engine's mesh check (rwkv's recurrence
+    runs head-parallel, jamba's mamba blocks channel-parallel and its MoE
+    layers expert-parallel: tests/test_torch_recurrent_mesh.py); what is
+    not ported under a mesh, the prefix cache, is still refused, by the
+    engine too."""
+    from repro_torch.serve.engine import _check_mesh
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.2"):
-        Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu",
-               mesh=_CpuMesh({"data": 2, "model": 2}))
+    mesh = _CpuMesh({"data": 2, "model": 2})
+    assert _check_mesh(cfg, mesh, 4, False, torch.device("cpu")) is None
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
+        _check_mesh(cfg, mesh, 4, True, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
+        Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu", mesh=mesh,
+               prefix_cache=True)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",

@@ -30,8 +30,9 @@ its meshless ``make_train_step``, computed here while the ranks run.
     experts on 1x4 its grouped GEMMs take the ATen route, counted
     (``tests/test_torch_moe_mesh.py`` holds MoE under a mesh to the
     unsharded port);
-  * refusals: mamba, rwkv, vision and the encoder-decoder under a mesh,
-    and a batch that does not split over microbatches x data ranks.
+  * refusals: vision and the encoder-decoder under a mesh (mamba and rwkv
+    are admitted: ``tests/test_torch_recurrent_mesh.py``), and a batch
+    that does not split over microbatches x data ranks.
 """
 import os
 import socket
@@ -420,9 +421,16 @@ def test_indivisible_experts_train_on_aten_route_counted(ranks):
                                   "llava-next-mistral-7b",
                                   "seamless-m4t-medium"])
 def test_other_models_under_a_mesh_are_refused(arch):
+    """The vision front end and the encoder-decoder are refused under a
+    training mesh (item 4.2(c)); the recurrent models train under one
+    (tests/test_torch_recurrent_mesh.py), so ``check_mesh`` admits
+    them."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.2"):
+    if arch in ("jamba-v0.1-52b", "rwkv6-3b"):
+        assert steps.check_mesh(cfg) is None
+        return
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 4\.2\(c\)"):
         run_training(cfg, TrainConfig(steps=1), device="cpu", mesh=_Mesh())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.2"):
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 4\.2\(c\)"):
         with S.use_mesh(_Mesh()):
             steps.mean_loss_and_grads(cfg, {}, {})
