@@ -13,10 +13,11 @@
                                       # only report phase 5r and compare
                                       # chunked with single-shot prefill
                                       # (5c's gate, each run twice)
-    python3 chip_smoke.py --train-mesh-study [rwkv6-3b]
+    python3 chip_smoke.py --train-mesh-study [ARCH]
                                       # only run phase 5d (b)'s granite (or
-                                      # 5d (c)'s rwkv6-3b) step 1 over init
-                                      # seeds, no gate applied
+                                      # 5d (c)'s rwkv6-3b, 5d (d)'s llava or
+                                      # seamless) step 1 over init seeds, no
+                                      # gate applied
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -441,7 +442,10 @@ Distributed serving (repro_torch/dist, launch/mesh.py, the engine's
       logits row torch.equal; per-rank resident bytes, peak and step ms
       reported.
 
-Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
+Training under a mesh (``train.loop.run_training(mesh=...)``) adds 5d:
+its (a) runs before 5m, its (b) beside 5m's ranks once they have loaded
+their last large model (jamba's), after 5m (a) (both phases' ranks are
+gloo transport checks on this card, and neither waits on the other):
 
   5d. (a) a world of one on NCCL: full-width, full-depth llama3.2-1b under
       mixed (5t's seq 256, global batch 8, 2 microbatches),
@@ -450,10 +454,10 @@ Training under a mesh (``train.loop.run_training(mesh=...)``) adds:
       leaf of params, mu, nu and step torch.equal, launches exact
       (``train_launches``) and equal;
       (b) MESH_RANKS gloo ranks sharing cuda:0 (``--train-mesh-rank``,
-      started first: they join their mesh, and run while (a) runs) on a
-      MESH_SHAPE mesh, llama at TRAIN_MESH_PERIODS periods, the same batch:
-      the unsharded step 1 and its update at that depth here, before (a)
-      (saved for the ranks, which it releases); on each rank what
+      started first: they join their mesh and wait) on a MESH_SHAPE mesh,
+      llama at TRAIN_MESH_PERIODS periods, the same batch: the unsharded
+      step 1 and its update at that depth here (saved for the ranks, which
+      it releases); on each rank what
       ``run_training``'s loop
       runs a step — the seeded init's blocks, step 1 and its AdamW update
       (each rank's blocks of the gradients, params, mu and nu, and its grad
@@ -913,6 +917,13 @@ STAGED_SOURCES = {
 # M=64 over all 8192).
 ATEN_KN = (2048, 8192)
 ATEN_ROWS = [4, 64]
+# the rows timed (the comparisons run at every ATEN_ROWS), each call over
+# ATEN_ITERS calls, or ATEN_FEW_ITERS where its host time passes
+# ATEN_SLOW_HOST_MS (the sleep lead grows with iterations x host time)
+ATEN_TIMED_ROWS = [64]
+ATEN_SLOW_HOST_MS = 5.0
+ATEN_ITERS = 10
+ATEN_FEW_ITERS = 3
 ATEN_WIDTHS = [12, 16, 20, 24, 28]
 ATEN_QMM_WIDTHS = [8, 12, 28]
 ATEN_CPU_COLS = 1024
@@ -1051,6 +1062,35 @@ MESH_JAMBA_PERIODS = 1
 MESH_RECURRENT_PROMPTS = (8, 64)
 MESH_RECURRENT = (("rwkv", MESH_RWKV_ARCH, MESH_RWKV_PERIODS),
                   ("jamba", MESH_JAMBA_ARCH, MESH_JAMBA_PERIODS))
+# 5m (d), the prefix cache under a mesh: llama at MESH_PERIODS and rwkv6-3b
+# at MESH_RWKV_PERIODS on records drawn leaf by leaf, prefill chunks of
+# PREFIX_CHUNK, the prefix cache on, 4 slots (2 a data rank);
+# PREFIX_REQUESTS greedy prompts of PREFIX_LENS tokens whose first
+# PREFIX_SHARED are shared, PREFIX_NEW new tokens each.  Snapshots sit at
+# 64 tokens (lcm(page 64, chunk 32, bucket 8)): the four requests admitted
+# first miss, each later one restores its data rank's snapshot.  (a) the
+# unsharded engine against the world of one (NCCL, graphed), torch.equal;
+# (b) on the 2x2 ranks after (c), tokens and every row of a request's data
+# rank torch.equal to (a)'s unsharded engine, a hit on every data rank,
+# the hits and misses adding up to its.
+MESH_PREFIX = (("prefix_llama", MESH_ARCH, MESH_PERIODS),
+               ("prefix_rwkv", MESH_RWKV_ARCH, MESH_RWKV_PERIODS))
+PREFIX_CHUNK, PREFIX_REQUESTS, PREFIX_SHARED, PREFIX_NEW = 32, 8, 80, 8
+PREFIX_LENS = (90, 120)
+# 5m (d), the front ends on the 2x2 ranks after the prefix cache: llava at
+# 2 of its 32 periods (2 streams of 576 patch embeddings and MESH_VISION_TEXT
+# tokens) and seamless at 2 + 2 of its 12 + 12 (2 streams of
+# MESH_ENCDEC_FRAMES frames and MESH_ENCDEC_PROMPT tokens), records drawn
+# leaf by leaf, through lm.prefill and MESH_FRONT_NEW greedy decode_steps
+# on each data rank's stream; its tokens and logits rows torch.equal to
+# the unsharded calls at that depth, which (a) makes; launches exact.
+# (what, arch, periods, encoder periods)
+MESH_FRONTENDS = (("vision", VISION_ARCH, 2, 0), ("encdec", ENCDEC_ARCH, 2, 2))
+MESH_VISION_TEXT, MESH_ENCDEC_FRAMES, MESH_ENCDEC_PROMPT = 16, 512, 4
+MESH_FRONT_STREAMS, MESH_FRONT_NEW = 2, 4
+# 5m (d)'s logits rows, which the ranks write and the parent compares (too
+# large for chiprun_out/; removed after the gates)
+MESH_ROWS_DIR = ROOT / "build" / "scratch" / "mesh_rows"
 # 5d (c): (a) rwkv6-3b at TRAIN_MESH_RWKV_PERIODS, TRAIN_MESH_STEPS steps,
 # no mesh against the world of one, deterministic; (b) the same depth on
 # the 2x2 gloo ranks, its 4 microbatches of 2 sequences (one a data rank),
@@ -1062,6 +1102,40 @@ MESH_RECURRENT = (("rwkv", MESH_RWKV_ARCH, MESH_RWKV_PERIODS),
 # the bf16 copy: the mesh reorders the fp32 sums of dW and dx, and a bf16
 # gradient would round those reorderings to whole ulps (2^-8 of an entry).
 TRAIN_MESH_RWKV_PERIODS = 2
+# Phase 5d (d): llava and seamless (its encoder too) at
+# TRAIN_MESH_FRONT_PERIODS periods, at most TRAIN_MESH_FRONT_MICRO
+# microbatches, 5t's batch of TRAIN_SEQ text tokens (after llava's 576
+# patch embeddings; beside seamless's TRAIN_SEQ frames): (a) on the world
+# of one against no mesh, torch.equal; (b) in the --train-mesh-rank
+# processes after rwkv, step 1 alone (TRAIN_MESH_STEP1_ONLY) against the
+# unsharded step: its loss torch.equal to the unsharded loss, every
+# gradient under 5d (b)'s gate, the grad norm within
+# TRAIN_MESH_FRONT_NORM_RTOL, and mu, nu and params under the gates that
+# follow (5d (b)'s) for the leaves of TRAIN_MESH_UPDATE_LEAVES (the
+# projector, the encoder and the cross-attention): the unsharded step-1
+# file keeps the update of those alone, since the decoder's and the
+# tables' in fp32 (llava's 2.9 GB a part) would pass the machine's budget
+# of disk writes, and 5d (b)'s llama gates that code on those leaves.  No
+# checkpoint (that budget too; the checkpoint of the projector and
+# encoder leaves is held on the CPU, tests/test_torch_frontend_mesh.py).
+# The grad-norm gate is read over --train-mesh-study's init seeds, as
+# llama's, granite's and rwkv's were: on an NVIDIA H100 80GB HBM3 (700 W),
+# seeds 0, 1, 2 read 9.63e-6, 3.01e-6, 1.19e-5 (llava) and 1.22e-5,
+# 4.23e-6, 7.84e-6 (seamless), past llama's 1e-5 and spread 4x, so the
+# gate is 4x their largest; on the front-end leaves gradients and mu at
+# most 7.14e-3, nu 9.98e-3, params 2.76e-3 lr where the sign is safe.
+TRAIN_MESH_FRONT_PERIODS = 2
+TRAIN_MESH_FRONT_MICRO = 4
+TRAIN_MESH_STEP1_ONLY = ("vision", "encdec")
+TRAIN_MESH_FRONT_NORM_RTOL = 5e-5
+TRAIN_MESH_UPDATE_LEAVES = ("/frontend/", "/encoder/", "/enc_ln_f/",
+                            "/xattn/", "/lnx/")
+
+
+def front_update_leaf(key: str) -> bool:
+    """Whether 5d (d)'s step-1 file keeps ``key``'s update (params, mu,
+    nu): a leaf under a name of TRAIN_MESH_UPDATE_LEAVES."""
+    return any(k in f"/{key}" for k in TRAIN_MESH_UPDATE_LEAVES)
 
 
 def log(msg: str) -> None:
@@ -3213,16 +3287,19 @@ def serve_dense(torch, np, fg, arch: str, dense: dict, per_call_too: bool,
 
 def greedy_run(torch, fg, pcfg, params, toks, extra: dict, new: int,
                max_seq: int, what: str, prefill_counts: dict,
-               step_counts: dict) -> dict:
+               step_counts: dict, mesh=None) -> dict:
     """One prefill of ``toks`` (B, S) with ``extra`` (a vision prefix's
     ``frontend_embeds`` or an encoder's ``enc_frames``) and ``new`` greedy
     decode steps through ``lm.prefill`` / ``lm.decode_step`` (eager; the
     engine takes neither input), the launch counts set to 0 before the
     prefill and before the steps and read after each: exactly
     ``prefill_counts``, then ``new`` x ``step_counts``, every GEMM on the
-    kernels.  Returns the tokens (B, new + 1: the prefill's pick and each
-    step's), each step's logits, the first decode position, the counted
+    kernels.  Under ``mesh`` (the ambient one) ``toks`` and ``extra`` are
+    this data rank's rows and the cache its block.  Returns the tokens (B,
+    new + 1: the prefill's pick and each step's), the prefill's and each
+    step's logits, the memory, the first decode position, the counted
     launches and the timings."""
+    from repro_torch.dist import sharding as S
     from repro_torch.kernels import launch_counts
     from repro_torch.models import lm
     from repro_torch.quant import qmatmul
@@ -3231,8 +3308,18 @@ def greedy_run(torch, fg, pcfg, params, toks, extra: dict, new: int,
     counts, routes = [], []
     reset_all(fg)
     torch.cuda.synchronize()
-    with torch.inference_mode():
-        cache = lm.init_cache(pcfg, b, max_seq, device="cuda")
+    with torch.inference_mode(), (S.use_mesh(mesh) if mesh is not None
+                                  else contextlib.nullcontext()):
+        if mesh is None:
+            cache = lm.init_cache(pcfg, b, max_seq, device="cuda")
+        else:       # this rank's block of the global batch's cache
+            n = b * S.data_size(mesh)
+            whole = lm.init_cache(pcfg, n, max_seq, device="meta")
+            specs = S.cache_sharding(whole, mesh, batch=n)
+            cache = {pos: {k: torch.zeros(
+                S.local_block(t, specs[pos][k], mesh).shape, dtype=t.dtype,
+                device="cuda") for k, t in leaves.items()}
+                for pos, leaves in whole.items()}
         tic = time.monotonic()
         logits, cache, mem = lm.prefill(params, pcfg, toks, cache, **extra)
         torch.cuda.synchronize()
@@ -3240,6 +3327,7 @@ def greedy_run(torch, fg, pcfg, params, toks, extra: dict, new: int,
         counts.append(nonzero(launch_counts()))
         routes.append(qmatmul.gemm_routes())
         reset_all(fg)
+        first = logits
         picks, steps = [torch.argmax(logits, -1)], []
         tic = time.monotonic()
         for i in range(new):
@@ -3261,7 +3349,8 @@ def greedy_run(torch, fg, pcfg, params, toks, extra: dict, new: int,
                  f"{route}")
     host = {k: counts[0].get(k, 0) + counts[1].get(k, 0)
             for k in counts[0].keys() | counts[1].keys()}
-    return {"tokens": torch.stack(picks, 1), "steps": steps, "t0": t0,
+    return {"tokens": torch.stack(picks, 1), "prefill_logits": first,
+            "steps": steps, "mem": mem, "t0": t0,
             "launches": {"host": host},
             "prefill_ms": prefill_s * 1e3,
             "decode_step_ms": decode_s / new * 1e3,
@@ -3427,10 +3516,33 @@ def serve_encdec(torch, fg) -> dict:
     return out
 
 
+def aten_ms(torch, fn, timing: list) -> float:
+    """Device ms of a host-bound ATen call, as :func:`device_ms` times it
+    (queued behind a sleep lead covering the host's enqueueing), the lead
+    sized from one synchronised call's host time, over ATEN_ITERS
+    iterations, ATEN_FEW_ITERS where that passes ATEN_SLOW_HOST_MS; its
+    seconds added to ``timing[0]``."""
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    iters = ATEN_FEW_ITERS if host_ms > ATEN_SLOW_HOST_MS else ATEN_ITERS
+    ms = cuda_ms(torch, fn, iters=iters, warmup=1,
+                 lead_ms=2 * iters * host_ms + 1)
+    timing[0] += time.monotonic() - t0
+    return ms
+
+
 def aten_checks(torch, fg):
     """Phase 3k: the ATen route on the card, each result torch.equal to the
-    same call on the CPU (which the test suite holds to JAX), and timed in
-    device time beside the fused kernel at the same width."""
+    same call on the CPU (which the test suite holds to JAX) at every
+    ATEN_ROWS, and timed in device time beside the fused kernel at the
+    same width at ATEN_TIMED_ROWS (:func:`aten_ms`).  Returns the rows and
+    the seconds the timing took (``timing_s``; the rest is the
+    comparisons')."""
     from repro_torch.core.context import ExecContext
     from repro_torch.core.dispatch import ExecPlan, analytic_plan, select_mode
     from repro_torch.core.kmm import kmm_n, mm_n
@@ -3444,6 +3556,7 @@ def aten_checks(torch, fg):
     k, n = ATEN_KN
     half = ATEN_CPU_COLS // 2
     cols = torch.cat([torch.arange(half), torch.arange(n - half, n)])
+    timing = [0.0]
 
     def codes(w, shape):
         q = 2 ** (w - 1) - 1
@@ -3457,6 +3570,7 @@ def aten_checks(torch, fg):
 
     out = {"recursion": [], "quantized_matmul": [], "strassen": []}
     for m in ATEN_ROWS:
+        timed = m in ATEN_TIMED_ROWS
         for w in ATEN_WIDTHS:
             a, b = codes(w, (m, k)), codes(w, (k, n))
             ad, bd = a.cuda(), b.cuda()
@@ -3468,16 +3582,20 @@ def aten_checks(torch, fg):
                               combine_dtype=torch.float32)
                 same(call(ad, bd)[:, cols.cuda()], call(a, b[:, cols]),
                      f"{name} w={w} n={digits} M={m}")
-                row[f"{name}_ms"] = device_ms(torch, lambda: call(ad, bd))[0]
-            if w <= 26:      # the fused kernel on the same codes
+                if timed:
+                    row[f"{name}_ms"] = aten_ms(torch, lambda: call(ad, bd),
+                                                timing)
+            if timed and w <= 26:      # the fused kernel on the same codes
                 plan = dataclasses.replace(analytic_plan(w), block_k=256)
                 ac, bc = ad.to(carrier_dtype(w)), bd.to(carrier_dtype(w))
-                row["fused_ms"] = device_ms(
-                    torch, lambda: ops.run_plan(ac, bc, plan=plan))[0]
+                row["fused_ms"] = aten_ms(
+                    torch, lambda: ops.run_plan(ac, bc, plan=plan), timing)
             out["recursion"].append(row)
             log(f"  kmm_n / mm_n w={w} n={digits} M={m} K={k} N={n}: card "
-                f"== CPU | {row['kmm_n_ms']:.3f} / {row['mm_n_ms']:.3f} ms"
-                + (f" | fused {row['fused_ms']:.4f} ms" if w <= 26 else ""))
+                f"== CPU" + (f" | {row['kmm_n_ms']:.3f} / "
+                             f"{row['mm_n_ms']:.3f} ms" if timed else "")
+                + (f" | fused {row['fused_ms']:.4f} ms"
+                   if "fused_ms" in row else ""))
         x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
         wm = torch.randn((k, n), generator=gen) * 0.02
         xd, wd = x.cuda(), wm.cuda()
@@ -3486,17 +3604,18 @@ def aten_checks(torch, fg):
             got = quantized_matmul(xd, wd, w, context=aten)
             same(got[:, cols.cuda()], quantized_matmul(
                 x, wm[:, cols], w, context=aten), f"quantized_matmul w={w}")
-            row = {"M": m, "K": k, "N": n, "w": w, "ms": device_ms(
-                torch, lambda: quantized_matmul(xd, wd, w,
-                                                context=aten))[0]}
-            if w <= 26:
-                row["fused_ms"] = device_ms(
-                    torch, lambda: quantized_matmul(xd, wd, w))[0]
+            row = {"M": m, "K": k, "N": n, "w": w}
+            if timed:
+                row["ms"] = aten_ms(torch, lambda: quantized_matmul(
+                    xd, wd, w, context=aten), timing)
+                if w <= 26:
+                    row["fused_ms"] = aten_ms(
+                        torch, lambda: quantized_matmul(xd, wd, w), timing)
             out["quantized_matmul"].append(row)
-            log(f"  quantized_matmul on aten w={w} M={m}: card == CPU | "
-                f"{row['ms']:.3f} ms"
+            log(f"  quantized_matmul on aten w={w} M={m}: card == CPU"
+                + (f" | {row['ms']:.3f} ms" if timed else "")
                 + (f" | on the kernels {row['fused_ms']:.4f} ms"
-                   if w <= 26 else ""))
+                   if "fused_ms" in row else ""))
     m, k2, n2 = STRASSEN_SHAPE
     for w in STRASSEN_WIDTHS:
         a, b = codes(w, (m, k2)), codes(w, (k2, n2))
@@ -3517,8 +3636,8 @@ def aten_checks(torch, fg):
             if launched != ({"kmm2": 7} if name == "strassen+kmm2" else {}):
                 fail(f"{name} w={w}: fused launches {launched}")
             same(got, want, f"{name} w={w}")
-            row[f"{name}_ms"] = device_ms(
-                torch, lambda: ops.run_plan(ad, bd, plan=plan))[0]
+            row[f"{name}_ms"] = aten_ms(
+                torch, lambda: ops.run_plan(ad, bd, plan=plan), timing)
         out["strassen"].append(row)
         log(f"  strassen w={w} {m}x{k2}x{n2}: card == CPU, == xla_ref "
             f"(strassen+kmm2: 7 fused kmm2 launches) | xla_ref "
@@ -3529,6 +3648,7 @@ def aten_checks(torch, fg):
     same(ffip_gemm_literal(a.cuda(), b.cuda()), ffip_gemm_literal(a, b),
          f"ffip {FFIP_SHAPE}")
     log(f"  ffip_gemm_literal {m}x{k3}x{n3}: card == CPU")
+    out["timing_s"] = timing[0]
     return out
 
 
@@ -5027,7 +5147,11 @@ def train_launches(cfg, steps: int, seq: int) -> dict:
     per microbatch each period's quantized GEMMs, norms, LoRA products and
     scan forwards run twice under remat (forward and the backward's
     recompute) and its scan backwards once, the head's GEMM twice a loss
-    chunk (its checkpoint), ln_f once; the microbatches multiply."""
+    chunk (its checkpoint), ln_f once; a front end's projector GEMMs once;
+    an encoder-decoder's encoder periods as the decoder's (twice under
+    remat), enc_ln_f once, each decoder period's cross-attention norm and
+    its wq and wo as its other sites, its memory's wk and wv once; the
+    microbatches multiply."""
     from repro_torch.kernels import fused_gemm as fg
     from repro_torch.models import lm
 
@@ -5067,6 +5191,21 @@ def train_launches(cfg, steps: int, seq: int) -> dict:
                 ("wi", "wg", "wo") if cfg.glu else ("wi", "wo"))]
         for name in names:
             add(f"dense_{mode(name)}", per)
+    if cfg.frontend != "none":
+        for name in ("frontend.w1", "frontend.w2"):
+            add(f"dense_{mode(name)}", 1)
+    if cfg.is_encdec:
+        enc = remat * cfg.encoder_periods
+        for pos, spec in enumerate(cfg.pattern):
+            add("rowinv_norm", 2 * enc + per)         # ln1, ln2; lnx
+            for p in ("wq", "wk", "wv", "wo"):
+                add(f"dense_{mode(f'blk{pos}.attn.{p}')}", enc)
+            for p in ("wi", "wg", "wo") if cfg.glu else ("wi", "wo"):
+                add(f"dense_{mode(f'blk{pos}.mlp.{p}')}", enc)
+            for p, n in (("wq", per), ("wo", per), ("wk", cfg.n_periods),
+                         ("wv", cfg.n_periods)):
+                add(f"dense_{mode(f'blk{pos}.xattn.{p}')}", n)
+        add("rowinv_norm", 1)                        # enc_ln_f
     chunk = min(lm.LOSS_CHUNK, seq)
     while seq % chunk:
         chunk //= 2
@@ -5216,11 +5355,22 @@ def checked_kernels(torch, fg, what: str):
 
 def train_batch(torch, cfg, step: int = 0, seq: int = TRAIN_SEQ,
                 batch: int = TRAIN_BATCH, device="cuda"):
-    from repro_torch.data.pipeline import DataConfig, DataIterator
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                      global_batch=batch, seed=0)
+    from repro_torch.data.pipeline import DataIterator
     return {k: torch.from_numpy(v).to(device)
-            for k, v in DataIterator(dcfg).peek(step).items()}
+            for k, v in DataIterator(data_config(cfg, seq, batch)).peek(
+                step).items()}
+
+
+def data_config(cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
+    """5t's and 5d's data: ``batch`` sequences of ``seq`` text tokens from
+    seed 0, with a vision model's patch embeddings or an encoder-decoder's
+    ``seq`` frames."""
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, frontend=cfg.frontend,
+                      frontend_dim=cfg.frontend_dim,
+                      frontend_tokens=cfg.frontend_tokens,
+                      encdec=cfg.is_encdec, seed=0)
 
 
 def grads_by_leaf(grads) -> dict:
@@ -5893,20 +6043,25 @@ def widths_of(seen: dict) -> dict:
 
 
 def world_of_one_pair(torch, np, fg, what: str, pcfg, qparams, mesh,
-                      per_call, prompts=DENSE_PROMPTS) -> tuple:
+                      per_call, prompts=DENSE_PROMPTS, requests=None,
+                      **engine_kw) -> tuple:
     """The engine without a mesh and with ``mesh`` (a world of one), each
     warmed and graphed, under the exact launch and graph-node gates:
-    tokens and every sampled logits row torch.equal.  Returns the report
-    and the unsharded run's rows."""
+    tokens and every sampled logits row torch.equal.  ``requests(np,
+    pcfg)`` makes the requests where given (else :func:`mesh_requests` of
+    ``prompts``), ``engine_kw`` go to both engines (the prefix cache's:
+    its stats reported).  Returns the report and the unsharded run's
+    rows."""
     from repro_torch.serve.engine import Engine
     out, runs = {}, {}
     for label, m in (("no mesh", None), ("mesh 1x1", mesh)):
         eng = Engine(pcfg, qparams, max_seq=256, batch_size=4,
-                     device="cuda", mesh=m)
+                     device="cuda", mesh=m, **engine_kw)
         if not eng.executor.graphs:
             fail(f"5m (a) {what} {label}: decode is not graphed")
         eng.warm()
-        reqs = mesh_requests(np, pcfg, prompts)
+        reqs = (requests(np, pcfg) if requests is not None
+                else mesh_requests(np, pcfg, prompts))
         with sampled_rows({}) as rows:
             run = serve_counted(torch, fg, eng, reqs)
         run["launches"] = check_counted(f"5m (a) {what} {label}", eng, run,
@@ -5917,6 +6072,8 @@ def world_of_one_pair(torch, np, fg, what: str, pcfg, qparams, mesh,
                       "decode_s": run["stats"].decode_s,
                       "decode_steps": run["stats"].decode_steps,
                       "tokens": run["tokens"]}
+        if eng.prefix is not None:
+            out[label]["prefix"] = eng.prefix.stats()
         del eng
     base, got = runs["no mesh"], runs["mesh 1x1"]
     if got["tokens"] != base["tokens"] or base["rows"].keys() != \
@@ -6002,6 +6159,12 @@ def mesh_world_of_one(torch, np, fg) -> dict:
     t0 = time.monotonic()
     out.update(recurrent_world_of_one(torch, np, fg, mesh))
     out["recurrent_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out.update(prefix_world_of_one(torch, np, fg, mesh))
+    out["prefix_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["frontends"] = frontend_references(torch, fg)
+    out["frontends_s"] = time.monotonic() - t0
     dist.destroy_process_group()
     return out
 
@@ -6036,6 +6199,201 @@ def recurrent_world_of_one(torch, np, fg, mesh) -> dict:
                         "rows": {f"{k[0]}/{k[1]}": v.cpu()
                                  for k, v in rows.items()}}
     del qparams, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_requests(np, cfg):
+    """5m (d)'s requests: PREFIX_REQUESTS greedy prompts of PREFIX_LENS
+    tokens, the first PREFIX_SHARED of every one the same, PREFIX_NEW new
+    tokens each."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(3)
+    head = [int(t) for t in rng.integers(1, cfg.vocab_size, PREFIX_SHARED)]
+    lo, hi = PREFIX_LENS
+    return [Request(prompt=head + [int(t) for t in rng.integers(
+        1, cfg.vocab_size, int(n) - PREFIX_SHARED)],
+                    max_new_tokens=PREFIX_NEW)
+            for n in rng.integers(lo, hi + 1, PREFIX_REQUESTS)]
+
+
+PREFIX_ENGINE = {"prefill_chunk": PREFIX_CHUNK, "prefix_cache": True}
+
+
+@contextlib.contextmanager
+def admitted_slots():
+    """The slot every request is admitted into while entered, by request
+    id."""
+    from repro_torch.serve.engine import Engine
+    slots = {}
+    inner = Engine._init_slot
+
+    def admitted(self, idx, req):
+        slots[req.stats.rid] = idx
+        return inner(self, idx, req)
+
+    Engine._init_slot = admitted
+    try:
+        yield slots
+    finally:
+        Engine._init_slot = inner
+
+
+def prefix_world_of_one(torch, np, fg, mesh) -> dict:
+    """Phase 5m (a) (d): each MESH_PREFIX model at its depth on records
+    from the leaf-wise init, chunked with the prefix cache on, without a
+    mesh and on the world of one (graphed, torch.equal); the unsharded
+    run is (b)'s reference (its tokens, rows and prefix stats)."""
+    out = {}
+    for what, arch, periods in MESH_PREFIX:
+        cfg, per_call = cut_config(arch, periods)
+        qparams, init = leafwise_init(torch, cfg)
+        pair, rows = world_of_one_pair(
+            torch, np, fg, f"{arch} prefix cache", cfg, qparams, mesh,
+            per_call, requests=prefix_requests, **PREFIX_ENGINE)
+        base = pair["no mesh"]
+        if base["prefix"]["hits"] < 1:
+            fail(f"5m (a) {arch}: the prefix cache never hit: "
+                 f"{base['prefix']}")
+        out[what] = {"init": init, **pair,
+                     "rows": {f"{k[0]}/{k[1]}": v.cpu()
+                              for k, v in rows.items()}}
+        log(f"  (a) {arch} at {periods} periods, chunks of {PREFIX_CHUNK} "
+            f"and the prefix cache: {base['prefix']}")
+        del qparams, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def frontend_cut(arch: str, periods: int, encoder: int):
+    """A front end's model under mixed at ``periods`` (and ``encoder``
+    encoder periods, where it has an encoder)."""
+    cfg = dataclasses.replace(path_config(arch, "mixed"), n_periods=periods)
+    if encoder:
+        cfg = dataclasses.replace(cfg, encoder_periods=encoder)
+    return cfg
+
+
+def frontend_per_call(cfg) -> tuple:
+    """(a prefill's, a decode step's) launches of llava or seamless under
+    mixed at ``cfg``'s depth, as VISION_* and ENCDEC_* count them at full
+    depth: the projector's 2 GEMMs in the prefill; a llava period 7 GEMMs
+    and 2 norms; a seamless encoder period 6 GEMMs and 2 norms (enc_ln_f
+    once), a decoder period 8 GEMMs (its memory's wk and wv 2 more in the
+    prefill) and 3 norms; the w=12 head and ln_f once."""
+    p = cfg.n_periods
+    if cfg.is_encdec:
+        e = cfg.encoder_periods
+        pre = {"dense_mm1": 2 + 6 * e + 10 * p, "rowinv_norm": 2 * e + 3 * p
+               + 2}
+        step = {"dense_mm1": 8 * p, "rowinv_norm": 3 * p + 1}
+    else:
+        pre = {"dense_mm1": 2 + 7 * p, "rowinv_norm": 2 * p + 1}
+        step = {"dense_mm1": 7 * p, "rowinv_norm": 2 * p + 1}
+    return pre | {"dense_kmm2": 1}, step | {"dense_kmm2": 1}
+
+
+def frontend_inputs(torch, cfg):
+    """5m (d)'s streams, drawn on the card from a seeded generator (the
+    same on every process): tokens, the vision prefix's patch embeddings
+    or the encoder's frames, and the cache length."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    b = MESH_FRONT_STREAMS
+    if cfg.is_encdec:
+        toks = torch.randint(1, cfg.vocab_size, (b, MESH_ENCDEC_PROMPT),
+                             generator=gen, device="cuda")
+        return toks, {"enc_frames": torch.randn(
+            (b, MESH_ENCDEC_FRAMES, cfg.frontend_dim), generator=gen,
+            device="cuda")}, ENCDEC_MAX_SEQ
+    toks = torch.randint(1, cfg.vocab_size, (b, MESH_VISION_TEXT),
+                         generator=gen, device="cuda")
+    return toks, {"frontend_embeds": torch.randn(
+        (b, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+        device="cuda")}, VISION_MAX_SEQ
+
+
+def frontend_serve(torch, fg, cfg, params, mesh=None) -> dict:
+    """One 5m (d) front-end run: :func:`greedy_run` of the streams (under
+    ``mesh``, this data rank's) for MESH_FRONT_NEW steps, launches exactly
+    :func:`frontend_per_call`'s.  Returns every logits row (streams, calls,
+    vocab) on the host, the streams' range, the tokens, the launches, the
+    host-clock timings and the memory's shape."""
+    from repro_torch.dist import sharding as S
+    toks, extra, max_seq = frontend_inputs(torch, cfg)
+    b = toks.shape[0]
+    lo, hi = 0, b
+    if mesh is not None:
+        d, n = S.axes_index(mesh, S.data_axes(mesh))
+        lo, hi = d * b // n, (d + 1) * b // n
+    run = greedy_run(torch, fg, cfg, params, toks[lo:hi],
+                     {k: v[lo:hi] for k, v in extra.items()},
+                     MESH_FRONT_NEW, max_seq, f"5m (d) {cfg.name}"
+                     + (" on the mesh" if mesh is not None else ""),
+                     *frontend_per_call(cfg), mesh=mesh)
+    mem = run["mem"]
+    return {"logits": torch.stack([run["prefill_logits"]] + run["steps"],
+                                  1).cpu(),
+            "rows": [lo, hi], "tokens": run["tokens"].tolist(),
+            "launches": run["launches"], "prefill_ms": run["prefill_ms"],
+            "decode_step_ms": run["decode_step_ms"],
+            "memory_shape": (list(mem["pos0"][0].shape) if mem is not None
+                             else None)}
+
+
+def frontend_references(torch, fg) -> dict:
+    """Phase 5m (a) (d): each MESH_FRONTENDS model at its cut depth on
+    records from the leaf-wise init, served unsharded
+    (:func:`frontend_serve`): (b)'s reference."""
+    out = {}
+    for what, arch, periods, encoder in MESH_FRONTENDS:
+        cfg = frontend_cut(arch, periods, encoder)
+        qparams, init = leafwise_init(torch, cfg)
+        out[what] = {"init": init, **frontend_serve(torch, fg, cfg, qparams)}
+        log(f"  (a) {arch} at {periods}"
+            + (f" + {encoder}" if encoder else "") + " periods, unsharded: "
+            f"tokens {out[what]['tokens']}; prefill "
+            f"{out[what]['prefill_ms']:.1f} ms, a decode step "
+            f"{out[what]['decode_step_ms']:.1f} ms (host clock)")
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_frontend(torch, fg, mesh, what: str, cfg, rows_path: str) -> dict:
+    """One 5m (d) front end on this rank: its blocks of the records drawn
+    leaf by leaf (:func:`drawn_blocks`; the resident bytes those the
+    abstract specs place), then :func:`frontend_serve` on its data rank's
+    stream under ``mesh``; the logits rows written to ``rows_path``."""
+    from repro_torch.dist import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qparams = drawn_blocks(torch, mesh, cfg)
+    planned = steps.local_bytes(steps.abstract_params(cfg, mesh,
+                                                      prequant=True), mesh)
+    resident = S.resident_bytes(qparams)
+    if resident != planned:
+        fail(f"5m (d) {cfg.name} rank {torch.distributed.get_rank()}: its "
+             f"drawn blocks hold {resident} bytes, the specs place "
+             f"{planned}")
+    load_s = time.monotonic() - t0
+    run = frontend_serve(torch, fg, cfg, qparams, mesh)
+    torch.save(run.pop("logits"), rows_path)
+    out = dict(run, load_s=load_s, resident_bytes=resident,
+               whole_bytes=S.resident_bytes(lm.init_params(
+                   torch.Generator(), cfg, device="meta",
+                   prequant=cfg.quant)),
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               seconds=time.monotonic() - t0)
+    del qparams
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -6315,11 +6673,25 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
         os.path.join(out_dir, f"mesh_moe_rows{rank}.pt"))
     for what, arch, periods in MESH_RECURRENT:
         t0 = time.monotonic()
+        # the last of them (jamba) draws the largest whole leaves: once its
+        # load is done, what this rank holds on the card is small
         out[what] = rank_engine(
             torch, np, fg, mesh, *cut_config(arch, periods), None,
             os.path.join(out_dir, f"mesh_{what}_rows{rank}.pt"),
-            MESH_RECURRENT_PROMPTS)
+            MESH_RECURRENT_PROMPTS, loaded=light_mark(out_dir, rank) if (
+                what == MESH_RECURRENT[-1][0]) else None)
         out[what]["seconds"] = time.monotonic() - t0
+    for what, arch, periods in MESH_PREFIX:
+        t0 = time.monotonic()
+        out[what] = rank_engine(
+            torch, np, fg, mesh, *cut_config(arch, periods), None,
+            str(MESH_ROWS_DIR / f"mesh_{what}_rows{rank}.pt"),
+            requests=prefix_requests, **PREFIX_ENGINE)
+        out[what]["seconds"] = time.monotonic() - t0
+    for what, arch, periods, encoder in MESH_FRONTENDS:
+        out[what] = rank_frontend(
+            torch, fg, mesh, what, frontend_cut(arch, periods, encoder),
+            str(MESH_ROWS_DIR / f"mesh_{what}_rows{rank}.pt"))
     out["seconds"] = time.monotonic() - t_start
     with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
         json.dump(out, f, indent=1)
@@ -6352,7 +6724,8 @@ def drawn_blocks(torch, mesh, cfg):
 
 def rank_engine(torch, np, fg, mesh, pcfg, per_call,
                 records: Optional[Path], rows_path: str,
-                prompts=DENSE_PROMPTS) -> dict:
+                prompts=DENSE_PROMPTS, requests=None,
+                loaded: Optional[Path] = None, **engine_kw) -> dict:
     """One 5m (b) engine on this rank: once the parent has written them,
     the records mapped from the host file, each rank's blocks alone copied
     to the card (held to its ``leaf_spec`` blocks of the whole); or, with
@@ -6360,8 +6733,12 @@ def rank_engine(torch, np, fg, mesh, pcfg, per_call,
     (:func:`drawn_blocks`; resident bytes those the abstract specs place,
     every block on the card); then the requests served eagerly (gloo),
     counted: exact launches a model call, every grouped launch's experts
-    and every recurrent launch's heads or channels reported.  Writes this
-    data rank's logits rows to ``rows_path``."""
+    and every recurrent launch's heads or channels reported.  ``requests``
+    and ``engine_kw`` as :func:`world_of_one_pair` takes them (with the
+    prefix cache, each data rank's prefix stats reported).  Writes the
+    logits rows of the requests this data rank's slots served to
+    ``rows_path``; touches ``loaded`` once the load's memory (a drawn
+    whole leaf beside the blocks) is given back to the card."""
     from repro_torch.dist import sharding as S
     from repro_torch.launch import steps
     from repro_torch.models import lm
@@ -6405,7 +6782,7 @@ def rank_engine(torch, np, fg, mesh, pcfg, per_call,
         whole = S.resident_bytes(qparams)
         del flat
     eng = Engine(pcfg, qparams, max_seq=256, batch_size=4, device="cuda",
-                 mesh=mesh)
+                 mesh=mesh, **engine_kw)
     torch.cuda.synchronize()
     out = {"load_s": time.monotonic() - t0,
            "load_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
@@ -6417,11 +6794,15 @@ def rank_engine(torch, np, fg, mesh, pcfg, per_call,
         fail(f"5m (b) rank {rank}: resident bytes are not its blocks'")
     del qparams
     gc.collect()
+    torch.cuda.empty_cache()
+    if loaded is not None:
+        loaded.touch()
     if eng.executor.graphs:
         fail("5m (b): decode is graphed under a gloo mesh")
-    reqs = mesh_requests(np, pcfg, prompts)
+    reqs = (requests(np, pcfg) if requests is not None
+            else mesh_requests(np, pcfg, prompts))
     with sampled_rows({}) as rows, grouped_experts(fg) as experts, \
-            recurrent_widths() as widths:
+            recurrent_widths() as widths, admitted_slots() as slot_of:
         run = serve_counted(torch, fg, eng, reqs, graphs=False)
     out["launches"] = check_counted(f"5m (b) {pcfg.name} rank {rank}", eng,
                                     run, per_call)
@@ -6433,11 +6814,13 @@ def rank_engine(torch, np, fg, mesh, pcfg, per_call,
                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
                 "grouped_experts": sorted(set(experts)),
                 "widths": widths_of(widths)})
-    # this data rank's requests' rows (request i sits in slot i)
-    d = S.coordinate(mesh)["data"]
+    if eng.prefix is not None:
+        out["prefix"] = eng.prefix.stats_by_rank()
+    # the rows of the requests this data rank's slots served
+    d, per = eng.pool.data_rank, eng.pool.slots_per_rank
     mine = {f"{rid}/{step}": v.cpu() for (rid, step), v in rows.items()
-            if rid * S.data_size(mesh) // 4 == d
-            and step < len(run["tokens"][rid])}
+            if slot_of[rid] // per == d and step < len(run["tokens"][rid])}
+    out["slot_of"] = slot_of
     torch.save(mine, rows_path)
     del eng
     gc.collect()
@@ -6494,17 +6877,29 @@ def ready_file(records: Path) -> Path:
     return records.with_suffix(".ready")
 
 
-def mesh_phase(torch, np, fg) -> dict:
+def light_mark(out_dir, rank: int) -> Path:
+    """The file a 5m rank touches once its last large load is done."""
+    return Path(out_dir) / f"mesh_light{rank}"
+
+
+def mesh_phase(torch, np, fg, beside=None) -> dict:
     """Phase 5m: the gloo point-to-point probe and (b)'s ranks started as
     child processes first (the ranks run their collective and kernel checks
     and then wait for each model's records, MESH_PARAMS and
-    MESH_MOE_PARAMS, which (a) writes), (a) in this process meanwhile;
-    every process stopped before it returns."""
+    MESH_MOE_PARAMS, which (a) writes), (a) in this process meanwhile, then
+    ``beside()`` (5d) while the ranks serve on, once every rank has loaded
+    its last large model (:func:`light_mark`: the card's memory would not
+    hold both before); every process stopped before it returns."""
+    import shutil
     out_dir = ROOT / "chiprun_out" / "mesh"
     out_dir.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(MESH_ROWS_DIR, ignore_errors=True)
+    MESH_ROWS_DIR.mkdir(parents=True)
     for path in (MESH_PARAMS, MESH_MOE_PARAMS):
         path.unlink(missing_ok=True)
         ready_file(path).unlink(missing_ok=True)
+    for r in range(MESH_RANKS):
+        light_mark(out_dir, r).unlink(missing_ok=True)
     script = str(ROOT / "chip_smoke.py")
 
     def start(args):
@@ -6545,10 +6940,31 @@ def mesh_phase(torch, np, fg) -> dict:
     moe_tokens = out["world_of_one"]["moe_cut"]["tokens"]
     recurrent_refs = {what: out["world_of_one"][f"{what}_cut"].pop("rows")
                       for what, _, _ in MESH_RECURRENT}
+    prefix_refs = {what: out["world_of_one"][what].pop("rows")
+                   for what, _, _ in MESH_PREFIX}
+    frontend_refs = {what: out["world_of_one"]["frontends"][what].pop(
+        "logits") for what, _, _, _ in MESH_FRONTENDS}
     codes, logs = finish(probes, 60)
     out["gloo_p2p_cuda"] = {"exit_codes": codes, "last_line": [
         (log_.strip().splitlines() or [""])[-1][:200] for log_ in logs]}
     log(f"  gloo batch_isend_irecv on CUDA tensors: exit codes {codes}")
+    if beside is not None:
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while not all(light_mark(out_dir, r).exists()
+                      for r in range(MESH_RANKS)):
+            if any(p.poll() is not None for p in procs):
+                break               # a rank ended early: its code fails below
+            if time.monotonic() > deadline:
+                finish(procs, 0)
+                fail("5m (b): the ranks did not load their last model in "
+                     f"{MESH_TIMEOUT} s")
+            time.sleep(0.2)
+        else:
+            try:
+                beside()
+            except BaseException:   # it failed: stop the ranks first
+                finish(procs, 0)
+                raise
     t0 = time.monotonic()
     codes, logs = finish(procs, MESH_TIMEOUT)
     out["ranks_s"] = time.monotonic() - t0
@@ -6556,6 +6972,8 @@ def mesh_phase(torch, np, fg) -> dict:
     for path in (MESH_PARAMS, MESH_MOE_PARAMS):
         path.unlink()
         ready_file(path).unlink()
+    for r in range(MESH_RANKS):
+        light_mark(out_dir, r).unlink(missing_ok=True)
     for r, (code, text) in enumerate(zip(codes, logs)):
         if code != 0:
             print(text[-6000:], file=sys.stderr)
@@ -6646,7 +7064,130 @@ def mesh_phase(torch, np, fg) -> dict:
         out[what] = check_recurrent_ranks(
             torch, what, arch, periods, ranks, out_dir, recurrent_refs[what],
             out["world_of_one"][f"{what}_cut"]["tokens"])
+    for what, arch, periods in MESH_PREFIX:
+        out[what] = check_prefix_ranks(
+            torch, what, arch, periods, ranks, MESH_ROWS_DIR,
+            prefix_refs[what], out["world_of_one"][what]["no mesh"])
+    for what, arch, _, _ in MESH_FRONTENDS:
+        out[what] = check_frontend_ranks(
+            torch, what, arch, ranks, MESH_ROWS_DIR, frontend_refs[what],
+            out["world_of_one"]["frontends"][what])
+    shutil.rmtree(MESH_ROWS_DIR)
     return out
+
+
+def check_prefix_ranks(torch, what: str, arch: str, periods: int, ranks,
+                       out_dir: Path, ref_rows: dict, ref: dict) -> dict:
+    """5m (b) (d)'s gates on one prefix-cache model: every rank's tokens
+    those of (a)'s unsharded engine with the prefix cache, every row of a
+    request on the ranks of the data rank whose slot served it torch.equal
+    to its row there (each on MESH_SHAPE[1] ranks); every rank keeps the
+    same prefix stats of every data rank, each data rank hit at least
+    once, and their hits and misses add up to the unsharded engine's."""
+    by_rank = ranks[0][what]["prefix"]
+    for r, rank in enumerate(ranks):
+        if rank[what]["prefix"] != by_rank:
+            fail(f"5m (d) {arch} rank {r}: prefix stats "
+                 f"{rank[what]['prefix']}, rank 0's {by_rank}")
+    n_rows = rows_equal_on_ranks(torch, f"5m (d) {arch}", what, ranks,
+                                 out_dir, ref_rows, ref["tokens"])
+    want = MESH_SHAPE[1] * sum(len(t) for t in ref["tokens"])
+    if n_rows != want:
+        fail(f"5m (d) {arch}: {n_rows} logits rows compared, {want} "
+             f"expected")
+    total = {k: sum(s[k] for s in by_rank) for k in ("hits", "misses")}
+    if any(s["hits"] < 1 for s in by_rank) or total != {
+            k: ref["prefix"][k] for k in total}:
+        fail(f"5m (d) {arch}: prefix stats by data rank {by_rank}, the "
+             f"unsharded engine's {ref['prefix']}")
+    res = {"logits_rows_equal": n_rows, "prefix_by_data_rank": by_rank,
+           "unsharded_prefix": ref["prefix"],
+           "step_ms": [r[what]["step_ms"] for r in ranks],
+           "seconds": [r[what]["seconds"] for r in ranks],
+           "prefill_calls": ranks[0][what]["prefill_calls"],
+           "decode_steps": ranks[0][what]["decode_steps"],
+           "resident_bytes": [r[what]["resident_bytes"] for r in ranks],
+           "whole_bytes": ranks[0][what]["whole_bytes"],
+           "peak_gb": max(r[what]["peak_gb"] for r in ranks)}
+    log(f"  (d) {arch} at {periods} periods, chunks of {PREFIX_CHUNK}, the "
+        f"prefix cache on: tokens and {n_rows} logits rows torch.equal to "
+        f"the unsharded engine on every rank; hits by data rank "
+        f"{[s['hits'] for s in by_rank]} (unsharded {ref['prefix']}); "
+        f"{res['prefill_calls']} prefill calls and {res['decode_steps']} "
+        f"decode steps a rank; step "
+        + ", ".join(f"{v:.0f}" for v in res["step_ms"])
+        + " ms (host clock, gloo on one card); "
+        + ", ".join(f"{v:.1f}" for v in res["seconds"]) + " s")
+    return res
+
+
+def check_frontend_ranks(torch, what: str, arch: str, ranks, out_dir: Path,
+                         ref_logits, ref: dict) -> dict:
+    """5m (b) (d)'s gates on one front end: every rank's tokens and logits
+    rows (its data rank's streams, the prefill's and every step's)
+    torch.equal to the unsharded calls' (a); an encoder-decoder's memory
+    its data rank's streams."""
+    d = MESH_SHAPE[0]
+    for r, rank in enumerate(ranks):
+        res = rank[what]
+        lo, hi = res["rows"]
+        if hi - lo != MESH_FRONT_STREAMS // d or \
+                res["tokens"] != ref["tokens"][lo:hi]:
+            fail(f"5m (d) {arch} rank {r}: streams {lo}:{hi}, tokens "
+                 f"{res['tokens']}, the unsharded calls' {ref['tokens']}")
+        got = torch.load(out_dir / f"mesh_{what}_rows{r}.pt")
+        want = ref_logits[lo:hi]
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs().amax((0, 2))
+            fail(f"5m (d) {arch} rank {r}: logits rows differ from the "
+                 f"unsharded calls' by {diff.tolist()} (the prefill's, "
+                 f"then each step's)")
+        if ref["memory_shape"] is not None and res["memory_shape"] != [
+                ref["memory_shape"][0], hi - lo] + ref["memory_shape"][2:]:
+            fail(f"5m (d) {arch} rank {r}: memory {res['memory_shape']}")
+    out = {"logits_rows_equal": sum(r[what]["rows"][1] - r[what]["rows"][0]
+                                    for r in ranks) * (MESH_FRONT_NEW + 1),
+           "resident_bytes": [r[what]["resident_bytes"] for r in ranks],
+           "whole_bytes": ranks[0][what]["whole_bytes"],
+           "prefill_ms": [r[what]["prefill_ms"] for r in ranks],
+           "decode_step_ms": [r[what]["decode_step_ms"] for r in ranks],
+           "peak_gb": max(r[what]["peak_gb"] for r in ranks),
+           "seconds": [r[what]["seconds"] for r in ranks],
+           "launches": ranks[0][what]["launches"],
+           "unsharded": ref}
+    log(f"  (d) {arch}: tokens and {out['logits_rows_equal']} logits rows "
+        f"(the prefill's and {MESH_FRONT_NEW} steps', each data rank's "
+        f"stream) torch.equal to the unsharded calls on every rank; "
+        f"resident "
+        + ", ".join(f"{b / 1e9:.3f}" for b in out["resident_bytes"])
+        + f" GB of {out['whole_bytes'] / 1e9:.3f} GB; prefill "
+        + ", ".join(f"{v:.0f}" for v in out["prefill_ms"])
+        + " ms, a decode step "
+        + ", ".join(f"{v:.0f}" for v in out["decode_step_ms"])
+        + " ms (host clock, gloo on one card); launches "
+        f"{out['launches']['host']} a rank (exact)")
+    return out
+
+
+def rows_equal_on_ranks(torch, label: str, what: str, ranks, rows_dir: Path,
+                        ref_rows: dict, ref_tokens) -> int:
+    """Every rank's tokens of ``what`` those of ``ref_tokens``, and every
+    logits row it wrote (``rows_dir``) torch.equal to its row in
+    ``ref_rows``; the rows compared."""
+    n_rows = 0
+    for r, rank in enumerate(ranks):
+        res = rank[what]
+        if [list(t) for t in res["tokens"]] != [list(t) for t in ref_tokens]:
+            fail(f"{label} rank {r}: tokens {res['tokens']} differ from the "
+                 f"unsharded engine's {ref_tokens}")
+        rows = torch.load(rows_dir / f"mesh_{what}_rows{r}.pt")
+        for key, row in rows.items():
+            if not torch.equal(row, ref_rows[key]):
+                diff = (row.float() - ref_rows[key].float()).abs().max()
+                fail(f"{label} rank {r}: the logits row {key} differs from "
+                     f"the unsharded engine's by {float(diff)}")
+        n_rows += len(rows)
+    return n_rows
 
 
 def check_recurrent_ranks(torch, what: str, arch: str, periods: int, ranks,
@@ -6660,24 +7201,15 @@ def check_recurrent_ranks(torch, what: str, arch: str, periods: int, ranks,
     model = MESH_SHAPE[1]
     widths = mesh_widths(cfg, model, train=False)
     experts = [cfg.n_experts // model] if cfg.n_experts else []
-    n_rows = 0
     for r, rank in enumerate(ranks):
         res = rank[what]
-        if [list(t) for t in res["tokens"]] != [list(t) for t in ref_tokens]:
-            fail(f"5m (b) {arch} rank {r}: tokens {res['tokens']} differ "
-                 f"from the unsharded engine's {ref_tokens}")
         if res["widths"] != widths or res["grouped_experts"] != experts:
             fail(f"5m (b) {arch} rank {r}: recurrent launches over "
                  f"{res['widths']} heads or channels (expected {widths}), "
                  f"grouped launches over {res['grouped_experts']} experts "
                  f"(expected {experts})")
-        rows = torch.load(out_dir / f"mesh_{what}_rows{r}.pt")
-        for key, row in rows.items():
-            if not torch.equal(row, ref_rows[key]):
-                fail(f"5m (b) {arch} rank {r}: the logits row {key} differs "
-                     f"from the unsharded engine's by "
-                     f"{float((row.float() - ref_rows[key].float()).abs().max())}")
-        n_rows += len(rows)
+    n_rows = rows_equal_on_ranks(torch, f"5m (b) {arch}", what, ranks,
+                                 out_dir, ref_rows, ref_tokens)
     if not n_rows:
         fail(f"5m (b) {arch}: no logits rows compared")
     res = {"logits_rows_equal": n_rows,
@@ -6715,19 +7247,19 @@ def train_mesh_setup(periods: Optional[int] = None, arch: str = MESH_ARCH,
                      micro: Optional[int] = None):
     """(config, data config, optimizer config) of phase 5d: ``arch`` under
     mixed (``periods`` of its periods, ``micro`` microbatches where given),
-    5t's batch and optimizer."""
+    5t's batch (with a front end's inputs) and optimizer; an
+    encoder-decoder's encoder cut to ``periods`` too."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig
     from repro_torch.train import optim
     cfg = get_config(arch, quant="mixed")
     if periods:
         cfg = dataclasses.replace(cfg, n_periods=periods)
+        if cfg.is_encdec:
+            cfg = dataclasses.replace(cfg, encoder_periods=periods)
     if micro:
         cfg = dataclasses.replace(cfg, n_microbatches=micro)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, seed=0)
-    return cfg, dcfg, optim.AdamWConfig(lr=1e-4, warmup_steps=1,
-                                        total_steps=TRAIN_MESH_STEPS)
+    return cfg, data_config(cfg), optim.AdamWConfig(
+        lr=1e-4, warmup_steps=1, total_steps=TRAIN_MESH_STEPS)
 
 
 def moe_train_setup():
@@ -6745,9 +7277,22 @@ def rwkv_train_setup():
     return train_mesh_setup(TRAIN_MESH_RWKV_PERIODS, MESH_RWKV_ARCH)
 
 
+def frontend_train_setups():
+    """5d (d)'s llava and seamless: TRAIN_MESH_FRONT_PERIODS periods (the
+    encoder's too), TRAIN_MESH_FRONT_MICRO microbatches where the config
+    has more (llava's 8 would leave a microbatch of one sequence, which
+    does not split over 2 data ranks)."""
+    from repro_torch.configs import get_config
+    return {what: train_mesh_setup(
+        TRAIN_MESH_FRONT_PERIODS, arch, min(
+            get_config(arch).n_microbatches, TRAIN_MESH_FRONT_MICRO))
+        for what, arch in (("vision", VISION_ARCH), ("encdec", ENCDEC_ARCH))}
+
+
 # 5d (b)'s models by tag: their arch
 TRAIN_MESH_ARCHS = {"llama": MESH_ARCH, "moe": MESH_MOE_ARCH,
-                    "rwkv": MESH_RWKV_ARCH}
+                    "rwkv": MESH_RWKV_ARCH, "vision": VISION_ARCH,
+                    "encdec": ENCDEC_ARCH}
 
 
 # (what, setup, init seed, the unsharded step-1 file, the ranks'
@@ -6772,7 +7317,10 @@ def train_mesh_models(study: str = ""):
              TRAIN_MESH_DIR / "ready_moe"),
             ("rwkv", rwkv_train_setup(), TRAIN_MESH_SEED,
              TRAIN_MESH_DIR / "step1_rwkv.pt", None,
-             TRAIN_MESH_DIR / "ready_rwkv"))
+             TRAIN_MESH_DIR / "ready_rwkv")) + tuple(
+        (what, setup, TRAIN_MESH_SEED, TRAIN_MESH_DIR / f"step1_{what}.pt",
+         None, TRAIN_MESH_DIR / f"ready_{what}")
+        for what, setup in frontend_train_setups().items())
 
 
 def train_mesh_study_models(arch: str):
@@ -6780,11 +7328,18 @@ def train_mesh_study_models(arch: str):
     granite, at each of TRAIN_MESH_STUDY_SEEDS, the step as 5d (b) runs it
     (the bf16 compute copy, TRAIN_MESH_MOE_MICRO microbatches), with 2
     microbatches, and in fp32 compute without the bf16 copy; for 5d (c)'s
-    rwkv6-3b, the step as it runs there at each seed.  One arch a call:
+    rwkv6-3b and 5d (d)'s llava and seamless, the step as it runs there at
+    each seed (llava's and seamless's step-1 files hold the front-end
+    leaves alone, 0.3 GB or 0.5 GB: the grad norm, and those leaves'
+    gradients and update, are what their study reads).  One arch a call:
     each run's step-1 file is 4.4 GB (granite) or 7.9 GB (rwkv), and the
     script's runs have a 45 GiB budget of disk writes."""
     if arch == MESH_RWKV_ARCH:
         return [(f"rwkv_seed{seed}", rwkv_train_setup(), seed)
+                for seed in TRAIN_MESH_STUDY_SEEDS]
+    if arch in (VISION_ARCH, ENCDEC_ARCH):
+        what = {a: w for w, a in TRAIN_MESH_ARCHS.items()}[arch]
+        return [(f"{what}_seed{seed}", frontend_train_setups()[what], seed)
                 for seed in TRAIN_MESH_STUDY_SEEDS]
     out = []
     for seed in TRAIN_MESH_STUDY_SEEDS:
@@ -6867,7 +7422,8 @@ def world_of_one_training(torch, fg, what: str, setup, mesh,
 
 def train_world_of_one(torch, fg, device="cuda") -> dict:
     """Phase 5d (a): full-depth llama, then granite at
-    TRAIN_GRANITE_PERIODS and rwkv6-3b at TRAIN_MESH_RWKV_PERIODS, each
+    TRAIN_GRANITE_PERIODS, rwkv6-3b at TRAIN_MESH_RWKV_PERIODS and llava
+    and seamless at TRAIN_MESH_FRONT_PERIODS, each
     for TRAIN_MESH_STEPS steps through
     ``run_training`` with no mesh and with ``mesh=`` a world of one (NCCL
     on the card), under deterministic algorithms
@@ -6890,6 +7446,11 @@ def train_world_of_one(torch, fg, device="cuda") -> dict:
         out["rwkv"] = world_of_one_training(
             torch, fg, MESH_RWKV_ARCH, rwkv_train_setup(), mesh, device)
         out["rwkv"]["seconds"] = time.monotonic() - t0
+        for what, setup in frontend_train_setups().items():
+            t0 = time.monotonic()
+            out[what] = world_of_one_training(
+                torch, fg, TRAIN_MESH_ARCHS[what], setup, mesh, device)
+            out[what]["seconds"] = time.monotonic() - t0
     out["nondeterministic_ops"] = nondet
     log(f"  (a) on {out['backend']}, deterministic algorithms; ops without a "
         f"deterministic kernel: {nondet or 'none'}")
@@ -6898,12 +7459,15 @@ def train_world_of_one(torch, fg, device="cuda") -> dict:
 
 
 def train_mesh_reference(torch, setup, seed: int, path: Path,
-                         device="cuda") -> dict:
+                         device="cuda", update_of=None, only=None) -> dict:
     """Phase 5d (b)'s reference on the card: the unsharded step 1 of
     ``setup`` from the init at ``seed`` — its loss, its MoE aux losses, its
     gradients and the AdamW update's params, mu, nu and grad norm, saved
-    whole for the ranks (``path``) — each gradient leaf's largest |entry|,
-    the unsharded params' bytes."""
+    whole for the ranks (``path``; with ``update_of``, a test of a leaf's
+    key, the params, mu and nu of the leaves it passes alone, as 5d (d)
+    compares them; with ``only``, nothing of the leaves it fails) — each
+    saved gradient leaf's largest |entry|, the keys whose update was
+    saved, the unsharded params' bytes."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.train import optim
@@ -6923,6 +7487,11 @@ def train_mesh_reference(torch, setup, seed: int, path: Path,
     for part, tree in (("grads", grads), ("params", params),
                        ("mu", state.mu), ("nu", state.nu)):
         for p, t in _paths(tree):
+            key = "/".join(p)
+            if only is not None and not only(key) or (
+                    part != "grads" and update_of is not None
+                    and not update_of(key)):
+                continue
             flat[f"{part}/{'/'.join(p)}"] = t.cpu()
             flat[f"max/{part}/{'/'.join(p)}"] = t.abs().max().cpu()
     flat["grad_norm"] = metrics["grad_norm"].cpu()
@@ -6933,7 +7502,9 @@ def train_mesh_reference(torch, setup, seed: int, path: Path,
            "n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches,
            "grad_max": {k[len("max/grads/"):]: float(g)
                         for k, g in flat.items()
-                        if k.startswith("max/grads/")}}
+                        if k.startswith("max/grads/")},
+           "update_keys": sorted(k[len("params/"):] for k in flat
+                                 if k.startswith("params/"))}
     del params, grads, state, flat
     gc.collect()
     if device == "cuda":
@@ -6969,7 +7540,8 @@ def step1_distances(torch, S, mesh, grads, params, state, lr,
     units of lr, over the entries whose unsharded gradient exceeds
     2 TRAIN_MESH_GRAD_TOL of the leaf's largest (``param_safe``: there the
     gradient gate leaves the sign of the gradient, hence of Adam's first
-    update, as unsharded) and over all (``param_all``)."""
+    update, as unsharded) and over all (``param_all``); of the leaves
+    whose update the file holds (5d (d)'s: the front ends')."""
     whole = torch.load(step1, mmap=True, weights_only=True)
 
     def block(key, like):
@@ -6981,14 +7553,18 @@ def step1_distances(torch, S, mesh, grads, params, state, lr,
            **{k: {} for k in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
                              "param_all")}}
     for part, tree in (("grad", grads), ("mu", state.mu), ("nu", state.nu)):
+        src = "grads" if part == "grad" else part
         for path, t in _paths(tree):
             key = "/".join(path)
-            src = "grads" if part == "grad" else part
+            if f"{src}/{key}" not in whole:
+                continue
             err = (S.local(t) - block(f"{src}/{key}", t)).abs().max()
             out[f"{part}_rel"][key] = float(err) / max(
                 float(whole[f"max/{src}/{key}"]), 1e-30)
     for path, p in _paths(params):
         key = "/".join(path)
+        if f"params/{key}" not in whole:
+            continue
         g = block(f"grads/{key}", p)
         gmax = float(whole[f"max/grads/{key}"])
         diff = (S.local(p) - block(f"params/{key}", p)).abs() / lr
@@ -7051,8 +7627,12 @@ def rank_train_steps(torch, fg, S, mesh, setup, seed: int, step1: Path,
     if step1_only:
         del params, state
         gc.collect()
+        out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if device == "cuda" else 0.0)
+        out["seconds"] = time.monotonic() - t_start
         if device == "cuda":
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         return out
     if ckpt_dir is not None:
         # the loop's checkpoint of step 1: leaves gathered on every rank,
@@ -7234,7 +7814,8 @@ def train_mesh_rank(rank: int, world: int, port: int, out_dir: str,
                      f"the parent")
             time.sleep(0.2)
         res = rank_train_steps(torch, fg, S, mesh, setup, seed, step1,
-                               ckpt_dir, device, bool(study))
+                               ckpt_dir, device, bool(study)
+                               or what in TRAIN_MESH_STEP1_ONLY)
         path = Path(out_dir) / f"train_mesh_{what}{rank}.json"
         tmp = path.with_suffix(".tmp")
         tmp.write_text(json.dumps(dict(out, **res), indent=1))
@@ -7299,7 +7880,8 @@ def checkpoint_digests(torch, ranks, cfg, ckpt_dir: Path) -> int:
 
 
 def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
-                     ckpt_dir: Optional[Path]) -> dict:
+                     ckpt_dir: Optional[Path],
+                     exact_loss: bool = False) -> dict:
     """5d (b)'s gates on one model's rank results ``parts`` (one a rank)
     against the unsharded step ``ref``: exact launches both steps, resident
     bytes the specs' and at most TRAIN_MESH_RESIDENT of the unsharded,
@@ -7307,8 +7889,14 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
     norm, every leaf's gradient, mu, nu and param within their gates, the
     MoE aux losses, expert gradients and grouped launches, every
     recurrent launch's heads or channels, the checkpoint's blocks (where
-    the ranks wrote one)."""
-    grad_tol, norm_rtol = TRAIN_MESH_GRAD_TOL, TRAIN_MESH_NORM_RTOL
+    the ranks wrote one).  With ``exact_loss`` (5d (d): step 1 alone)
+    the loss must be the unsharded step's to the bit, the grad norm is
+    held to TRAIN_MESH_FRONT_NORM_RTOL, mu, nu and params are compared on
+    the leaves whose update the unsharded file holds (``update_keys``),
+    and the worst projector and encoder leaves are named."""
+    grad_tol = TRAIN_MESH_GRAD_TOL
+    norm_rtol = (TRAIN_MESH_FRONT_NORM_RTOL if exact_loss
+                 else TRAIN_MESH_NORM_RTOL)
     cfg = setup[0]
     expect = train_launches(cfg, 1, TRAIN_SEQ)
     worst = {k: {} for k in ("grad_rel", "mu_rel", "nu_rel", "param_safe",
@@ -7317,9 +7905,10 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
     aux_rel = 0.0
     experts = cfg.n_experts // MESH_SHAPE[1] if cfg.n_experts else None
     widths = mesh_widths(cfg, MESH_SHAPE[1], train=True)
+    ran = [p for p in ("step1", "step2") if p in parts[0]]
     for part_ in parts:
         r = part_["rank"]
-        for part in ("step1", "step2"):
+        for part in ran:
             check_train_counts(
                 f"5d (b) {what} rank {r} {part}", part_[part]["launches"],
                 {tuple(k.split("/")): c for k, c in
@@ -7354,12 +7943,15 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
     if aux_rel > TRAIN_MESH_MOE_AUX_RTOL:
         fail(f"5d (b) {what}: step 1's aux losses are {aux_rel:.3g} from the "
              f"unsharded (gate {TRAIN_MESH_MOE_AUX_RTOL})")
-    for part in ("step1", "step2"):
+    for part in ran:
         if len({p[part]["loss"] for p in parts}) != 1:
             fail(f"5d (b) {what}: the ranks' {part} losses differ: "
                  f"{[p[part]['loss'] for p in parts]}")
     loss1 = parts[0]["step1"]["loss"]
     rel_loss = abs(loss1 - ref["loss"]) / abs(ref["loss"])
+    if exact_loss and loss1 != ref["loss"]:
+        fail(f"5d (d) {what}: step 1's loss {loss1!r} is not the unsharded "
+             f"step's {ref['loss']!r} to the bit")
     if rel_loss > TRAIN_MESH_LOSS_RTOL:
         fail(f"5d (b) {what}: step 1's loss {loss1} is {rel_loss:.3g} from "
              f"the unsharded {ref['loss']} (gate {TRAIN_MESH_LOSS_RTOL})")
@@ -7375,7 +7967,8 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
              "param_all": 2 + TRAIN_MESH_PARAM_TOL}
     for part, gate in gates.items():
         bad = {k: v for k, v in worst[part].items() if not v <= gate}
-        if bad or len(worst[part]) != len(ref["grad_max"]):
+        if bad or len(worst[part]) != len(
+                ref["grad_max"] if part == "grad_rel" else ref["update_keys"]):
             fail(f"5d (b) {what}: step 1's {part} past its gate {gate:.3g}: "
                  f"{bad}")
     experts = {k: v for k, v in worst["grad_rel"].items() if "/moe/" in k}
@@ -7384,31 +7977,40 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
     if bad:
         fail(f"5d (b) {what}: step 1's expert gradients past their gate "
              f"{TRAIN_MESH_MOE_GRAD_TOL}: {bad}")
+    # the worst projector and encoder leaves (5d (d)'s models)
+    grad = worst["grad_rel"]
+    leaves = {kind: max((k for k in grad if k.startswith(prefix)),
+                        key=grad.get, default=None)
+              for kind, prefix in (("projector", "frontend/"),
+                                   ("encoder", "enc"))}
+    named = {kind: (k, grad[k]) for kind, k in leaves.items() if k}
     t0 = time.monotonic()
     compared = (checkpoint_digests(torch, parts, cfg, ckpt_dir)
                 if ckpt_dir is not None else 0)
     out = {"checkpoint_compare_s": time.monotonic() - t0,
            "loss_rel": rel_loss, "norm_rel": norm_rel, "aux_rel": aux_rel,
            "step1_rel": worst, "step1_gates": gates,
-           "step1_rel_max": {k: max(v.values()) for k, v in worst.items()},
+           "step1_rel_max": {k: max(worst[k].values()) for k in gates},
            "checkpoint_leaves_compared": compared, "expect_per_step": expect,
            "n_periods": cfg.n_periods, "microbatches": cfg.n_microbatches,
-           "widths": widths}
+           "widths": widths, "worst_leaves": named,
+           "loss_equal": loss1 == ref["loss"]}
     for part_ in parts:
         part_.pop("digests", None)
         log(f"  (b) {what} rank {part_['rank']}: resident "
             f"{part_['resident_bytes'] / 1e9:.3f} GB of "
             f"{ref['state_bytes'] / 1e9:.3f} GB unsharded; step ms "
-            f"{part_['step1']['step_ms']:.0f} and "
-            f"{part_['step2']['step_ms']:.0f} (host clock, four gloo ranks "
-            f"on one card)"
+            + " and ".join(f"{part_[p]['step_ms']:.0f}" for p in ran)
+            + " (host clock, four gloo ranks on one card)"
             + (f", the checkpoint {part_['checkpoint_s']:.1f} s"
                if "checkpoint_s" in part_ else "") + "; "
             f"device peak {part_['peak_gb']:.2f} GB; launches a step "
-            f"{part_['step2']['launches']} (exact)")
+            f"{part_[ran[-1]]['launches']} (exact)")
     log(f"  (b) {what} at {cfg.n_periods} periods, {cfg.n_microbatches} "
-        f"microbatches: losses {loss1:.6f} / {parts[0]['step2']['loss']:.6f}"
-        f" on every rank; step 1 {rel_loss:.3g} from the unsharded step, its "
+        f"microbatches: losses "
+        + " / ".join(f"{parts[0][p]['loss']:.6f}" for p in ran)
+        + f" on every rank; step 1 {rel_loss:.3g} from the unsharded step"
+        + (" (torch.equal)" if loss1 == ref["loss"] else "") + ", its "
         f"grad norm {norm_rel:.3g} (gate {norm_rtol}), aux losses "
         f"{aux_rel:.3g} (gate {TRAIN_MESH_MOE_AUX_RTOL}); largest distances "
         "(gate): " + ", ".join(f"{k} {max(worst[k].values()):.3g} ({g:.3g})"
@@ -7416,7 +8018,9 @@ def check_train_mesh(torch, what: str, parts: list, ref: dict, setup,
         + (f"; the step-1 checkpoint loaded with no mesh equals every "
            f"rank's blocks ({compared} leaf blocks)" if compared else "")
         + (f"; recurrent launches over {nonzero(widths)}"
-           if nonzero(widths) else ""))
+           if nonzero(widths) else "")
+        + "".join(f"; the worst {kind} leaf {k} {v:.3g}"
+                  for kind, (k, v) in named.items()))
     return out
 
 
@@ -7444,7 +8048,10 @@ def train_mesh_study(torch, fg, arch: str) -> dict:
     refs, out = {}, {}
     try:
         for what, setup, seed, step1, _, ready in models:
-            refs[what] = train_mesh_reference(torch, setup, seed, step1)
+            front = (front_update_leaf if arch in (VISION_ARCH, ENCDEC_ARCH)
+                     else None)
+            refs[what] = train_mesh_reference(torch, setup, seed, step1,
+                                              update_of=front, only=front)
             ready.touch()
         deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
         for what, setup, seed, _, _, _ in models:
@@ -7484,7 +8091,7 @@ def train_mesh_study(torch, fg, arch: str) -> dict:
             small = min(ref["grad_max"], key=ref["grad_max"].get)
             log(f"  {what}: gradients at most {grad[top]:.4g} of a leaf's "
                 f"largest entry ({top}, whose largest is "
-                f"{ref['grad_max'][top]:.4g}), embed {grad['embed']:.4g}, "
+                f"{ref['grad_max'][top]:.4g}), embed {grad.get('embed')}, "
                 f"expert leaves {res['expert_grad_rel']}; grad norm "
                 f"{res['norm_rel']:.3g}, loss {res['loss_rel']:.3g}, aux "
                 f"{res['aux_rel']:.3g} relative; the smallest leaf's "
@@ -7520,12 +8127,14 @@ def rank_results(path: Path, procs, deadline: float) -> dict:
     return json.loads(path.read_text())
 
 
-def train_mesh_phase(torch, fg, device="cuda") -> dict:
+def train_mesh_phase(torch, fg, device="cuda",
+                     world_of_one: Optional[dict] = None) -> dict:
     """Phase 5d: (b)'s ranks started first (they join their mesh and
     wait), then (b)'s unsharded steps here, each releasing the ranks for
-    its model, then (a) in this process while the ranks run; then each
-    model's gates as soon as every rank wrote its results (llama's while
-    the ranks train granite); every process stopped before it returns."""
+    its model, then (a) in this process while the ranks run (unless
+    ``world_of_one``, its result, was run before); then each model's gates
+    as soon as every rank wrote its results (llama's while the ranks train
+    granite); every process stopped before it returns."""
     import shutil
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
     TRAIN_MESH_DIR.mkdir(parents=True)
@@ -7544,15 +8153,19 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
     try:
         for what, setup, seed, step1, _, ready in train_mesh_models():
             t0 = time.monotonic()
-            refs[what] = train_mesh_reference(torch, setup, seed, step1,
-                                              device)
+            refs[what] = train_mesh_reference(
+                torch, setup, seed, step1, device,
+                update_of=(front_update_leaf if what in TRAIN_MESH_STEP1_ONLY
+                           else None))
             ready.touch()
             out[f"unsharded_{what}"] = {k: v for k, v in refs[what].items()
                                         if k != "grad_max"}
             out[f"unsharded_{what}_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        out["world_of_one"] = train_world_of_one(torch, fg, device)
-        out["world_of_one_s"] = time.monotonic() - t0
+        if world_of_one is None:
+            t0 = time.monotonic()
+            world_of_one = train_world_of_one(torch, fg, device)
+            out["world_of_one_s"] = time.monotonic() - t0
+        out["world_of_one"] = world_of_one
         deadline = time.monotonic() + TRAIN_MESH_TIMEOUT
         for what, setup, _, _, ckpt_dir, _ in train_mesh_models():
             t0 = time.monotonic()
@@ -7562,7 +8175,7 @@ def train_mesh_phase(torch, fg, device="cuda") -> dict:
             out[f"ranks_{what}_s"] = time.monotonic() - t_ranks
             res = out[what] = check_train_mesh(
                 torch, TRAIN_MESH_ARCHS[what], parts, refs[what], setup,
-                ckpt_dir)
+                ckpt_dir, exact_loss=what in TRAIN_MESH_STEP1_ONLY)
             res["ranks"] = parts
             res["check_s"] = time.monotonic() - t0
         parts = [rank_results(out_dir / f"train_mesh_mamba{r}.json", procs,
@@ -7603,11 +8216,13 @@ def main() -> int:
                     "prefill at full width, two prompt sets, two runs "
                     "(writes chiprun_out/chunk_study.json)")
     ap.add_argument("--train-mesh-study", nargs="?", const=MESH_MOE_ARCH,
-                    choices=(MESH_MOE_ARCH, MESH_RWKV_ARCH), metavar="ARCH",
+                    choices=(MESH_MOE_ARCH, MESH_RWKV_ARCH, VISION_ARCH,
+                             ENCDEC_ARCH), metavar="ARCH",
                     help="only build and run phase 5d (b)'s step 1 of ARCH "
                     f"({MESH_MOE_ARCH}, the default: over init seeds, "
-                    f"microbatches and compute dtypes; {MESH_RWKV_ARCH}: "
-                    "5d (c)'s, over init seeds) on the 2x2 gloo ranks "
+                    f"microbatches and compute dtypes; {MESH_RWKV_ARCH}, "
+                    f"{VISION_ARCH} or {ENCDEC_ARCH}: 5d (c)'s or 5d (d)'s, "
+                    "over init seeds) on the 2x2 gloo ranks "
                     "against the unsharded step, no gate applied (writes "
                     "chiprun_out/train_mesh_study_ARCH.json)")
     ap.add_argument("--profile-path", metavar="ARCH:POLICY[:forced]",
@@ -7739,6 +8354,9 @@ def main() -> int:
         "vs CPU, timed beside the fused kernel")
     aten_rows = aten_checks(torch, fg)
     seconds["aten_checks"] = time.monotonic() - t0
+    seconds["aten_checks: timing"] = aten_rows["timing_s"]
+    seconds["aten_checks: comparisons"] = (seconds["aten_checks"]
+                                           - aten_rows["timing_s"])
     t0 = time.monotonic()
     log("[5r] row-invariant kernels: rows equal at every M, against their "
         "plain versions")
@@ -7826,15 +8444,50 @@ def main() -> int:
         train["jamba-v0.1-52b"]["mamba_block"]["launches"]
     torch.cuda.empty_cache()
 
+    log(f"[5d] training under a mesh: full-depth {MESH_ARCH}, "
+        f"{MESH_MOE_ARCH} at {TRAIN_GRANITE_PERIODS} periods and "
+        f"{MESH_RWKV_ARCH} at {TRAIN_MESH_RWKV_PERIODS} on a world of one "
+        f"(NCCL) against no mesh here; then, beside 5m's ranks, "
+        f"{MESH_RANKS} gloo ranks on this card ({MESH_SHAPE[0]}x"
+        f"{MESH_SHAPE[1]}), {MESH_ARCH} at {TRAIN_MESH_PERIODS} periods, "
+        f"{MESH_MOE_ARCH} at {TRAIN_MESH_MOE_PERIODS} and {MESH_RWKV_ARCH} "
+        f"at {TRAIN_MESH_RWKV_PERIODS}, {VISION_ARCH} and {ENCDEC_ARCH} at "
+        f"{TRAIN_MESH_FRONT_PERIODS} (step 1), against the unsharded steps, "
+        f"and {MESH_JAMBA_ARCH}'s mamba layer against the unsharded layer")
+    t0 = time.monotonic()
+    train_woo = train_world_of_one(torch, fg)
+    train_woo_s = time.monotonic() - t0
+    seconds["train mesh: world of one (a)"] = train_woo_s
+    torch.cuda.empty_cache()
+
     log("[5m] distributed serving: a world of one on NCCL, graphed, then "
         f"{MESH_RANKS} gloo ranks on this card ({MESH_SHAPE[0]}x"
         f"{MESH_SHAPE[1]}): sharded kernels and the full-width engines "
         f"({MESH_ARCH}, then {MESH_MOE_ARCH} expert-parallel, then "
         f"{MESH_RWKV_ARCH} head-parallel and {MESH_JAMBA_ARCH} "
-        f"channel-parallel)")
+        f"channel-parallel; then the prefix cache, {MESH_ARCH} and "
+        f"{MESH_RWKV_ARCH}, and the front ends, {VISION_ARCH} and "
+        f"{ENCDEC_ARCH})")
+    side = {}
+
+    def train_beside():
+        """Phase 5d's ranks and unsharded steps, run while 5m's ranks serve
+        (both are gloo ranks on this card whose times are transport
+        checks, and neither waits on the other)."""
+        torch.cuda.empty_cache()        # what 5m (a) left cached
+        t = time.monotonic()
+        side["train_mesh"] = train_mesh_phase(torch, fg,
+                                              world_of_one=train_woo)
+        side["seconds"] = time.monotonic() - t
+
     t0 = time.monotonic()
-    mesh = mesh_phase(torch, np, fg)
-    seconds["mesh"] = time.monotonic() - t0
+    mesh = mesh_phase(torch, np, fg, beside=train_beside)
+    if "train_mesh" not in side:
+        fail("5d did not run beside 5m's ranks")
+    # "mesh" is 5m's own wall time, "train mesh" 5d's, whose part (b) ran
+    # inside it beside 5m's ranks
+    seconds["train mesh"] = train_woo_s + side["seconds"]
+    seconds["mesh"] = time.monotonic() - t0 - side["seconds"]
     woo = mesh["world_of_one"]
     # parts of "mesh": (c)'s (a) in this process, (c)'s (b) on the ranks
     # (which ran beside (a))
@@ -7860,20 +8513,32 @@ def main() -> int:
                            ("jamba", MESH_JAMBA_ARCH)):
             launches_by_path[f"{arch} mesh 2x2 rank {rank['rank']}"] = \
                 (rank[what] if what else rank)["launches"]
+    # 5m (d): the prefix cache's (a) here and (b) on the ranks, the front
+    # ends' references here and (b) on the ranks
+    seconds["mesh: prefix cache (a)"] = woo["prefix_s"]
+    seconds["mesh: front ends (a)"] = woo["frontends_s"]
+    seconds["mesh: prefix cache (b), ranks"] = max(
+        sum(r[what]["seconds"] for what, _, _ in MESH_PREFIX)
+        for r in mesh["ranks"])
+    seconds["mesh: front ends (b), ranks"] = max(
+        sum(r[what]["seconds"] for what, _, _, _ in MESH_FRONTENDS)
+        for r in mesh["ranks"])
+    for what, arch, periods in MESH_PREFIX:
+        for label in ("no mesh", "mesh 1x1"):
+            launches_by_path[f"{arch} prefix cache, {periods} periods, "
+                             f"{label}"] = woo[what][label]["launches"]
+        for rank in mesh["ranks"]:
+            launches_by_path[f"{arch} prefix cache mesh 2x2 rank "
+                             f"{rank['rank']}"] = rank[what]["launches"]
+    for what, arch, _, _ in MESH_FRONTENDS:
+        launches_by_path[f"{arch} front end, cut, no mesh"] = \
+            woo["frontends"][what]["launches"]
+        for rank in mesh["ranks"]:
+            launches_by_path[f"{arch} front end mesh 2x2 rank "
+                             f"{rank['rank']}"] = rank[what]["launches"]
     torch.cuda.empty_cache()
 
-    log(f"[5d] training under a mesh: full-depth {MESH_ARCH}, "
-        f"{MESH_MOE_ARCH} at {TRAIN_GRANITE_PERIODS} periods and "
-        f"{MESH_RWKV_ARCH} at {TRAIN_MESH_RWKV_PERIODS} on a world of "
-        f"one (NCCL) against no mesh, then {MESH_RANKS} gloo ranks on this "
-        f"card ({MESH_SHAPE[0]}x{MESH_SHAPE[1]}), {MESH_ARCH} at "
-        f"{TRAIN_MESH_PERIODS} periods, {MESH_MOE_ARCH} at "
-        f"{TRAIN_MESH_MOE_PERIODS} and {MESH_RWKV_ARCH} at "
-        f"{TRAIN_MESH_RWKV_PERIODS}, against the unsharded steps, and "
-        f"{MESH_JAMBA_ARCH}'s mamba layer against the unsharded layer")
-    t0 = time.monotonic()
-    train_mesh = train_mesh_phase(torch, fg)
-    seconds["train mesh"] = time.monotonic() - t0
+    train_mesh = side["train_mesh"]
     woo = train_mesh["world_of_one"]
     # parts of "train mesh": (c)'s unsharded step and (a) in this process,
     # (c)'s (b) and the mamba layer on the ranks (beside (a))
@@ -7885,29 +8550,39 @@ def main() -> int:
     seconds["train mesh: mamba layer, ranks"] = max(
         r["mamba_block"]["seconds"]
         for r in train_mesh["mamba_block"]["ranks"])
+    # 5d (d)'s parts: the unsharded steps and (a) here, (b) on the ranks
+    for what in TRAIN_MESH_STEP1_ONLY:
+        seconds[f"train mesh: {what} unsharded step"] = \
+            train_mesh[f"unsharded_{what}_s"]
+        seconds[f"train mesh: {what} (a)"] = woo[what]["seconds"]
+        seconds[f"train mesh: {what} (b), ranks"] = max(
+            r["seconds"] for r in train_mesh[what]["ranks"])
     for arch, runs in ((MESH_ARCH, woo), (MESH_MOE_ARCH, woo["moe"]),
-                       (MESH_RWKV_ARCH, woo["rwkv"])):
+                       (MESH_RWKV_ARCH, woo["rwkv"]),
+                       (VISION_ARCH, woo["vision"]),
+                       (ENCDEC_ARCH, woo["encdec"])):
         for label in ("no mesh", "mesh 1x1"):
             launches_by_path[f"{arch} train mixed {label}"] = \
                 runs[label]["launches"]
 
     def both_steps(part):
-        return {"host": {k: part["step1"]["launches"].get(k, 0)
-                         + part["step2"]["launches"].get(k, 0)
-                         for k in set(part["step1"]["launches"])
-                         | set(part["step2"]["launches"])}}
+        ran = [p for p in ("step1", "step2") if p in part]
+        return {"host": {k: sum(part[p]["launches"].get(k, 0) for p in ran)
+                         for p_ in ran for k in part[p_]["launches"]}}
 
-    train_ranks = list(zip(train_mesh["ranks"], train_mesh["moe"]["ranks"],
-                           train_mesh["rwkv"]["ranks"],
-                           train_mesh["mamba_block"]["ranks"]))
-    for llama, moe, rwkv, mamba in train_ranks:
-        for arch, part in ((MESH_ARCH, llama), (MESH_MOE_ARCH, moe),
-                           (MESH_RWKV_ARCH, rwkv)):
+    # each rank's parts: llama, granite, rwkv, llava, seamless, mamba layer
+    train_ranks = list(zip(*(train_mesh[what]["ranks"] if what else
+                             train_mesh["ranks"] for what in (
+                                 "", "moe", "rwkv", "vision", "encdec",
+                                 "mamba_block"))))
+    for parts in train_ranks:
+        for arch, part in zip((MESH_ARCH, MESH_MOE_ARCH, MESH_RWKV_ARCH,
+                               VISION_ARCH, ENCDEC_ARCH), parts):
             launches_by_path[f"{arch} train mesh 2x2 rank {part['rank']}"] \
                 = both_steps(part)
         launches_by_path[f"{MESH_JAMBA_ARCH} mamba layer train mesh 2x2 "
-                         f"rank {mamba['rank']}"] = {
-            "host": mamba["mamba_block"]["launches"]}
+                         f"rank {parts[-1]['rank']}"] = {
+            "host": parts[-1]["mamba_block"]["launches"]}
     torch.cuda.empty_cache()
 
     report = {"card": card, "torch": torch.__version__,
@@ -7941,11 +8616,11 @@ def main() -> int:
         rows, grouped_rows, sweep_rows, split_rows, launches_by_path,
         staged_rows, sweep_staged, table_runs, wkv_rows, rowinv_rows,
         ssm_rows, wkv_bwd_rows, ssm_bwd_rows)
-    # each rank's own launches in phase 5m (b)'s engine runs, phase 5d
-    # (b)'s two train steps a model and 5d (c)'s mamba layer (in the
-    # launches above too): the kernels ran on every rank's block, the
-    # grouped one on its experts, WKV on its heads, the scan on its
-    # channels
+    # each rank's own launches in phase 5m (b)'s engine runs, 5m (d)'s
+    # prefix-cache engines and front ends, phase 5d (b)'s train steps a
+    # model (5d (d)'s step 1) and 5d (c)'s mamba layer (in the launches
+    # above too): the kernels ran on every rank's block, the grouped one on
+    # its experts, WKV on its heads, the scan on its channels
     keys = {"fused_gemm_mm1": "dense_mm1", "fused_gemm_kmm2": "dense_kmm2",
             "fused_gemm_grouped_mm1": "grouped_mm1",
             "rowinv_norm": "rowinv_norm", "rowinv_matmul": "rowinv_matmul",
@@ -7955,10 +8630,11 @@ def main() -> int:
     def rank_launches(serve, train):
         runs = [serve["launches"]["host"]] + [
             serve[what]["launches"]["host"]
-            for what in ("moe",) + tuple(w for w, _, _ in MESH_RECURRENT)]
-        for part in train[:3]:
-            runs += [part[step]["launches"] for step in ("step1", "step2")]
-        return runs + [train[3]["mamba_block"]["launches"]]
+            for what in ("moe",) + tuple(w for w, _, _ in MESH_RECURRENT)
+            + tuple(w for w, _, _ in MESH_PREFIX)
+            + tuple(w for w, *_ in MESH_FRONTENDS)]
+        runs += [both_steps(part)["host"] for part in train[:-1]]
+        return runs + [train[-1]["mamba_block"]["launches"]]
 
     for e in entries:
         if e["name"] in keys:

@@ -20,6 +20,10 @@ the pool's recurrent state)::
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2 \
         --arch rwkv6-3b --quant mixed
 
+``--prefix-cache`` serves under a mesh too: each data rank keeps the
+snapshots of its own slots (``serve.cache``), and rank 0 prints each data
+rank's hits.
+
 Every rank draws the same weights from the seed on the host, so no card
 holds them whole, copies only its shards to its device and runs its data
 rank's lanes (``Engine(mesh=)``); rank 0 prints the tokens.  The host's
@@ -163,7 +167,9 @@ def main() -> int:
           f"traces={engine.n_traces()}; device={device}"
           + (f"; mesh={args.mesh}" if mesh is not None else ""))
     if engine.prefix is not None:
-        print(f"prefix cache: {engine.prefix.stats()}")
+        print(f"prefix cache: {engine.prefix.stats()}"
+              + (f"; by data rank {engine.prefix.stats_by_rank()}"
+                 if mesh is not None else ""))
     if args.metrics_out:
         obs_metrics.write_snapshot(args.metrics_out)
         print(f"metrics snapshot -> {args.metrics_out}")

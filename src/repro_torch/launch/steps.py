@@ -28,8 +28,12 @@ enters the loss as without a mesh, its means over the global microbatch
 head-parallel and mamba's conv and scan channel-parallel over ``model``
 where it divides their heads or channels (``models.rwkv``,
 ``models.ssm``), their replicated leaves' gradients summed over ``model``
-in the backward.  A vision prefix and the encoder-decoder raise
-``NotImplementedError`` under a mesh.
+in the backward.  A vision model's ``frontend_embeds`` and an
+encoder-decoder's ``enc_frames`` are cut to the same rows as ``tokens``;
+the projector, the bidirectional encoder and the cross-attention run on
+those rows with their GEMMs sharded as the decoder's, every head on every
+``model`` rank (each gets the whole gradient of its replicated output,
+so no sum over ``model`` is needed there).
 
 The abstract helpers (:func:`abstract_params`, :func:`abstract_opt_state`,
 :func:`train_batch_specs`, :func:`abstract_cache`, :func:`abstract_mem`,
@@ -79,17 +83,6 @@ def cast_params(cfg: ModelConfig, params: Params) -> Params:
         return tree
 
     return walk(params, "")
-
-
-def check_mesh(cfg: ModelConfig) -> None:
-    """What trains under a mesh: the decoders of attention, mamba and RWKV
-    blocks, dense or MoE."""
-    where = "ROADMAP.md queue 1 item 4.2(c)"
-    if cfg.frontend != "none" or cfg.is_encdec:
-        raise NotImplementedError(
-            f"training a {cfg.frontend!r} front end"
-            + (" and the encoder-decoder" if cfg.is_encdec else "")
-            + f" under a mesh is not ported yet: {where}")
 
 
 def _sum_over_data(grads: Params, params: Params, mesh) -> None:
@@ -146,7 +139,9 @@ def loss_and_grads(cfg: ModelConfig, params: Params,
 
 def _microbatch_rows(batch: Dict[str, torch.Tensor], k: int, mesh):
     """Microbatch i's rows for this rank: rows ``[i*mb, (i+1)*mb)`` of the
-    global batch, and under a mesh this data rank's share of them."""
+    global batch, and under a mesh this data rank's share of them, the
+    same rows of every input (``tokens``, ``labels``, ``mask``, a vision
+    model's ``frontend_embeds``, an encoder-decoder's ``enc_frames``)."""
     rows = next(iter(batch.values())).shape[0]
     d, idx = 1, 0
     if mesh is not None:
@@ -174,8 +169,6 @@ def mean_loss_and_grads(cfg: ModelConfig, params: Params,
     optimizer sees the same mean gradient.  Under a mesh each data rank
     runs its share of each microbatch's rows."""
     mesh = S.current_mesh()
-    if mesh is not None:
-        check_mesh(cfg)
     k = max(cfg.n_microbatches, 1)
     micro = _microbatch_rows(batch, k, mesh)
     if k == 1:

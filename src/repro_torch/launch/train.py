@@ -20,12 +20,18 @@ configuration on the CUDA device by default (``--smoke``: the reduced one;
 ``data`` x ``model`` mesh (``launch.mesh.make_mesh``) in each process
 ``torchrun`` starts: NCCL with a card a rank, gloo on the CPU (``--device
 cpu``) or with ranks sharing a card; outside ``torchrun`` it raises at
-once.  Dense attention decoders, MoE (expert-parallel: granite and
-qwen3), rwkv6-3b (head-parallel WKV) and jamba (channel-parallel mamba);
-vision and enc-dec under a mesh are ROADMAP.md queue 1 item 4.2(c).
-``--max-restarts
-N`` supervises the training call: on an exception the launcher runs it
-again, which resumes from the latest checkpoint under ``--ckpt-dir``;
+once.  Every model trains under a mesh: dense attention decoders, MoE
+(expert-parallel: granite and qwen3), rwkv6-3b (head-parallel WKV), jamba
+(channel-parallel mamba), llava's vision prefix and seamless's
+encoder-decoder (their patch embeddings and frames cut to each data
+rank's rows)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch seamless-m4t-medium --quant mixed --mesh 2x2 --steps 4
+
+``--max-restarts N`` supervises the training call: on an exception the
+launcher runs it again, which resumes from the latest checkpoint under
+``--ckpt-dir``;
 under a mesh a fault on any rank raises on every rank (the loop agrees on
 it), so every rank restarts and resumes at the same step.
 ``--tuning-table PATH`` serves each quantized GEMM the plan a ``python -m

@@ -217,6 +217,17 @@ def replicated(x: torch.Tensor) -> torch.Tensor:
                                         ("model",))
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (B, K, M, D) against k (B, K, T, D): the (B, K, M, T) products, as
+    ``k @ q^T``.  With one query row a kv head (M = 1: the decode of a
+    model whose every head is a kv head), ``q @ k^T`` — and the einsum it
+    lowers to — sums each score in an order that on the CPU depends on B
+    and K, which a mesh cuts; ``k @ q^T`` sums it the same way whatever
+    their counts, so a data or model rank's rows are the unsharded
+    ones."""
+    return torch.matmul(k, q.transpose(-1, -2)).transpose(-1, -2)
+
+
 def _attend(qc: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
             mask: torch.Tensor, scale: float) -> torch.Tensor:
     """qc (B, c, K, G, D) against kt/vt (B, T, K, D) under mask
@@ -364,8 +375,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos, cfg, quant,
     kh, d = ck.shape[2], cfg.head_dim
     g = cfg.n_heads // cfg.n_kv_heads
     qv = q.reshape(b, kh, g, d)
-    scores = torch.einsum("bkgd,bskd->bkgs", qv,
-                          ck.to(q.dtype)).to(torch.float32)
+    scores = _scores(qv, ck.to(q.dtype).transpose(1, 2)).to(torch.float32)
     scores = scores * (d ** -0.5)
     valid = (torch.arange(ck.shape[1], dtype=torch.int32,
                           device=x.device)[None, :] <= pos_b[:, None])
@@ -394,9 +404,11 @@ def xattn_apply(p: Params, x: torch.Tensor, mem_k: torch.Tensor,
     b, s, _ = x.shape
     q = maybe_quantized_matmul(x, p["wq"], quant, f"{name}.wq")
     kh, d = cfg.n_kv_heads, cfg.head_dim
-    qv = q.reshape(b, s, kh, cfg.n_heads // kh, d)
-    scores = torch.einsum("bskgd,btkd->bskgt", qv,
-                          mem_k.to(q.dtype)).to(torch.float32) * (d ** -0.5)
+    g = cfg.n_heads // kh
+    qv = q.reshape(b, s, kh, g, d).transpose(1, 2).reshape(b, kh, s * g, d)
+    scores = _scores(qv, mem_k.to(q.dtype).transpose(1, 2))
+    scores = scores.reshape(b, kh, s, g, -1).transpose(1, 2)
+    scores = scores.to(torch.float32) * (d ** -0.5)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bskgt,btkd->bskgd", probs, mem_v.to(q.dtype))
     out = out.reshape(b, s, cfg.q_dim)

@@ -32,7 +32,13 @@ and mamba's conv and scan on its block of ``d_inner`` (``models.rwkv``,
 it is given.  Training differentiates through all of it: the
 collectives' backwards (``dist.collectives``) and the quantized GEMMs'
 (``quant.qmatmul._mesh_ste``) reduce each gradient to its shard, and
-``loss_fn`` takes the global token mean.  ``constrain_batch_dim`` stands
+``loss_fn`` takes the global token mean.  A vision model's projector
+and an encoder-decoder's encoder, memory and cross-attention run under
+the mesh on this data rank's rows of ``frontend_embeds`` / ``enc_frames``
+(and of ``mem`` in decode), their GEMMs sharded as the decoder's and
+every head on every ``model`` rank (the GEMMs gather their outputs, so
+each rank's gradient of a replicated activation is already the whole
+one).  ``constrain_batch_dim`` stands
 where the reference constrains an activation's batch dim; it moves no
 value.
 

@@ -41,6 +41,15 @@ one parking set, which its cross-shard gathers can read and a rank's
 local gather cannot).  Page and state tables hold global row numbers;
 :meth:`PagedCachePool.lane_rows` returns the rank's local ones.
 
+A prefix snapshot lives on its slot's data rank: it is taken from the
+slot's rows into that data rank's snapshot region and restored only into
+that data rank's slots.  Every rank runs the whole scheduler, so every
+rank keeps the free lists of every data rank's snapshot region and
+:class:`PrefixCache` keeps one index a data rank, and all of them take
+the same hit, miss, store and evict decisions; only the owner's ranks
+copy rows, each its block of them (its ``model`` block of the K/V heads
+and of the ``wkv`` / ``conv`` / ``ssm`` state).
+
 Prefix sharing is copy-on-reference: a snapshot stores a copy of the slot's
 first ``L / page_size`` pages plus its recurrent state row captured exactly
 at position ``L`` (a chunk boundary, so the state is exact), and a hit
@@ -70,6 +79,8 @@ _PREFIX_EVENTS = obs_metrics.counter(
 PAGED_LEAVES = ("k", "v")
 
 Handle = Tuple[Tuple[int, ...], int]
+# a prefix index: prompt prefix -> (its snapshot's handle, its length)
+_Index = "OrderedDict[Tuple[int, ...], Tuple[Handle, int]]"
 
 
 def default_page_size(max_seq: int, preferred: int = 64) -> int:
@@ -149,18 +160,23 @@ class PagedCachePool:
         self.parking_pages = np.arange(base + per * pps,
                                        base + (per + 1) * pps,
                                        dtype=np.int64)
-        self._free_pages: List[int] = list(range(
-            base + (per + 1) * pps, base + self.shard_pages))
         self.state_table = np.array(
             [(s // per) * self.shard_states + s % per
              for s in range(n_slots)], np.int64)
-        sbase = me * self.shard_states
-        self.parking_state = sbase + per
-        self._free_states: List[int] = list(range(
-            sbase + per + 1, sbase + self.shard_states))
+        self.parking_state = self._state_base(me) + per
+        # each data rank's free snapshot rows (every rank keeps them all)
+        self._free_pages: List[List[int]] = [list(range(
+            self._page_base(d) + (per + 1) * pps,
+            self._page_base(d) + self.shard_pages)) for d in range(n_data)]
+        self._free_states: List[List[int]] = [list(range(
+            self._state_base(d) + per + 1,
+            self._state_base(d) + self.shard_states)) for d in range(n_data)]
 
     def _page_base(self, data_rank: int) -> int:
         return data_rank * self.shard_pages
+
+    def _state_base(self, data_rank: int) -> int:
+        return data_rank * self.shard_states
 
     def owner(self, slot: int) -> int:
         """The data rank whose shard holds ``slot``'s rows."""
@@ -178,54 +194,68 @@ class PagedCachePool:
         (re)init); K/V pages are left as they are."""
         if not self.owns(slot):
             return
-        row = int(self.state_table[slot]) - self.data_rank * self.shard_states
+        row = int(self.state_table[slot]) - self._state_base(self.data_rank)
         for name, pool in self._leaves():
             if name not in PAGED_LEAVES:
                 pool[:, row].zero_()
 
     def _copy_rows(self, src_pages, dst_pages, src_state: int,
                    dst_state: int) -> None:
-        """Copy page rows and one state row (snapshot take / restore)."""
+        """Copy page rows and one state row (snapshot take / restore), all
+        of them this data rank's, given by their global numbers."""
         dev = next(iter(self._leaves()))[1].device
-        src = torch.as_tensor(np.asarray(src_pages, np.int64), device=dev)
-        dst = torch.as_tensor(np.asarray(dst_pages, np.int64), device=dev)
+        base = self._page_base(self.data_rank)
+        src = torch.as_tensor(np.asarray(src_pages, np.int64) - base,
+                              device=dev)
+        dst = torch.as_tensor(np.asarray(dst_pages, np.int64) - base,
+                              device=dev)
+        sbase = self._state_base(self.data_rank)
         for name, pool in self._leaves():
             if name in PAGED_LEAVES:
                 pool[:, dst] = pool[:, src]
             else:
-                pool[:, dst_state] = pool[:, src_state]
+                pool[:, dst_state - sbase] = pool[:, src_state - sbase]
 
     def take_snapshot(self, slot: int, n_pages: int) -> Optional[Handle]:
-        """Copy the slot's first ``n_pages`` pages and its state row into
-        freshly allocated snapshot rows; returns ``(page_rows, state_row)``
-        or None when the snapshot region is exhausted (the caller evicts
-        and retries)."""
-        if len(self._free_pages) < n_pages or not self._free_states:
+        """Allocate snapshot rows in the slot's data rank's region and copy
+        the slot's first ``n_pages`` pages and its state row into them (on
+        that data rank's ranks; the others only allocate); returns
+        ``(page_rows, state_row)`` or None when the region is exhausted
+        (the caller evicts and retries)."""
+        pages = self._free_pages[self.owner(slot)]
+        states = self._free_states[self.owner(slot)]
+        if len(pages) < n_pages or not states:
             return None
-        rows = tuple(self._free_pages.pop(0) for _ in range(n_pages))
-        srow = self._free_states.pop(0)
-        self._copy_rows(self.page_table[slot, :n_pages], rows,
-                        int(self.state_table[slot]), srow)
+        rows = tuple(pages.pop(0) for _ in range(n_pages))
+        srow = states.pop(0)
+        if self.owns(slot):
+            self._copy_rows(self.page_table[slot, :n_pages], rows,
+                            int(self.state_table[slot]), srow)
         return rows, srow
 
     def restore_snapshot(self, slot: int, handle: Handle) -> None:
-        """Copy-on-reference: snapshot rows -> the slot's own rows."""
+        """Copy-on-reference: snapshot rows -> the slot's own rows (a
+        snapshot of the slot's data rank, copied on its ranks)."""
         rows, srow = handle
-        self._copy_rows(rows, self.page_table[slot, :len(rows)], srow,
-                        int(self.state_table[slot]))
+        if self.owns(slot):
+            self._copy_rows(rows, self.page_table[slot, :len(rows)], srow,
+                            int(self.state_table[slot]))
 
     def release_snapshot(self, handle: Handle) -> None:
         rows, srow = handle
-        self._free_pages.extend(rows)
-        self._free_states.append(srow)
+        d = srow // self.shard_states
+        self._free_pages[d].extend(rows)
+        self._free_states[d].append(srow)
 
     @property
     def n_free_pages(self) -> int:
-        return len(self._free_pages)
+        """Free snapshot pages, over every data rank's region."""
+        return sum(len(p) for p in self._free_pages)
 
     @property
     def n_free_states(self) -> int:
-        return len(self._free_states)
+        """Free snapshot state rows, over every data rank's region."""
+        return sum(len(s) for s in self._free_states)
 
     def lane_rows(self, lane_slots: Sequence[Optional[int]]
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -243,7 +273,7 @@ class PagedCachePool:
                           else self.parking_state for i in lane_slots],
                          np.int64)
         return (prows - self._page_base(self.data_rank),
-                srows - self.data_rank * self.shard_states)
+                srows - self._state_base(self.data_rank))
 
 
 class PrefixCache:
@@ -252,7 +282,10 @@ class PrefixCache:
     Keys are ``tuple(prompt[:L])`` with ``L`` a multiple of ``align``
     (the lcm of page size, prefill chunk and the smallest bucket, so a
     snapshot sits on a page and a chunk boundary and the recurrent state is
-    captured exactly).
+    captured exactly).  One index a data rank of the pool (one without a
+    mesh), each of at most ``max_entries`` snapshots in its data rank's
+    region: a slot looks up, restores and stores in its owner's index
+    alone.
     """
 
     def __init__(self, pool: PagedCachePool, align: int,
@@ -260,10 +293,18 @@ class PrefixCache:
         self.pool = pool
         self.align = align
         self.max_entries = max_entries
-        self._entries: "OrderedDict[Tuple[int, ...], Tuple[Handle, int]]" \
-            = OrderedDict()
-        self.hits = 0
-        self.misses = 0
+        self._indexes: List[_Index] = [OrderedDict()
+                                       for _ in range(pool.n_data)]
+        self._hits = [0] * pool.n_data
+        self._misses = [0] * pool.n_data
+
+    @property
+    def hits(self) -> int:
+        return sum(self._hits)
+
+    @property
+    def misses(self) -> int:
+        return sum(self._misses)
 
     def boundary_for(self, prompt_len: int) -> int:
         """Longest snapshot boundary usable for this prompt (0: none).  At
@@ -272,51 +313,63 @@ class PrefixCache:
         return ((prompt_len - 1) // self.align) * self.align \
             if prompt_len > self.align else 0
 
-    def lookup(self, prompt: Sequence[int]) -> Tuple[int, bool]:
-        """Longest cached prefix of ``prompt``; restores nothing itself.
+    def lookup(self, prompt: Sequence[int], slot: int) -> Tuple[int, bool]:
+        """Longest prefix of ``prompt`` cached in ``slot``'s data rank's
+        index (without a mesh, the one index); restores nothing itself.
         Returns ``(L, hit)`` with ``L == 0`` on a miss."""
+        d = self.pool.owner(slot)
+        entries = self._indexes[d]
         n = self.boundary_for(len(prompt))
         while n > 0:
             key = tuple(prompt[:n])
-            if key in self._entries:
-                self._entries.move_to_end(key)
-                self.hits += 1
+            if key in entries:
+                entries.move_to_end(key)
+                self._hits[d] += 1
                 _PREFIX_EVENTS.inc("hit")
                 return n, True
             n -= self.align
-        self.misses += 1
+        self._misses[d] += 1
         _PREFIX_EVENTS.inc("miss")
         return 0, False
 
     def restore(self, slot: int, prompt: Sequence[int], n: int) -> None:
-        handle, _ = self._entries[tuple(prompt[:n])]
+        entries = self._indexes[self.pool.owner(slot)]
+        handle, _ = entries[tuple(prompt[:n])]
         self.pool.restore_snapshot(slot, handle)
 
     def store(self, slot: int, prompt: Sequence[int], n: int) -> None:
         """Snapshot the slot's first ``n`` positions (``n`` page- and
-        chunk-aligned; the slot's prefill must sit exactly at offset n)."""
+        chunk-aligned; the slot's prefill must sit exactly at offset n)
+        into its data rank's index."""
+        entries = self._indexes[self.pool.owner(slot)]
         key = tuple(prompt[:n])
-        if n == 0 or key in self._entries:
+        if n == 0 or key in entries:
             return
         n_pages = n // self.pool.page_size
         handle = self.pool.take_snapshot(slot, n_pages)
-        while handle is None and self._entries:
-            _, (old, _) = self._entries.popitem(last=False)   # LRU evict
+        while handle is None and entries:
+            _, (old, _) = entries.popitem(last=False)   # LRU evict
             self.pool.release_snapshot(old)
             _PREFIX_EVENTS.inc("evict")
             handle = self.pool.take_snapshot(slot, n_pages)
         if handle is None:
             return
-        self._entries[key] = (handle, n)
+        entries[key] = (handle, n)
         _PREFIX_EVENTS.inc("store")
-        while len(self._entries) > self.max_entries:
-            _, (old, _) = self._entries.popitem(last=False)
+        while len(entries) > self.max_entries:
+            _, (old, _) = entries.popitem(last=False)
             self.pool.release_snapshot(old)
             _PREFIX_EVENTS.inc("evict")
 
     def __len__(self) -> int:
-        return len(self._entries)
+        return sum(len(e) for e in self._indexes)
 
     def stats(self) -> Dict[str, int]:
-        return {"entries": len(self._entries), "hits": self.hits,
+        """Entries, hits and misses over every data rank's index."""
+        return {"entries": len(self), "hits": self.hits,
                 "misses": self.misses}
+
+    def stats_by_rank(self) -> List[Dict[str, int]]:
+        """:meth:`stats` of each data rank's index, in data-rank order."""
+        return [{"entries": len(e), "hits": h, "misses": m}
+                for e, h, m in zip(self._indexes, self._hits, self._misses)]

@@ -67,10 +67,15 @@ step), so the lane grouping moves no draw.  The recurrent blocks' heads
 and channels are independent, so a rank's block of the state holds the
 unsharded engine's bits.  Admission reads a clock the
 ranks agree on (the latest of theirs).  Under a mesh ``batch_size`` must
-split over the data ranks (``ValueError``), and ``prefix_cache``
-(ROADMAP.md queue 1 item 4.3) raises ``NotImplementedError``.  A data rank's
-parking-row prefill routes no request, so the MoE dispatch metrics do
-not observe it.  Training under a mesh is
+split over the data ranks (``ValueError``).  With ``prefix_cache`` each
+data rank keeps its own snapshots, of its own slots, in its own region of
+the pool (:mod:`repro_torch.serve.cache`): every rank keeps every data
+rank's index and free lists, so all take the same hit, miss, store and
+evict decisions, and only a slot's own ranks copy its rows; a restored
+slot resumes its chunked prefill at the snapshot's length.  A data
+rank's parking-row prefill runs at the narrowest width :meth:`warm` ran
+(the first chunk bucket under chunking) and routes no request, so the
+MoE dispatch metrics do not observe it.  Training under a mesh is
 ``train.loop.run_training(mesh=...)``: the same rules and GEMMs, the
 backward through them.
 
@@ -125,13 +130,8 @@ _FINISHED = obs_metrics.counter(
     labels=("reason",))
 
 
-def _check_mesh(cfg, mesh, batch_size: int, prefix_cache: bool,
-                device: torch.device) -> None:
-    """What the engine serves under a mesh (module docstring)."""
-    if prefix_cache:
-        raise NotImplementedError(
-            "the prefix cache under a mesh is not ported yet: ROADMAP.md "
-            "queue 1 item 4.3")
+def _check_mesh(mesh, batch_size: int, device: torch.device) -> None:
+    """What the engine needs of a mesh (module docstring)."""
     d = dist_sharding.data_size(mesh)
     if batch_size % d:
         raise ValueError(f"batch_size={batch_size} does not split over the "
@@ -164,7 +164,7 @@ class Engine:
                                   force_mode=cfg.quant.force_mode))
         self.mesh = mesh = ctx.mesh
         if mesh is not None:
-            _check_mesh(cfg, mesh, batch_size, prefix_cache, self.device)
+            _check_mesh(mesh, batch_size, self.device)
         if (ctx.backend != cfg.quant.backend
                 or ctx.force_mode != cfg.quant.force_mode):
             cfg = cfg.with_quant(dataclasses.replace(
@@ -351,7 +351,7 @@ class Engine:
         self.pool.zero_slot_state(idx)
         if self.prefix is not None:
             slot.prefill.snap_at = self.prefix.boundary_for(len(req.prompt))
-            hit_len, hit = self.prefix.lookup(req.prompt)
+            hit_len, hit = self.prefix.lookup(req.prompt, idx)
             if hit:
                 self.prefix.restore(idx, req.prompt, hit_len)
                 slot.prefill.off = hit_len
@@ -456,7 +456,8 @@ class Engine:
             if r < len(mine):
                 pair = np.array([mine[r], self._prefill_compute(mine[r])])
             else:
-                w = self.prompt_buckets[0]
+                # the narrowest width warm() ran
+                w = (self._chunk_buckets or self.prompt_buckets)[0]
                 # it serves no request: kept out of the dispatch metrics
                 saved = (moe.save_dispatch_metrics()
                          if obs_metrics.enabled() else None)

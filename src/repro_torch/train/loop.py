@@ -27,7 +27,8 @@ takes every decision alike, since a rank that raised alone would leave
 the others waiting in a collective: the resume step is rank 0's, and the
 fault hook's outcome, the non-finite check and the watchdog's step time
 (the slowest rank's) are agreed by an all-reduce before any rank acts.
-Dense attention decoders and MoE models (``launch.steps.check_mesh``).
+Every model trains under a mesh: dense and MoE attention decoders, mamba
+and RWKV blocks, a vision prefix and the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -123,7 +124,6 @@ def run_training(cfg: ModelConfig, tc: TrainConfig,
     hooks = hooks or {}
     dev = resolve_device(device)
     if mesh is not None:
-        steps_mod.check_mesh(cfg)
         if torch.device(mesh.device_type).type != dev.type:
             raise ValueError(f"the mesh computes on {mesh.device_type!r}, "
                              f"the run on {dev.type!r}")

@@ -219,45 +219,96 @@ def test_one_device_mesh_tiles_every_gemm():
 
 
 class _CpuMesh:
-    """The axis names and sizes ``Engine``'s mesh checks read."""
+    """The axis names and sizes ``Engine``'s mesh checks read, at one
+    coordinate (the pool's data rank)."""
 
     device_type = "cpu"
 
-    def __init__(self, shape):
+    def __init__(self, shape, coord=None):
         self.axis_names = tuple(shape)
         self.shape = dict(shape)
+        self.coord = list(coord or [0] * len(shape))
+
+    def get_coordinate(self):
+        return self.coord
+
+
+def _fill_slot(pool, slot, value):
+    """Write ``value`` into the slot's rows of every pool leaf this rank
+    holds (its data rank's slots only)."""
+    if not pool.owns(slot):
+        return
+    prows, srows = pool.lane_rows([slot])
+    for leaves in pool.pools.values():
+        for name, t in leaves.items():
+            if name in ("k", "v"):
+                t[:, torch.from_numpy(prows[0])] = value
+            else:
+                t[:, int(srows[0])] = value
+
+
+def _slot_value(pool, slot):
+    """The first entry of the slot's first state (or page) row."""
+    prows, srows = pool.lane_rows([slot])
+    leaves = next(iter(pool.pools.values()))
+    name, t = next(iter(leaves.items()))
+    row = int(prows[0][0]) if name in ("k", "v") else int(srows[0])
+    return float(t[0, row].reshape(-1)[0])
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
 def test_engine_refuses_unported_models_under_a_mesh(arch):
-    """Recurrent blocks pass the engine's mesh check (rwkv's recurrence
-    runs head-parallel, jamba's mamba blocks channel-parallel and its MoE
-    layers expert-parallel: tests/test_torch_recurrent_mesh.py); what is
-    not ported under a mesh, the prefix cache, is still refused, by the
-    engine too."""
+    """Recurrent blocks pass the engine's mesh check, and so does the prefix
+    cache (queue 1 item 4.3 is ported): on a 2x2 mesh's pool, as data rank
+    0 and as data rank 1 hold it, each data rank's snapshots live in its own
+    region and index; every rank allocates them alike, only the owner
+    copies rows, and a slot hits only its own data rank's snapshot."""
+    from repro_torch.serve.cache import PrefixCache
     from repro_torch.serve.engine import _check_mesh
     cfg = get_config(arch, smoke=True)
-    mesh = _CpuMesh({"data": 2, "model": 2})
-    assert _check_mesh(cfg, mesh, 4, False, torch.device("cpu")) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
-        _check_mesh(cfg, mesh, 4, True, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
-        Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu", mesh=mesh,
-               prefix_cache=True)
+    assert _check_mesh(_CpuMesh({"data": 2, "model": 2}), 4,
+                       torch.device("cpu")) is None
+    prompt = list(range(1, 20))
+    seen = []
+    for d in (0, 1):
+        pool = PagedCachePool(cfg, 4, 32, 8, snapshot_slots=2, device="cpu",
+                              mesh=_CpuMesh({"data": 2, "model": 2},
+                                            [d, 0]))
+        pfx = PrefixCache(pool, align=8)
+        for slot in range(4):
+            _fill_slot(pool, slot, float(slot + 1))
+        pfx.store(0, prompt, 16)             # data rank 0's snapshot
+        pfx.store(3, prompt[:8] + [0] * 11, 8)   # data rank 1's
+        assert [s["entries"] for s in pfx.stats_by_rank()] == [1, 1]
+        # slot 1 (data rank 0) hits rank 0's 16-token snapshot, slot 2
+        # (data rank 1) only rank 1's 8-token one
+        assert pfx.lookup(prompt, 1) == (16, True)
+        assert pfx.lookup(prompt, 2) == (8, True)
+        pfx.restore(1, prompt, 16)
+        pfx.restore(2, prompt, 8)
+        if d == 0:
+            assert _slot_value(pool, 1) == 1.0      # slot 0's rows
+        else:
+            assert _slot_value(pool, 2) == 4.0      # slot 3's rows
+        seen.append((pfx.stats_by_rank(), pool.n_free_pages,
+                     pool.n_free_states, [list(f) for f in pool._free_pages]))
+    assert seen[0] == seen[1]                       # every rank alike
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
                                   "qwen3-moe-30b-a3b"])
 def test_engine_admits_moe_under_a_mesh(arch):
     """MoE models pass the engine's mesh check (their expert GEMMs run
-    expert-parallel: tests/test_torch_moe_mesh.py); the prefix cache under
-    a mesh is still refused."""
+    expert-parallel: tests/test_torch_moe_mesh.py), with the prefix cache
+    too: one index a data rank."""
     from repro_torch.serve.engine import _check_mesh
     cfg = get_config(arch, smoke=True)
     mesh = _CpuMesh({"data": 2, "model": 2})
-    assert _check_mesh(cfg, mesh, 4, False, torch.device("cpu")) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
-        _check_mesh(cfg, mesh, 4, True, torch.device("cpu"))
+    assert _check_mesh(mesh, 4, torch.device("cpu")) is None
+    eng = Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu", mesh=mesh,
+                 prefix_cache=True)
+    assert eng.prefix.stats_by_rank() == [
+        {"entries": 0, "hits": 0, "misses": 0}] * 2
 
 
 def test_engine_mesh_refusals():
@@ -265,9 +316,13 @@ def test_engine_mesh_refusals():
     mesh = _CpuMesh({"data": 2, "model": 2})
     with pytest.raises(ValueError, match="split over"):
         Engine(cfg, {}, max_seq=32, batch_size=3, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu", mesh=mesh,
+    with pytest.raises(ValueError, match="split over"):
+        Engine(cfg, {}, max_seq=32, batch_size=3, device="cpu", mesh=mesh,
                prefix_cache=True)
+    # the prefix cache is admitted: each data rank keeps its own region
+    eng = Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu", mesh=mesh,
+                 prefix_cache=True, prefix_snapshots=3)
+    assert eng.pool.n_free_states == 2 * 3
     from repro_torch.core.context import ExecContext
     with pytest.raises(ValueError, match="disagree"):
         Engine(cfg, {}, max_seq=32, batch_size=4, device="cpu", mesh=mesh,

@@ -193,7 +193,7 @@ def test_pool_tables_and_free_lists(models):
     # slot rows, parking rows and the snapshot region are disjoint
     slot_pages = set(pool.page_table.ravel().tolist())
     park = set(pool.parking_pages.tolist())
-    free = set(pool._free_pages)
+    free = {p for region in pool._free_pages for p in region}  # a data rank's
     assert len(slot_pages) == 4 * pps
     assert not slot_pages & park and not (slot_pages | park) & free
     assert pool.n_free_pages == 2 * pps and pool.n_free_states == 2
@@ -249,15 +249,15 @@ def test_prefix_cache_lru_and_boundaries(models):
     p1, p2, p3 = ([1] * 24, [2] * 24, [3] * 24)
     pfx.store(0, p1, 8)
     pfx.store(0, p2, 8)
-    assert pfx.lookup(p1) == (8, True)              # p1 now most recent
+    assert pfx.lookup(p1, 0) == (8, True)           # p1 now most recent
     pfx.store(0, p3, 8)                             # evicts p2 (LRU)
-    assert pfx.lookup(p2) == (0, False)
-    assert pfx.lookup(p1) == (8, True) and pfx.lookup(p3) == (8, True)
+    assert pfx.lookup(p2, 0) == (0, False)
+    assert pfx.lookup(p1, 0) == (8, True) and pfx.lookup(p3, 0) == (8, True)
     assert len(pfx) == 2
     assert pfx.stats() == {"entries": 2, "hits": 3, "misses": 1}
     # the longest cached prefix wins; a shorter shared head misses
     pool2 = PagedCachePool(tcfg, 1, 32, 8, snapshot_slots=2, device="cpu")
     pfx2 = PrefixCache(pool2, align=8, max_entries=2)
     pfx2.store(0, p1, 16)
-    assert pfx2.lookup(p1[:8] + [9] * 16) == (0, False)
-    assert pfx2.lookup(p1[:16] + [9] * 8) == (16, True)
+    assert pfx2.lookup(p1[:8] + [9] * 16, 0) == (0, False)
+    assert pfx2.lookup(p1[:16] + [9] * 8, 0) == (16, True)

@@ -30,9 +30,11 @@ its meshless ``make_train_step``, computed here while the ranks run.
     experts on 1x4 its grouped GEMMs take the ATen route, counted
     (``tests/test_torch_moe_mesh.py`` holds MoE under a mesh to the
     unsharded port);
-  * refusals: vision and the encoder-decoder under a mesh (mamba and rwkv
-    are admitted: ``tests/test_torch_recurrent_mesh.py``), and a batch
-    that does not split over microbatches x data ranks.
+  * every model admitted under a mesh, each data rank cutting the same
+    rows of a vision model's ``frontend_embeds`` and an encoder-decoder's
+    ``enc_frames`` as of its tokens (``tests/test_torch_recurrent_mesh.py``
+    and ``tests/test_torch_frontend_mesh.py`` train them); the refusal of a
+    batch that does not split over microbatches x data ranks.
 """
 import os
 import socket
@@ -375,10 +377,17 @@ def test_batch_that_does_not_split_is_refused(ranks):
 
 
 class _Mesh:
-    """A mesh's names and sizes (the refusals read nothing else)."""
+    """A mesh's names and sizes at one data coordinate (what a batch's cut
+    reads)."""
     axis_names = ("data", "model")
     shape = {"data": 2, "model": 2}
     device_type = "cpu"
+
+    def __init__(self, data: int = 0):
+        self.coord = [data, 0]
+
+    def get_coordinate(self):
+        return self.coord
 
 
 def test_granite_trains_under_a_mesh(ranks):
@@ -421,16 +430,31 @@ def test_indivisible_experts_train_on_aten_route_counted(ranks):
                                   "llava-next-mistral-7b",
                                   "seamless-m4t-medium"])
 def test_other_models_under_a_mesh_are_refused(arch):
-    """The vision front end and the encoder-decoder are refused under a
-    training mesh (item 4.2(c)); the recurrent models train under one
-    (tests/test_torch_recurrent_mesh.py), so ``check_mesh`` admits
-    them."""
+    """No model is refused under a training mesh any more (queue 1 item
+    4.2(c) is ported: the recurrent models train in
+    tests/test_torch_recurrent_mesh.py, llava and seamless in
+    tests/test_torch_frontend_mesh.py); on each data rank of a 2x2 mesh
+    every microbatch takes the same rows of every input — a vision model's
+    ``frontend_embeds`` and an encoder-decoder's ``enc_frames`` with its
+    ``tokens``."""
+    from repro_torch.data.pipeline import DataConfig, DataIterator
     cfg = get_config(arch, smoke=True)
-    if arch in ("jamba-v0.1-52b", "rwkv6-3b"):
-        assert steps.check_mesh(cfg) is None
-        return
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 4\.2\(c\)"):
-        run_training(cfg, TrainConfig(steps=1), device="cpu", mesh=_Mesh())
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 4\.2\(c\)"):
-        with S.use_mesh(_Mesh()):
-            steps.mean_loss_and_grads(cfg, {}, {})
+    assert not hasattr(steps, "check_mesh")
+    batch = {k: torch.from_numpy(v) for k, v in DataIterator(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=R.SEQ, global_batch=R.BATCH,
+        frontend=cfg.frontend, frontend_dim=cfg.frontend_dim,
+        frontend_tokens=cfg.frontend_tokens, encdec=cfg.is_encdec,
+        seed=3)).peek(0).items()}
+    extra = {"llava-next-mistral-7b": "frontend_embeds",
+             "seamless-m4t-medium": "enc_frames"}.get(arch)
+    assert set(batch) == {"tokens", "labels", "mask"} | (
+        {extra} if extra else set())
+    mb, share = R.BATCH // 2, R.BATCH // 4
+    for d in range(2):
+        micro = steps._microbatch_rows(batch, 2, _Mesh(d))
+        for i in range(2):
+            got = micro(i)
+            assert got.keys() == batch.keys()
+            lo = i * mb + d * share
+            for key, v in got.items():
+                assert torch.equal(v, batch[key][lo:lo + share]), key
